@@ -16,4 +16,6 @@ setup(
         'optax',
         'pyyaml',
     ],
+    # the PyTorch / CUDA port (zuds_tpu_torch); never a core requirement
+    extras_require={'torch': ['torch']},
 )

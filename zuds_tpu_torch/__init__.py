@@ -1,0 +1,14 @@
+"""zuds_tpu_torch — the PyTorch + CUDA port of zuds-tpu's subtract/detect path.
+
+A second package beside ``zuds_tpu`` (the JAX reference). It imports torch
+and never jax. Every pixel path runs in full fp32: TF32 is switched off for
+matmuls and cuDNN convolutions, as the reference pins Precision.HIGHEST
+(zuds_tpu/ops/subtract.py:51-55).
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision('highest')
+
+__version__ = '0.1.0'

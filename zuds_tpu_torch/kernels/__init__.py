@@ -1,0 +1,17 @@
+"""Hand-written Hopper kernels of the port and their build.
+
+H1 ``warp.cu``, H2 ``background.cu`` and H3 ``apply.cu`` are CUDA C++ for
+``sm_90a`` (built by :mod:`.build`, wrapped by :mod:`.launch`); H4
+``detect_filter.py`` is Triton. Nothing here builds or imports triton at
+import time: the kernels are built on their first CUDA launch.
+"""
+from . import launch, detect_filter
+
+__all__ = ['launch', 'detect_filter', 'all_wrappers']
+
+
+def all_wrappers():
+    """name -> wrapper function of every kernel (each has ``launches``)."""
+    out = dict(launch.WRAPPERS)
+    out['detect_filter'] = detect_filter.detect_filter
+    return out

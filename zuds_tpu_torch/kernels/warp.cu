@@ -1,0 +1,147 @@
+// H1: fused Lanczos-3 reference warp + significant-weight mask warp +
+// coverage gate, one thread per output pixel.
+//
+// Replaces the reference's shift-accumulate warp
+// (zuds_tpu/ops/resample.py: warp_shift_image :275, warp_shift_mask :213)
+// and one_frame's coverage gate (zuds_tpu/parallel/pipeline.py:162-185).
+// The TPU form rolls whole frames (2*window+7)^2 times because TPU gathers
+// are slow; here each thread gathers its own 6x6 Lanczos support directly.
+//
+// Semantics kept from the reference, so the kernel equals the plain
+// version even past the displacement bucket:
+//  * a tap at offset (dx, dy) counts only if |dx|, |dy| <= window + 3;
+//  * weights are lanczos3((u - x) - dx) in f32, in that order;
+//  * the normaliser is sum_dy (sum_dx wx) * wy, as the reference forms it;
+//  * source indices wrap around the frame (jnp.roll);
+//  * mask bit b reaches (y, x) iff sig(dv - dy) and sig(du' - dx) hold,
+//    where du' = u[y+dy, x] - x is read at the INTERMEDIATE row y+dy
+//    (the separable OR evaluates column significance there).
+// The mask path uses only f32 subtractions and compares, so it is
+// bit-equal to the plain version.
+//
+// Bound: memory. Per pixel it reads u, v, ref and mask once from DRAM and
+// ~36 neighbouring taps through L1/L2, and writes 12 bytes; ~30 bytes of
+// DRAM traffic per pixel (~0.3 GB per quadrant). Consecutive threads take
+// consecutive columns so every row read is coalesced.
+#include "common.cuh"
+
+namespace {
+
+constexpr float kPi = 3.14159265358979323846f;
+// |lanczos3(t)| > sqrt(5e-3) as interval tests (resample.py:189-209)
+constexpr float kSigA = 0.9226250948801125f;
+constexpr float kSigB = 1.099650902956955f;
+constexpr float kSigC = 1.7405705334521984f;
+
+__device__ __forceinline__ float sinc_f(float t) {
+  if (t == 0.f) return 1.f;
+  float pt = __fmul_rn(kPi, t);
+  return __fdiv_rn(sinf(pt), pt);
+}
+
+__device__ __forceinline__ float lanczos3(float t) {
+  if (!(fabsf(t) < 3.f)) return 0.f;
+  return __fmul_rn(sinc_f(t), sinc_f(__fdiv_rn(t, 3.f)));
+}
+
+__device__ __forceinline__ bool sig_lanczos(float t) {
+  float a = fabsf(t);
+  return (a < kSigA) | ((a > kSigB) & (a < kSigC));
+}
+
+// first of the six candidate offsets that can carry weight: floor(d) - 2,
+// clamped so a wild displacement cannot overflow an int (all taps past
+// the window carry zero weight anyway)
+__device__ __forceinline__ int first_tap(float d, int reach) {
+  float f = floorf(d);
+  f = fminf(fmaxf(f, (float)(-reach - 4)), (float)(reach + 4));
+  return (int)f - 2;
+}
+
+__global__ void warp_kernel(const float* __restrict__ ref,
+                            const int* __restrict__ mask,
+                            const float* __restrict__ u,
+                            const float* __restrict__ v,
+                            const float* __restrict__ covb,
+                            float* __restrict__ refw,
+                            int* __restrict__ refm,
+                            float* __restrict__ cov,
+                            int H, int W, int window) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t i = (size_t)y * W + x;
+  const int reach = window + 3;
+  const float uu = u[i], vv = v[i];
+  const float du = __fsub_rn(uu, (float)x);
+  const float dv = __fsub_rn(vv, (float)y);
+  const bool inb = (uu >= 2.f) & (uu <= (float)(W - 3)) & (vv >= 2.f) &
+                   (vv <= (float)(H - 3));
+  const bool covo = (uu >= covb[0]) & (uu <= covb[1]) & (vv >= covb[2]) &
+                    (vv <= covb[3]);
+  const bool c = inb & covo;
+
+  // ---- pixels: 6x6 direct gather ----------------------------------------
+  const int dx0 = first_tap(du, reach);
+  const int dy0 = first_tap(dv, reach);
+  float wx[6], wy[6];
+  float wxsum = 0.f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int dx = dx0 + k;
+    wx[k] = (abs(dx) <= reach) ? lanczos3(__fsub_rn(du, (float)dx)) : 0.f;
+    wxsum = __fadd_rn(wxsum, wx[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int dy = dy0 + k;
+    wy[k] = (abs(dy) <= reach) ? lanczos3(__fsub_rn(dv, (float)dy)) : 0.f;
+  }
+  float acc = 0.f, wacc = 0.f;
+#pragma unroll
+  for (int ky = 0; ky < 6; ++ky) {
+    const int row = wrap_index(y + dy0 + ky, H);
+    const float* rrow = ref + (size_t)row * W;
+#pragma unroll
+    for (int kx = 0; kx < 6; ++kx) {
+      const int col = wrap_index(x + dx0 + kx, W);
+      acc = __fadd_rn(acc, __fmul_rn(rrow[col], __fmul_rn(wx[kx], wy[ky])));
+    }
+    wacc = __fadd_rn(wacc, __fmul_rn(wxsum, wy[ky]));
+  }
+  const float out = __fdiv_rn(acc, wacc == 0.f ? 1.f : wacc);
+
+  // ---- mask: separable significant-weight OR ------------------------------
+  int m = 0;
+  if (c) {
+    for (int ky = 0; ky < 6; ++ky) {
+      const int dy = dy0 + ky;
+      if (abs(dy) > reach || !sig_lanczos(__fsub_rn(dv, (float)dy))) continue;
+      const int row = wrap_index(y + dy, H);
+      const float dur = __fsub_rn(u[(size_t)row * W + x], (float)x);
+      const int ex0 = first_tap(dur, reach);
+      for (int kx = 0; kx < 6; ++kx) {
+        const int dx = ex0 + kx;
+        if (abs(dx) > reach || !sig_lanczos(__fsub_rn(dur, (float)dx)))
+          continue;
+        m |= mask[(size_t)row * W + wrap_index(x + dx, W)];
+      }
+    }
+  }
+  refw[i] = c ? out : 0.f;
+  refm[i] = m;
+  cov[i] = c ? 1.f : 0.f;
+}
+
+}  // namespace
+
+extern "C" int zuds_warp(const float* ref, const int* mask, const float* u,
+                         const float* v, const float* covb, float* refw,
+                         int* refm, float* cov, int H, int W, int window,
+                         cudaStream_t stream) {
+  dim3 block(32, 8);
+  dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+  warp_kernel<<<grid, block, 0, stream>>>(ref, mask, u, v, covb, refw, refm,
+                                          cov, H, W, window);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,295 @@
+"""Alard-Lupton PSF-matching fit and model (twin of
+``zuds_tpu/ops/subtract.py``).
+
+The fit's products and solves are plain fp32 PyTorch (TF32 is off, see the
+package ``__init__``), as the reference leaves them to XLA. The model
+convolution runs in hand kernel H3 (``kernels/apply.cu``) on a CUDA tensor
+(:func:`apply_kernel_fast`) and as the grouped separable convolution of
+the reference's :func:`apply_kernel` on a CPU tensor.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..constants import KERNEL_SPATIAL_ORDER, NREG_SIDE
+from ..kernels import launch
+from .background import masked_median
+
+__all__ = ['spatial_terms', 'dense_basis', 'region_outer', 'fit_kernel',
+           'apply_kernel', 'apply_kernel_fast', 'center_kernels',
+           'region_edges']
+
+# order-weighted Jacobi ridge of the fit (subtract.py:260-293 defaults)
+RIDGE_BASE = 1e-5
+RIDGE_GROWTH = 4.0
+
+
+def spatial_terms(order):
+    """(p, q) exponents of a 2-D polynomial of total order ``order``."""
+    return [(p, q) for o in range(order + 1) for p in range(o + 1)
+            for q in [o - p]]
+
+
+def region_edges(n, nreg):
+    """Static region edges ceil(i * n / nreg), closed by n."""
+    return [int(math.ceil(i * n / nreg)) for i in range(nreg)] + [n]
+
+
+def dense_basis(basis_gx, basis_gy, basis_sums, b0_2d):
+    """(Nb, K, K) sum-normalised dense basis: B_0 = b0_2d, and
+    B_n = gy_n (x) gx_n - sums_n * b0_2d for n > 0."""
+    raw = basis_gy[:, :, None] * basis_gx[:, None, :]
+    return torch.cat([b0_2d[None],
+                      raw[1:] - basis_sums[1:, None, None] * b0_2d[None]])
+
+
+def _terms(xn, yn, terms):
+    return [(xn ** p) * (yn ** q) for p, q in terms]
+
+
+def region_outer(rw, A, B):
+    """``einsum('sr,sa,sb->rab', rw, A, B)`` as one matmul per region.
+
+    torch.einsum contracts three operands left to right (no opt_einsum),
+    which for the fit's Gram blocks would first build an (S, a, b)
+    intermediate (~830 MB at smax=384, a = 49*49, b = 15*15); weighting A
+    per region and multiplying keeps every intermediate (R2, S, a)."""
+    return torch.matmul((rw.t()[:, :, None] * A[None]).transpose(1, 2), B)
+
+
+def fit_kernel(ref, sci, ivar, xs, ys, svalid, basis_gx, basis_gy,
+               basis_sums, b0_2d, stamp=31, order=KERNEL_SPATIAL_ORDER,
+               nreg=NREG_SIDE):
+    """Fit the spatially varying PSF-matching kernel from star stamps
+    (subtract.py:130). Returns ``coeffs`` (R2, Nb*Nm+1), ``stamp_ok``,
+    ``stamp_chi2``, ``nb`` and ``nm``."""
+    H, W = ref.shape
+    Nb, K = basis_gx.shape
+    dev = ref.device
+    P = stamp
+    Pi = P - K + 1
+    terms = spatial_terms(order)
+    Nm = len(terms)
+    D = Nb * Nm + 1
+    R2 = nreg * nreg
+    S = xs.shape[0]
+
+    x0 = torch.clamp(torch.round(xs).to(torch.int64) - P // 2, 0, W - P)
+    y0 = torch.clamp(torch.round(ys).to(torch.int64) - P // 2, 0, H - P)
+    ar = torch.arange(P, device=dev)
+    iy = (y0[:, None] + ar)[:, :, None]
+    ix = (x0[:, None] + ar)[:, None, :]
+    R_s, S_s, W_s = ref[iy, ix], sci[iy, ix], ivar[iy, ix]    # (S, P, P)
+
+    # basis-convolved reference stamps (S, Nb, Pi, Pi): a 'valid'
+    # correlation, as the reference's im2col einsum computes it
+    dense = dense_basis(basis_gx, basis_gy, basis_sums, b0_2d)
+    C = F.conv2d(R_s[:, None], dense[:, None])
+    off = K // 2
+    y = S_s[:, off:off + Pi, off:off + Pi]
+    w = W_s[:, off:off + Pi, off:off + Pi]
+
+    rx = torch.clamp((xs * nreg / W).to(torch.int64), 0, nreg - 1)
+    ry = torch.clamp((ys * nreg / H).to(torch.int64), 0, nreg - 1)
+    rid = ry * nreg + rx
+    rhot = F.one_hot(rid, R2).to(torch.float32)                  # (S, R2)
+    cx = (rx.to(torch.float32) + 0.5) * W / nreg
+    cy = (ry.to(torch.float32) + 0.5) * H / nreg
+    xn = (xs - cx) / (W / (2.0 * nreg))
+    yn = (ys - cy) / (H / (2.0 * nreg))
+    T = torch.stack(_terms(xn, yn, terms), dim=1)               # (S, Nm)
+
+    Cf = C.reshape(S, Nb, Pi * Pi)
+    yf = y.reshape(S, Pi * Pi)
+    wf = w.reshape(S, Pi * Pi)
+
+    # stamp Gram blocks: independent of the rejection state (hoisted)
+    CtC0 = torch.bmm(Cf * wf[:, None], Cf.transpose(1, 2))      # (S,Nb,Nb)
+    Cw0 = (Cf * wf[:, None]).sum(-1)                             # (S, Nb)
+    wsum0 = wf.sum(1)
+    TT = (T[:, :, None] * T[:, None, :]).reshape(S, Nm * Nm)
+
+    def normal_eq(stamp_ok):
+        okf = (stamp_ok & svalid).to(torch.float32)
+        sw = wf * okf[:, None]
+        rhow = rhot * okf[:, None]
+        G_bb = region_outer(rhow, CtC0.reshape(S, Nb * Nb), TT)
+        G_bb = G_bb.reshape(R2, Nb, Nb, Nm, Nm).permute(0, 1, 3, 2, 4)
+        G_bb = G_bb.reshape(R2, Nb * Nm, Nb * Nm)
+        G_bg = region_outer(rhow, Cw0, T).reshape(R2, Nb * Nm)
+        wsum = rhow.t() @ wsum0
+        G = torch.zeros((R2, D, D), device=dev)
+        G[:, :Nb * Nm, :Nb * Nm] = G_bb
+        G[:, :Nb * Nm, -1] = G_bg
+        G[:, -1, :Nb * Nm] = G_bg
+        G[:, -1, -1] = wsum
+        return G, sw
+
+    def rhs(yvec, sw):
+        swy = sw * yvec
+        Cy = (Cf * swy[:, None]).sum(-1)                         # (S, Nb)
+        h_b = region_outer(rhot, Cy, T).reshape(R2, Nb * Nm)
+        h_g = rhot.t() @ swy.sum(1)
+        return torch.cat([h_b, h_g[:, None]], dim=1)
+
+    def model_stamps(coeffs):
+        a = coeffs[:, :Nb * Nm].reshape(R2, Nb * Nm)
+        a_s = (rhot @ a).reshape(S, Nb, Nm)
+        bg_s = rhot @ coeffs[:, -1]
+        wmap = (a_s * T[:, None, :]).sum(-1)                     # (S, Nb)
+        return torch.bmm(wmap[:, None, :], Cf)[:, 0] + bg_s[:, None]
+
+    t_ord = np.asarray([p + q for p, q in terms], np.float32)
+    lam_nm = np.repeat((RIDGE_BASE * RIDGE_GROWTH ** t_ord)[None, :], Nb,
+                       0).ravel()
+    lam_col = torch.as_tensor(
+        np.concatenate([lam_nm, [RIDGE_BASE]]).astype(np.float32),
+        device=dev)
+
+    def solve_factory(G):
+        d = torch.diagonal(G, dim1=1, dim2=2)
+        sc = 1.0 / torch.sqrt(torch.clamp(d, min=1e-20))
+        Gr = G * sc[:, :, None] * sc[:, None, :] + torch.diag(lam_col)[None]
+
+        # one factorisation per region, reused by the three solves of a
+        # pass; per region because the CPU build's batched LU hangs (MKL
+        # SLASWP errors) above ~400 unknowns with several threads
+        lus = [torch.linalg.lu_factor(Gr[r]) for r in range(R2)]
+
+        def solve(h):
+            hs = h * sc
+            return torch.stack([
+                torch.linalg.lu_solve(*lu, hs[r][:, None])[:, 0]
+                for r, lu in enumerate(lus)]) * sc
+        return solve
+
+    def stamp_chi2(coeffs):
+        resid2 = (model_stamps(coeffs) - yf) ** 2 * wf
+        npix = torch.clamp((wf > 0).sum(1), min=1)
+        return resid2.sum(1) / npix
+
+    def region_chi2(c, sw):
+        return ((model_stamps(c) - yf) ** 2 * sw).sum(1) @ rhot
+
+    ok = torch.ones(S, dtype=torch.bool, device=dev)
+    coeffs = None
+    for _ in range(3):                 # 2 rejection passes + final fit
+        G, sw = normal_eq(ok)
+        solve = solve_factory(G)
+        coeffs = solve(rhs(yf, sw))
+        for _r in range(2):            # data-space refinement (:325-342)
+            cand = coeffs + solve(rhs(yf - model_stamps(coeffs), sw))
+            better = region_chi2(cand, sw) <= region_chi2(coeffs, sw)
+            coeffs = torch.where(better[:, None], cand, coeffs)
+        chi2 = stamp_chi2(coeffs)
+        live = ok & svalid
+        new_ok = torch.zeros_like(ok)
+        for r in range(R2):
+            inr = live & (rid == r)
+            med = _nanmedian_or_one(chi2, inr)
+            mad = _nanmedian_or_one((chi2 - med).abs(), inr)
+            keep = chi2 <= med + 3.0 * 1.4826 * torch.clamp(mad, min=1e-12)
+            new_ok = new_ok | ((rid == r) & keep)
+        ok = new_ok
+
+    return {'coeffs': coeffs, 'stamp_ok': ok & svalid,
+            'stamp_chi2': stamp_chi2(coeffs), 'nb': Nb, 'nm': Nm}
+
+
+def _nanmedian_or_one(x, sel):
+    """``nan_to_num(jnp.nanmedian(where(sel, x, nan)), nan=1)``: an even
+    count averages the two middle values (``torch.nanmedian`` would take
+    the lower one)."""
+    med = masked_median(x, sel, dim=0)
+    return torch.where(sel.any(), med, torch.ones_like(med))
+
+
+def apply_kernel(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
+                 order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """Plain version of the model convolution (subtract.py:557): the raw
+    separable basis convolved with ``ref`` (zero padding), combined per
+    static region with the fitted coefficients, blended with the region's
+    spatial polynomial, plus the background term."""
+    H, W = ref.shape
+    Nb, K = basis_gx.shape
+    terms = spatial_terms(order)
+    Nm = len(terms)
+    R2 = nreg * nreg
+    a = coeffs[:, :Nb * Nm].reshape(R2, Nb, Nm)
+    bg = coeffs[:, -1]
+    # fold the sum-normalisation into coefficient space (:589-596)
+    s0 = basis_gy[0].sum() * basis_gx[0].sum()
+    a0 = (a[:, 0, :] - torch.einsum('rnm,n->rm', a[:, 1:, :],
+                                    basis_sums[1:])) / s0
+    a_t = torch.cat([a0[:, None, :], a[:, 1:, :]], dim=1)
+
+    t = F.conv2d(ref[None, None], basis_gy[:, None, :, None],
+                 padding=(K // 2, 0))
+    t = F.conv2d(t, basis_gx[:, None, None, :], padding=(0, K // 2),
+                 groups=Nb)[0]                                  # (Nb, H, W)
+    y_e, x_e = region_edges(H, nreg), region_edges(W, nreg)
+    yy = torch.arange(H, dtype=torch.float32, device=ref.device)[:, None]
+    xx = torch.arange(W, dtype=torch.float32, device=ref.device)[None, :]
+    wx, wy = W / (2.0 * nreg), H / (2.0 * nreg)
+    rows = []
+    for ri in range(nreg):
+        row = []
+        for rj in range(nreg):
+            r = ri * nreg + rj
+            E = torch.einsum('nhw,nm->mhw',
+                             t[:, y_e[ri]:y_e[ri + 1], x_e[rj]:x_e[rj + 1]],
+                             a_t[r])
+            xn = (xx[:, x_e[rj]:x_e[rj + 1]] - (rj + 0.5) * W / nreg) / wx
+            yn = (yy[y_e[ri]:y_e[ri + 1]] - (ri + 0.5) * H / nreg) / wy
+            m_r = torch.zeros_like(E[0]) + bg[r]
+            for m, tm in enumerate(_terms(xn, yn, terms)):
+                m_r = m_r + tm * E[m]
+            row.append(m_r)
+        rows.append(torch.cat(row, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def apply_kernel_fast(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
+                      order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """The model frame (subtract.py:380). A CUDA tensor runs hand kernel
+    H3 on the per-(region, term) dense kernels; a CPU tensor runs
+    :func:`apply_kernel`."""
+    if not ref.is_cuda:
+        return apply_kernel(ref, coeffs, basis_gx, basis_gy, basis_sums,
+                            b0_2d, order=order, nreg=nreg)
+    H, W = ref.shape
+    Nb, K = basis_gx.shape
+    terms = spatial_terms(order)
+    Nm = len(terms)
+    R2 = nreg * nreg
+    a = coeffs[:, :Nb * Nm].reshape(R2, Nb, Nm)
+    dense = dense_basis(basis_gx, basis_gy, basis_sums, b0_2d)
+    kd = torch.einsum('rnm,nkl->rmkl', a, dense).contiguous()
+    # region centres and half-widths rounded to f32 as the reference's
+    # python-scalar arithmetic is (apply_kernel :640-643)
+    cx = np.asarray([(rj + 0.5) * W / nreg for ri in range(nreg)
+                     for rj in range(nreg)], np.float32)
+    cy = np.asarray([(ri + 0.5) * H / nreg for ri in range(nreg)
+                     for rj in range(nreg)], np.float32)
+    dev = ref.device
+    exps = torch.as_tensor(np.asarray(terms, np.int32).T.copy(), device=dev)
+    return launch.apply_model(
+        ref.contiguous(), kd, coeffs[:, -1].contiguous(),
+        torch.as_tensor(cx, device=dev), torch.as_tensor(cy, device=dev),
+        exps[0].contiguous(), exps[1].contiguous(),
+        np.float32(W / (2.0 * nreg)), np.float32(H / (2.0 * nreg)), nreg)
+
+
+def center_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
+                   order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """(R2, K, K) kernel at each region centre, where only the (0, 0)
+    spatial term contributes (subtract.py:673)."""
+    Nb, K = basis_gx.shape
+    Nm = len(spatial_terms(order))
+    a0 = coeffs[:, :Nb * Nm].reshape(-1, Nb, Nm)[:, :, 0]
+    dense = dense_basis(basis_gx, basis_gy, basis_sums, b0_2d)
+    return (a0 @ dense.reshape(Nb, K * K)).reshape(-1, K, K)
