@@ -7,12 +7,15 @@ Builds the port's hand-written kernels from the sources in this checkout,
 drives the port's main path (``SubtractDetectPipeline``, the quadrant
 subtract -> detect slice with ``deblend=False``) on two 3080x3072 ZTF-sized
 frames from a seed, and holds each kernel against its plain PyTorch
-version on the card at the shapes the main path gives it. Prints the card,
-per-kernel errors and times, the slice's ms/frame, then one JSON line of
-kernel records and, last, ``{"ok": true, "device": {...}}``. Any failed
-check exits non-zero; a machine without a CUDA card fails at once.
+version on the card at the shapes the main path gives it (H3 also at
+K = 21, order 5, 2x2 regions, and its bare launch timed with its
+tensor-core rate). Prints the card, per-kernel errors and times, the
+slice's ms/frame, then one JSON line of kernel records and, last,
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero; a
+machine without a CUDA card fails at once.
 """
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -73,6 +76,19 @@ def close(name, got, want, rtol, atol):
     return float(err.max())
 
 
+def apply_flops(ye, xe, K, Nm):
+    """(issued, useful) FLOP of one H3 model over regions with row edges
+    ``ye`` and column edges ``xe``: issued counts the tensor cores'
+    m16n8k8 work as apply.cu schedules it (3 passes, terms padded to 16,
+    taps to K x KP, pixels to 64x32 tiles per region); useful is
+    2 K^2 Nm H W."""
+    kp = -(-K // 8) * 8
+    pix = sum(-(-(y1 - y0) // 32) * 32 * -(-(x1 - x0) // 64) * 64
+              for y0, y1 in zip(ye, ye[1:]) for x0, x1 in zip(xe, xe[1:]))
+    return (3 * 2 * 16 * -(-Nm // 16) * K * kp * pix,
+            2 * K * K * Nm * ye[-1] * xe[-1])
+
+
 def smooth_field(H, W, amp, phase, device):
     import torch
     yy = torch.arange(H, device=device, dtype=torch.float32)[:, None]
@@ -82,6 +98,7 @@ def smooth_field(H, W, amp, phase, device):
 
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
@@ -143,15 +160,19 @@ def main():
               f'{int(out["fit_stamps_ok"][b])} stamps kept, 3/3 planted '
               f'sources within 1 px', flush=True)
 
-    torch.cuda.synchronize()
-    reps = 3
-    t0 = time.perf_counter()
-    for _ in range(reps):
+    # the host clock spreads with the host's other load: the median of
+    # batches timed one by one, with the range beside it
+    batch_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         pipe(*targs)
-    torch.cuda.synchronize()
-    ms_frame = (time.perf_counter() - t0) * 1e3 / (reps * B)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3 / B)
+    ms_frame = statistics.median(batch_ms)
     print(f'slice: {ms_frame:.1f} ms/frame, {1e3 / ms_frame:.2f} frames/s '
-          f'(host clock, {reps} batches of {B}) on {name}', flush=True)
+          f'(host clock, median of {len(batch_ms)} batches of {B}, range '
+          f'{min(batch_ms):.1f}-{max(batch_ms):.1f}) on {name}', flush=True)
 
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     small = PipelineConfig(**SMALL)
@@ -244,11 +265,42 @@ def main():
     pm = subtract.apply_kernel(refw, coeffs, *basis, order=cfg.order,
                                nreg=cfg.nreg)
     err = close('apply model', km, pm, 1e-4, 1e-3)
-    record('apply_model', err,
-           cuda_ms(lambda: subtract.apply_kernel_fast(
-               refw, coeffs, *basis, order=cfg.order, nreg=cfg.nreg)),
-           cuda_ms(lambda: subtract.apply_kernel(
-               refw, coeffs, *basis, order=cfg.order, nreg=cfg.nreg), 1, 3))
+    # a shape past the flagship's: K = 21, order 5 (Nm = 21, two term
+    # tiles), 2x2 regions, on a 512x512 crop, seeded coefficients
+    crop = refw[:512, :512].contiguous()
+    b21 = inputs.KernelBasis(21, 2.0 / 2.355)
+    basis21 = [torch.as_tensor(a, device=dev)
+               for a in (b21.gx, b21.gy, b21.sums, b21.b0_2d)]
+    rng = np.random.default_rng(5)
+    c21 = rng.normal(0, 0.01, (4, b21.nbasis * 21 + 1))
+    c21[:, 0] += 1.0
+    c21[:, -1] = rng.normal(0, 3, 4)
+    c21 = torch.as_tensor(c21, dtype=torch.float32, device=dev)
+    err21 = close('apply model K=21 order 5 2x2',
+                  subtract.apply_kernel_fast(crop, c21, *basis21, order=5,
+                                             nreg=2),
+                  subtract.apply_kernel(crop, c21, *basis21, order=5,
+                                        nreg=2), 1e-4, 1e-3)
+    print(f'apply_model: 512x512 crop, K=21, order 5, 2x2 regions: max abs '
+          f'err {err21:.3g}', flush=True)
+    kd = subtract.model_kernels(coeffs, *basis, order=cfg.order,
+                                nreg=cfg.nreg)
+    bg = coeffs[:, -1].contiguous()
+    geom = subtract.model_geometry(H, W, order=cfg.order, nreg=cfg.nreg)
+    bare_ms = cuda_ms(lambda: launch.apply_model(refw, kd, bg, *geom))
+    fast_ms = cuda_ms(lambda: subtract.apply_kernel_fast(
+        refw, coeffs, *basis, order=cfg.order, nreg=cfg.nreg))
+    plain_ms = cuda_ms(lambda: subtract.apply_kernel(
+        refw, coeffs, *basis, order=cfg.order, nreg=cfg.nreg), 1, 3)
+    issued, useful = apply_flops(subtract.region_edges(H, cfg.nreg),
+                                 subtract.region_edges(W, cfg.nreg),
+                                 cfg.ksize, kd.shape[1])
+    print(f'apply_model: bare launch {bare_ms:.3f} ms, apply_kernel_fast '
+          f'(kd + launch) {fast_ms:.3f} ms, plain {plain_ms:.3f} ms; '
+          f'tensor cores {issued / bare_ms / 1e9:.1f} TFLOP/s issued '
+          f'({issued:.3g} FLOP: 3xTF32, padded), {useful / bare_ms / 1e9:.1f}'
+          f' TFLOP/s useful fp32 ({useful:.3g} FLOP) on {name}', flush=True)
+    record('apply_model', err, bare_ms, plain_ms)
 
     # H4: the slice's difference image, noise map and weight mask
     diff, rms = out['diff'][0], out['rms'][0]

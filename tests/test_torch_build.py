@@ -1,0 +1,58 @@
+"""The kernel build (zuds_tpu_torch/kernels/build.py) with a stand-in for
+nvcc, on the CPU: one compile per source for sm_90a, then one link of
+every object into the library; a failed compile raises with the
+compiler's output and leaves no library."""
+import os
+import stat
+
+import pytest
+
+from zuds_tpu_torch.kernels import build
+
+FAKE_NVCC = """#!/bin/sh
+echo "$@" >> "$NVCC_LOG"
+case "$*" in *"$NVCC_FAIL"*) echo "error in $NVCC_FAIL" >&2; exit 2;; esac
+while [ $# -gt 0 ]; do
+  if [ "$1" = -o ]; then shift; echo built > "$1"; fi
+  shift
+done
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    nvcc = tmp_path / 'cuda' / 'bin' / 'nvcc'
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    log = tmp_path / 'nvcc.log'
+    monkeypatch.setenv('CUDA_HOME', str(tmp_path / 'cuda'))
+    monkeypatch.setenv('NVCC_LOG', str(log))
+    monkeypatch.setenv('NVCC_FAIL', 'no-such-source')
+    return log
+
+
+def test_each_source_compiled_then_linked(tmp_path, fake_nvcc):
+    out = tmp_path / 'lib' / 'libzuds_kernels.so'
+    build._compile(out)
+    assert out.read_text() == 'built\n'
+    calls = [line.split() for line in fake_nvcc.read_text().splitlines()]
+    compiles, link = calls[:-1], calls[-1]
+    assert sorted(os.path.basename(c[-1]) for c in compiles) == \
+        sorted(build.SOURCES)
+    for c in compiles:
+        assert '-c' in c and 'arch=compute_90a,code=sm_90a' in c
+    assert '-shared' in link
+    objs = [a for a in link if a.endswith('.o')]
+    assert sorted(os.path.basename(o) for o in objs) == \
+        sorted(f'{s}.o' for s in build.SOURCES)
+    assert list(out.parent.iterdir()) == [out]   # no temporaries left
+
+
+def test_failed_compile_raises_with_output(tmp_path, fake_nvcc,
+                                           monkeypatch):
+    monkeypatch.setenv('NVCC_FAIL', 'apply.cu')
+    out = tmp_path / 'lib' / 'libzuds_kernels.so'
+    with pytest.raises(RuntimeError, match='error in apply.cu'):
+        build._compile(out)
+    assert not out.exists()

@@ -72,8 +72,14 @@ def test_background_kernel(dev, H, W, box):
     assert torch.equal(k[2], p[2])
 
 
-@pytest.mark.parametrize('H,W,K,order,nreg', [(200, 184, 9, 4, 3),
-                                              (160, 96, 15, 2, 2)])
+@pytest.mark.parametrize('H,W,K,order,nreg', [
+    (200, 184, 9, 4, 3), (160, 96, 15, 2, 2),
+    (120, 136, 17, 4, 3),     # K > 15
+    (96, 104, 21, 5, 2),      # Nm = 21: two 16-term tiles
+    (64, 88, 31, 2, 3),       # regions under 32 px; the largest ksize
+    (33, 70, 9, 0, 1),        # one region, one term, a partial tile
+    (150, 130, 11, 3, 5),     # 5x5 regions of 26-30 px
+])
 def test_apply_kernel(dev, H, W, K, order, nreg):
     from zuds_tpu_torch import inputs
     from zuds_tpu_torch.ops import subtract
@@ -94,6 +100,31 @@ def test_apply_kernel(dev, H, W, K, order, nreg):
     assert launch.apply_model.launches == n0 + 1
     p = subtract.apply_kernel(ref, coeffs, *basis, order=order, nreg=nreg)
     _allclose(k, p, 1e-4, 1e-3)
+
+
+def test_apply_fast_copies_nothing_from_host(dev):
+    """apply_kernel_fast passes the region geometry by value: the traced
+    call holds H3's launch and no host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.ops import subtract
+    b = inputs.KernelBasis(15, 2.0 / 2.355)
+    basis = [torch.as_tensor(a, device=dev)
+             for a in (b.gx, b.gy, b.sums, b.b0_2d)]
+    coeffs = _rand((9, b.nbasis * 15 + 1), dev, 10, 0.01)
+    ref = _rand((128, 128), dev, 11, 30.0, 150.0)
+
+    def run():
+        return subtract.apply_kernel_fast(ref, coeffs, *basis, order=4,
+                                          nreg=3)
+    run()                                   # build and load the library
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert any('apply_mma_kernel' in n for n in names), names
+    assert not any('HtoD' in n for n in names), names
 
 
 @pytest.mark.parametrize('H,W', [(200, 136), (33, 70)])

@@ -4,7 +4,9 @@ convolution (H3's plain version) and the region-centre kernels, on the CPU.
 Tolerances:
 * apply: the same JAX-fitted coefficients on both sides, order 4 over 3x3
   regions, H and W multiples of 8 so the reference takes its s2d path;
-  rtol 1e-4, atol 1e-3 (tests/test_subtract.py's contract).
+  rtol 1e-4, atol 1e-3 (tests/test_subtract.py's contract). The same
+  tolerance at K = 17 (order 4, 3x3) and K = 21 (order 5, 2x2) with
+  seeded coefficients.
 * fit: order 2 over 2x2 regions. ``stamp_ok`` equal; each region's centre
   kernel sum within 1 mmag (relative 9.2e-4). The fitted model frames: the
   reference solves f32 normal equations whose condition number the ridge
@@ -117,6 +119,68 @@ def test_apply_with_reference_coeffs_order4_3x3():
                                     *_basis(s, jnp.asarray), order=4,
                                     nreg=3))
     np.testing.assert_allclose(tm.numpy(), jd, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize('H,W,K,order,nreg', [
+    (128, 120, 17, 4, 3),     # K <= 17, H and W multiples of 8: JAX's s2d
+    (104, 96, 21, 5, 2),      # K > 17: JAX's grouped separable form
+])
+def test_apply_general_shapes_match_reference(H, W, K, order, nreg):
+    """The plain model convolution against the reference's
+    apply_kernel_fast at kernel sizes, orders and region layouts past the
+    flagship's, on the same seeded coefficients; rtol 1e-4 as
+    tests/test_subtract.py, atol 1e-3 counts on |model| ~ 150-3000."""
+    rng = np.random.default_rng(K)
+    b = inputs.KernelBasis(K, 2.0 / 2.355)
+    nm = len(ts.spatial_terms(order))
+    coeffs = rng.normal(0, 0.01, (nreg * nreg, b.nbasis * nm + 1))
+    coeffs[:, 0] += 1.0
+    coeffs[:, -1] = rng.normal(0, 3, nreg * nreg)
+    coeffs = coeffs.astype('f4')
+    ref = rng.normal(150, 30, (H, W)).astype('f4')
+    yy, xx = np.mgrid[:H, :W]
+    for x0, y0 in rng.uniform(10, min(H, W) - 10, (6, 2)):
+        ref += (3000 * np.exp(-((xx - x0) ** 2 + (yy - y0) ** 2)
+                              / (2 * 1.4 ** 2))).astype('f4')
+    basis = (b.gx, b.gy, b.sums, b.b0_2d)
+    jm = np.asarray(js.apply_kernel_fast(
+        jnp.asarray(ref), jnp.asarray(coeffs),
+        *(jnp.asarray(a) for a in basis), order=order, nreg=nreg))
+    tm = ts.apply_kernel(T(ref), T(coeffs), *(T(a) for a in basis),
+                         order=order, nreg=nreg)
+    np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize('K,device,match', [
+    (15, 'cpu', 'CUDA tensor'), (14, 'cpu', 'K=14'), (33, 'cpu', 'K=33')])
+def test_apply_model_wrapper_refuses(K, device, match):
+    """H3's wrapper raises (no fallback) for a CPU tensor, an even K and
+    a K whose kernels do not fit in shared memory."""
+    from zuds_tpu_torch.kernels import launch
+    ref = torch.zeros((64, 64), device=device)
+    kd = torch.zeros((4, 3, K, K), device=device)
+    with pytest.raises(ValueError, match=match):
+        launch.apply_model(ref, kd, torch.zeros(4, device=device),
+                           [16.0, 48.0], [16.0, 48.0], [0, 1, 0], [0, 0, 1],
+                           16.0, 16.0)
+
+
+def test_apply_params_mirror_the_c_struct():
+    """build.ApplyParams (ctypes) has apply.cu's fields, in order, and
+    its capacities, so the launch reads what the wrapper wrote."""
+    import ctypes
+    import re
+    from pathlib import Path
+    from zuds_tpu_torch.kernels import build
+    src = (Path(build.__file__).parent / 'apply.cu').read_text()
+    body = re.search(r'struct ApplyParams \{(.*?)\};', src, re.S).group(1)
+    body = re.sub(r'//[^\n]*', '', body)
+    names = re.findall(r'(\w+)(?:\[\w+\])?\s*[,;]', body)
+    assert names == [f for f, _ in build.ApplyParams._fields_]
+    assert f'kMaxReg = {build.APPLY_MAX_REG};' in src
+    assert f'kMaxTerms = {build.APPLY_MAX_TERMS};' in src
+    assert ctypes.sizeof(build.ApplyParams) == (
+        7 * 4 + 2 * 4 * build.APPLY_MAX_REG + 2 * build.APPLY_MAX_TERMS)
 
 
 def test_center_kernels_match():

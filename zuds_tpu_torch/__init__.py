@@ -3,7 +3,9 @@
 A second package beside ``zuds_tpu`` (the JAX reference). It imports torch
 and never jax. Every pixel path runs in full fp32: TF32 is switched off for
 matmuls and cuDNN convolutions, as the reference pins Precision.HIGHEST
-(zuds_tpu/ops/subtract.py:51-55).
+(zuds_tpu/ops/subtract.py:51-55). The one use of TF32 tensor cores is the
+model convolution (``kernels/apply.cu``), in the 3xTF32 hi/lo split, which
+keeps fp32 accuracy; a single TF32 pass (~3 digits) is not allowed.
 """
 import torch
 

@@ -1,10 +1,11 @@
 """Build the CUDA C++ kernels of this package and load them with ctypes.
 
 The ``.cu`` sources beside this file are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, at first use,
-into ``_build/<hash of sources and flags>/`` next to the sources (git
-ignores it). No ninja, no PyTorch headers: a build takes seconds. Every
-launcher returns ``cudaGetLastError()`` and :func:`check` raises on it.
+``sm_90a``, one process per source, all started together, and linked into
+one shared library with a plain C interface, at first use, into
+``_build/<hash of sources and flags>/`` next to the sources (git ignores
+it). No ninja, no PyTorch headers: a build takes seconds. Every launcher
+returns ``cudaGetLastError()`` and :func:`check` raises on it.
 """
 from __future__ import annotations
 
@@ -17,28 +18,40 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'check']
+__all__ = ['library', 'check', 'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
-         '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
+         '-Xcompiler', '-fPIC', '-lineinfo')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+# capacities of ApplyParams (apply.cu kMaxReg, kMaxTerms)
+APPLY_MAX_REG = 256
+APPLY_MAX_TERMS = 256
+
+
+class ApplyParams(ctypes.Structure):
+    """H3's by-value parameters (``struct ApplyParams`` in apply.cu)."""
+    _fields_ = [('H', _I), ('W', _I), ('K', _I), ('Nm', _I), ('nreg', _I),
+                ('wx', _F), ('wy', _F),
+                ('cx', _F * APPLY_MAX_REG), ('cy', _F * APPLY_MAX_REG),
+                ('pexp', ctypes.c_uint8 * APPLY_MAX_TERMS),
+                ('qexp', ctypes.c_uint8 * APPLY_MAX_TERMS)]
+
+
 # C signatures: (name, argtypes); every launcher returns int (cudaError_t)
 SIGNATURES = {
     # ref, mask, u, v, covb, refw, refm, cov, H, W, window, stream
     'zuds_warp': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # img, valid(u8), back, sigma, n, H, W, box, iters, stream
     'zuds_background_cells': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # ref, kd, bg, cx, cy, model, H, W, K, Nm, nreg, pexp, qexp, wx, wy,
+    # ref, kd, bg, model, params (host struct, copied into the launch),
     # stream
-    'zuds_apply': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                   _F, _F, _P),
+    'zuds_apply': (_P, _P, _P, _P, ctypes.POINTER(ApplyParams), _P),
 }
-
 
 
 def _nvcc():
@@ -62,17 +75,31 @@ def _digest():
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands at once; raise with the output of the first that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'nvcc failed ({proc.returncode}):\n'
+                          f'{" ".join(cmd)}\n{stdout}\n{stderr}')
+    if failed:
+        raise RuntimeError(failed[0])
+
+
 def _compile(out: Path):
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f'{s}.o' for s in SOURCES]
+        _run_all([[_nvcc(), *FLAGS, '-c', '-o', str(o), str(_HERE / s)]
+                  for s, o in zip(SOURCES, objs)])
         tmp_so = Path(tmp) / out.name
-        cmd = [_nvcc(), *FLAGS, '-o', str(tmp_so),
-               *[str(_HERE / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{" ".join(cmd)}\n{proc.stdout}\n'
-                               f'{proc.stderr}')
+        _run_all([[_nvcc(), *FLAGS, '-shared', '-o', str(tmp_so),
+                   *map(str, objs)]])
         os.replace(tmp_so, out)     # atomic: a concurrent loader sees all
 
 

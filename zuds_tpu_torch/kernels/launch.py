@@ -78,30 +78,41 @@ def background_cells(img, valid, box, iters):
     return back, sigma, n
 
 
-def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy, nreg):
+def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
     """H3 (kernels/apply.cu): the spatially varying model convolution
-    ``bg[r] + sum_m T_m(xn, yn) (kd[r, m] * ref)`` with zero padding.
+    ``bg[r] + sum_m T_m(xn, yn) (kd[r, m] * ref)`` with zero padding, on the
+    tensor cores in 3xTF32.
 
-    kd (R2, Nm, K, K) f32; bg, cx, cy (R2,) f32 (region centres as the
-    reference rounds them to f32); pexp/qexp (Nm,) int32 exponents."""
+    kd (R2, Nm, K, K) f32 and bg (R2,) f32 on the card; the rest are host
+    values passed by value in the launch (no copy to the card): cx (nreg,)
+    the region centre of each region column and cy (nreg,) of each region
+    row, both as the reference rounds them to f32; pexp/qexp (Nm,) the
+    term exponents; wx, wy the half-widths. Takes any odd K up to 31 (the
+    kernels of a region must fit in shared memory), nreg and Nm up to 256.
+    """
     H, W = ref.shape
     R2, Nm, K, _ = kd.shape
+    nreg = len(cx)
+    if len(cy) != nreg or len(pexp) != Nm or len(qexp) != Nm:
+        raise ValueError('apply_model: cx, cy need nreg values and pexp, '
+                         'qexp Nm values')
+    if K % 2 != 1 or K > 31:
+        raise ValueError(f'apply_model: K={K} unsupported (odd K <= 31)')
+    if nreg > build.APPLY_MAX_REG or Nm > build.APPLY_MAX_TERMS:
+        raise ValueError(f'apply_model: nreg={nreg}, Nm={Nm} unsupported '
+                         f'(at most {build.APPLY_MAX_REG} each)')
     _require('ref', ref, torch.float32)
     _require('kd', kd, torch.float32, (nreg * nreg, Nm, K, K))
-    for name, t in (('bg', bg), ('cx', cx), ('cy', cy)):
-        _require(name, t, torch.float32, (R2,))
-    _require('pexp', pexp, torch.int32, (Nm,))
-    _require('qexp', qexp, torch.int32, (Nm,))
-    if K > 15 or Nm > 15 or K % 2 != 1:
-        raise ValueError(f'apply_model: K={K}, Nm={Nm} unsupported '
-                         '(odd K <= 15, Nm <= 15)')
-    if H < 32 * nreg or W < 32 * nreg:
-        raise ValueError('apply_model: regions must be at least 32 px')
+    _require('bg', bg, torch.float32, (R2,))
+    # c_float fields round the centres and half-widths to f32 as the
+    # reference does
+    params = build.ApplyParams(H=H, W=W, K=K, Nm=Nm, nreg=nreg, wx=wx, wy=wy)
+    params.cx[:nreg], params.cy[:nreg] = cx, cy
+    params.pexp[:Nm], params.qexp[:Nm] = pexp, qexp
     model = torch.empty_like(ref)
-    err = build.library().zuds_apply(
-        _ptr(ref), _ptr(kd), _ptr(bg), _ptr(cx), _ptr(cy), _ptr(model), H,
-        W, K, Nm, int(nreg), _ptr(pexp), _ptr(qexp), float(wx), float(wy),
-        _stream())
+    err = build.library().zuds_apply(_ptr(ref), _ptr(kd), _ptr(bg),
+                                     _ptr(model), ctypes.byref(params),
+                                     _stream())
     build.check(err, 'zuds_apply')
     apply_model.launches += 1
     return model

@@ -20,8 +20,8 @@ from ..kernels import launch
 from .background import masked_median
 
 __all__ = ['spatial_terms', 'dense_basis', 'region_outer', 'fit_kernel',
-           'apply_kernel', 'apply_kernel_fast', 'center_kernels',
-           'region_edges']
+           'apply_kernel', 'apply_kernel_fast', 'model_kernels',
+           'model_geometry', 'center_kernels', 'region_edges']
 
 # order-weighted Jacobi ridge of the fit (subtract.py:260-293 defaults)
 RIDGE_BASE = 1e-5
@@ -253,35 +253,43 @@ def apply_kernel(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
     return torch.cat(rows, dim=0)
 
 
+def model_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
+                  order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """(R2, Nm, K, K) dense kernel of each region and spatial term,
+    ``einsum('rnm,nkl->rmkl', a, dense basis)`` (subtract.py:450)."""
+    Nb = basis_gx.shape[0]
+    Nm = len(spatial_terms(order))
+    a = coeffs[:, :Nb * Nm].reshape(nreg * nreg, Nb, Nm)
+    dense = dense_basis(basis_gx, basis_gy, basis_sums, b0_2d)
+    return torch.einsum('rnm,nkl->rmkl', a, dense).contiguous()
+
+
+def model_geometry(H, W, order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """Host values of the model's blend, as :func:`launch.apply_model`
+    takes them: the region centre of each region column and row, the term
+    exponents and the half-widths (the wrapper rounds them to f32 as the
+    reference's python-scalar arithmetic is, apply_kernel :640-643)."""
+    terms = spatial_terms(order)
+    return ([(rj + 0.5) * W / nreg for rj in range(nreg)],
+            [(ri + 0.5) * H / nreg for ri in range(nreg)],
+            [p for p, _ in terms], [q for _, q in terms],
+            W / (2.0 * nreg), H / (2.0 * nreg))
+
+
 def apply_kernel_fast(ref, coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
                       order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
     """The model frame (subtract.py:380). A CUDA tensor runs hand kernel
-    H3 on the per-(region, term) dense kernels; a CPU tensor runs
-    :func:`apply_kernel`."""
+    H3 on the per-(region, term) dense kernels, with no copy from the host;
+    a CPU tensor runs :func:`apply_kernel`."""
     if not ref.is_cuda:
         return apply_kernel(ref, coeffs, basis_gx, basis_gy, basis_sums,
                             b0_2d, order=order, nreg=nreg)
-    H, W = ref.shape
-    Nb, K = basis_gx.shape
-    terms = spatial_terms(order)
-    Nm = len(terms)
-    R2 = nreg * nreg
-    a = coeffs[:, :Nb * Nm].reshape(R2, Nb, Nm)
-    dense = dense_basis(basis_gx, basis_gy, basis_sums, b0_2d)
-    kd = torch.einsum('rnm,nkl->rmkl', a, dense).contiguous()
-    # region centres and half-widths rounded to f32 as the reference's
-    # python-scalar arithmetic is (apply_kernel :640-643)
-    cx = np.asarray([(rj + 0.5) * W / nreg for ri in range(nreg)
-                     for rj in range(nreg)], np.float32)
-    cy = np.asarray([(ri + 0.5) * H / nreg for ri in range(nreg)
-                     for rj in range(nreg)], np.float32)
-    dev = ref.device
-    exps = torch.as_tensor(np.asarray(terms, np.int32).T.copy(), device=dev)
-    return launch.apply_model(
-        ref.contiguous(), kd, coeffs[:, -1].contiguous(),
-        torch.as_tensor(cx, device=dev), torch.as_tensor(cy, device=dev),
-        exps[0].contiguous(), exps[1].contiguous(),
-        np.float32(W / (2.0 * nreg)), np.float32(H / (2.0 * nreg)), nreg)
+    kd = model_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
+                       order=order, nreg=nreg)
+    return launch.apply_model(ref.contiguous(), kd,
+                              coeffs[:, -1].contiguous(),
+                              *model_geometry(*ref.shape, order=order,
+                                              nreg=nreg))
 
 
 def center_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
