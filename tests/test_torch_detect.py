@@ -1,6 +1,6 @@
 """PyTorch port vs the JAX reference: detection with ``deblend=False``
-(the matched filter is H4's plain version), aperture photometry and the
-windowed/Kron refinement, on the CPU at 256^2.
+(the matched filter is H4's plain version, the compaction H6's), aperture
+photometry and the windowed/Kron refinement, on the CPU at 256^2.
 
 Tolerances: n, valid, npix, the bounding boxes, imaflags, flags and the
 three overflow counters bit-equal; x, y atol 1e-4 px; flux, peak, a, b and
@@ -60,7 +60,7 @@ def _run(scene, max_det=MAX_DET, **kw):
                           jnp.asarray(wok), max_det=max_det,
                           return_labels=False, deblend=False, **kw)
     t = td.detect_sources(T(diff), T(rms), T(mask), T(wok), max_det=max_det,
-                          **kw)
+                          return_labels=False, deblend=False, **kw)
     return ({k: np.asarray(v) for k, v in j.items()},
             {k: v.numpy() for k, v in t.items()})
 
@@ -120,7 +120,7 @@ def test_compact_indices_semantics():
     m = rng.random(5000) < 0.1
     for size in (100, 2000):
         np.testing.assert_array_equal(
-            td.compact_indices(T(m), size, 4999).numpy(),
+            td.compact_indices(T(m), size, 4999)[0].numpy(),
             np.asarray(jd.compact_indices(jnp.asarray(m), size, 4999)))
 
 
@@ -144,11 +144,17 @@ def test_ccl_labels_are_component_minima():
     np.testing.assert_array_equal(pidx[lab].numpy(), j.ravel()[flat])
 
 
-def test_other_deblend_modes_raise():
+def test_other_deblend_modes_run():
+    """The exact tree and the watershed mode run (their parity with the
+    reference is tests/test_torch_deblend.py) and return the segmentation
+    map by default, as the reference does."""
     diff, rms, mask, wok = (T(a) for a in _scene(1, nsrc=3))
     for mode in (True, 'watershed'):
-        with pytest.raises(NotImplementedError, match='K9'):
-            td.detect_sources(diff, rms, mask, wok, deblend=mode)
+        out = td.detect_sources(diff, rms, mask, wok, max_det=MAX_DET,
+                                deblend=mode)
+        assert out['labels'].shape == (H, W)
+        ids = torch.unique(out['labels'])
+        assert len(ids[ids > 0]) == int(out['n']) > 0
 
 
 def test_photometry_from_identical_detections(busy):

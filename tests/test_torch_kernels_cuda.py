@@ -1,5 +1,6 @@
-"""The port's hand kernels (H1-H4) against their plain PyTorch versions,
-on a CUDA card, at small and ragged shapes (partial tiles, partial cells).
+"""The port's hand kernels (H1-H6) against their plain PyTorch versions,
+on a CUDA card, at small and ragged shapes (partial tiles, partial cells),
+and H5/H6 at the flagship's capacities.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -8,7 +9,8 @@ no JAX, and tests/conftest.py imports it, so run them there with
 
 Tolerances: warp pixels rtol 3e-5, atol 5e-3 counts, mask and coverage
 bit-equal; background cells rtol 1e-4 and counts equal; model convolution
-rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6.
+rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
+deblend level labels and compaction bit-equal.
 """
 import numpy as np
 import pytest
@@ -144,3 +146,69 @@ def test_detect_filter_kernel(dev, H, W):
     p = detect.matched_filter_plain(diff, rms, wok, 1.5)
     assert torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
     _allclose(k[1], p[1], 1e-6, 0.0)
+
+
+def _graph(dev, seed, ccap, ecap, L, nchain, chain_len):
+    """Random edges, and chains whose cells run down from near ccap with
+    the smallest cell at one end: label 0 crawls one cell per round, so
+    the round cap decides the labels."""
+    g = torch.Generator(device='cpu').manual_seed(seed)
+    src = torch.randint(0, ccap, (ecap,), generator=g)
+    dst = torch.randint(0, ccap, (ecap,), generator=g)
+    w = torch.randint(0, L + 1, (ecap,), generator=g)
+    k = 0
+    for c in range(nchain):
+        cells = [c] + [ccap - 1 - c * chain_len - i for i in range(chain_len)]
+        for a, b in zip(cells[:-1], cells[1:]):
+            src[k:k + 2] = torch.tensor([a, b])
+            dst[k:k + 2] = torch.tensor([b, a])
+            w[k:k + 2] = L
+            k += 2
+    return [t.to(torch.int32).to(dev) for t in (src, dst, w)]
+
+
+@pytest.mark.parametrize('ccap,ecap,rounds', [
+    (8192, 65536, 6), (8192, 65536, 1), (8192, 65536, 40), (300, 1000, 6),
+    (8192, 100, 6)])
+def test_deblend_labels_kernel(dev, ccap, ecap, rounds):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import deblend
+    L = 31
+    src, dst, w = _graph(dev, ccap + ecap, ccap, ecap, L,
+                         min(20, ecap // 200), 25)
+    n0 = launch.deblend_labels.launches
+    k = deblend.level_labels(src, dst, w, ccap, L, rounds)
+    assert launch.deblend_labels.launches == n0 + 1
+    p = deblend.level_labels_plain(src, dst, w, ccap, L, rounds)
+    assert k.dtype == torch.int32 and torch.equal(k, p)
+
+
+@pytest.mark.parametrize('n,size,p', [
+    (7, 4, 0.5), (2048, 2048, 0.3), (2049, 100, 0.3),
+    (3080 * 3072, 1 << 16, 0.003), (3080 * 3072, 1 << 16, 0.05),
+    (100000, 5000, 0.0), (100000, 5000, 1.0), (1000, 2000, 1.0)])
+def test_compact_kernel(dev, n, size, p):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import compact
+    g = torch.Generator(device=dev).manual_seed(n + size)
+    mask = torch.rand(n, generator=g, device=dev) < p
+    n0 = launch.compact.launches
+    idx, cnt = compact.compact_indices(mask, size, n - 1)
+    assert launch.compact.launches == n0 + 1
+    want = torch.nonzero(mask).reshape(-1)[:size]
+    assert int(cnt) == int(mask.sum())
+    assert torch.equal(idx[:len(want)], want)
+    assert bool((idx[len(want):] == n - 1).all())
+    pidx, pcnt = compact.compact_indices_plain(mask, size, n - 1)
+    assert torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
+
+
+def test_h5_h6_refuse_wrong_dtypes(dev):
+    from zuds_tpu_torch.kernels import launch
+    e = torch.zeros(16, dtype=torch.int64, device=dev)
+    with pytest.raises(TypeError):
+        launch.deblend_labels(e, e, e, 8, 31, 6)
+    with pytest.raises(TypeError):
+        launch.compact(torch.zeros(16, dtype=torch.uint8, device=dev), 4, 0)
+    with pytest.raises(ValueError):
+        launch.deblend_labels(*(e.to(torch.int32),) * 3, 1 << 20, 31, 6)

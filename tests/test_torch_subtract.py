@@ -110,7 +110,7 @@ def test_apply_with_reference_coeffs_order4_3x3():
     jm = np.asarray(js.apply_kernel_fast(jnp.asarray(s['ref']), j['coeffs'],
                                          *_basis(s, jnp.asarray), order=4,
                                          nreg=3))
-    coeffs = inputs.to_torch(np.asarray(j['coeffs']))
+    coeffs = inputs.to_torch(np.asarray(j['coeffs']), 'cpu')
     tm = ts.apply_kernel_fast(T(s['ref']), coeffs, *_basis(s, T), order=4,
                               nreg=3)
     np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-4, atol=1e-3)

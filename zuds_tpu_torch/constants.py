@@ -1,38 +1,34 @@
-"""The pipeline's tunables, read from the JAX package's ``constants.py``.
+"""The pipeline's tunables (the port's own copy of the reference's values,
+``zuds_tpu/constants.py``; ``tests/test_torch_deblend.py`` holds every
+name here equal to the reference's)."""
+import math
 
-The port shares one source of truth with the reference: the file is loaded
-by path, so neither ``zuds_tpu/__init__.py`` (which imports ``yaml``) nor
-JAX is executed. ``zuds_tpu/constants.py`` imports only numpy.
-"""
-import importlib.util
-from pathlib import Path
+# --- noise / background ------------------------------------------------------
+BIG_RMS = math.sqrt(50000.0)        # sentinel RMS for unusable pixels
+BKG_BOX_SIZE = 128                  # background mesh cell size (px)
+BKG_VAL = 150.0                     # counts added back after bkg subtraction
 
-_PATH = Path(__file__).resolve().parent.parent / 'zuds_tpu' / 'constants.py'
+# --- detection ---------------------------------------------------------------
+DETECT_NSIGMA = 1.5                 # detection threshold in filtered sigma
+DETECT_NPIX = 5                     # min connected pixels above threshold
+DEBLEND_NTHRESH = 32                # multi-threshold deblending levels
+DEBLEND_MINCONT = 0.005             # min deblending contrast
+CLEAN_PARAM = 1.0                   # CLEAN pass efficiency (sextractor.conf)
+MAX_DETECTIONS = 16384              # fixed-capacity detection buffer per frame
 
+# --- photometry --------------------------------------------------------------
+APERTURE_RADIUS_PX = 3.0            # forced/aperture photometry radius (px)
 
-def _load():
-    spec = importlib.util.spec_from_file_location(
-        'zuds_tpu_torch._reference_constants', _PATH)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+# --- masking -----------------------------------------------------------------
+BAD_BITS = (0, 2, 3, 4, 5, 7, 8, 9, 10, 16, 17)
+BAD_SUM = sum(1 << b for b in BAD_BITS)
+MASK_BIT_NODATA_ALIGN = 16          # no data after the reference warp
+MASK_BIT_NODATA_SUB = 17            # the PSF-match kernel produced no data
 
-
-_C = _load()
-
-BAD_SUM = _C.BAD_SUM
-BIG_RMS = _C.BIG_RMS
-BKG_BOX_SIZE = _C.BKG_BOX_SIZE
-BKG_VAL = _C.BKG_VAL
-CLEAN_PARAM = _C.CLEAN_PARAM
-DETECT_NPIX = _C.DETECT_NPIX
-DETECT_NSIGMA = _C.DETECT_NSIGMA
-KERNEL_GAUSS_DEGREES = _C.KERNEL_GAUSS_DEGREES
-KERNEL_GAUSS_SIGMAS = _C.KERNEL_GAUSS_SIGMAS
-KERNEL_SPATIAL_ORDER = _C.KERNEL_SPATIAL_ORDER
-APERTURE_RADIUS_PX = _C.APERTURE_RADIUS_PX
-MASK_BIT_NODATA_ALIGN = _C.MASK_BIT_NODATA_ALIGN
-MASK_BIT_NODATA_SUB = _C.MASK_BIT_NODATA_SUB
-MAX_DETECTIONS = _C.MAX_DETECTIONS
-NREG_SIDE = _C.NREG_SIDE
-SUB_NODATA_SENTINEL = _C.SUB_NODATA_SENTINEL
+# --- subtraction -------------------------------------------------------------
+SUB_NODATA_SENTINEL = 1e-30         # fill value for no-data subtraction pixels
+NREG_SIDE = 3                       # 3x3 independently-fit kernel regions
+KERNEL_SPATIAL_ORDER = 4            # spatial order of kernel variation (-ko 4)
+# Gaussian basis (per-gaussian poly degree, per-gaussian sigma factor)
+KERNEL_GAUSS_DEGREES = (6, 4, 2)
+KERNEL_GAUSS_SIGMAS = (0.7, 1.5, 3.0)

@@ -128,14 +128,22 @@ def _tensor(a, dtype, device):
     return torch.tensor(np.asarray(a, dtype=dtype), device=device)
 
 
-def to_torch(args, device='cpu'):
+def to_torch(args, device=None):
     """Move pipeline state onto ``device`` as the port's tensors.
 
     ``args`` is either the 14-tuple of INPUT_NAMES (numpy or JAX arrays):
     masks become int32, ``stamp_valid`` bool, everything else float32; or
     one float array (e.g. fitted ``coeffs`` from a JAX ``fit_kernel`` run),
     which becomes float32.
+
+    ``device=None`` means the CUDA card and raises where there is none; a
+    caller that wants the CPU says ``'cpu'``.
     """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('to_torch: no CUDA card; pass device="cpu" '
+                               'to run on the CPU')
+        device = 'cuda'
     if isinstance(args, (tuple, list)):
         if len(args) != len(INPUT_NAMES):
             raise ValueError(f'expected {len(INPUT_NAMES)} inputs '

@@ -21,13 +21,15 @@ from pathlib import Path
 __all__ = ['library', 'check', 'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
-SOURCES = ('warp.cu', 'background.cu', 'apply.cu')
+SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
+           'compact.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # capacities of ApplyParams (apply.cu kMaxReg, kMaxTerms)
 APPLY_MAX_REG = 256
 APPLY_MAX_TERMS = 256
@@ -51,6 +53,10 @@ SIGNATURES = {
     # ref, kd, bg, model, params (host struct, copied into the launch),
     # stream
     'zuds_apply': (_P, _P, _P, _P, ctypes.POINTER(ApplyParams), _P),
+    # e_src, e_dst, e_w, ecap, ccap, nlev, max_rounds, bl, stream
+    'zuds_deblend_labels': (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # mask(u8), n, size, fill, seg_scratch, out(i64), total(i64), stream
+    'zuds_compact': (_P, _I, _I, _L, _P, _P, _P, _P),
 }
 
 

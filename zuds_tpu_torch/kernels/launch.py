@@ -1,5 +1,5 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
-H3 model convolution).
+H3 model convolution, H5 deblend level labels, H6 compaction).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -14,7 +14,8 @@ import torch
 
 from . import build
 
-__all__ = ['warp', 'background_cells', 'apply_model', 'WRAPPERS']
+__all__ = ['warp', 'background_cells', 'apply_model', 'deblend_labels',
+           'compact', 'WRAPPERS']
 
 
 def _ptr(t):
@@ -118,8 +119,58 @@ def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
     return model
 
 
+def deblend_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds):
+    """H5 (kernels/deblend.cu): the deblend tree's (nlev, ccap) int32 level
+    labels over the cross-cell edge list ``e_src``/``e_dst``/``e_w`` (int32,
+    (ecap,)), at most ``max_rounds`` rounds per level."""
+    ecap = e_src.shape[0]
+    _require('e_src', e_src, torch.int32, (ecap,))
+    _require('e_dst', e_dst, torch.int32, (ecap,))
+    _require('e_w', e_w, torch.int32, (ecap,))
+    if not 0 < ccap <= DEBLEND_MAX_CELLS or nlev < 1:
+        raise ValueError(f'deblend_labels: ccap={ccap}, nlev={nlev} '
+                         f'unsupported (1..{DEBLEND_MAX_CELLS} cells, at '
+                         'least one level)')
+    bl = torch.empty((nlev, ccap), dtype=torch.int32, device=e_src.device)
+    err = build.library().zuds_deblend_labels(
+        _ptr(e_src), _ptr(e_dst), _ptr(e_w), ecap, int(ccap), int(nlev),
+        int(max_rounds), _ptr(bl), _stream())
+    build.check(err, 'zuds_deblend_labels')
+    deblend_labels.launches += 1
+    return bl
+
+
+def compact(mask, size, fill_value):
+    """H6 (kernels/compact.cu): (int64 (size,) flat indices of the first
+    ``size`` True entries of the flat bool ``mask``, ascending, padded with
+    ``fill_value``; int64 () count of True entries), both on the card."""
+    _require('mask', mask, torch.bool)
+    n = mask.numel()
+    if mask.dim() != 1 or n >= 2 ** 31 or size < 0:
+        raise ValueError(f'compact: expected a 1-D mask under 2^31 entries '
+                         f'and size >= 0, got {tuple(mask.shape)}, {size}')
+    dev = mask.device
+    out = torch.empty(size, dtype=torch.int64, device=dev)
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    scratch = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32,
+                          device=dev)
+    err = build.library().zuds_compact(
+        _ptr(mask), n, int(size), int(fill_value), _ptr(scratch), _ptr(out),
+        _ptr(total), _stream())
+    build.check(err, 'zuds_compact')
+    compact.launches += 1
+    return out, total
+
+
+# two shared-memory buffers of ccap int32 per level (deblend.cu) within
+# the 227 KB a block may hold
+DEBLEND_MAX_CELLS = 227 * 1024 // 8
+
 warp.launches = 0
 background_cells.launches = 0
 apply_model.launches = 0
+deblend_labels.launches = 0
+compact.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
-            'apply_model': apply_model}
+            'apply_model': apply_model, 'deblend_labels': deblend_labels,
+            'compact': compact}

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ['fma', 'sum_last', 'sum_last2', 'segmented_scan']
+__all__ = ['fma', 'sum_last', 'sum_last2', 'cumsum_last', 'segmented_scan']
 
 _WIN = 32
 
@@ -66,6 +66,33 @@ def sum_last2(x):
     x = x.reshape(*lead, H2 // wh, wh, W2 // ww, ww)
     x = x.movedim(-3, -2).reshape(*lead, H2 // wh, W2 // ww, wh * ww)
     return _seq(_seq(_seq(x)))
+
+
+def cumsum_last(x, base=16):
+    """Inclusive cumulative sum over the last axis in XLA:CPU's order for
+    ``jnp.cumsum``: the axis is zero-padded to blocks of ``base``, each
+    block is summed sequentially, and each block's running sums get the
+    sequential sum of the earlier blocks' totals added once. Lengths up to
+    ``base**2`` (one level of blocks)."""
+    n = x.shape[-1]
+    nb = -(-n // base)
+    if nb > base:
+        raise ValueError(f'cumsum_last: length {n} exceeds {base ** 2}')
+    xb = F.pad(x, (0, nb * base - n)).reshape(*x.shape[:-1], nb, base)
+    acc = xb[..., 0]
+    intra = [acc]
+    for k in range(1, base):
+        acc = acc + xb[..., k]
+        intra.append(acc)
+    intra = torch.stack(intra, -1)
+    tot = intra[..., -1]
+    run = torch.zeros_like(tot[..., 0])
+    excl = []
+    for j in range(nb):
+        excl.append(run)
+        run = run + tot[..., j]
+    out = intra + torch.stack(excl, -1)[..., None]
+    return out.reshape(*x.shape[:-1], nb * base)[..., :n]
 
 
 def fma(a, b, c):

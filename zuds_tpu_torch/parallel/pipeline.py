@@ -4,8 +4,9 @@
 :class:`SubtractDetectPipeline` runs ``one_frame`` of the reference
 (:153-398) frame by frame over the batch, as ``jax.lax.map`` does. On a
 CUDA device the warp (H1), the background cells (H2), the model
-convolution (H3) and the matched filter (H4) run as hand-written kernels;
-everything between them is plain PyTorch.
+convolution (H3), the matched filter (H4), the deblend tree's level labels
+(H5) and the compactions (H6) run as hand-written kernels; everything
+between them is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -68,8 +69,6 @@ class PipelineConfig:
 
 def _check_supported(cfg):
     unsupported = [
-        (cfg.deblend is not False, f'deblend={cfg.deblend!r}',
-         'K9 (exact deblend tree, then watershed)'),
         (cfg.sep_warp, 'sep_warp=True',
          "queue 2 'Not ported' (separable warp variants)"),
         (cfg.ref_rms_mesh, 'ref_rms_mesh=True',
@@ -201,8 +200,9 @@ class SubtractDetectPipeline(nn.Module):
         with _stage('detect'):
             det = detect_sources(diff, rms_out, submask, ~bad,
                                  nsigma=cfg.nsigma, max_det=cfg.max_det,
-                                 deblend=cfg.deblend,
-                                 det_cap=(cfg.det_cap or None))
+                                 return_labels=False, deblend=cfg.deblend,
+                                 det_cap=(cfg.det_cap or None),
+                                 deb_cap=(cfg.deb_cap or None))
 
         with _stage('measure'):
             phot = aperture_photometry_batched(diff, rms_out, submask,

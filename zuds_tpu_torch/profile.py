@@ -1,12 +1,13 @@
 """Where one frame of the slice spends its time on the card.
 
-    python -m zuds_tpu_torch.profile [--frames N]
+    python -m zuds_tpu_torch.profile [--frames N] [--deblend MODE]
 
-Runs ``SubtractDetectPipeline`` at the flagship configuration
-(``deblend=False``) on synthetic frames, warms up, then traces ``N``
-frames with ``torch.profiler`` and prints, next to the card's name and
-power limit: host wall time per frame, the device's busy share, each
-pipeline stage's host and device time, and the kernels that take the most
+Runs ``SubtractDetectPipeline`` at the flagship configuration (the
+reference's default ``deblend=True``) on synthetic frames, warms up, then
+traces ``N`` frames with ``torch.profiler`` and prints, next to the card's
+name and power limit: host wall time per frame, the device's busy share, each
+pipeline stage's host and device time (``deblend`` is the part of
+``detect`` spent in the deblend tree), and the kernels that take the most
 device time. Needs a CUDA card.
 """
 import argparse
@@ -21,28 +22,33 @@ from .inputs import synth_inputs, to_torch
 from .parallel import PipelineConfig, SubtractDetectPipeline
 
 STAGES = ('warp', 'background', 'fit', 'apply', 'noise', 'detect',
-          'measure')
+          'deblend', 'measure')
 FLAGSHIP = dict(height=3080, width=3072, ksize=15, stamp=41, smax=384,
                 order=4, nreg=3, max_det=4096, det_cap=1 << 16,
-                deb_cap=1 << 16, deblend=False)
+                deb_cap=1 << 16)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--frames', type=int, default=2)
-    frames = ap.parse_args().frames
+    ap.add_argument('--deblend', choices=('true', 'watershed', 'false'),
+                    default='true', help="the detect stage's deblend mode")
+    opt = ap.parse_args()
+    frames = opt.frames
     if not torch.cuda.is_available():
         raise SystemExit('profile: needs a CUDA card')
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
-    cfg = PipelineConfig(**FLAGSHIP)
-    args = to_torch(synth_inputs(1, cfg.height, cfg.width, cfg, seed=0),
-                    'cuda')
+    mode = {'true': True, 'watershed': 'watershed',
+            'false': False}[opt.deblend]
+    cfg = PipelineConfig(**FLAGSHIP, deblend=mode)
+    args = to_torch(synth_inputs(1, cfg.height, cfg.width, cfg, seed=0))
     pipe = SubtractDetectPipeline(cfg)
     for _ in range(2):
         pipe(*args)
     torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -50,16 +56,23 @@ def main():
             pipe(*args)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / frames
+    mem1 = torch.cuda.memory_stats()
     events = prof.key_averages()
     # device activity: kernels, copies and memsets (one stream, so they do
     # not overlap); the stages' device-side ranges only span them
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and e.name not in STAGES) / frames / 1e3
-    print(f'card: {card}')
+    print(f'card: {card}; deblend={mode!r}')
     print(f'wall {wall * 1e3:.1f} ms/frame; device busy {busy:.1f} ms/frame '
           f'({100 * busy / (wall * 1e3):.1f}%; idle '
           f'{100 * (1 - busy / (wall * 1e3)):.1f}%)')
+    # the caching allocator: device mallocs/frees in the window (each
+    # cudaFree waits for the card) and retries after a failed malloc
+    print('allocator per frame: ' + ', '.join(
+        f'{k} {(mem1.get(k, 0) - mem0.get(k, 0)) / frames:g}'
+        for k in ('num_device_alloc', 'num_device_free',
+                  'num_alloc_retries')))
     # each stage range appears twice: on the host (its wall time, syncs
     # included) and on the device (first to last kernel launched in it)
     span = {}
