@@ -7,28 +7,37 @@ Builds the port's hand-written kernels from the sources in this checkout,
 drives the port's main path (``SubtractDetectPipeline``, the quadrant
 subtract -> detect slice with the reference's default ``deblend=True``) on
 two 3080x3072 ZTF-sized frames from a seed, then the same path with
-``deblend=False``, both timed in turns, and holds each kernel against its
-plain PyTorch version on the card at the shapes the main path gives it
-(H3 also at K = 21, order 5, 2x2 regions, and its bare launch timed with
-its tensor-core rate; H5 and H6 also on a quadrant-size busy blend
-field). Small inputs run on the
-card and on the CPU for each deblend mode, and a 1024^2 crop of the blend
-field through ``detect_sources`` on both. Prints the card, per-kernel
-errors and times, the slice's ms/frame and the deblend's load, then one
-JSON line of kernel records and, last, ``{"ok": true, "device": {...}}``.
-Any failed check exits non-zero; a machine without a CUDA card fails at
-once.
+``deblend=False``, both timed in turns, and the slice with its frame
+medians in H8 against the plain medians, in turns. Then the night: four
+flagship FITS pairs written to a temporary directory with the port's own
+writer (``bench.py``'s recipe: 700 stars, seeing 2.0/2.8 px, noise 5, the
+real ZTF TPV header on the science frames, a linear reference WCS
+dithered by (+1.6, -2.2) px, uint16 mask siblings, one transient of flux
+3e4 per frame, one frame without SEEING) through
+``zuds_tpu_torch.night.run_night`` once to warm up and once timed, with
+the files -> catalog rate, the host seconds per phase, the reference-cache
+hits and the detections per frame. Holds each kernel against its plain
+PyTorch version on the card at the shapes the main path gives it (H3 also
+at K = 21, order 5, 2x2 regions, and its bare launch timed with its
+tensor-core rate; H5 and H6 also on a quadrant-size busy blend field; H8
+also on ::4 views and a mask with holes). Small inputs run on the card and
+on the CPU for each deblend mode, a 1024^2 crop of the blend field through
+``detect_sources`` on both, and the stamp selection of one flagship frame
+on both. Prints the card, per-kernel errors and times, the slice's
+ms/frame and the deblend's load, then one JSON line of kernel records
+and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
+non-zero; a machine without a CUDA card fails at once.
 """
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-FLAGSHIP = dict(height=3080, width=3072, ksize=15, stamp=41, smax=384,
-                order=4, nreg=3, max_det=4096, det_cap=1 << 16,
-                deb_cap=1 << 16)
 # the CPU parity tests' configuration (tests/test_torch_pipeline.py)
 SMALL = dict(height=256, width=256, ksize=9, stamp=25, smax=32, order=2,
              nreg=2, max_det=128, box=64)
@@ -49,7 +58,15 @@ SOURCES = {
                        'zuds_tpu/ops/detect.py:487'),
     'compact': ('cuda', 'zuds_tpu_torch/kernels/compact.cu',
                 'zuds_tpu/ops/detect.py:86'),
+    'stamp_candidates': ('cuda', 'zuds_tpu_torch/kernels/stamps.cu',
+                         'zuds_tpu/ops/measure.py:37'),
+    'frame_median': ('cuda', 'zuds_tpu_torch/kernels/median.cu',
+                     'zuds_tpu/ops/background.py:48'),
 }
+# the night phase: bench.py's files leg recipe at the flagship size
+NIGHT_PAIRS = 4
+NIGHT_BATCH = 2
+NO_SEEING = 3           # the science frame written without SEEING
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -267,6 +284,101 @@ def crop_card_vs_cpu(img, dev):
           'decision near a threshold')
 
 
+def night_phase(wrappers, name):
+    """run_night over the flagship pairs: warm-up, then one counted, timed
+    run. Returns (launches, seconds, stats)."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import inputs, night
+    from zuds_tpu_torch.catalog import PipelineFITSCatalog
+    from zuds_tpu_torch.parallel import SubtractDetectPipeline
+    cfg = night.FLAGSHIP
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_night_') as d:
+        t0 = time.perf_counter()
+        work, truths = inputs.write_night_pairs(
+            d, NIGHT_PAIRS, cfg.height, cfg.width, no_seeing=(NO_SEEING,),
+            header_json=Path(__file__).resolve().parent / 'tests' / 'data'
+            / 'ztf_real_header.json')
+        print(f'night: {NIGHT_PAIRS} flagship pairs written in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        pipe = SubtractDetectPipeline(cfg)
+        t0 = time.perf_counter()
+        warm = night.run_night(work[:NIGHT_BATCH], batch=NIGHT_BATCH,
+                               cfg=cfg, pipe=pipe)
+        torch.cuda.synchronize()
+        print(f'night: warm-up run of {NIGHT_BATCH} pairs '
+              f'{time.perf_counter() - t0:.2f} s', flush=True)
+        check(all(not isinstance(r, Exception) for _, r in warm),
+              f'night warm-up failed: {warm}')
+        for w in wrappers.values():
+            w.launches = 0
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = night.run_night(work, batch=NIGHT_BATCH, cfg=cfg, pipe=pipe,
+                              stats=stats)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        for path, r in res:
+            check(not isinstance(r, Exception), f'night: {path}: {r!r}')
+        print(f'night: files -> catalog {NIGHT_PAIRS / secs:.3f} '
+              f'quadrants/s ({NIGHT_PAIRS} pairs, batch {NIGHT_BATCH}, '
+              f'{secs:.2f} s, host clock) on {name}', flush=True)
+        prep = stats['prepare_s'] - stats['upload_s']
+        print(f'night: host seconds per phase: load '
+              f'{stats["load_s"]:.3f}, prepare {prep:.3f}, upload '
+              f'{stats["upload_s"]:.3f}, pipeline {stats["pipeline_s"]:.3f}, '
+              f'commit {stats["commit_s"]:.3f}; upload '
+              f'{stats["upload_bytes"] / NIGHT_PAIRS / 1e6:.1f} MB and '
+              f'{stats["upload_s"] / NIGHT_PAIRS * 1e3:.1f} ms of host time '
+              f'per pair; reference cache {stats["ref_cache_hits"]} hits, '
+              f'{stats["ref_cache_misses"]} misses; GOODCUT detections per '
+              f'frame {stats["detections"]}', flush=True)
+        print(f'night: kernel launches {launches} '
+              f'({NIGHT_PAIRS} frames)', flush=True)
+        # the host link: one science frame from pinned memory to the card
+        host = torch.empty((cfg.height, cfg.width),
+                           dtype=torch.float32).pin_memory()
+        link_ms = cuda_ms(lambda: torch.empty_like(host, device='cuda')
+                          .copy_(host, non_blocking=True))
+        print(f'night: host link {host.numel() * 4 / link_ms / 1e6:.1f} '
+              f'GB/s ({host.numel() * 4 / 1e6:.1f} MB pinned -> card in '
+              f'{link_ms:.3f} ms, CUDA events) on {name}', flush=True)
+        for k, n in launches.items():
+            check(n > 0, f'kernel {k} was not launched by the night')
+        for i, (tx, ty) in enumerate(truths):
+            cat = PipelineFITSCatalog.from_file(
+                [os.path.join(d, f) for f in os.listdir(d)
+                 if f.startswith(f'sub.night_n{i}_') and f.endswith('.cat')
+                 ][0])
+            data = cat.data
+            dist = np.hypot(data['X_IMAGE'] - 1 - tx, data['Y_IMAGE'] - 1 - ty)
+            check(len(dist) and dist.min() < 2.0,
+                  f'night frame {i}: transient at ({tx}, {ty}) not in the '
+                  'catalog')
+            row = data[np.argmin(dist)]
+            see = stats['seeing'][i]
+            if i == NO_SEEING:
+                # SEEING from the stamp moments, which keep each stamp's
+                # positive noise and read wide: the reference's sharp cut
+                # (FWHM >= 0.8 SEEING) is the one cut allowed to remove it
+                ok = row['GOODCUT'] == 1 or (
+                    row['FWHM_IMAGE'] < 0.8 * see
+                    and row['FWHM_IMAGE'] <= 2.0 * see
+                    and row['BPMCUT'] <= 0 and row['NEGPIX'] == 0
+                    and row['FLUX_APER'] >= 5.0 * row['FLUXERR_APER'])
+            else:
+                ok = row['GOODCUT'] == 1 and see == inputs.NIGHT_SEEING[1]
+            check(ok, f'night frame {i}: transient row {row}')
+            print(f'night frame {i}: SEEING {see:.4f} px ('
+                  f'{"stamp moments" if i == NO_SEEING else "header"}); '
+                  f'transient at ({tx:.0f}, {ty:.0f}) found '
+                  f'{dist.min():.2f} px away, GOODCUT {int(row["GOODCUT"])}, '
+                  f'FWHM {row["FWHM_IMAGE"]:.2f} px', flush=True)
+    return launches, secs, stats
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
@@ -274,13 +386,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this check needs one CUDA card')
-    from zuds_tpu_torch import inputs, kernels
+    from zuds_tpu_torch import inputs, kernels, night
     from zuds_tpu_torch.constants import BAD_SUM
     from zuds_tpu_torch.kernels import build, launch
     from zuds_tpu_torch.ops import (background, compact, deblend, detect,
-                                    resample, subtract)
-    from zuds_tpu_torch.parallel import (PipelineConfig,
-                                         SubtractDetectPipeline)
+                                    measure, resample, subtract)
+    from zuds_tpu_torch.parallel import SubtractDetectPipeline
 
     dev = torch.device('cuda')
     name = card()
@@ -292,7 +403,7 @@ def main():
           f'{time.perf_counter() - t0:.1f} s', flush=True)
 
     # ---- the slice: the port's main path, counted -------------------------
-    cfg = PipelineConfig(**FLAGSHIP)
+    cfg = night.FLAGSHIP
     H, W = cfg.height, cfg.width
     B = 2
     args, planted = inputs.plant_sources(
@@ -303,8 +414,11 @@ def main():
     out, launches, first_s = run_counted(pipe, targs, wrappers)
     print(f'slice (deblend=True): first run {first_s * 1e3:.1f} ms for {B} '
           f'frames; kernel launches {launches}', flush=True)
+    # the slice takes its stamps as inputs: H7 runs in the host feed (the
+    # night below), every other kernel here
     for k, n in launches.items():
-        check(n > 0, f'kernel {k} was not launched by the main path')
+        check(n > 0 or k == 'stamp_candidates',
+              f'kernel {k} was not launched by the main path')
 
     submask = out['submask']
     unmasked = submask == 0
@@ -332,12 +446,12 @@ def main():
               f'{int(load["deblend_overflow"])}', flush=True)
 
     # ---- the slice with deblend=False, counted, one batch -----------------
-    pipe0 = SubtractDetectPipeline(PipelineConfig(**FLAGSHIP, deblend=False))
+    pipe0 = SubtractDetectPipeline(dataclasses.replace(cfg, deblend=False))
     out0, launches0, secs0 = run_counted(pipe0, targs, wrappers)
     print(f'slice (deblend=False): first run {secs0 * 1e3:.1f} ms for {B} '
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
-        check(n > 0 or k == 'deblend_labels',
+        check(n > 0 or k in ('deblend_labels', 'stamp_candidates'),
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
@@ -358,6 +472,30 @@ def main():
               f'batches of {B} timed in turns with the other mode, range '
               f'{min(ms):.1f}-{max(ms):.1f}) on {name}', flush=True)
 
+    # the slice with its five whole-frame medians per frame in H8 against
+    # the plain medians (~50 small launches each), in turns
+    from zuds_tpu_torch.parallel import pipeline as pipeline_mod
+    med_ms = {'H8': [], 'plain': []}
+    for _ in range(4):
+        for mode in ('H8', 'plain'):
+            pipeline_mod.frame_median = (background.frame_median
+                                         if mode == 'H8' else
+                                         background.frame_median_plain)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe(*targs)
+            torch.cuda.synchronize()
+            med_ms[mode].append((time.perf_counter() - t0) * 1e3 / B)
+    pipeline_mod.frame_median = background.frame_median
+    for mode, ms in med_ms.items():
+        print(f'slice (deblend=True, frame medians {mode}): '
+              f'{statistics.median(ms):.1f} ms/frame (median of {len(ms)} '
+              f'batches of {B} in turns, range {min(ms):.1f}-{max(ms):.1f}) '
+              f'on {name}', flush=True)
+
+    # ---- the night: FITS pairs -> catalogs through run_night, counted ----
+    night_launches, night_s, night_stats = night_phase(wrappers, name)
+
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     for mode in (False, True, 'watershed'):
         small_card_vs_cpu(mode, dev)
@@ -365,18 +503,21 @@ def main():
     # ---- each kernel against its plain version, at the main path's shapes -
     records = []
 
-    def record(kname, err, ms, plain_ms, bnd, library_ms=None):
+    def record(kname, err, ms, plain_ms, bnd, library_ms=None, runs=None):
+        # launches: the slice's run, or the night's for the kernels only
+        # the host feed launches
         route, source, replaces = SOURCES[kname]
+        n = (runs or launches)[kname]
         records.append({'name': kname, 'route': route, 'source': source,
-                        'replaces': replaces, 'launches': launches[kname],
+                        'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
                         'bound_ms': bnd[0], 'bound_by': bnd[1],
                         'library_ms': library_ms})
         lib = 'none' if library_ms is None else f'{library_ms:.3f} ms'
         print(f'{kname}: max abs err {err:.3g}, kernel {ms:.3f} ms, plain '
               f'{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
-              f'library {lib}; {launches[kname]} launches on the main path '
-              f'({B} frames) on {name}', flush=True)
+              f'library {lib}; {n} launches on the main path '
+              f'({NIGHT_PAIRS if runs else B} frames) on {name}', flush=True)
 
     # H1: smooth sub-pixel displacement (|du|, |dv| <= 2), random 18-bit mask
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -568,6 +709,75 @@ def main():
     record('compact', 0.0, ms, plain, bnd, lib_ms)
 
     crop_card_vs_cpu(field, dev)
+
+    # H8 on the frame-wide medians of the main path: the stamp selector's
+    # whole frame (and its |x - med|), the pipeline's ::4 views with masks
+    frame = targs[0][0]
+    med = background.frame_median(frame)
+    for tag, args_ in (('frame', (frame,)), ('|frame - med|',
+                                            (frame, None, med)),
+                       ('::4 view, mask', (out['rms'][0][::4, ::4],
+                                           valid[::4, ::4])),
+                       ('frame, mask with holes', (frame, valid)),
+                       ('frame, all masked',
+                        (frame, torch.zeros_like(valid)))):
+        k_ = launch.frame_median(*args_)
+        p_ = background.frame_median_plain(*args_)
+        check(torch.equal(k_.isnan(), p_.isnan())
+              and torch.equal(torch.nan_to_num(k_), torch.nan_to_num(p_)),
+              f'frame_median differs from its plain version on {tag}')
+    print('frame_median: bit-equal to its plain version on the frame, '
+          '|frame - med|, a ::4 view with its mask, a mask with holes and '
+          'an all-masked frame', flush=True)
+    n = H * W
+    ms = cuda_ms(lambda: launch.frame_median(frame))
+    plain = cuda_ms(lambda: background.frame_median_plain(frame), 1, 3)
+    view_ms = cuda_ms(lambda: launch.frame_median(out['rms'][0][::4, ::4],
+                                                  valid[::4, ::4]))
+    scale_ms = cuda_ms(lambda: torch.median(frame))
+    # reads the frame once (4 B/px); 13 passes of a compare and an add
+    bnd = bound(4 * n, 26 * n)
+    print(f'frame_median: frame {ms:.4f} ms (bound {bnd[0]:.4f} ms, share '
+          f'{bnd[0] / ms:.1%}), ::4 view with mask {view_ms:.4f} ms, plain '
+          f'{plain:.3f} ms, torch.median (exact, for scale) {scale_ms:.3f} '
+          f'ms; {night_launches["frame_median"] / NIGHT_PAIRS:.1f} launches '
+          f'per night frame', flush=True)
+    record('frame_median', 0.0, ms, plain, bnd, runs=night_launches)
+
+    # H7 on the same frame with its H8 medians
+    sigma = 1.4826 * background.frame_median(frame, center=med)
+    kf, kc = launch.stamp_candidates(frame, med, sigma, 6e4, cfg.stamp // 2
+                                     + 1)
+    pf, pc = measure.stamp_candidates_plain(frame, med, sigma, 6e4,
+                                            cfg.stamp // 2 + 1)
+    check(torch.equal(kf, pf) and torch.equal(kc, pc),
+          'stamp_candidates differs from its plain version')
+    print(f'stamp_candidates: bit-equal to its plain version at {H}x{W} '
+          f'({int(kc.sum())} candidates)', flush=True)
+    margin = cfg.stamp // 2 + 1
+    ms = cuda_ms(lambda: launch.stamp_candidates(frame, med, sigma, 6e4,
+                                                 margin))
+    plain = cuda_ms(lambda: measure.stamp_candidates_plain(
+        frame, med, sigma, 6e4, margin), 1, 3)
+    scale_ms = cuda_ms(lambda: torch.nn.functional.max_pool2d(
+        pf[None, None], 9, 1, 4))
+    # reads img (4 B/px), writes filt and cand (5 B/px); ~40 operations
+    bnd = bound(9 * n, 40 * n)
+    print(f'stamp_candidates: {ms:.4f} ms (bound {bnd[0]:.4f} ms, share '
+          f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, max_pool2d 9x9 (for '
+          f'scale) {scale_ms:.3f} ms; '
+          f'{night_launches["stamp_candidates"] / NIGHT_PAIRS:.1f} launches '
+          f'per night frame', flush=True)
+    record('stamp_candidates', 0.0, ms, plain, bnd, runs=night_launches)
+
+    # the stamp selection of one flagship frame on the card and the CPU
+    sel = [measure.select_stamps_device(f, smax=cfg.smax, nreg=cfg.nreg,
+                                        sat_level=6e4, margin=margin)
+           for f in (frame, frame.cpu())]
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(*sel)),
+          'stamp selection differs between the card and the CPU')
+    print(f'select_stamps_device: card and CPU equal on a flagship frame '
+          f'({int(sel[1][2].sum())} valid stamps)', flush=True)
 
     print(json.dumps({'kernels': records}))
     print(f'card: {name}')

@@ -7,6 +7,8 @@ setup(
     packages=find_packages(exclude=['tests', 'tests.*']),
     package_data={
         'zuds_tpu': ['config/*.yaml', 'alert_schemas/**/*.avsc'],
+        # the port builds its CUDA kernels from these at first use
+        'zuds_tpu_torch': ['kernels/*.cu', 'kernels/*.cuh'],
     },
     python_requires='>=3.10',
     install_requires=[

@@ -367,22 +367,43 @@ def test_constants_equal_the_reference():
 
 def test_port_runs_from_a_copy_alone(tmp_path):
     """A copy of zuds_tpu_torch/ with nothing of the repo beside it, JAX
-    blocked: it imports, detects with the exact tree and runs the slice."""
+    and yaml blocked: every module imports, it detects with the exact tree,
+    runs the slice, and writes, reads and maps a FITS pair."""
     shutil.copytree(ROOT / 'zuds_tpu_torch', tmp_path / 'zuds_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
+    modules = sorted(
+        '.'.join(p.relative_to(ROOT).with_suffix('').parts)
+        for p in (ROOT / 'zuds_tpu_torch').rglob('*.py')
+        if p.name != '__init__.py' and p.name != '__main__.py')
+    assert {'zuds_tpu_torch.night', 'zuds_tpu_torch.catalog',
+            'zuds_tpu_torch.fits.io', 'zuds_tpu_torch.wcs.tpv'} <= set(modules)
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['yaml'] = None\n"
+        "import numpy as np\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
         "from zuds_tpu_torch import inputs\n"
+        "from zuds_tpu_torch.fits import HDU, Header, write_fits\n"
+        "from zuds_tpu_torch.night import _read_image\n"
         "from zuds_tpu_torch.parallel import PipelineConfig, "
         "SubtractDetectPipeline\n"
+        "from zuds_tpu_torch.wcs import TPVWCS, pixel_mapping\n"
         "cfg = PipelineConfig(height=128, width=128, ksize=9, stamp=25, "
         "smax=16, order=1, nreg=1, max_det=32, box=64)\n"
         "out = SubtractDetectPipeline(cfg)(*inputs.to_torch("
         "inputs.synth_inputs(1, 128, 128, cfg), 'cpu'))\n"
         "assert out['diff'].shape == (1, 128, 128)\n"
+        "w = TPVWCS.simple((150.0, 35.0), (64.0, 64.0), 1e-4)\n"
+        "h = w.to_header(Header())\n"
+        "write_fits('f.fits', [HDU(h, np.ones((8, 8), np.uint16))])\n"
+        "hdu = _read_image('f.fits')\n"
+        "assert hdu.data.dtype == np.uint16 and hdu.data.sum() == 64\n"
+        "g = pixel_mapping(TPVWCS.from_header(hdu.header), w, (64, 64))\n"
+        "assert abs(float(g.u[0, 0])) < 1e-3\n"
         "assert not [m for m in sys.modules if m.startswith('zuds_tpu.')"
         " or m == 'zuds_tpu']\n"
         "print('ok', int(out['det_n'][0]))\n")
@@ -395,11 +416,16 @@ def test_port_runs_from_a_copy_alone(tmp_path):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """H5 and H6 launch or raise: a CPU tensor is refused, never run
-    through the plain version (the dispatchers pick by device)."""
+    """H5-H8 launch or raise: a CPU tensor is refused, never run through
+    the plain version (the dispatchers pick by device)."""
     from zuds_tpu_torch.kernels import launch
     e = torch.zeros(16, dtype=torch.int32)
+    img, s = torch.zeros((16, 16)), torch.zeros(())
     with pytest.raises(ValueError, match='CUDA'):
         launch.deblend_labels(e, e, e, 8, 31, 6)
     with pytest.raises(ValueError, match='CUDA'):
         launch.compact(torch.zeros(16, dtype=torch.bool), 4, 0)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.stamp_candidates(img, s, s, 1.0, 2)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.frame_median(img)

@@ -1,6 +1,6 @@
-"""The port's hand kernels (H1-H6) against their plain PyTorch versions,
+"""The port's hand kernels (H1-H8) against their plain PyTorch versions,
 on a CUDA card, at small and ragged shapes (partial tiles, partial cells),
-and H5/H6 at the flagship's capacities.
+H5/H6 at the flagship's capacities, and H8 up to a flagship frame.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -10,7 +10,8 @@ no JAX, and tests/conftest.py imports it, so run them there with
 Tolerances: warp pixels rtol 3e-5, atol 5e-3 counts, mask and coverage
 bit-equal; background cells rtol 1e-4 and counts equal; model convolution
 rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
-deblend level labels and compaction bit-equal.
+deblend level labels and compaction bit-equal; stamp candidates (filt and
+cand) and the frame median bit-equal.
 """
 import numpy as np
 import pytest
@@ -212,3 +213,125 @@ def test_h5_h6_refuse_wrong_dtypes(dev):
         launch.compact(torch.zeros(16, dtype=torch.uint8, device=dev), 4, 0)
     with pytest.raises(ValueError):
         launch.deblend_labels(*(e.to(torch.int32),) * 3, 1 << 20, 31, 6)
+
+
+def _stamp_field(H, W, dev, seed):
+    """Stars on noise with the cases H7 must get right: a flat plateau
+    (tied maxima), a saturated star, stars on the frame edge and inside the
+    margin."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = 150.0 + 5.0 * torch.randn((H, W), generator=g, device=dev)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    pos = torch.rand((60, 2), generator=g, device=dev) * torch.tensor(
+        [W - 1.0, H - 1.0], device=dev)
+    pos[:4] = torch.tensor([[0.0, 5.0], [W - 1.0, H / 2], [3.0, H - 2.0],
+                            [W / 2, 1.0]], device=dev)
+    for (x, y) in pos.tolist():
+        img += 4000.0 * torch.exp(-((xx - x) ** 2 + (yy - y) ** 2) / 4.0)
+    img[H // 3:H // 3 + 3, W // 3:W // 3 + 3] = 2000.0       # plateau
+    img[2 * H // 3, 2 * W // 3] = 7e4                         # saturated
+    return img.contiguous()
+
+
+@pytest.mark.parametrize('H,W,margin', [(200, 136, 21), (97, 131, 5),
+                                        (3080, 3072, 21)])
+def test_stamp_candidates_kernel(dev, H, W, margin):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background, measure
+    img = _stamp_field(H, W, dev, 11)
+    med = background.frame_median_plain(img)
+    sigma = 1.4826 * background.frame_median_plain(img, center=med)
+    img[H // 2, 10] = float('nan')      # after the medians, which it poisons
+    n0 = launch.stamp_candidates.launches
+    kf, kc = launch.stamp_candidates(img, med, sigma, 6e4, margin)
+    assert launch.stamp_candidates.launches == n0 + 1
+    pf, pc = measure.stamp_candidates_plain(img, med, sigma, 6e4, margin)
+    assert torch.equal(kf.isnan(), pf.isnan())
+    assert torch.equal(torch.nan_to_num(kf), torch.nan_to_num(pf))
+    assert torch.equal(kc, pc) and int(pc.sum()) > 10
+
+
+@pytest.mark.parametrize('n', [1, 2, 7, 1023, 1025, 70001, 9461760])
+def test_frame_median_kernel_sizes(dev, n):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background
+    x = _rand((1, n), dev, n % 97, 5.0, 150.0)
+    g = torch.Generator(device=dev).manual_seed(n)
+    ok = torch.rand((1, n), generator=g, device=dev) > 0.2
+    n0 = launch.frame_median.launches
+    for o in (None, ok):
+        k = launch.frame_median(x, o)
+        p = background.frame_median_plain(x, o)
+        assert torch.equal(k.isnan(), p.isnan()), (n, o is None)
+        assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(p))
+    assert launch.frame_median.launches == n0 + 2
+
+
+def test_frame_median_kernel_views_and_edges(dev):
+    """::4 views read in place, the center option, a mask with holes, all
+    masked (NaN), one valid element, ties at mid and NaN values."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background
+    H, W = 3080, 3072
+    frame = _rand((H, W), dev, 5, 5.0, 150.0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    holes = torch.rand((H, W), generator=g, device=dev) > 0.3
+    holes[1000:1400, :] = False
+    sub, okv = frame[::4, ::4], holes[::4, ::4]
+    assert not sub.is_contiguous()
+    med = launch.frame_median(sub, okv)
+    cases = [(sub, okv, None), (sub, None, med), (frame, holes, None),
+             (frame, torch.zeros_like(holes), None)]
+    one = torch.zeros_like(holes)
+    one[7, 9] = True
+    cases.append((frame, one, None))
+    ties = torch.round(frame / 4.0) * 4.0       # many equal values
+    cases += [(ties, None, None), (ties[::4, ::4], okv, None)]
+    nanf = frame.clone()
+    nanf[5, 5] = float('nan')
+    cases += [(nanf, None, None), (nanf, holes, None)]
+    for i, (x, o, c) in enumerate(cases):
+        k = launch.frame_median(x, o, c)
+        p = background.frame_median_plain(x, o, c)
+        assert torch.equal(k.isnan(), p.isnan()), i
+        assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(p)), i
+    assert bool(launch.frame_median(frame, torch.zeros_like(holes)).isnan())
+
+
+def test_compact_kernel_stamp_capacity(dev):
+    """H6 at the stamp selector's capacity (4096, fill 0) with more
+    candidates than slots."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import compact
+    g = torch.Generator(device=dev).manual_seed(9)
+    m = torch.rand(3080 * 3072, generator=g, device=dev) < 0.001
+    assert int(m.sum()) > 4096
+    k = launch.compact(m, 4096, 0)
+    p = compact.compact_indices_plain(m, 4096, 0)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+
+
+def test_select_stamps_card_equals_cpu(dev):
+    from zuds_tpu_torch.ops import measure
+    img = _stamp_field(600, 520, dev, 13)
+    k = measure.select_stamps_device(img, smax=64, nreg=3, sat_level=6e4,
+                                     margin=21)
+    p = measure.select_stamps_device(img.cpu(), smax=64, nreg=3,
+                                     sat_level=6e4, margin=21)
+    for a, b in zip(k, p):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_h7_h8_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    img = torch.zeros((16, 16), device=dev)
+    s = torch.zeros((), device=dev)
+    with pytest.raises(TypeError):
+        launch.stamp_candidates(img.double(), s, s, 1.0, 2)
+    with pytest.raises(ValueError):
+        launch.stamp_candidates(img, s[None], s, 1.0, 2)
+    with pytest.raises(ValueError):
+        launch.frame_median(img.reshape(-1), None)
+    with pytest.raises(ValueError):
+        launch.frame_median(img, None, iters=0)

@@ -2,18 +2,23 @@
 
 The subtract/detect path has no learned weights. What it carries is the
 14-array input tuple of ``zuds_tpu/parallel/pipeline.py:133-140`` and the
-A&L kernel-basis tables. Both are built here in host numpy, byte-for-byte
-as the JAX package builds them, and moved onto a device by
-:func:`to_torch`.
+A&L kernel-basis tables (``ops.subtract.KernelBasis``, re-exported here).
+Both are built in host numpy, byte-for-byte as the JAX package builds
+them, and moved onto a device by :func:`to_torch`.
 """
 from __future__ import annotations
+
+import json
+import os
+import time
 
 import numpy as np
 import torch
 
-from .constants import KERNEL_GAUSS_DEGREES, KERNEL_GAUSS_SIGMAS
+from .ops.subtract import KernelBasis
 
-__all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES']
+__all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
+           'resolve_device', 'upload', 'upload_mask', 'write_night_pairs']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -24,40 +29,6 @@ _BOOL_SLOTS = (8,)
 
 # Lanczos-3 support (zuds_tpu/ops/resample.py:29)
 SUPPORT = 3
-
-
-class KernelBasis:
-    """Separable Gaussian x polynomial kernel basis (twin of
-    ``zuds_tpu/ops/subtract.py:58-100``): float64 construction, float32
-    tables ``gx``/``gy`` (Nb, K), ``sums`` (Nb,) and ``b0_2d`` (K, K).
-    """
-
-    def __init__(self, ksize, seeing_sigma=2.0,
-                 sigmas=KERNEL_GAUSS_SIGMAS, degrees=KERNEL_GAUSS_DEGREES):
-        if ksize % 2 != 1:
-            raise ValueError(f'ksize must be odd, got {ksize}')
-        self.ksize = ksize
-        r = ksize // 2
-        u = np.arange(-r, r + 1, dtype=np.float64)
-        gx_list, gy_list, meta = [], [], []
-        for sig_f, deg in zip(sigmas, degrees):
-            sig = max(sig_f * seeing_sigma, 0.5)
-            g = np.exp(-u * u / (2 * sig * sig))
-            for p in range(deg + 1):
-                for q in range(deg + 1 - p):
-                    gx_list.append(g * (u / sig) ** p)
-                    gy_list.append(g * (u / sig) ** q)
-                    meta.append((sig, p, q))
-        gx = np.stack(gx_list)
-        gy = np.stack(gy_list)
-        b0 = np.outer(gy[0], gx[0])
-        self.b0_2d = (b0 / b0.sum()).astype(np.float32)
-        sums = np.einsum('nk,nl->n', gy, gx)
-        self.gx = gx.astype(np.float32)
-        self.gy = gy.astype(np.float32)
-        self.sums = sums.astype(np.float32)
-        self.nbasis = gx.shape[0]
-        self.meta = meta
 
 
 def synth_inputs(B, H, W, cfg, seed=0):
@@ -128,6 +99,50 @@ def _tensor(a, dtype, device):
     return torch.tensor(np.asarray(a, dtype=dtype), device=device)
 
 
+def resolve_device(device):
+    """``device``, or the CUDA card for None (raising where there is
+    none): the port runs on the card unless the caller asks for the
+    CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError('no CUDA card; pass device="cpu" to run on '
+                               'the CPU')
+        return torch.device('cuda')
+    return torch.device(device)
+
+
+def upload(a, device, stats=None):
+    """numpy ``a`` as a tensor on ``device``. To a card it goes through
+    pinned memory (PyTorch's caching host allocator, which reuses a block
+    once the copy recorded on it has passed) with a ``non_blocking`` copy,
+    so the host does not wait for the link; on the CPU it is a copy.
+    ``stats`` (dict, optional) gains the host seconds (``upload_s``) and
+    bytes (``upload_bytes``) sent."""
+    t0 = time.perf_counter()
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    out = (t.pin_memory().to(device, non_blocking=True)
+           if device.type == 'cuda' else t.clone())
+    if stats is not None:
+        stats['upload_s'] = stats.get('upload_s', 0.0) \
+            + time.perf_counter() - t0
+        stats['upload_bytes'] = stats.get('upload_bytes', 0) + t.nbytes
+    return out
+
+
+def upload_mask(m, shape, device, stats=None):
+    """A bitmask as int32 on ``device``: zeros for None; a raw 16-bit IPAC
+    mask (uint16) is sent as its int16 bits, half the bytes, and widened
+    on the device with ``& 0xFFFF``."""
+    if m is None:
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+    m = np.asarray(m)
+    if m.dtype == np.uint16:
+        return upload(m.view(np.int16), device, stats).to(torch.int32) \
+            & 0xFFFF
+    return upload(m.astype(np.int32), device, stats)
+
+
 def to_torch(args, device=None):
     """Move pipeline state onto ``device`` as the port's tensors.
 
@@ -139,11 +154,7 @@ def to_torch(args, device=None):
     ``device=None`` means the CUDA card and raises where there is none; a
     caller that wants the CPU says ``'cpu'``.
     """
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError('to_torch: no CUDA card; pass device="cpu" '
-                               'to run on the CPU')
-        device = 'cuda'
+    device = resolve_device(device)
     if isinstance(args, (tuple, list)):
         if len(args) != len(INPUT_NAMES):
             raise ValueError(f'expected {len(INPUT_NAMES)} inputs '
@@ -186,3 +197,90 @@ def plant_sources(args, n=3, flux=2e4, sigma=2.0, margin=40, seed=0):
             pos[b, placed] = x, y
             placed += 1
     return (sci,) + tuple(args[1:]), pos
+
+
+# write_night_pairs' scene (bench.py:_write_bench_frames): ZTF sampling,
+# reference and science seeing in px
+NIGHT_STARS = 700
+NIGHT_SEEING = (2.0, 2.8)
+NIGHT_TRANSIENT_FLUX = 3e4
+
+
+def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7):
+    """FITS pairs of a synthetic night in directory ``d``, the recipe of
+    ``bench.py:_write_bench_frames`` (700 stars of flux 5e3-5e4, seeing
+    2.0 px on the reference and 2.8 px on the science frames, noise 5,
+    uint16 ``mskimg`` siblings, one transient of flux 3e4 per science
+    frame), written with the port's FITS writer. The science frames carry
+    the real ZTF TPV distortion of ``header_json`` (a JSON of ``wcs`` and
+    ``meta`` cards, as ``tests/data/ztf_real_header.json``) with CRPIX
+    (W/2 + 0.5, H/2 + 0.5); the reference a linear WCS with CRPIX
+    (W/2 + 2.1, H/2 - 1.7), a dither of (+1.6, -2.2) px that the
+    pipeline's pre-roll takes out. The frames whose index is in
+    ``no_seeing`` have no SEEING card. Returns (work lines "sci ref",
+    transient (x, y) per pair)."""
+    from .fits import HDU, Header, write_fits
+    from .wcs import TPVWCS
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(40, W - 40, NIGHT_STARS)
+    ys = rng.uniform(40, H - 40, NIGHT_STARS)
+    fluxes = rng.uniform(5000, 50000, NIGHT_STARS)
+    k = 12
+    yy, xx = np.mgrid[-k:k + 1, -k:k + 1]
+
+    def render(px, py, seeing, extra=None):
+        img = np.full((H, W), 150.0, dtype='f4')
+        sig = seeing / 2.355
+        for x, y, f in list(zip(px, py, fluxes)) + ([extra] if extra
+                                                   else []):
+            xi, yi = int(round(x)), int(round(y))
+            if not (k < xi < W - k - 1 and k < yi < H - k - 1):
+                continue
+            psf = np.exp(-((xx + xi - x) ** 2 + (yy + yi - y) ** 2)
+                         / (2 * sig * sig)) / (2 * np.pi * sig * sig)
+            img[yi - k:yi + k + 1, xi - k:xi + k + 1] += (f * psf
+                                                          ).astype('f4')
+        img += rng.normal(0, 5.0, (H, W)).astype('f4')
+        return img
+
+    def write(path, data, wcs, mjd, seeing):
+        h = Header()
+        wcs.to_header(h)
+        for key, v in (('MAGZP', 26.3), ('OBSMJD', mjd), ('FIELDID', 679),
+                       ('CCDID', 1), ('QID', 2), ('FILTERID', 2),
+                       ('SATURATE', 60000.0)):
+            h.set(key, v)
+        if seeing is not None:
+            h.set('SEEING', seeing)
+        h.set('FILENAME', os.path.basename(path))
+        write_fits(path, [HDU(h, data)])
+        write_fits(path.replace('sciimg', 'mskimg'),
+                   [HDU(h.copy(), np.zeros(data.shape, np.uint16))])
+
+    with open(header_json) as f:
+        real = json.load(f)
+    hh = Header()
+    for key, v in {**real['wcs'], **real['meta']}.items():
+        hh.set(key, v)
+    wcs_sci = TPVWCS.from_header(hh)
+    wcs_sci.crval[:] = (150.1, 35.2)
+    wcs_sci.crpix[:] = (W / 2 + 0.5, H / 2 + 0.5)
+    lin = np.zeros_like(wcs_sci.pv1)
+    lin[1] = 1.0
+    wcs_ref = TPVWCS(np.asarray([W / 2 + 2.1, H / 2 - 1.7]),
+                     wcs_sci.crval.copy(), wcs_sci.cd.copy(), lin,
+                     lin.copy())
+    see_ref, see_sci = NIGHT_SEEING
+    ra, dec = wcs_sci.pix2sky_0(xs, ys)
+    rx, ry = wcs_ref.sky2pix_0(ra, dec)
+    ref_path = os.path.join(d, 'night_ref_sciimg.fits')
+    write(ref_path, render(rx, ry, see_ref), wcs_ref, 58300.0, see_ref)
+    work, truths = [], []
+    for i in range(npairs):
+        t = (500.0 + 257 * i, 600.0 + 193 * i, NIGHT_TRANSIENT_FLUX)
+        p = os.path.join(d, f'night_n{i}_sciimg.fits')
+        write(p, render(xs, ys, see_sci, extra=t), wcs_sci,
+              58345.0 + 0.01 * i, None if i in no_seeing else see_sci)
+        work.append(f'{p} {ref_path}')
+        truths.append(t[:2])
+    return work, truths

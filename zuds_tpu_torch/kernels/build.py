@@ -22,7 +22,7 @@ __all__ = ['library', 'check', 'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
-           'compact.cu')
+           'compact.cu', 'stamps.cu', 'median.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -57,6 +57,12 @@ SIGNATURES = {
     'zuds_deblend_labels': (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     # mask(u8), n, size, fill, seg_scratch, out(i64), total(i64), stream
     'zuds_compact': (_P, _I, _I, _L, _P, _P, _P, _P),
+    # img, H, W, med, sigma, sat, margin, filt, cand(u8), stream
+    'zuds_stamp_candidates': (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P),
+    # x, ok(u8 or null), center(or null), rows, cols, x row/col strides,
+    # ok row/col strides, blocks, iters, scratch, out, stream
+    'zuds_frame_median': (_P, _P, _P, _I, _I, _L, _L, _L, _L, _I, _I, _P,
+                          _P, _P),
 }
 
 

@@ -1,5 +1,6 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
-H3 model convolution, H5 deblend level labels, H6 compaction).
+H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
+candidates, H8 frame median).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -15,7 +16,7 @@ import torch
 from . import build
 
 __all__ = ['warp', 'background_cells', 'apply_model', 'deblend_labels',
-           'compact', 'WRAPPERS']
+           'compact', 'stamp_candidates', 'frame_median', 'WRAPPERS']
 
 
 def _ptr(t):
@@ -162,6 +163,74 @@ def compact(mask, size, fill_value):
     return out, total
 
 
+def stamp_candidates(img, med, sigma, sat, margin):
+    """H7 (kernels/stamps.cu): (filt f32, cand bool), each (H, W): the 3x3
+    pyramid filter of ``img`` and the stamp-candidate test against the
+    device scalars ``med`` and ``sigma`` (f32, 0-d)."""
+    H, W = img.shape
+    _require('img', img, torch.float32)
+    _require('med', med, torch.float32, ())
+    _require('sigma', sigma, torch.float32, ())
+    if H * W >= 2 ** 31:
+        raise ValueError('stamp_candidates: frame too large for int32 '
+                         'offsets')
+    filt = torch.empty_like(img)
+    cand = torch.empty((H, W), dtype=torch.uint8, device=img.device)
+    err = build.library().zuds_stamp_candidates(
+        _ptr(img), H, W, _ptr(med), _ptr(sigma), float(sat), int(margin),
+        _ptr(filt), _ptr(cand), _stream())
+    build.check(err, 'zuds_stamp_candidates')
+    stamp_candidates.launches += 1
+    return filt, cand.view(torch.bool)
+
+
+# blocks of H8 (median.cu): four per SM of the H100; every block re-reads
+# the partials of all blocks once per round
+MEDIAN_BLOCKS = 4 * 132
+MEDIAN_CHUNK = 1024
+
+
+def frame_median(x, ok=None, center=None, iters=12):
+    """H8 (kernels/median.cu): f32 0-d bisection median of the 2-D view
+    ``x`` (any strides: a ``::4`` subsample is read in place) over the
+    ``ok`` entries (bool, same shape, any strides; None: all), of
+    ``|x - center|`` when the 0-d f32 ``center`` is given."""
+    _require_view('x', x, torch.float32)
+    rows, cols = x.shape
+    if ok is not None:
+        _require_view('ok', ok, torch.bool, x.shape)
+    if center is not None:
+        _require('center', center, torch.float32, ())
+    if iters < 1 or rows * cols >= 2 ** 31:
+        raise ValueError(f'frame_median: iters={iters}, {rows}x{cols} '
+                         'unsupported (iters >= 1, under 2^31 entries)')
+    nchunks = rows * -(-cols // MEDIAN_CHUNK)
+    nb = max(1, min(MEDIAN_BLOCKS, nchunks))
+    scratch = torch.empty(24 * nb + 24, dtype=torch.uint8, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    null = ctypes.c_void_p(None)
+    err = build.library().zuds_frame_median(
+        _ptr(x), null if ok is None else _ptr(ok),
+        null if center is None else _ptr(center), rows, cols, *x.stride(),
+        *(ok.stride() if ok is not None else (0, 0)), nb, int(iters),
+        _ptr(scratch), _ptr(out), _stream())
+    build.check(err, 'zuds_frame_median')
+    frame_median.launches += 1
+    return out
+
+
+def _require_view(name, t, dtype, shape=None):
+    """Like _require for a 2-D view that need not be contiguous."""
+    if not t.is_cuda:
+        raise ValueError(f'{name}: expected a CUDA tensor, got {t.device}')
+    if t.dtype != dtype:
+        raise TypeError(f'{name}: expected {dtype}, got {t.dtype}')
+    if t.dim() != 2 or (shape is not None and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f'{name}: expected a 2-D view'
+                         + (f' of shape {tuple(shape)}' if shape else '')
+                         + f', got {tuple(t.shape)}')
+
+
 # two shared-memory buffers of ccap int32 per level (deblend.cu) within
 # the 227 KB a block may hold
 DEBLEND_MAX_CELLS = 227 * 1024 // 8
@@ -171,6 +240,9 @@ background_cells.launches = 0
 apply_model.launches = 0
 deblend_labels.launches = 0
 compact.launches = 0
+stamp_candidates.launches = 0
+frame_median.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model, 'deblend_labels': deblend_labels,
-            'compact': compact}
+            'compact': compact, 'stamp_candidates': stamp_candidates,
+            'frame_median': frame_median}

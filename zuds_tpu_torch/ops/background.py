@@ -3,7 +3,9 @@
 The per-cell statistics run in hand kernel H2 (``kernels/background.cu``)
 on a CUDA tensor and in :func:`background_cells_plain` on a CPU tensor;
 the small tail (empty-cell fill, 3x3 mesh median, bilinear upsample) is
-plain PyTorch on either device.
+plain PyTorch on either device. The whole-frame bisection median runs in
+hand kernel H8 (``kernels/median.cu``) on a CUDA tensor and in
+:func:`frame_median_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -12,8 +14,9 @@ import torch
 from ..kernels import launch
 from .ordered import fma, sum_last
 
-__all__ = ['masked_median', 'bisect_median', 'median_filter_mesh',
-           'interpolate_mesh', 'background_cells_plain', 'background_mesh']
+__all__ = ['masked_median', 'bisect_median', 'frame_median',
+           'frame_median_plain', 'median_filter_mesh', 'interpolate_mesh',
+           'background_cells_plain', 'background_mesh']
 
 
 def masked_median(x, valid, dim=-1):
@@ -43,6 +46,28 @@ def bisect_median(x, valid, iters=12):
         go_up = cnt.to(x.dtype) < half
         lo, hi = torch.where(go_up, mid, lo), torch.where(go_up, hi, mid)
     return 0.5 * (lo + hi)
+
+
+def frame_median_plain(x, ok=None, center=None, iters=12):
+    """Plain version of H8: ``bisect_median`` of the whole 2-D (sub)frame
+    ``x`` as one row, over the ``ok`` entries (None: all), of
+    ``|x - center|`` when the 0-d ``center`` is given."""
+    if center is not None:
+        x = (x - center).abs()
+    if ok is None:
+        ok = torch.ones_like(x, dtype=torch.bool)
+    return bisect_median(x.reshape(1, -1), ok.reshape(1, -1), iters)[0]
+
+
+def frame_median(x, ok=None, center=None, iters=12):
+    """0-d bisection median of one whole 2-D (sub)frame, as the reference
+    takes it with ``bisect_median(x.ravel()[None], ok.ravel()[None])[0]``
+    (measure.py:39-43, pipeline.py:198-209, :338-350): H8 on a CUDA tensor
+    (strided views read in place), :func:`frame_median_plain` on a CPU
+    tensor. The host does not wait for the card."""
+    if x.is_cuda:
+        return launch.frame_median(x, ok, center, iters)
+    return frame_median_plain(x, ok, center, iters)
 
 
 def median_filter_mesh(mesh, size=3):

@@ -1,14 +1,127 @@
-"""Windowed centroids and Kron photometry at detections (twin of
-``zuds_tpu/ops/measure.py:refine_detections``); plain PyTorch on either
-device, all detections of a frame at once."""
+"""Per-frame measurements (twin of ``zuds_tpu/ops/measure.py``): the
+kernel-fit stamp selector with its hand kernel H7 (``kernels/stamps.cu``),
+the stamp-moment seeing, and the windowed centroids and Kron photometry at
+detections (plain PyTorch on either device, all detections of a frame at
+once)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
-from .ordered import sum_last2
+from ..kernels import launch
+from .background import frame_median, masked_median
+from .compact import compact_indices
+from .convolve import DEFAULT_FILTER, conv2_same, dilate_max
+from .ordered import fma, sum_last, sum_last2
 from .photometry import cutouts
 
-__all__ = ['refine_detections']
+__all__ = ['stamp_candidates', 'stamp_candidates_plain',
+           'select_stamps_device', 'seeing_from_stamps', 'refine_detections']
+
+# candidate capacity of the stamp selector (measure.py:67)
+STAMP_CAP = 4096
+
+
+def stamp_candidates_plain(img, med, sigma, sat_level, margin):
+    """Plain version of H7: (filt, cand), each (H, W): the 3x3 pyramid
+    filter of ``img`` and its 9x9 local maxima above ``med + 10 sigma``
+    (one FMA, as XLA's CPU backend contracts it), below ``sat_level`` and
+    ``margin`` px inside the frame (measure.py:37-65)."""
+    H, W = img.shape
+    filt = conv2_same(img, DEFAULT_FILTER)
+    mx = dilate_max(filt, 4)
+    thr = fma(torch.tensor(10.0, device=img.device), sigma, med)
+    yy = torch.arange(H, device=img.device)[:, None]
+    xx = torch.arange(W, device=img.device)[None, :]
+    cand = ((filt >= mx) & (filt > thr) & (img < sat_level)
+            & (xx >= margin) & (xx < W - margin)
+            & (yy >= margin) & (yy < H - margin))
+    return filt, cand
+
+
+def stamp_candidates(img, med, sigma, sat_level, margin):
+    """(filt, cand) of :func:`stamp_candidates_plain`: H7 on a CUDA tensor
+    (``med`` and ``sigma`` stay on the card), the plain version on a CPU
+    tensor."""
+    if img.is_cuda:
+        return launch.stamp_candidates(img, med, sigma, sat_level, margin)
+    return stamp_candidates_plain(img, med, sigma, sat_level, margin)
+
+
+def select_stamps_device(img, smax=384, nreg=3, sat_level=5e3, margin=32):
+    """Kernel-fit star stamps with no catalog (measure.py:22-96): 9x9 local
+    maxima of the 3x3-filtered frame above med + 10 sigma (H8 medians),
+    below ``sat_level`` (H7), compacted in raster order into 4096 slots
+    (H6), and the brightest ``smax // nreg**2`` of each of the nreg x nreg
+    regions. Returns (xs, ys, valid) fixed-size (smax,) tensors on
+    ``img``'s device; the host does not wait for the card.
+
+    Ties keep ``jax.lax.top_k``'s order, lower index first (a stable sort),
+    so the invalid slots get the x, y of the same padding entries."""
+    H, W = img.shape
+    med = frame_median(img)
+    sigma = 1.4826 * frame_median(img, center=med)
+    filt, cand = stamp_candidates(img, med, sigma, sat_level, margin)
+    cidx, nc = compact_indices(cand.reshape(-1), STAMP_CAP, 0)
+    dev = img.device
+    cok = torch.arange(STAMP_CAP, device=dev) < torch.clamp(nc, max=STAMP_CAP)
+    cx = (cidx % W).to(torch.int32)
+    cy = (cidx // W).to(torch.int32)
+    cf = torch.where(cok, filt.reshape(-1)[cidx], -math.inf)
+    R2 = nreg * nreg
+    per = smax // R2
+    rid = (torch.clamp(cy * nreg // H, 0, nreg - 1) * nreg
+           + torch.clamp(cx * nreg // W, 0, nreg - 1))
+    fr = torch.where(rid[None, :] == torch.arange(R2, device=dev)[:, None],
+                     cf[None, :], -math.inf)
+    top, ti = torch.sort(fr, dim=1, descending=True, stable=True)
+    top, ti = top[:, :per], ti[:, :per]
+    xs = cx[ti].to(torch.float32).reshape(-1)
+    ys = cy[ti].to(torch.float32).reshape(-1)
+    valid = torch.isfinite(top).reshape(-1)
+    pad = smax - R2 * per
+    if pad:
+        xs = torch.cat([xs, torch.zeros(pad, device=dev)])
+        ys = torch.cat([ys, torch.zeros(pad, device=dev)])
+        valid = torch.cat([valid, torch.zeros(pad, dtype=torch.bool,
+                                              device=dev)])
+    return xs, ys, valid
+
+
+def _sum(x, dims):
+    """Sum over trailing ``dims`` (1 or 2): the reference's order on the
+    CPU (see :mod:`.ordered`), ``torch.sum`` on the card."""
+    if x.is_cuda:
+        return x.sum(tuple(range(-dims, 0)))
+    return sum_last(x) if dims == 1 else sum_last2(x)
+
+
+def seeing_from_stamps(img, xs, ys, valid, cut=25, nuse=64):
+    """Median stamp-moment FWHM over the first ``nuse`` stamps, 2.0 when
+    none is valid (measure.py:99-131). An even count averages the two
+    middle values, as ``jnp.nanmedian`` does (``torch.nanmedian`` takes the
+    lower one). Returns a 0-d f32 tensor on ``img``'s device."""
+    H, W = img.shape
+    half = cut // 2
+    xs, ys, valid = xs[:nuse], ys[:nuse], valid[:nuse]
+    xi = torch.clamp(torch.round(xs).to(torch.int64) - half, 0, W - cut)
+    yi = torch.clamp(torch.round(ys).to(torch.int64) - half, 0, H - cut)
+    sub = cutouts(img[None], xi, yi, cut)[0]
+    edge = (_sum(sub[:, 0], 1) + _sum(sub[:, -1], 1) + _sum(sub[:, :, 0], 1)
+            + _sum(sub[:, :, -1], 1)) / (4 * cut)
+    pos = torch.clamp(sub - edge[:, None, None], min=0.0)
+    ar = torch.arange(cut, dtype=torch.float32, device=img.device)
+    yy, xx = ar[:, None], ar[None, :]
+    tot = torch.clamp(_sum(pos, 2), min=1e-20)
+    cx = _sum(pos * xx, 2) / tot
+    cy = _sum(pos * yy, 2) / tot
+    x2 = _sum(pos * (xx - cx[:, None, None]) ** 2, 2) / tot
+    y2 = _sum(pos * (yy - cy[:, None, None]) ** 2, 2) / tot
+    fw = 2.0 * torch.sqrt(math.log(2.0) * (x2 + y2))
+    ok = valid & ~torch.isnan(fw)
+    med = masked_median(fw, ok, dim=0)
+    return torch.where(ok.any(), med, torch.tensor(2.0, device=img.device))
 
 KRON_FACT = 2.5          # PHOT_AUTOPARAMS[0]
 KRON_MIN_RADIUS = 3.5    # PHOT_AUTOPARAMS[1]

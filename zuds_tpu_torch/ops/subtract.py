@@ -15,17 +15,52 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import KERNEL_SPATIAL_ORDER, NREG_SIDE
+from ..constants import (KERNEL_GAUSS_DEGREES, KERNEL_GAUSS_SIGMAS,
+                         KERNEL_SPATIAL_ORDER, NREG_SIDE)
 from ..kernels import launch
 from .background import masked_median
 
-__all__ = ['spatial_terms', 'dense_basis', 'region_outer', 'fit_kernel',
+__all__ = ['KernelBasis', 'spatial_terms', 'dense_basis', 'region_outer', 'fit_kernel',
            'apply_kernel', 'apply_kernel_fast', 'model_kernels',
            'model_geometry', 'center_kernels', 'region_edges']
 
 # order-weighted Jacobi ridge of the fit (subtract.py:260-293 defaults)
 RIDGE_BASE = 1e-5
 RIDGE_GROWTH = 4.0
+
+
+class KernelBasis:
+    """Separable Gaussian x polynomial kernel basis (twin of
+    ``zuds_tpu/ops/subtract.py:58-100``): float64 construction, float32
+    tables ``gx``/``gy`` (Nb, K), ``sums`` (Nb,) and ``b0_2d`` (K, K).
+    """
+
+    def __init__(self, ksize, seeing_sigma=2.0,
+                 sigmas=KERNEL_GAUSS_SIGMAS, degrees=KERNEL_GAUSS_DEGREES):
+        if ksize % 2 != 1:
+            raise ValueError(f'ksize must be odd, got {ksize}')
+        self.ksize = ksize
+        r = ksize // 2
+        u = np.arange(-r, r + 1, dtype=np.float64)
+        gx_list, gy_list, meta = [], [], []
+        for sig_f, deg in zip(sigmas, degrees):
+            sig = max(sig_f * seeing_sigma, 0.5)
+            g = np.exp(-u * u / (2 * sig * sig))
+            for p in range(deg + 1):
+                for q in range(deg + 1 - p):
+                    gx_list.append(g * (u / sig) ** p)
+                    gy_list.append(g * (u / sig) ** q)
+                    meta.append((sig, p, q))
+        gx = np.stack(gx_list)
+        gy = np.stack(gy_list)
+        b0 = np.outer(gy[0], gx[0])
+        self.b0_2d = (b0 / b0.sum()).astype(np.float32)
+        sums = np.einsum('nk,nl->n', gy, gx)
+        self.gx = gx.astype(np.float32)
+        self.gy = gy.astype(np.float32)
+        self.sums = sums.astype(np.float32)
+        self.nbasis = gx.shape[0]
+        self.meta = meta
 
 
 def spatial_terms(order):

@@ -1,25 +1,27 @@
 """Batched subtract -> detect -> photometer pipeline (twin of
-``zuds_tpu/parallel/pipeline.py:make_subtract_detect_pipeline``).
+``zuds_tpu/parallel/pipeline.py:make_subtract_detect_pipeline``) and its
+host feed (``prepare_frame_inputs``, pipeline.py:581-764).
 
 :class:`SubtractDetectPipeline` runs ``one_frame`` of the reference
 (:153-398) frame by frame over the batch, as ``jax.lax.map`` does. On a
 CUDA device the warp (H1), the background cells (H2), the model
 convolution (H3), the matched filter (H4), the deblend tree's level labels
-(H5) and the compactions (H6) run as hand-written kernels; everything
-between them is plain PyTorch.
+(H5), the compactions (H6) and the whole-frame medians (H8) run as
+hand-written kernels; everything between them is plain PyTorch.
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..constants import (BAD_SUM, BIG_RMS, BKG_BOX_SIZE, BKG_VAL,
                          DETECT_NSIGMA, MASK_BIT_NODATA_ALIGN,
                          MASK_BIT_NODATA_SUB, SUB_NODATA_SENTINEL)
-from ..ops.background import background_mesh, bisect_median
+from ..ops.background import background_mesh, frame_median
+from ..ops.convolve import dilate_max
 from ..ops.detect import DETECTION_FIELDS, detect_sources
 from ..ops.measure import refine_detections
 from ..ops.photometry import (aperture_photometry_batched,
@@ -29,7 +31,8 @@ from ..ops.resample import upsample_mapping, warp_reference
 from ..ops.subtract import (apply_kernel_fast, center_kernels, fit_kernel,
                             region_edges)
 
-__all__ = ['PipelineConfig', 'SubtractDetectPipeline']
+__all__ = ['PipelineConfig', 'SubtractDetectPipeline', 'prepare_frame_inputs',
+           'REF_CACHE_SIZE']
 
 REFINE_KEYS = ('xwin', 'ywin', 'kron_radius', 'flux_auto', 'fluxerr_auto',
                'awin', 'bwin', 'thetawin', 'errawin', 'errbwin',
@@ -85,36 +88,9 @@ def _check_supported(cfg):
                 f'{what} is not ported yet (ROADMAP {item})')
 
 
-def _dilate_max(x, reach, fill=-math.inf):
-    """(2*reach+1)^2 sliding max by log-doubling shifted maxes, edges
-    padded with ``fill`` (pipeline.py:102)."""
-    def shift2(a, k, dim):
-        pad_shape = list(a.shape)
-        pad_shape[dim] = k
-        pad = torch.full(pad_shape, fill, dtype=a.dtype, device=a.device)
-        n = a.shape[dim]
-        lo = torch.cat([a.narrow(dim, k, n - k), pad], dim)
-        hi = torch.cat([pad, a.narrow(dim, 0, n - k)], dim)
-        return torch.maximum(a, torch.maximum(lo, hi))
-
-    covered, step = 0, 1
-    while covered < reach:
-        k = min(step, reach - covered)
-        for dim in (0, 1):
-            x = shift2(x, k, dim)
-        covered += k
-        step = covered + 1
-    return x
-
-
 # named ranges for torch.profiler (python -m zuds_tpu_torch.profile); they
 # record only while a profiler runs
 _stage = torch.profiler.record_function
-
-
-def _median_of(x, ok):
-    """bisect_median of a whole (sub)frame."""
-    return bisect_median(x.reshape(1, -1), ok.reshape(1, -1))[0]
 
 
 class SubtractDetectPipeline(nn.Module):
@@ -162,8 +138,8 @@ class SubtractDetectPipeline(nn.Module):
             # subsample (pipeline.py:198-209)
             sub = refw[::4, ::4]
             okf = cov[::4, ::4] > 0
-            med = _median_of(sub, okf)
-            ref_rms = 1.4826 * _median_of((sub - med).abs(), okf)
+            med = frame_median(sub, okf)
+            ref_rms = 1.4826 * frame_median(sub, okf, center=med)
             ivar = 1.0 / torch.clamp(rms ** 2 + ref_rms ** 2, min=1e-6)
             ivar = torch.where(bad, 0.0, ivar)
 
@@ -212,7 +188,7 @@ class SubtractDetectPipeline(nn.Module):
                                          det['fwhm'])
             rms_ap6, bpm_ap6 = self._aperture6(rms_out, bad, det['x'],
                                                det['y'])
-            rms_med = _median_of(rms_out[::4, ::4], ~bad[::4, ::4])
+            rms_med = frame_median(rms_out[::4, ::4], ~bad[::4, ::4])
             negpix = self._negpix(diff, det['x'], det['y'])
 
         out = {
@@ -258,15 +234,145 @@ class SubtractDetectPipeline(nn.Module):
         inside the 11x11 box around each candidate (pipeline.py:338-365)."""
         H, W = diff.shape
         dsub = diff[::4, ::4]
-        allok = torch.ones_like(dsub, dtype=torch.bool)
-        dmed = _median_of(dsub, allok)
-        dmad = _median_of((dsub - dmed).abs(), allok)
+        dmed = frame_median(dsub)
+        dmad = frame_median(dsub, center=dmed)
         dsig = torch.clamp(1.48 * dmad, min=1e-12)
         half = big // 2
         x0 = torch.clamp(torch.round(xs).to(torch.int64) - half, 0, W - big)
         y0 = torch.clamp(torch.round(ys).to(torch.int64) - half, 0, H - big)
         s_full = (diff - dmed) / dsig
-        m3 = _dilate_max(s_full, 1)
+        m3 = dilate_max(s_full, 1)
         badpx = ((s_full < -5.0) & (m3 > 5.0)).to(torch.float32)
-        or11 = _dilate_max(badpx, half - 1, fill=0.0)
+        or11 = dilate_max(badpx, half - 1, fill=0.0)
         return or11[y0 + half, x0 + half] > 0.0
+
+
+# references kept on the card by prepare_frame_inputs' ref_cache
+# (pipeline.py:692)
+REF_CACHE_SIZE = 4
+
+
+def _as_f4(a):
+    a = np.ascontiguousarray(a)
+    return a if a.dtype == np.float32 else a.astype('f4')
+
+
+def prepare_frame_inputs(sci, ref, cfg: PipelineConfig, smax=None,
+                         ref_cache=None, device=None, stats=None):
+    """The batched pipeline's inputs for one pair (pipeline.py:581-764):
+    the ref->sci mapping grid, star stamps and the seeing-scaled kernel
+    basis. Returns a dict of INPUT_NAMES -> tensors on ``device`` (the
+    card unless ``'cpu'``), so a batch is stacked on the device.
+
+    - The reference is moved into the ``max_shift`` warp bucket by the
+      integer pre-roll (median offset of the grid), and the grid and the
+      coverage bounds follow; a residual past the bucket raises
+      ``ValueError`` (the night driver's per-pair fallback). A reference
+      of another shape is embedded into the canvas, zero-filled.
+    - ``ref_cache`` (dict): the unrolled reference and its mask stay on
+      the device, keyed by ``local_path`` only (at most REF_CACHE_SIZE,
+      oldest evicted); each pair's roll runs there (``torch.roll``).
+    - Stamps come from the science catalog when it has one, else from
+      ``select_stamps_device`` on the uploaded frame (H8, H7, H6); SEEING
+      from the stamp moments when the header lacks it.
+    - A raw 16-bit mask is sent as is and widened on the device.
+
+    ``stats`` (dict, optional) gains the uploads' host seconds and bytes.
+    """
+    from ..inputs import KernelBasis, resolve_device, upload, upload_mask
+    from ..ops.measure import select_stamps_device, seeing_from_stamps
+    from ..ops.resample import SUPPORT
+    from ..subtraction import _select_stamps
+    from ..wcs import pixel_mapping
+
+    device = resolve_device(device)
+    smax = smax or cfg.smax
+    H, W = cfg.height, cfg.width
+    grid = pixel_mapping(ref.wcs, sci.wcs, (H, W), step=cfg.map_step)
+    Hs, Ws = ref.data.shape
+    grid_u, grid_v = np.asarray(grid.u, 'f4'), np.asarray(grid.v, 'f4')
+    cov_bounds = np.asarray([SUPPORT - 1, Ws - SUPPORT,
+                             SUPPORT - 1, Hs - SUPPORT], 'f4')
+    gx = np.arange(grid_u.shape[1], dtype='f4') * cfg.map_step
+    gy = np.arange(grid_v.shape[0], dtype='f4') * cfg.map_step
+    du = grid_u - gx[None, :]
+    dv = grid_v - gy[:, None]
+    resid = max(np.abs(du).max(), np.abs(dv).max())
+    du0 = dv0 = 0
+    need_embed = (Hs, Ws) != (H, W)
+    need_roll = resid > cfg.max_shift or need_embed
+    if need_roll:
+        du0 = int(round(float(np.median(du))))
+        dv0 = int(round(float(np.median(dv))))
+        resid2 = max(np.abs(du - du0).max(), np.abs(dv - dv0).max())
+        if resid2 > cfg.max_shift:
+            raise ValueError(
+                f'mapping residual {resid2:.2f} exceeds the '
+                f'max_shift={cfg.max_shift} bucket; per-pair fallback')
+        grid_u = grid_u - np.float32(du0)
+        grid_v = grid_v - np.float32(dv0)
+        cov_bounds = cov_bounds - np.asarray([du0, du0, dv0, dv0], 'f4')
+
+    def upload_ref():
+        rd = upload(_as_f4(ref.data), device, stats)
+        rm = upload_mask(ref.mask_image.data if ref.mask_image is not None
+                         else None, (Hs, Ws), device, stats)
+        if need_embed:
+            # zero-filled canvas, the mask too (pipeline.py:663-679); the
+            # coverage bounds above gate the strips the roll wraps
+            h, w = min(Hs, H), min(Ws, W)
+            cd = torch.zeros((H, W), dtype=torch.float32, device=device)
+            cm = torch.zeros((H, W), dtype=torch.int32, device=device)
+            cd[:h, :w] = rd[:h, :w]
+            cm[:h, :w] = rm[:h, :w]
+            rd, rm = cd, cm
+        return rd, rm
+
+    # keyed by local_path only: a basename collides across directories
+    # and id() is reused after garbage collection (pipeline.py:681-687)
+    cache_key = (str(ref.local_path)
+                 if getattr(ref, 'local_path', None) else None)
+    if ref_cache is not None and cache_key is not None:
+        if cache_key not in ref_cache:
+            if len(ref_cache) >= REF_CACHE_SIZE:
+                ref_cache.pop(next(iter(ref_cache)))
+            ref_cache[cache_key] = upload_ref()
+        refdata, refmask = ref_cache[cache_key]
+    else:
+        refdata, refmask = upload_ref()
+    if need_roll:
+        refdata = torch.roll(refdata, (-dv0, -du0), dims=(0, 1))
+        refmask = torch.roll(refmask, (-dv0, -du0), dims=(0, 1))
+
+    scidata = upload(_as_f4(sci.data), device, stats)
+    if getattr(sci, '_catalog', None) is not None:
+        xs, ys, valid = (upload(a, device, stats)
+                         for a in _select_stamps(sci, smax=smax))
+        if 'SEEING' not in sci.header:
+            from ..seeing import estimate_seeing
+            estimate_seeing(sci)
+    else:
+        sat = float(sci.header.get('SATURATE', 5e4) or 5e4)
+        xs, ys, valid = select_stamps_device(
+            scidata, smax=smax, nreg=cfg.nreg, sat_level=sat,
+            margin=cfg.stamp // 2 + 1)
+        if 'SEEING' not in sci.header:
+            see = float(seeing_from_stamps(scidata, xs, ys, valid))
+            sci.header.set('SEEING', see, 'FWHM from stamp moments')
+    basis = KernelBasis(cfg.ksize,
+                        seeing_sigma=float(sci.header['SEEING']) / 2.355)
+    mraw = sci.mask_image.data if sci.mask_image is not None else None
+    return {
+        'sci': scidata,
+        'sci_mask': upload_mask(mraw, (H, W), device, stats),
+        'ref': refdata,
+        'ref_mask': refmask,
+        'grid_u': upload(grid_u, device, stats),
+        'grid_v': upload(grid_v, device, stats),
+        'stamp_x': xs, 'stamp_y': ys, 'stamp_valid': valid,
+        'basis_gx': upload(basis.gx, device, stats),
+        'basis_gy': upload(basis.gy, device, stats),
+        'basis_sums': upload(basis.sums, device, stats),
+        'b0': upload(basis.b0_2d, device, stats),
+        'cov_bounds': upload(cov_bounds, device, stats),
+    }

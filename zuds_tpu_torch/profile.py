@@ -1,6 +1,8 @@
-"""Where one frame of the slice spends its time on the card.
+"""Where one frame of the slice, or one pair of a night, spends its time
+on the card.
 
     python -m zuds_tpu_torch.profile [--frames N] [--deblend MODE]
+    python -m zuds_tpu_torch.profile --night N
 
 Runs ``SubtractDetectPipeline`` at the flagship configuration (the
 reference's default ``deblend=True``) on synthetic frames, warms up, then
@@ -8,24 +10,31 @@ traces ``N`` frames with ``torch.profiler`` and prints, next to the card's
 name and power limit: host wall time per frame, the device's busy share, each
 pipeline stage's host and device time (``deblend`` is the part of
 ``detect`` spent in the deblend tree), and the kernels that take the most
-device time. Needs a CUDA card.
+device time. With ``--night N`` it writes N flagship FITS pairs
+(``inputs.write_night_pairs``, the real ZTF header of
+``tests/data/ztf_real_header.json``) to a temporary directory and traces
+``night.run_night`` over them after a warm-up, with the night's phases
+(load, prepare, pipeline, commit) in place of the stages. Needs a CUDA
+card.
 """
 import argparse
+import dataclasses
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .inputs import synth_inputs, to_torch
-from .parallel import PipelineConfig, SubtractDetectPipeline
+from .night import FLAGSHIP
+from .parallel import SubtractDetectPipeline
 
 STAGES = ('warp', 'background', 'fit', 'apply', 'noise', 'detect',
           'deblend', 'measure')
-FLAGSHIP = dict(height=3080, width=3072, ksize=15, stamp=41, smax=384,
-                order=4, nreg=3, max_det=4096, det_cap=1 << 16,
-                deb_cap=1 << 16)
+NIGHT_RANGES = ('load', 'prepare', 'pipeline', 'commit') + STAGES
 
 
 def main():
@@ -33,8 +42,9 @@ def main():
     ap.add_argument('--frames', type=int, default=2)
     ap.add_argument('--deblend', choices=('true', 'watershed', 'false'),
                     default='true', help="the detect stage's deblend mode")
+    ap.add_argument('--night', type=int, default=0, metavar='N',
+                    help='trace run_night over N flagship FITS pairs')
     opt = ap.parse_args()
-    frames = opt.frames
     if not torch.cuda.is_available():
         raise SystemExit('profile: needs a CUDA card')
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -42,9 +52,16 @@ def main():
                           text=True, check=True).stdout.strip()
     mode = {'true': True, 'watershed': 'watershed',
             'false': False}[opt.deblend]
-    cfg = PipelineConfig(**FLAGSHIP, deblend=mode)
-    args = to_torch(synth_inputs(1, cfg.height, cfg.width, cfg, seed=0))
+    cfg = dataclasses.replace(FLAGSHIP, deblend=mode)
     pipe = SubtractDetectPipeline(cfg)
+    if opt.night:
+        with tempfile.TemporaryDirectory(prefix='zuds_night_') as d:
+            report(card, f'deblend={mode!r}, run_night, batch 2, per pair',
+                   opt.night, NIGHT_RANGES, *trace_night(d, cfg, pipe,
+                                                         opt.night))
+        return
+    frames = opt.frames
+    args = to_torch(synth_inputs(1, cfg.height, cfg.width, cfg, seed=0))
     for _ in range(2):
         pipe(*args)
     torch.cuda.synchronize()
@@ -57,13 +74,46 @@ def main():
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / frames
     mem1 = torch.cuda.memory_stats()
+    report(card, f'deblend={mode!r}, per frame', frames, STAGES, prof, wall,
+           mem0, mem1)
+
+
+def trace_night(d, cfg, pipe, npairs):
+    """Write ``npairs`` flagship pairs into ``d``, warm up on two, then
+    trace run_night over all of them: (profile, wall s per pair, allocator
+    stats before and after)."""
+    from .inputs import write_night_pairs
+    from .night import run_night
+    work, _ = write_night_pairs(
+        d, npairs, cfg.height, cfg.width,
+        header_json=Path(__file__).resolve().parent.parent / 'tests'
+        / 'data' / 'ztf_real_header.json')
+    run_night(work[:2], batch=2, cfg=cfg, pipe=pipe)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = run_night(work, batch=2, cfg=cfg, pipe=pipe)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / npairs
+    bad = [r for _, r in res if isinstance(r, Exception)]
+    if bad:
+        raise SystemExit(f'profile: run_night failed: {bad}')
+    return prof, wall, mem0, torch.cuda.memory_stats()
+
+
+def report(card, what, frames, ranges, prof, wall, mem0, mem1):
+    """Print wall and device busy time per frame, the allocator's device
+    mallocs, each range's host time and device span, and the kernels by
+    device time."""
     events = prof.key_averages()
     # device activity: kernels, copies and memsets (one stream, so they do
     # not overlap); the stages' device-side ranges only span them
     busy = sum(e.time_range.elapsed_us() for e in prof.events()
                if e.device_type == DeviceType.CUDA
-               and e.name not in STAGES) / frames / 1e3
-    print(f'card: {card}; deblend={mode!r}')
+               and e.name not in ranges) / frames / 1e3
+    print(f'card: {card}; {what}')
     print(f'wall {wall * 1e3:.1f} ms/frame; device busy {busy:.1f} ms/frame '
           f'({100 * busy / (wall * 1e3):.1f}%; idle '
           f'{100 * (1 - busy / (wall * 1e3)):.1f}%)')
@@ -77,12 +127,12 @@ def main():
     # included) and on the device (first to last kernel launched in it)
     span = {}
     for e in prof.events():
-        if e.name in STAGES:
+        if e.name in ranges:
             on = 'cpu' if e.device_type == DeviceType.CPU else 'dev'
             span[e.name, on] = (span.get((e.name, on), 0.0)
                                 + e.time_range.elapsed_us())
-    print('stage        host ms/frame  device span ms/frame')
-    for s in STAGES:
+    print('range        host ms/frame  device span ms/frame')
+    for s in ranges:
         print(f'{s:12s} {span.get((s, "cpu"), 0) / frames / 1e3:13.2f} '
               f'{span.get((s, "dev"), 0) / frames / 1e3:21.2f}')
     print(events.table(sort_by='self_cuda_time_total', row_limit=25))
