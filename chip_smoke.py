@@ -22,9 +22,10 @@ at K = 21, order 5, 2x2 regions, and its bare launch timed with its
 tensor-core rate; H5 and H6 also on a quadrant-size busy blend field; H8
 also on ::4 views and a mask with holes). Small inputs run on the card and
 on the CPU for each deblend mode, a 1024^2 crop of the blend field through
-``detect_sources`` on both, and the stamp selection of one flagship frame
-on both. Prints the card, per-kernel errors and times, the slice's
-ms/frame and the deblend's load, then one JSON line of kernel records
+``detect_sources`` on both, and the stamp selection and stamp-moment
+SEEING of the night's frame without SEEING on both. Prints the card,
+per-kernel errors and times, the slice's ms/frame and the deblend's
+load, then one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero; a machine without a CUDA card fails at once.
 """
@@ -37,6 +38,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 # the CPU parity tests' configuration (tests/test_torch_pipeline.py)
 SMALL = dict(height=256, width=256, ksize=9, stamp=25, smax=32, order=2,
@@ -284,6 +286,51 @@ def crop_card_vs_cpu(img, dev):
           'decision near a threshold')
 
 
+def seeing_card_vs_cpu(path, cfg, night_see):
+    """The stamp selection and stamp-moment SEEING of the science frame at
+    ``path``, on the card and on the CPU: stamps equal, SEEING within 1e-6
+    relative of each other and of the SEEING the night used."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch.fits import read_fits
+    from zuds_tpu_torch.ops import measure
+    hdu = next(h for h in read_fits(path) if h.data is not None)
+    img = torch.as_tensor(np.ascontiguousarray(hdu.data, 'f4'))
+    sat = float(hdu.header.get('SATURATE', 5e4) or 5e4)
+    res = []
+    for t in (img.cuda(), img):
+        st = measure.select_stamps_device(t, smax=cfg.smax, nreg=cfg.nreg,
+                                          sat_level=sat,
+                                          margin=cfg.stamp // 2 + 1)
+        res.append((st, float(measure.seeing_from_stamps(t, *st))))
+    (kst, ksee), (pst, psee) = res
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(kst, pst)),
+          'stamp selection differs between the card and the CPU')
+    check(abs(ksee - psee) <= 1e-6 * psee and
+          abs(ksee - night_see) <= 1e-6 * psee,
+          f'stamp-moment SEEING: card {ksee!r}, CPU {psee!r}, night '
+          f'{night_see!r}')
+    print(f'night frame {NO_SEEING}: stamp selection equal on card and CPU '
+          f'({int(pst[2].sum())} valid stamps); stamp-moment SEEING card '
+          f'{ksee!r}, CPU {psee!r}, night {night_see!r} px', flush=True)
+
+
+def refilter(cat, see):
+    """GOODCUT of ``filter_sexcat`` rerun on a copy of ``cat``'s rows with
+    ``see`` as its image's SEEING."""
+    from zuds_tpu_torch.catalog import PipelineFITSCatalog
+    from zuds_tpu_torch.filterobjects import filter_sexcat
+    from zuds_tpu_torch.fits import Header
+    redo = PipelineFITSCatalog()
+    redo.data = cat.data.copy()
+    redo.data['GOODCUT'] = 0
+    redo.header = Header()
+    redo.header.set('RMSMED', cat.header['RMSMED'])
+    redo.image = SimpleNamespace(header={'SEEING': see})
+    filter_sexcat(redo)
+    return redo.data['GOODCUT']
+
+
 def night_phase(wrappers, name):
     """run_night over the flagship pairs: warm-up, then one counted, timed
     run. Returns (launches, seconds, stats)."""
@@ -357,25 +404,33 @@ def night_phase(wrappers, name):
             check(len(dist) and dist.min() < 2.0,
                   f'night frame {i}: transient at ({tx}, {ty}) not in the '
                   'catalog')
-            row = data[np.argmin(dist)]
+            j = int(np.argmin(dist))
+            row = data[j]
             see = stats['seeing'][i]
             if i == NO_SEEING:
                 # SEEING from the stamp moments, which keep each stamp's
-                # positive noise and read wide: the reference's sharp cut
-                # (FWHM >= 0.8 SEEING) is the one cut allowed to remove it
-                ok = row['GOODCUT'] == 1 or (
-                    row['FWHM_IMAGE'] < 0.8 * see
-                    and row['FWHM_IMAGE'] <= 2.0 * see
-                    and row['BPMCUT'] <= 0 and row['NEGPIX'] == 0
-                    and row['FLUX_APER'] >= 5.0 * row['FLUXERR_APER'])
+                # positive noise and read wide (the reference's estimator):
+                # the cuts rerun at the night's SEEING give the night's
+                # GOODCUT, and at the science headers' SEEING they keep
+                # the transient
+                seeing_card_vs_cpu(work[i].split()[0], cfg, see)
+                check(np.array_equal(refilter(cat, see), data['GOODCUT']),
+                      f'night frame {i}: the cuts rerun at SEEING {see} '
+                      'disagree with the night\'s GOODCUT')
+                at_header = int(refilter(cat, inputs.NIGHT_SEEING[1])[j])
+                check(at_header == 1, f'night frame {i}: transient row '
+                      f'{row} not GOODCUT at SEEING '
+                      f'{inputs.NIGHT_SEEING[1]}')
             else:
-                ok = row['GOODCUT'] == 1 and see == inputs.NIGHT_SEEING[1]
-            check(ok, f'night frame {i}: transient row {row}')
+                check(row['GOODCUT'] == 1 and see == inputs.NIGHT_SEEING[1],
+                      f'night frame {i}: transient row {row}')
             print(f'night frame {i}: SEEING {see:.4f} px ('
                   f'{"stamp moments" if i == NO_SEEING else "header"}); '
                   f'transient at ({tx:.0f}, {ty:.0f}) found '
-                  f'{dist.min():.2f} px away, GOODCUT {int(row["GOODCUT"])}, '
-                  f'FWHM {row["FWHM_IMAGE"]:.2f} px', flush=True)
+                  f'{dist.min():.2f} px away, GOODCUT {int(row["GOODCUT"])}'
+                  + (f' ({at_header} at SEEING {inputs.NIGHT_SEEING[1]})'
+                     if i == NO_SEEING else '')
+                  + f', FWHM {row["FWHM_IMAGE"]:.2f} px', flush=True)
     return launches, secs, stats
 
 
@@ -750,10 +805,12 @@ def main():
                                      + 1)
     pf, pc = measure.stamp_candidates_plain(frame, med, sigma, 6e4,
                                             cfg.stamp // 2 + 1)
-    check(torch.equal(kf, pf) and torch.equal(kc, pc),
+    # H7 writes filt at the candidates only, the one place it is read
+    ncand = int(pc.sum())
+    check(torch.equal(kc, pc) and torch.equal(kf[kc], pf[pc]),
           'stamp_candidates differs from its plain version')
     print(f'stamp_candidates: bit-equal to its plain version at {H}x{W} '
-          f'({int(kc.sum())} candidates)', flush=True)
+          f'({ncand} candidates)', flush=True)
     margin = cfg.stamp // 2 + 1
     ms = cuda_ms(lambda: launch.stamp_candidates(frame, med, sigma, 6e4,
                                                  margin))
@@ -761,23 +818,15 @@ def main():
         frame, med, sigma, 6e4, margin), 1, 3)
     scale_ms = cuda_ms(lambda: torch.nn.functional.max_pool2d(
         pf[None, None], 9, 1, 4))
-    # reads img (4 B/px), writes filt and cand (5 B/px); ~40 operations
-    bnd = bound(9 * n, 40 * n)
+    # reads img (4 B/px), writes cand (1 B/px) and filt at the candidates
+    # (4 B each); ~40 operations per pixel
+    bnd = bound(5 * n + 4 * ncand, 40 * n)
     print(f'stamp_candidates: {ms:.4f} ms (bound {bnd[0]:.4f} ms, share '
           f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, max_pool2d 9x9 (for '
           f'scale) {scale_ms:.3f} ms; '
           f'{night_launches["stamp_candidates"] / NIGHT_PAIRS:.1f} launches '
           f'per night frame', flush=True)
     record('stamp_candidates', 0.0, ms, plain, bnd, runs=night_launches)
-
-    # the stamp selection of one flagship frame on the card and the CPU
-    sel = [measure.select_stamps_device(f, smax=cfg.smax, nreg=cfg.nreg,
-                                        sat_level=6e4, margin=margin)
-           for f in (frame, frame.cpu())]
-    check(all(torch.equal(a.cpu(), b) for a, b in zip(*sel)),
-          'stamp selection differs between the card and the CPU')
-    print(f'select_stamps_device: card and CPU equal on a flagship frame '
-          f'({int(sel[1][2].sum())} valid stamps)', flush=True)
 
     print(json.dumps({'kernels': records}))
     print(f'card: {name}')

@@ -10,8 +10,8 @@ no JAX, and tests/conftest.py imports it, so run them there with
 Tolerances: warp pixels rtol 3e-5, atol 5e-3 counts, mask and coverage
 bit-equal; background cells rtol 1e-4 and counts equal; model convolution
 rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
-deblend level labels and compaction bit-equal; stamp candidates (filt and
-cand) and the frame median bit-equal.
+deblend level labels and compaction bit-equal; stamp candidates (cand,
+and filt at the candidates) and the frame median bit-equal.
 """
 import numpy as np
 import pytest
@@ -247,9 +247,9 @@ def test_stamp_candidates_kernel(dev, H, W, margin):
     kf, kc = launch.stamp_candidates(img, med, sigma, 6e4, margin)
     assert launch.stamp_candidates.launches == n0 + 1
     pf, pc = measure.stamp_candidates_plain(img, med, sigma, 6e4, margin)
-    assert torch.equal(kf.isnan(), pf.isnan())
-    assert torch.equal(torch.nan_to_num(kf), torch.nan_to_num(pf))
     assert torch.equal(kc, pc) and int(pc.sum()) > 10
+    # H7 writes filt at the candidates only, the one place it is read
+    assert torch.equal(kf[kc], pf[pc])
 
 
 @pytest.mark.parametrize('n', [1, 2, 7, 1023, 1025, 70001, 9461760])

@@ -164,9 +164,10 @@ def compact(mask, size, fill_value):
 
 
 def stamp_candidates(img, med, sigma, sat, margin):
-    """H7 (kernels/stamps.cu): (filt f32, cand bool), each (H, W): the 3x3
-    pyramid filter of ``img`` and the stamp-candidate test against the
-    device scalars ``med`` and ``sigma`` (f32, 0-d)."""
+    """H7 (kernels/stamps.cu): (filt f32, cand bool), each (H, W): the
+    stamp-candidate test against the device scalars ``med`` and ``sigma``
+    (f32, 0-d), and the 3x3 pyramid filter of ``img`` where ``cand`` is
+    set (unwritten elsewhere)."""
     H, W = img.shape
     _require('img', img, torch.float32)
     _require('med', med, torch.float32, ())

@@ -9,7 +9,8 @@
 // maxima, the compare). Here one pass: each block loads its output tile
 // with a 5-px halo of `img` into shared memory, computes `filt` on the tile
 // plus a 4-px halo, takes the 9-wide row maxima and then the 9-tall column
-// maxima of those, and writes `filt` and the `cand` byte mask. `med` and
+// maxima of those, and writes the `cand` byte mask and `filt` at the
+// candidates only (the selector reads `filt` nowhere else). `med` and
 // `sigma` are device scalars (H8's outputs); the host never reads them.
 //
 // Bit-equality with the plain version (ops/measure.py):
@@ -23,9 +24,9 @@
 //   reference's `med + 10.0 * sigma` into one FMA, and the plain version
 //   computes the same (ops/ordered.py:fma).
 //
-// Bound: memory. 4 B read, 4 B (filt) + 1 B (cand) written per pixel: 85
-// MB at the flagship frame, 25 us at 3.35 TB/s. The halo re-reads (1.6x
-// the tile) hit L2.
+// Bound: memory. 4 B read and 1 B (cand) written per pixel, plus 4 B of
+// `filt` per candidate: 47 MB at the flagship frame, 14 us at 3.35 TB/s.
+// The halo re-reads (1.6x the tile) hit L2.
 #include "common.cuh"
 
 namespace {
@@ -106,7 +107,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool c = f >= m && f > thr && v < sat && gx >= margin &&
                    gx < W - margin && gy >= margin && gy < H - margin;
     const long long o = (long long)gy * W + gx;
-    filt_out[o] = f;
+    if (c) filt_out[o] = f;
     cand_out[o] = c ? 1 : 0;
   }
 }

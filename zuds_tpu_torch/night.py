@@ -179,12 +179,6 @@ def _commit_frame(sci, ref, small, b, frames_thunk, cfg, ml=False,
     return sub, detections
 
 
-def _per_pair_fallback(sci_path, ref_path):
-    raise NotImplementedError(
-        f'{sci_path}: the per-pair fallback (dosub.do_one) is not ported '
-        'yet (ROADMAP queue 1: the per-pair path, K17)')
-
-
 def _bulk_to_host(tensors):
     """name -> numpy array of every tensor in ``tensors``, fetched in one
     device-to-host copy (each entry padded to 8 bytes in one buffer)."""
@@ -235,13 +229,14 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
     st.setdefault('seeing', [])
     results = []
 
-    def fallback(sci_path, ref_path, cause):
-        try:
-            results.append((sci_path, _per_pair_fallback(sci_path,
-                                                         ref_path)))
-        except Exception as e2:
-            e2.__cause__ = cause
-            results.append((sci_path, e2))
+    def fallback(sci_path, cause):
+        """Record the pair where the reference records the per-pair
+        fallback's count (dosub.do_one, not ported yet)."""
+        err = NotImplementedError(
+            f'{sci_path}: the per-pair fallback (dosub.do_one) is not '
+            'ported yet (ROADMAP queue 1: the per-pair path, K17)')
+        err.__cause__ = cause
+        results.append((sci_path, err))
 
     def process(meta, pout, t_dispatch):
         """Commit one batch: ONE bulk copy of the fixed-size outputs;
@@ -274,7 +269,7 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
             results.append((sci_path, e))
         except Exception as e:
             traceback.print_exc()
-            fallback(*work[i], e)
+            fallback(sci_path, e)
 
     try:
         # the whole window is submitted up front: the pool reads ahead
@@ -320,7 +315,7 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
                     meta.append((i, sci, ref))
                 except Exception as e:
                     traceback.print_exc()
-                    fallback(sci_path, ref_path, e)
+                    fallback(sci_path, e)
             if not frames:
                 continue
             # the last partial batch repeats its last frame (its outputs

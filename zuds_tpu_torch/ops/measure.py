@@ -41,9 +41,10 @@ def stamp_candidates_plain(img, med, sigma, sat_level, margin):
 
 
 def stamp_candidates(img, med, sigma, sat_level, margin):
-    """(filt, cand) of :func:`stamp_candidates_plain`: H7 on a CUDA tensor
-    (``med`` and ``sigma`` stay on the card), the plain version on a CPU
-    tensor."""
+    """(filt, cand) of :func:`stamp_candidates_plain`, ``filt`` defined
+    only where ``cand`` is set: H7 on a CUDA tensor (``med`` and ``sigma``
+    stay on the card; ``filt`` is written at the candidates only), the
+    plain version on a CPU tensor."""
     if img.is_cuda:
         return launch.stamp_candidates(img, med, sigma, sat_level, margin)
     return stamp_candidates_plain(img, med, sigma, sat_level, margin)
