@@ -16,7 +16,15 @@ dithered by (+1.6, -2.2) px, uint16 mask siblings, one transient of flux
 3e4 per frame, one frame without SEEING) through
 ``zuds_tpu_torch.night.run_night`` once to warm up and once timed, with
 the files -> catalog rate, the host seconds per phase, the reference-cache
-hits and the detections per frame. Holds each kernel against its plain
+hits and the detections per frame. Then the coadd: eight dithered epochs
+of one quadrant (``inputs.write_coadd_epochs``, ``bench.py``'s coadd
+recipe, one cosmic ray planted in one epoch) through
+``ScienceCoadd.from_images`` once to warm up, once counted and timed
+(epochs/s, files -> stack, and the host seconds per phase) and once with
+the seeing estimate; the product's header, noise, no-data bit and the
+clipped cosmic ray are checked, H9 and the two-plane H1 are held against
+their plain versions on the phase's own stack, and a 4-epoch 512^2 stack
+runs on the card and on the CPU. Holds each kernel against its plain
 PyTorch version on the card at the shapes the main path gives it (H3 also
 at K = 21, order 5, 2x2 regions, and its bare launch timed with its
 tensor-core rate; H5 and H6 also on a quadrant-size busy blend field; H8
@@ -64,11 +72,23 @@ SOURCES = {
                          'zuds_tpu/ops/measure.py:37'),
     'frame_median': ('cuda', 'zuds_tpu_torch/kernels/median.cu',
                      'zuds_tpu/ops/background.py:48'),
+    'warp_two_planes': ('cuda', 'zuds_tpu_torch/kernels/warp.cu',
+                        'zuds_tpu/parallel/pipeline.py:482'),
+    'clipped_combine': ('cuda', 'zuds_tpu_torch/kernels/coadd.cu',
+                        'zuds_tpu/ops/coadd.py:42'),
 }
+# the kernels only the coadd path launches (the second plane of H1 is a
+# mode of the 'warp' wrapper, recorded under its own name)
+COADD_ONLY = ('clipped_combine',)
 # the night phase: bench.py's files leg recipe at the flagship size
 NIGHT_PAIRS = 4
 NIGHT_BATCH = 2
 NO_SEEING = 3           # the science frame written without SEEING
+# the coadd phase: bench.py's coadd leg (8 epochs of one quadrant); the
+# cosmic ray is (epoch, x, y, counts) in that epoch's frame
+COADD_EPOCHS = 8
+COSMIC = (3, 1500, 1600, 500.0)
+COADD_NOISE = 5.0
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -393,7 +413,8 @@ def night_phase(wrappers, name):
               f'GB/s ({host.numel() * 4 / 1e6:.1f} MB pinned -> card in '
               f'{link_ms:.3f} ms, CUDA events) on {name}', flush=True)
         for k, n in launches.items():
-            check(n > 0, f'kernel {k} was not launched by the night')
+            check(n > 0 or k in COADD_ONLY,
+                  f'kernel {k} was not launched by the night')
         for i, (tx, ty) in enumerate(truths):
             cat = PipelineFITSCatalog.from_file(
                 [os.path.join(d, f) for f in os.listdir(d)
@@ -431,6 +452,231 @@ def night_phase(wrappers, name):
                   + (f' ({at_header} at SEEING {inputs.NIGHT_SEEING[1]})'
                      if i == NO_SEEING else '')
                   + f', FWHM {row["FWHM_IMAGE"]:.2f} px', flush=True)
+    return launches, secs, stats
+
+
+def coadd_phase(wrappers, name, record):
+    """ScienceCoadd.from_images over COADD_EPOCHS quadrant epochs: warm-up,
+    one counted and timed build, one with the seeing estimate; the checks
+    of the product; H9 and the two-plane H1 against their plain versions
+    on the phase's own stack. ``record`` takes the two kernel records."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import coadd, inputs, night
+    from zuds_tpu_torch.constants import (BAD_SUM, BKG_VAL, COADD_ZP,
+                                          MASK_BIT_NODATA_ALIGN)
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background, resample
+    from zuds_tpu_torch.ops import coadd as combine
+    from zuds_tpu_torch.parallel import CoaddPipeline
+    H, W = night.FLAGSHIP.height, night.FLAGSHIP.width
+    N = COADD_EPOCHS
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_coadd_') as d:
+        t0 = time.perf_counter()
+        paths, wcss = inputs.write_coadd_epochs(d, N, H, W, cosmic=COSMIC)
+        print(f'coadd: {N} epochs of {H}x{W} written in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+        def build(out, **kw):
+            t0 = time.perf_counter()
+            images = [ScienceImage.from_file(p) for p in paths]
+            for im in images:
+                im.data, im.mask_image.data     # read the files
+            load_s = time.perf_counter() - t0
+            stack = coadd.ScienceCoadd.from_images(
+                images, os.path.join(d, out), **kw)
+            torch.cuda.synchronize()
+            return stack, load_s, time.perf_counter() - t0
+
+        _, _, warm_s = build('warm.fits', calculate_seeing=False)
+        print(f'coadd: warm-up build {warm_s:.2f} s', flush=True)
+        for w in wrappers.values():
+            w.launches = 0
+        stats = {}
+        stack, load_s, secs = build('stack.fits', calculate_seeing=False,
+                                    stats=stats)
+        launches = {k: w.launches for k, w in wrappers.items()}
+        prep = stats['prepare_s'] - stats['upload_s']
+        print(f'coadd: files -> stack {N / secs:.3f} epochs/s ({N} epochs, '
+              f'{secs:.2f} s, host clock) on {name}', flush=True)
+        print(f'coadd: host seconds per phase: load {load_s:.3f}, prepare '
+              f'{prep:.3f}, upload {stats["upload_s"]:.3f} '
+              f'({stats["upload_bytes"] / N / 1e6:.1f} MB per epoch), '
+              f'pipeline {stats["pipeline_s"]:.3f}, fetch '
+              f'{stats["fetch_s"]:.3f}, write {stats["write_s"]:.3f}',
+              flush=True)
+        print(f'coadd: kernel launches per stack '
+              f'{ {k: n for k, n in launches.items() if n} }', flush=True)
+        check(launches['warp'] == N and launches['background_cells'] == N
+              and launches['clipped_combine'] == 1,
+              f'coadd: expected {N} H1, {N} H2 and 1 H9 launches, got '
+              f'{launches}')
+
+        # ---- the product ---------------------------------------------------
+        data = stack.data
+        wmap = stack.weight_image.data
+        mask = stack.mask_image.data
+        oh, ow = data.shape
+        check(oh >= H and ow >= W and np.isfinite(data).all(),
+              f'coadd: product of shape {data.shape} or not finite')
+        check(stack.header['MAGZP'] == COADD_ZP
+              and stack.header['NCOADD'] == N
+              and stack.header['NAXIS1'] == ow
+              and stack.header['NAXIS2'] == oh, 'coadd: header cards')
+        check(np.array_equal((mask >> MASK_BIT_NODATA_ALIGN & 1) == 1,
+                             wmap == 0),
+              'coadd: the no-data bit is not exactly where weight == 0')
+        inner = data[32:-32, 32:-32]
+        sky = inner[np.abs(inner - np.median(inner)) < 20]
+        scale = combine.fluxscale(inputs.COADD_MAGZP)
+        limit = COADD_NOISE / np.sqrt(N) * scale * 1.25
+        check(sky.std() < limit and abs(np.median(inner) - BKG_VAL) < 0.5,
+              f'coadd: sky noise {sky.std():.4f} (limit {limit:.4f}), level '
+              f'{np.median(inner):.3f}')
+        back = coadd.ScienceCoadd.from_file(os.path.join(d, 'stack.fits'))
+        check(np.array_equal(back.data, data), 'coadd: saved file differs')
+        print(f'coadd: product {oh}x{ow}, MAGZP {stack.header["MAGZP"]}, '
+              f'NCOADD {stack.header["NCOADD"]}, sky {np.median(inner):.3f} '
+              f'+- {sky.std():.4f} counts (limit {limit:.4f}), '
+              f'{int((wmap == 0).sum())} no-data pixels, all with the '
+              f'no-data bit', flush=True)
+
+        # ---- the phase's own warped stack: H9 and H1 against plain ---------
+        images = [ScienceImage.from_file(p) for p in paths]
+        cfg, args = coadd.fused_inputs(images, stack.wcs, oh, ow)
+        imgs, sats, masks, gus, gvs, covbs, scales, valid = args
+        Hb, Wb = cfg.height, cfg.width
+        pipe = CoaddPipeline(cfg)
+        iw = torch.empty((N, Hb, Wb), device='cuda')
+        ww = torch.empty_like(iw)
+        mw = torch.empty((N, Hb, Wb), dtype=torch.int32, device='cuda')
+        cov = torch.empty((N, Hb, Wb), dtype=torch.bool, device='cuda')
+        for n in range(N):
+            pipe.warp_epoch(imgs[n], sats[n], masks[n], gus[n], gvs[n],
+                            covbs[n], valid[n], iw[n], ww[n], mw[n], cov[n])
+        k = combine.clipped_combine(iw, ww, mw, cov, scales)
+        p = combine.clipped_combine_plain(iw, ww, mw, cov, scales)
+        torch.cuda.synchronize()
+        for key in ('nexp', 'nclip', 'mask'):
+            check(torch.equal(k[key], p[key]),
+                  f'clipped_combine {key} differs from the plain version at '
+                  f'{int((k[key] != p[key]).sum())} pixels')
+        err = max(close('clipped_combine coadd', k['coadd'], p['coadd'],
+                        2e-6, 0.0),
+                  close('clipped_combine weight', k['weight'], p['weight'],
+                        2e-6, 0.0))
+        check(np.array_equal(k['coadd'][:oh, :ow].cpu().numpy() + BKG_VAL,
+                             data),
+              'coadd: the product is not H9 of the warped stack')
+        # the cosmic ray, at the output pixel its epoch pixel maps to
+        ce, cx, cy, _ = COSMIC
+        ra, dec = wcss[ce].pix2sky_0(np.array([float(cx)]),
+                                     np.array([float(cy)]))
+        ox, oy = (int(round(float(t[0])))
+                  for t in stack.wcs.sky2pix_0(ra, dec))
+        hit = float(iw[ce, oy, ox] * scales[ce])
+        level = float(np.median(data[oy - 8:oy + 9, ox - 8:ox + 9]))
+        check(int(k['nclip'][oy, ox]) == 1 and int(k['nexp'][oy, ox]) == N
+              and abs(float(data[oy, ox]) - level) < 10.0,
+              f'coadd: cosmic ray at output ({ox}, {oy}): nclip '
+              f'{int(k["nclip"][oy, ox])}, coadd {float(data[oy, ox]):.2f}, '
+              f'neighbours {level:.2f}')
+        print(f'coadd: cosmic ray of epoch {ce} at output ({ox}, {oy}): '
+              f'{hit:.1f} scaled counts in its epoch, nclip 1, coadd '
+              f'{float(data[oy, ox]):.2f} against {level:.2f} around it; '
+              f'{int((k["nclip"] > 0).sum())} pixels clipped in all',
+              flush=True)
+        npx = Hb * Wb
+        ms = cuda_ms(lambda: launch.clipped_combine(
+            iw, ww, mw, cov, scales, 4.0, 0.3, MASK_BIT_NODATA_ALIGN))
+        plain = cuda_ms(lambda: combine.clipped_combine_plain(
+            iw, ww, mw, cov, scales), 1, 3)
+        sort_ms = cuda_ms(lambda: torch.sort(iw, dim=0), 1, 3)
+        # reads pixel, weight, mask, coverage of every epoch (13 B), writes
+        # five planes (20 B); per pixel N^2 rank compares of two operations
+        # and ~12 operations per epoch
+        bnd = bound((13 * N + 20) * npx + 4 * N, (2 * N * N + 12 * N) * npx)
+        print(f'clipped_combine: {N}x{Hb}x{Wb}: {ms:.4f} ms (bound '
+              f'{bnd[0]:.4f} ms, share {bnd[0] / ms:.1%}), plain '
+              f'{plain:.3f} ms, torch.sort of the stack (for scale) '
+              f'{sort_ms:.3f} ms', flush=True)
+        record('clipped_combine', err, ms, plain, bnd, runs=launches,
+               per=f'stack of {N} epochs')
+
+        # H1 with two planes: epoch 0's frame, its weight and its mask
+        img0, m0 = imgs[0], masks[0]
+        bad = (m0 & BAD_SUM) > 0
+        rms = background.background_mesh(img0, ~bad, box=cfg.box)['rms']
+        wgt0 = torch.where(bad | (rms <= 0), 0.0,
+                           1.0 / torch.clamp(rms, min=1e-12) ** 2).contiguous()
+        u, v = resample.upsample_mapping(gus[0], gvs[0], (Hb, Wb),
+                                         cfg.map_step)
+        k1 = resample.warp_epoch(img0, wgt0, m0, u, v, covbs[0],
+                                 cfg.max_shift)
+        p1 = resample.warp_epoch_plain(img0, wgt0, m0, u, v, covbs[0],
+                                       cfg.max_shift)
+        err = close('two-plane warp pixels', k1[0], p1[0], 3e-5, 5e-3)
+        close('two-plane warp weight', k1[1], p1[1], 3e-5, 1e-6)
+        check(torch.equal(k1[2], p1[2]) and torch.equal(k1[3], p1[3]),
+              'two-plane warp: mask or coverage differs from the plain '
+              'composition')
+        one = launch.warp(img0, m0, u, v, covbs[0], cfg.max_shift)
+        check(torch.equal(one[0], k1[0]) and torch.equal(one[1], k1[2]),
+              'two-plane warp: its first plane differs from the one-plane '
+              'launch')
+        ms = cuda_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
+                                         cfg.max_shift, ref2=wgt0))
+        one_ms = cuda_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
+                                             cfg.max_shift))
+        plain = cuda_ms(lambda: resample.warp_epoch_plain(
+            img0, wgt0, m0, u, v, covbs[0], cfg.max_shift), 1, 2)
+        # reads two planes, mask, u, v (20 B/px), writes two planes, mask,
+        # coverage (16 B/px); ~190 operations per pixel (36 taps on two
+        # planes, 36 weight products, 6 normaliser terms, 12 weights)
+        bnd = bound(36 * npx, 190 * npx)
+        print(f'warp_two_planes: {Hb}x{Wb}: {ms:.4f} ms (one plane '
+              f'{one_ms:.4f} ms at this shape; bound {bnd[0]:.4f} ms, share '
+              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms', flush=True)
+        record('warp_two_planes', err, ms, plain, bnd,
+               runs={'warp_two_planes': launches['warp']},
+               per=f'stack of {N} epochs')
+        del iw, ww, mw, cov, k, p, k1, p1, args, imgs, masks
+
+        # ---- with the seeing estimate --------------------------------------
+        seen, _, see_s = build('seeing.fits', calculate_seeing=True)
+        see = seen.header['SEEING']
+        check(1.8 < see < 2.6 and seen.header["NSTARSEE"] >= 20
+              and os.path.exists(os.path.join(d, 'seeing.cat')),
+              f'coadd: SEEING {see} from {seen.header["NSTARSEE"]} stars')
+        print(f'coadd: with calculate_seeing {see_s:.2f} s; SEEING '
+              f'{see:.4f} px from {seen.header["NSTARSEE"]} stars (the '
+              f'scene\'s is {inputs.COADD_SEEING})', flush=True)
+
+    # ---- a small stack on the card and on the CPU (plain versions) ---------
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_coadd_') as d:
+        paths, _ = inputs.write_coadd_epochs(d, 4, 512, 512, seed=13,
+                                             nstars=50)
+        images = [ScienceImage.from_file(p) for p in paths]
+        wcs, (h, w) = coadd.coadd_grid(images)
+        outs = {}
+        for where in ('cuda', 'cpu'):
+            cfg, args = coadd.fused_inputs(images, wcs, h, w, device=where)
+            outs[where] = {k_: v_.cpu() for k_, v_ in
+                           CoaddPipeline(cfg)(*args).items()}
+        a, b = outs['cuda'], outs['cpu']
+        for key in ('nexp', 'mask'):
+            check(torch.equal(a[key], b[key]),
+                  f'small stack: {key} differs between card and CPU at '
+                  f'{int((a[key] != b[key]).sum())} pixels')
+        far = ((a['coadd'] - b['coadd']).abs() > 5e-3).float().mean()
+        check(float(far) <= 1e-3, f'small stack: {float(far):.2e} of the '
+              'pixels differ by more than 5e-3 counts')
+        close('small stack weight', a['weight'], b['weight'], 2e-3, 0.0)
+        print(f'small stack (4 epochs of 512x512): card and CPU agree on '
+              f'nexp and mask; coadd max abs diff '
+              f'{float((a["coadd"] - b["coadd"]).abs().max()):.3g}, '
+              f'{float(far):.2e} of the pixels past 5e-3 counts', flush=True)
     return launches, secs, stats
 
 
@@ -472,7 +718,7 @@ def main():
     # the slice takes its stamps as inputs: H7 runs in the host feed (the
     # night below), every other kernel here
     for k, n in launches.items():
-        check(n > 0 or k == 'stamp_candidates',
+        check(n > 0 or k == 'stamp_candidates' or k in COADD_ONLY,
               f'kernel {k} was not launched by the main path')
 
     submask = out['submask']
@@ -506,7 +752,8 @@ def main():
     print(f'slice (deblend=False): first run {secs0 * 1e3:.1f} ms for {B} '
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
-        check(n > 0 or k in ('deblend_labels', 'stamp_candidates'),
+        check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
+              or k in COADD_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
@@ -531,7 +778,7 @@ def main():
     # the plain medians (~50 small launches each), in turns
     from zuds_tpu_torch.parallel import pipeline as pipeline_mod
     med_ms = {'H8': [], 'plain': []}
-    for _ in range(4):
+    for _ in range(2):
         for mode in ('H8', 'plain'):
             pipeline_mod.frame_median = (background.frame_median
                                          if mode == 'H8' else
@@ -551,16 +798,13 @@ def main():
     # ---- the night: FITS pairs -> catalogs through run_night, counted ----
     night_launches, night_s, night_stats = night_phase(wrappers, name)
 
-    # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
-    for mode in (False, True, 'watershed'):
-        small_card_vs_cpu(mode, dev)
-
     # ---- each kernel against its plain version, at the main path's shapes -
     records = []
 
-    def record(kname, err, ms, plain_ms, bnd, library_ms=None, runs=None):
-        # launches: the slice's run, or the night's for the kernels only
-        # the host feed launches
+    def record(kname, err, ms, plain_ms, bnd, library_ms=None, runs=None,
+               per=None):
+        # launches: the slice's run, or the night's or the coadd's for the
+        # kernels only those paths launch
         route, source, replaces = SOURCES[kname]
         n = (runs or launches)[kname]
         records.append({'name': kname, 'route': route, 'source': source,
@@ -569,10 +813,18 @@ def main():
                         'bound_ms': bnd[0], 'bound_by': bnd[1],
                         'library_ms': library_ms})
         lib = 'none' if library_ms is None else f'{library_ms:.3f} ms'
+        per = per or f'{NIGHT_PAIRS if runs else B} frames'
         print(f'{kname}: max abs err {err:.3g}, kernel {ms:.3f} ms, plain '
               f'{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
               f'library {lib}; {n} launches on the main path '
-              f'({NIGHT_PAIRS if runs else B} frames) on {name}', flush=True)
+              f'({per}) on {name}', flush=True)
+
+    # ---- the coadd: FITS epochs -> a stack through from_images, counted ---
+    coadd_phase(wrappers, name, record)
+
+    # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
+    for mode in (False, True, 'watershed'):
+        small_card_vs_cpu(mode, dev)
 
     # H1: smooth sub-pixel displacement (|du|, |dv| <= 2), random 18-bit mask
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -368,7 +368,8 @@ def test_constants_equal_the_reference():
 def test_port_runs_from_a_copy_alone(tmp_path):
     """A copy of zuds_tpu_torch/ with nothing of the repo beside it, JAX
     and yaml blocked: every module imports, it detects with the exact tree,
-    runs the slice, and writes, reads and maps a FITS pair."""
+    runs the slice, writes, reads and maps a FITS pair, and stacks two
+    small epochs."""
     shutil.copytree(ROOT / 'zuds_tpu_torch', tmp_path / 'zuds_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
     modules = sorted(
@@ -376,7 +377,10 @@ def test_port_runs_from_a_copy_alone(tmp_path):
         for p in (ROOT / 'zuds_tpu_torch').rglob('*.py')
         if p.name != '__init__.py' and p.name != '__main__.py')
     assert {'zuds_tpu_torch.night', 'zuds_tpu_torch.catalog',
-            'zuds_tpu_torch.fits.io', 'zuds_tpu_torch.wcs.tpv'} <= set(modules)
+            'zuds_tpu_torch.fits.io', 'zuds_tpu_torch.wcs.tpv',
+            'zuds_tpu_torch.coadd', 'zuds_tpu_torch.stack',
+            'zuds_tpu_torch.utils', 'zuds_tpu_torch.ops.coadd',
+            'zuds_tpu_torch.profile'} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -404,6 +408,12 @@ def test_port_runs_from_a_copy_alone(tmp_path):
         "assert hdu.data.dtype == np.uint16 and hdu.data.sum() == 64\n"
         "g = pixel_mapping(TPVWCS.from_header(hdu.header), w, (64, 64))\n"
         "assert abs(float(g.u[0, 0])) < 1e-3\n"
+        "from zuds_tpu_torch.coadd import ScienceCoadd\n"
+        "from zuds_tpu_torch.image import ScienceImage\n"
+        "paths, _ = inputs.write_coadd_epochs('.', 2, 128, 128, nstars=5)\n"
+        "c = ScienceCoadd.from_images([ScienceImage.from_file(p) for p in "
+        "paths], 'stack.fits', calculate_seeing=False, device='cpu')\n"
+        "assert c.header['NCOADD'] == 2 and c.data.shape[0] >= 128\n"
         "assert not [m for m in sys.modules if m.startswith('zuds_tpu.')"
         " or m == 'zuds_tpu']\n"
         "print('ok', int(out['det_n'][0]))\n")
@@ -416,8 +426,8 @@ def test_port_runs_from_a_copy_alone(tmp_path):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """H5-H8 launch or raise: a CPU tensor is refused, never run through
-    the plain version (the dispatchers pick by device)."""
+    """H5-H9 and the two-plane H1 launch or raise: a CPU tensor is refused,
+    never run through the plain version (the dispatchers pick by device)."""
     from zuds_tpu_torch.kernels import launch
     e = torch.zeros(16, dtype=torch.int32)
     img, s = torch.zeros((16, 16)), torch.zeros(())
@@ -429,3 +439,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         launch.stamp_candidates(img, s, s, 1.0, 2)
     with pytest.raises(ValueError, match='CUDA'):
         launch.frame_median(img)
+    stack = torch.zeros((2, 16, 16))
+    imask = torch.zeros((2, 16, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.clipped_combine(stack, stack, imask, imask > 0, None, 4.0,
+                               0.3, 16)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.warp(img, imask[0], img, img, torch.zeros(4), 2, ref2=img)
+    assert launch.clipped_combine.launches == 0
+    assert 'clipped_combine' in launch.WRAPPERS

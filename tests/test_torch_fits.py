@@ -142,8 +142,16 @@ def test_science_image_reflects_the_header_as_the_reference(tmp_path):
     assert isinstance(t.mask_image, MaskImage)
     np.testing.assert_array_equal(t.data, j.data)
     np.testing.assert_array_equal(t.mask_image.data, j.mask_image.data)
-    with pytest.raises(NotImplementedError, match='K17'):
-        t.rms_image
+    # the derived products: the port's background mesh on the CPU
+    # against the reference's (the mesh statistics agree to rtol 1e-4,
+    # tests/test_torch_background.py; the weight squares the rms)
+    t.device = 'cpu'
+    np.testing.assert_allclose(t.rms_image.data, j.rms_image.data, rtol=1e-4)
+    np.testing.assert_allclose(t.weight_image.data, j.weight_image.data,
+                               rtol=2e-4)
+    np.testing.assert_allclose(t.background_subtracted_image.data,
+                               j.background_subtracted_image.data,
+                               rtol=0, atol=1e-4)
 
 
 def test_mask_legend_and_boolean_match_the_reference():

@@ -1,6 +1,7 @@
-"""The port's hand kernels (H1-H8) against their plain PyTorch versions,
+"""The port's hand kernels (H1-H9) against their plain PyTorch versions,
 on a CUDA card, at small and ragged shapes (partial tiles, partial cells),
-H5/H6 at the flagship's capacities, and H8 up to a flagship frame.
+H5/H6 at the flagship's capacities, H8 up to a flagship frame, the
+two-plane H1 on the coadd's 3200x3200 canvas and H9 from 1 to 64 epochs.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -11,7 +12,13 @@ Tolerances: warp pixels rtol 3e-5, atol 5e-3 counts, mask and coverage
 bit-equal; background cells rtol 1e-4 and counts equal; model convolution
 rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
 deblend level labels and compaction bit-equal; stamp candidates (cand,
-and filt at the candidates) and the frame median bit-equal.
+and filt at the candidates) and the frame median bit-equal; the two-plane
+warp as the one-plane warp on both planes; the clipped combine's counts and
+mask equal, its coadd and weight rtol 2e-6 (the plain version forms the
+same sums in the same order; the card's own ``1/sqrt`` in the plain version
+may round a sigma one ulp away, which only moves a pixel that lies within
+an ulp of its clip threshold: such pixels are counted and bounded at 1e-5
+of the frame).
 """
 import numpy as np
 import pytest
@@ -335,3 +342,174 @@ def test_h7_h8_refuse_wrong_inputs(dev):
         launch.frame_median(img.reshape(-1), None)
     with pytest.raises(ValueError):
         launch.frame_median(img, None, iters=0)
+
+
+def _warp_inputs(dev, H, W, seed):
+    ref = _rand((H, W), dev, seed, 20.0, 150.0)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    bits = torch.randint(0, 1 << 16, (H, W), generator=g, device=dev,
+                         dtype=torch.int32)
+    mask = torch.where(torch.rand((H, W), generator=g, device=dev) < 0.03,
+                       bits, 0).to(torch.int32)
+    wgt = torch.rand((H, W), generator=g, device=dev) * 0.04 + 0.01
+    wgt = torch.where(mask > 0, 0.0, wgt).contiguous()
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    u = (xx + 1.4 * torch.sin(yy / 230.0 + xx / 310.0) + 0.3).contiguous()
+    v = (yy + 1.3 * torch.cos(xx / 190.0) - 0.2).contiguous()
+    covb = torch.tensor([2.0, W - 30.0, 4.5, H - 70.0], device=dev)
+    return ref, wgt, mask, u, v, covb
+
+
+@pytest.mark.parametrize('H,W,window', [(3200, 3200, 2), (200, 136, 2),
+                                        (97, 131, 3)])
+def test_warp_kernel_two_planes(dev, H, W, window):
+    """The second plane shares the taps of the first: both planes as the
+    plain composition, and the one-plane launch bit-equal to the first
+    plane, the mask and the coverage of the two-plane launch."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    ref, wgt, mask, u, v, covb = _warp_inputs(dev, H, W, 11)
+    n0 = launch.warp.launches
+    iw, ww, mw, cov = resample.warp_epoch(ref, wgt, mask, u, v, covb, window)
+    assert launch.warp.launches == n0 + 1
+    assert cov.dtype == torch.bool and mw.dtype == torch.int32
+    piw, pww, pmw, pcov = resample.warp_epoch_plain(ref, wgt, mask, u, v,
+                                                    covb, window)
+    _allclose(iw, piw, 3e-5, 5e-3)
+    _allclose(ww, pww, 3e-5, 1e-6)
+    assert torch.equal(mw, pmw) and torch.equal(cov, pcov)
+    assert bool((ww >= 0).all()) and not bool(cov.all()) and bool(cov.any())
+    one = launch.warp(ref, mask, u, v, covb, window)
+    two = launch.warp(ref, mask, u, v, covb, window, ref2=wgt)
+    assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[2]) \
+        and torch.equal(one[2], two[3])
+    # the second plane is the first plane's arithmetic on other pixels
+    swapped = launch.warp(wgt, mask, u, v, covb, window, ref2=ref)
+    assert torch.equal(swapped[0], two[1]) and torch.equal(swapped[1], two[0])
+    with pytest.raises(ValueError):
+        launch.warp(ref, mask, u, v, covb, window, ref2=wgt[:, :-1])
+    with pytest.raises(TypeError):
+        launch.warp(ref, mask, u, v, covb, window, ref2=wgt.double())
+
+
+def _combine_stack(dev, n, H, W, seed):
+    """A warped stack with zero-weight regions, pixels no epoch covers,
+    outliers, exact ties between epochs and a pixel on its clip threshold."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    imgs = 100.0 + 5.0 * torch.randn((n, H, W), generator=g, device=dev)
+    w = torch.rand((n, H, W), generator=g, device=dev) * 0.04 + 0.02
+    w = torch.where(torch.rand((n, H, W), generator=g, device=dev) < 0.15,
+                    0.0, w)
+    w[:, :3, :] = 0.0                    # no epoch has data
+    w[0, 3:9, :] = 0.0                   # the other parity of the count
+    imgs = torch.where(torch.rand((n, H, W), generator=g, device=dev) < 0.01,
+                       imgs + 300.0, imgs)
+    imgs[:, 12:16, :] = imgs[0, 12:16, :].clone()   # every epoch ties
+    if n > 1:
+        imgs[1, 16:20, :] = imgs[0, 16:20, :].clone()   # two tie
+    masks = torch.randint(0, 1 << 16, (n, H, W), generator=g, device=dev,
+                          dtype=torch.int32)
+    masks = torch.where(torch.rand((n, H, W), generator=g, device=dev) < 0.5,
+                        masks, 0x7FFF).to(torch.int32)
+    cov = torch.rand((n, H, W), generator=g, device=dev) < 0.8
+    cov[:, :, :2] = False                # no epoch covers
+    scales = torch.rand(n, generator=g, device=dev) * 0.3 + 0.2
+    return imgs.contiguous(), w.contiguous(), masks, cov, scales
+
+
+@pytest.mark.parametrize('scaled', [False, True])
+@pytest.mark.parametrize('n', [1, 2, 7, 8, 9, 16, 17, 33, 64])
+def test_clipped_combine_kernel(dev, n, scaled):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import coadd
+    H, W = 61, 131
+    imgs, w, masks, cov, scales = _combine_stack(dev, n, H, W, 100 + n)
+    sc = scales if scaled else None
+    n0 = launch.clipped_combine.launches
+    k = coadd.clipped_combine(imgs, w, masks, cov, sc)
+    assert launch.clipped_combine.launches == n0 + 1
+    p = coadd.clipped_combine_plain(imgs, w, masks, cov, sc)
+    assert set(k) == set(p) == {'coadd', 'weight', 'nclip', 'nexp', 'mask'}
+    for key in p:
+        assert k[key].dtype == p[key].dtype and k[key].shape == p[key].shape
+    assert torch.equal(k['nexp'], p['nexp'])
+    assert torch.equal(k['mask'], p['mask'])
+    tie = k['nclip'] != p['nclip']
+    assert int(tie.sum()) <= 1e-5 * H * W + 1, int(tie.sum())
+    _allclose(k['weight'][~tie], p['weight'][~tie], 2e-6, 0.0)
+    _allclose(k['coadd'][~tie], p['coadd'][~tie], 2e-6, 0.0)
+    # the stack exercises what it should
+    assert bool((k['nexp'] == 0).any())
+    # no epoch covers the first two columns: no bit but the no-data bit,
+    # which stands exactly where no weight was summed
+    assert bool((k['mask'][:, :2] & 0xFFFF == 0).all())
+    assert torch.equal((k['mask'] >> 16 & 1) == 1, k['weight'] == 0)
+    assert bool((k['coadd'][k['nexp'] == 0] == 0).all())
+    if n > 2:
+        assert bool((k['nclip'] > 0).any())
+    if not scaled:      # epochs with the same value are all kept
+        assert bool((k['nclip'][12:16] == 0).all())
+
+
+def test_clipped_combine_kernel_on_the_threshold(dev):
+    """Third epochs exactly on the clip threshold are kept and one ulp past
+    it clipped, with weights of 1/16 (sigma exactly 4)."""
+    from zuds_tpu_torch.ops import coadd
+    rng = np.random.default_rng(5)
+    f4 = np.float32
+    med = rng.uniform(8.0, 60.0, 4000).astype('f4')
+    tol = (f4(4.0) * f4(4.0) + f4(0.3) * np.abs(med)).astype('f4')
+    on = (med + tol).astype('f4')
+    past = np.nextafter(on, f4(np.inf))
+    exact = ((on - med).astype('f4') == tol) \
+        & ((past - med).astype('f4') > tol)
+    med, on, past = med[exact], on[exact], past[exact]
+    n = len(med)
+    imgs = torch.as_tensor(np.stack(
+        [np.concatenate([med - 1, med - 1]), np.concatenate([med, med]),
+         np.concatenate([on, past])])[:, None, :]).to(dev).contiguous()
+    w = torch.full_like(imgs, 1.0 / 16.0)
+    m = torch.zeros(imgs.shape, dtype=torch.int32, device=dev)
+    k = coadd.clipped_combine(imgs, w, m, m == 0)
+    p = coadd.clipped_combine_plain(imgs, w, m, m == 0)
+    assert bool((k['nclip'][0, :n] == 0).all())
+    assert bool((k['nclip'][0, n:] == 1).all())
+    for key in p:
+        assert torch.equal(k[key], p[key]), key
+
+
+def test_h9_refuses_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    imgs, w, masks, cov, scales = _combine_stack(dev, 65, 8, 8, 1)
+    with pytest.raises(ValueError, match='1 to 64 epochs'):
+        launch.clipped_combine(imgs, w, masks, cov, scales, 4.0, 0.3, 16)
+    a = (imgs[:4], w[:4], masks[:4], cov[:4], scales[:4])
+    launch.clipped_combine(*a, 4.0, 0.3, 16)
+    for i, bad in ((0, imgs[:4].double()), (1, w[:3]), (2, masks[:4].long()),
+                   (3, cov[:4].to(torch.uint8)), (4, scales[:3]),
+                   (0, imgs[:4, :, ::2]), (0, imgs[:4].cpu())):
+        args = list(a)
+        args[i] = bad
+        with pytest.raises((ValueError, TypeError)):
+            launch.clipped_combine(*args, 4.0, 0.3, 16)
+
+
+def test_background_and_median_on_the_coadd_canvas(dev):
+    """H2 and H8 at 3200x3200, a shape that is not the quadrant's."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background
+    H = W = 3200
+    img = _rand((H, W), dev, 21, 5.0, 150.0)
+    g = torch.Generator(device=dev).manual_seed(22)
+    valid = torch.rand((H, W), generator=g, device=dev) > 0.05
+    valid[3080:, :] = False
+    valid[:, 3072:] = False
+    k = launch.background_cells(img, valid, 128, 3)
+    p = background.background_cells_plain(img, valid, 128, 3)
+    _allclose(k[0], p[0], 1e-4, 0.0)
+    _allclose(k[1], p[1], 1e-4, 0.0)
+    assert torch.equal(k[2], p[2])
+    sub, ok = img[::4, ::4], valid[::4, ::4]
+    assert torch.equal(launch.frame_median(sub, ok),
+                       background.frame_median_plain(sub, ok))

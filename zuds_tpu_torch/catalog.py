@@ -1,11 +1,11 @@
-"""Pipeline catalogs (twin of ``zuds_tpu/catalog.py:23-347``): the
-fused pipeline's fixed-size detection rows as a structured numpy array
-with SExtractor-named columns, the reference's ``kill_flagged`` row
-filter, and the FITS bintable on disk. Host numpy only; no frame is
-touched.
+"""Pipeline catalogs (twin of ``zuds_tpu/catalog.py:23-347``): detection
+rows as a structured numpy array with SExtractor-named columns, the
+reference's ``kill_flagged`` row filter, and the FITS bintable on disk.
 
-Detecting on an image outside the fused pipeline (``from_image``) comes
-with the per-pair path (ROADMAP queue 1, K17).
+``from_pipeline`` takes the fused pipeline's fixed-size rows (host numpy
+only; no frame is touched). ``from_image`` detects on one image outside
+the pipeline (a coadd, for its seeing): ``detect_sources``, the r = 3 px
+apertures and the windowed/Kron refinement run on the image's device.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from .constants import BAD_SUM, DETECT_NSIGMA
+from .constants import BAD_SUM, DETECT_NSIGMA, MAX_DETECTIONS
 from .file import File
 from .fits import Header, read_fits, table_to_hdu, write_fits
 from .ops.detect import DETECTION_FIELDS
@@ -89,10 +89,63 @@ class PipelineFITSCatalog(File):
         return obj
 
     @classmethod
-    def from_image(cls, image, **kwargs):
-        raise NotImplementedError(
-            'a catalog detected on an image outside the fused pipeline is '
-            'not ported yet (ROADMAP queue 1: the per-pair path, K17)')
+    def from_image(cls, image, kill_flagged=True, nsigma=DETECT_NSIGMA,
+                   max_det=MAX_DETECTIONS, device=None):
+        """Detect sources on ``image`` and build its catalog
+        (catalog.py:94-143): the detection op on the background-subtracted
+        frame, r = 3 px apertures and the refinement at the valid rows, the
+        segmentation map attached as ``image.segm_image``, the reference's
+        ``kill_flagged`` row filter. ``device``: where the ops run;
+        ``image.device`` when None (the card unless ``'cpu'``)."""
+        import torch
+        from .inputs import resolve_device
+        from .ops.detect import detect_sources
+        from .ops.measure import refine_detections
+        from .ops.photometry import aperture_photometry_batched
+
+        device = resolve_device(device if device is not None
+                                else image.device)
+
+        def dev(a, dtype):
+            return torch.from_numpy(
+                np.ascontiguousarray(a).astype(dtype)).to(device)
+
+        bkgsub = dev(image.background_subtracted_image.data, np.float32)
+        rms = dev(image.rms_image.data, np.float32)
+        if image.mask_image is not None:
+            mask = dev(image.mask_image.data, np.int32)
+        else:
+            mask = torch.zeros(bkgsub.shape, dtype=torch.int32,
+                               device=device)
+        weight_ok = dev(np.asarray(image.weight_image.data) > 0, bool)
+
+        det = detect_sources(bkgsub, rms, mask, weight_ok, nsigma=nsigma,
+                             max_det=max_det)
+        idx_d = torch.nonzero(det['valid']).reshape(-1)
+        rows = {k: det[k][idx_d] for k in ('x', 'y', 'a', 'b', 'theta',
+                                           'fwhm')}
+        phot = aperture_photometry_batched(bkgsub, rms, mask, rows['x'],
+                                           rows['y'])
+        ref_meas = refine_detections(bkgsub, rms, *rows.values())
+        out = {k: v.cpu().numpy() for k, v in det.items() if k != 'labels'}
+        bkg = np.ascontiguousarray(image.background_image.data)
+        obj = cls._build(
+            image, out, idx_d.cpu().numpy(),
+            {k: v.cpu().numpy() for k, v in phot.items()},
+            {k: v.cpu().numpy() for k, v in ref_meas.items()},
+            filter_cols=None, background=bkg, kill_flagged=kill_flagged,
+            nsigma=nsigma)
+
+        # attach the segmentation check-image
+        image._set_product('_segmimg', det['labels'].cpu().numpy(),
+                           dtype='i4')
+
+        if image.ismapped:
+            obj.map_to_local_file(os.path.join(
+                os.path.dirname(image.local_path), obj.basename))
+            obj.save()
+        image.catalog = obj
+        return obj
 
     @classmethod
     def from_pipeline(cls, image, pout, frame=None, kill_flagged=True,
@@ -136,12 +189,14 @@ class PipelineFITSCatalog(File):
 
     @classmethod
     def _build(cls, image, out, idx, phot, ref_meas, filter_cols,
-               kill_flagged=True, nsigma=DETECT_NSIGMA):
+               background=None, kill_flagged=True, nsigma=DETECT_NSIGMA):
         """The structured catalog from the detection rows ``out``, the
         indices ``idx`` of the valid rows, and the r=3 px aperture
-        photometry ``phot``, windowed/Kron measures ``ref_meas`` and filter
-        columns ``filter_cols`` (BPMCUT, RMSCUT, NEGPIX) at those rows
-        (catalog.py:198-347, the fused pipeline's branch)."""
+        photometry ``phot`` and windowed/Kron measures ``ref_meas`` at
+        those rows (catalog.py:198-347). ``filter_cols``: the pipeline's
+        BPMCUT, RMSCUT, NEGPIX columns, or None (not precomputed).
+        ``background``: the image's background map for the BACKGROUND
+        column, or None for a subtraction (identically zero)."""
         n = idx.size
         xs = np.array(out['x'])[idx]
         ys = np.array(out['y'])[idx]
@@ -203,8 +258,16 @@ class PipelineFITSCatalog(File):
             cat['MU_MAX'] = zp - 2.5 * np.log10(
                 np.where(cat['FLUX_MAX'] > 0,
                          cat['FLUX_MAX'] / pixscale ** 2, np.nan))
-        # a subtraction's background is identically zero by construction
-        cat['BACKGROUND'] = 0.0
+        # the local mesh background at the centroid; a subtraction's is
+        # identically zero by construction
+        if background is not None:
+            yi = np.clip(np.round(ys).astype(int), 0,
+                         background.shape[0] - 1)
+            xi = np.clip(np.round(xs).astype(int), 0,
+                         background.shape[1] - 1)
+            cat['BACKGROUND'] = background[yi, xi]
+        else:
+            cat['BACKGROUND'] = 0.0
         # CLASS_STAR: logistic on concentration (FWHM vs seeing) and
         # elongation (catalog.py:308-319)
         seeing = image.header.get('SEEING')
@@ -217,8 +280,13 @@ class PipelineFITSCatalog(File):
         cat['CLASS_STAR'] = 1.0 / (1 + np.exp(z1)) / (1 + np.exp(z2))
         cat['GOODCUT'] = 0
         cat['RB'] = np.nan
-        for k, v in filter_cols.items():
-            cat[k] = v
+        if filter_cols is not None:
+            for k, v in filter_cols.items():
+                cat[k] = v
+        else:
+            cat['BPMCUT'] = np.nan
+            cat['RMSCUT'] = np.nan
+            cat['NEGPIX'] = -1
 
         if kill_flagged:
             # drop rows whose isophotal area touches a fatal mask bit or a

@@ -7,6 +7,7 @@ import math
 BIG_RMS = math.sqrt(50000.0)        # sentinel RMS for unusable pixels
 BKG_BOX_SIZE = 128                  # background mesh cell size (px)
 BKG_VAL = 150.0                     # counts added back after bkg subtraction
+SATUR_FRAC = 0.9                    # pixels >= SATUR_FRAC * SATURATE are bad
 
 # --- detection ---------------------------------------------------------------
 DETECT_NSIGMA = 1.5                 # detection threshold in filtered sigma
@@ -57,6 +58,11 @@ KERNEL_SPATIAL_ORDER = 4            # spatial order of kernel variation (-ko 4)
 # Gaussian basis (per-gaussian poly degree, per-gaussian sigma factor)
 KERNEL_GAUSS_DEGREES = (6, 4, 2)
 KERNEL_GAUSS_SIGMAS = (0.7, 1.5, 3.0)
+
+# --- coaddition --------------------------------------------------------------
+GROUP_PROPERTIES = ['field', 'ccdid', 'qid', 'fid']
+COADD_ZP = 25.0                     # common zeropoint for FLXSCALE normalize
+CLIP_NSIGMA = 4.0                   # clipped-mean combine threshold
 
 # --- filters -----------------------------------------------------------------
 FID_MAP = {1: 'zg', 2: 'zr', 3: 'zi'}

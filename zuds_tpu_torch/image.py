@@ -1,18 +1,21 @@
 """Image hierarchy (twin of the parts of ``zuds_tpu/image.py:53-410`` that
-the night driver touches).
+the night run and the coadd path touch).
 
 The classes, the header reflection of ``ScienceImage.from_file`` and the
-product naming are the reference's. The background and rms products of
-an image that was not produced by the fused pipeline (the per-image
-background run, ``image.py:117-198``) come with the per-pair path and
-raise until then; a subtraction's products come from the pipeline
+product naming are the reference's. The background, rms and weight
+products of an image (``image.py:112-198``) are computed by the port's
+``background_mesh`` on the image's ``device`` (the card unless ``'cpu'``)
+and cached beside it; a subtraction's products come from the pipeline
 (``subtraction.py``).
 """
 from __future__ import annotations
 
 import os
 
-from .constants import APER_KEY, FID_MAP
+import numpy as np
+
+from .constants import (APER_KEY, BIG_RMS, BKG_BOX_SIZE, FID_MAP,
+                        SATUR_FRAC)
 from .fitsfile import HasWCS
 
 __all__ = ['FITSImage', 'CalibratableImageBase', 'CalibratableImage',
@@ -25,12 +28,6 @@ class FITSImage(HasWCS):
     parent_image = None
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f'{what} of an image the fused pipeline did not produce is not '
-        'ported yet (ROADMAP queue 1: the per-pair path, K17)')
-
-
 class CalibratableImageBase(FITSImage):
     """Image whose calibration products are cached beside it."""
 
@@ -41,24 +38,110 @@ class CalibratableImageBase(FITSImage):
     }
 
     mask_image = None
+    # where the derived products are computed: the card unless 'cpu'
+    device = None
 
-    def _product(self, attr, what):
-        try:
-            return getattr(self, attr)
-        except AttributeError:
-            raise _not_ported(what) from None
+    def _bad_pixel_array(self):
+        if self.mask_image is not None:
+            return np.asarray(self.mask_image.boolean.data).astype(bool)
+        return np.zeros(self.shape, dtype=bool)
+
+    def _run_background(self):
+        """One background-mesh pass -> background, rms and the
+        background-subtracted frame (image.py:117-127)."""
+        import torch
+        from .inputs import resolve_device
+        from .ops.background import background_mesh
+        device = resolve_device(self.device)
+        data = np.ascontiguousarray(self.data).astype(np.float32)
+        bad = self._bad_pixel_array()
+        res = background_mesh(torch.from_numpy(data).to(device),
+                              torch.from_numpy(~bad).to(device),
+                              box=BKG_BOX_SIZE)
+        back = res['back'].cpu().numpy()
+        self._set_product('_bkgimg', back)
+        self._set_product('_rmsimg', res['rms'].cpu().numpy())
+        self._set_product('_bkgsubimg', data - back)
+
+    def _set_product(self, attr, data, dtype='f4'):
+        prod = FITSImage()
+        prod.data = np.asarray(data).astype(dtype)
+        prod.header = self.header.copy()
+        prod.parent_image = self
+        if self.basename:
+            prod.basename = self.basename.replace(
+                '.fits', self._product_suffixes.get(attr, f'{attr}.fits'))
+        if self.ismapped and attr in self._product_suffixes:
+            path = os.path.join(os.path.dirname(self.local_path),
+                                prod.basename)
+            prod.map_to_local_file(path)
+            prod.save()
+        setattr(self, attr, prod)
+        return prod
 
     @property
     def background_image(self):
-        return self._product('_bkgimg', 'the background map')
+        try:
+            return self._bkgimg
+        except AttributeError:
+            self._run_background()
+        return self._bkgimg
 
     @property
     def background_subtracted_image(self):
-        return self._product('_bkgsubimg', 'the background-subtracted frame')
+        try:
+            return self._bkgsubimg
+        except AttributeError:
+            self._run_background()
+        return self._bkgsubimg
 
     @property
     def rms_image(self):
-        return self._product('_rmsimg', 'the rms map')
+        try:
+            return self._rmsimg
+        except AttributeError:
+            if hasattr(self, '_weightimg'):
+                # derived from the weight map (image.py:166-176)
+                ind = self._bad_pixel_array()
+                w = np.asarray(self._weightimg.data)
+                rms = np.full_like(w, BIG_RMS, dtype=np.float32)
+                ok = (~ind) & (w > 0)
+                rms[ok] = 1.0 / np.sqrt(w[ok])
+                if 'SATURATE' in self.header:
+                    rms[np.asarray(self.data)
+                        >= SATUR_FRAC * self.header['SATURATE']] = BIG_RMS
+                self._set_product('_rmsimg', rms)
+            else:
+                self._run_background()
+        return self._rmsimg
+
+    @property
+    def weight_image(self):
+        """Inverse-variance map from rms + mask + saturation
+        (image.py:181-198)."""
+        try:
+            return self._weightimg
+        except AttributeError:
+            ind = self._bad_pixel_array()
+            rms = np.asarray(self.rms_image.data)
+            wgt = np.zeros(self.shape, dtype=np.float32)
+            ok = (~ind) & (rms > 0)
+            wgt[ok] = 1.0 / rms[ok] ** 2
+            if 'SATURATE' in self.header:
+                sat = np.asarray(self.data) \
+                    >= SATUR_FRAC * self.header['SATURATE']
+                wgt[sat] = 0.0
+            self._set_product('_weightimg', wgt)
+        return self._weightimg
+
+    @property
+    def segm_image(self):
+        try:
+            return self._segmimg
+        except AttributeError:
+            from .catalog import PipelineFITSCatalog
+            PipelineFITSCatalog.from_image(self)
+        return self._segmimg
 
     @property
     def catalog(self):

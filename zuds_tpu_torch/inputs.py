@@ -1,10 +1,11 @@
-"""The pipeline's per-frame state: kernel-basis tables and input tuples.
+"""The pipelines' per-frame state: kernel-basis tables and input tuples.
 
-The subtract/detect path has no learned weights. What it carries is the
-14-array input tuple of ``zuds_tpu/parallel/pipeline.py:133-140`` and the
-A&L kernel-basis tables (``ops.subtract.KernelBasis``, re-exported here).
-Both are built in host numpy, byte-for-byte as the JAX package builds
-them, and moved onto a device by :func:`to_torch`.
+Neither path has learned weights. What the subtract/detect path carries is
+the 14-array input tuple of ``zuds_tpu/parallel/pipeline.py:133-140`` and
+the A&L kernel-basis tables (``ops.subtract.KernelBasis``, re-exported
+here); the coadd path carries the 8-array tuple of ``make_coadd_pipeline``
+(pipeline.py:441-447). All are built in host numpy, byte-for-byte as the
+JAX package builds them, and moved onto a device by :func:`to_torch`.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from .ops.subtract import KernelBasis
 
 __all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
-           'resolve_device', 'upload', 'upload_mask', 'write_night_pairs']
+           'COADD_INPUT_NAMES', 'resolve_device', 'upload', 'upload_mask',
+           'write_night_pairs', 'write_coadd_epochs']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -26,6 +28,11 @@ INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
                'basis_sums', 'b0', 'cov_bounds')
 _MASK_SLOTS = (1, 3)
 _BOOL_SLOTS = (8,)
+# order of the coadd pipeline's inputs (pipeline.py:441-447), each with a
+# leading epoch dimension
+COADD_INPUT_NAMES = ('imgs', 'sats', 'masks', 'grid_u', 'grid_v',
+                     'cov_bounds', 'scales', 'valid')
+_COADD_MASK_SLOTS = (2,)
 
 # Lanczos-3 support (zuds_tpu/ops/resample.py:29)
 SUPPORT = 3
@@ -96,6 +103,9 @@ def synth_inputs(B, H, W, cfg, seed=0):
 
 
 def _tensor(a, dtype, device):
+    if isinstance(a, torch.Tensor):     # already a tensor: move and cast
+        return a.to(device=device,
+                    dtype=torch.from_numpy(np.empty(0, dtype)).dtype)
     return torch.tensor(np.asarray(a, dtype=dtype), device=device)
 
 
@@ -146,19 +156,27 @@ def upload_mask(m, shape, device, stats=None):
 def to_torch(args, device=None):
     """Move pipeline state onto ``device`` as the port's tensors.
 
-    ``args`` is either the 14-tuple of INPUT_NAMES (numpy or JAX arrays):
-    masks become int32, ``stamp_valid`` bool, everything else float32; or
-    one float array (e.g. fitted ``coeffs`` from a JAX ``fit_kernel`` run),
-    which becomes float32.
+    ``args`` is the 14-tuple of INPUT_NAMES (numpy or JAX arrays): masks
+    become int32, ``stamp_valid`` bool, everything else float32; or the
+    8-tuple of COADD_INPUT_NAMES (numpy or JAX arrays, or tensors already
+    on a device): ``masks`` int32, everything else float32; or one float
+    array (e.g. fitted ``coeffs`` from a JAX ``fit_kernel`` run), which
+    becomes float32.
 
     ``device=None`` means the CUDA card and raises where there is none; a
     caller that wants the CPU says ``'cpu'``.
     """
     device = resolve_device(device)
     if isinstance(args, (tuple, list)):
+        if len(args) == len(COADD_INPUT_NAMES):
+            return tuple(_tensor(a, np.int32 if i in _COADD_MASK_SLOTS
+                                 else np.float32, device)
+                         for i, a in enumerate(args))
         if len(args) != len(INPUT_NAMES):
-            raise ValueError(f'expected {len(INPUT_NAMES)} inputs '
-                             f'{INPUT_NAMES}, got {len(args)}')
+            raise ValueError(f'expected the {len(INPUT_NAMES)} inputs '
+                             f'{INPUT_NAMES} or the '
+                             f'{len(COADD_INPUT_NAMES)} inputs '
+                             f'{COADD_INPUT_NAMES}, got {len(args)}')
         out = []
         for i, a in enumerate(args):
             dtype = (np.int32 if i in _MASK_SLOTS
@@ -284,3 +302,69 @@ def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7):
         work.append(f'{p} {ref_path}')
         truths.append(t[:2])
     return work, truths
+
+
+# write_coadd_epochs' scene (bench.py:main_coadd)
+COADD_STARS = 400
+COADD_SEEING = 2.0
+COADD_MAGZP = 26.3
+COADD_DITHER = 1.5
+
+
+def write_coadd_epochs(d, nepochs, H, W, seed=21, nstars=COADD_STARS,
+                       cosmic=None):
+    """FITS epochs of one synthetic quadrant in directory ``d``, the recipe
+    of ``bench.py:main_coadd`` (206-258): ``nstars`` stars of flux
+    8e3-6e4 at seeing 2.0 px on sky 150 with noise 5, ``MAGZP`` 26.3, one
+    linear WCS per epoch whose CRPIX is dithered by up to 1.5 px on each
+    axis, uint16 ``mskimg`` siblings, written with the port's FITS writer.
+    ``cosmic`` = (epoch, x, y, counts) adds ``counts`` to that pixel of
+    that epoch. Returns (paths, the epochs' WCS objects)."""
+    from .fits import HDU, Header, write_fits
+    from .wcs import TPVWCS
+    rng = np.random.default_rng(seed)
+    scale = 1.01 / 3600.0
+    wcs0 = TPVWCS.simple(crval=(150.1, 35.2),
+                         crpix=(W / 2 + .5, H / 2 + .5), scale_deg=scale)
+    xs = rng.uniform(30, W - 30, nstars)
+    ys = rng.uniform(30, H - 30, nstars)
+    fl = rng.uniform(8000, 60000, nstars)
+    ra, dec = wcs0.pix2sky_0(xs, ys)
+    k = 10
+    yy, xx = np.mgrid[-k:k + 1, -k:k + 1]
+    sig = COADD_SEEING / 2.355
+    paths, wcss = [], []
+    for i in range(nepochs):
+        p = os.path.join(d, f'ep{i}_sciimg.fits')
+        wcs_e = TPVWCS.simple(
+            crval=(150.1, 35.2),
+            crpix=(W / 2 + .5 + rng.uniform(-COADD_DITHER, COADD_DITHER),
+                   H / 2 + .5 + rng.uniform(-COADD_DITHER, COADD_DITHER)),
+            scale_deg=scale)
+        ex, ey = wcs_e.sky2pix_0(ra, dec)
+        img = np.full((H, W), 150.0, 'f4')
+        for x, y, f in zip(ex, ey, fl):
+            xi, yi = int(round(x)), int(round(y))
+            if not (k < xi < W - k - 1 and k < yi < H - k - 1):
+                continue
+            psf = np.exp(-((xx + xi - x) ** 2 + (yy + yi - y) ** 2)
+                         / (2 * sig * sig)) / (2 * np.pi * sig * sig)
+            img[yi - k:yi + k + 1, xi - k:xi + k + 1] += \
+                (f * psf).astype('f4')
+        img += rng.normal(0, 5.0, (H, W)).astype('f4')
+        if cosmic is not None and cosmic[0] == i:
+            img[cosmic[2], cosmic[1]] += np.float32(cosmic[3])
+        h = Header()
+        wcs_e.to_header(h)
+        for key, v in (('MAGZP', COADD_MAGZP), ('OBSMJD', 58300.0 + i),
+                       ('FIELDID', 679), ('CCDID', 1), ('QID', 2),
+                       ('FILTERID', 2), ('SATURATE', 60000.0),
+                       ('SEEING', COADD_SEEING)):
+            h.set(key, v)
+        h.set('FILENAME', os.path.basename(p))
+        write_fits(p, [HDU(h, img)])
+        write_fits(p.replace('sciimg', 'mskimg'),
+                   [HDU(h.copy(), np.zeros(img.shape, np.uint16))])
+        paths.append(p)
+        wcss.append(wcs_e)
+    return paths, wcss

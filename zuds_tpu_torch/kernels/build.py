@@ -22,7 +22,7 @@ __all__ = ['library', 'check', 'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
-           'compact.cu', 'stamps.cu', 'median.cu')
+           'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -46,8 +46,9 @@ class ApplyParams(ctypes.Structure):
 
 # C signatures: (name, argtypes); every launcher returns int (cudaError_t)
 SIGNATURES = {
-    # ref, mask, u, v, covb, refw, refm, cov, H, W, window, stream
-    'zuds_warp': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ref, ref2 (or null), mask, u, v, covb, refw, refw2 (or null), refm,
+    # cov, H, W, window, stream
+    'zuds_warp': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # img, valid(u8), back, sigma, n, H, W, box, iters, stream
     'zuds_background_cells': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # ref, kd, bg, model, params (host struct, copied into the launch),
@@ -63,6 +64,10 @@ SIGNATURES = {
     # ok row/col strides, blocks, iters, scratch, out, stream
     'zuds_frame_median': (_P, _P, _P, _I, _I, _L, _L, _L, _L, _I, _I, _P,
                           _P, _P),
+    # img, wgt, mask, cov(u8), scales (or null), coadd, weight, nclip, nexp,
+    # omask, N, npix, nsigma, amp_frac, nodata_bit, stream
+    'zuds_clipped_combine': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                             _F, _F, _I, _P),
 }
 
 

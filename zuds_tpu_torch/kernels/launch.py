@@ -1,6 +1,6 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
 H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
-candidates, H8 frame median).
+candidates, H8 frame median, H9 clipped combine).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -16,7 +16,8 @@ import torch
 from . import build
 
 __all__ = ['warp', 'background_cells', 'apply_model', 'deblend_labels',
-           'compact', 'stamp_candidates', 'frame_median', 'WRAPPERS']
+           'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
+           'COMBINE_MAX_EPOCHS', 'WRAPPERS']
 
 
 def _ptr(t):
@@ -39,8 +40,10 @@ def _require(name, t, dtype, shape=None):
         raise ValueError(f'{name}: expected a contiguous tensor')
 
 
-def warp(ref, mask, u, v, covb, window):
-    """H1 (kernels/warp.cu): (refw f32, refm i32, cov f32), each (H, W)."""
+def warp(ref, mask, u, v, covb, window, ref2=None):
+    """H1 (kernels/warp.cu): (refw f32, refm i32, cov f32), each (H, W).
+    With a second float plane ``ref2`` (H, W), warped with the taps and
+    weights of the first in the same launch: (refw, refw2, refm, cov)."""
     H, W = ref.shape
     _require('ref', ref, torch.float32)
     _require('ref_mask', mask, torch.int32, (H, W))
@@ -50,12 +53,21 @@ def warp(ref, mask, u, v, covb, window):
     refw = torch.empty_like(ref)
     refm = torch.empty_like(mask)
     cov = torch.empty_like(ref)
+    null = ctypes.c_void_p(None)
+    refw2 = None
+    if ref2 is not None:
+        _require('ref2', ref2, torch.float32, (H, W))
+        refw2 = torch.empty_like(ref2)
     err = build.library().zuds_warp(
-        _ptr(ref), _ptr(mask), _ptr(u), _ptr(v), _ptr(covb), _ptr(refw),
-        _ptr(refm), _ptr(cov), H, W, int(window), _stream())
+        _ptr(ref), null if ref2 is None else _ptr(ref2), _ptr(mask), _ptr(u),
+        _ptr(v), _ptr(covb), _ptr(refw),
+        null if ref2 is None else _ptr(refw2), _ptr(refm), _ptr(cov), H, W,
+        int(window), _stream())
     build.check(err, 'zuds_warp')
     warp.launches += 1
-    return refw, refm, cov
+    if ref2 is None:
+        return refw, refm, cov
+    return refw, refw2, refm, cov
 
 
 def background_cells(img, valid, box, iters):
@@ -220,6 +232,45 @@ def frame_median(x, ok=None, center=None, iters=12):
     return out
 
 
+# the per-thread arrays of H9 (coadd.cu) hold at most this many epochs
+COMBINE_MAX_EPOCHS = 64
+
+
+def clipped_combine(imgs, weights, masks, coverage, scales, nsigma,
+                    amp_frac, nodata_bit):
+    """H9 (kernels/coadd.cu): the CLIPPED combine of the warped stack
+    ``imgs``/``weights`` (N, H, W) f32, the AND of ``masks`` (int32) over
+    ``coverage`` (bool), and bit ``nodata_bit`` where no epoch contributed.
+    ``scales``: (N,) f32 FLXSCALE factors or None. Returns dict ``coadd``,
+    ``weight`` (H, W) f32, ``nclip``, ``nexp``, ``mask`` (H, W) int32."""
+    _require('imgs', imgs, torch.float32)
+    if imgs.dim() != 3 or not 1 <= imgs.shape[0] <= COMBINE_MAX_EPOCHS:
+        raise ValueError(f'clipped_combine: expected a stack of 1 to '
+                         f'{COMBINE_MAX_EPOCHS} epochs (N, H, W), got '
+                         f'{tuple(imgs.shape)}')
+    N, H, W = imgs.shape
+    _require('weights', weights, torch.float32, (N, H, W))
+    _require('masks', masks, torch.int32, (N, H, W))
+    _require('coverage', coverage, torch.bool, (N, H, W))
+    if scales is not None:
+        _require('scales', scales, torch.float32, (N,))
+    dev = imgs.device
+    coadd = torch.empty((H, W), dtype=torch.float32, device=dev)
+    weight = torch.empty_like(coadd)
+    nclip = torch.empty((H, W), dtype=torch.int32, device=dev)
+    nexp = torch.empty_like(nclip)
+    omask = torch.empty_like(nclip)
+    err = build.library().zuds_clipped_combine(
+        _ptr(imgs), _ptr(weights), _ptr(masks), _ptr(coverage),
+        ctypes.c_void_p(None) if scales is None else _ptr(scales),
+        _ptr(coadd), _ptr(weight), _ptr(nclip), _ptr(nexp), _ptr(omask), N,
+        H * W, float(nsigma), float(amp_frac), int(nodata_bit), _stream())
+    build.check(err, 'zuds_clipped_combine')
+    clipped_combine.launches += 1
+    return {'coadd': coadd, 'weight': weight, 'nclip': nclip, 'nexp': nexp,
+            'mask': omask}
+
+
 def _require_view(name, t, dtype, shape=None):
     """Like _require for a 2-D view that need not be contiguous."""
     if not t.is_cuda:
@@ -243,7 +294,9 @@ deblend_labels.launches = 0
 compact.launches = 0
 stamp_candidates.launches = 0
 frame_median.launches = 0
+clipped_combine.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model, 'deblend_labels': deblend_labels,
             'compact': compact, 'stamp_candidates': stamp_candidates,
-            'frame_median': frame_median}
+            'frame_median': frame_median,
+            'clipped_combine': clipped_combine}

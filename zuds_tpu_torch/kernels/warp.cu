@@ -19,6 +19,11 @@
 // The mask path uses only f32 subtractions and compares, so it is
 // bit-equal to the plain version.
 //
+// An optional second float plane (the coadd's per-epoch weight map,
+// pipeline.py:482-483) shares u, v, the taps and the 36 weights of the
+// first: one launch warps an epoch's pixels, weight and mask. The one-plane
+// instantiation compiles none of the second plane's loads or sums.
+//
 // Bound: memory. Per pixel it reads u, v, ref and mask once from DRAM and
 // ~36 neighbouring taps through L1/L2, and writes 12 bytes; ~30 bytes of
 // DRAM traffic per pixel (~0.3 GB per quadrant). Consecutive threads take
@@ -58,12 +63,15 @@ __device__ __forceinline__ int first_tap(float d, int reach) {
   return (int)f - 2;
 }
 
+template <bool TWO>
 __global__ void warp_kernel(const float* __restrict__ ref,
+                            const float* __restrict__ ref2,
                             const int* __restrict__ mask,
                             const float* __restrict__ u,
                             const float* __restrict__ v,
                             const float* __restrict__ covb,
                             float* __restrict__ refw,
+                            float* __restrict__ refw2,
                             int* __restrict__ refm,
                             float* __restrict__ cov,
                             int H, int W, int window) {
@@ -97,7 +105,7 @@ __global__ void warp_kernel(const float* __restrict__ ref,
     int dy = dy0 + k;
     wy[k] = (abs(dy) <= reach) ? lanczos3(__fsub_rn(dv, (float)dy)) : 0.f;
   }
-  float acc = 0.f, wacc = 0.f;
+  float acc = 0.f, acc2 = 0.f, wacc = 0.f;
 #pragma unroll
   for (int ky = 0; ky < 6; ++ky) {
     const int row = wrap_index(y + dy0 + ky, H);
@@ -105,11 +113,15 @@ __global__ void warp_kernel(const float* __restrict__ ref,
 #pragma unroll
     for (int kx = 0; kx < 6; ++kx) {
       const int col = wrap_index(x + dx0 + kx, W);
-      acc = __fadd_rn(acc, __fmul_rn(rrow[col], __fmul_rn(wx[kx], wy[ky])));
+      const float wgt = __fmul_rn(wx[kx], wy[ky]);
+      acc = __fadd_rn(acc, __fmul_rn(rrow[col], wgt));
+      if (TWO)
+        acc2 = __fadd_rn(acc2, __fmul_rn(ref2[(size_t)row * W + col], wgt));
     }
     wacc = __fadd_rn(wacc, __fmul_rn(wxsum, wy[ky]));
   }
-  const float out = __fdiv_rn(acc, wacc == 0.f ? 1.f : wacc);
+  const float norm = wacc == 0.f ? 1.f : wacc;
+  const float out = __fdiv_rn(acc, norm);
 
   // ---- mask: separable significant-weight OR ------------------------------
   int m = 0;
@@ -129,19 +141,27 @@ __global__ void warp_kernel(const float* __restrict__ ref,
     }
   }
   refw[i] = c ? out : 0.f;
+  if (TWO) refw2[i] = c ? __fdiv_rn(acc2, norm) : 0.f;
   refm[i] = m;
   cov[i] = c ? 1.f : 0.f;
 }
 
 }  // namespace
 
-extern "C" int zuds_warp(const float* ref, const int* mask, const float* u,
-                         const float* v, const float* covb, float* refw,
-                         int* refm, float* cov, int H, int W, int window,
-                         cudaStream_t stream) {
+// ref2 and refw2 are both null (one plane) or both set (two planes).
+extern "C" int zuds_warp(const float* ref, const float* ref2, const int* mask,
+                         const float* u, const float* v, const float* covb,
+                         float* refw, float* refw2, int* refm, float* cov,
+                         int H, int W, int window, cudaStream_t stream) {
+  if ((ref2 == nullptr) != (refw2 == nullptr))
+    return (int)cudaErrorInvalidValue;
   dim3 block(32, 8);
   dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-  warp_kernel<<<grid, block, 0, stream>>>(ref, mask, u, v, covb, refw, refm,
-                                          cov, H, W, window);
+  if (ref2 != nullptr)
+    warp_kernel<true><<<grid, block, 0, stream>>>(
+        ref, ref2, mask, u, v, covb, refw, refw2, refm, cov, H, W, window);
+  else
+    warp_kernel<false><<<grid, block, 0, stream>>>(
+        ref, ref2, mask, u, v, covb, refw, refw2, refm, cov, H, W, window);
   return (int)cudaGetLastError();
 }

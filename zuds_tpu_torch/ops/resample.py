@@ -1,9 +1,11 @@
 """Lanczos-3 reference warp (twin of ``zuds_tpu/ops/resample.py``).
 
 Plain PyTorch versions of the main path's warp functions, and
-:func:`warp_reference`, which runs the fused hand kernel H1
-(``kernels/warp.cu``) on a CUDA tensor and the plain composition on a CPU
-tensor.
+:func:`warp_reference` and :func:`warp_epoch`, which run the fused hand
+kernel H1 (``kernels/warp.cu``) on a CUDA tensor and the plain composition
+on a CPU tensor: one float plane and a mask for the subtraction's
+reference, two float planes (pixels and weight) and a mask for a coadd's
+epoch.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from ..kernels import launch
 
 __all__ = ['SUPPORT', 'lanczos3', 'upsample_mapping', 'warp_shift_image',
            'warp_shift_mask', 'coverage_gate', 'warp_reference',
-           'warp_reference_plain']
+           'warp_reference_plain', 'warp_epoch', 'warp_epoch_plain']
 
 SUPPORT = 3
 
@@ -132,3 +134,34 @@ def warp_reference(ref, ref_mask, u, v, covb, window):
     if ref.is_cuda:
         return launch.warp(ref, ref_mask, u, v, covb, window)
     return warp_reference_plain(ref, ref_mask, u, v, covb, window)
+
+
+def warp_epoch_plain(img, wgt, mask, u, v, covb, window):
+    """Plain version of the two-plane H1, with the coadd's gate
+    (pipeline.py:482-491 at ``valid = 1``): the warped pixels, weight and
+    mask of one epoch and its coverage (bool). Pixels and mask are 0 where
+    the epoch does not cover (a ``where``: a non-finite tap does not leak),
+    the weight is clamped at 0."""
+    iw, cov = warp_shift_image(img, u, v, window=window)
+    ww, _ = warp_shift_image(wgt, u, v, window=window)
+    mw = warp_shift_mask(mask, u, v, window=window)
+    covo = ((u >= covb[0]) & (u <= covb[1])
+            & (v >= covb[2]) & (v <= covb[3]))
+    cov = cov * covo.to(torch.float32)
+    covered = cov > 0
+    return (torch.where(covered, iw, 0.0), torch.clamp(ww, min=0.0) * cov,
+            torch.where(covered, mw, 0), covered)
+
+
+def warp_epoch(img, wgt, mask, u, v, covb, window):
+    """One coadd epoch on the output canvas: (pixels f32, weight f32, mask
+    int32, coverage bool), each (H, W), as ``warp_epoch`` of the reference
+    leaves them for a valid epoch (pipeline.py:482-491). A CUDA tensor runs
+    hand kernel H1 once with the weight map as its second plane; a CPU
+    tensor runs :func:`warp_epoch_plain`."""
+    if img.is_cuda:
+        iw, ww, mw, cov = launch.warp(img, mask, u, v, covb, window,
+                                      ref2=wgt)
+        # H1 writes 0 outside the coverage on every plane
+        return iw, torch.clamp(ww, min=0.0), mw, cov > 0
+    return warp_epoch_plain(img, wgt, mask, u, v, covb, window)

@@ -8,6 +8,12 @@ CUDA device the warp (H1), the background cells (H2), the model
 convolution (H3), the matched filter (H4), the deblend tree's level labels
 (H5), the compactions (H6) and the whole-frame medians (H8) run as
 hand-written kernels; everything between them is plain PyTorch.
+
+:class:`CoaddPipeline` is the twin of ``make_coadd_pipeline``
+(pipeline.py:430-505) with its host feed ``prepare_epoch_inputs``
+(:528-578): per epoch the background mesh (H2), the inverse-variance
+weight and one two-plane warp (H1), then the CLIPPED combine of the stack
+with the mask AND (H9).
 """
 from __future__ import annotations
 
@@ -19,20 +25,23 @@ from torch import nn
 
 from ..constants import (BAD_SUM, BIG_RMS, BKG_BOX_SIZE, BKG_VAL,
                          DETECT_NSIGMA, MASK_BIT_NODATA_ALIGN,
-                         MASK_BIT_NODATA_SUB, SUB_NODATA_SENTINEL)
+                         MASK_BIT_NODATA_SUB, SATUR_FRAC,
+                         SUB_NODATA_SENTINEL)
 from ..ops.background import background_mesh, frame_median
+from ..ops.coadd import clipped_combine, fluxscale
 from ..ops.convolve import dilate_max
 from ..ops.detect import DETECTION_FIELDS, detect_sources
 from ..ops.measure import refine_detections
 from ..ops.photometry import (aperture_photometry_batched,
                               circle_pixel_overlap, cutouts)
 from ..ops.ordered import sum_last2
-from ..ops.resample import upsample_mapping, warp_reference
+from ..ops.resample import upsample_mapping, warp_epoch, warp_reference
 from ..ops.subtract import (apply_kernel_fast, center_kernels, fit_kernel,
                             region_edges)
 
 __all__ = ['PipelineConfig', 'SubtractDetectPipeline', 'prepare_frame_inputs',
-           'REF_CACHE_SIZE']
+           'REF_CACHE_SIZE', 'CoaddPipeline', 'embed_roll',
+           'prepare_epoch_inputs']
 
 REFINE_KEYS = ('xwin', 'ywin', 'kron_radius', 'flux_auto', 'fluxerr_auto',
                'awin', 'bwin', 'thetawin', 'errawin', 'errbwin',
@@ -375,4 +384,156 @@ def prepare_frame_inputs(sci, ref, cfg: PipelineConfig, smax=None,
         'basis_sums': upload(basis.sums, device, stats),
         'b0': upload(basis.b0_2d, device, stats),
         'cov_bounds': upload(cov_bounds, device, stats),
+    }
+
+
+class CoaddPipeline(nn.Module):
+    """Coadd one epoch stack (pipeline.py:430-505).
+
+    ``forward`` takes the reference's eight inputs, each with a leading
+    epoch dimension N (see :data:`zuds_tpu_torch.inputs.COADD_INPUT_NAMES`;
+    the epochs already embedded and rolled into the (H, W) canvas by
+    :func:`prepare_epoch_inputs`): imgs (N, H, W) f32, sats (N,) f32
+    saturation levels, masks (N, H, W) int32, grid_u/grid_v (N, GH, GW) f32
+    (canvas -> epoch mapping), cov_bounds (N, 4) f32, scales (N,) f32
+    FLXSCALE, valid (N,) f32 (an epoch with 0 contributes nothing). It
+    returns ``coadd`` and ``weight`` (H, W) f32, ``mask`` (H, W) int32 and
+    ``nexp`` (H, W) int32.
+
+    Epochs run one by one, as ``jax.lax.map`` runs them, each written into
+    its slice of the warped stack; the stack is combined once. With
+    ``subtract_back`` each epoch loses its background mesh, else the noise
+    is 1.4826 MAD of a ``::4`` subsample; with ``compute_weight`` the
+    weight is 1/rms^2 less bad and saturated pixels, else 1 off bad
+    pixels. The module holds no weights.
+    """
+
+    def __init__(self, cfg: PipelineConfig, subtract_back=True,
+                 compute_weight=True):
+        super().__init__()
+        self.cfg = cfg
+        self.subtract_back = subtract_back
+        self.compute_weight = compute_weight
+
+    def forward(self, imgs, sats, masks, gus, gvs, covbs, scales, valid):
+        cfg = self.cfg
+        N, H, W = imgs.shape
+        if (H, W) != (cfg.height, cfg.width):
+            raise ValueError(f'epochs of shape {(H, W)} do not fill the '
+                             f'{(cfg.height, cfg.width)} canvas')
+        dev = imgs.device
+        iw = torch.empty((N, H, W), dtype=torch.float32, device=dev)
+        ww = torch.empty_like(iw)
+        mw = torch.empty((N, H, W), dtype=torch.int32, device=dev)
+        cov = torch.empty((N, H, W), dtype=torch.bool, device=dev)
+        for n in range(N):
+            self.warp_epoch(imgs[n], sats[n], masks[n], gus[n], gvs[n],
+                            covbs[n], valid[n], iw[n], ww[n], mw[n], cov[n])
+        with _stage('combine'):
+            out = clipped_combine(iw, ww, mw, cov, scales)
+        return {'coadd': out['coadd'], 'weight': out['weight'],
+                'mask': out['mask'], 'nexp': out['nexp']}
+
+    def warp_epoch(self, img, sat, mask, gu, gv, covb, vld, iw, ww, mw, cov):
+        """One epoch onto the canvas (pipeline.py:460-491), written into
+        the stack slices ``iw``, ``ww``, ``mw``, ``cov``."""
+        cfg = self.cfg
+        bad = (mask & BAD_SUM) > 0
+        with _stage('background'):
+            if self.subtract_back:
+                bres = background_mesh(img, ~bad, box=cfg.box)
+                img_b = img - bres['back']
+                rms = bres['rms']
+            else:
+                img_b = img
+                sub, okf = img[::4, ::4], (~bad)[::4, ::4]
+                med = frame_median(sub, okf)
+                rms = (1.4826 * frame_median(sub, okf, center=med)).expand(
+                    img.shape)
+        with _stage('weight'):
+            if self.compute_weight:
+                wgt = torch.where(bad | (rms <= 0), 0.0,
+                                  1.0 / torch.clamp(rms, min=1e-12) ** 2)
+                wgt = torch.where(img >= SATUR_FRAC * sat, 0.0, wgt)
+            else:
+                wgt = torch.where(bad, 0.0, 1.0)
+        with _stage('warp'):
+            u, v = upsample_mapping(gu, gv, img.shape, cfg.map_step)
+            e_iw, e_ww, e_mw, e_cov = warp_epoch(
+                img_b, wgt.contiguous(), mask, u, v, covb, cfg.max_shift)
+            # ``valid`` gates the epoch as the coverage does (the weight is
+            # multiplied by it, as the reference multiplies)
+            live = vld > 0
+            cov.copy_(e_cov & live)
+            iw.copy_(torch.where(live, e_iw, 0.0))
+            torch.mul(e_ww, vld, out=ww)
+            mw.copy_(torch.where(live, e_mw, 0))
+
+
+def embed_roll(img, mask, H, W, dv0, du0, bit):
+    """Embed an epoch frame (f32) and its mask (int32) into the (H, W)
+    canvas and apply the integer pre-roll, on the tensors' device
+    (pipeline.py:508-525). The canvas padding carries mask bit ``bit``, so
+    the background mesh never takes it for sky."""
+    Hs, Ws = img.shape
+    h, w = min(Hs, H), min(Ws, W)
+    canvas = torch.zeros((H, W), dtype=torch.float32, device=img.device)
+    canvas[:h, :w] = img[:h, :w]
+    mcanvas = torch.full((H, W), 1 << bit, dtype=torch.int32,
+                         device=img.device)
+    mcanvas[:h, :w] = mask[:h, :w]
+    return (torch.roll(canvas, (-dv0, -du0), dims=(0, 1)),
+            torch.roll(mcanvas, (-dv0, -du0), dims=(0, 1)))
+
+
+def prepare_epoch_inputs(im, out_wcs, cfg: PipelineConfig, device=None,
+                         stats=None):
+    """:class:`CoaddPipeline`'s inputs for one epoch (pipeline.py:528-578):
+    the mapping grid from the output canvas into the epoch frame, the
+    integer pre-roll into the ``max_shift`` bucket (a residual past it
+    raises ``ValueError``), the FLXSCALE factor. The frame and its mask (a
+    raw 16-bit mask as its int16 bits) are uploaded once to ``device`` (the
+    card unless ``'cpu'``) and embedded and rolled there; the grids and
+    scalars stay numpy. ``stats`` gains the uploads' host seconds and
+    bytes."""
+    from ..inputs import resolve_device, upload, upload_mask
+    from ..ops.resample import SUPPORT
+    from ..wcs import pixel_mapping
+
+    device = resolve_device(device)
+    grid = pixel_mapping(im.wcs, out_wcs, (cfg.height, cfg.width),
+                         step=cfg.map_step)
+    gu, gv = np.asarray(grid.u, 'f4'), np.asarray(grid.v, 'f4')
+    data = _as_f4(im.data)
+    Hs, Ws = data.shape
+    cov_bounds = np.asarray([SUPPORT - 1, Ws - SUPPORT,
+                             SUPPORT - 1, Hs - SUPPORT], 'f4')
+    gx = np.arange(gu.shape[1], dtype='f4') * cfg.map_step
+    gy = np.arange(gv.shape[0], dtype='f4') * cfg.map_step
+    du = gu - gx[None, :]
+    dv = gv - gy[:, None]
+    resid = max(np.abs(du).max(), np.abs(dv).max())
+    du0 = dv0 = 0
+    if resid > cfg.max_shift or (Hs, Ws) != (cfg.height, cfg.width):
+        du0 = int(round(float(np.median(du))))
+        dv0 = int(round(float(np.median(dv))))
+        resid2 = max(np.abs(du - du0).max(), np.abs(dv - dv0).max())
+        if resid2 > cfg.max_shift:
+            raise ValueError(
+                f'mapping residual {resid2:.2f} exceeds the '
+                f'max_shift={cfg.max_shift} bucket; per-pair fallback')
+        gu = gu - np.float32(du0)
+        gv = gv - np.float32(dv0)
+        cov_bounds = cov_bounds - np.asarray([du0, du0, dv0, dv0], 'f4')
+    mraw = im.mask_image.data if im.mask_image is not None else None
+    img_d, mask_d = embed_roll(
+        upload(data, device, stats),
+        upload_mask(mraw, (Hs, Ws), device, stats), cfg.height, cfg.width,
+        dv0, du0, bit=MASK_BIT_NODATA_ALIGN)
+    zp = im.header.get('MAGZP')
+    return {
+        'img': img_d, 'mask': mask_d,
+        'sat': np.float32(im.header.get('SATURATE', 0) or 3e38),
+        'grid_u': gu, 'grid_v': gv, 'cov_bounds': cov_bounds,
+        'scale': np.float32(fluxscale(zp) if zp is not None else 1.0),
     }

@@ -1,8 +1,9 @@
-"""Where one frame of the slice, or one pair of a night, spends its time
-on the card.
+"""Where one frame of the slice, one pair of a night, or one epoch of a
+stack spends its time on the card.
 
     python -m zuds_tpu_torch.profile [--frames N] [--deblend MODE]
     python -m zuds_tpu_torch.profile --night N
+    python -m zuds_tpu_torch.profile --coadd N
 
 Runs ``SubtractDetectPipeline`` at the flagship configuration (the
 reference's default ``deblend=True``) on synthetic frames, warms up, then
@@ -14,8 +15,12 @@ device time. With ``--night N`` it writes N flagship FITS pairs
 (``inputs.write_night_pairs``, the real ZTF header of
 ``tests/data/ztf_real_header.json``) to a temporary directory and traces
 ``night.run_night`` over them after a warm-up, with the night's phases
-(load, prepare, pipeline, commit) in place of the stages. Needs a CUDA
-card.
+(load, prepare, pipeline, commit) in place of the stages. With
+``--coadd N`` it writes N epochs of one quadrant
+(``inputs.write_coadd_epochs``) and traces ``ScienceCoadd.from_images``
+over them after a warm-up, per epoch: the stack's phases (load, prepare,
+pipeline, fetch, write), the epoch stages (background, weight, warp) and
+the combine. Needs a CUDA card.
 """
 import argparse
 import dataclasses
@@ -35,6 +40,8 @@ from .parallel import SubtractDetectPipeline
 STAGES = ('warp', 'background', 'fit', 'apply', 'noise', 'detect',
           'deblend', 'measure')
 NIGHT_RANGES = ('load', 'prepare', 'pipeline', 'commit') + STAGES
+COADD_RANGES = ('load', 'prepare', 'pipeline', 'fetch', 'write',
+                'background', 'weight', 'warp', 'combine')
 
 
 def main():
@@ -44,12 +51,20 @@ def main():
                     default='true', help="the detect stage's deblend mode")
     ap.add_argument('--night', type=int, default=0, metavar='N',
                     help='trace run_night over N flagship FITS pairs')
+    ap.add_argument('--coadd', type=int, default=0, metavar='N',
+                    help='trace ScienceCoadd.from_images over N epochs')
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile: needs a CUDA card')
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if opt.coadd:
+        with tempfile.TemporaryDirectory(prefix='zuds_coadd_') as d:
+            report(card, f'ScienceCoadd.from_images of {opt.coadd} epochs, '
+                   'per epoch', opt.coadd, COADD_RANGES,
+                   *trace_coadd(d, FLAGSHIP, opt.coadd), unit='epoch')
+        return
     mode = {'true': True, 'watershed': 'watershed',
             'false': False}[opt.deblend]
     cfg = dataclasses.replace(FLAGSHIP, deblend=mode)
@@ -103,10 +118,41 @@ def trace_night(d, cfg, pipe, npairs):
     return prof, wall, mem0, torch.cuda.memory_stats()
 
 
-def report(card, what, frames, ranges, prof, wall, mem0, mem1):
-    """Print wall and device busy time per frame, the allocator's device
-    mallocs, each range's host time and device span, and the kernels by
-    device time."""
+def trace_coadd(d, cfg, nepochs):
+    """Write ``nepochs`` epochs of one quadrant into ``d``, build the stack
+    once to warm up, then trace a second build, files to saved stack:
+    (profile, wall s per epoch, allocator stats before and after)."""
+    from .coadd import ScienceCoadd
+    from .image import ScienceImage
+    from .inputs import write_coadd_epochs
+    paths, _ = write_coadd_epochs(d, nepochs, cfg.height, cfg.width)
+
+    def build(out):
+        with torch.profiler.record_function('load'):
+            images = [ScienceImage.from_file(p) for p in paths]
+            for im in images:       # from_file is lazy: read the files here
+                im.data, im.mask_image.data
+        return ScienceCoadd.from_images(images, f'{d}/{out}',
+                                        calculate_seeing=False)
+
+    build('warm.fits')
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        coadd = build('stack.fits')
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / nepochs
+    if coadd.header['NCOADD'] != nepochs:
+        raise SystemExit('profile: the stack lost an epoch')
+    return prof, wall, mem0, torch.cuda.memory_stats()
+
+
+def report(card, what, frames, ranges, prof, wall, mem0, mem1, unit='frame'):
+    """Print wall and device busy time per frame (or ``unit``), the
+    allocator's device mallocs, each range's host time and device span, and
+    the kernels by device time."""
     events = prof.key_averages()
     # device activity: kernels, copies and memsets (one stream, so they do
     # not overlap); the stages' device-side ranges only span them
@@ -114,12 +160,12 @@ def report(card, what, frames, ranges, prof, wall, mem0, mem1):
                if e.device_type == DeviceType.CUDA
                and e.name not in ranges) / frames / 1e3
     print(f'card: {card}; {what}')
-    print(f'wall {wall * 1e3:.1f} ms/frame; device busy {busy:.1f} ms/frame '
+    print(f'wall {wall * 1e3:.1f} ms/{unit}; device busy {busy:.1f} ms/{unit} '
           f'({100 * busy / (wall * 1e3):.1f}%; idle '
           f'{100 * (1 - busy / (wall * 1e3)):.1f}%)')
     # the caching allocator: device mallocs/frees in the window (each
     # cudaFree waits for the card) and retries after a failed malloc
-    print('allocator per frame: ' + ', '.join(
+    print(f'allocator per {unit}: ' + ', '.join(
         f'{k} {(mem1.get(k, 0) - mem0.get(k, 0)) / frames:g}'
         for k in ('num_device_alloc', 'num_device_free',
                   'num_alloc_retries')))
@@ -131,7 +177,7 @@ def report(card, what, frames, ranges, prof, wall, mem0, mem1):
             on = 'cpu' if e.device_type == DeviceType.CPU else 'dev'
             span[e.name, on] = (span.get((e.name, on), 0.0)
                                 + e.time_range.elapsed_us())
-    print('range        host ms/frame  device span ms/frame')
+    print(f'range        host ms/{unit}  device span ms/{unit}')
     for s in ranges:
         print(f'{s:12s} {span.get((s, "cpu"), 0) / frames / 1e3:13.2f} '
               f'{span.get((s, "dev"), 0) / frames / 1e3:21.2f}')

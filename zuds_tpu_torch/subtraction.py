@@ -164,23 +164,26 @@ class Subtraction:
     def data(self, value):
         self._data = value
 
-    def _frame_product(self, attr, what):
+    def _frame_product(self, attr):
         if getattr(self, '_frames_thunk', None) is not None:
             self._materialize_frames()
-        return self._product(attr, what)
+        try:
+            return getattr(self, attr)
+        except AttributeError:
+            self._run_background()
+        return getattr(self, attr)
 
     @property
     def rms_image(self):
-        return self._frame_product('_rmsimg', 'the rms map')
+        return self._frame_product('_rmsimg')
 
     @property
     def background_image(self):
-        return self._frame_product('_bkgimg', 'the background map')
+        return self._frame_product('_bkgimg')
 
     @property
     def background_subtracted_image(self):
-        return self._frame_product('_bkgsubimg',
-                                   'the background-subtracted frame')
+        return self._frame_product('_bkgsubimg')
 
 
 class SingleEpochSubtraction(Subtraction, CalibratedImage):
