@@ -16,7 +16,10 @@ dithered by (+1.6, -2.2) px, uint16 mask siblings, one transient of flux
 3e4 per frame, one frame without SEEING) through
 ``zuds_tpu_torch.night.run_night`` once to warm up and once timed, with
 the files -> catalog rate, the host seconds per phase, the reference-cache
-hits and the detections per frame. Then the coadd: eight dithered epochs
+hits and the detections per frame; a fifth pair, whose reference is rotated
+by 0.1 degrees, is refused by the batched feed and takes the night's
+per-pair fallback (``sub.do_one``), and the night records its count. Then
+the coadd: eight dithered epochs
 of one quadrant (``inputs.write_coadd_epochs``, ``bench.py``'s coadd
 recipe, one cosmic ray planted in one epoch) through
 ``ScienceCoadd.from_images`` once to warm up, once counted and timed
@@ -24,7 +27,14 @@ recipe, one cosmic ray planted in one epoch) through
 the seeing estimate; the product's header, noise, no-data bit and the
 clipped cosmic ray are checked, H9 and the two-plane H1 are held against
 their plain versions on the phase's own stack, and a 4-epoch 512^2 stack
-runs on the card and on the CPU. Holds each kernel against its plain
+runs on the card and on the CPU. Then the per-pair path: ``sub.do_one`` on
+a pair whose reference is rotated by 0.5 degrees (the gather warp H10, H3
+for the model and for the variance, the epilogue H11), once to warm up and
+once timed on a fresh copy, and once on an unrotated pair (the planned
+warp, H1), with the host seconds of each step beside the fused pair's;
+H10, H3 at one term and H11 against their plain versions on that pair's
+tensors; a 256^2 rotated pair on the card and on the CPU. Holds each
+kernel against its plain
 PyTorch version on the card at the shapes the main path gives it (H3 also
 at K = 21, order 5, 2x2 regions, and its bare launch timed with its
 tensor-core rate; H5 and H6 also on a quadrant-size busy blend field; H8
@@ -76,14 +86,27 @@ SOURCES = {
                         'zuds_tpu/parallel/pipeline.py:482'),
     'clipped_combine': ('cuda', 'zuds_tpu_torch/kernels/coadd.cu',
                         'zuds_tpu/ops/coadd.py:42'),
+    'warp_gather': ('cuda', 'zuds_tpu_torch/kernels/warp.cu',
+                    'zuds_tpu/ops/resample.py:484'),
+    'apply_model_variance': ('cuda', 'zuds_tpu_torch/kernels/apply.cu',
+                             'zuds_tpu/ops/subtract.py:692'),
+    'subtract_epilogue': ('cuda', 'zuds_tpu_torch/kernels/subtract.cu',
+                          'zuds_tpu/ops/subtract.py:652'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
 COADD_ONLY = ('clipped_combine',)
-# the night phase: bench.py's files leg recipe at the flagship size
+# the kernels only the per-pair path launches (sub.do_one: the night's
+# fallback pair and the per-pair phase)
+PAIR_ONLY = ('warp_gather', 'apply_model_variance', 'subtract_epilogue')
+# the night phase: bench.py's files leg recipe at the flagship size, and
+# one more pair whose reference is rotated past the max_shift bucket
 NIGHT_PAIRS = 4
 NIGHT_BATCH = 2
 NO_SEEING = 3           # the science frame written without SEEING
+FALLBACK = 4            # the pair that takes the per-pair fallback
+FALLBACK_ROT = 0.1      # degrees: residual ~3 px after the pre-roll
+PAIR_ROT = 0.5          # degrees, the per-pair phase: residual ~14 px
 # the coadd phase: bench.py's coadd leg (8 epochs of one quadrant); the
 # cosmic ray is (epoch, x, y, counts) in that epoch's frame
 COADD_EPOCHS = 8
@@ -351,9 +374,22 @@ def refilter(cat, see):
     return redo.data['GOODCUT']
 
 
+def pair_plan(line):
+    """The host's warp plan for the work line "sci ref" (None: the gather
+    warp runs), from the two headers alone."""
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.ops.resample import plan_warp
+    sci_path, ref_path = line.split()
+    sci = ScienceImage.from_file(sci_path, load_others=False)
+    ref = ReferenceImage.from_file(ref_path, load_others=False)
+    return plan_warp(ref.mapping_to(sci), sci.shape, ref.shape)
+
+
 def night_phase(wrappers, name):
-    """run_night over the flagship pairs: warm-up, then one counted, timed
-    run. Returns (launches, seconds, stats)."""
+    """run_night over the flagship pairs and the fallback pair: warm-up,
+    then one counted, timed run. Returns (launches, seconds of the batched
+    pairs, stats)."""
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs, night
@@ -363,11 +399,21 @@ def night_phase(wrappers, name):
     with tempfile.TemporaryDirectory(prefix='chip_smoke_night_') as d:
         t0 = time.perf_counter()
         work, truths = inputs.write_night_pairs(
-            d, NIGHT_PAIRS, cfg.height, cfg.width, no_seeing=(NO_SEEING,),
+            d, NIGHT_PAIRS + 1, cfg.height, cfg.width,
+            no_seeing=(NO_SEEING,),
+            ref_rot_deg=(0.0,) * FALLBACK + (FALLBACK_ROT,),
             header_json=Path(__file__).resolve().parent / 'tests' / 'data'
             / 'ztf_real_header.json')
-        print(f'night: {NIGHT_PAIRS} flagship pairs written in '
+        print(f'night: {NIGHT_PAIRS} flagship pairs and one with its '
+              f'reference rotated by {FALLBACK_ROT} deg written in '
               f'{time.perf_counter() - t0:.1f} s', flush=True)
+        # a same-shape frame past the bucket gets no plan either (the
+        # rolled reads of its edge nodes leave the canvas): the fallback
+        # pair's three aligns take the gather warp
+        plans = [pair_plan(w) for w in work]
+        print(f'night: host warp plans per pair {plans}', flush=True)
+        check(all(p is not None for p in plans[:FALLBACK])
+              and plans[FALLBACK] is None, f'night: warp plans {plans}')
         pipe = SubtractDetectPipeline(cfg)
         t0 = time.perf_counter()
         warm = night.run_night(work[:NIGHT_BATCH], batch=NIGHT_BATCH,
@@ -388,10 +434,31 @@ def night_phase(wrappers, name):
         secs = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
         for path, r in res:
-            check(not isinstance(r, Exception), f'night: {path}: {r!r}')
+            check(isinstance(r, int), f'night: {path}: {r!r}')
+        check(len(res) == NIGHT_PAIRS + 1 and stats['fallbacks'] == 1
+              and len(stats['detections']) == NIGHT_PAIRS,
+              f'night: {len(res)} results, {stats["fallbacks"]} fallbacks')
+        # the fallback runs on the host while the card works on the batch
+        # before it; the batched pairs' rate is taken without its seconds
+        fb_s = stats['fallback_s']
+        secs -= fb_s
         print(f'night: files -> catalog {NIGHT_PAIRS / secs:.3f} '
               f'quadrants/s ({NIGHT_PAIRS} pairs, batch {NIGHT_BATCH}, '
               f'{secs:.2f} s, host clock) on {name}', flush=True)
+        fb_n = dict(res)[work[FALLBACK].split()[0]]
+        print(f'night: pair {FALLBACK} (reference rotated by '
+              f'{FALLBACK_ROT} deg) refused by the batched feed; per-pair '
+              f'fallback {fb_s:.2f} s (the first per-pair run of this '
+              f'process), {fb_n} GOODCUT detections, '
+              f'{launches["warp_gather"]} H10, '
+              f'{launches["apply_model_variance"]} H3-variance and '
+              f'{launches["subtract_epilogue"]} H11 launches', flush=True)
+        check(launches['warp'] == NIGHT_PAIRS
+              and launches['warp_gather'] == 3
+              and launches['apply_model'] == NIGHT_PAIRS + 1
+              and launches['apply_model_variance'] == 1
+              and launches['subtract_epilogue'] == 1,
+              f'night: launches {launches}')
         prep = stats['prepare_s'] - stats['upload_s']
         print(f'night: host seconds per phase: load '
               f'{stats["load_s"]:.3f}, prepare {prep:.3f}, upload '
@@ -427,6 +494,15 @@ def night_phase(wrappers, name):
                   'catalog')
             j = int(np.argmin(dist))
             row = data[j]
+            if i == FALLBACK:
+                check(row['GOODCUT'] == 1 and fb_n == int(
+                    (data['GOODCUT'] == 1).sum()),
+                    f'night frame {i} (fallback): transient row {row}')
+                print(f'night frame {i}: per-pair fallback; transient at '
+                      f'({tx:.0f}, {ty:.0f}) found {dist.min():.2f} px '
+                      f'away, GOODCUT 1, FWHM {row["FWHM_IMAGE"]:.2f} px',
+                      flush=True)
+                continue
             see = stats['seeing'][i]
             if i == NO_SEEING:
                 # SEEING from the stamp moments, which keep each stamp's
@@ -680,6 +756,297 @@ def coadd_phase(wrappers, name, record):
     return launches, secs, stats
 
 
+def pair_phase(wrappers, name, record, fused_pair_s):
+    """sub.do_one on a pair whose reference is rotated by PAIR_ROT degrees
+    (the gather warp) and on an unrotated pair (the planned warp): a
+    warm-up, then counted, timed runs on fresh copies; the checks of the
+    product; H10, H3 at one term and H11 against their plain versions on
+    the rotated pair's tensors; a small rotated pair on card and CPU.
+    ``record`` takes the three kernel records."""
+    import shutil
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import inputs, night, sub
+    from zuds_tpu_torch.catalog import PipelineFITSCatalog
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.constants import (BAD_SUM, BKG_VAL,
+                                          SUB_NODATA_SENTINEL)
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample, subtract
+    from zuds_tpu_torch.subtraction import SingleEpochSubtraction
+    H, W = night.FLAGSHIP.height, night.FLAGSHIP.width
+    header_json = (Path(__file__).resolve().parent / 'tests' / 'data'
+                   / 'ztf_real_header.json')
+    dev = torch.device('cuda')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_pair_') as d:
+        src = os.path.join(d, 'src')
+        os.mkdir(src)
+        t0 = time.perf_counter()
+        work, truths = inputs.write_night_pairs(
+            src, 2, H, W, ref_rot_deg=(0.0, PAIR_ROT),
+            header_json=header_json)
+        plans = [pair_plan(w) for w in work]
+        print(f'pair: an unrotated pair and one rotated by {PAIR_ROT} deg '
+              f'written in {time.perf_counter() - t0:.1f} s; host warp '
+              f'plans {plans}', flush=True)
+        check(plans[0] is not None and plans[1] is None,
+              f'pair: warp plans {plans}')
+
+        def run(tag, i):
+            """do_one on a fresh copy of pair ``i`` (a pair's products are
+            cached beside it), counted and timed."""
+            dd = os.path.join(d, tag)
+            shutil.copytree(src, dd)
+            line = work[i].replace(src, dd)
+            for w in wrappers.values():
+                w.launches = 0
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            product, rows = sub.do_one(line, stats=st)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            return (product, rows, st, secs,
+                    {k: w.launches for k, w in wrappers.items()}, line)
+
+        _, _, _, warm_s, _, _ = run('warm', 1)
+        print(f'pair: warm-up do_one {warm_s:.2f} s', flush=True)
+        results = {}
+        for tag, i in (('gather', 1), ('planned', 0)):
+            product, rows, st, secs, launches, line = run(tag, i)
+            results[tag] = (product, launches, line)
+            used = {k: n for k, n in launches.items() if n}
+            print(f'pair ({tag} warp): files -> filtered catalog '
+                  f'{secs * 1e3:.0f} ms per pair against '
+                  f'{fused_pair_s * 1e3:.0f} ms per pair of the batched '
+                  f'night ({secs / fused_pair_s:.1f}x), host clock, on '
+                  f'{name}', flush=True)
+            print(f'pair ({tag} warp): host seconds: ' + ', '.join(
+                f'{k[:-2]} {st[k]:.3f}' for k in (
+                    'load_s', 'align_s', 'products_s', 'fit_s', 'subtract_s',
+                    'assemble_s', 'catalog_s', 'filter_s'))
+                + f'; kernel launches {used}', flush=True)
+            gather = tag == 'gather'
+            check(launches['warp_gather'] == (3 if gather else 0)
+                  and launches['warp'] == (0 if gather else 3)
+                  and launches['apply_model'] == 1
+                  and launches['apply_model_variance'] == 1
+                  and launches['subtract_epilogue'] == 1,
+                  f'pair ({tag}): launches {launches}')
+            tx, ty = truths[i]
+            dist = np.hypot(rows['X_IMAGE'] - 1 - tx, rows['Y_IMAGE'] - 1 - ty)
+            check(len(dist) and dist.min() < 2.0,
+                  f'pair ({tag}): transient at ({tx}, {ty}) not a GOODCUT '
+                  f'row ({len(rows)} rows)')
+            hdr = product.header
+            check(hdr['SUBMETH'] == 'hotpants', f'pair: SUBMETH {hdr}')
+            for path in (product.local_path, product.mask_image.local_path,
+                         product.local_path.replace('.fits', '.cat')):
+                check(os.path.exists(path), f'pair: {path} is not on disk')
+            cat = PipelineFITSCatalog.from_file(
+                product.local_path.replace('.fits', '.cat'))
+            check(int((cat.data['GOODCUT'] == 1).sum()) == len(rows),
+                  'pair: the saved catalog differs from the returned rows')
+            print(f'pair ({tag} warp): SUBKO {hdr["SUBKO"]}, SUBNRX '
+                  f'{hdr["SUBNRX"]}, SEEING {hdr["SEEING"]}; transient at '
+                  f'({tx:.0f}, {ty:.0f}) a GOODCUT row {dist.min():.2f} px '
+                  f'away ({len(rows)} GOODCUT rows); sub, mask and catalog '
+                  f'on disk', flush=True)
+
+        # ---- the rotated pair's product and tensors ------------------------
+        product, pair_launches, line = results['gather']
+        sci = ScienceImage.from_file(line.split()[0])
+        ref = ReferenceImage.from_file(line.split()[1])
+        aligned = ref.aligned_to(sci)
+        aligned_rms = ref.rms_image.aligned_to(sci)
+        mask = product.mask_image.data
+        diff = product.data
+        check(np.array_equal((mask >> 16 & 1) == 1, aligned.coverage == 0)
+              and 0 < int((aligned.coverage == 0).sum()) < 0.05 * mask.size,
+              'pair: bit 16 is not exactly where the aligned reference has '
+              'no coverage')
+        check(np.array_equal((mask >> 17 & 1) == 1,
+                             diff == np.float32(SUB_NODATA_SENTINEL)),
+              'pair: bit 17 is not exactly where diff is the sentinel')
+        inner = diff[64:-64, 64:-64]
+        sig = 1.4826 * np.median(np.abs(inner - np.median(inner)))
+        check(np.isfinite(diff).all() and sig < 12.5,
+              f'pair: residual sigma {sig:.2f}')
+        print(f'pair: bit 16 exactly on the {int((aligned.coverage == 0).sum())}'
+              f' pixels the aligned reference does not cover, bit 17 exactly '
+              f'on the sentinel; residual sigma {sig:.2f} counts',
+              flush=True)
+
+        # H10 on the pair's reference and mapping, with a seeded 18-bit mask
+        grid = ref.mapping_to(sci)
+        u, v = resample.upsample_mapping(
+            torch.as_tensor(np.asarray(grid.u, 'f4'), device=dev),
+            torch.as_tensor(np.asarray(grid.v, 'f4'), device=dev),
+            grid.shape, grid.step)
+        img = torch.as_tensor(np.ascontiguousarray(ref.data, 'f4'),
+                              device=dev)
+        rms_src = torch.as_tensor(np.ascontiguousarray(ref.rms_image.data,
+                                                       'f4'), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        rmask = torch.where(
+            torch.rand((H, W), generator=gen, device=dev) < 0.01,
+            torch.randint(0, 1 << 18, (H, W), generator=gen, device=dev,
+                          dtype=torch.int32), 0).to(torch.int32)
+        k = launch.warp_gather(img, rmask, u, v, img2=rms_src)
+        (pa, pb), pm, pc = resample._gather_plain([img, rms_src], rmask, u, v)
+        err = close('warp_gather pixels', k[0], pa, 3e-5, 5e-3)
+        close('warp_gather second plane', k[1], pb, 3e-5, 5e-3)
+        check(torch.equal(k[2], pm) and torch.equal(k[3], pc),
+              'warp_gather: mask or coverage differs from the plain version')
+        one = launch.warp_gather(img, rmask, u, v)
+        check(torch.equal(one[0], k[0]) and torch.equal(one[2], k[2])
+              and torch.equal(one[3], k[3]),
+              'warp_gather: its first plane differs from the one-plane launch')
+        check(np.array_equal(one[3].cpu().numpy(), aligned.coverage)
+              and np.array_equal(one[0].cpu().numpy(), aligned.data),
+              'pair: the aligned reference is not H10 of the reference')
+        ms = cuda_ms(lambda: launch.warp_gather(img, rmask, u, v))
+        two_ms = cuda_ms(lambda: launch.warp_gather(img, rmask, u, v,
+                                                    img2=rms_src))
+        plain = cuda_ms(lambda: resample._gather_plain([img], rmask, u, v),
+                        1, 2)
+        # reads img, mask, u, v (16 B/px), writes pixels, mask, coverage
+        # (12 B/px); ~130 operations per pixel (36 taps, 36 weight
+        # products, 36 normaliser terms, 12 Lanczos weights)
+        bnd = bound(28 * H * W, 130 * H * W)
+        bnd2 = bound(36 * H * W, 200 * H * W)
+        print(f'warp_gather: {H}x{W}, rotation {PAIR_ROT} deg: {ms:.4f} ms '
+              f'(bound {bnd[0]:.4f} ms, share {bnd[0] / ms:.1%}); with a '
+              f'second plane {two_ms:.4f} ms (bound {bnd2[0]:.4f} ms, share '
+              f'{bnd2[0] / two_ms:.1%}); plain {plain:.3f} ms; no PyTorch '
+              f'call warps with a Lanczos kernel (grid_sample is bilinear '
+              f'or bicubic)', flush=True)
+        record('warp_gather', err, ms, plain, bnd, runs=pair_launches,
+               per='pair')
+
+        # H3 at one term: the aligned reference rms through the squared
+        # centre kernels of a fit of the pair's shape (K from the SEEING,
+        # the guard's order and regions), seeded coefficients
+        seeing = float(product.header['SEEING'])
+        ksize = max(9, min(int(2 * round(2.5 * seeing / 2) + 1), 31))
+        order, nreg = product.header['SUBKO'], product.header['SUBNRX']
+        basis = inputs.KernelBasis(ksize, seeing_sigma=seeing / 2.355)
+        tables = [torch.as_tensor(a, device=dev)
+                  for a in (basis.gx, basis.gy, basis.sums, basis.b0_2d)]
+        nm = len(subtract.spatial_terms(order))
+        rng = np.random.default_rng(11)
+        c = rng.normal(0, 0.01, (nreg * nreg, basis.nbasis * nm + 1))
+        c[:, 0] += 1.0
+        coeffs = torch.as_tensor(c, dtype=torch.float32, device=dev)
+        ref_rms = torch.as_tensor(aligned_rms.data, device=dev)
+        kerns = subtract.center_kernels(coeffs, *tables, order=order,
+                                        nreg=nreg)
+        kv = subtract.propagate_ref_var(ref_rms, coeffs, *tables, order=order,
+                                        nreg=nreg)
+        pv = subtract.propagate_ref_var_plain(ref_rms, kerns)
+        scale = float(pv.abs().max())
+        err = close('apply_model_variance', kv, pv, 1e-4, 1e-3 * scale)
+        var = (ref_rms ** 2).contiguous()
+        k2 = (kerns ** 2).contiguous()
+        cx, cy, _, _, wx, wy = subtract.model_geometry(H, W, order=0,
+                                                       nreg=nreg)
+        ms = cuda_ms(lambda: launch.apply_model_variance(var, k2, cx, cy, wx,
+                                                         wy))
+        plain = cuda_ms(lambda: subtract.propagate_ref_var_plain(ref_rms,
+                                                                 kerns), 1, 3)
+        conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
+            var[None, None], k2[:1, None], padding=ksize // 2), 1, 3)
+        # reads the variance, writes the propagated frame (8 B/px) and the
+        # region kernels; 2 K^2 operations per pixel in three TF32 products
+        bnd = bound(8 * H * W + 4 * k2.numel(),
+                    3 * 2 * ksize * ksize * H * W, TF32_FLOP_S)
+        print(f'apply_model_variance: {H}x{W}, K={ksize}, {nreg}x{nreg} '
+              f'regions: {ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, '
+              f'share {bnd[0] / ms:.1%}), plain {plain:.3f} ms (one conv2d '
+              f'per region); one conv2d of the frame with one kernel (for '
+              f'scale; the regions\' kernels differ) {conv_ms:.3f} ms; max '
+              f'abs err {err:.3g} on a variance of up to {scale:.3g}',
+              flush=True)
+        record('apply_model_variance', err, ms, plain, bnd,
+               runs=pair_launches, per='pair')
+
+        # H11 on the pair's own frames
+        scimbkg = torch.as_tensor(
+            np.ascontiguousarray(sci.background_subtracted_image.data, 'f4')
+            + np.float32(BKG_VAL), device=dev)
+        sci_rms = torch.as_tensor(np.ascontiguousarray(sci.rms_image.data,
+                                                       'f4'), device=dev)
+        refw = torch.as_tensor(aligned.data, device=dev)
+        model = subtract.apply_kernel_fast(refw, coeffs, *tables, order=order,
+                                           nreg=nreg)
+        tmask = torch.as_tensor(mask & ~(1 << 17), device=dev)
+        bad = (tmask & BAD_SUM) > 0
+        errs = []
+        for contract in (False, True):
+            kk = subtract.subtract_epilogue(scimbkg, model, sci_rms, kv, bad,
+                                            tmask, contract=contract)
+            pp = subtract.subtract_epilogue_plain(scimbkg, model, sci_rms, kv,
+                                                  bad, tmask,
+                                                  contract=contract)
+            for a, b, what in zip(kk, pp, ('diff', 'rms', 'submask')):
+                check(torch.equal(a, b), f'subtract_epilogue {what} differs '
+                      f'from the plain version at {int((a != b).sum())} '
+                      f'pixels (contract={contract})')
+            errs.append(kk[1])
+        check(not torch.equal(*errs), 'subtract_epilogue: the two rounding '
+              'modes give one rms')
+        check(np.array_equal(kk[2].cpu().numpy(), mask),
+              'pair: the product\'s mask is not H11\'s')
+        ms = cuda_ms(lambda: subtract.subtract_epilogue(scimbkg, model,
+                                                        sci_rms, kv, bad))
+        sub_ms = cuda_ms(lambda: subtract.subtract_epilogue(
+            scimbkg, model, sci_rms, kv, bad, tmask, contract=True))
+        plain = cuda_ms(lambda: subtract.subtract_epilogue_plain(
+            scimbkg, model, sci_rms, kv, bad), 1, 3)
+        # reads four frames and the bad map (17 B/px), writes two (8 B/px);
+        # ~6 operations per pixel; a submask adds 8 B/px
+        bnd = bound(25 * H * W, 6 * H * W)
+        bnd_s = bound(33 * H * W, 8 * H * W)
+        print(f'subtract_epilogue: {H}x{W}: bit-equal in both rounding '
+              f'modes; {ms:.4f} ms (bound {bnd[0]:.4f} ms, share '
+              f'{bnd[0] / ms:.1%}), with a submask {sub_ms:.4f} ms (bound '
+              f'{bnd_s[0]:.4f} ms, share {bnd_s[0] / sub_ms:.1%}), plain '
+              f'{plain:.3f} ms', flush=True)
+        record('subtract_epilogue', 0.0, ms, plain, bnd, runs=pair_launches,
+               per='pair')
+
+    # ---- a small rotated pair on the card and on the CPU -------------------
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_pair_') as d:
+        outs = {}
+        for where in ('cuda', 'cpu'):
+            dd = os.path.join(d, where)
+            os.mkdir(dd)
+            work, _ = inputs.write_night_pairs(
+                dd, 1, 256, 256, ref_rot_deg=(PAIR_ROT,), nstars=30,
+                header_json=header_json)
+            sci = ScienceImage.from_file(work[0].split()[0])
+            ref = ReferenceImage.from_file(work[0].split()[1])
+            small = SingleEpochSubtraction.from_images(sci, ref, device=where)
+            outs[where] = (small, ref.aligned_to(sci, device=where))
+        (a, ra), (b, rb) = outs['cuda'], outs['cpu']
+        check(np.array_equal(a.mask_image.data, b.mask_image.data)
+              and np.array_equal(ra.coverage, rb.coverage),
+              'small pair: mask or coverage differs between card and CPU')
+        err = close('small pair aligned reference', torch.as_tensor(ra.data),
+                    torch.as_tensor(rb.data), 3e-5, 5e-3)
+        check(all(a.header[k_] == b.header[k_]
+                  for k_ in ('SUBKO', 'SUBNRX', 'SUBMETH', 'SEEING')),
+              'small pair: header cards differ between card and CPU')
+        ok = a.mask_image.data == 0
+        far = float((np.abs(a.data - b.data)[ok] > 0.05).mean())
+        print(f'small pair (256x256, reference rotated by {PAIR_ROT} deg): '
+              f'card and CPU agree on the submask and the coverage; aligned '
+              f'reference max abs diff {err:.3g}; {far:.2e} of the unmasked '
+              f'diff pixels past 0.05 counts (the fit moves at the ulp)',
+              flush=True)
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
@@ -718,7 +1085,7 @@ def main():
     # the slice takes its stamps as inputs: H7 runs in the host feed (the
     # night below), every other kernel here
     for k, n in launches.items():
-        check(n > 0 or k == 'stamp_candidates' or k in COADD_ONLY,
+        check(n > 0 or k == 'stamp_candidates' or k in COADD_ONLY + PAIR_ONLY,
               f'kernel {k} was not launched by the main path')
 
     submask = out['submask']
@@ -753,7 +1120,7 @@ def main():
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
         check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
-              or k in COADD_ONLY,
+              or k in COADD_ONLY + PAIR_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
@@ -821,6 +1188,9 @@ def main():
 
     # ---- the coadd: FITS epochs -> a stack through from_images, counted ---
     coadd_phase(wrappers, name, record)
+
+    # ---- the per-pair path: sub.do_one on rotated and unrotated pairs -----
+    pair_phase(wrappers, name, record, night_s / NIGHT_PAIRS)
 
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     for mode in (False, True, 'watershed'):

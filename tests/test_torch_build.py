@@ -56,3 +56,21 @@ def test_failed_compile_raises_with_output(tmp_path, fake_nvcc,
     with pytest.raises(RuntimeError, match='error in apply.cu'):
         build._compile(out)
     assert not out.exists()
+
+
+def test_sources_and_symbols_of_the_per_pair_kernels():
+    """The gather warp shares warp.cu with H1, the epilogue has its own
+    source; both launchers are declared with their C signatures and every
+    declared launcher is defined in a source."""
+    from pathlib import Path
+    here = Path(build.__file__).resolve().parent
+    assert 'subtract.cu' in build.SOURCES and 'warp.cu' in build.SOURCES
+    text = {s: (here / s).read_text() for s in build.SOURCES}
+    assert 'zuds_warp_gather(' in text['warp.cu']
+    assert 'warp_gather_kernel' in text['warp.cu']
+    assert 'zuds_subtract_epilogue(' in text['subtract.cu']
+    assert len(build.SIGNATURES['zuds_warp_gather']) == 14
+    assert len(build.SIGNATURES['zuds_subtract_epilogue']) == 15
+    for name in build.SIGNATURES:
+        assert any(f'extern "C" int {name}(' in t.replace('\n', ' ')
+                   for t in text.values()), name

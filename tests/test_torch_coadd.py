@@ -537,18 +537,10 @@ def test_stack_do_one_end_to_end(epochs, tmp_path):
 def test_waiting_paths_raise(epochs):
     timgs, _ = _images(epochs)
     out = os.path.join(os.path.dirname(epochs[0][0]), 'never.fits')
-    for kw, item in (({'fused': False}, 'K17'), ({'addbkg': False}, 'K17'),
-                     ({'solve_astrometry': True}, 'scamp'),
-                     ({'db': True}, '1a')):
+    for kw, item in (({'solve_astrometry': True}, 'item 6, scamp'),
+                     ({'db': True}, 'item 5, persistence')):
         with pytest.raises(NotImplementedError, match=item):
             tcoadd.Coadd.from_images(timgs, out, device='cpu', **kw)
-    # an epoch past the warp bucket: the reference falls back to its loop
-    timgs[1].wcs = TPVWCS.simple(
-        crval=(150.1, 35.2), crpix=(W / 2 + .5, H / 2 + .5),
-        scale_deg=1.01 / 3600.0, rot_deg=2.0)
-    with pytest.raises(NotImplementedError, match='K17') as exc:
-        tcoadd.Coadd.from_images(timgs, out, device='cpu')
-    assert isinstance(exc.value.__cause__, ValueError)
     assert not os.path.exists(out)
     timgs[0].fid = 3
     with pytest.raises(ValueError, match='fid'):
@@ -556,3 +548,78 @@ def test_waiting_paths_raise(epochs):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA card'):
             tcoadd.Coadd.from_images(_images(epochs)[0], out)
+
+
+@pytest.fixture(scope='module')
+def loop_coadds(epochs, tmp_path_factory):
+    """The per-epoch loop in both packages: ``fused=False`` over the four
+    epochs, the third one rotated by 2 degrees (past the planned warp's 8
+    px, so the gather warp runs for it and the planned warp for the rest)."""
+    d = tmp_path_factory.mktemp('loop')
+    timgs, jimgs = _images(epochs)
+    outs = {}
+    for pkg, imgs, wcs_cls, cls in (('jax', jimgs, JWCS, jcoadd.ScienceCoadd),
+                                    ('torch', timgs, TPVWCS,
+                                     tcoadd.ScienceCoadd)):
+        imgs[2].wcs = wcs_cls.simple(
+            crval=(150.1, 35.2), crpix=(W / 2 + .5, H / 2 + .5),
+            scale_deg=1.01 / 3600.0, rot_deg=2.0)
+        kw = {'device': 'cpu'} if pkg == 'torch' else {}
+        outs[pkg] = cls.from_images(imgs, str(d / f'{pkg}_loop.fits'),
+                                    fused=False, calculate_seeing=False,
+                                    **kw)
+    return outs
+
+
+def test_coadd_loop_matches(loop_coadds):
+    j, t = loop_coadds['jax'], loop_coadds['torch']
+    assert t.data.shape == np.asarray(j.data).shape
+    tm, jm = t.mask_image.data, np.asarray(j.mask_image.data)
+    np.testing.assert_array_equal(tm, jm)
+    tw, jw = t.weight_image.data, np.asarray(j.weight_image.data)
+    np.testing.assert_allclose(tw, jw, rtol=2e-3, atol=1e-7)
+    far = np.abs(t.data - np.asarray(j.data)) > 5e-3
+    assert far.mean() <= 1e-3, far.mean()
+    for key in ('NCOADD', 'MAGZP', 'NAXIS1', 'NAXIS2', 'OBSMJD'):
+        assert t.header[key] == j.header[key]
+    assert (tm >> 16 & 1 == 1).sum() == (tw == 0).sum() > 0
+    # both warps ran: a plan for the dithered epochs, none for the rotated
+    from zuds_tpu_torch.ops.resample import plan_warp
+    from zuds_tpu_torch.wcs import pixel_mapping
+    plans = [plan_warp(pixel_mapping(im.wcs, t.wcs, t.data.shape),
+                       t.data.shape, im.data.shape)
+             for im in t.input_images]
+    assert [p is None for p in plans] == [False, False, True, False]
+
+
+def test_fused_route_past_the_bucket_falls_back_to_the_loop(epochs, capsys,
+                                                            tmp_path):
+    """An epoch past the warp bucket: the fused route prints the
+    reference's line and the per-epoch loop builds the stack."""
+    timgs, _ = _images(epochs)
+    timgs[1].wcs = TPVWCS.simple(
+        crval=(150.1, 35.2), crpix=(W / 2 + .5, H / 2 + .5),
+        scale_deg=1.01 / 3600.0, rot_deg=2.0)
+    stats = {}
+    out = str(tmp_path / 'fallback.fits')
+    coadd = tcoadd.Coadd.from_images(timgs, out, device='cpu',
+                                     calculate_seeing=False, stats=stats)
+    printed = capsys.readouterr().out
+    assert 'coadd: fused path unavailable (' in printed
+    assert 'per-epoch fallback' in printed
+    assert stats['loop_s'] > 0 and os.path.exists(out)
+    assert coadd.header['NCOADD'] == NEP
+    inner = coadd.data[40:-40, 40:-40]
+    assert abs(np.median(inner) - 150.0) < 1.0
+
+
+def test_from_image_parameter_order():
+    """``from_image`` keeps the reference's parameter order, ``tmpdir``
+    third, and adds ``device`` last."""
+    import inspect
+    jpar = list(inspect.signature(
+        jcatalog.PipelineFITSCatalog.from_image).parameters)
+    tpar = list(inspect.signature(
+        tcatalog.PipelineFITSCatalog.from_image).parameters)
+    assert jpar == ['image', 'kill_flagged', 'tmpdir', 'nsigma', 'max_det']
+    assert tpar == jpar + ['device']

@@ -368,8 +368,8 @@ def test_constants_equal_the_reference():
 def test_port_runs_from_a_copy_alone(tmp_path):
     """A copy of zuds_tpu_torch/ with nothing of the repo beside it, JAX
     and yaml blocked: every module imports, it detects with the exact tree,
-    runs the slice, writes, reads and maps a FITS pair, and stacks two
-    small epochs."""
+    runs the slice, writes, reads and maps a FITS pair, stacks two small
+    epochs and subtracts one from the other by the per-pair path."""
     shutil.copytree(ROOT / 'zuds_tpu_torch', tmp_path / 'zuds_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
     modules = sorted(
@@ -380,7 +380,11 @@ def test_port_runs_from_a_copy_alone(tmp_path):
             'zuds_tpu_torch.fits.io', 'zuds_tpu_torch.wcs.tpv',
             'zuds_tpu_torch.coadd', 'zuds_tpu_torch.stack',
             'zuds_tpu_torch.utils', 'zuds_tpu_torch.ops.coadd',
-            'zuds_tpu_torch.profile'} <= set(modules)
+            'zuds_tpu_torch.profile', 'zuds_tpu_torch.align',
+            'zuds_tpu_torch.swarp', 'zuds_tpu_torch.hotpants',
+            'zuds_tpu_torch.sub', 'zuds_tpu_torch.subtraction',
+            'zuds_tpu_torch.ops.resample',
+            'zuds_tpu_torch.ops.subtract'} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -414,6 +418,13 @@ def test_port_runs_from_a_copy_alone(tmp_path):
         "c = ScienceCoadd.from_images([ScienceImage.from_file(p) for p in "
         "paths], 'stack.fits', calculate_seeing=False, device='cpu')\n"
         "assert c.header['NCOADD'] == 2 and c.data.shape[0] >= 128\n"
+        "from zuds_tpu_torch.coadd import ReferenceImage\n"
+        "from zuds_tpu_torch.subtraction import SingleEpochSubtraction\n"
+        "sci = ScienceImage.from_file(paths[0])\n"
+        "ref = ReferenceImage.from_file(paths[1])\n"
+        "sub = SingleEpochSubtraction.from_images(sci, ref, device='cpu')\n"
+        "assert sub.data.shape == (128, 128)\n"
+        "assert sub.header['SUBMETH'] == 'hotpants'\n"
         "assert not [m for m in sys.modules if m.startswith('zuds_tpu.')"
         " or m == 'zuds_tpu']\n"
         "print('ok', int(out['det_n'][0]))\n")
@@ -426,7 +437,7 @@ def test_port_runs_from_a_copy_alone(tmp_path):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    """H5-H9 and the two-plane H1 launch or raise: a CPU tensor is refused,
+    """H5-H11 and the two-plane H1 launch or raise: a CPU tensor is refused,
     never run through the plain version (the dispatchers pick by device)."""
     from zuds_tpu_torch.kernels import launch
     e = torch.zeros(16, dtype=torch.int32)
@@ -446,5 +457,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                0.3, 16)
     with pytest.raises(ValueError, match='CUDA'):
         launch.warp(img, imask[0], img, img, torch.zeros(4), 2, ref2=img)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.warp_gather(img, imask[0], img, img)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.subtract_epilogue(img, img, img, img, img > 0, 1e-30, 1.0)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.apply_model_variance(img, torch.zeros((1, 9, 9)), [8.0], [8.0],
+                                    8.0, 8.0)
     assert launch.clipped_combine.launches == 0
-    assert 'clipped_combine' in launch.WRAPPERS
+    assert launch.warp_gather.launches == 0
+    assert launch.subtract_epilogue.launches == 0
+    assert launch.apply_model_variance.launches == 0
+    assert {'clipped_combine', 'warp_gather', 'subtract_epilogue',
+            'apply_model_variance'} <= set(launch.WRAPPERS)

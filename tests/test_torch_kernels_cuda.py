@@ -1,7 +1,9 @@
-"""The port's hand kernels (H1-H9) against their plain PyTorch versions,
+"""The port's hand kernels (H1-H11) against their plain PyTorch versions,
 on a CUDA card, at small and ragged shapes (partial tiles, partial cells),
 H5/H6 at the flagship's capacities, H8 up to a flagship frame, the
-two-plane H1 on the coadd's 3200x3200 canvas and H9 from 1 to 64 epochs.
+two-plane H1 on the coadd's 3200x3200 canvas, H9 from 1 to 64 epochs, the
+gather warp H10 on rotated mappings into sources of another shape, H3 at
+one term against the variance propagation, and the epilogue H11.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -18,8 +20,13 @@ mask equal, its coadd and weight rtol 2e-6 (the plain version forms the
 same sums in the same order; the card's own ``1/sqrt`` in the plain version
 may round a sigma one ulp away, which only moves a pixel that lies within
 an ulp of its clip threshold: such pixels are counted and bounded at 1e-5
-of the frame).
+of the frame). The gather warp as the windowed one (pixels rtol 3e-5,
+atol 5e-3, mask and coverage equal); the variance launch of H3 rtol 1e-4,
+atol 1e-3 of the variance's scale; the epilogue bit-equal in both of its
+rounding modes.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -513,3 +520,251 @@ def test_background_and_median_on_the_coadd_canvas(dev):
     sub, ok = img[::4, ::4], valid[::4, ::4]
     assert torch.equal(launch.frame_median(sub, ok),
                        background.frame_median_plain(sub, ok))
+
+
+def _gather_inputs(dev, Hs, Ws, Ho, Wo, seed, rot_deg=7.0):
+    img, wgt, mask, _, _, _ = _warp_inputs(dev, Hs, Ws, seed)
+    yy = torch.arange(Ho, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(Wo, device=dev, dtype=torch.float32)[None, :]
+    c, s_ = np.cos(np.deg2rad(rot_deg)), np.sin(np.deg2rad(rot_deg))
+    u = (c * xx - 1.02 * s_ * yy + 0.07 * Ws + 0.3).contiguous()
+    v = (s_ * xx + c * yy - 0.05 * Hs + 0.01 * xx - 0.7).contiguous()
+    return img, wgt, mask, u, v
+
+
+@pytest.mark.parametrize('Hs,Ws,Ho,Wo', [(200, 180, 160, 224),
+                                         (97, 131, 140, 90),
+                                         (3080, 3072, 3080, 3072)])
+def test_warp_gather_kernel(dev, Hs, Ws, Ho, Wo):
+    """H10 against the plain gather: every combination of planes and mask
+    from one launch each, the planes' arithmetic shared."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    img, wgt, mask, u, v = _gather_inputs(dev, Hs, Ws, Ho, Wo, 21)
+    n0 = launch.warp_gather.launches
+    a, b, m, cov = resample.warp_gather(img, mask, u, v, img2=wgt)
+    assert launch.warp_gather.launches == n0 + 1
+    (pa, pb), pm, pcov = resample._gather_plain([img, wgt], mask, u, v)
+    _allclose(a, pa, 3e-5, 5e-3)
+    _allclose(b, pb, 3e-5, 1e-6)
+    assert torch.equal(m, pm) and torch.equal(cov, pcov)
+    assert a.shape == (Ho, Wo) and 0.2 < float(cov.mean()) < 0.98
+    assert bool((a[cov == 0] == 0).all()) and bool((m[cov == 0] == 0).all())
+    assert int((m != 0).sum()) > 100
+    # the three entry points, one launch each, share the arithmetic
+    n0 = launch.warp_gather.launches
+    oi, oc = resample.warp_image(img, u, v)
+    om = resample.warp_mask(mask, u, v)
+    fi, fm, fc = resample.warp_image_mask(img, mask, u, v)
+    assert launch.warp_gather.launches == n0 + 3
+    assert torch.equal(oi, a) and torch.equal(fi, a) and torch.equal(oc, cov)
+    assert torch.equal(om, m) and torch.equal(fm, m) and torch.equal(fc, cov)
+    swapped = launch.warp_gather(wgt, None, u, v, img2=img)
+    assert torch.equal(swapped[0], b) and torch.equal(swapped[1], a)
+    assert swapped[2] is None
+
+
+def test_warp_gather_kernel_edges(dev):
+    """Mappings that leave the source, a non-finite tap outside the
+    coverage (gated to 0 as the reference's select gates it) and a wild
+    coordinate."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    img, _, mask, u, v = _gather_inputs(dev, 64, 80, 48, 48, 5, rot_deg=30.0)
+    img = img.clone()
+    img[2:8, 2:8] = float('nan')
+    u[0, :4] = -20.0
+    v[0, :4] = -20.0
+    u[1, 0], v[1, 1] = 3e9, -3e9
+    k = launch.warp_gather(img, mask, u, v)
+    (pa,), pm, pcov = resample._gather_plain([img], mask, u, v)
+    assert torch.equal(k[3], pcov) and torch.equal(k[2], pm)
+    assert bool((k[0][0, :4] == 0).all()) and float(k[3][1, 0]) == 0.0
+    fin = torch.isfinite(pa)
+    assert torch.equal(torch.isfinite(k[0]), fin)
+    _allclose(k[0][fin], pa[fin], 3e-5, 5e-3)
+    with pytest.raises(ValueError):
+        launch.warp_gather(None, None, u, v)
+    with pytest.raises(ValueError):
+        launch.warp_gather(None, mask, u, v, img2=img)
+    with pytest.raises(ValueError):
+        launch.warp_gather(img[:5], None, u, v)
+    with pytest.raises(TypeError):
+        launch.warp_gather(img, mask.to(torch.int64), u, v)
+    with pytest.raises(ValueError):
+        launch.warp_gather(img, mask[:, :-1].contiguous(), u, v)
+
+
+@pytest.mark.parametrize('src,plan', [((256, 256), (1, -1, 2)),
+                                      ((200, 180), (-37, -28, 4))])
+def test_warp_planned_card_equals_cpu_composition(dev, src, plan):
+    """warp_planned on the card (H1 on the rolled canvas) against the plain
+    composition on the same tensors: pixels within the warp contract, mask
+    and the original-frame coverage equal."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    img, wgt, mask, _, _, _ = _warp_inputs(dev, *src, 31)
+    yy = torch.arange(256, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(256, device=dev, dtype=torch.float32)[None, :]
+    u = (xx + plan[0] + 0.4 + 1.2 * torch.sin(yy / 90.0)).contiguous()
+    v = (yy + plan[1] - 0.3 + 0.9 * torch.cos(xx / 70.0)).contiguous()
+    n0 = launch.warp.launches
+    k = resample.warp_planned(img, mask, u, v, plan, (256, 256), img2=wgt)
+    assert launch.warp.launches == n0 + 1
+    p = resample.warp_planned(img.cpu(), mask.cpu(), u.cpu(), v.cpu(), plan,
+                              (256, 256), img2=wgt.cpu())
+    _allclose(k[0].cpu(), p[0], 3e-5, 5e-3)
+    _allclose(k[1].cpu(), p[1], 3e-5, 1e-6)
+    assert torch.equal(k[2].cpu(), p[2]) and torch.equal(k[3].cpu(), p[3])
+    assert 0 < float(k[3].mean()) < 1
+
+
+@pytest.mark.parametrize('H,W,K,nreg', [(200, 136, 9, 1), (264, 256, 15, 3),
+                                        (97, 131, 31, 2)])
+def test_apply_model_variance_kernel(dev, H, W, K, nreg):
+    """H3 at one term with squared centre kernels against the plain
+    variance propagation, held on the variance's scale."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import subtract
+    basis = subtract.KernelBasis(K, seeing_sigma=K / 10.0)
+    tables = [torch.as_tensor(t, device=dev)
+              for t in (basis.gx, basis.gy, basis.sums, basis.b0_2d)]
+    order = 2
+    nm = len(subtract.spatial_terms(order))
+    rng = np.random.default_rng(K)
+    c = rng.normal(0, 0.01, (nreg * nreg, basis.nbasis * nm + 1))
+    c[:, 0] += 1.0
+    coeffs = torch.as_tensor(c, dtype=torch.float32, device=dev)
+    ref_rms = 3.0 + _rand((H, W), dev, 7, 0.3).abs() \
+        + torch.sin(torch.arange(W, device=dev) / 40.0)[None, :]
+    n0 = launch.apply_model_variance.launches
+    m0 = launch.apply_model.launches
+    k = subtract.propagate_ref_var(ref_rms, coeffs, *tables, order=order,
+                                   nreg=nreg)
+    assert launch.apply_model_variance.launches == n0 + 1
+    assert launch.apply_model.launches == m0
+    kerns = subtract.center_kernels(coeffs, *tables, order=order, nreg=nreg)
+    p = subtract.propagate_ref_var_plain(ref_rms, kerns)
+    scale = float(p.abs().max())
+    _allclose(k, p, 1e-4, 1e-3 * scale)
+    assert float((k - p).abs().max()) < 1e-4 * scale
+    assert bool((k > 0).all())
+
+
+@pytest.mark.parametrize('contract', [False, True])
+@pytest.mark.parametrize('shape', [(200, 136), (3080, 3072), (1, 7)])
+def test_subtract_epilogue_kernel(dev, shape, contract):
+    """H11 bit-equal to its plain version, with and without a submask, in
+    both rounding modes, and the two modes differ."""
+    from zuds_tpu_torch.constants import BIG_RMS, SUB_NODATA_SENTINEL
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import subtract
+    sci = _rand(shape, dev, 1, 20.0, 150.0)
+    model = sci + _rand(shape, dev, 2, 5.0)
+    sci_rms = 5.0 + _rand(shape, dev, 3, 0.3)
+    ref_var = (3.0 + _rand(shape, dev, 4, 0.3)) ** 2
+    g = torch.Generator(device=dev).manual_seed(5)
+    bad = torch.rand(shape, generator=g, device=dev) < 0.05
+    submask = torch.where(bad, 1 << 3, 0).to(torch.int32)
+    model = torch.where(torch.rand(shape, generator=g, device=dev) < 0.01,
+                        sci - SUB_NODATA_SENTINEL, model)
+    n0 = launch.subtract_epilogue.launches
+    k = subtract.subtract_epilogue(sci, model, sci_rms, ref_var, bad, submask,
+                                   contract=contract)
+    k2 = subtract.subtract_epilogue(sci, model, sci_rms, ref_var, bad,
+                                    contract=contract)
+    assert launch.subtract_epilogue.launches == n0 + 2
+    p = subtract.subtract_epilogue_plain(sci, model, sci_rms, ref_var, bad,
+                                         submask, contract=contract)
+    for a, b in zip(k, p):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(k2[0], k[0]) and torch.equal(k2[1], k[1])
+    assert torch.equal(k[2] >> 17 & 1 == 1, k[0] == SUB_NODATA_SENTINEL)
+    assert torch.equal(k[1] == BIG_RMS, bad)
+    if sci.numel() > 1000:
+        other = launch.subtract_epilogue(
+            sci, model, sci_rms, ref_var, bad, SUB_NODATA_SENTINEL, BIG_RMS,
+            contract=not contract)
+        assert not torch.equal(other[1], k[1])
+        assert torch.equal(other[0], k[0])
+
+
+def test_h10_h11_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    img = torch.zeros((16, 16), device=dev)
+    bad = torch.zeros((16, 16), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.subtract_epilogue(img.cpu(), img, img, img, bad, 1e-30, 1.0)
+    with pytest.raises(TypeError):
+        launch.subtract_epilogue(img, img, img, img, bad.to(torch.uint8),
+                                 1e-30, 1.0)
+    with pytest.raises(ValueError):
+        launch.subtract_epilogue(img, img[:8], img, img, bad, 1e-30, 1.0)
+    with pytest.raises(TypeError):
+        launch.subtract_epilogue(img, img, img, img, bad, 1e-30, 1.0,
+                                 submask=bad)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.warp_gather(img.cpu(), None, img, img)
+    with pytest.raises(ValueError):
+        launch.apply_model_variance(img, torch.zeros((1, 4, 4), device=dev),
+                                    [8.0], [8.0], 8.0, 8.0)
+
+
+def test_per_pair_card_equals_cpu(dev, tmp_path):
+    """from_images on a 256^2 pair rotated by 0.5 degrees, on the card and
+    on the CPU: masks equal, header cards equal, the aligned reference
+    within the warp contract."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.subtraction import SingleEpochSubtraction
+    subs = {}
+    for where in ('cuda', 'cpu'):
+        d = tmp_path / where
+        d.mkdir()
+        work, _ = inputs.write_night_pairs(
+            str(d), 1, 256, 256, ref_rot_deg=(0.5,), nstars=30,
+            header_json=Path(__file__).resolve().parent / 'data'
+            / 'ztf_real_header.json')
+        sci_path, ref_path = work[0].split()
+        sci = ScienceImage.from_file(sci_path)
+        ref = ReferenceImage.from_file(ref_path)
+        sub = SingleEpochSubtraction.from_images(sci, ref, device=where)
+        subs[where] = (sub, ref.aligned_to(sci, device=where))
+    (a, ra), (b, rb) = subs['cuda'], subs['cpu']
+    assert np.array_equal(a.mask_image.data, b.mask_image.data)
+    assert np.array_equal(ra.coverage, rb.coverage)
+    assert np.abs(ra.data - rb.data).max() < 5e-3 + 3e-5 * np.abs(rb.data).max()
+    for key in ('SUBKO', 'SUBNRX', 'SUBMETH', 'SEEING'):
+        assert a.header[key] == b.header[key]
+
+
+def test_pipeline_ref_rms_mesh_card_equals_cpu(dev):
+    """The slice at ref_rms_mesh=True on the card (H3 at one term and H11
+    in its noise stage) and on the CPU: submask equal, the noise map within
+    1e-4, the planted sources at the same place."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.parallel import (PipelineConfig,
+                                         SubtractDetectPipeline)
+    cfg = PipelineConfig(height=256, width=256, ksize=9, stamp=25, smax=32,
+                         order=2, nreg=2, max_det=128, box=64, deblend=False,
+                         ref_rms_mesh=True)
+    args, planted = inputs.plant_sources(
+        inputs.synth_inputs(2, 256, 256, cfg, seed=0), n=3, flux=2e4, seed=1)
+    pipe = SubtractDetectPipeline(cfg)
+    n0 = (launch.apply_model_variance.launches,
+          launch.subtract_epilogue.launches)
+    card = pipe(*inputs.to_torch(args, dev))
+    assert launch.apply_model_variance.launches == n0[0] + 2
+    assert launch.subtract_epilogue.launches == n0[1] + 2
+    cpu = pipe(*inputs.to_torch(args, 'cpu'))
+    assert torch.equal(card['submask'].cpu(), cpu['submask'])
+    ok = cpu['submask'] == 0
+    _allclose(card['rms'].cpu()[ok], cpu['rms'][ok], 1e-4, 0.0)
+    assert torch.equal(card['rms'].cpu()[~ok], cpu['rms'][~ok])
+    for b in range(2):
+        v = card['det_valid'][b].cpu()
+        x, y = card['det_x'][b].cpu()[v], card['det_y'][b].cpu()[v]
+        for px, py in planted[b]:
+            assert float(((x - px) ** 2 + (y - py) ** 2).min()) <= 1.0

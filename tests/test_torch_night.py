@@ -411,18 +411,53 @@ def test_run_night_refuses_what_is_not_ported(scene):
 
 
 def test_run_night_records_the_fallback_past_the_bucket(scene, tmp_path):
+    """A pair whose reference is rotated by 2 degrees: the batched feed
+    refuses it and the per-pair chain runs instead, in both packages. The
+    night records its count, equal in both, and the products land beside
+    the science frame."""
+    d, transients = scene
+    counts, stats = {}, {}
+    for pkg in ('jax', 'torch'):
+        dd = tmp_path / pkg
+        dd.mkdir()
+        for f in d.glob('*.fits'):
+            shutil.copy(f, dd / f.name)
+        work = [f'{dd}/ztf_night0_sciimg.fits '
+                f'{dd}/ztf_rotated_ref_sciimg.fits']
+        if pkg == 'jax':
+            res = jnight.run_night(work, batch=2, ml=False, db=False,
+                                   cfg=jp.PipelineConfig(**KW))
+        else:
+            res = tnight.run_night(work, batch=2, cfg=tp.PipelineConfig(**KW),
+                                   device='cpu', stats=stats)
+        assert len(res) == 1 and res[0][0] == work[0].split()[0]
+        counts[pkg] = res[0][1]
+    assert isinstance(counts['jax'], int), counts['jax']
+    assert counts['torch'] == counts['jax'] >= 1
+    assert stats['fallbacks'] == 1 and stats['fallback_s'] > 0
+    assert stats['detections'] == []        # nothing went through the batch
+    names = {pkg: sorted(f.name for f in (tmp_path / pkg).glob('sub.*'))
+             for pkg in counts}
+    assert names['torch'] == names['jax'] and len(names['jax']) == 8
+    cat = tcatalog.PipelineFITSCatalog.from_file(
+        str(tmp_path / 'torch'
+            / 'sub.ztf_night0_sciimg_ztf_rotated_ref_sciimg.cat')).data
+    tx, ty = transients[0]
+    near = np.hypot(cat['X_IMAGE'] - 1 - tx, cat['Y_IMAGE'] - 1 - ty)
+    assert near.min() < 2.0 and cat['GOODCUT'][near.argmin()] == 1
+
+
+def test_run_night_records_a_failure_inside_the_fallback(scene, tmp_path):
+    """The fallback's own exception is the pair's result, as in the
+    reference (donight.py:331-335)."""
     d, _ = scene
-    for f in d.glob('*.fits'):
-        shutil.copy(f, tmp_path / f.name)
-    work = [f'{tmp_path}/ztf_night0_sciimg.fits '
-            f'{tmp_path}/ztf_rotated_ref_sciimg.fits']
+    shutil.copy(d / 'ztf_night0_sciimg.fits', tmp_path)
+    work = [f'{tmp_path}/ztf_night0_sciimg.fits {tmp_path}/missing_ref.fits']
+    stats = {}
     res = tnight.run_night(work, batch=2, cfg=tp.PipelineConfig(**KW),
-                           device='cpu')
-    assert len(res) == 1
-    err = res[0][1]
-    assert isinstance(err, NotImplementedError) and 'K17' in str(err)
-    assert isinstance(err.__cause__, ValueError)
-    assert not list(tmp_path.glob('sub.*'))
+                           device='cpu', stats=stats)
+    assert len(res) == 1 and isinstance(res[0][1], FileNotFoundError)
+    assert stats['fallbacks'] == 1
 
 
 def test_bulk_to_host_round_trip():

@@ -235,7 +235,7 @@ def test_config_mirrors_the_reference():
 
 @pytest.mark.parametrize('change', [
     dict(sep_warp=True),
-    dict(ref_rms_mesh=True), dict(dbg_stop_after='warp'),
+    dict(dbg_stop_after='fit'), dict(dbg_stop_after='warp'),
     dict(det_dbg_stop_after='ccl')])
 def test_unsupported_config_raises(change):
     cfg = tp.PipelineConfig(**{**KW, **change})

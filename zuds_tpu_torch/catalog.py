@@ -89,13 +89,14 @@ class PipelineFITSCatalog(File):
         return obj
 
     @classmethod
-    def from_image(cls, image, kill_flagged=True, nsigma=DETECT_NSIGMA,
-                   max_det=MAX_DETECTIONS, device=None):
+    def from_image(cls, image, kill_flagged=True, tmpdir=None,
+                   nsigma=DETECT_NSIGMA, max_det=MAX_DETECTIONS, device=None):
         """Detect sources on ``image`` and build its catalog
         (catalog.py:94-143): the detection op on the background-subtracted
         frame, r = 3 px apertures and the refinement at the valid rows, the
         segmentation map attached as ``image.segm_image``, the reference's
-        ``kill_flagged`` row filter. ``device``: where the ops run;
+        ``kill_flagged`` row filter. ``tmpdir`` is the reference's third
+        parameter, unused there and here. ``device``: where the ops run;
         ``image.device`` when None (the card unless ``'cpu'``)."""
         import torch
         from .inputs import resolve_device

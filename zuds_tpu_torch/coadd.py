@@ -8,11 +8,14 @@ card: per epoch the background mesh (H2), the inverse-variance weight and
 one two-plane Lanczos-3 warp (H1), then the CLIPPED combine with the mask
 AND (H9).
 
+``fused=False``, ``addbkg=False`` (a stack of subtractions) or an epoch
+whose mapping residual exceeds the ``max_shift`` bucket take the per-epoch
+loop ``_coadd_loop``: each epoch's own products, one planned (H1) or gather
+(H10) warp of pixels, weight and mask, then the same combine (H9).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
-the per-epoch loop ``_coadd_loop`` (``fused=False``, ``addbkg=False``, or
-an epoch whose mapping residual exceeds the ``max_shift`` bucket; it needs
-the gather warps, K17), ``solve_astrometry=True`` (scamp) and the database
-association (``db=True``).
+``solve_astrometry=True`` (scamp, item 6) and the database association
+(``db=True``, item 5).
 """
 from __future__ import annotations
 
@@ -123,6 +126,60 @@ def _coadd_fused(images, wcs, H, W, subtract_back=True, device=None,
     return res
 
 
+def _coadd_loop(images, wcs, H, W, addbkg, device=None):
+    """Per-epoch warp and combine (coadd.py:219-273), for mappings past the
+    fused route's bucket and for ``addbkg=False`` stacks of subtractions.
+    Per epoch: the background-subtracted pixels (the pixels as they are
+    without ``addbkg``), the weight map and the mask go through one planned
+    or gather warp; the weight is ``max(w, 0) * coverage``; the mask keeps
+    its low 16 bits. Then the CLIPPED combine with the mask AND. Returns
+    (coadd, weight, mask) numpy arrays of shape (H, W)."""
+    from .inputs import resolve_device, upload, upload_mask
+    from .ops.coadd import clipped_combine, fluxscale
+    from .ops.resample import (plan_warp, upsample_mapping, warp_gather,
+                               warp_planned)
+    from .wcs import pixel_mapping
+
+    device = resolve_device(device)
+    N = len(images)
+    iw = torch.empty((N, H, W), dtype=torch.float32, device=device)
+    ww = torch.empty_like(iw)
+    mw = torch.empty((N, H, W), dtype=torch.int32, device=device)
+    cov = torch.empty((N, H, W), dtype=torch.bool, device=device)
+    scales = []
+    for n, im in enumerate(images):
+        if getattr(im, 'device', None) is None:
+            im.device = device
+        grid = pixel_mapping(im.wcs, wcs, (H, W))
+        u, v = upsample_mapping(upload(np.asarray(grid.u, 'f4'), device),
+                                upload(np.asarray(grid.v, 'f4'), device),
+                                grid.shape, grid.step)
+        src = im.background_subtracted_image if addbkg else im
+        data = upload(np.ascontiguousarray(src.data).astype(np.float32),
+                      device)
+        wdat = upload(np.ascontiguousarray(im.weight_image.data)
+                      .astype(np.float32), device)
+        m = upload_mask(im.mask_image.data if im.mask_image is not None
+                        else None, tuple(data.shape), device)
+        plan = plan_warp(grid, (H, W), tuple(data.shape))
+        if plan is not None:
+            img_w, wgt_w, m_w, c = warp_planned(data, m, u, v, plan, (H, W),
+                                                img2=wdat)
+        else:
+            img_w, wgt_w, m_w, c = warp_gather(data, m, u, v, img2=wdat)
+        iw[n] = img_w
+        ww[n] = torch.clamp(wgt_w, min=0.0) * c
+        mw[n] = m_w & 0xFFFF
+        cov[n] = c > 0
+        zp = im.header.get('MAGZP')
+        scales.append(float(fluxscale(zp)) if zp is not None else 1.0)
+    out = clipped_combine(iw, ww, mw, cov,
+                          torch.tensor(scales, dtype=torch.float32,
+                                       device=device))
+    return (out['coadd'].cpu().numpy(), out['weight'].cpu().numpy(),
+            out['mask'].cpu().numpy().astype(np.int64))
+
+
 def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
                        calculate_seeing=True, tmpdir='/tmp',
                        copy_inputs=False, swarp_kws=None, scamp_kws=None,
@@ -135,7 +192,8 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
     ``device``: where the stack is built, the card unless ``'cpu'``.
     ``stats`` (dict, optional) gains the host seconds of each phase
     (``prepare_s``, ``upload_s`` within it, ``pipeline_s``, ``fetch_s``,
-    ``write_s``, ``seeing_s``) and ``upload_bytes``. ``db=True`` asks for
+    ``write_s``, ``seeing_s``; ``loop_s`` when the per-epoch loop ran) and
+    ``upload_bytes``. ``db=True`` asks for
     the reference's database association (coadd.py:200-214), which waits.
     The swarp and thread arguments of the reference are accepted and
     unused, as there."""
@@ -147,14 +205,9 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
 
     if db:
         raise _not_ported('db=True (the coadd record and its CoaddImage '
-                          'joins)', 'item 1a')
+                          'joins)', 'item 5, persistence')
     if solve_astrometry:
-        raise _not_ported('solve_astrometry=True (scamp)',
-                          'Coadd, what it still lacks')
-    if not (fused and addbkg):
-        raise _not_ported(
-            'the per-epoch coadd loop (fused=False or addbkg=False)',
-            'the per-pair path, K17 gather warps')
+        raise _not_ported('solve_astrometry=True (scamp)', 'item 6, scamp')
 
     wcs, (H, W) = coadd_grid(images)
 
@@ -166,20 +219,28 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
             pass
 
     st = stats if stats is not None else {}
-    try:
-        coadd_data, coadd_weight, mask_data = _coadd_fused(
-            images, wcs, H, W, subtract_back=True, device=device, stats=st)
-    except ValueError as e:
-        # the reference prints and falls back to its per-epoch loop here
-        raise _not_ported(
-            f'the per-epoch coadd loop, which this stack needs ({e})',
-            'the per-pair path, K17 gather warps') from e
+    coadd_data = None
+    if fused and addbkg:
+        try:
+            coadd_data, coadd_weight, mask_data = _coadd_fused(
+                images, wcs, H, W, subtract_back=True, device=device,
+                stats=st)
+        except ValueError as e:
+            print(f'coadd: fused path unavailable ({e}); '
+                  f'per-epoch fallback', flush=True)
+
+    if coadd_data is None:
+        t0 = time.perf_counter()
+        coadd_data, coadd_weight, mask_data = _coadd_loop(
+            images, wcs, H, W, addbkg, device=device)
+        st['loop_s'] = st.get('loop_s', 0.0) + time.perf_counter() - t0
 
     t0 = time.perf_counter()
     with _phase('write'):
         # no-data bit where no epoch contributed
         mask_data[coadd_weight == 0] |= (1 << MASK_BIT_NODATA_ALIGN)
-        coadd_data = coadd_data + BKG_VAL
+        if addbkg:
+            coadd_data = coadd_data + BKG_VAL
 
         coadd = cls()
         coadd.device = device

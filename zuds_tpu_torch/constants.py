@@ -53,8 +53,11 @@ REFERENCE_VERSION = 'zuds5'
 # --- subtraction -------------------------------------------------------------
 SUB_NODATA_SENTINEL = 1e-30         # fill value for no-data subtraction pixels
 HOTPANTS_SATLEV = 5e3               # saturation level used during kernel fit
+KERNEL_RADIUS_SEEING = 2.5          # PSF-match kernel radius = 2.5 * seeing
+RSS_SEEING = 6.0                    # stamp half-width = 6 * seeing
 NREG_SIDE = 3                       # 3x3 independently-fit kernel regions
 KERNEL_SPATIAL_ORDER = 4            # spatial order of kernel variation (-ko 4)
+BKG_SPATIAL_ORDER = 0               # spatial order of differential bkg (-bgo 0)
 # Gaussian basis (per-gaussian poly degree, per-gaussian sigma factor)
 KERNEL_GAUSS_DEGREES = (6, 4, 2)
 KERNEL_GAUSS_SIGMAS = (0.7, 1.5, 3.0)

@@ -2,8 +2,8 @@
 ``zuds_tpu/fitsfile.py:21-160``).
 
 ``FITSFile`` couples the File protocol to the port's FITS codec; ``HasWCS``
-adds the TPV WCS and sky footprints. ``aligned_to`` (the per-pair device
-warp) comes with the per-pair path (ROADMAP queue 1, K17).
+adds the TPV WCS, sky footprints, the pixel mapping onto another frame and
+``aligned_to``, the per-pair warp (``align.py``).
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import numpy as np
 
 from .file import File
 from .fits import Header, HDU, read_fits, write_fits, read_header
-from .wcs import TPVWCS
+from .wcs import TPVWCS, pixel_mapping
 
 __all__ = ['FITSFile', 'HasWCS']
 
@@ -118,3 +118,25 @@ class HasWCS(FITSFile):
     def footprint(self):
         h, w = self.shape
         return self.wcs.footprint(w, h)
+
+    def contains(self, ra, dec):
+        """True where (ra, dec) lands inside the frame."""
+        h, w = self.shape
+        x, y = self.wcs.sky2pix_0(np.asarray(ra), np.asarray(dec))
+        return (x >= -0.5) & (x <= w - 0.5) & (y >= -0.5) & (y <= h - 0.5)
+
+    def mapping_to(self, other, step=32):
+        """Coarse pixel mapping from this frame onto ``other``'s grid."""
+        h, w = other.shape
+        return pixel_mapping(self.wcs, other.wcs, (h, w), step=step)
+
+    def aligned_to(self, other, persist_aligned=False, tmpdir=None,
+                   device=None, **kw):
+        """Resample this image onto ``other``'s WCS pixel grid
+        (fitsfile.py:164-175): masks through the conservative OR warp,
+        science frames through the Lanczos-3 warp. Returns a new in-memory
+        object of matching kind with the target WCS and its ``coverage``.
+        ``device``: the image's own when None (the card unless ``'cpu'``)."""
+        from .align import align_image
+        return align_image(self, other, persist_aligned=persist_aligned,
+                           device=device)

@@ -246,3 +246,9 @@ class ScienceImage(CalibratedImage):
             if getattr(obj, attr, None) is None and kw in h:
                 setattr(obj, attr, h[kw])
         return obj
+
+    @property
+    def mjd(self):
+        """Observation MJD from the header (image.py:379-382)."""
+        from .utils import mjd_from_header
+        return mjd_from_header(self.header)

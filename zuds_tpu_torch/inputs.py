@@ -224,7 +224,8 @@ NIGHT_SEEING = (2.0, 2.8)
 NIGHT_TRANSIENT_FLUX = 3e4
 
 
-def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7):
+def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7,
+                      ref_rot_deg=(), nstars=NIGHT_STARS):
     """FITS pairs of a synthetic night in directory ``d``, the recipe of
     ``bench.py:_write_bench_frames`` (700 stars of flux 5e3-5e4, seeing
     2.0 px on the reference and 2.8 px on the science frames, noise 5,
@@ -235,14 +236,18 @@ def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7):
     (W/2 + 0.5, H/2 + 0.5); the reference a linear WCS with CRPIX
     (W/2 + 2.1, H/2 - 1.7), a dither of (+1.6, -2.2) px that the
     pipeline's pre-roll takes out. The frames whose index is in
-    ``no_seeing`` have no SEEING card. Returns (work lines "sci ref",
-    transient (x, y) per pair)."""
+    ``no_seeing`` have no SEEING card. ``ref_rot_deg[i]``, where given and
+    not 0, gives pair ``i`` a reference of its own whose WCS is rotated by
+    that angle about the frame's centre (the same sky, rendered on the
+    rotated grid): a pair the batched pipeline's ``max_shift`` bucket
+    refuses. ``nstars``: the number of stars. Returns (work lines
+    "sci ref", transient (x, y) per pair)."""
     from .fits import HDU, Header, write_fits
     from .wcs import TPVWCS
     rng = np.random.default_rng(seed)
-    xs = rng.uniform(40, W - 40, NIGHT_STARS)
-    ys = rng.uniform(40, H - 40, NIGHT_STARS)
-    fluxes = rng.uniform(5000, 50000, NIGHT_STARS)
+    xs = rng.uniform(40, W - 40, nstars)
+    ys = rng.uniform(40, H - 40, nstars)
+    fluxes = rng.uniform(5000, 50000, nstars)
     k = 12
     yy, xx = np.mgrid[-k:k + 1, -k:k + 1]
 
@@ -285,21 +290,33 @@ def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7):
     wcs_sci.crpix[:] = (W / 2 + 0.5, H / 2 + 0.5)
     lin = np.zeros_like(wcs_sci.pv1)
     lin[1] = 1.0
-    wcs_ref = TPVWCS(np.asarray([W / 2 + 2.1, H / 2 - 1.7]),
-                     wcs_sci.crval.copy(), wcs_sci.cd.copy(), lin,
-                     lin.copy())
     see_ref, see_sci = NIGHT_SEEING
     ra, dec = wcs_sci.pix2sky_0(xs, ys)
-    rx, ry = wcs_ref.sky2pix_0(ra, dec)
-    ref_path = os.path.join(d, 'night_ref_sciimg.fits')
-    write(ref_path, render(rx, ry, see_ref), wcs_ref, 58300.0, see_ref)
+
+    def write_ref(name, rot_deg):
+        c, s_ = np.cos(np.deg2rad(rot_deg)), np.sin(np.deg2rad(rot_deg))
+        wcs_ref = TPVWCS(np.asarray([W / 2 + 2.1, H / 2 - 1.7]),
+                         wcs_sci.crval.copy(),
+                         wcs_sci.cd @ np.array([[c, -s_], [s_, c]]), lin,
+                         lin.copy())
+        rx, ry = wcs_ref.sky2pix_0(ra, dec)
+        path = os.path.join(d, name)
+        write(path, render(rx, ry, see_ref), wcs_ref, 58300.0, see_ref)
+        return path
+
+    rots = dict(enumerate(ref_rot_deg))
+    # the shared reference first, as bench.py draws its noise first
+    ref_path = (write_ref('night_ref_sciimg.fits', 0.0)
+                if any(not rots.get(i) for i in range(npairs)) else None)
     work, truths = [], []
     for i in range(npairs):
         t = (500.0 + 257 * i, 600.0 + 193 * i, NIGHT_TRANSIENT_FLUX)
         p = os.path.join(d, f'night_n{i}_sciimg.fits')
         write(p, render(xs, ys, see_sci, extra=t), wcs_sci,
               58345.0 + 0.01 * i, None if i in no_seeing else see_sci)
-        work.append(f'{p} {ref_path}')
+        pair_ref = (write_ref(f'night_ref_rot{i}_sciimg.fits', rots[i])
+                    if rots.get(i) else ref_path)
+        work.append(f'{p} {pair_ref}')
         truths.append(t[:2])
     return work, truths
 

@@ -22,7 +22,8 @@ __all__ = ['library', 'check', 'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
-           'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu')
+           'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
+           'subtract.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -68,6 +69,14 @@ SIGNATURES = {
     # omask, N, npix, nsigma, amp_frac, nodata_bit, stream
     'zuds_clipped_combine': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
                              _F, _F, _I, _P),
+    # img, img2, mask (each or null), u, v, out, out2, outm (each or null),
+    # cov, Hs, Ws, Ho, Wo, stream
+    'zuds_warp_gather': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _P),
+    # sci, model, sci_rms, ref_var, bad(u8), submask (or null), diff, rms,
+    # submask_out (or null), n, sentinel, big_rms, bit, contract, stream
+    'zuds_subtract_epilogue': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
+                               _F, _I, _I, _P),
 }
 
 

@@ -1,6 +1,7 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
 H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
-candidates, H8 frame median, H9 clipped combine).
+candidates, H8 frame median, H9 clipped combine, H10 gather warp, H11
+subtraction epilogue).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -15,9 +16,11 @@ import torch
 
 from . import build
 
-__all__ = ['warp', 'background_cells', 'apply_model', 'deblend_labels',
+__all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
+           'deblend_labels',
            'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
-           'COMBINE_MAX_EPOCHS', 'WRAPPERS']
+           'warp_gather', 'subtract_epilogue', 'COMBINE_MAX_EPOCHS',
+           'WRAPPERS']
 
 
 def _ptr(t):
@@ -92,18 +95,9 @@ def background_cells(img, valid, box, iters):
     return back, sigma, n
 
 
-def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
-    """H3 (kernels/apply.cu): the spatially varying model convolution
-    ``bg[r] + sum_m T_m(xn, yn) (kd[r, m] * ref)`` with zero padding, on the
-    tensor cores in 3xTF32.
-
-    kd (R2, Nm, K, K) f32 and bg (R2,) f32 on the card; the rest are host
-    values passed by value in the launch (no copy to the card): cx (nreg,)
-    the region centre of each region column and cy (nreg,) of each region
-    row, both as the reference rounds them to f32; pexp/qexp (Nm,) the
-    term exponents; wx, wy the half-widths. Takes any odd K up to 31 (the
-    kernels of a region must fit in shared memory), nreg and Nm up to 256.
-    """
+def _launch_apply(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
+    """Check and launch ``zuds_apply`` (H3); the two wrappers below count
+    their own launches."""
     H, W = ref.shape
     R2, Nm, K, _ = kd.shape
     nreg = len(cx)
@@ -128,8 +122,40 @@ def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
                                      _ptr(model), ctypes.byref(params),
                                      _stream())
     build.check(err, 'zuds_apply')
+    return model
+
+
+def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
+    """H3 (kernels/apply.cu): the spatially varying model convolution
+    ``bg[r] + sum_m T_m(xn, yn) (kd[r, m] * ref)`` with zero padding, on the
+    tensor cores in 3xTF32.
+
+    kd (R2, Nm, K, K) f32 and bg (R2,) f32 on the card; the rest are host
+    values passed by value in the launch (no copy to the card): cx (nreg,)
+    the region centre of each region column and cy (nreg,) of each region
+    row, both as the reference rounds them to f32; pexp/qexp (Nm,) the
+    term exponents; wx, wy the half-widths. Takes any odd K up to 31 (the
+    kernels of a region must fit in shared memory), nreg and Nm up to 256.
+    """
+    model = _launch_apply(ref, kd, bg, cx, cy, pexp, qexp, wx, wy)
     apply_model.launches += 1
     return model
+
+
+def apply_model_variance(var, k2, cx, cy, wx, wy):
+    """H3 at one term (kernels/apply.cu): the variance frame ``var`` (H, W)
+    correlated, zero padded, with the squared centre kernel ``k2[r]`` (R2,
+    K, K) of its static region: the reference's ``propagate_ref_var``. The
+    single term is the constant one and the background is 0, so the launch
+    computes ``k2[r] * var`` over the same region rectangles as the model,
+    in 3xTF32. ``cx``, ``cy``, ``wx``, ``wy`` as in :func:`apply_model`."""
+    R2, K, _ = k2.shape
+    out = _launch_apply(var, k2.reshape(R2, 1, K, K),
+                        torch.zeros(R2, dtype=torch.float32,
+                                    device=var.device),
+                        cx, cy, (0,), (0,), wx, wy)
+    apply_model_variance.launches += 1
+    return out
 
 
 def deblend_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds):
@@ -271,6 +297,84 @@ def clipped_combine(imgs, weights, masks, coverage, scales, nsigma,
             'mask': omask}
 
 
+def warp_gather(img, mask, u, v, img2=None):
+    """H10 (kernels/warp.cu): the Lanczos-3 gather warp of the source
+    planes ``img``, ``img2`` (f32, (Hs, Ws); either may be None, ``img2``
+    only with ``img``) and ``mask`` (int32, (Hs, Ws), or None) to the
+    output grid of ``u``, ``v`` (f32, (Ho, Wo)), in one launch. Returns
+    (out, out2, outm, cov): the warped planes and mask (None where the
+    input was None) and the coverage (f32, 1 where the 6x6 support lies
+    inside the source)."""
+    _require('u', u, torch.float32)
+    if u.dim() != 2:
+        raise ValueError(f'warp_gather: expected 2-D u, got {tuple(u.shape)}')
+    Ho, Wo = u.shape
+    _require('v', v, torch.float32, (Ho, Wo))
+    src = img if img is not None else mask
+    if src is None or (img2 is not None and img is None):
+        raise ValueError('warp_gather: needs img or mask, and img2 only '
+                         'with img')
+    if src.dim() != 2 or min(src.shape) < 6 or src.numel() >= 2 ** 31 \
+            or Ho * Wo >= 2 ** 31:
+        raise ValueError(f'warp_gather: source {tuple(src.shape)} '
+                         'unsupported (2-D, at least 6x6, under 2^31 px)')
+    Hs, Ws = src.shape
+    null = ctypes.c_void_p(None)
+    outs = []
+    for name, t, dtype in (('img', img, torch.float32),
+                           ('img2', img2, torch.float32),
+                           ('mask', mask, torch.int32)):
+        if t is None:
+            outs.append(None)
+            continue
+        _require(name, t, dtype, (Hs, Ws))
+        outs.append(torch.empty((Ho, Wo), dtype=dtype, device=u.device))
+    cov = torch.empty((Ho, Wo), dtype=torch.float32, device=u.device)
+
+    def p(t):
+        return null if t is None else _ptr(t)
+
+    err = build.library().zuds_warp_gather(
+        p(img), p(img2), p(mask), _ptr(u), _ptr(v), p(outs[0]), p(outs[1]),
+        p(outs[2]), _ptr(cov), Hs, Ws, Ho, Wo, _stream())
+    build.check(err, 'zuds_warp_gather')
+    warp_gather.launches += 1
+    return outs[0], outs[1], outs[2], cov
+
+
+def subtract_epilogue(sci, model, sci_rms, ref_var, bad, sentinel, big_rms,
+                      submask=None, bit=0, contract=False):
+    """H11 (kernels/subtract.cu): ``diff = sci - model`` and ``rms =
+    sqrt(sci_rms^2 + ref_var)`` (f32, the shape of ``sci``), with
+    ``sentinel`` and ``big_rms`` where ``bad`` (bool) is set; with
+    ``submask`` (int32) also ``submask | 1 << bit`` where ``diff`` is the
+    sentinel. ``contract``: the square and the add as one FMA. Returns
+    (diff, rms) or (diff, rms, submask)."""
+    _require('sci', sci, torch.float32)
+    for name, t in (('model', model), ('sci_rms', sci_rms),
+                    ('ref_var', ref_var)):
+        _require(name, t, torch.float32, sci.shape)
+    _require('bad', bad, torch.bool, sci.shape)
+    diff = torch.empty_like(sci)
+    rms = torch.empty_like(sci)
+    null = ctypes.c_void_p(None)
+    sub_out = None
+    if submask is not None:
+        _require('submask', submask, torch.int32, sci.shape)
+        sub_out = torch.empty_like(submask)
+    err = build.library().zuds_subtract_epilogue(
+        _ptr(sci), _ptr(model), _ptr(sci_rms), _ptr(ref_var), _ptr(bad),
+        null if submask is None else _ptr(submask), _ptr(diff), _ptr(rms),
+        null if submask is None else _ptr(sub_out), sci.numel(),
+        float(sentinel), float(big_rms), int(bit), int(bool(contract)),
+        _stream())
+    build.check(err, 'zuds_subtract_epilogue')
+    subtract_epilogue.launches += 1
+    if submask is None:
+        return diff, rms
+    return diff, rms, sub_out
+
+
 def _require_view(name, t, dtype, shape=None):
     """Like _require for a 2-D view that need not be contiguous."""
     if not t.is_cuda:
@@ -290,13 +394,20 @@ DEBLEND_MAX_CELLS = 227 * 1024 // 8
 warp.launches = 0
 background_cells.launches = 0
 apply_model.launches = 0
+apply_model_variance.launches = 0
 deblend_labels.launches = 0
 compact.launches = 0
 stamp_candidates.launches = 0
 frame_median.launches = 0
 clipped_combine.launches = 0
+warp_gather.launches = 0
+subtract_epilogue.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
-            'apply_model': apply_model, 'deblend_labels': deblend_labels,
+            'apply_model': apply_model,
+            'apply_model_variance': apply_model_variance,
+            'deblend_labels': deblend_labels,
             'compact': compact, 'stamp_candidates': stamp_candidates,
             'frame_median': frame_median,
-            'clipped_combine': clipped_combine}
+            'clipped_combine': clipped_combine,
+            'warp_gather': warp_gather,
+            'subtract_epilogue': subtract_epilogue}

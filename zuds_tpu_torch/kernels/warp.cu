@@ -1,5 +1,6 @@
 // H1: fused Lanczos-3 reference warp + significant-weight mask warp +
-// coverage gate, one thread per output pixel.
+// coverage gate, one thread per output pixel. (H10, the gather warp for
+// mappings past H1's window, follows it below.)
 //
 // Replaces the reference's shift-accumulate warp
 // (zuds_tpu/ops/resample.py: warp_shift_image :275, warp_shift_mask :213)
@@ -146,6 +147,99 @@ __global__ void warp_kernel(const float* __restrict__ ref,
   cov[i] = c ? 1.f : 0.f;
 }
 
+// H10: the Lanczos-3 gather warp, one thread per output pixel.
+//
+// Replaces the reference's gather warps (zuds_tpu/ops/resample.py:
+// warp_image :86, warp_mask :116, warp_image_mask :484): the per-pair align
+// of a frame whose mapping is too far from the identity for H1's window (a
+// rotation, a union grid). It is not H1 with the window taken off:
+//  * the source (Hs, Ws) need not have the output's shape (Ho, Wo);
+//  * taps are dx, dy in -2..3 about iu = floor(u), with weights
+//    lanczos3(fu - dx) at the phase fu = u - iu;
+//  * source indices are clamped to [2, Ws - 4], never wrapped; inside the
+//    coverage the clamp does nothing;
+//  * the normaliser is the sum of the 36 products wx * wy in tap order,
+//    rows outer;
+//  * coverage is the integer test that the 6x6 support lies inside the
+//    source, and the output is 0 outside it. The reference writes the
+//    product out * cov, which XLA folds into a select on the coverage
+//    test: a non-finite source pixel in a clamped window outside the
+//    coverage gives 0 there, and so here;
+//  * mask bit b reaches a pixel iff sig(fv - dy) and sig(fu - dx) hold at
+//    the pixel's own phase (no intermediate row).
+// PLANES float planes (0, 1 or 2) share u, v and the 36 weights; MASK says
+// whether a mask rides along. The mask path uses only f32 subtractions and
+// compares, so it is bit-equal to the plain version.
+//
+// Bound: memory. Per pixel it reads u, v once from DRAM and the 36 taps of
+// each plane through L1/L2 (each source pixel once from DRAM for a smooth
+// mapping), and writes each output once: 28 bytes with one plane and a
+// mask, 36 with two.
+template <int PLANES, bool MASK>
+__global__ void warp_gather_kernel(const float* __restrict__ img,
+                                   const float* __restrict__ img2,
+                                   const int* __restrict__ mask,
+                                   const float* __restrict__ u,
+                                   const float* __restrict__ v,
+                                   float* __restrict__ out,
+                                   float* __restrict__ out2,
+                                   int* __restrict__ outm,
+                                   float* __restrict__ cov,
+                                   int Hs, int Ws, int Ho, int Wo) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= Wo || y >= Ho) return;
+  const size_t i = (size_t)y * Wo + x;
+  const float uu = u[i], vv = v[i];
+  // floor, kept inside what an int holds (a wild mapping is uncovered
+  // either way)
+  const float kBig = 1073741824.f;
+  const float fiu = fminf(fmaxf(floorf(uu), -kBig), kBig);
+  const float fiv = fminf(fmaxf(floorf(vv), -kBig), kBig);
+  const int iu = (int)fiu, iv = (int)fiv;
+  const float fu = __fsub_rn(uu, fiu);
+  const float fv = __fsub_rn(vv, fiv);
+  const bool inb = (iu - 2 >= 0) & (iu + 3 <= Ws - 1) & (iv - 2 >= 0) &
+                   (iv + 3 <= Hs - 1);
+  const int iuc = min(max(iu, 2), Ws - 4);
+  const int ivc = min(max(iv, 2), Hs - 4);
+
+  float wx[6], wy[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    wx[k] = lanczos3(__fsub_rn(fu, (float)(k - 2)));
+    wy[k] = lanczos3(__fsub_rn(fv, (float)(k - 2)));
+  }
+  float acc = 0.f, acc2 = 0.f, wacc = 0.f;
+  int m = 0;
+#pragma unroll
+  for (int ky = 0; ky < 6; ++ky) {
+    const size_t rowoff = (size_t)(ivc + ky - 2) * Ws + (iuc - 2);
+    const bool takey = MASK && sig_lanczos(__fsub_rn(fv, (float)(ky - 2)));
+#pragma unroll
+    for (int kx = 0; kx < 6; ++kx) {
+      if (PLANES > 0) {
+        const float wgt = __fmul_rn(wx[kx], wy[ky]);
+        acc = __fadd_rn(acc, __fmul_rn(img[rowoff + kx], wgt));
+        if (PLANES > 1)
+          acc2 = __fadd_rn(acc2, __fmul_rn(img2[rowoff + kx], wgt));
+        wacc = __fadd_rn(wacc, wgt);
+      }
+      if (MASK) {
+        if (takey && sig_lanczos(__fsub_rn(fu, (float)(kx - 2))))
+          m |= mask[rowoff + kx];
+      }
+    }
+  }
+  if (PLANES > 0) {
+    const float norm = wacc == 0.f ? 1.f : wacc;
+    out[i] = inb ? __fdiv_rn(acc, norm) : 0.f;
+    if (PLANES > 1) out2[i] = inb ? __fdiv_rn(acc2, norm) : 0.f;
+  }
+  if (MASK) outm[i] = inb ? m : 0;
+  cov[i] = inb ? 1.f : 0.f;
+}
+
 }  // namespace
 
 // ref2 and refw2 are both null (one plane) or both set (two planes).
@@ -163,5 +257,36 @@ extern "C" int zuds_warp(const float* ref, const float* ref2, const int* mask,
   else
     warp_kernel<false><<<grid, block, 0, stream>>>(
         ref, ref2, mask, u, v, covb, refw, refw2, refm, cov, H, W, window);
+  return (int)cudaGetLastError();
+}
+
+// img/out, img2/out2 and mask/outm are each both null or both set; img2
+// needs img. The source must hold the 6x6 support (Hs, Ws >= 6).
+extern "C" int zuds_warp_gather(const float* img, const float* img2,
+                                const int* mask, const float* u,
+                                const float* v, float* out, float* out2,
+                                int* outm, float* cov, int Hs, int Ws, int Ho,
+                                int Wo, cudaStream_t stream) {
+  if ((img == nullptr) != (out == nullptr) ||
+      (img2 == nullptr) != (out2 == nullptr) ||
+      (mask == nullptr) != (outm == nullptr) ||
+      (img2 != nullptr && img == nullptr) || Hs < 6 || Ws < 6)
+    return (int)cudaErrorInvalidValue;
+  dim3 block(32, 8);
+  dim3 grid((Wo + block.x - 1) / block.x, (Ho + block.y - 1) / block.y);
+#define ZUDS_GATHER(P, M)                                                  \
+  warp_gather_kernel<P, M><<<grid, block, 0, stream>>>(                    \
+      img, img2, mask, u, v, out, out2, outm, cov, Hs, Ws, Ho, Wo)
+  const int planes = (img != nullptr) + (img2 != nullptr);
+  if (mask != nullptr) {
+    if (planes == 2) ZUDS_GATHER(2, true);
+    else if (planes == 1) ZUDS_GATHER(1, true);
+    else ZUDS_GATHER(0, true);
+  } else {
+    if (planes == 2) ZUDS_GATHER(2, false);
+    else if (planes == 1) ZUDS_GATHER(1, false);
+    else ZUDS_GATHER(0, false);
+  }
+#undef ZUDS_GATHER
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from .constants import BAD_SUM, MASK_BITS, MASK_COMMENTS
+from .constants import (BAD_SUM, MASK_BITS, MASK_COMMENTS,
+                        MASK_BIT_NODATA_ALIGN)
 from .image import FITSImage
 
 __all__ = ['MaskImageBase', 'MaskImage']
@@ -34,6 +35,16 @@ class MaskImageBase(FITSImage):
         """Write the bit-plane legend into the header."""
         for key, bit in MASK_BITS.items():
             self.header.set(key, bit, MASK_COMMENTS.get(key, ''))
+
+    def update_from_weight_map(self, weight_image):
+        """Set the no-data bit where the resampled weight or coverage is
+        zero (mask.py:42-50)."""
+        wd = np.asarray(getattr(weight_image, 'data', weight_image))
+        mask = np.asarray(self.data).astype(np.int64)
+        mask[wd == 0] |= (1 << MASK_BIT_NODATA_ALIGN)
+        self.data = mask.astype(np.int32)
+        if hasattr(self, '_boolean'):
+            del self._boolean
 
 
 class MaskImage(MaskImageBase):

@@ -20,11 +20,14 @@ Batch k+1 is prepared and its pipeline enqueued before batch k's outputs
 are copied back and committed. ``diff``/``rms``/``submask`` stay on the
 card behind each subtraction's thunk.
 
+A pair the batched chain cannot take (``prepare_frame_inputs`` refuses a
+mapping past the ``max_shift`` bucket, the frame is not the bucket's shape,
+or its commit raises) runs the per-pair chain ``sub.do_one`` instead (the
+planned or the gather warp, H10), and its count is recorded; a failure
+inside the fallback is recorded as that exception.
+
 Not ported yet (ROADMAP queue 1): ``ml=True`` (braai, K19) and ``db=True``
-(ORM commit and thumbnails) raise ``NotImplementedError``; so does the
-per-pair fallback (``dosub.do_one``, K17), and the night records that
-exception for the pair where the reference would have recorded the
-fallback's count.
+(ORM commit and thumbnails) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -209,8 +212,10 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
     ``'cpu'``. ``stats`` (dict, optional) is filled with the host seconds
     of each phase (``load_s``, ``prepare_s``, ``upload_s`` within
     prepare, ``pipeline_s``, ``commit_s``), ``upload_bytes``,
-    ``ref_cache_hits``/``ref_cache_misses``, and ``detections`` and
-    ``seeing`` (the SEEING the kernel basis used) per committed frame."""
+    ``ref_cache_hits``/``ref_cache_misses``, ``fallbacks`` and
+    ``fallback_s`` (the pairs that took the per-pair chain and their host
+    seconds), and ``detections`` and ``seeing`` (the SEEING the kernel
+    basis used) per committed frame."""
     _not_ported(ml, db)
     device = resolve_device(device)
     work = [str(w).split() for w in work]
@@ -221,22 +226,29 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
     if pipe is None:
         pipe = SubtractDetectPipeline(cfg)
     st = stats if stats is not None else {}
-    for k in ('load_s', 'prepare_s', 'upload_s', 'pipeline_s', 'commit_s'):
+    for k in ('load_s', 'prepare_s', 'upload_s', 'pipeline_s', 'commit_s',
+              'fallback_s'):
         st.setdefault(k, 0.0)
-    for k in ('upload_bytes', 'ref_cache_hits', 'ref_cache_misses'):
+    for k in ('upload_bytes', 'ref_cache_hits', 'ref_cache_misses',
+              'fallbacks'):
         st.setdefault(k, 0)
     st.setdefault('detections', [])
     st.setdefault('seeing', [])
     results = []
 
-    def fallback(sci_path, cause):
-        """Record the pair where the reference records the per-pair
-        fallback's count (dosub.do_one, not ported yet)."""
-        err = NotImplementedError(
-            f'{sci_path}: the per-pair fallback (dosub.do_one) is not '
-            'ported yet (ROADMAP queue 1: the per-pair path, K17)')
-        err.__cause__ = cause
-        results.append((sci_path, err))
+    def fallback(i):
+        """The per-pair chain for work line ``i`` (donight.py:244-249,
+        281-284, 331-335): its count, or the exception it raised."""
+        from .sub import do_one
+        sci_path, ref_path = work[i]
+        t0 = time.perf_counter()
+        try:
+            _, dets = do_one(f'{sci_path} {ref_path}', ml=ml, device=device)
+            results.append((sci_path, len(dets)))
+        except Exception as e2:
+            results.append((sci_path, e2))
+        st['fallbacks'] += 1
+        st['fallback_s'] += time.perf_counter() - t0
 
     def process(meta, pout, t_dispatch):
         """Commit one batch: ONE bulk copy of the fixed-size outputs;
@@ -267,9 +279,9 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
         except TooManyDetections as e:
             print(f'quality guard: {e}', flush=True)
             results.append((sci_path, e))
-        except Exception as e:
+        except Exception:
             traceback.print_exc()
-            fallback(sci_path, e)
+            fallback(i)
 
     try:
         # the whole window is submitted up front: the pool reads ahead
@@ -313,9 +325,9 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
                     st['ref_cache_hits' if hit else 'ref_cache_misses'] += 1
                     frames.append(inputs)
                     meta.append((i, sci, ref))
-                except Exception as e:
+                except Exception:
                     traceback.print_exc()
-                    fallback(sci_path, e)
+                    fallback(i)
             if not frames:
                 continue
             # the last partial batch repeats its last frame (its outputs

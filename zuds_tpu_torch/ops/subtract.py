@@ -6,6 +6,14 @@ package ``__init__``), as the reference leaves them to XLA. The model
 convolution runs in hand kernel H3 (``kernels/apply.cu``) on a CUDA tensor
 (:func:`apply_kernel_fast`) and as the grouped separable convolution of
 the reference's :func:`apply_kernel` on a CPU tensor.
+
+The per-pair difference (:func:`subtract_frames`) adds the noise map: the
+reference variance convolved with the squared centre kernel of each static
+region (:func:`propagate_ref_var`: H3 launched with one term on a CUDA
+tensor, :func:`propagate_ref_var_plain` on a CPU tensor), then the
+difference, the square root and the no-data fills in one pass
+(:func:`subtract_epilogue`: hand kernel H11, ``kernels/subtract.cu``, or
+:func:`subtract_epilogue_plain`).
 """
 from __future__ import annotations
 
@@ -15,14 +23,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..constants import (KERNEL_GAUSS_DEGREES, KERNEL_GAUSS_SIGMAS,
-                         KERNEL_SPATIAL_ORDER, NREG_SIDE)
+from ..constants import (BIG_RMS, KERNEL_GAUSS_DEGREES, KERNEL_GAUSS_SIGMAS,
+                         KERNEL_SPATIAL_ORDER, MASK_BIT_NODATA_SUB, NREG_SIDE,
+                         SUB_NODATA_SENTINEL)
 from ..kernels import launch
 from .background import masked_median
 
 __all__ = ['KernelBasis', 'spatial_terms', 'dense_basis', 'region_outer', 'fit_kernel',
            'apply_kernel', 'apply_kernel_fast', 'model_kernels',
-           'model_geometry', 'center_kernels', 'region_edges']
+           'model_geometry', 'center_kernels', 'region_edges',
+           'propagate_ref_var', 'propagate_ref_var_plain',
+           'subtract_epilogue', 'subtract_epilogue_plain', 'subtract_frames']
 
 # order-weighted Jacobi ridge of the fit (subtract.py:260-293 defaults)
 RIDGE_BASE = 1e-5
@@ -336,3 +347,108 @@ def center_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
     a0 = coeffs[:, :Nb * Nm].reshape(-1, Nb, Nm)[:, :, 0]
     dense = dense_basis(basis_gx, basis_gy, basis_sums, b0_2d)
     return (a0 @ dense.reshape(Nb, K * K)).reshape(-1, K, K)
+
+
+def propagate_ref_var_plain(ref_rms, kerns):
+    """Plain version of the variance propagation (subtract.py:707-725): one
+    'valid' correlation per static region rectangle of the zero-padded
+    ``ref_rms ** 2`` with ``kerns[r] ** 2`` ((R2, K, K), R2 a square)."""
+    H, W = ref_rms.shape
+    R2, K, _ = kerns.shape
+    nreg = math.isqrt(R2)
+    r = K // 2
+    varp = F.pad(ref_rms ** 2, (r, r, r, r))
+    y_e, x_e = region_edges(H, nreg), region_edges(W, nreg)
+    rows = []
+    for ri in range(nreg):
+        y0, y1 = y_e[ri], y_e[ri + 1]
+        row = []
+        for rj in range(nreg):
+            x0, x1 = x_e[rj], x_e[rj + 1]
+            k2 = (kerns[ri * nreg + rj] ** 2)[None, None]
+            sl = varp[y0:y1 + 2 * r, x0:x1 + 2 * r][None, None]
+            row.append(F.conv2d(sl, k2)[0, 0])
+        rows.append(torch.cat(row, dim=1))
+    return torch.cat(rows, dim=0)
+
+
+def propagate_ref_var(ref_rms, coeffs, basis_gx, basis_gy, basis_sums,
+                      b0_2d, order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """conv(var_ref, K_r^2) with K evaluated at each region centre
+    (subtract.py:692). A CUDA tensor runs hand kernel H3 with one constant
+    term whose kernel is the squared centre kernel (the same zero-padded
+    correlation over the same region rectangles as the model, in 3xTF32);
+    a CPU tensor runs :func:`propagate_ref_var_plain`."""
+    kerns = center_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
+                           order=order, nreg=nreg)
+    if not ref_rms.is_cuda:
+        return propagate_ref_var_plain(ref_rms, kerns)
+    cx, cy, _, _, wx, wy = model_geometry(*ref_rms.shape, order=0, nreg=nreg)
+    return launch.apply_model_variance((ref_rms ** 2).contiguous(),
+                                       (kerns ** 2).contiguous(), cx, cy,
+                                       wx, wy)
+
+
+def _propagate_ref_var(ref_rms, fit, basis, order, nreg, shape):
+    """:func:`propagate_ref_var` for a basis object (subtract.py:728)."""
+    def dev(a):
+        return torch.as_tensor(a, device=ref_rms.device)
+    return propagate_ref_var(ref_rms, fit['coeffs'], dev(basis.gx),
+                             dev(basis.gy), dev(basis.sums),
+                             dev(basis.b0_2d), order=order, nreg=nreg)
+
+
+def subtract_epilogue_plain(sci, model, sci_rms, ref_var, bad, submask=None,
+                            contract=False):
+    """Plain version of H11: ``diff = sci - model`` and ``rms =
+    sqrt(sci_rms^2 + ref_var)``, the sentinel and ``BIG_RMS`` where ``bad``,
+    and with ``submask`` the no-data bit 17 where ``diff`` is the sentinel
+    (subtract.py:663-670, pipeline.py:264-269). ``contract``: the square
+    and the add as one FMA, as XLA:CPU contracts them in a jitted
+    program."""
+    if contract:
+        from .ordered import fma
+        var = fma(sci_rms, sci_rms, ref_var)
+    else:
+        var = sci_rms ** 2 + ref_var
+    rms = torch.where(bad, BIG_RMS, torch.sqrt(var))
+    diff = torch.where(bad, SUB_NODATA_SENTINEL, sci - model)
+    if submask is None:
+        return diff, rms
+    return diff, rms, submask | torch.where(
+        diff == SUB_NODATA_SENTINEL, 1 << MASK_BIT_NODATA_SUB,
+        0).to(torch.int32)
+
+
+def subtract_epilogue(sci, model, sci_rms, ref_var, bad, submask=None,
+                      contract=False):
+    """The difference, its noise map and the no-data fills in one pass:
+    (diff, rms), or (diff, rms, submask) with a ``submask``. A CUDA tensor
+    runs hand kernel H11; a CPU tensor :func:`subtract_epilogue_plain`."""
+    if not sci.is_cuda:
+        return subtract_epilogue_plain(sci, model, sci_rms, ref_var, bad,
+                                       submask, contract)
+    return launch.subtract_epilogue(
+        sci.contiguous(), model.contiguous(), sci_rms.contiguous(),
+        ref_var.contiguous(), bad.contiguous(), SUB_NODATA_SENTINEL, BIG_RMS,
+        submask=None if submask is None else submask.contiguous(),
+        bit=MASK_BIT_NODATA_SUB, contract=contract)
+
+
+def subtract_frames(sci, ref_aligned, sci_rms, ref_rms, badmask, fit,
+                    basis, order=KERNEL_SPATIAL_ORDER, nreg=NREG_SIDE):
+    """Full difference (subtract.py:652): D = sci - (K*ref + bg), the noise
+    map, the no-data sentinel. ``fit`` is the output of :func:`fit_kernel`,
+    ``basis`` a :class:`KernelBasis`. Bad pixels (``badmask`` True) hold
+    ``SUB_NODATA_SENTINEL`` in ``diff`` and ``BIG_RMS`` in ``rms``. On a
+    CUDA tensor the model and the variance are two launches of H3 and the
+    rest one launch of H11."""
+    def dev(a):
+        return torch.as_tensor(a, device=sci.device)
+    tables = (dev(basis.gx), dev(basis.gy), dev(basis.sums),
+              dev(basis.b0_2d))
+    model = apply_kernel_fast(ref_aligned, fit['coeffs'], *tables,
+                              order=order, nreg=nreg)
+    ref_var = propagate_ref_var(ref_rms, fit['coeffs'], *tables, order=order,
+                                nreg=nreg)
+    return subtract_epilogue(sci, model, sci_rms, ref_var, badmask)

@@ -7,7 +7,10 @@ host feed (``prepare_frame_inputs``, pipeline.py:581-764).
 CUDA device the warp (H1), the background cells (H2), the model
 convolution (H3), the matched filter (H4), the deblend tree's level labels
 (H5), the compactions (H6) and the whole-frame medians (H8) run as
-hand-written kernels; everything between them is plain PyTorch.
+hand-written kernels; everything between them is plain PyTorch. With
+``ref_rms_mesh=True`` the noise stage is H3 at one term (the reference
+variance through the squared centre kernels) and H11 (difference, noise
+and no-data fills).
 
 :class:`CoaddPipeline` is the twin of ``make_coadd_pipeline``
 (pipeline.py:430-505) with its host feed ``prepare_epoch_inputs``
@@ -37,7 +40,8 @@ from ..ops.photometry import (aperture_photometry_batched,
 from ..ops.ordered import sum_last2
 from ..ops.resample import upsample_mapping, warp_epoch, warp_reference
 from ..ops.subtract import (apply_kernel_fast, center_kernels, fit_kernel,
-                            region_edges)
+                            propagate_ref_var, region_edges,
+                            subtract_epilogue)
 
 __all__ = ['PipelineConfig', 'SubtractDetectPipeline', 'prepare_frame_inputs',
            'REF_CACHE_SIZE', 'CoaddPipeline', 'embed_roll',
@@ -83,8 +87,6 @@ def _check_supported(cfg):
     unsupported = [
         (cfg.sep_warp, 'sep_warp=True',
          "queue 2 'Not ported' (separable warp variants)"),
-        (cfg.ref_rms_mesh, 'ref_rms_mesh=True',
-         'K3/K5 follow-up (reference rms mesh + propagate_ref_var)'),
         (cfg.dbg_stop_after is not None,
          f'dbg_stop_after={cfg.dbg_stop_after!r}', 'stage-bisection knobs'),
         (cfg.det_dbg_stop_after is not None,
@@ -143,12 +145,16 @@ class SubtractDetectPipeline(nn.Module):
             bres = background_mesh(sci, ~bad, box=cfg.box)
             scimbkg = (sci - bres['back']) + BKG_VAL
             rms = bres['rms']
-            # global robust sigma of the warped reference from a ::4
-            # subsample (pipeline.py:198-209)
-            sub = refw[::4, ::4]
-            okf = cov[::4, ::4] > 0
-            med = frame_median(sub, okf)
-            ref_rms = 1.4826 * frame_median(sub, okf, center=med)
+            if cfg.ref_rms_mesh:
+                # the warped reference's own mesh (pipeline.py:194-196)
+                ref_rms = background_mesh(refw, cov > 0, box=cfg.box)['rms']
+            else:
+                # global robust sigma of the warped reference from a ::4
+                # subsample (pipeline.py:198-209)
+                sub = refw[::4, ::4]
+                okf = cov[::4, ::4] > 0
+                med = frame_median(sub, okf)
+                ref_rms = 1.4826 * frame_median(sub, okf, center=med)
             ivar = 1.0 / torch.clamp(rms ** 2 + ref_rms ** 2, min=1e-6)
             ivar = torch.where(bad, 0.0, ivar)
 
@@ -160,27 +166,42 @@ class SubtractDetectPipeline(nn.Module):
         with _stage('apply'):
             model = apply_kernel_fast(refw, fit['coeffs'], bgx, bgy, bsums,
                                       b0, order=cfg.order, nreg=cfg.nreg)
-            diff = scimbkg - model
 
-        with _stage('noise'):
-            # constant reference sigma: conv(var, K^2) == var * sum(K^2),
-            # per static region rectangle (pipeline.py:247-263)
-            kerns = center_kernels(fit['coeffs'], bgx, bgy, bsums, b0,
-                                   order=cfg.order, nreg=cfg.nreg)
-            k2sum = sum_last2(kerns * kerns)
-            y_e, x_e = region_edges(H, cfg.nreg), region_edges(W, cfg.nreg)
-            rid = torch.zeros((H, W), dtype=torch.int64, device=dev)
-            for ri in range(cfg.nreg):
-                for rj in range(cfg.nreg):
-                    rid[y_e[ri]:y_e[ri + 1], x_e[rj]:x_e[rj + 1]] = \
-                        ri * cfg.nreg + rj
-            ref_var_m = ref_rms ** 2 * k2sum[rid]
-            rms_out = torch.sqrt(rms ** 2 + ref_var_m)
-            rms_out = torch.where(bad, BIG_RMS, rms_out)
-            diff = torch.where(bad, SUB_NODATA_SENTINEL, diff)
-            submask = submask | torch.where(diff == SUB_NODATA_SENTINEL,
-                                            1 << MASK_BIT_NODATA_SUB,
-                                            0).to(torch.int32)
+        if cfg.ref_rms_mesh:
+            with _stage('noise'):
+                # the reference variance through the squared centre
+                # kernels (H3 at one term), then the difference, the noise
+                # and the no-data fills in one pass (H11); XLA contracts
+                # rms^2 + var into one FMA here (pipeline.py:242-269)
+                ref_var_m = propagate_ref_var(ref_rms, fit['coeffs'], bgx,
+                                              bgy, bsums, b0,
+                                              order=cfg.order, nreg=cfg.nreg)
+                diff, rms_out, submask = subtract_epilogue(
+                    scimbkg, model, rms, ref_var_m, bad, submask,
+                    contract=True)
+        else:
+            with _stage('noise'):
+                # constant reference sigma: conv(var, K^2) == var *
+                # sum(K^2), per static region rectangle
+                # (pipeline.py:247-263)
+                diff = scimbkg - model
+                kerns = center_kernels(fit['coeffs'], bgx, bgy, bsums, b0,
+                                       order=cfg.order, nreg=cfg.nreg)
+                k2sum = sum_last2(kerns * kerns)
+                y_e = region_edges(H, cfg.nreg)
+                x_e = region_edges(W, cfg.nreg)
+                rid = torch.zeros((H, W), dtype=torch.int64, device=dev)
+                for ri in range(cfg.nreg):
+                    for rj in range(cfg.nreg):
+                        rid[y_e[ri]:y_e[ri + 1], x_e[rj]:x_e[rj + 1]] = \
+                            ri * cfg.nreg + rj
+                ref_var_m = ref_rms ** 2 * k2sum[rid]
+                rms_out = torch.sqrt(rms ** 2 + ref_var_m)
+                rms_out = torch.where(bad, BIG_RMS, rms_out)
+                diff = torch.where(bad, SUB_NODATA_SENTINEL, diff)
+                submask = submask | torch.where(diff == SUB_NODATA_SENTINEL,
+                                                1 << MASK_BIT_NODATA_SUB,
+                                                0).to(torch.int32)
 
         with _stage('detect'):
             det = detect_sources(diff, rms_out, submask, ~bad,

@@ -1,9 +1,10 @@
-"""Where one frame of the slice, one pair of a night, or one epoch of a
-stack spends its time on the card.
+"""Where one frame of the slice, one pair of a night, one epoch of a
+stack, or one pair of the per-pair chain spends its time on the card.
 
     python -m zuds_tpu_torch.profile [--frames N] [--deblend MODE]
     python -m zuds_tpu_torch.profile --night N
     python -m zuds_tpu_torch.profile --coadd N
+    python -m zuds_tpu_torch.profile --sub [ROT_DEG]
 
 Runs ``SubtractDetectPipeline`` at the flagship configuration (the
 reference's default ``deblend=True``) on synthetic frames, warms up, then
@@ -20,7 +21,11 @@ device time. With ``--night N`` it writes N flagship FITS pairs
 (``inputs.write_coadd_epochs``) and traces ``ScienceCoadd.from_images``
 over them after a warm-up, per epoch: the stack's phases (load, prepare,
 pipeline, fetch, write), the epoch stages (background, weight, warp) and
-the combine. Needs a CUDA card.
+the combine. With ``--sub`` it writes one flagship pair whose reference is
+rotated by ``ROT_DEG`` (default 0.5: the gather warp runs; 0 takes the
+planned warp) and traces ``sub.do_one`` on a fresh copy after a warm-up on
+another: the chain's phases (load, subtract, catalog, filter) and the host
+seconds of ``from_images``' steps. Needs a CUDA card.
 """
 import argparse
 import dataclasses
@@ -53,12 +58,22 @@ def main():
                     help='trace run_night over N flagship FITS pairs')
     ap.add_argument('--coadd', type=int, default=0, metavar='N',
                     help='trace ScienceCoadd.from_images over N epochs')
+    ap.add_argument('--sub', type=float, nargs='?', const=0.5, default=None,
+                    metavar='ROT_DEG', help='trace sub.do_one on one pair '
+                    'whose reference is rotated by ROT_DEG')
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('profile: needs a CUDA card')
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, check=True).stdout.strip()
+    if opt.sub is not None:
+        from .sub import PHASES
+        with tempfile.TemporaryDirectory(prefix='zuds_sub_') as d:
+            report(card, f'sub.do_one, reference rotated by {opt.sub} deg, '
+                   'per pair', 1, PHASES, *trace_sub(d, FLAGSHIP, opt.sub),
+                   unit='pair')
+        return
     if opt.coadd:
         with tempfile.TemporaryDirectory(prefix='zuds_coadd_') as d:
             report(card, f'ScienceCoadd.from_images of {opt.coadd} epochs, '
@@ -146,6 +161,40 @@ def trace_coadd(d, cfg, nepochs):
         wall = (time.perf_counter() - t0) / nepochs
     if coadd.header['NCOADD'] != nepochs:
         raise SystemExit('profile: the stack lost an epoch')
+    return prof, wall, mem0, torch.cuda.memory_stats()
+
+
+def trace_sub(d, cfg, rot_deg):
+    """Write one flagship pair into ``d`` with its reference rotated by
+    ``rot_deg``, run ``sub.do_one`` on one copy to warm up, then trace it on
+    a fresh copy (a pair's products are cached beside it): (profile, wall s,
+    allocator stats before and after). Prints the host seconds of the
+    chain's steps."""
+    import shutil
+    from .inputs import write_night_pairs
+    from .sub import do_one
+    src = Path(d) / 'src'
+    src.mkdir()
+    work, _ = write_night_pairs(
+        str(src), 1, cfg.height, cfg.width, ref_rot_deg=(rot_deg,),
+        header_json=Path(__file__).resolve().parent.parent / 'tests'
+        / 'data' / 'ztf_real_header.json')
+    lines = {}
+    for name in ('warm', 'traced'):
+        shutil.copytree(src, Path(d) / name)
+        lines[name] = work[0].replace(str(src), str(Path(d) / name))
+    do_one(lines['warm'])
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_stats()
+    stats = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        do_one(lines['traced'], stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print('host seconds: ' + ', '.join(f'{k[:-2]} {v:.3f}'
+                                       for k, v in stats.items()))
     return prof, wall, mem0, torch.cuda.memory_stats()
 
 

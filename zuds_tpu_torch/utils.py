@@ -1,9 +1,12 @@
-"""Small host-side helpers of the coadd path (twin of
-``zuds_tpu/utils.py:19-66, 96-102``): the observation MJD of a header and
-the group-property check of a stack's inputs."""
+"""Small host-side helpers (twin of ``zuds_tpu/utils.py:19-66, 79-102``):
+the observation MJD of a header, the robust background estimate of a frame
+and the group-property check of a stack's inputs."""
 from __future__ import annotations
 
-__all__ = ['mjd_from_header', 'ensure_images_have_the_same_properties']
+import numpy as np
+
+__all__ = ['mjd_from_header', 'quick_background_estimate',
+           'ensure_images_have_the_same_properties']
 
 _TIME_KEYS = ('MJD-OBS', 'OBSMJD', 'MJD', 'DATE-OBS', 'DATE')
 
@@ -44,6 +47,24 @@ def mjd_from_header(header):
             except Exception:
                 continue
     raise KeyError(f'no time keyword in header (tried {_TIME_KEYS})')
+
+
+def quick_background_estimate(image, mask_image=None):
+    """Median and 1.4826 * MAD of the unmasked, finite pixels
+    (utils.py:79-93). ``image`` and ``mask_image`` are image objects or
+    arrays; a mask image is read through its ``boolean`` projection. The
+    reference unwraps the mask after ``np.asarray`` and so reads an
+    ndarray's buffer attribute and raises for every mask; this unwraps
+    first and applies the mask the reference's docstring describes."""
+    data = np.asarray(getattr(image, 'data', image), dtype=np.float64)
+    if mask_image is not None:
+        bad = getattr(mask_image, 'boolean', mask_image)
+        bad = np.asarray(getattr(bad, 'data', bad)).astype(bool)
+        data = data[~bad]
+    data = data[np.isfinite(data)]
+    med = float(np.median(data))
+    mad = float(np.median(np.abs(data - med)))
+    return med, 1.4826 * mad
 
 
 def ensure_images_have_the_same_properties(images, properties):
