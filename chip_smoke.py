@@ -92,6 +92,12 @@ SOURCES = {
                              'zuds_tpu/ops/subtract.py:692'),
     'subtract_epilogue': ('cuda', 'zuds_tpu_torch/kernels/subtract.cu',
                           'zuds_tpu/ops/subtract.py:652'),
+    'triplet_cut': ('cuda', 'zuds_tpu_torch/kernels/cutouts.cu',
+                    'zuds_tpu/filterobjects.py:64'),
+    'braai_conv3x3': ('cuda', 'zuds_tpu_torch/kernels/braai.cu',
+                      'zuds_tpu/models/braai.py:27'),
+    'negpix_veto': ('cuda', 'zuds_tpu_torch/kernels/cutouts.cu',
+                    'zuds_tpu/filterobjects.py:37'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
@@ -99,6 +105,18 @@ COADD_ONLY = ('clipped_combine',)
 # the kernels only the per-pair path launches (sub.do_one: the night's
 # fallback pair and the per-pair phase)
 PAIR_ONLY = ('warp_gather', 'apply_model_variance', 'subtract_epilogue')
+# the kernels of the scoring path: H12 and H13 run only at ml=True; H14
+# runs wherever filter_sexcat reads the frames (the per-pair chain), never
+# in the slice or the batched night's frames
+ML_ONLY = ('triplet_cut', 'braai_conv3x3')
+SCORING_ONLY = ML_ONLY + ('negpix_veto',)
+# the scoring phase: N candidates and triplets for the kernels' records;
+# the night's filter (FILTERID 2) cuts at RB_CUT[2]
+SCORE_N = 256
+RB_CUT_ZR = 0.3
+# seconds of the 0.5 deg pair's filter step when its frames branch ran on
+# the host (PERF.md, section 6)
+HOST_FILTER_S = 3.098
 # the night phase: bench.py's files leg recipe at the flagship size, and
 # one more pair whose reference is rotated past the max_shift bucket
 NIGHT_PAIRS = 4
@@ -370,7 +388,7 @@ def refilter(cat, see):
     redo.header = Header()
     redo.header.set('RMSMED', cat.header['RMSMED'])
     redo.image = SimpleNamespace(header={'SEEING': see})
-    filter_sexcat(redo)
+    filter_sexcat(redo, ml=False)
     return redo.data['GOODCUT']
 
 
@@ -386,10 +404,71 @@ def pair_plan(line):
     return plan_warp(ref.mapping_to(sci), sci.shape, ref.shape)
 
 
-def night_phase(wrappers, name):
-    """run_night over the flagship pairs and the fallback pair: warm-up,
-    then one counted, timed run. Returns (launches, seconds of the batched
-    pairs, stats)."""
+class scoring_model:
+    """While open, the port's ``load_model_helper`` reads braai weights
+    written to ``d`` (the seed-0 init with ``inputs.spread_braai``'s gains,
+    so the scores spread), and every ``rb_scores`` call is kept as (model,
+    triplets, scores) for :func:`check_scores`."""
+
+    def __init__(self, d):
+        self.d, self.calls = d, []
+
+    def __enter__(self):
+        from zuds_tpu_torch import filterobjects, inputs
+        from zuds_tpu_torch.models import braai
+        _, params = braai.init_braai(0)
+        braai.save_braai(inputs.spread_braai(params),
+                         os.path.join(self.d, 'braai_d6_m9.npz'))
+        self._saved = (filterobjects.load_model_helper, braai.rb_scores)
+        helper, scores = self._saved
+
+        def load(path=None, model_base_name='braai_d6_m9', device=None):
+            return helper(self.d, model_base_name, device=device)
+
+        def rb(model, triplets):
+            out = scores(model, triplets)
+            self.calls.append((model, triplets, out))
+            return out
+
+        filterobjects.load_model_helper, braai.rb_scores = load, rb
+        return self
+
+    def __exit__(self, *exc):
+        from zuds_tpu_torch import filterobjects
+        from zuds_tpu_torch.models import braai
+        filterobjects.load_model_helper, braai.rb_scores = self._saved
+
+
+def check_scores(calls, tag):
+    """The card's scores of every kept call against the plain layers on the
+    same triplets (1e-6 absolute); returns the largest difference."""
+    import torch
+    err = 0.0
+    for model, triplets, scores in calls:
+        check(scores.is_cuda, f'{tag}: the scores were not computed on the '
+              'card')
+        with torch.no_grad():
+            plain = model.forward_plain(triplets)
+        err = max(err, float((scores - plain).abs().max()))
+    check(calls and err <= 1e-6, f'{tag}: card scores differ from the plain '
+          f'layers by {err:.3g} ({len(calls)} scored batches)')
+    return err
+
+
+def night_catalog(d, i):
+    from zuds_tpu_torch.catalog import PipelineFITSCatalog
+    return PipelineFITSCatalog.from_file(
+        [os.path.join(d, f) for f in os.listdir(d)
+         if f.startswith(f'sub.night_n{i}_') and f.endswith('.cat')][0])
+
+
+def night_phase(wrappers, name, record):
+    """run_night over the flagship pairs and the fallback pair at ml=False:
+    warm-up, then one counted, timed run; then the batched pairs again at
+    ml=True (the scoring night), and H12 and H13 against their plain
+    versions at SCORE_N candidates on the night's frames (``record`` takes
+    their records). Returns (launches, seconds of the batched pairs,
+    stats)."""
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs, night
@@ -417,7 +496,7 @@ def night_phase(wrappers, name):
         pipe = SubtractDetectPipeline(cfg)
         t0 = time.perf_counter()
         warm = night.run_night(work[:NIGHT_BATCH], batch=NIGHT_BATCH,
-                               cfg=cfg, pipe=pipe)
+                               ml=False, cfg=cfg, pipe=pipe)
         torch.cuda.synchronize()
         print(f'night: warm-up run of {NIGHT_BATCH} pairs '
               f'{time.perf_counter() - t0:.2f} s', flush=True)
@@ -428,8 +507,8 @@ def night_phase(wrappers, name):
         stats = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = night.run_night(work, batch=NIGHT_BATCH, cfg=cfg, pipe=pipe,
-                              stats=stats)
+        res = night.run_night(work, batch=NIGHT_BATCH, ml=False, cfg=cfg,
+                              pipe=pipe, stats=stats)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
@@ -457,7 +536,8 @@ def night_phase(wrappers, name):
               and launches['warp_gather'] == 3
               and launches['apply_model'] == NIGHT_PAIRS + 1
               and launches['apply_model_variance'] == 1
-              and launches['subtract_epilogue'] == 1,
+              and launches['subtract_epilogue'] == 1
+              and launches['negpix_veto'] == 1,
               f'night: launches {launches}')
         prep = stats['prepare_s'] - stats['upload_s']
         print(f'night: host seconds per phase: load '
@@ -480,13 +560,10 @@ def night_phase(wrappers, name):
               f'GB/s ({host.numel() * 4 / 1e6:.1f} MB pinned -> card in '
               f'{link_ms:.3f} ms, CUDA events) on {name}', flush=True)
         for k, n in launches.items():
-            check(n > 0 or k in COADD_ONLY,
+            check(n > 0 or k in COADD_ONLY + ML_ONLY,
                   f'kernel {k} was not launched by the night')
         for i, (tx, ty) in enumerate(truths):
-            cat = PipelineFITSCatalog.from_file(
-                [os.path.join(d, f) for f in os.listdir(d)
-                 if f.startswith(f'sub.night_n{i}_') and f.endswith('.cat')
-                 ][0])
+            cat = night_catalog(d, i)
             data = cat.data
             dist = np.hypot(data['X_IMAGE'] - 1 - tx, data['Y_IMAGE'] - 1 - ty)
             check(len(dist) and dist.min() < 2.0,
@@ -528,7 +605,193 @@ def night_phase(wrappers, name):
                   + (f' ({at_header} at SEEING {inputs.NIGHT_SEEING[1]})'
                      if i == NO_SEEING else '')
                   + f', FWHM {row["FWHM_IMAGE"]:.2f} px', flush=True)
+        scoring_night(wrappers, name, record, d, work, truths, pipe)
     return launches, secs, stats
+
+
+def scoring_night(wrappers, name, record, d, work, truths, pipe):
+    """The night's batched pairs again at ml=True, db=False (the ml=False
+    run's catalogs are the pre-ML GOODCUT), counted; the checks of RB and
+    GOODCUT frame by frame and of the card's scores against the plain
+    layers; then H12 and H13 at SCORE_N candidates."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import night
+    pre = [night_catalog(d, i).data.copy() for i in range(NIGHT_PAIRS)]
+    with scoring_model(d) as sm:
+        for w in wrappers.values():
+            w.launches = 0
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = night.run_night(work[:NIGHT_PAIRS], batch=NIGHT_BATCH, ml=True,
+                              db=False, cfg=night.FLAGSHIP, pipe=pipe,
+                              stats=st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for path, r in res:
+        check(isinstance(r, int), f'scoring night: {path}: {r!r}')
+    nbatches = sum(1 for n in st['scored'] if n)
+    check(launches['triplet_cut'] == nbatches > 0
+          and launches['braai_conv3x3'] == 4 * nbatches
+          and launches['negpix_veto'] == 0,
+          f'scoring night: launches {launches}, scored {st["scored"]}')
+    err = check_scores(sm.calls, 'scoring night')
+    print(f'scoring night: {NIGHT_PAIRS} pairs at ml=True in {secs:.2f} s '
+          f'(host clock) on {name}; H12 {launches["triplet_cut"]}, H13 '
+          f'{launches["braai_conv3x3"]} launches; card scores within '
+          f'{err:.3g} of the plain layers', flush=True)
+    for i, (tx, ty) in enumerate(truths[:NIGHT_PAIRS]):
+        data = night_catalog(d, i).data
+        scored = data['RB'] != -99
+        # the rows of the ml=False run: the same catalog, unless the
+        # card's pipeline detected otherwise this time (then matched by
+        # position, and the difference printed)
+        same = (len(data) == len(pre[i])
+                and np.array_equal(data['X_IMAGE'], pre[i]['X_IMAGE'])
+                and np.array_equal(data['Y_IMAGE'], pre[i]['Y_IMAGE']))
+        if same:
+            was = pre[i]['GOODCUT'] == 1
+        else:
+            dist = np.hypot(data['X_IMAGE'][:, None]
+                            - pre[i]['X_IMAGE'][None, :],
+                            data['Y_IMAGE'][:, None]
+                            - pre[i]['Y_IMAGE'][None, :])
+            near = dist.min(1) < 0.01
+            was = np.where(near, pre[i]['GOODCUT'][dist.argmin(1)] == 1,
+                           scored)
+            print(f'scoring night frame {i}: the catalog differs from the '
+                  f'ml=False run\'s ({len(data)} rows against '
+                  f'{len(pre[i])}; {int((~near).sum())} unmatched)',
+                  flush=True)
+        check(np.array_equal(scored, was),
+              f'scoring night frame {i}: RB set on {int(scored.sum())} rows, '
+              f'{int(was.sum())} reached the ML cut at ml=False')
+        check(np.array_equal(data['GOODCUT'] == 1,
+                             was & (data['RB'] >= RB_CUT_ZR)),
+              f'scoring night frame {i}: GOODCUT is not the pre-ML GOODCUT '
+              f'and RB >= {RB_CUT_ZR}')
+        check(st['scored'][i] == int(scored.sum()),
+              f'scoring night frame {i}: stats {st["scored"]}')
+        j = int(np.argmin(np.hypot(data['X_IMAGE'] - 1 - tx,
+                                   data['Y_IMAGE'] - 1 - ty)))
+        print(f'scoring night frame {i}: {int(scored.sum())} candidates '
+              f'scored, {int((data["GOODCUT"] == 1).sum())} kept at RB >= '
+              f'{RB_CUT_ZR}; ML step {st["ml_s"][i]:.3f} s host clock '
+              f'(frames from the card, two aligns, triplets, scores); '
+              f'transient RB {float(data["RB"][j]):.4f}', flush=True)
+    # H12 and H13 at SCORE_N candidates on the night's frame 0, its
+    # reference and their difference
+    from zuds_tpu_torch.fits import read_fits
+    sci_path, ref_path = work[0].split()
+    frames = [torch.as_tensor(np.ascontiguousarray(
+        next(h for h in read_fits(p) if h.data is not None).data, 'f4'),
+        device='cuda') for p in (sci_path, ref_path)]
+    frames.append(frames[0] - frames[1])
+    triplets = triplet_record(frames, record, launches)
+    braai_record(triplets, record, launches, sm.calls[0][0], name)
+
+
+def scoring_positions(H, W, n, size, seed=17):
+    """int32 corners on the card of n seeded positions, a few past each
+    edge (clamped as the filter clamps them)."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch.ops import cutouts
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-3, W + 2, n).astype('f4')
+    ys = rng.uniform(-3, H + 2, n).astype('f4')
+    return cutouts.clamped_corners(torch.as_tensor(xs, device='cuda'),
+                                   torch.as_tensor(ys, device='cuda'), size,
+                                   H, W)
+
+
+def triplet_record(frames, record, runs):
+    """H12 against its plain version at SCORE_N candidates."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import cutouts
+    H, W = frames[0].shape
+    x0, y0 = scoring_positions(H, W, SCORE_N, 63)
+    k = launch.triplet_cut(*frames, x0, y0)
+    p = cutouts.triplet_cut_plain(*frames, x0, y0)
+    err = close('triplet_cut', k, p, 1e-6, 0.0)
+    ms = cuda_ms(lambda: launch.triplet_cut(*frames, x0, y0))
+    plain = cuda_ms(lambda: cutouts.triplet_cut_plain(*frames, x0, y0), 1, 3)
+    # reads three 63x63 windows per candidate and its corner, writes as
+    # many floats; a square-add, a divide per value
+    n = SCORE_N * 3 * 63 * 63
+    bnd = bound(8 * n + 8 * SCORE_N, 3 * n)
+    print(f'triplet_cut: {SCORE_N} candidates on {H}x{W}: {ms:.4f} ms '
+          f'(bound {bnd[0]:.5f} ms, share {bnd[0] / ms:.1%}), plain '
+          f'{plain:.3f} ms', flush=True)
+    record('triplet_cut', err, ms, plain, bnd, runs=runs,
+           per=f'scoring night of {NIGHT_PAIRS} frames')
+    return k
+
+
+def braai_record(triplets, record, runs, model, name):
+    """H13 per layer against its plain version (F.conv2d, ReLU, max_pool2d
+    on NHWC views) and the library sequence (the same on NCHW tensors made
+    beforehand), cuDNN with TF32 off, at SCORE_N triplets; the scores of
+    the whole net against the plain layers."""
+    import torch
+    import torch.nn.functional as F
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          'TF32 is on for cuDNN or matmul')
+    x = triplets
+    tot = {'ms': 0.0, 'plain': 0.0, 'lib': 0.0, 'flop': 0.0, 'bytes': 0.0}
+    err = 0.0
+    for i, (cin, cout, pool) in enumerate(launch.BRAAI_LAYERS):
+        layer = getattr(model, f'Conv_{i}')
+        w, b = layer['kernel'], layer['bias']
+        k = launch.braai_conv3x3(x, w, b, pool)
+        p = braai.conv3x3_plain(x, w, b, pool)
+        err = max(err, close(f'braai_conv3x3 layer {i + 1}', k, p, 1e-5,
+                             1e-6))
+        xc = x.permute(0, 3, 1, 2).contiguous()
+        wc = w.permute(3, 2, 0, 1).contiguous()
+
+        def lib(xc=xc, wc=wc, b=b, pool=pool):
+            y = torch.relu(F.conv2d(xc, wc, b))
+            return F.max_pool2d(y, 2, 2) if pool else y
+
+        ms = cuda_ms(lambda: launch.braai_conv3x3(x, w, b, pool))
+        plain = cuda_ms(lambda: braai.conv3x3_plain(x, w, b, pool), 1, 3)
+        lib_ms = cuda_ms(lib)
+        n, h, wd, _ = x.shape
+        flop = 2 * n * (h - 2) * (wd - 2) * cout * 9 * cin
+        nbytes = 4 * (x.numel() + p.numel() + w.numel() + b.numel())
+        bnd = bound(nbytes, flop)
+        print(f'braai_conv3x3 layer {i + 1} ({cin}->{cout}'
+              f'{", pool" if pool else ""}), {n} triplets: {ms:.4f} ms '
+              f'(bound {bnd[0]:.4f} ms by {bnd[1]}, share '
+              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, cuDNN '
+              f'{lib_ms:.3f} ms (TF32 off) on {name}', flush=True)
+        for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
+                       ('flop', flop), ('bytes', nbytes)):
+            tot[key] += v
+        x = p
+    with torch.no_grad():
+        scores = model(triplets)
+        plain_scores = model.forward_plain(triplets)
+    serr = float((scores - plain_scores).abs().max())
+    check(serr <= 1e-6, f'braai scores: card and plain differ by {serr:.3g}')
+    fwd = cuda_ms(lambda: braai.rb_scores(model, triplets))
+    bnd = bound(tot['bytes'], tot['flop'])
+    print(f'braai_conv3x3: four layers per batch of {SCORE_N} triplets '
+          f'{tot["ms"]:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, '
+          f'{tot["flop"]:.4g} FLOP, share {bnd[0] / tot["ms"]:.1%}), plain '
+          f'{tot["plain"]:.3f} ms, cuDNN {tot["lib"]:.3f} ms; rb_scores (4 '
+          f'H13 and the dense head) {fwd:.4f} ms; scores within {serr:.3g} '
+          f'of the plain layers (scores {float(scores.min()):.3f}-'
+          f'{float(scores.max()):.3f})', flush=True)
+    record('braai_conv3x3', err, tot['ms'], tot['plain'], bnd,
+           library_ms=tot['lib'], runs=runs,
+           per=f'scoring night of {NIGHT_PAIRS} frames')
 
 
 def coadd_phase(wrappers, name, record):
@@ -773,7 +1036,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
                                           SUB_NODATA_SENTINEL)
     from zuds_tpu_torch.image import ScienceImage
     from zuds_tpu_torch.kernels import launch
-    from zuds_tpu_torch.ops import resample, subtract
+    from zuds_tpu_torch.ops import cutouts, resample, subtract
     from zuds_tpu_torch.subtraction import SingleEpochSubtraction
     H, W = night.FLAGSHIP.height, night.FLAGSHIP.width
     header_json = (Path(__file__).resolve().parent / 'tests' / 'data'
@@ -793,7 +1056,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         check(plans[0] is not None and plans[1] is None,
               f'pair: warp plans {plans}')
 
-        def run(tag, i):
+        def run(tag, i, ml=False):
             """do_one on a fresh copy of pair ``i`` (a pair's products are
             cached beside it), counted and timed."""
             dd = os.path.join(d, tag)
@@ -804,7 +1067,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
             st = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            product, rows = sub.do_one(line, stats=st)
+            product, rows = sub.do_one(line, ml=ml, stats=st)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             return (product, rows, st, secs,
@@ -815,7 +1078,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         results = {}
         for tag, i in (('gather', 1), ('planned', 0)):
             product, rows, st, secs, launches, line = run(tag, i)
-            results[tag] = (product, launches, line)
+            results[tag] = (product, launches, line, st['filter_s'])
             used = {k: n for k, n in launches.items() if n}
             print(f'pair ({tag} warp): files -> filtered catalog '
                   f'{secs * 1e3:.0f} ms per pair against '
@@ -854,8 +1117,64 @@ def pair_phase(wrappers, name, record, fused_pair_s):
                   f'away ({len(rows)} GOODCUT rows); sub, mask and catalog '
                   f'on disk', flush=True)
 
+        # ---- the scoring step: do_one on the rotated pair at ml=True -------
+        with scoring_model(d) as sm:
+            scored, _, st, secs, ml_launches, _ = run('scored', 1, ml=True)
+        check(ml_launches['negpix_veto'] == 1
+              and ml_launches['triplet_cut'] == 1
+              and ml_launches['braai_conv3x3'] == 4,
+              f'pair (ml=True): launches {ml_launches}')
+        err = check_scores(sm.calls, 'pair (ml=True)')
+        data = PipelineFITSCatalog.from_file(
+            scored.local_path.replace('.fits', '.cat')).data
+        tx, ty = truths[1]
+        j = int(np.argmin(np.hypot(data['X_IMAGE'] - 1 - tx,
+                                   data['Y_IMAGE'] - 1 - ty)))
+        check(data['RB'][j] != -99 and st['scored'] == int(
+            (data['RB'] != -99).sum()),
+            f'pair (ml=True): the transient row {data[j]} was not scored')
+        print(f'pair (ml=True, gather warp): {secs * 1e3:.0f} ms per pair; '
+              f'filter {st["filter_s"]:.3f} s (its ML step {st["ml_s"]:.3f} '
+              f's, {st["scored"]} candidates scored, '
+              f'{int((data["GOODCUT"] == 1).sum())} kept) against '
+              f'{results["gather"][3]:.3f} s at ml=False in this call and '
+              f'{HOST_FILTER_S} s when the frames branch ran on the host '
+              f'(PERF.md), host clock, on {name}; H14 '
+              f'{ml_launches["negpix_veto"]}, H12 '
+              f'{ml_launches["triplet_cut"]}, H13 '
+              f'{ml_launches["braai_conv3x3"]} launches; transient RB '
+              f'{float(data["RB"][j]):.4f}; card scores within {err:.3g} of '
+              f'the plain layers', flush=True)
+
+        # H14 at SCORE_N candidates on that pair's difference image, with
+        # the medians (two sorts) on the card
+        diff_t = torch.as_tensor(np.ascontiguousarray(scored.data, 'f4'),
+                                 device=dev)
+        med = cutouts.frame_median_exact(diff_t)
+        sig = 1.48 * cutouts.frame_median_exact((diff_t - med).abs())
+        x0, y0 = scoring_positions(H, W, SCORE_N, cutouts.NEGPIX_BOX)
+        kv = launch.negpix_veto(diff_t, med, sig, x0, y0)
+        check(torch.equal(kv, cutouts.negpix_veto_plain(diff_t, med, sig, x0,
+                                                        y0)),
+              'negpix_veto differs from its plain version')
+        ms = cuda_ms(lambda: launch.negpix_veto(diff_t, med, sig, x0, y0))
+        plain = cuda_ms(lambda: cutouts.negpix_veto_plain(diff_t, med, sig,
+                                                          x0, y0), 1, 3)
+        med_ms = cuda_ms(lambda: 1.48 * cutouts.frame_median_exact(
+            (diff_t - cutouts.frame_median_exact(diff_t)).abs()), 1, 3)
+        # reads a 13x13 window and a corner per candidate, writes a byte;
+        # a subtract, a divide, nine maxima and two compares per pixel
+        bnd = bound(SCORE_N * (13 * 13 * 4 + 9), SCORE_N * 13 * 13 * 13)
+        print(f'negpix_veto: {SCORE_N} candidates on {H}x{W}: bit-equal, '
+              f'{ms:.4f} ms (bound {bnd[0]:.6f} ms, share {bnd[0] / ms:.1%}:'
+              f' a launch), plain {plain:.3f} ms; the two median sorts '
+              f'before it {med_ms:.3f} ms; {int(kv.sum())} vetoed',
+              flush=True)
+        record('negpix_veto', 0.0, ms, plain, bnd, runs=ml_launches,
+               per='pair')
+
         # ---- the rotated pair's product and tensors ------------------------
-        product, pair_launches, line = results['gather']
+        product, pair_launches, line = results['gather'][:3]
         sci = ScienceImage.from_file(line.split()[0])
         ref = ReferenceImage.from_file(line.split()[1])
         aligned = ref.aligned_to(sci)
@@ -1085,7 +1404,8 @@ def main():
     # the slice takes its stamps as inputs: H7 runs in the host feed (the
     # night below), every other kernel here
     for k, n in launches.items():
-        check(n > 0 or k == 'stamp_candidates' or k in COADD_ONLY + PAIR_ONLY,
+        check(n > 0 or k == 'stamp_candidates'
+              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY,
               f'kernel {k} was not launched by the main path')
 
     submask = out['submask']
@@ -1120,7 +1440,7 @@ def main():
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
         check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
-              or k in COADD_ONLY + PAIR_ONLY,
+              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
@@ -1162,9 +1482,6 @@ def main():
               f'batches of {B} in turns, range {min(ms):.1f}-{max(ms):.1f}) '
               f'on {name}', flush=True)
 
-    # ---- the night: FITS pairs -> catalogs through run_night, counted ----
-    night_launches, night_s, night_stats = night_phase(wrappers, name)
-
     # ---- each kernel against its plain version, at the main path's shapes -
     records = []
 
@@ -1185,6 +1502,10 @@ def main():
               f'{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
               f'library {lib}; {n} launches on the main path '
               f'({per}) on {name}', flush=True)
+
+    # ---- the night: FITS pairs -> catalogs through run_night, counted,
+    # then the scoring night at ml=True ------------------------------------
+    night_launches, night_s, night_stats = night_phase(wrappers, name, record)
 
     # ---- the coadd: FITS epochs -> a stack through from_images, counted ---
     coadd_phase(wrappers, name, record)

@@ -74,3 +74,17 @@ def test_sources_and_symbols_of_the_per_pair_kernels():
     for name in build.SIGNATURES:
         assert any(f'extern "C" int {name}(' in t.replace('\n', ' ')
                    for t in text.values()), name
+
+
+def test_sources_and_symbols_of_the_scoring_kernels():
+    """H12 and H14 share cutouts.cu, H13 has braai.cu; each launcher is
+    declared with the argument count its wrapper passes."""
+    from pathlib import Path
+    here = Path(build.__file__).resolve().parent
+    assert {'cutouts.cu', 'braai.cu'} <= set(build.SOURCES)
+    cut = (here / 'cutouts.cu').read_text()
+    assert 'triplet_cut_kernel' in cut and 'negpix_veto_kernel' in cut
+    assert 'conv3x3_kernel' in (here / 'braai.cu').read_text()
+    assert len(build.SIGNATURES['zuds_triplet_cut']) == 9
+    assert len(build.SIGNATURES['zuds_negpix_veto']) == 9
+    assert len(build.SIGNATURES['zuds_braai_conv3x3']) == 11

@@ -1,9 +1,10 @@
-"""The port's hand kernels (H1-H11) against their plain PyTorch versions,
+"""The port's hand kernels (H1-H14) against their plain PyTorch versions,
 on a CUDA card, at small and ragged shapes (partial tiles, partial cells),
 H5/H6 at the flagship's capacities, H8 up to a flagship frame, the
 two-plane H1 on the coadd's 3200x3200 canvas, H9 from 1 to 64 epochs, the
 gather warp H10 on rotated mappings into sources of another shape, H3 at
-one term against the variance propagation, and the epilogue H11.
+one term against the variance propagation, the epilogue H11, the triplet
+cutter H12, each braai layer H13 and the negative-pixel veto H14.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -23,13 +24,16 @@ an ulp of its clip threshold: such pixels are counted and bounded at 1e-5
 of the frame). The gather warp as the windowed one (pixels rtol 3e-5,
 atol 5e-3, mask and coverage equal); the variance launch of H3 rtol 1e-4,
 atol 1e-3 of the variance's scale; the epilogue bit-equal in both of its
-rounding modes.
+rounding modes. The triplets rtol 1e-6 (another order of the L2 sum); each
+braai layer rtol 1e-5, atol 1e-6 against ``F.conv2d`` with TF32 off, the
+scores 1e-6 absolute; the veto bit-equal.
 """
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 pytestmark = pytest.mark.cuda
 
@@ -768,3 +772,186 @@ def test_pipeline_ref_rms_mesh_card_equals_cpu(dev):
         x, y = card['det_x'][b].cpu()[v], card['det_y'][b].cpu()[v]
         for px, py in planted[b]:
             assert float(((x - px) ** 2 + (y - py) ** 2).min()) <= 1.0
+
+
+def _positions(H, W, n, seed):
+    """n positions over an H x W frame, a sixth of them past an edge."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-3, W + 2, n)
+    ys = rng.uniform(-3, H + 2, n)
+    xs[::6], ys[1::6] = 0.3, H - 0.6
+    return xs, ys
+
+
+@pytest.mark.parametrize('H,W,n', [(200, 180, 48), (63, 70, 5),
+                                   (3080, 3072, 256)])
+def test_triplet_cut_kernel(dev, H, W, n):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import cutouts
+    frames = [_rand((H, W), dev, 20 + k, 5.0, 150.0 * (k < 2))
+              for k in range(3)]
+    xs, ys = _positions(H, W, n, 21)
+    x0, y0 = cutouts.clamped_corners(
+        torch.as_tensor(xs, dtype=torch.float32, device=dev),
+        torch.as_tensor(ys, dtype=torch.float32, device=dev), 63, H, W)
+    n0 = launch.triplet_cut.launches
+    k = cutouts.triplet_cut(*frames, x0, y0)
+    assert launch.triplet_cut.launches == n0 + 1
+    p = cutouts.triplet_cut_plain(*frames, x0, y0)
+    assert k.shape == p.shape == (n, 63, 63, 3)
+    _allclose(k, p, 1e-6, 0.0)
+    # an all-zero window divides by the floor, not by zero
+    z = torch.zeros((H, W), device=dev)
+    assert torch.equal(cutouts.triplet_cut(z, z, z, x0, y0),
+                       torch.zeros_like(k))
+
+
+def test_negpix_veto_kernel(dev):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import cutouts
+    H, W = 300, 280
+    img = _rand((H, W), dev, 30, 5.0, 100.0)
+    xs, ys = _positions(H, W, 96, 31)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        cx = int(np.clip(round(x), 7, W - 8))
+        cy = int(np.clip(round(y), 7, H - 8))
+        if i % 3 == 0:
+            img[cy, cx], img[cy + 1, cx - 1] = 40.0, 170.0
+        elif i % 3 == 1:
+            img[cy, cx] = 40.0
+    img[5, 5] = float('nan')
+    med = cutouts.frame_median_exact(img)
+    sig = 1.48 * cutouts.frame_median_exact((img - med).abs())
+    x0, y0 = cutouts.clamped_corners(
+        torch.as_tensor(xs, dtype=torch.float32, device=dev),
+        torch.as_tensor(ys, dtype=torch.float32, device=dev), 13, H, W)
+    n0 = launch.negpix_veto.launches
+    k = cutouts.negpix_veto(img, med, sig, x0, y0)
+    assert launch.negpix_veto.launches == n0 + 1
+    p = cutouts.negpix_veto_plain(img, med, sig, x0, y0)
+    assert k.dtype == torch.bool and torch.equal(k, p)
+    assert 0 < int(k.sum()) < len(xs)
+
+
+@pytest.mark.parametrize('i', range(4))
+def test_braai_conv3x3_kernel(dev, i):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    cin, cout, pool = launch.BRAAI_LAYERS[i]
+    side = (63, 61, 29, 27)[i]
+    x = _rand((7, side, side, cin), dev, 40 + i, 0.05).abs()
+    w = _rand((3, 3, cin, cout), dev, 50 + i, (1.0 / (9 * cin)) ** 0.5)
+    b = _rand((cout,), dev, 60 + i, 0.01)
+    n0 = launch.braai_conv3x3.launches
+    k = braai.conv3x3(x, w, b, pool)
+    assert launch.braai_conv3x3.launches == n0 + 1
+    p = braai.conv3x3_plain(x, w, b, pool)
+    assert k.shape == p.shape
+    _allclose(k, p, 1e-5, 1e-6)
+    # a NaN input pixel: NaN on exactly the outputs whose 3x3 window (and
+    # 2x2 pool) holds it, as the reference's sums, ReLU and max carry it
+    # (cuDNN's transforms may spread it further, so not held to cuDNN)
+    x[3, 4, 5, 0] = float('nan')
+    k = braai.conv3x3(x, w, b, pool)
+    want = F.max_pool2d(x.isnan().any(-1).float()[:, None], 3, 1)
+    if pool:
+        want = F.max_pool2d(want, 2, 2)
+    want = want[:, 0] > 0
+    assert torch.equal(k.isnan().any(-1), want)
+    assert torch.equal(k.isnan().all(-1), want)
+    assert torch.equal(k[~want], braai.conv3x3(
+        torch.nan_to_num(x, nan=0.0), w, b, pool)[~want])
+
+
+def test_braai_scores_card_equals_plain(dev):
+    """The whole net, H13 four times and the dense head, against the
+    plain layers on the card and against the CPU, at the spread weights."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    model, params = braai.init_braai(0)
+    model.load_params(inputs.spread_braai(params))
+    rng = np.random.default_rng(0)
+    t = rng.normal(size=(33, 63, 63, 3)).astype('f4')
+    t /= np.sqrt((t * t).sum((1, 2), keepdims=True))
+    cpu = braai.rb_scores(model, t)
+    model = model.to(dev)
+    n0 = launch.braai_conv3x3.launches
+    k = braai.rb_scores(model, t)
+    assert launch.braai_conv3x3.launches == n0 + 4 and k.is_cuda
+    with torch.no_grad():
+        p = model.forward_plain(torch.as_tensor(t, device=dev))
+    _allclose(k, p, 0.0, 1e-6)
+    _allclose(k.cpu(), cpu, 0.0, 1e-6)
+
+
+def test_h12_h13_h14_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    img = torch.zeros((64, 64), device=dev)
+    c = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        launch.triplet_cut(img[:40], img[:40], img[:40], c, c)
+    with pytest.raises(TypeError):
+        launch.triplet_cut(img, img, img, c.long(), c)
+    s = torch.zeros((), device=dev)
+    with pytest.raises(ValueError):
+        launch.negpix_veto(img, s[None], s, c, c)
+    x = torch.zeros((2, 61, 61, 32), device=dev)
+    with pytest.raises(ValueError, match='not a layer'):
+        launch.braai_conv3x3(x, torch.zeros((3, 3, 32, 32), device=dev),
+                             torch.zeros(32, device=dev), False)
+    misaligned = torch.zeros(2 * 61 * 61 * 32 + 1, device=dev)[1:]
+    with pytest.raises(ValueError, match='aligned'):
+        launch.braai_conv3x3(misaligned.reshape(2, 61, 61, 32),
+                             torch.zeros((3, 3, 32, 32), device=dev),
+                             torch.zeros(32, device=dev), True)
+
+
+def test_filter_ml_card_equals_cpu(dev, tmp_path, monkeypatch):
+    """filter_sexcat(ml=True, ml_frames=...) on the card (H12 once, H13 four
+    times) and on the CPU: GOODCUT equal, RB within 1e-6."""
+    from types import SimpleNamespace
+    from zuds_tpu_torch import filterobjects, inputs
+    from zuds_tpu_torch.catalog import CATALOG_DTYPE
+    from zuds_tpu_torch.fits import Header
+    from zuds_tpu_torch.models import braai
+    from zuds_tpu_torch.wcs import TPVWCS
+    model, params = braai.init_braai(0)
+    braai.save_braai(inputs.spread_braai(params),
+                     str(tmp_path / 'braai_d6_m9.npz'))
+    helper = filterobjects.load_model_helper
+    monkeypatch.setattr(filterobjects, 'load_model_helper',
+                        lambda *a, **k: helper(str(tmp_path), **k))
+    H, W = 300, 280
+    wcs = TPVWCS.simple((150.1, 35.2), (W / 2 + 0.5, H / 2 + 0.5),
+                        1.01 / 3600.0)
+    xs, ys = _positions(H, W, 40, 70)
+    frames = [SimpleNamespace(data=_rand((H, W), dev, 71 + k, 5.0)
+                              .cpu().numpy(), wcs=wcs) for k in range(3)]
+    cats = []
+    for where in ('cuda', 'cpu'):
+        data = np.zeros(len(xs), dtype=CATALOG_DTYPE)
+        data['X_IMAGE'], data['Y_IMAGE'] = xs + 1, ys + 1
+        data['X_WORLD'], data['Y_WORLD'] = wcs.pix2sky_0(xs, ys)
+        data['A_IMAGE'] = data['B_IMAGE'] = 1.0
+        data['FWHM_IMAGE'], data['FLUX_APER'] = 2.2, 1000.0
+        data['FLUXERR_APER'] = 10.0
+        hdr = Header()
+        hdr.set('RMSMED', 2.0)
+        cat = SimpleNamespace(data=data, header=hdr, ismapped=False,
+                              image=SimpleNamespace(header={'SEEING': 2.0},
+                                                    fid=2))
+        n0 = launch_counts()
+        filterobjects.filter_sexcat(cat, ml_frames=frames, device=where)
+        if where == 'cuda':
+            assert launch_counts() == (n0[0] + 1, n0[1] + 4)
+        cats.append(cat.data)
+    a, b = cats
+    assert np.array_equal(a['GOODCUT'], b['GOODCUT'])
+    assert (a['RB'] != -99).all()
+    np.testing.assert_allclose(a['RB'], b['RB'], rtol=0, atol=1e-6)
+
+
+def launch_counts():
+    from zuds_tpu_torch.kernels import launch
+    return launch.triplet_cut.launches, launch.braai_conv3x3.launches

@@ -28,6 +28,7 @@ Tolerances:
   (FWHM >= 0.8 SEEING) then removes the transient.
 """
 import glob
+import inspect
 import os
 import shutil
 import sys
@@ -309,7 +310,9 @@ def _catalogs(scene, out, seeing, frame_branch=False):
                 data['NEGPIX'] = -1
                 data['BPMCUT'] = np.nan
                 cat.data = data
-            filt.filter_sexcat(cat, ml=False)
+            filt.filter_sexcat(cat, ml=False,
+                               **({'device': 'cpu'} if pkg == 'torch'
+                                  else {}))
             cats[pkg].append(cat)
     return cats
 
@@ -352,8 +355,9 @@ def nights(scene, pipeline_outputs):
                                  cfg=jp.PipelineConfig(**KW), pipe=fn)
         else:
             stats = {}
-            r = tnight.run_night(work, batch=2, cfg=tp.PipelineConfig(**KW),
-                                 device='cpu', stats=stats)
+            r = tnight.run_night(work, batch=2, ml=False,
+                                 cfg=tp.PipelineConfig(**KW), device='cpu',
+                                 stats=stats)
             assert stats['ref_cache_hits'] == 1
             assert stats['ref_cache_misses'] == 1
             assert stats['detections'] == [n for _, n in r]
@@ -400,14 +404,81 @@ def test_run_night_counts_and_products_match(nights, pipeline_outputs):
 
 
 def test_run_night_refuses_what_is_not_ported(scene):
+    """db=True still raises and names its queue item; ml=True is the
+    default of every entry point, as in the reference, and runs
+    (test_run_night_scores_like_the_reference)."""
     d, _ = scene
     work = [f'{d}/ztf_night0_sciimg.fits {d}/ztf_dither_ref_sciimg.fits']
-    with pytest.raises(NotImplementedError, match='braai'):
-        tnight.run_night(work, ml=True, device='cpu')
-    with pytest.raises(NotImplementedError, match='db=True'):
+    with pytest.raises(NotImplementedError, match='db=True.*item 5'):
         tnight.run_night(work, db=True, device='cpu')
-    with pytest.raises(NotImplementedError, match='braai'):
-        tfilter.filter_sexcat(None, ml=True)
+    for port, ref in ((tnight.run_night, jnight.run_night),
+                      (tnight._commit_frame, jnight._commit_frame),
+                      (tfilter.filter_sexcat, jfilter.filter_sexcat)):
+        got = inspect.signature(port).parameters
+        want = inspect.signature(ref).parameters
+        assert got['ml'].default is want['ml'].default is True
+    assert inspect.signature(tnight._commit_frame).parameters[
+        'db'].default is False
+
+
+def test_run_night_scores_like_the_reference(scene, pipeline_outputs,
+                                             tmp_path, monkeypatch):
+    """run_night at ml=True, db=False on both pairs in both packages, both
+    packages' load_model_helper reading one npz of spread weights: the
+    per-pair counts equal (within the reference's own spread, as the
+    ml=False counts), and in each frame RB set exactly on the rows that
+    passed the cuts before the ML cut, GOODCUT exactly where RB >= 0.3,
+    the scores within 1e-4 of the reference's (the triplets are cut from
+    the two pipelines' diffs and the two packages' warps)."""
+    from zuds_tpu.models import braai as jbraai
+    from zuds_tpu_torch.inputs import spread_braai
+    from zuds_tpu_torch.models import braai as tbraai
+    d, truths = scene
+    spread = pipeline_outputs[3]
+    model, _ = tbraai.init_braai(0)
+    weights = str(tmp_path / 'braai_d6_m9.npz')
+    tbraai.save_braai(spread_braai(model.params()), weights)
+    monkeypatch.setattr(jfilter, 'load_model_helper',
+                        lambda *a, **k: jbraai.load_braai(weights))
+    monkeypatch.setattr(tfilter, 'load_model_helper',
+                        lambda *a, **k: tbraai.load_braai(weights))
+    counts, cats, stats = {}, {}, {}
+    for pkg in ('jax', 'torch'):
+        dd = tmp_path / pkg
+        shutil.copytree(d, dd)
+        work = [f'{dd}/ztf_night{i}_sciimg.fits '
+                f'{dd}/ztf_dither_ref_sciimg.fits' for i in (0, 1)]
+        if pkg == 'jax':
+            res = jnight.run_night(work, batch=2, ml=True, db=False,
+                                   cfg=jp.PipelineConfig(**KW),
+                                   pipe=pipeline_outputs[1])
+        else:
+            res = tnight.run_night(work, batch=2, cfg=tp.PipelineConfig(**KW),
+                                   device='cpu', stats=stats)
+        counts[pkg] = np.asarray([n for _, n in res])
+        cats[pkg] = [tcatalog.PipelineFITSCatalog.from_file(
+            f'{dd}/sub.ztf_night{i}_sciimg_ztf_dither_ref_sciimg.cat').data
+            for i in (0, 1)]
+    assert (np.abs(counts['torch'] - counts['jax']) <= spread).all(), counts
+    assert stats['scored'] == [int((c['RB'] != -99).sum())
+                               for c in cats['torch']]
+    assert len(stats['ml_s']) == 2 and stats['ml_s'][0] > 0
+    for i, (jc, tc) in enumerate(zip(cats['jax'], cats['torch'])):
+        scored = tc['RB'] != -99
+        # frame 1's stamp-moment SEEING drops every row at the sharp cut
+        assert scored.sum() >= (1 if i == 0 else 0)
+        assert scored.sum() == (jc['RB'] != -99).sum()
+        assert np.array_equal(tc['GOODCUT'] == 1,
+                              scored & (tc['RB'] >= np.float32(0.3)))
+        # rows found in both catalogs (within 0.02 px): the same rows
+        # scored, the scores close
+        for row in tc[scored]:
+            dist = np.hypot(jc['X_IMAGE'] - row['X_IMAGE'],
+                            jc['Y_IMAGE'] - row['Y_IMAGE'])
+            if dist.min() < 0.02:
+                j = int(dist.argmin())
+                assert jc['RB'][j] != -99
+                assert abs(jc['RB'][j] - row['RB']) < 1e-4, i
 
 
 def test_run_night_records_the_fallback_past_the_bucket(scene, tmp_path):
@@ -428,8 +499,9 @@ def test_run_night_records_the_fallback_past_the_bucket(scene, tmp_path):
             res = jnight.run_night(work, batch=2, ml=False, db=False,
                                    cfg=jp.PipelineConfig(**KW))
         else:
-            res = tnight.run_night(work, batch=2, cfg=tp.PipelineConfig(**KW),
-                                   device='cpu', stats=stats)
+            res = tnight.run_night(work, batch=2, ml=False,
+                                   cfg=tp.PipelineConfig(**KW), device='cpu',
+                                   stats=stats)
         assert len(res) == 1 and res[0][0] == work[0].split()[0]
         counts[pkg] = res[0][1]
     assert isinstance(counts['jax'], int), counts['jax']

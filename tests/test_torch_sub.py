@@ -344,7 +344,8 @@ def pair_dirs(tmp_path_factory):
     return {k: write_scene(str(d / k), pkg, gain) for k, pkg, gain in (
         ('jax', 'jax', 1.0), ('torch', 'torch', 1.0),
         ('jpert', 'jax', 1.0 + 1e-7), ('jdo', 'jax', 1.0),
-        ('tdo', 'torch', 1.0), ('tmain', 'torch', 1.0))}
+        ('tdo', 'torch', 1.0), ('tmain', 'torch', 1.0),
+        ('jml', 'jax', 1.0), ('tml', 'torch', 1.0))}
 
 
 @pytest.fixture(scope='module')
@@ -485,8 +486,8 @@ def reference_do_one(pair_dirs):
 def test_do_one_goodcut_rows(pair_dirs, reference_do_one):
     jsub, jrows, jdets = reference_do_one
     stats = {}
-    tsub, trows = tsubmod.do_one(' '.join(pair_dirs['tdo']), device='cpu',
-                                 stats=stats)
+    tsub, trows = tsubmod.do_one(' '.join(pair_dirs['tdo']), ml=False,
+                                 device='cpu', stats=stats)
     assert len(jdets) == len(jrows) >= 1
     _rows_match(trows, jrows)
     tx, ty, _ = TRUTH
@@ -502,9 +503,51 @@ def test_do_one_goodcut_rows(pair_dirs, reference_do_one):
             'assemble_s', 'catalog_s', 'filter_s'} <= set(stats)
     assert list(inspect.signature(tsubmod.do_one).parameters)[:3] == \
         list(inspect.signature(jdosub.do_one).parameters)
-    with pytest.raises(NotImplementedError, match='braai'):
-        tsubmod.do_one(' '.join(pair_dirs['tdo']), ml=True, device='cpu')
+    assert inspect.signature(tsubmod.do_one).parameters['ml'].default is \
+        inspect.signature(jdosub.do_one).parameters['ml'].default is True
     assert tsubmod.MAX_DETS == jdosub.MAX_DETS
+
+
+def test_do_one_scores_like_the_reference(pair_dirs, tmp_path, monkeypatch):
+    """do_one at ml=True in both packages, both load_model_helper reading
+    one npz of spread weights: the same GOODCUT rows (as at ml=False), the
+    same rows scored, the scores within 1e-4 (the triplets come from the
+    two packages' subtractions, which agree within the fit's ulp spread,
+    and their aligns); the transient's row scored."""
+    from zuds_tpu import filterobjects as jfilter
+    from zuds_tpu.models import braai as jbraai
+    from zuds_tpu_torch import filterobjects as tfilter
+    from zuds_tpu_torch.inputs import spread_braai
+    from zuds_tpu_torch.models import braai as tbraai
+    model, _ = tbraai.init_braai(0)
+    weights = str(tmp_path / 'braai_d6_m9.npz')
+    tbraai.save_braai(spread_braai(model.params()), weights)
+    monkeypatch.setattr(jfilter, 'load_model_helper',
+                        lambda *a, **k: jbraai.load_braai(weights))
+    monkeypatch.setattr(tfilter, 'load_model_helper',
+                        lambda *a, **k: tbraai.load_braai(weights))
+    jsub, jdets = jdosub.do_one(' '.join(pair_dirs['jml']))
+    stats = {}
+    tsub, tdets = tsubmod.do_one(' '.join(pair_dirs['tml']), device='cpu',
+                                 stats=stats)
+    jcat, tcat = jsub.catalog.data, tsub.catalog.data
+    assert len(jdets) == len(tdets)
+    _rows_match(tdets, jcat[jcat['GOODCUT'] == 1])
+    scored = tcat['RB'] != -99
+    assert stats['scored'] == int(scored.sum()) >= 1
+    assert stats['ml_s'] > 0
+    assert scored.sum() == (jcat['RB'] != -99).sum()
+    _rows_match(tcat[scored], jcat[jcat['RB'] != -99])
+    order_t = np.argsort(tcat['X_IMAGE'][scored])
+    order_j = np.argsort(jcat['X_IMAGE'][jcat['RB'] != -99])
+    np.testing.assert_allclose(tcat['RB'][scored][order_t],
+                               jcat['RB'][jcat['RB'] != -99][order_j],
+                               rtol=0, atol=1e-4)
+    assert np.array_equal(tcat['GOODCUT'] == 1,
+                          scored & (tcat['RB'] >= np.float32(0.3)))
+    tx, ty, _ = TRUTH
+    near = np.hypot(tcat['X_IMAGE'] - 1 - tx, tcat['Y_IMAGE'] - 1 - ty)
+    assert near.min() < 1.0 and scored[near.argmin()]
 
 
 def test_sub_main_runs_a_worklist(pair_dirs, reference_do_one, tmp_path,

@@ -67,5 +67,10 @@ GROUP_PROPERTIES = ['field', 'ccdid', 'qid', 'fid']
 COADD_ZP = 25.0                     # common zeropoint for FLXSCALE normalize
 CLIP_NSIGMA = 4.0                   # clipped-mean combine threshold
 
+# --- ML real/bogus ------------------------------------------------------------
+CUTOUT_SIZE = 63                    # braai triplet stamp size (px)
+RB_CUT = {1: 0.3, 2: 0.3, 3: 0.6}   # per-filter real/bogus thresholds
+BRAAI_MODEL = 'braai_d6_m9'
+
 # --- filters -----------------------------------------------------------------
 FID_MAP = {1: 'zg', 2: 'zr', 3: 'zi'}

@@ -1,68 +1,129 @@
-"""Candidate quality cuts (twin of ``zuds_tpu/filterobjects.py:37-252``):
-the reference's cut chain and printed funnel over a subtraction catalog.
+"""Candidate filtering and the real/bogus score (twin of
+``zuds_tpu/filterobjects.py``): the reference's cut chain and printed
+funnel over a subtraction catalog, then braai on the survivors.
 
 A catalog from the fused pipeline carries the r=6 px aperture sums and
 the negative-pixel veto as columns, so the cuts read columns only. A
-catalog without them takes the frames from its image: the port's
-``aperture_photometry_batched`` and :func:`_negpix_veto` on CPU tensors.
-The real/bogus score (``ml=True``, braai) is ROADMAP queue 1, K19.
+catalog without them takes the frames from its image, on the card unless
+the caller asks for the CPU: the port's ``aperture_photometry_batched``
+and :func:`_negpix_veto` (two library sorts for the medians, then the
+stencil H14). At ``ml=True`` the survivors' 63x63x3 triplets (H12) are
+scored by braai (``models/braai.py``, H13) and those below
+``RB_CUT[fid]`` dropped.
 """
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from .constants import BAD_SUM
+from .constants import BAD_SUM, BRAAI_MODEL, CUTOUT_SIZE, RB_CUT
+from .ops.cutouts import (NEGPIX_BOX, clamped_corners, frame_median_exact,
+                          negpix_veto, triplet_cut)
 
-__all__ = ['filter_sexcat']
+__all__ = ['filter_sexcat', 'make_triplet_for_braai', 'make_triplets_batch',
+           'load_model_helper']
 
 CUTSIZE = 11  # negpix veto box, px
 
-
-def _median(x):
-    """Exact median of all of ``x``, the two middle values averaged for
-    an even count (``jnp.median``)."""
-    s = torch.sort(x.reshape(-1)).values
-    n = s.numel()
-    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+# (weights path, its mtime and size, device) -> (model, params)
+_MODELS = {}
 
 
-def _negpix_veto(image_data, xs, ys):
+def _device(device):
+    from .inputs import resolve_device
+    return resolve_device(device)
+
+
+def load_model_helper(path=None, model_base_name=BRAAI_MODEL, device=None):
+    """braai's (model, params) on ``device`` (the card unless ``'cpu'``):
+    ``<path>/<model_base_name>.npz`` if it exists, else the fresh seed-0
+    init (filterobjects.py:27-34: no pretrained weights ship, so without
+    that file every score comes from an untrained network). Built once per
+    file state and device; a cached model gives the same scores as a new
+    one."""
+    from .models.braai import load_braai
+    device = _device(device)
+    weights = None
+    key = (None, str(device))
+    if path is not None:
+        weights = os.path.join(path, f'{model_base_name}.npz')
+        if os.path.exists(weights):
+            st = os.stat(weights)
+            key = (weights, st.st_mtime_ns, st.st_size, str(device))
+    if key not in _MODELS:
+        model, _ = load_braai(weights)
+        model = model.to(device)
+        _MODELS[key] = (model, model.params())
+    return _MODELS[key]
+
+
+def _upload(a, device):
+    from .inputs import upload
+    return upload(np.ascontiguousarray(a).astype(np.float32), device)
+
+
+def _positions(xs, ys, device):
+    """f32 tensors of the positions, rounded to f32 first as the
+    reference's ``jnp.asarray`` of float64 does."""
+    return (torch.as_tensor(np.asarray(xs, np.float32)).to(device),
+            torch.as_tensor(np.asarray(ys, np.float32)).to(device))
+
+
+def _negpix_veto(image_data, xs, ys, device=None):
     """Negative-pixel veto (filterobjects.py:37-61): True where a < -5 sigma
-    pixel sits next to a > +5 sigma one in the 11x11 box at a candidate."""
-    data = torch.as_tensor(np.ascontiguousarray(image_data)
-                           .astype(np.float32))
-    med = _median(data)
-    sig = 1.48 * _median((data - med).abs())
+    pixel sits next to a > +5 sigma one in the 11x11 box at a candidate.
+    The frame's median and 1.48 MAD are sorts on ``device`` (the card
+    unless ``'cpu'``) that stay there; the per-candidate stencil is H14 on
+    the card."""
+    device = _device(device)
+    data = _upload(image_data, device)
+    med = frame_median_exact(data)
+    sig = 1.48 * frame_median_exact((data - med).abs())
     H, W = data.shape
-    big = CUTSIZE + 2
-    xs = torch.as_tensor(np.asarray(xs, np.float32))
-    ys = torch.as_tensor(np.asarray(ys, np.float32))
-    x0 = torch.clamp(torch.round(xs).to(torch.int64) - big // 2, 0, W - big)
-    y0 = torch.clamp(torch.round(ys).to(torch.int64) - big // 2, 0, H - big)
-    ar = torch.arange(big)
-    cut = data[(y0[:, None, None] + ar[None, :, None]),
-               (x0[:, None, None] + ar[None, None, :])]
-    s = (cut - med) / torch.clamp(sig, min=1e-12)
-    # 3x3 neighbour max ('SAME', -inf padding), then the central 11x11
-    m = F.max_pool2d(F.pad(s[:, None], (1, 1, 1, 1), value=-float('inf')),
-                     3, 1)[:, 0]
-    inner = (slice(None), slice(1, 1 + CUTSIZE), slice(1, 1 + CUTSIZE))
-    return ((s[inner] < -5.0) & (m[inner] > 5.0)).flatten(1).any(1).numpy()
+    x0, y0 = clamped_corners(*_positions(xs, ys, device), NEGPIX_BOX, H, W)
+    return negpix_veto(data, med, sig, x0, y0).cpu().numpy()
 
 
-def filter_sexcat(cat, ml=False):
-    """Quality-cut filter of a subtraction catalog, in place
-    (filterobjects.py:102-252): sets GOODCUT (and RB = -99), prints the
-    per-cut candidate funnel, marks the header FILTERED, saves the
-    catalog if mapped, and returns it."""
-    if ml:
-        raise NotImplementedError(
-            'filter_sexcat(ml=True), the braai real/bogus score, is not '
-            'ported yet (ROADMAP queue 1: braai, K19)')
-    from .ops.photometry import aperture_photometry_batched
+def make_triplets_batch(xs, ys, new_aligned, ref_aligned, sub_aligned,
+                        device=None):
+    """(N, 63, 63, 3) f32 NHWC tensor on ``device`` (the card unless
+    ``'cpu'``) of the L2-normalised new/ref/sub cutouts at the 0-based
+    pixel positions ``xs``, ``ys`` (filterobjects.py:64-90): each window's
+    corner is ``round(x) - 31`` clamped into the frame. The three frames
+    share the reference frame's grid. H12 on the card."""
+    device = _device(device)
+    frames = [_upload(f.data, device)
+              for f in (new_aligned, ref_aligned, sub_aligned)]
+    H, W = frames[0].shape
+    x0, y0 = clamped_corners(*_positions(xs, ys, device), CUTOUT_SIZE, H, W)
+    return triplet_cut(*frames, x0, y0)
 
+
+def make_triplet_for_braai(ra, dec, new_aligned, ref_aligned, sub_aligned,
+                           old_norm=False, device=None):
+    """One (63, 63, 3) triplet at (ra, dec) in the reference frame's grid
+    (filterobjects.py:93-99)."""
+    x, y = ref_aligned.wcs.sky2pix_0(ra, dec)
+    return make_triplets_batch(np.atleast_1d(x), np.atleast_1d(y),
+                               new_aligned, ref_aligned, sub_aligned,
+                               device=device)[0]
+
+
+def filter_sexcat(cat, ml=True, ml_frames=None, device=None, stats=None):
+    """Quality-cut and real/bogus filter of a subtraction catalog, in place
+    (filterobjects.py:102-252): sets GOODCUT and RB (-99 where unscored),
+    prints the per-cut candidate funnel, marks the header FILTERED, saves
+    the catalog if mapped, and returns it.
+
+    ``ml_frames``: optional (new_aligned, ref_aligned, sub_aligned);
+    otherwise aligned from ``cat.image``'s target and reference images.
+    ``device``: where the frames branch and the score run, the image's
+    own when None (the card unless ``'cpu'``). ``stats`` (dict, optional)
+    gains ``ml_s`` (host seconds of the ML step: frames, triplets, scores)
+    and ``scored`` (candidates scored)."""
     data = cat.data
     hdr = getattr(cat, 'header', None)
     if hdr is not None and hdr.get('FILTERED'):
@@ -75,6 +136,8 @@ def filter_sexcat(cat, ml=False):
             hdr.set('FILTERED', True, 'filter_sexcat completed')
 
     image = cat.image
+    if device is None:
+        device = getattr(image, 'device', None)
 
     n = len(data)
     print('Total number of candidates: ', n, flush=True)
@@ -98,6 +161,8 @@ def filter_sexcat(cat, ml=False):
         medcut = float(hdr['RMSMED']) * 1.1
         negpix_pre = data['NEGPIX'].astype(bool)
     else:
+        from .ops.photometry import aperture_photometry_batched
+        device = _device(device)
         rms = np.asarray(image.rms_image.data)
         bpm = np.asarray(image.mask_image.boolean.data).astype(bool) \
             if image.mask_image is not None else np.zeros(rms.shape, bool)
@@ -105,17 +170,16 @@ def filter_sexcat(cat, ml=False):
             np.median(rms))
         medcut = med * 1.1
         negpix_pre = None
-        txs = torch.as_tensor(xs.astype('f4'))
-        tys = torch.as_tensor(ys.astype('f4'))
-        zeros_m = torch.zeros(rms.shape, dtype=torch.int32)
-        rms_t = torch.as_tensor(rms.astype(np.float32))
-        rms_ap = aperture_photometry_batched(
-            rms_t, torch.zeros_like(rms_t), zeros_m, txs, tys, r=6.0)
-        bpm_ap = aperture_photometry_batched(
-            torch.as_tensor(bpm.astype(np.float32)), torch.zeros_like(rms_t),
-            zeros_m, txs, tys, r=6.0)
-        bpmcut = bpm_ap['flux'].numpy()
-        rmscut = rms_ap['flux'].numpy() / area
+        txs, tys = _positions(xs, ys, device)
+        zeros_m = torch.zeros(rms.shape, dtype=torch.int32, device=device)
+        rms_t = _upload(rms, device)
+        zeros = torch.zeros_like(rms_t)
+        rms_ap = aperture_photometry_batched(rms_t, zeros, zeros_m, txs, tys,
+                                             r=6.0)
+        bpm_ap = aperture_photometry_batched(_upload(bpm, device), zeros,
+                                             zeros_m, txs, tys, r=6.0)
+        bpmcut = bpm_ap['flux'].cpu().numpy()
+        rmscut = rms_ap['flux'].cpu().numpy() / area
 
     if 'SEEING' not in image.header:
         from .seeing import estimate_seeing
@@ -153,15 +217,45 @@ def filter_sexcat(cat, ml=False):
         if negpix_pre is not None:
             good &= ~negpix_pre
         else:
-            veto = _negpix_veto(image.data, xs[good], ys[good])
+            veto = _negpix_veto(image.data, xs[good], ys[good], device)
             gidx = np.nonzero(good)[0]
             good[gidx[veto]] = False
     funnel('negpix cut')
+
+    rb = np.full(n, -99.0, dtype='f4')
+    if ml and good.any():
+        t0 = time.perf_counter()
+        device = _device(device)
+        frames = ml_frames or _ml_frames_for(image, device)
+        if frames is None:
+            print('filter: no aligned frames for ML; skipping rb cut',
+                  flush=True)
+        else:
+            from .models.braai import rb_scores
+            new_a, ref_a, sub_a = frames
+            gidx = np.nonzero(good)[0]
+            # positions in the reference frame's pixel grid
+            ra = data['X_WORLD'][gidx]
+            dec = data['Y_WORLD'][gidx]
+            x, y = ref_a.wcs.sky2pix_0(ra, dec)
+            triplets = make_triplets_batch(x, y, new_a, ref_a, sub_a,
+                                           device=device)
+            model, _ = load_model_helper(device=device)
+            scores = rb_scores(model, triplets).cpu().numpy()
+            rb[gidx] = scores
+            fid = getattr(image, 'fid', None)
+            cut = RB_CUT.get(fid, 0.5) if fid is not None else 0.5
+            good[gidx[scores < cut]] = False
+            if stats is not None:
+                stats['scored'] = stats.get('scored', 0) + len(gidx)
+        if stats is not None:
+            stats['ml_s'] = stats.get('ml_s', 0.0) \
+                + time.perf_counter() - t0
     funnel('ML cut')
 
     out = data.copy()
     out['GOODCUT'] = good.astype('i2')
-    out['RB'] = np.full(n, -99.0, dtype='f4')
+    out['RB'] = rb
     if not pre and 'BPMCUT' in out.dtype.names:
         out['BPMCUT'] = bpmcut
         out['RMSCUT'] = rmscut
@@ -170,3 +264,21 @@ def filter_sexcat(cat, ml=False):
     if cat.ismapped:
         cat.save()
     return cat
+
+
+def _ml_frames_for(image, device=None):
+    """(new, ref, sub) on the reference's grid from a subtraction object
+    (filterobjects.py:255-267): its science frame and itself aligned to its
+    reference, on ``device``. A deferred subtraction fetches its frames
+    from the card here."""
+    target = getattr(image, 'target_image', None)
+    ref = getattr(image, 'reference_image', None)
+    if target is None or ref is None:
+        return None
+    try:
+        new_aligned = target.aligned_to(ref, device=device)
+        sub_aligned = image.aligned_to(ref, device=device)
+    except Exception as e:
+        print(f'filter: alignment for ML failed ({e}); skipping', flush=True)
+        return None
+    return new_aligned, ref, sub_aligned

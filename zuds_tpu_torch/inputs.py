@@ -1,11 +1,13 @@
-"""The pipelines' per-frame state: kernel-basis tables and input tuples.
+"""The pipelines' per-frame state: kernel-basis tables and input tuples,
+and the synthetic scenes and weights the tests and ``chip_smoke.py`` use.
 
-Neither path has learned weights. What the subtract/detect path carries is
-the 14-array input tuple of ``zuds_tpu/parallel/pipeline.py:133-140`` and
-the A&L kernel-basis tables (``ops.subtract.KernelBasis``, re-exported
-here); the coadd path carries the 8-array tuple of ``make_coadd_pipeline``
-(pipeline.py:441-447). All are built in host numpy, byte-for-byte as the
-JAX package builds them, and moved onto a device by :func:`to_torch`.
+Neither image path has learned weights. What the subtract/detect path
+carries is the 14-array input tuple of
+``zuds_tpu/parallel/pipeline.py:133-140`` and the A&L kernel-basis tables
+(``ops.subtract.KernelBasis``, re-exported here); the coadd path carries
+the 8-array tuple of ``make_coadd_pipeline`` (pipeline.py:441-447). All
+are built in host numpy, byte-for-byte as the JAX package builds them,
+and moved onto a device by :func:`to_torch`.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from .ops.subtract import KernelBasis
 
 __all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
            'COADD_INPUT_NAMES', 'resolve_device', 'upload', 'upload_mask',
-           'write_night_pairs', 'write_coadd_epochs']
+           'write_night_pairs', 'write_coadd_epochs', 'spread_braai']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -385,3 +387,29 @@ def write_coadd_epochs(d, nepochs, H, W, seed=21, nstars=COADD_STARS,
         paths.append(p)
         wcss.append(wcs_e)
     return paths, wcss
+
+
+# braai weights whose scores spread: the fresh init scores every unit
+# triplet within ~0.005 of 0.498, where a wrong flatten order or layer
+# cannot show. Every kernel but Dense_1's times SPREAD_GAIN, Dense_1's
+# times SPREAD_LOGIT_GAIN and its bias SPREAD_LOGIT_BIAS spread the seed-0
+# init's scores of unit Gaussian triplets over ~0.25-0.7 and of star-like
+# ones over ~0.02-0.8; larger gains push the CPU parity of the scores
+# (sums in another order than XLA:CPU's) past 1e-6.
+SPREAD_GAIN = 2.0
+SPREAD_LOGIT_GAIN = 6.0
+SPREAD_LOGIT_BIAS = 0.76
+
+
+def spread_braai(params):
+    """A copy of the braai parameter tree ``params`` (the port's or flax's
+    form) with the gains above applied."""
+    from .models.braai import params_from_flax
+    out = params_from_flax(params)
+    for name, layer in out['params'].items():
+        last = name == 'Dense_1'
+        layer['kernel'] = layer['kernel'] * (SPREAD_LOGIT_GAIN if last
+                                             else SPREAD_GAIN)
+        if last:
+            layer['bias'] = torch.full_like(layer['bias'], SPREAD_LOGIT_BIAS)
+    return out

@@ -23,7 +23,7 @@ __all__ = ['library', 'check', 'ApplyParams']
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
            'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
-           'subtract.cu')
+           'subtract.cu', 'cutouts.cu', 'braai.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -77,6 +77,12 @@ SIGNATURES = {
     # submask_out (or null), n, sentinel, big_rms, bit, contract, stream
     'zuds_subtract_epilogue': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _F,
                                _F, _I, _I, _P),
+    # new, ref, sub frames, x0, y0 (int32), N, W, out (N, 63, 63, 3), stream
+    'zuds_triplet_cut': (_P, _P, _P, _P, _P, _I, _I, _P, _P),
+    # img, W, med, sig (device scalars), x0, y0 (int32), N, veto(u8), stream
+    'zuds_negpix_veto': (_P, _I, _P, _P, _P, _P, _I, _P, _P),
+    # in, w (HWIO), bias, out, N, H, W, Cin, Cout, pool, stream
+    'zuds_braai_conv3x3': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,7 +1,8 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
 H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
 candidates, H8 frame median, H9 clipped combine, H10 gather warp, H11
-subtraction epilogue).
+subtraction epilogue, H12 triplet cutter, H13 braai convolution layer, H14
+negative-pixel veto).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -19,7 +20,8 @@ from . import build
 __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
            'deblend_labels',
            'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
-           'warp_gather', 'subtract_epilogue', 'COMBINE_MAX_EPOCHS',
+           'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
+           'braai_conv3x3', 'BRAAI_LAYERS', 'COMBINE_MAX_EPOCHS',
            'WRAPPERS']
 
 
@@ -375,6 +377,92 @@ def subtract_epilogue(sci, model, sci_rms, ref_var, bad, sentinel, big_rms,
     return diff, rms, sub_out
 
 
+def _require_corners(x0, y0, n):
+    _require('x0', x0, torch.int32, (n,))
+    _require('y0', y0, torch.int32, (n,))
+
+
+def triplet_cut(new, ref, sub, x0, y0):
+    """H12 (kernels/cutouts.cu): the (N, 63, 63, 3) f32 NHWC triplets of
+    the 63x63 windows of ``new``, ``ref`` and ``sub`` (f32, one (H, W)
+    grid) at the corners ``x0``, ``y0`` (int32 (N,), already clamped to
+    the frame), each window divided by its L2 norm (at least 1e-10)."""
+    _require('new', new, torch.float32)
+    if new.dim() != 2 or min(new.shape) < 63 or new.numel() >= 2 ** 31:
+        raise ValueError(f'triplet_cut: expected a 2-D frame of at least '
+                         f'63x63 under 2^31 px, got {tuple(new.shape)}')
+    _require('ref', ref, torch.float32, new.shape)
+    _require('sub', sub, torch.float32, new.shape)
+    n = x0.shape[0] if x0.dim() == 1 else -1
+    _require_corners(x0, y0, n)
+    out = torch.empty((n, 63, 63, 3), dtype=torch.float32, device=new.device)
+    err = build.library().zuds_triplet_cut(
+        _ptr(new), _ptr(ref), _ptr(sub), _ptr(x0), _ptr(y0), n,
+        new.shape[1], _ptr(out), _stream())
+    build.check(err, 'zuds_triplet_cut')
+    triplet_cut.launches += 1
+    return out
+
+
+def negpix_veto(img, med, sig, x0, y0):
+    """H14 (kernels/cutouts.cu): bool (N,), True where the 13x13 window of
+    ``img`` (f32 (H, W)) at the corner ``x0``, ``y0`` (int32 (N,), already
+    clamped), standardised by the device scalars ``med`` and ``sig`` (f32,
+    0-d; ``sig`` floored at 1e-12), holds a pixel below -5 in its central
+    11x11 whose 3x3 neighbourhood reaches above +5."""
+    _require('img', img, torch.float32)
+    if img.dim() != 2 or min(img.shape) < 13 or img.numel() >= 2 ** 31:
+        raise ValueError(f'negpix_veto: expected a 2-D frame of at least '
+                         f'13x13 under 2^31 px, got {tuple(img.shape)}')
+    _require('med', med, torch.float32, ())
+    _require('sig', sig, torch.float32, ())
+    n = x0.shape[0] if x0.dim() == 1 else -1
+    _require_corners(x0, y0, n)
+    veto = torch.empty(n, dtype=torch.uint8, device=img.device)
+    err = build.library().zuds_negpix_veto(
+        _ptr(img), img.shape[1], _ptr(med), _ptr(sig), _ptr(x0), _ptr(y0), n,
+        _ptr(veto), _stream())
+    build.check(err, 'zuds_negpix_veto')
+    negpix_veto.launches += 1
+    return veto.view(torch.bool)
+
+
+# (Cin, Cout, pool) of the four layers of BraaiD6 (kernels/braai.cu)
+BRAAI_LAYERS = ((3, 32, False), (32, 32, True), (32, 64, False),
+                (64, 64, True))
+
+
+def braai_conv3x3(x, w, b, pool):
+    """H13 (kernels/braai.cu): ``relu(conv3x3_valid(x, w) + b)``, then with
+    ``pool`` the 2x2/2 max pool (odd last row and column dropped), for an
+    NHWC f32 batch ``x`` (N, H, W, Cin), an HWIO kernel ``w`` (3, 3, Cin,
+    Cout) and ``b`` (Cout,), at the four layers' shapes
+    (:data:`BRAAI_LAYERS`). Returns (N, Ho, Wo, Cout) f32."""
+    _require('x', x, torch.float32)
+    if x.dim() != 4 or x.shape[1] < 3 or x.shape[2] < 3:
+        raise ValueError(f'braai_conv3x3: expected an (N, H, W, Cin) batch '
+                         f'of at least 3x3, got {tuple(x.shape)}')
+    N, H, W, cin = x.shape
+    cout = w.shape[-1] if w.dim() == 4 else -1
+    if (cin, cout, bool(pool)) not in BRAAI_LAYERS:
+        raise ValueError(f'braai_conv3x3: (Cin, Cout, pool) = ({cin}, '
+                         f'{cout}, {bool(pool)}) is not a layer of BraaiD6')
+    _require('w', w, torch.float32, (3, 3, cin, cout))
+    _require('b', b, torch.float32, (cout,))
+    if x.data_ptr() % 16 or x.numel() >= 2 ** 31:
+        raise ValueError('braai_conv3x3: x must be 16-byte aligned and '
+                         'under 2^31 elements')
+    hc, wc = H - 2, W - 2
+    ho, wo = (hc // 2, wc // 2) if pool else (hc, wc)
+    out = torch.empty((N, ho, wo, cout), dtype=torch.float32, device=x.device)
+    err = build.library().zuds_braai_conv3x3(
+        _ptr(x), _ptr(w), _ptr(b), _ptr(out), N, H, W, cin, cout,
+        int(bool(pool)), _stream())
+    build.check(err, 'zuds_braai_conv3x3')
+    braai_conv3x3.launches += 1
+    return out
+
+
 def _require_view(name, t, dtype, shape=None):
     """Like _require for a 2-D view that need not be contiguous."""
     if not t.is_cuda:
@@ -402,6 +490,9 @@ frame_median.launches = 0
 clipped_combine.launches = 0
 warp_gather.launches = 0
 subtract_epilogue.launches = 0
+triplet_cut.launches = 0
+negpix_veto.launches = 0
+braai_conv3x3.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
@@ -410,4 +501,6 @@ WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'frame_median': frame_median,
             'clipped_combine': clipped_combine,
             'warp_gather': warp_gather,
-            'subtract_epilogue': subtract_epilogue}
+            'subtract_epilogue': subtract_epilogue,
+            'triplet_cut': triplet_cut, 'negpix_veto': negpix_veto,
+            'braai_conv3x3': braai_conv3x3}

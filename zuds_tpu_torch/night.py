@@ -14,6 +14,9 @@ takes its share (``mpi.get_my_share_of_work``). Per batch:
        detect, photometer: H1-H6, H8)
     -> one bulk copy of the small outputs to the host
     -> catalog (``PipelineFITSCatalog.from_pipeline``) -> ``filter_sexcat``
+       (at ``ml=True``: the frame's diff fetched from the card, the science
+       frame and the diff aligned to the reference, the triplets H12 and
+       braai H13 on the card, the ``RB_CUT`` cut)
        -> the GOODCUT rows, the ``MAX_DETS`` quality guard.
 
 Batch k+1 is prepared and its pipeline enqueued before batch k's outputs
@@ -26,8 +29,8 @@ or its commit raises) runs the per-pair chain ``sub.do_one`` instead (the
 planned or the gather warp, H10), and its count is recorded; a failure
 inside the fallback is recorded as that exception.
 
-Not ported yet (ROADMAP queue 1): ``ml=True`` (braai, K19) and ``db=True``
-(ORM commit and thumbnails) raise ``NotImplementedError``.
+Not ported yet (ROADMAP queue 1, item 5): ``db=True`` (the ORM commit and
+thumbnails) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -149,31 +152,31 @@ def _load_pair(loader, tickets, sci_path, ref_path, ref_objs=None):
     return sci, ref
 
 
-def _not_ported(ml, db):
-    for flag, what in ((ml, 'ml=True (the braai real/bogus score, ROADMAP '
-                            'queue 1: braai, K19)'),
-                       (db, 'db=True (the ORM Detection commit and '
-                            'thumbnails, ROADMAP queue 1)')):
-        if flag:
-            raise NotImplementedError(f'{what} is not ported yet')
+def _not_ported(db):
+    if db:
+        raise NotImplementedError(
+            'db=True (the ORM Detection commit and thumbnails, ROADMAP queue '
+            '1 item 5) is not ported yet')
 
 
-def _commit_frame(sci, ref, small, b, frames_thunk, cfg, ml=False,
-                  db=False):
+def _commit_frame(sci, ref, small, b, frames_thunk, cfg, ml=True,
+                  db=False, device=None, stats=None):
     """Subtraction product, catalog and filter for frame ``b`` of a batch
-    (donight.py:157-205 at ml=False, db=False). ``small``: host copies of
-    the pipeline's fixed-size outputs. Returns (sub, GOODCUT rows), the
-    rows ``Detection.from_catalog(cat, filter=True)`` would keep."""
+    (donight.py:157-205 at db=False). ``small``: host copies of the
+    pipeline's fixed-size outputs. Returns (sub, GOODCUT rows), the rows
+    ``Detection.from_catalog(cat, filter=True)`` would keep. ``device``:
+    where the ML step runs (the card unless ``'cpu'``); ``stats`` gains
+    its ``ml_s`` and ``scored``."""
     from .catalog import PipelineFITSCatalog
     from .filterobjects import filter_sexcat
     from .subtraction import SingleEpochSubtraction
 
-    _not_ported(ml, db)
+    _not_ported(db)
     sub = SingleEpochSubtraction.assemble_deferred(
         sci, ref, frames_thunk, method='hotpants-fused',
         spatial_order=cfg.order, nreg_side=cfg.nreg)
     cat = PipelineFITSCatalog.from_pipeline(sub, small, frame=b)
-    filter_sexcat(cat, ml=ml)
+    filter_sexcat(cat, ml=ml, device=device, stats=stats)
     detections = cat.data[cat.data['GOODCUT'] == 1]
     if len(detections) > MAX_DETS:
         raise TooManyDetections(
@@ -201,7 +204,7 @@ def _bulk_to_host(tensors):
     return out
 
 
-def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
+def run_night(work, batch=4, ml=True, db=False, cfg=None, loader=None,
               pipe=None, device=None, stats=None):
     """Process "sci_path ref_path" work lines through the batched pipeline
     (donight.py:208-365). Returns per-pair (sci_path, number of GOODCUT
@@ -214,9 +217,10 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
     prepare, ``pipeline_s``, ``commit_s``), ``upload_bytes``,
     ``ref_cache_hits``/``ref_cache_misses``, ``fallbacks`` and
     ``fallback_s`` (the pairs that took the per-pair chain and their host
-    seconds), and ``detections`` and ``seeing`` (the SEEING the kernel
-    basis used) per committed frame."""
-    _not_ported(ml, db)
+    seconds), and ``detections``, ``seeing`` (the SEEING the kernel
+    basis used), ``scored`` (candidates braai scored) and ``ml_s`` (host
+    seconds of the ML step) per committed frame."""
+    _not_ported(db)
     device = resolve_device(device)
     work = [str(w).split() for w in work]
     own_loader = loader is None
@@ -232,8 +236,8 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
     for k in ('upload_bytes', 'ref_cache_hits', 'ref_cache_misses',
               'fallbacks'):
         st.setdefault(k, 0)
-    st.setdefault('detections', [])
-    st.setdefault('seeing', [])
+    for k in ('detections', 'seeing', 'scored', 'ml_s'):
+        st.setdefault(k, [])
     results = []
 
     def fallback(i):
@@ -270,12 +274,15 @@ def run_night(work, batch=4, ml=False, db=False, cfg=None, loader=None,
                     p['submask'][b].cpu().numpy().astype(np.uint32))
 
         sci_path = work[i][0]
+        fst = {}
         try:
             _, dets = _commit_frame(sci, ref, small, bi, frames_thunk, cfg,
-                                    ml=ml, db=db)
+                                    ml=ml, db=db, device=device, stats=fst)
             results.append((sci_path, len(dets)))
             st['detections'].append(len(dets))
             st['seeing'].append(float(sci.header['SEEING']))
+            st['scored'].append(fst.get('scored', 0))
+            st['ml_s'].append(fst.get('ml_s', 0.0))
         except TooManyDetections as e:
             print(f'quality guard: {e}', flush=True)
             results.append((sci_path, e))

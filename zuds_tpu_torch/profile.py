@@ -118,13 +118,13 @@ def trace_night(d, cfg, pipe, npairs):
         d, npairs, cfg.height, cfg.width,
         header_json=Path(__file__).resolve().parent.parent / 'tests'
         / 'data' / 'ztf_real_header.json')
-    run_night(work[:2], batch=2, cfg=cfg, pipe=pipe)
+    run_night(work[:2], batch=2, ml=False, cfg=cfg, pipe=pipe)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = run_night(work, batch=2, cfg=cfg, pipe=pipe)
+        res = run_night(work, batch=2, ml=False, cfg=cfg, pipe=pipe)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / npairs
     bad = [r for _, r in res if isinstance(r, Exception)]
@@ -183,14 +183,14 @@ def trace_sub(d, cfg, rot_deg):
     for name in ('warm', 'traced'):
         shutil.copytree(src, Path(d) / name)
         lines[name] = work[0].replace(str(src), str(Path(d) / name))
-    do_one(lines['warm'])
+    do_one(lines['warm'], ml=False)
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_stats()
     stats = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        do_one(lines['traced'], stats=stats)
+        do_one(lines['traced'], ml=False, stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     print('host seconds: ' + ', '.join(f'{k[:-2]} {v:.3f}'

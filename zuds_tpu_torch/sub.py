@@ -11,8 +11,9 @@ reported and the next one runs; the exit code is 1 if any failed.
 
 This is the path of a pair the batched night run cannot take (a rotated
 or badly dithered reference): ``night.run_night`` falls back to
-:func:`do_one`. Not ported yet: ``ml=True`` (braai, K19) and the database
-commit, which raise or are skipped as in ``night.py``.
+:func:`do_one`. At ``ml=True`` (the default) the filter scores its
+survivors with braai on the card. Not ported yet: the database commit and
+the thumbnails (ROADMAP queue 1, item 5), which are skipped.
 """
 from __future__ import annotations
 
@@ -31,22 +32,21 @@ PHASES = ('load', 'subtract', 'catalog', 'filter')
 _phase = torch.profiler.record_function
 
 
-def do_one(line, sub_class=None, ml=False, device=None, stats=None):
-    """The chain for one science/reference pair (dosub.py:18-74 at
-    ``ml=False``, no database): load, subtract, catalog, filter, the
-    ``MAX_DETS`` guard. Returns (sub, GOODCUT rows), the rows
-    ``Detection.from_catalog(cat, filter=True)`` would keep. ``device``:
-    the card unless ``'cpu'``. ``stats`` (dict, optional) gains the host
-    seconds of ``load_s``, of ``from_images``' steps, and of ``catalog_s``
-    and ``filter_s`` of the subtraction."""
+def do_one(line, sub_class=None, ml=True, device=None, stats=None):
+    """The chain for one science/reference pair (dosub.py:18-74, no
+    database): load, subtract, catalog, filter (at ``ml=True`` with the
+    braai score), the ``MAX_DETS`` guard. Returns (sub, GOODCUT rows), the
+    rows ``Detection.from_catalog(cat, filter=True)`` would keep.
+    ``device``: the card unless ``'cpu'``. ``stats`` (dict, optional)
+    gains the host seconds of ``load_s``, of ``from_images``' steps, of
+    ``catalog_s`` and ``filter_s`` of the subtraction, and the filter's
+    ``ml_s`` and ``scored``."""
     from .coadd import ReferenceImage
     from .filterobjects import filter_sexcat
     from .image import ScienceImage
     from .inputs import resolve_device
-    from .night import _not_ported
     from .subtraction import SingleEpochSubtraction
 
-    _not_ported(ml, False)
     device = resolve_device(device)
     sub_class = sub_class or SingleEpochSubtraction
     parts = str(line).split()
@@ -73,7 +73,7 @@ def do_one(line, sub_class=None, ml=False, device=None, stats=None):
         cat = sub.catalog
     t1 = time.time()
     with _phase('filter'):
-        filter_sexcat(cat, ml=ml)
+        filter_sexcat(cat, ml=ml, device=device, stats=st)
     detections = cat.data[cat.data['GOODCUT'] == 1]
     st['catalog_s'] = st.get('catalog_s', 0.0) + t1 - t0
     st['filter_s'] = st.get('filter_s', 0.0) + time.time() - t1
