@@ -26,8 +26,6 @@ from .ops.cutouts import (NEGPIX_BOX, clamped_corners, frame_median_exact,
 __all__ = ['filter_sexcat', 'make_triplet_for_braai', 'make_triplets_batch',
            'load_model_helper']
 
-CUTSIZE = 11  # negpix veto box, px
-
 # (weights path, its mtime and size, device) -> (model, params)
 _MODELS = {}
 

@@ -19,9 +19,10 @@
 // channel tiles. NaN passes through ReLU and the pool as in the plain
 // version (torch.relu and max_pool2d propagate it).
 //
-// Bound: operations. 143.6 MFLOP per triplet over the four layers (6.43,
-// 64.2, 26.9 and 46.1 M), against 1.7 MB of activations moved: at 67
-// TFLOP/s fp32 a batch of 256 triplets needs 0.55 ms.
+// Bound: operations. 137.8 MFLOP per triplet over the four layers (6.43,
+// 62.0, 26.9 and 42.5 M: a pooled layer computes only the 58x58 and 24x24
+// outputs its pool reads), against 1.7 MB of activations moved: at 67
+// TFLOP/s fp32 a batch of 256 triplets needs 0.53 ms.
 #include "common.cuh"
 
 namespace {
@@ -31,10 +32,6 @@ constexpr int kCT = 16;                    // output channels per block
 
 __device__ __forceinline__ float relu_nan(float v) {
   return (v > 0.f || isnan(v)) ? v : 0.f;
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (isnan(b) || b > a) ? b : a;
 }
 
 template <int CIN, int COUT, bool POOL>
@@ -127,7 +124,7 @@ __global__ void __launch_bounds__(kThreads)
     const float b = bias[co0 + j];
     float v = relu_nan(acc[0][j] + b);
 #pragma unroll
-    for (int q = 1; q < NP; ++q) v = max_nan(v, relu_nan(acc[q][j] + b));
+    for (int q = 1; q < NP; ++q) v = nan_max(v, relu_nan(acc[q][j] + b));
     res[j] = v;
   }
   float4* o = reinterpret_cast<float4*>(

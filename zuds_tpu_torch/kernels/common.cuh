@@ -8,3 +8,9 @@ __device__ __forceinline__ int wrap_index(int i, int n) {
   int r = i % n;
   return r < 0 ? r + n : r;
 }
+
+// NaN-propagating max, as torch.max_pool2d and XLA's max: once NaN, stays
+// NaN.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(b) || b > a) ? b : a;
+}

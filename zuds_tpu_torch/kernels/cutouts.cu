@@ -31,8 +31,8 @@ namespace {
 constexpr int kCut = 63;                  // CUTOUT_SIZE
 constexpr int kCutThreads = 256;
 constexpr int kPerThread = (kCut * kCut + kCutThreads - 1) / kCutThreads;
-constexpr int kBig = 13;                  // CUTSIZE + 2
-constexpr int kInner = 11;                // CUTSIZE
+constexpr int kBig = 13;                  // ops/cutouts.NEGPIX_BOX
+constexpr int kInner = 11;                // ops/cutouts.NEGPIX_INNER
 constexpr int kVetoWarps = 4;
 
 __global__ void __launch_bounds__(kCutThreads)
@@ -77,10 +77,6 @@ __global__ void __launch_bounds__(kCutThreads)
     const int i = t + k * kCutThreads;
     if (i < kCut * kCut) o[(long long)i * 3] = __fdiv_rn(v[k], norm);
   }
-}
-
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(b) || b > a) ? b : a;
 }
 
 __global__ void __launch_bounds__(kVetoWarps * 32)

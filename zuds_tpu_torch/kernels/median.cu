@@ -60,12 +60,9 @@ __device__ __forceinline__ bool value_at(const View& v, int r, int c,
   return true;
 }
 
-// NaN-propagating min/max: once NaN, stays NaN.
+// NaN-propagating min (nan_max is in common.cuh): once NaN, stays NaN.
 __device__ __forceinline__ float nan_min(float a, float b) {
   return (isnan(b) || b < a) ? b : a;
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(b) || b > a) ? b : a;
 }
 
 // Reduce over the block; every thread gets the result. `ident` is the

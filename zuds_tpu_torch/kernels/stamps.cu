@@ -40,10 +40,6 @@ constexpr int kIH = kTH + 2 * (kR + 1);
 constexpr int kFW = kTW + 2 * kR;        // filt tile with its 4-px halo
 constexpr int kFH = kTH + 2 * kR;
 
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(b) || b > a) ? b : a;
-}
-
 __global__ void __launch_bounds__(kThreads)
     stamp_cand_kernel(const float* __restrict__ img, int H, int W,
                       const float* __restrict__ med,

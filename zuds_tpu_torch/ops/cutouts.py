@@ -16,7 +16,7 @@ __all__ = ['clamped_corners', 'frame_median_exact', 'triplet_cut',
            'triplet_cut_plain', 'negpix_veto', 'negpix_veto_plain',
            'NEGPIX_BOX', 'NEGPIX_INNER']
 
-NEGPIX_INNER = 11                  # the veto's box (filterobjects.CUTSIZE)
+NEGPIX_INNER = 11                  # the veto's box (the reference's CUTSIZE)
 NEGPIX_BOX = NEGPIX_INNER + 2      # with the 3x3 maximum's reach
 
 
