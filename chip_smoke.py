@@ -98,6 +98,14 @@ SOURCES = {
                       'zuds_tpu/models/braai.py:27'),
     'negpix_veto': ('cuda', 'zuds_tpu_torch/kernels/cutouts.cu',
                     'zuds_tpu/filterobjects.py:37'),
+    'zogy_spectral': ('cuda', 'zuds_tpu_torch/kernels/zogy.cu',
+                      'zuds_tpu/ops/zogy.py:56'),
+    'zogy_normalize': ('cuda', 'zuds_tpu_torch/kernels/zogy.cu',
+                       'zuds_tpu/ops/zogy.py:74'),
+    'psf_stamps': ('cuda', 'zuds_tpu_torch/kernels/zogy.cu',
+                   'zuds_tpu/ops/zogy.py:89'),
+    'psf_clip': ('cuda', 'zuds_tpu_torch/kernels/zogy.cu',
+                 'zuds_tpu/ops/zogy.py:116'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
@@ -110,6 +118,12 @@ PAIR_ONLY = ('warp_gather', 'apply_model_variance', 'subtract_epilogue')
 # in the slice or the batched night's frames
 ML_ONLY = ('triplet_cut', 'braai_conv3x3')
 SCORING_ONLY = ML_ONLY + ('negpix_veto',)
+# the kernels only the ZOGY subtraction launches (from_images at
+# method='zogy'), and how often per pair: two PSFs, one spectral pass
+ZOGY_LAUNCHES = {'zogy_spectral': 1, 'zogy_normalize': 1, 'psf_stamps': 2,
+                 'psf_clip': 2}
+ZOGY_ONLY = tuple(ZOGY_LAUNCHES)
+ZOGY_STAMPS = 64        # _select_stamps(sci, smax=64)
 # the scoring phase: N candidates and triplets for the kernels' records;
 # the night's filter (FILTERID 2) cuts at RB_CUT[2]
 SCORE_N = 256
@@ -134,6 +148,7 @@ COADD_NOISE = 5.0
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
+FP64_FLOP_S = 34e12     # outside the tensor cores
 
 
 def card():
@@ -585,7 +600,7 @@ def night_phase(wrappers, name, record):
               f'GB/s ({host.numel() * 4 / 1e6:.1f} MB pinned -> card in '
               f'{link_ms:.3f} ms, CUDA events) on {name}', flush=True)
         for k, n in launches.items():
-            check(n > 0 or k in COADD_ONLY + ML_ONLY,
+            check(n > 0 or k in COADD_ONLY + ML_ONLY + ZOGY_ONLY,
                   f'kernel {k} was not launched by the night')
         for i, (tx, ty) in enumerate(truths):
             cat = night_catalog(d, i)
@@ -805,11 +820,25 @@ def braai_record(triplets, record, runs, model, name):
     check(serr <= 1e-6, f'braai scores: card and plain differ by {serr:.3g}')
     fwd = cuda_ms(lambda: braai.rb_scores(model, triplets))
     bnd = bound(tot['bytes'], tot['flop'])
+    # the dense head: the flattened features through Dense_0 (ReLU) and
+    # Dense_1, two torch.matmul in fp32
+    feat = x.reshape(x.shape[0], -1)
+    k0, b0 = model.Dense_0['kernel'], model.Dense_0['bias']
+    k1, b1 = model.Dense_1['kernel'], model.Dense_1['bias']
+    head_ms = cuda_ms(lambda: torch.relu(feat @ k0 + b0) @ k1 + b1)
+    head_flop = 2 * feat.shape[0] * (k0.numel() + k1.numel())
+    head_bytes = 4 * (feat.numel() + k0.numel() + k1.numel()
+                      + b0.numel() + b1.numel() + feat.shape[0])
+    whole = bound(tot['bytes'] + head_bytes, tot['flop'] + head_flop)
     print(f'braai_conv3x3: four layers per batch of {SCORE_N} triplets '
           f'{tot["ms"]:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, '
           f'{tot["flop"]:.4g} FLOP, share {bnd[0] / tot["ms"]:.1%}), plain '
           f'{tot["plain"]:.3f} ms, cuDNN {tot["lib"]:.3f} ms; rb_scores (4 '
-          f'H13 and the dense head) {fwd:.4f} ms; scores within {serr:.3g} '
+          f'H13 and the dense head) {fwd:.4f} ms (bound {whole[0]:.4f} ms by '
+          f'{whole[1]}, {head_flop:.4g} FLOP in the head, share '
+          f'{whole[0] / fwd:.1%}; library: cuDNN and the head\'s two '
+          f'torch.matmul {tot["lib"] + head_ms:.3f} ms, the head alone '
+          f'{head_ms:.4f} ms); scores within {serr:.3g} '
           f'of the plain layers (scores {float(scores.min()):.3f}-'
           f'{float(scores.max()):.3f})', flush=True)
     record('braai_conv3x3', err, tot['ms'], tot['plain'], bnd,
@@ -1098,10 +1127,11 @@ def pair_phase(wrappers, name, record, fused_pair_s):
 
         _, _, _, warm_s, _, _ = run('warm', 1)
         print(f'pair: warm-up do_one {warm_s:.2f} s', flush=True)
-        results = {}
+        results, pair_s = {}, {}
         for tag, i in (('gather', 1), ('planned', 0)):
             product, rows, st, secs, launches, line = run(tag, i)
             results[tag] = (product, launches, line, st['filter_s'])
+            pair_s[tag] = (secs, st)
             used = {k: n for k, n in launches.items() if n}
             print(f'pair ({tag} warp): files -> filtered catalog '
                   f'{secs * 1e3:.0f} ms per pair against '
@@ -1390,6 +1420,382 @@ def pair_phase(wrappers, name, record, fused_pair_s):
               f'reference max abs diff {err:.3g}; {far:.2e} of the unmasked '
               f'diff pixels past 0.05 counts (the fit moves at the ulp)',
               flush=True)
+    return pair_s
+
+
+def star_free(sci, ok, margin=64, box=25):
+    """``ok`` less a ``box`` px square about every source of ``sci``'s
+    catalog and a ``margin`` px border: the star-free sky of a frame."""
+    import torch
+    import torch.nn.functional as F
+    data = sci.catalog.data
+    H, W = ok.shape
+    mark = torch.zeros((1, 1, H, W))
+    xi = torch.as_tensor(data['X_IMAGE'] - 1.0).round().long().clamp(0, W - 1)
+    yi = torch.as_tensor(data['Y_IMAGE'] - 1.0).round().long().clamp(0, H - 1)
+    mark[0, 0, yi, xi] = 1.0
+    near = F.max_pool2d(mark, box, 1, box // 2)[0, 0].numpy() > 0
+    free = ok & ~near
+    free[:margin], free[-margin:] = False, False
+    free[:, :margin], free[:, -margin:] = False, False
+    return free
+
+
+def zogy_phase(wrappers, name, record, hotpants_s):
+    """SingleEpochSubtraction.from_images(method='zogy') on the flagship
+    pair whose reference is rotated by PAIR_ROT degrees (the gather warp
+    H10) and on the unrotated pair (the planned warp H1): a warm-up, then
+    load, from_images, sub.catalog and filter_sexcat(ml=False), counted and
+    timed on fresh copies, beside the per-pair phase's hotpants pair
+    (``hotpants_s``: tag -> (seconds, stats)); the rotated pair again at
+    ml=True; the checks of the product; H15-H18 against their plain
+    versions on the rotated pair's own tensors, with their records; the
+    card's f32 against a float64 plain run on the card; a 256^2 pair on
+    the card and on the CPU."""
+    import shutil
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import inputs, night
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.constants import BAD_SUM, BKG_VAL, SUB_NODATA_SENTINEL
+    from zuds_tpu_torch.filterobjects import filter_sexcat
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    from zuds_tpu_torch.subtraction import (SingleEpochSubtraction,
+                                            _select_stamps)
+    H, W = night.FLAGSHIP.height, night.FLAGSHIP.width
+    header_json = (Path(__file__).resolve().parent / 'tests' / 'data'
+                   / 'ztf_real_header.json')
+    dev = torch.device('cuda')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_zogy_') as d:
+        src = os.path.join(d, 'src')
+        os.mkdir(src)
+        t0 = time.perf_counter()
+        work, truths = inputs.write_night_pairs(
+            src, 2, H, W, ref_rot_deg=(0.0, PAIR_ROT),
+            header_json=header_json)
+        print(f'zogy: an unrotated pair and one rotated by {PAIR_ROT} deg '
+              f'written in {time.perf_counter() - t0:.1f} s', flush=True)
+
+        def run(tag, i, ml=False):
+            """load, from_images(method='zogy'), catalog and filter on a
+            fresh copy of pair ``i``, counted and timed."""
+            dd = os.path.join(d, tag)
+            shutil.copytree(src, dd)
+            sci_path, ref_path = work[i].replace(src, dd).split()
+            for w in wrappers.values():
+                w.launches = 0
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sci = ScienceImage.from_file(sci_path)
+            ref = ReferenceImage.from_file(ref_path)
+            sci.data, ref.data
+            st['load_s'] = time.perf_counter() - t0
+            sub = SingleEpochSubtraction.from_images(sci, ref, method='zogy',
+                                                     stats=st)
+            t1 = time.perf_counter()
+            # the rms as assembled; the catalog replaces it with the sub's
+            # own background mesh rms
+            rms0 = sub.rms_image.data
+            cat = sub.catalog
+            t2 = time.perf_counter()
+            filter_sexcat(cat, ml=ml, stats=st)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            st['catalog_s'], st['filter_s'] = t2 - t1, t3 - t2
+            st['assembled_rms'] = float(np.median(
+                rms0[sub.mask_image.data == 0]))
+            return (sub, sci, ref, cat, st, t3 - t0,
+                    {k: w.launches for k, w in wrappers.items()})
+
+        warm_s = run('warm', 1)[5]
+        print(f'zogy: warm-up pair {warm_s:.2f} s', flush=True)
+        res = {}
+        for tag, i in (('gather', 1), ('planned', 0)):
+            sub, sci, ref, cat, st, secs, launches = run(tag, i)
+            res[tag] = (sub, sci, ref, launches)
+            hp_s, hp_st = hotpants_s[tag]
+            print(f'zogy pair ({tag} warp): files -> filtered catalog '
+                  f'{secs * 1e3:.0f} ms per pair against {hp_s * 1e3:.0f} ms '
+                  f'for the hotpants do_one of the same scene in this call, '
+                  f'host clock, on {name}', flush=True)
+            keys = ('load_s', 'align_s', 'products_s', 'psf_s', 'zogy_s',
+                    'assemble_s', 'catalog_s', 'filter_s')
+            print(f'zogy pair ({tag} warp): host seconds: ' + ', '.join(
+                f'{k[:-2]} {st[k]:.3f}' for k in keys) + '; hotpants: '
+                + ', '.join(f'{k[:-2]} {hp_st[k]:.3f}' for k in (
+                    'load_s', 'align_s', 'products_s', 'fit_s',
+                    'subtract_s', 'assemble_s', 'catalog_s', 'filter_s')),
+                flush=True)
+            print(f'zogy pair ({tag} warp): kernel launches '
+                  f'{ {k: n for k, n in launches.items() if n} }',
+                  flush=True)
+            gather = tag == 'gather'
+            check(all(launches[k] == n for k, n in ZOGY_LAUNCHES.items())
+                  and launches['warp_gather'] == (3 if gather else 0)
+                  and launches['warp'] == (0 if gather else 3)
+                  and launches['apply_model'] == 0
+                  and launches['subtract_epilogue'] == 0,
+                  f'zogy pair ({tag}): launches {launches}')
+            check(sub.header['SUBMETH'] == 'zogy'
+                  and sub.scorr_image.basename
+                  == sub.basename.replace('.fits', '.scorr.fits'),
+                  f'zogy pair ({tag}): SUBMETH or scorr basename')
+            mask, diff = sub.mask_image.data, sub.data
+            score = sub.scorr_image.data
+            tx, ty = truths[i]
+            peak = float(score[int(ty) - 2:int(ty) + 3,
+                               int(tx) - 2:int(tx) + 3].max())
+            check(peak > 10.0, f'zogy pair ({tag}): score peak {peak:.2f} '
+                  f'at the transient ({tx:.1f}, {ty:.1f})')
+            free = star_free(sci, mask == 0)
+            sky = score[free]
+            rsig = float(1.4826 * np.median(np.abs(sky - np.median(sky))))
+            check(np.isfinite(score[mask == 0]).all()
+                  and 0.85 < rsig < 1.15,
+                  f'zogy pair ({tag}): robust sigma of s_corr on star-free '
+                  f'sky {rsig:.4f}')
+            aligned = ref.aligned_to(sci)
+            nodata = aligned.coverage == 0
+            check(np.array_equal((mask >> 16 & 1) == 1, nodata)
+                  and 0 < int(nodata.sum()) < 0.05 * mask.size,
+                  f'zogy pair ({tag}): bit 16 is not exactly where the '
+                  'aligned reference has no coverage')
+            check(np.array_equal((mask >> 17 & 1) == 1,
+                                 diff == np.float32(SUB_NODATA_SENTINEL)),
+                  f'zogy pair ({tag}): bit 17 is not exactly on the sentinel')
+            dsky = diff[free]
+            dsig = float(1.4826 * np.median(np.abs(dsky - np.median(dsky))))
+            rows = cat.data
+            dist = np.hypot(rows['X_IMAGE'] - 1 - tx, rows['Y_IMAGE'] - 1 - ty)
+            near = len(dist) and dist.min() < 2.0
+            good = int((rows['GOODCUT'] == 1).sum())
+            print(f'zogy pair ({tag} warp): transient at ({tx:.0f}, {ty:.0f}) '
+                  f'a score peak of {peak:.1f} sigma; s_corr robust sigma '
+                  f'{rsig:.4f} on {int(free.sum())} star-free sky pixels; d '
+                  f'robust sigma {dsig:.4f} counts against a median rms of '
+                  f'{st["assembled_rms"]:.3f} as assembled and '
+                  f'{float(np.median(sub.rms_image.data[free])):.3f} after '
+                  f'the catalog (the reference\'s whitened d); bit 16 on '
+                  f'{int(nodata.sum())} pixels, bit 17 on the sentinel; '
+                  f'catalog {len(rows)} rows, {good} GOODCUT at ml=False, '
+                  f'transient {"a row" if near else "not a row"} of it',
+                  flush=True)
+
+        # ---- the rotated pair at ml=True -----------------------------------
+        with scoring_model(d) as sm:
+            _, _, _, cat, st, secs, ml_launches = run('scored', 1, ml=True)
+        nsc = st.get('scored', 0)
+        check(ml_launches['triplet_cut'] == (1 if nsc else 0)
+              and ml_launches['braai_conv3x3'] == (4 if nsc else 0)
+              and ml_launches['negpix_veto'] == 1
+              and all(ml_launches[k] == n for k, n in ZOGY_LAUNCHES.items()),
+              f'zogy pair (ml=True): launches {ml_launches}, scored {nsc}')
+        err = check_scores(sm.calls, 'zogy pair (ml=True)') if nsc else 0.0
+        print(f'zogy pair (ml=True, gather warp): {secs * 1e3:.0f} ms per '
+              f'pair, filter {st["filter_s"]:.3f} s (ML step '
+              f'{st.get("ml_s", 0.0):.3f} s, {nsc} candidates scored, '
+              f'{int((cat.data["GOODCUT"] == 1).sum())} kept), host clock, '
+              f'on {name}; H14 {ml_launches["negpix_veto"]}, H12 '
+              f'{ml_launches["triplet_cut"]}, H13 '
+              f'{ml_launches["braai_conv3x3"]} launches; card scores within '
+              f'{err:.3g} of the plain layers', flush=True)
+
+        # ---- H15-H18 on the rotated pair's own tensors ---------------------
+        sub, sci, ref, launches = res['gather']
+        aligned = ref.aligned_to(sci)
+        scimbkg = np.ascontiguousarray(
+            sci.background_subtracted_image.data).astype(np.float32) + BKG_VAL
+        new = torch.as_tensor(scimbkg - BKG_VAL, device=dev)
+        refdata = torch.as_tensor(np.ascontiguousarray(aligned.data, 'f4'),
+                                  device=dev)
+        sci_rms = np.ascontiguousarray(sci.rms_image.data, 'f4')
+        ref_rms = np.ascontiguousarray(ref.rms_image.aligned_to(sci).data,
+                                       'f4')
+        bad = (sub.mask_image.data & BAD_SUM) > 0
+        sn = float(np.median(sci_rms[~bad]))
+        sr = max(float(np.median(ref_rms[~bad])), 1e-3)
+        xs, ys, valid = (torch.as_tensor(a, device=dev) for a in
+                         _select_stamps(sci, smax=ZOGY_STAMPS))
+        nvalid = int(valid.sum())
+        errs = {'psf_stamps': 0.0, 'psf_clip': 0.0}
+        psfs = []
+        for tag, img in (('science', new), ('aligned reference', refdata)):
+            ks, kg = launch.psf_stamps(img, xs, ys, valid, 25)
+            ps, pg = zogy.psf_stamps_plain(img, xs, ys, valid)
+            check(torch.equal(kg, pg), f'psf_stamps good0 differs on the '
+                  f'{tag}')
+            errs['psf_stamps'] = max(errs['psf_stamps'], close(
+                f'psf_stamps {tag}', ks[pg], ps[pg], 0.0, 1e-7))
+            kp, kgood = launch.psf_clip(ks, kg, 2)
+            pp, pgood = zogy.psf_clip_plain(ks, kg, 2)
+            check(torch.equal(kgood, pgood), f'psf_clip good differs on the '
+                  f'{tag}')
+            errs['psf_clip'] = max(errs['psf_clip'], close(
+                f'psf_clip {tag}', kp, pp, 0.0, 1e-7))
+            whole = zogy.estimate_psf_from_stars(img, xs, ys, valid)
+            close(f'estimate_psf_from_stars {tag}', whole,
+                  zogy.estimate_psf_plain(img, xs, ys, valid), 0.0, 1e-7)
+            psfs.append(whole)
+            print(f'zogy PSF of the {tag}: {nvalid} stamps, '
+                  f'{int(pg.sum())} good0, {int(kgood.sum())} kept by the '
+                  f'clip (equal on the card and in the plain version); '
+                  f'peak {float(whole.max()):.5f}', flush=True)
+        # H15 alone on the pair's spectra: the modes where it and the plain
+        # version differ, and cuFFT's inverse of one input twice
+        sc = zogy.zogy_scalars(sn, sr)
+        spectra = [t.contiguous() for t in (
+            torch.fft.rfft2(new), torch.fft.rfft2(refdata),
+            zogy._psf_to_otf(psfs[0], (H, W)),
+            zogy._psf_to_otf(psfs[1], (H, W)))]
+        kk = launch.zogy_spectral(*spectra, **sc)
+        pp = zogy.spectral_pass_plain(*spectra, **sc)
+        ndiff = [int((a != b).sum()) for a, b in zip(kk, pp)]
+        err15 = max(float((a - b).abs().max()) for a, b in zip(kk, pp))
+        print(f'zogy_spectral on the pair\'s spectra: modes differing from '
+              f'the plain version in D_hat, P_d_hat, S_hat {ndiff} of '
+              f'{kk[0].numel()} (max abs {err15:.3g})', flush=True)
+        k = zogy.zogy_subtract(new, refdata, *psfs, sn, sr)
+        p = zogy.zogy_subtract_plain(new, refdata, *psfs, sn, sr)
+        dsig = float(p['d'].std())
+        err_d = close('zogy d', k['d'], p['d'], 0.0, 1e-4 * dsig)
+        pd_peak = float(p['psf_d'].abs().max())
+        err_pd = close('zogy psf_d', k['psf_d'], p['psf_d'], 0.0, 1e-9)
+        # the two sums of p_d^2 add in other orders: an ulp of the norm is
+        # an ulp of the score's peak (~1.2e-4 at 1000 sigma)
+        err_s = close('zogy s_corr', k['s_corr'], p['s_corr'], 2.4e-7, 1e-4)
+        kd, ks_ = k['d'].cpu().numpy(), k['s_corr'].cpu().numpy()
+        check(np.array_equal(kd[~bad], sub.data[~bad])
+              and np.array_equal(ks_, sub.scorr_image.data),
+              'zogy: the product is not the kernels\' d and s_corr')
+        f64 = zogy.zogy_subtract_plain(new.double(), refdata.double(),
+                                       *(q.double() for q in psfs), sn, sr)
+        e64_d = float((k['d'].double() - f64['d']).abs().max())
+        e64_s = float((k['s_corr'].double() - f64['s_corr']).abs().max())
+        check(e64_d <= 0.1 and e64_s <= 0.01,
+              f'zogy: the card\'s f32 d and s_corr are {e64_d:.3g} and '
+              f'{e64_s:.3g} from a float64 run')
+        print(f'zogy {H}x{W}: H15/H16 through d (std {dsig:.3f}), psf_d '
+              f'(peak {pd_peak:.4g}), s_corr against the plain passes: '
+              f'{err_d:.3g}, {err_pd:.3g}, {err_s:.3g}; f32 on the card '
+              f'against float64 on the card: d {e64_d:.3g}, s_corr '
+              f'{e64_s:.3g}', flush=True)
+
+        # ---- times ---------------------------------------------------------
+        n = spectra[0].numel()
+        same = not any(ndiff)
+        ms = cuda_ms(lambda: launch.zogy_spectral(*spectra, **sc))
+        plain = cuda_ms(lambda: zogy.spectral_pass_plain(*spectra, **sc),
+                        1, 3)
+        # A reads the two OTFs (16 B per mode); B reads the four spectra
+        # (32 B) and writes three (24 B); ~60 operations per mode
+        bnd = bound(72 * n, 60 * n)
+        print(f'zogy_spectral: {n} modes: {ms:.4f} ms (bound {bnd[0]:.4f} ms, '
+              f'share {bnd[0] / ms:.1%}), plain {plain:.3f} ms; '
+              f'{"bit-equal to" if same else "differs from"} the plain '
+              f'version (max abs {err15:.3g}); no PyTorch call computes it',
+              flush=True)
+        record('zogy_spectral', err_d, ms, plain, bnd, runs=launches,
+               per='zogy pair')
+        p_d = torch.fft.irfft2(kk[1], s=(H, W))
+        s_ = torch.fft.irfft2(kk[2], s=(H, W))
+        f_d = sc['f_d']
+        err16 = close('zogy_normalize', launch.zogy_normalize(p_d, s_, f_d),
+                      zogy.score_normalize_plain(p_d, s_, f_d), 1e-6, 0.0)
+        ms = cuda_ms(lambda: launch.zogy_normalize(p_d, s_, f_d))
+        plain = cuda_ms(lambda: zogy.score_normalize_plain(p_d, s_, f_d),
+                        1, 3)
+        norm_ms = cuda_ms(lambda: torch.linalg.vector_norm(p_d))
+        # reads p_d and s, writes s_corr (12 B/px); a square-add and a
+        # divide per pixel
+        bnd = bound(12 * H * W, 3 * H * W)
+        print(f'zogy_normalize: {H}x{W}: {ms:.4f} ms (bound {bnd[0]:.4f} ms, '
+              f'share {bnd[0] / ms:.1%}), plain {plain:.3f} ms; for scale '
+              f'torch.linalg.vector_norm(p_d) alone {norm_ms:.4f} ms; max '
+              f'abs err {err16:.3g}', flush=True)
+        record('zogy_normalize', err_s, ms, plain, bnd, runs=launches,
+               per='zogy pair')
+        ms = graph_ms(lambda: launch.psf_stamps(new, xs, ys, valid, 25))
+        call_ms = cuda_ms(lambda: launch.psf_stamps(new, xs, ys, valid, 25))
+        plain = cuda_ms(lambda: zogy.psf_stamps_plain(new, xs, ys, valid),
+                        1, 3)
+        # per stamp: reads its 25x25 window and writes it (5 KB); four
+        # 25-point DFT passes in double (one on a real plane: 4 FLOP per
+        # term, three complex: 8) per pixel
+        S = ZOGY_STAMPS
+        bnd = bound(S * (2 * 625 * 4 + 9), S * 625 * 25 * (4 + 3 * 8),
+                    FP64_FLOP_S)
+        print(f'psf_stamps: {S} stamps of 25x25 on {H}x{W}: {ms:.4f} ms on '
+              f'the card (graph replay; bound {bnd[0]:.5f} ms by {bnd[1]}, '
+              f'share {bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call '
+              f'with its host cost, plain {plain:.3f} ms', flush=True)
+        record('psf_stamps', errs['psf_stamps'], ms, plain, bnd,
+               runs=launches, per='zogy pair')
+        ks, kg = launch.psf_stamps(new, xs, ys, valid, 25)
+        ms = graph_ms(lambda: launch.psf_clip(ks, kg, 2))
+        call_ms = cuda_ms(lambda: launch.psf_clip(ks, kg, 2))
+        plain = cuda_ms(lambda: zogy.psf_clip_plain(ks, kg, 2), 1, 3)
+        # reads the stamps and flags once, writes the PSF and the flags;
+        # three passes of ~6 operations per stamp pixel
+        bnd = bound(S * 625 * 4 + 2 * S + 625 * 4, 3 * 6 * S * 625)
+        print(f'psf_clip: {S} stamps of 25x25, 2 clip passes: {ms:.4f} ms on '
+              f'the card (graph replay; bound {bnd[0]:.5f} ms, share '
+              f'{bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call with '
+              f'its host cost, plain {plain:.3f} ms', flush=True)
+        record('psf_clip', errs['psf_clip'], ms, plain, bnd, runs=launches,
+               per='zogy pair')
+        padded = []
+        for q in psfs:
+            z = torch.zeros((H, W), device=dev)
+            z[:25, :25] = q
+            padded.append(torch.roll(z, (-12, -12), dims=(0, 1)))
+
+        def transforms():
+            torch.fft.rfft2(new), torch.fft.rfft2(refdata)
+            for z in padded:
+                torch.fft.rfft2(z)
+            for c in kk:
+                torch.fft.irfft2(c, s=(H, W))
+        fft_ms = cuda_ms(transforms)
+        total_ms = cuda_ms(lambda: zogy.zogy_subtract(new, refdata, *psfs,
+                                                      sn, sr))
+        print(f'zogy: cuFFT, the seven transforms at {H}x{W} (fp32) '
+              f'{fft_ms:.3f} ms; zogy_subtract whole (transforms, glue, H15, '
+              f'H16) {total_ms:.3f} ms on {name}', flush=True)
+
+    # ---- a small rotated pair on the card and on the CPU -------------------
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_zogy_') as d:
+        outs = {}
+        for where in ('cuda', 'cpu'):
+            dd = os.path.join(d, where)
+            os.mkdir(dd)
+            work, _ = inputs.write_night_pairs(
+                dd, 1, 256, 256, ref_rot_deg=(PAIR_ROT,), nstars=30,
+                header_json=header_json)
+            sci = ScienceImage.from_file(work[0].split()[0])
+            ref = ReferenceImage.from_file(work[0].split()[1])
+            outs[where] = SingleEpochSubtraction.from_images(
+                sci, ref, method='zogy', device=where)
+        a, b = outs['cuda'], outs['cpu']
+        check(np.array_equal(a.mask_image.data, b.mask_image.data)
+              and all(a.header[k_] == b.header[k_]
+                      for k_ in ('SUBKO', 'SUBNRX', 'SUBMETH', 'SEEING')),
+              'small zogy pair: mask or header cards differ between card and '
+              'CPU')
+        ok = a.mask_image.data == 0
+        errs = []
+        for x, y in ((a.data, b.data), (a.scorr_image.data,
+                                        b.scorr_image.data)):
+            e = np.abs(x - y)[ok]
+            errs.append((float(np.percentile(e, 99)), float(e.max())))
+            check(errs[-1][0] < 5e-3 and errs[-1][1] < 0.1,
+                  f'small zogy pair: card and CPU differ by {errs[-1]}')
+        print(f'small zogy pair (256x256, reference rotated by {PAIR_ROT} '
+              f'deg): card and CPU agree on the submask and the header; diff '
+              f'99th percentile and max abs diff {errs[0]}, scorr {errs[1]}',
+              flush=True)
 
 
 def main():
@@ -1431,7 +1837,7 @@ def main():
     # night below), every other kernel here
     for k, n in launches.items():
         check(n > 0 or k == 'stamp_candidates'
-              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY,
+              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY,
               f'kernel {k} was not launched by the main path')
 
     submask = out['submask']
@@ -1466,7 +1872,7 @@ def main():
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
         check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
-              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY,
+              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
@@ -1537,7 +1943,10 @@ def main():
     coadd_phase(wrappers, name, record)
 
     # ---- the per-pair path: sub.do_one on rotated and unrotated pairs -----
-    pair_phase(wrappers, name, record, night_s / NIGHT_PAIRS)
+    pair_s = pair_phase(wrappers, name, record, night_s / NIGHT_PAIRS)
+
+    # ---- the ZOGY subtraction: from_images(method='zogy') on both pairs --
+    zogy_phase(wrappers, name, record, pair_s)
 
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     for mode in (False, True, 'watershed'):

@@ -88,3 +88,33 @@ def test_sources_and_symbols_of_the_scoring_kernels():
     assert len(build.SIGNATURES['zuds_triplet_cut']) == 9
     assert len(build.SIGNATURES['zuds_negpix_veto']) == 9
     assert len(build.SIGNATURES['zuds_braai_conv3x3']) == 11
+
+
+def test_sources_and_symbols_of_the_zogy_kernels(tmp_path, fake_nvcc,
+                                                  monkeypatch):
+    """H15-H18 share zogy.cu: it is compiled with the others, its launchers
+    are declared with the argument counts their wrappers pass, and a change
+    to it changes the build's digest."""
+    from pathlib import Path
+    here = Path(build.__file__).resolve().parent
+    assert 'zogy.cu' in build.SOURCES
+    text = (here / 'zogy.cu').read_text()
+    for kernel in ('spectral_max_kernel', 'spectral_kernel', 'sumsq_kernel',
+                   'scale_kernel', 'psf_stamps_kernel', 'psf_clip_kernel'):
+        assert kernel in text
+    assert len(build.SIGNATURES['zuds_zogy_spectral']) == 16
+    assert len(build.SIGNATURES['zuds_zogy_normalize']) == 10
+    assert len(build.SIGNATURES['zuds_psf_stamps']) == 11
+    assert len(build.SIGNATURES['zuds_psf_clip']) == 8
+    build._compile(tmp_path / 'lib' / 'libzuds_kernels.so')
+    assert any(line.split()[-1].endswith('zogy.cu')
+               for line in fake_nvcc.read_text().splitlines())
+    before = build._digest()
+    orig = build._HERE
+    copy = tmp_path / 'src'
+    copy.mkdir()
+    for name in build.SOURCES + ('common.cuh',):
+        (copy / name).write_bytes((orig / name).read_bytes())
+    (copy / 'zogy.cu').write_text(text + '// changed\n')
+    monkeypatch.setattr(build, '_HERE', copy)
+    assert build._digest() != before

@@ -4,7 +4,9 @@ H5/H6 at the flagship's capacities, H8 up to a flagship frame, the
 two-plane H1 on the coadd's 3200x3200 canvas, H9 from 1 to 64 epochs, the
 gather warp H10 on rotated mappings into sources of another shape, H3 at
 one term against the variance propagation, the epilogue H11, the triplet
-cutter H12, each braai layer H13 and the negative-pixel veto H14.
+cutter H12, each braai layer H13, the negative-pixel veto H14, and the
+ZOGY kernels: the spectral pass H15, the score normalisation H16, the PSF
+star stamps H17 and their clipped mean H18.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -26,7 +28,14 @@ atol 5e-3, mask and coverage equal); the variance launch of H3 rtol 1e-4,
 atol 1e-3 of the variance's scale; the epilogue bit-equal in both of its
 rounding modes. The triplets rtol 1e-6 (another order of the L2 sum); each
 braai layer rtol 1e-5, atol 1e-6 against ``F.conv2d`` with TF32 off, the
-scores 1e-6 absolute; the veto bit-equal.
+scores 1e-6 absolute; the veto bit-equal. H15 rtol 1e-6 (the plain
+version rounds every step as the kernel does; the double-formed FMA of
+its complex abs may round twice), NaN where the plain version has it; H16
+rtol 1e-6 (both sum the squares in double, in other orders); the PSF stamps and the clipped PSF 1e-7 absolute (H17's direct DFT
+and the plain version's cuFFT both transform in double and round once),
+``good0`` and ``good`` equal;
+``zogy_subtract`` on the card against the CPU as the CPU against the JAX
+package (``tests/test_torch_zogy.py``).
 """
 from pathlib import Path
 
@@ -950,6 +959,269 @@ def test_filter_ml_card_equals_cpu(dev, tmp_path, monkeypatch):
     assert np.array_equal(a['GOODCUT'], b['GOODCUT'])
     assert (a['RB'] != -99).all()
     np.testing.assert_allclose(a['RB'], b['RB'], rtol=0, atol=1e-6)
+
+
+# ---- ZOGY: H15-H18 ------------------------------------------------------------
+
+def _gauss(dev, sigma, size=25):
+    r = torch.arange(size, device=dev, dtype=torch.float32) - size // 2
+    g = torch.exp(-(r[:, None] ** 2 + r[None, :] ** 2) / (2 * sigma ** 2))
+    return g / g.sum()
+
+
+def _spectra(dev, H, W, seed):
+    from zuds_tpu_torch.ops import zogy
+    new = _rand((H, W), dev, seed, 3.0)
+    ref = _rand((H, W), dev, seed + 1, 3.0)
+    # row-major, as ops.zogy hands them to H15 (cuFFT's may be transposed)
+    return tuple(t.contiguous() for t in (
+        torch.fft.rfft2(new), torch.fft.rfft2(ref),
+        zogy._psf_to_otf(_gauss(dev, 2.0), (H, W)),
+        zogy._psf_to_otf(_gauss(dev, 1.5), (H, W))))
+
+
+def _close_c(a, b, rtol):
+    a, b = torch.view_as_real(a), torch.view_as_real(b)
+    assert torch.equal(a.isnan(), b.isnan())
+    ok = ~b.isnan()
+    _allclose(a[ok], b[ok], rtol, 0.0)
+
+
+@pytest.mark.parametrize('H,W', [(250, 197), (256, 256), (3080, 3072)])
+def test_zogy_spectral_kernel(dev, H, W):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    N, R, Pn, Pr = _spectra(dev, H, W, 90)
+    assert N.shape == (H, W // 2 + 1)
+    sc = zogy.zogy_scalars(3.1, 2.7, 1.1, 0.9)
+    # a band of modes where both OTFs are tiny: the clamp at 1e-12 max
+    Pn[H // 3:H // 3 + 9] *= 1e-8
+    Pr[H // 3:H // 3 + 9] *= 1e-8
+    apr, apn = Pr.abs() ** 2, Pn.abs() ** 2
+    den = sc['c_r'] * apr + sc['c_n'] * apn
+    assert bool((den < 1e-12 * den.max()).any())
+    n0 = launch.zogy_spectral.launches
+    k = zogy.spectral_pass(N, R, Pn, Pr, **sc)
+    assert launch.zogy_spectral.launches == n0 + 1
+    p = zogy.spectral_pass_plain(N, R, Pn, Pr, **sc)
+    for a, b in zip(k, p):
+        assert a.shape == N.shape and a.dtype == torch.complex64
+        _close_c(a, b, 1e-6)
+    # a NaN in N: D_hat and S_hat NaN at that mode only; one in P_r:
+    # max(denom) is NaN, so every mode is
+    N[5, 7] = complex(float('nan'), 0.0)
+    k = zogy.spectral_pass(N, R, Pn, Pr, **sc)
+    p = zogy.spectral_pass_plain(N, R, Pn, Pr, **sc)
+    for a, b in zip(k, p):
+        _close_c(a, b, 1e-6)
+    assert int(k[0].isnan().sum()) == 1 and not k[1].isnan().any()
+    Pr[3, 4] = complex(float('nan'), 0.0)
+    k = zogy.spectral_pass(N, R, Pn, Pr, **sc)
+    assert all(bool(a.isnan().all()) for a in k)
+
+
+@pytest.mark.parametrize('H,W', [(250, 197), (3080, 3072)])
+def test_zogy_normalize_kernel(dev, H, W):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    p_d = _rand((H, W), dev, 81, 1e-3)
+    s = _rand((H, W), dev, 82, 5.0)
+    n0 = launch.zogy_normalize.launches
+    k = zogy.score_normalize(p_d, s, 0.7)
+    assert launch.zogy_normalize.launches == n0 + 1
+    _allclose(k, zogy.score_normalize_plain(p_d, s, 0.7), 1e-6, 0.0)
+    assert torch.equal(k, zogy.score_normalize(p_d, s, 0.7))
+    z = torch.zeros_like(p_d)
+    assert torch.equal(zogy.score_normalize(z, s, 0.7),
+                       zogy.score_normalize_plain(z, s, 0.7))
+    p_d[1, 2] = float('nan')
+    assert bool(zogy.score_normalize(p_d, s, 0.7).isnan().all())
+
+
+def _psf_field(dev, H, W, n, seed):
+    """Stars of 3e4 (sigma 1.8, noise 1) at n seeded positions, three at a
+    border (their corners clamp) and one in the corner (0, 0), where the
+    four padding rows (valid False) cut."""
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(15, W - 15, n)
+    ys = rng.uniform(15, H - 15, n)
+    xs[:4], ys[:4] = (2.3, W - 1.7, 60.4, 11.8), (40.2, 90.6, 1.2, 12.3)
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = rng.normal(0, 1.0, (H, W))
+    for x, y in zip(xs, ys):
+        img += 3e4 * np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / 6.48) \
+            / (2 * np.pi * 3.24)
+    xs = np.concatenate([xs, np.zeros(4)]).astype('f4')
+    ys = np.concatenate([ys, np.zeros(4)]).astype('f4')
+    valid = np.arange(n + 4) < n
+    return [torch.as_tensor(a, device=dev) for a in (img.astype('f4'), xs,
+                                                     ys, valid)]
+
+
+@pytest.mark.parametrize('H,W,n,size', [(250, 197, 40, 25), (256, 256, 64, 25),
+                                        (120, 131, 9, 15)])
+def test_psf_stamps_kernel(dev, H, W, n, size):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    img, xs, ys, valid = _psf_field(dev, H, W, n, 91)
+    n0 = launch.psf_stamps.launches
+    k, kg = zogy.psf_stamps(img, xs, ys, valid, size)
+    assert launch.psf_stamps.launches == n0 + 1
+    p, pg = zogy.psf_stamps_plain(img, xs, ys, valid, size)
+    assert k.shape == p.shape == (n + 4, size, size)
+    assert kg.dtype == torch.bool and torch.equal(kg, pg)
+    assert bool(pg[:n].all()) and not pg[n:].any()
+    _allclose(k, p, 0.0, 1e-7)
+    img[3, 3] = float('nan')
+    k, kg = zogy.psf_stamps(img, xs, ys, valid, size)
+    p, pg = zogy.psf_stamps_plain(img, xs, ys, valid, size)
+    assert torch.equal(k.isnan(), p.isnan()) and torch.equal(kg, pg)
+    assert bool(k[n:].isnan().all())
+
+
+@pytest.mark.parametrize('iters', [0, 2, 3])
+def test_psf_clip_kernel(dev, iters):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    base = _gauss(dev, 1.8)
+    stamps = base + _rand((64, 25, 25), dev, 92, 2e-4)
+    stamps[5, 14, 15] += 0.05                 # an outlier the clip drops
+    good0 = torch.ones(64, dtype=torch.bool, device=dev)
+    good0[60:] = False
+    stamps[61] = float('nan')                 # a padding row: NaN spreads
+    n0 = launch.psf_clip.launches
+    clean = stamps.clone()
+    clean[61] = 0.0
+    k = zogy.psf_clip(clean, good0, iters)
+    assert launch.psf_clip.launches == n0 + 1
+    p = zogy.psf_clip_plain(clean, good0, iters)
+    assert torch.equal(k[1], p[1]) and k[1].dtype == torch.bool
+    assert bool(p[1][5]) == (iters == 0) and not p[1][60:].any()
+    _allclose(k[0], p[0], 0.0, 1e-7)
+    assert abs(float(k[0].sum()) - 1.0) < 1e-5
+    k = zogy.psf_clip(stamps, good0, iters)
+    assert bool(k[0].isnan().all())
+    assert bool(zogy.psf_clip_plain(stamps, good0, iters)[0].isnan().all())
+
+
+def _zogy_star_scene():
+    """tests/test_zogy.py's stars-cancel scene at 256^2."""
+    rng = np.random.default_rng(8675309)
+    H = W = 256
+    xs = rng.uniform(20, W - 20, 30)
+    ys = rng.uniform(20, H - 20, 30)
+    fl = rng.uniform(5000, 30000, 30)
+    yy, xx = np.mgrid[0:H, 0:W]
+
+    def render(sig):
+        img = np.zeros((H, W))
+        for x, y, f in zip(xs, ys, fl):
+            img += f * np.exp(-((xx - x) ** 2 + (yy - y) ** 2)
+                              / (2 * sig ** 2)) / (2 * np.pi * sig ** 2)
+        return img + rng.normal(0, 1.0, (H, W))
+    ref = render(1.5)
+    new = render(2.2) + 15000 * np.exp(
+        -((xx - 130) ** 2 + (yy - 140) ** 2) / (2 * 2.2 ** 2)) / (
+        2 * np.pi * 2.2 ** 2)
+    return new.astype('f4'), ref.astype('f4'), xs, ys
+
+
+def test_zogy_card_equals_cpu(dev):
+    """zogy_subtract and estimate_psf_from_stars on the card (cuFFT, H15-
+    H18) and on the CPU (plain versions, pocketfft): the PSFs and psf_d
+    within 1e-7, s_corr within 1e-3, d held against float64."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    new, ref, xs, ys = _zogy_star_scene()
+    pos = [torch.as_tensor(xs.astype('f4')), torch.as_tensor(ys.astype('f4')),
+           torch.ones(30, dtype=torch.bool)]
+    counts = [w.launches for w in (launch.psf_stamps, launch.psf_clip,
+                                   launch.zogy_spectral,
+                                   launch.zogy_normalize)]
+    psf = {}
+    for where in ('cuda', 'cpu'):
+        psf[where] = [zogy.estimate_psf_from_stars(
+            torch.as_tensor(a, device=where), *(t.to(where) for t in pos))
+            for a in (new, ref)]
+    for a, b in zip(psf['cuda'], psf['cpu']):
+        _allclose(a.cpu(), b, 0.0, 1e-7)
+    out = {where: zogy.zogy_subtract(
+        torch.as_tensor(new, device=where), torch.as_tensor(ref, device=where),
+        *(p.to(where) for p in psf['cpu']), 1.0, 1.0)
+        for where in ('cuda', 'cpu')}
+    assert [w.launches for w in (launch.psf_stamps, launch.psf_clip,
+                                 launch.zogy_spectral,
+                                 launch.zogy_normalize)] == [
+        counts[0] + 2, counts[1] + 2, counts[2] + 1, counts[3] + 1]
+    k, c = ({key: v.cpu() for key, v in out[w].items()}
+            for w in ('cuda', 'cpu'))
+    _allclose(k['psf_d'], c['psf_d'], 0.0, 1e-7)
+    _allclose(k['s_corr'], c['s_corr'], 0.0, 1e-3)
+    assert float(k['f_d']) == float(c['f_d'])
+    f64 = zogy.zogy_subtract_plain(
+        *(torch.as_tensor(a).double() for a in (new, ref)),
+        *(p.double() for p in psf['cpu']), 1.0, 1.0)['d']
+    card_err = float((k['d'] - f64).abs().max())
+    cpu_err = float((c['d'] - f64).abs().max())
+    assert card_err <= 2 * cpu_err + 1e-3, (card_err, cpu_err)
+    assert float(k['s_corr'][140, 130]) > 20.0
+
+
+def test_zogy_pair_card_equals_cpu(dev, tmp_path):
+    """from_images(method='zogy') on a 256^2 pair rotated by 0.5 degrees,
+    on the card and on the CPU: masks and header cards equal, diff and
+    scorr_image as close as the aligned references let them (99% of the
+    pixels within 5e-3, all within 0.1)."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.subtraction import SingleEpochSubtraction
+    subs = {}
+    for where in ('cuda', 'cpu'):
+        d = tmp_path / where
+        d.mkdir()
+        work, _ = inputs.write_night_pairs(
+            str(d), 1, 256, 256, ref_rot_deg=(0.5,), nstars=30,
+            header_json=Path(__file__).resolve().parent / 'data'
+            / 'ztf_real_header.json')
+        sci_path, ref_path = work[0].split()
+        sci = ScienceImage.from_file(sci_path)
+        ref = ReferenceImage.from_file(ref_path)
+        subs[where] = SingleEpochSubtraction.from_images(
+            sci, ref, method='zogy', device=where)
+    a, b = subs['cuda'], subs['cpu']
+    assert np.array_equal(a.mask_image.data, b.mask_image.data)
+    for key in ('SUBKO', 'SUBNRX', 'SUBMETH', 'SEEING'):
+        assert a.header[key] == b.header[key]
+    assert a.header['SUBMETH'] == 'zogy'
+    ok = a.mask_image.data == 0
+    for x, y in ((a.data, b.data), (a.scorr_image.data, b.scorr_image.data)):
+        err = np.abs(x - y)[ok]
+        assert np.percentile(err, 99) < 5e-3 and err.max() < 0.1
+
+
+def test_h15_h18_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    c = torch.zeros((8, 5), dtype=torch.complex64, device=dev)
+    with pytest.raises(TypeError):
+        launch.zogy_spectral(c.to(torch.complex128), c, c, c, 1.0, 1.0, 1.0,
+                             1.0, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        launch.zogy_spectral(c, c[:4], c, c, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
+    with pytest.raises(ValueError, match='contiguous'):
+        launch.zogy_spectral(c, c, c, c.t().contiguous().t(), 1.0, 1.0, 1.0,
+                             1.0, 1.0, 1.0)
+    f = torch.zeros((8, 8), device=dev)
+    with pytest.raises(ValueError):
+        launch.zogy_normalize(f, f[:4], 1.0)
+    xs = torch.zeros(2, device=dev)
+    ok = torch.ones(2, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match='unsupported'):
+        launch.psf_stamps(torch.zeros((40, 40), device=dev), xs, xs, ok, 33)
+    with pytest.raises(ValueError, match='unsupported'):
+        launch.psf_stamps(f, xs, xs, ok, 9)
+    with pytest.raises(ValueError, match='unsupported'):
+        launch.psf_clip(torch.zeros((2, 33, 33), device=dev), ok, 2)
 
 
 def launch_counts():

@@ -21,6 +21,21 @@
   (rtol 3e-5 / atol 5e-3, plus the local gradient times the 2e-4 px by
   which the packages' upsampled mappings may differ), ``diff`` within the reference's own spread, the
   transient recovered in both, the same files on disk.
+* ``Subtraction.from_images(method='zogy')`` on the same scene in both
+  packages: the submask equal, the rms within a few ulp (rtol 1e-6; the
+  two packages' background rms and aligned reference rms differ there),
+  the header cards and the basenames of the sub, its mask and its
+  ``scorr_image`` equal, the same files on disk, and
+  ``tests/test_pipeline_e2e.py::test_zogy_path``'s transient peak (> 10
+  sigma within 2 px) in both. Against the JAX engine run on the port's own
+  inputs (the background-subtracted science frame, the aligned reference,
+  the 64 stamps, the rms medians): ``diff`` within twice the JAX output's
+  own error against a float64 run plus 1e-3 (``d`` is ill-conditioned in
+  the reference, ``tests/test_torch_zogy.py``), ``scorr_image`` within
+  1e-3, the rms bit-equal. Against the JAX package's own product, where
+  the aligned references differ by the warp contract (up to ~0.26 counts
+  at the star cores): 99% of the pixels within 5e-3 and all within 0.1 in
+  both ``diff`` and ``scorr_image``.
 * ``sub.do_one`` and ``python -m zuds_tpu_torch.sub``: the GOODCUT rows
   equal to the reference's ``do_one`` at ``ml=False`` in number and, row by
   row, in position (0.02 px) and aperture flux (rtol 2e-3: the fit moves
@@ -54,6 +69,7 @@ from zuds_tpu.fits import HDU as JHDU, Header as JHeader  # noqa: E402
 from zuds_tpu.fits import write_fits as jwrite  # noqa: E402
 from zuds_tpu.image import ScienceImage as JSci  # noqa: E402
 from zuds_tpu.ops import subtract as js  # noqa: E402
+from zuds_tpu.ops import zogy as jz  # noqa: E402
 from zuds_tpu.parallel import pipeline as jp  # noqa: E402
 from zuds_tpu.subtraction import MultiEpochSubtraction as JMulti  # noqa
 from zuds_tpu.subtraction import SingleEpochSubtraction as JSub  # noqa
@@ -65,11 +81,13 @@ from zuds_tpu_torch import subtraction as tsubtraction  # noqa: E402
 from zuds_tpu_torch import utils as tutils  # noqa: E402
 from zuds_tpu_torch.coadd import ReferenceImage as TRef  # noqa: E402
 from zuds_tpu_torch.coadd import ScienceCoadd as TStack  # noqa: E402
-from zuds_tpu_torch.constants import BIG_RMS, SUB_NODATA_SENTINEL  # noqa
+from zuds_tpu_torch.constants import (BAD_SUM, BIG_RMS, BKG_VAL,  # noqa
+                                      SUB_NODATA_SENTINEL)
 from zuds_tpu_torch.fits import HDU as THDU, Header as THeader  # noqa
 from zuds_tpu_torch.fits import write_fits as twrite  # noqa: E402
 from zuds_tpu_torch.image import ScienceImage as TSci  # noqa: E402
 from zuds_tpu_torch.ops import subtract as ts  # noqa: E402
+from zuds_tpu_torch.ops import zogy as tz  # noqa: E402
 from zuds_tpu_torch.parallel import pipeline as tp  # noqa: E402
 from zuds_tpu_torch.subtraction import MultiEpochSubtraction as TMulti  # noqa
 from zuds_tpu_torch.subtraction import SingleEpochSubtraction as TSub  # noqa
@@ -345,7 +363,8 @@ def pair_dirs(tmp_path_factory):
         ('jax', 'jax', 1.0), ('torch', 'torch', 1.0),
         ('jpert', 'jax', 1.0 + 1e-7), ('jdo', 'jax', 1.0),
         ('tdo', 'torch', 1.0), ('tmain', 'torch', 1.0),
-        ('jml', 'jax', 1.0), ('tml', 'torch', 1.0))}
+        ('jml', 'jax', 1.0), ('tml', 'torch', 1.0),
+        ('jzogy', 'jax', 1.0), ('tzogy', 'torch', 1.0))}
 
 
 @pytest.fixture(scope='module')
@@ -447,7 +466,7 @@ def test_from_images_recovers_the_transient(subs):
         assert sig < 12.5, key
 
 
-def test_from_images_signature_and_waiting_options(subs):
+def test_from_images_signature_and_waiting_options(subs, zogy_subs):
     _, tsci, tref = subs['torch']
     jpar = list(inspect.signature(JSub.from_images).parameters)
     tpar = list(inspect.signature(TSub.from_images).parameters)
@@ -456,14 +475,133 @@ def test_from_images_signature_and_waiting_options(subs):
     jasm = list(inspect.signature(JSub.assemble).parameters)
     tasm = list(inspect.signature(TSub.assemble).parameters)
     assert tasm == jasm + ['device']
-    for kw, item in (({'method': 'zogy'}, 'item 2'),
-                     ({'data_product': True}, 'item 5')):
-        with pytest.raises(NotImplementedError, match=item):
-            TSub.from_images(tsci, tref, device='cpu', **kw)
+    with pytest.raises(NotImplementedError, match='item 5'):
+        TSub.from_images(tsci, tref, device='cpu', data_product=True)
+    # method='zogy' runs (the zogy_subs fixture): a product with a score
+    zsub = zogy_subs['torch'][0]
+    assert isinstance(zsub, TSub) and zsub.header['SUBMETH'] == 'zogy'
+    assert zsub.scorr_image.data.shape == zsub.data.shape
     with pytest.raises(ValueError, match='method'):
         TSub.from_images(tsci, tref, device='cpu', method='sfft')
     with pytest.raises(NotImplementedError, match='item 5'):
         tsubtraction.overlapping_subtractions(tsci, tref)
+
+
+# ---- from_images(method='zogy') --------------------------------------------
+
+@pytest.fixture(scope='module')
+def zogy_subs(pair_dirs):
+    """from_images(method='zogy') in both packages on the scene at its
+    defaults (the guard lowers the order as for hotpants)."""
+    out = {}
+    for key, pkg in (('jzogy', 'jax'), ('tzogy', 'torch')):
+        sci, ref = load_pair(pkg, pair_dirs[key])
+        if pkg == 'jax':
+            out[pkg] = (JSub.from_images(sci, ref, method='zogy'), sci, ref,
+                        None)
+        else:
+            stats = {}
+            out[pkg] = (TSub.from_images(sci, ref, method='zogy',
+                                         device='cpu', stats=stats),
+                        sci, ref, stats)
+    return out
+
+
+def test_zogy_from_images_products(zogy_subs, pair_dirs):
+    (jsub, _, _, _), (tsub, tsci, tref, stats) = (zogy_subs['jax'],
+                                                  zogy_subs['torch'])
+    assert tsub.basename == jsub.basename
+    assert tsub.scorr_image.basename == jsub.scorr_image.basename == \
+        'sub.ztf_sci_sciimg_ztf_ref_sciimg.scorr.fits'
+    assert tsub.mask_image.basename == jsub.mask_image.basename
+    for key in ('SUBMETH', 'SUBKO', 'SUBNRX', 'SEEING', 'MAGZP', 'FIELDID',
+                'OBSMJD'):
+        assert tsub.header[key] == jsub.header[key], key
+        assert tsub.scorr_image.header[key] == jsub.scorr_image.header[key]
+    assert tsub.header['SUBMETH'] == 'zogy'
+    assert tsub.target_image is tsci and tsub.reference_image is tref
+    tm, jm = tsub.mask_image.data, np.asarray(jsub.mask_image.data)
+    np.testing.assert_array_equal(tm, jm)
+    np.testing.assert_array_equal((tm >> 17 & 1) == 1, tsub.data == SENTINEL)
+    assert 0 < (tm >> 16 & 1).sum() < 0.1 * tm.size
+    np.testing.assert_allclose(tsub.rms_image.data,
+                               np.asarray(jsub.rms_image.data), rtol=1e-6)
+    assert tsub.scorr_image.data.dtype == np.float32
+    d = os.path.dirname(pair_dirs['tzogy'][0])
+    assert sorted(os.listdir(d)) == sorted(
+        os.listdir(os.path.dirname(pair_dirs['jzogy'][0])))
+    np.testing.assert_array_equal(TSub.from_file(tsub.local_path).data,
+                                  tsub.data)
+    assert {'align_s', 'products_s', 'psf_s', 'zogy_s',
+            'assemble_s'} <= set(stats)
+    assert 'fit_s' not in stats
+
+
+def test_zogy_from_images_recovers_the_transient(zogy_subs):
+    """tests/test_pipeline_e2e.py::test_zogy_path's check, in both."""
+    tx, ty, _ = TRUTH
+    for pkg in ('jax', 'torch'):
+        s = np.asarray(zogy_subs[pkg][0].scorr_image.data)
+        assert s[int(ty) - 2:int(ty) + 3, int(tx) - 2:int(tx) + 3].max() \
+            > 10.0, pkg
+
+
+def test_zogy_from_images_matches_the_reference_engine(zogy_subs):
+    """The JAX package's PSF estimate and zogy_subtract, and the
+    reference's host steps, on the port's own inputs."""
+    tsub, tsci, tref, _ = zogy_subs['torch']
+    scimbkg = np.ascontiguousarray(
+        tsci.background_subtracted_image.data).astype(np.float32) + BKG_VAL
+    new = scimbkg - BKG_VAL
+    refdata = np.ascontiguousarray(
+        tref.aligned_to(tsci, device='cpu').data, 'f4')
+    sci_rms = np.ascontiguousarray(tsci.rms_image.data, 'f4')
+    ref_rms = np.ascontiguousarray(
+        tref.rms_image.aligned_to(tsci, device='cpu').data, 'f4')
+    bad = (tsub.mask_image.data & BAD_SUM) > 0
+    xs, ys, valid = tsubtraction._select_stamps(tsci, smax=64)
+    assert valid.sum() >= 10
+    pos = [jnp.asarray(a) for a in (xs, ys, valid)]
+    jpsf = [jz.estimate_psf_from_stars(jnp.asarray(a), *pos)
+            for a in (new, refdata)]
+    sn = float(np.median(sci_rms[~bad]))
+    sr = max(float(np.median(ref_rms[~bad])), 1e-3)
+    jout = jz.zogy_subtract(jnp.asarray(new), jnp.asarray(refdata), *jpsf,
+                            sn, sr)
+    tpos = [torch.as_tensor(a) for a in (xs, ys, valid)]
+    tpsf = [tz.estimate_psf_from_stars(torch.as_tensor(a), *tpos)
+            for a in (new, refdata)]
+    for a, b in zip(tpsf, jpsf):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-7)
+    f64 = tz.zogy_subtract_plain(
+        *(torch.as_tensor(a).double() for a in (new, refdata, *tpsf)), sn,
+        sr)
+    ok = ~bad
+    want64 = f64['d'].numpy()
+    port_err = np.abs(tsub.data - want64)[ok].max()
+    jax_err = np.abs(np.asarray(jout['d']) - want64)[ok].max()
+    assert port_err <= 2 * jax_err + 1e-3, (port_err, jax_err)
+    np.testing.assert_array_equal(tsub.data[bad], SENTINEL)
+    np.testing.assert_allclose(tsub.scorr_image.data,
+                               np.asarray(jout['s_corr']), rtol=0, atol=1e-3)
+    rms = np.sqrt(sci_rms ** 2 + ref_rms ** 2)
+    rms[bad] = BIG_RMS
+    np.testing.assert_array_equal(tsub.rms_image.data, rms)
+
+
+def test_zogy_from_images_against_the_reference(zogy_subs):
+    """diff and scorr_image against the JAX package's own product: they
+    agree where the two aligned references do; at the star cores those
+    differ by up to ~0.26 counts (the warp contract and the mappings'
+    2e-4 px), which moves both there."""
+    jsub, tsub = zogy_subs['jax'][0], zogy_subs['torch'][0]
+    ok = tsub.mask_image.data == 0
+    for t, j in ((tsub.data, jsub.data),
+                 (tsub.scorr_image.data, jsub.scorr_image.data)):
+        err = np.abs(t - np.asarray(j))[ok]
+        assert np.percentile(err, 99) < 5e-3 and err.max() < 0.1, (
+            np.percentile(err, 99), err.max())
 
 
 def _rows_match(trows, jrows):

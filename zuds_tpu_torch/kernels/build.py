@@ -23,7 +23,7 @@ __all__ = ['library', 'check', 'ApplyParams']
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
            'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
-           'subtract.cu', 'cutouts.cu', 'braai.cu')
+           'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -83,6 +83,16 @@ SIGNATURES = {
     'zuds_negpix_veto': (_P, _I, _P, _P, _P, _P, _I, _P, _P),
     # in, w (HWIO), bias, out, N, H, W, Cin, Cout, pool, stream
     'zuds_braai_conv3x3': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # N, R, Pn, Pr (complex64), n, c_r, c_n, f_ref, f_new, f_rn, f_d,
+    # dmax (u32 scratch), D, Pd, S, stream
+    'zuds_zogy_spectral': (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _P,
+                           _P, _P, _P, _P),
+    # p_d, s, n, f_d, blocks, partials (f64), done (u32), total, out, stream
+    'zuds_zogy_normalize': (_P, _P, _L, _F, _I, _P, _P, _P, _P, _P),
+    # img, H, W, xs, ys, valid(u8), S, size, stamps, good0(u8), stream
+    'zuds_psf_stamps': (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
+    # stamps, good0(u8), S, npix, iters, psf, good(u8), stream
+    'zuds_psf_clip': (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 

@@ -2,7 +2,8 @@
 H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
 candidates, H8 frame median, H9 clipped combine, H10 gather warp, H11
 subtraction epilogue, H12 triplet cutter, H13 braai convolution layer, H14
-negative-pixel veto).
+negative-pixel veto, H15 ZOGY spectral pass, H16 ZOGY score normalisation,
+H17 PSF star stamps, H18 PSF clipped mean).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -21,8 +22,8 @@ __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
            'deblend_labels',
            'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
            'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
-           'braai_conv3x3', 'BRAAI_LAYERS', 'COMBINE_MAX_EPOCHS',
-           'WRAPPERS']
+           'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
+           'psf_clip', 'BRAAI_LAYERS', 'COMBINE_MAX_EPOCHS', 'WRAPPERS']
 
 
 def _ptr(t):
@@ -463,6 +464,104 @@ def braai_conv3x3(x, w, b, pool):
     return out
 
 
+def zogy_spectral(N, R, Pn, Pr, c_r, c_n, f_ref, f_new, f_rn, f_d):
+    """H15 (kernels/zogy.cu): from the half spectra ``N``, ``R`` and the
+    OTFs ``Pn``, ``Pr`` (complex64, one shape) and the f32 scalars of
+    ``ops.zogy.zogy_scalars`` (host numbers, passed by value), the maximum
+    of ``denom`` into a device scalar and then (D_hat, P_d_hat, S_hat),
+    complex64 of that shape. Nothing is read back to the host."""
+    _require('N', N, torch.complex64)
+    for name, t in (('R', R), ('Pn', Pn), ('Pr', Pr)):
+        _require(name, t, torch.complex64, N.shape)
+    n = N.numel()
+    dmax = torch.empty((), dtype=torch.int32, device=N.device)
+    D, Pd, S = (torch.empty_like(N) for _ in range(3))
+    err = build.library().zuds_zogy_spectral(
+        _ptr(N), _ptr(R), _ptr(Pn), _ptr(Pr), n, float(c_r), float(c_n),
+        float(f_ref), float(f_new), float(f_rn), float(f_d), _ptr(dmax),
+        _ptr(D), _ptr(Pd), _ptr(S), _stream())
+    build.check(err, 'zuds_zogy_spectral')
+    zogy_spectral.launches += 1
+    return D, Pd, S
+
+
+# blocks of H16's sum (zogy.cu): four per SM of the H100
+NORMALIZE_BLOCKS = 4 * 132
+
+
+def zogy_normalize(p_d, s, f_d):
+    """H16 (kernels/zogy.cu): ``s / (f_d sqrt(max(sum p_d^2, 1e-20)))``
+    (f32, the shape of ``s``); the sum stays a device scalar between the
+    two launches."""
+    _require('p_d', p_d, torch.float32)
+    _require('s', s, torch.float32, p_d.shape)
+    n = p_d.numel()
+    blocks = max(1, min(NORMALIZE_BLOCKS, -(-n // 256)))
+    partials = torch.empty(blocks, dtype=torch.float64, device=s.device)
+    done = torch.empty((), dtype=torch.int32, device=s.device)
+    total = torch.empty((), dtype=torch.float32, device=s.device)
+    out = torch.empty_like(s)
+    err = build.library().zuds_zogy_normalize(
+        _ptr(p_d), _ptr(s), n, float(f_d), blocks, _ptr(partials),
+        _ptr(done), _ptr(total), _ptr(out), _stream())
+    build.check(err, 'zuds_zogy_normalize')
+    zogy_normalize.launches += 1
+    return out
+
+
+# H17 (zogy.cu) holds a stamp of up to 32 x 32 in shared memory
+PSF_MAX_STAMP = 32
+
+
+def psf_stamps(img, xs, ys, valid, size):
+    """H17 (kernels/zogy.cu): the (S, size, size) f32 stamps of
+    ``ops.zogy.psf_stamps_plain`` at the f32 positions ``xs``, ``ys`` (S,)
+    of ``img`` (f32 (H, W)), and ``good0`` (bool (S,)) from ``valid``
+    (bool (S,)); ``size`` up to :data:`PSF_MAX_STAMP`."""
+    _require('img', img, torch.float32)
+    if img.dim() != 2 or not 1 <= size <= min(PSF_MAX_STAMP, *img.shape) \
+            or img.numel() >= 2 ** 31:
+        raise ValueError(f'psf_stamps: a {size} px stamp of a frame of '
+                         f'shape {tuple(img.shape)} unsupported (2-D, under '
+                         f'2^31 px, 1 <= size <= {PSF_MAX_STAMP})')
+    n = xs.shape[0] if xs.dim() == 1 else -1
+    _require('xs', xs, torch.float32, (n,))
+    _require('ys', ys, torch.float32, (n,))
+    _require('valid', valid, torch.bool, (n,))
+    stamps = torch.empty((n, size, size), dtype=torch.float32,
+                         device=img.device)
+    good0 = torch.empty(n, dtype=torch.uint8, device=img.device)
+    err = build.library().zuds_psf_stamps(
+        _ptr(img), img.shape[0], img.shape[1], _ptr(xs), _ptr(ys),
+        _ptr(valid), n, int(size), _ptr(stamps), _ptr(good0), _stream())
+    build.check(err, 'zuds_psf_stamps')
+    psf_stamps.launches += 1
+    return stamps, good0.view(torch.bool)
+
+
+def psf_clip(stamps, good0, iters):
+    """H18 (kernels/zogy.cu): the clipped mean of
+    ``ops.zogy.psf_clip_plain`` over the (S, k, k) f32 ``stamps`` (k^2 up
+    to 1024) with the bool (S,) ``good0``, in one block: (psf (k, k) f32,
+    good (S,) bool after the last pass)."""
+    _require('stamps', stamps, torch.float32)
+    if stamps.dim() != 3 or not 1 <= stamps.shape[1] * stamps.shape[2] \
+            <= 1024 or stamps.shape[0] < 1 or iters < 0:
+        raise ValueError(f'psf_clip: stamps of shape {tuple(stamps.shape)}, '
+                         f'iters={iters} unsupported (S >= 1 stamps of at '
+                         'most 1024 px, iters >= 0)')
+    S, k1, k2 = stamps.shape
+    _require('good0', good0, torch.bool, (S,))
+    psf = torch.empty((k1, k2), dtype=torch.float32, device=stamps.device)
+    good = torch.empty(S, dtype=torch.uint8, device=stamps.device)
+    err = build.library().zuds_psf_clip(
+        _ptr(stamps), _ptr(good0), S, k1 * k2, int(iters), _ptr(psf),
+        _ptr(good), _stream())
+    build.check(err, 'zuds_psf_clip')
+    psf_clip.launches += 1
+    return psf, good.view(torch.bool)
+
+
 def _require_view(name, t, dtype, shape=None):
     """Like _require for a 2-D view that need not be contiguous."""
     if not t.is_cuda:
@@ -493,6 +592,10 @@ subtract_epilogue.launches = 0
 triplet_cut.launches = 0
 negpix_veto.launches = 0
 braai_conv3x3.launches = 0
+zogy_spectral.launches = 0
+zogy_normalize.launches = 0
+psf_stamps.launches = 0
+psf_clip.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
@@ -503,4 +606,6 @@ WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'warp_gather': warp_gather,
             'subtract_epilogue': subtract_epilogue,
             'triplet_cut': triplet_cut, 'negpix_veto': negpix_veto,
-            'braai_conv3x3': braai_conv3x3}
+            'braai_conv3x3': braai_conv3x3, 'zogy_spectral': zogy_spectral,
+            'zogy_normalize': zogy_normalize, 'psf_stamps': psf_stamps,
+            'psf_clip': psf_clip}

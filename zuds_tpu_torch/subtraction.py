@@ -7,12 +7,15 @@ something touches pixels.
 
 On the card the per-pair path runs the planned warp (H1) or the gather warp
 (H10) for each aligned frame, the background cells (H2) and the detection
-kernels for the science catalog, the model and the variance convolution
-(H3, twice) and the difference and noise epilogue (H11).
+kernels for the science catalog; at ``method='hotpants'`` the model and the
+variance convolution (H3, twice) and the difference and noise epilogue
+(H11); at ``method='zogy'`` the two PSFs from star stamps (H17, H18, twice)
+and the Fourier proper subtraction (cuFFT, H15, H16), which also gives the
+``scorr_image`` score.
 
-Not ported yet, each raising ``NotImplementedError``: ``method='zogy'``
-(ROADMAP queue 1 item 2, K18), ``data_product=True`` (the archive, item 5)
-and ``overlapping_subtractions`` (the database, item 5).
+Not ported yet, each raising ``NotImplementedError``: ``data_product=True``
+(the archive, ROADMAP queue 1 item 5) and ``overlapping_subtractions`` (the
+database, item 5).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import time
 
 import numpy as np
 
-from .constants import (BAD_SUM, BKG_VAL, HOTPANTS_SATLEV,
+from .constants import (BAD_SUM, BIG_RMS, BKG_VAL, HOTPANTS_SATLEV,
                         KERNEL_GAUSS_DEGREES, KERNEL_RADIUS_SEEING,
                         KERNEL_SPATIAL_ORDER, MASK_BIT_NODATA_SUB,
                         SUB_NODATA_SENTINEL)
@@ -115,10 +118,15 @@ class Subtraction:
     def from_images(cls, sci, ref, data_product=False, tmpdir='/tmp',
                     method='hotpants', nreg_side=3, spatial_order=None,
                     smax=128, device=None, stats=None, **kwargs):
-        """Subtract ``ref`` from ``sci`` (subtraction.py:68-196) at
+        """Subtract ``ref`` from ``sci`` (subtraction.py:68-196).
+
         ``method='hotpants'``: the A&L spatially varying PSF-matching
         kernel (3x3 regions, order-4 spatial variation by default, both
         lowered by the conditioning guard when the stamps are few).
+        ``method='zogy'``: proper subtraction in Fourier space with PSFs
+        from the 64 brightest stamps of the science catalog (the same
+        positions on the aligned reference); the product also carries the
+        S_corr score image as ``scorr_image``.
 
         ``device``: where the warps, the fit and the subtraction run, the
         card unless ``'cpu'``; ``sci`` and ``ref`` take it for their own
@@ -126,17 +134,16 @@ class Subtraction:
         products come back to the host between the steps, as in the
         reference. ``stats`` (dict, optional) gains the host seconds of
         ``align_s``, ``products_s`` (the science frame's background, rms
-        and catalog), ``fit_s``, ``subtract_s`` and ``assemble_s``."""
+        and catalog), ``fit_s`` and ``subtract_s`` (hotpants), ``psf_s``
+        and ``zogy_s`` (zogy), and ``assemble_s``."""
         import torch
         from .inputs import resolve_device, upload
         from .ops.subtract import (KernelBasis, fit_kernel, spatial_terms,
                                    subtract_frames)
+        from .ops.zogy import estimate_psf_from_stars, zogy_subtract
         from .seeing import estimate_seeing
 
-        if method == 'zogy':
-            raise _not_ported("method='zogy' (the Fourier proper "
-                              'subtraction)', 'item 2, ZOGY, K18')
-        if method != 'hotpants':
+        if method not in ('hotpants', 'zogy'):
             raise ValueError(f"method must be 'hotpants' or 'zogy', got "
                              f'{method!r}')
         if data_product:
@@ -217,37 +224,61 @@ class Subtraction:
                 nreg_side -= 1
         lap('products_s')
 
-        # --- A&L kernel fit over star stamps ---------------------------------
-        ksize = int(2 * round(KERNEL_RADIUS_SEEING * seeing / 2) + 1)
-        ksize = max(9, min(ksize, 31))
-        stamp = int(2 * round(6 * seeing / 2) + 1 + ksize)
-        stamp = max(stamp, ksize + 10)
-        stamp = stamp + (1 - stamp % 2)
-        basis = KernelBasis(ksize, seeing_sigma=seeing / 2.355)
-        ivar = 1.0 / np.maximum(sci_rms ** 2 + ref_rms ** 2, 1e-6)
-        ivar[bad] = 0.0
-        t_ref, t_sci, t_scirms, t_refrms, t_bad = (
-            upload(a, device) for a in (refdata, scimbkg, sci_rms, ref_rms,
-                                        bad))
-        fit = fit_kernel(t_ref, t_sci, upload(ivar, device),
-                         upload(xs, device), upload(ys, device),
-                         upload(valid, device), upload(basis.gx, device),
-                         upload(basis.gy, device),
-                         upload(basis.sums, device),
-                         upload(basis.b0_2d, device), stamp=stamp,
-                         order=spatial_order, nreg=nreg_side)
-        lap('fit_s')
-        diff_t, rms_t = subtract_frames(t_sci, t_ref, t_scirms, t_refrms,
-                                        t_bad, fit, basis,
-                                        order=spatial_order, nreg=nreg_side)
-        diff = diff_t.cpu().numpy()
-        rms_out = rms_t.cpu().numpy()
-        lap('subtract_s')
+        if method == 'zogy':
+            # --- Fourier proper subtraction (subtraction.py:142-164) ------
+            xs, ys, valid = _select_stamps(sci, smax=64)
+            t_new = upload(scimbkg - BKG_VAL, device)
+            t_ref = upload(refdata, device)
+            pos = [upload(a, device) for a in (xs, ys, valid)]
+            psf_new = estimate_psf_from_stars(t_new, *pos)
+            # the science frame's star positions on the aligned reference:
+            # refdata is already on the science grid
+            psf_ref = estimate_psf_from_stars(t_ref, *pos)
+            lap('psf_s')
+            sn = float(np.median(sci_rms[~bad])) if (~bad).any() else 1.0
+            sr = float(np.median(ref_rms[~bad])) if (~bad).any() else 1.0
+            zout = zogy_subtract(t_new, t_ref, psf_new, psf_ref, sn,
+                                 max(sr, 1e-3))
+            diff = zout['d'].cpu().numpy()
+            diff[bad] = SUB_NODATA_SENTINEL
+            rms_out = np.sqrt(sci_rms ** 2 + ref_rms ** 2)
+            rms_out[bad] = BIG_RMS
+            scorr = zout['s_corr'].cpu().numpy()
+            lap('zogy_s')
+        else:
+            # --- A&L kernel fit over star stamps -----------------------------
+            ksize = int(2 * round(KERNEL_RADIUS_SEEING * seeing / 2) + 1)
+            ksize = max(9, min(ksize, 31))
+            stamp = int(2 * round(6 * seeing / 2) + 1 + ksize)
+            stamp = max(stamp, ksize + 10)
+            stamp = stamp + (1 - stamp % 2)
+            basis = KernelBasis(ksize, seeing_sigma=seeing / 2.355)
+            ivar = 1.0 / np.maximum(sci_rms ** 2 + ref_rms ** 2, 1e-6)
+            ivar[bad] = 0.0
+            t_ref, t_sci, t_scirms, t_refrms, t_bad = (
+                upload(a, device) for a in (refdata, scimbkg, sci_rms,
+                                            ref_rms, bad))
+            fit = fit_kernel(t_ref, t_sci, upload(ivar, device),
+                             upload(xs, device), upload(ys, device),
+                             upload(valid, device), upload(basis.gx, device),
+                             upload(basis.gy, device),
+                             upload(basis.sums, device),
+                             upload(basis.b0_2d, device), stamp=stamp,
+                             order=spatial_order, nreg=nreg_side)
+            lap('fit_s')
+            diff_t, rms_t = subtract_frames(t_sci, t_ref, t_scirms,
+                                            t_refrms, t_bad, fit, basis,
+                                            order=spatial_order,
+                                            nreg=nreg_side)
+            diff = diff_t.cpu().numpy()
+            rms_out = rms_t.cpu().numpy()
+            scorr = None
+            lap('subtract_s')
 
         sub = cls.assemble(sci, ref, diff, rms_out, submask_data,
                            method=method, spatial_order=spatial_order,
-                           nreg_side=nreg_side, outfile_name=outfile_name,
-                           device=device)
+                           nreg_side=nreg_side, scorr=scorr,
+                           outfile_name=outfile_name, device=device)
         lap('assemble_s')
         return sub
 
@@ -259,12 +290,10 @@ class Subtraction:
         """Build the subtraction product object from computed host arrays
         (subtraction.py:199-269): the no-data bit 17 where ``diff`` is the
         sentinel, the inherited header, the saved sub and mask when the
-        science frame is mapped, the rms product. ``device``: where the
-        product computes its own products (its catalog), the card unless
-        ``'cpu'``."""
-        if scorr is not None:
-            raise _not_ported('a score image (method=\'zogy\')',
-                              'item 2, ZOGY, K18')
+        science frame is mapped, the rms product, and with ``scorr`` the
+        score image ``scorr_image`` (``*.scorr.fits``, in memory).
+        ``device``: where the product computes its own products (its
+        catalog), the card unless ``'cpu'``."""
         if data_product:
             raise _not_ported('data_product=True (the archive)',
                               'item 5, persistence')
@@ -295,6 +324,12 @@ class Subtraction:
             sub.save()
             mask.save()
         sub._set_product('_rmsimg', rms_out)
+        if scorr is not None:
+            s = FITSImage()
+            s.data = np.asarray(scorr).astype('f4')
+            s.header = sub.header.copy()
+            s.basename = sub.basename.replace('.fits', '.scorr.fits')
+            sub.scorr_image = s
         return sub
 
     @classmethod
