@@ -49,6 +49,7 @@ non-zero; a machine without a CUDA card fails at once.
 """
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -148,7 +149,6 @@ COADD_NOISE = 5.0
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
-FP64_FLOP_S = 34e12     # outside the tensor cores
 
 
 def card():
@@ -1646,10 +1646,9 @@ def zogy_phase(wrappers, name, record, hotpants_s):
         # H15 alone on the pair's spectra: the modes where it and the plain
         # version differ, and cuFFT's inverse of one input twice
         sc = zogy.zogy_scalars(sn, sr)
-        spectra = [t.contiguous() for t in (
-            torch.fft.rfft2(new), torch.fft.rfft2(refdata),
-            zogy._psf_to_otf(psfs[0], (H, W)),
-            zogy._psf_to_otf(psfs[1], (H, W)))]
+        spectra = [torch.fft.rfft2(new), torch.fft.rfft2(refdata),
+                   zogy._psf_to_otf(psfs[0], (H, W)),
+                   zogy._psf_to_otf(psfs[1], (H, W))]
         kk = launch.zogy_spectral(*spectra, **sc)
         pp = zogy.spectral_pass_plain(*spectra, **sc)
         ndiff = [int((a != b).sum()) for a, b in zip(kk, pp)]
@@ -1686,14 +1685,17 @@ def zogy_phase(wrappers, name, record, hotpants_s):
         # ---- times ---------------------------------------------------------
         n = spectra[0].numel()
         same = not any(ndiff)
-        ms = cuda_ms(lambda: launch.zogy_spectral(*spectra, **sc))
+        ms = graph_ms(lambda: launch.zogy_spectral(*spectra, **sc))
+        call_ms = cuda_ms(lambda: launch.zogy_spectral(*spectra, **sc))
         plain = cuda_ms(lambda: zogy.spectral_pass_plain(*spectra, **sc),
                         1, 3)
         # A reads the two OTFs (16 B per mode); B reads the four spectra
         # (32 B) and writes three (24 B); ~60 operations per mode
         bnd = bound(72 * n, 60 * n)
-        print(f'zogy_spectral: {n} modes: {ms:.4f} ms (bound {bnd[0]:.4f} ms, '
-              f'share {bnd[0] / ms:.1%}), plain {plain:.3f} ms; '
+        print(f'zogy_spectral: {n} modes (strides {spectra[0].stride()}): '
+              f'{ms:.4f} ms on the card (graph replay; bound {bnd[0]:.4f} ms, '
+              f'share {bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call '
+              f'with its host cost, plain {plain:.3f} ms; '
               f'{"bit-equal to" if same else "differs from"} the plain '
               f'version (max abs {err15:.3g}); no PyTorch call computes it',
               flush=True)
@@ -1704,15 +1706,18 @@ def zogy_phase(wrappers, name, record, hotpants_s):
         f_d = sc['f_d']
         err16 = close('zogy_normalize', launch.zogy_normalize(p_d, s_, f_d),
                       zogy.score_normalize_plain(p_d, s_, f_d), 1e-6, 0.0)
-        ms = cuda_ms(lambda: launch.zogy_normalize(p_d, s_, f_d))
+        ms = graph_ms(lambda: launch.zogy_normalize(p_d, s_, f_d))
+        call_ms = cuda_ms(lambda: launch.zogy_normalize(p_d, s_, f_d))
         plain = cuda_ms(lambda: zogy.score_normalize_plain(p_d, s_, f_d),
                         1, 3)
         norm_ms = cuda_ms(lambda: torch.linalg.vector_norm(p_d))
         # reads p_d and s, writes s_corr (12 B/px); a square-add and a
         # divide per pixel
         bnd = bound(12 * H * W, 3 * H * W)
-        print(f'zogy_normalize: {H}x{W}: {ms:.4f} ms (bound {bnd[0]:.4f} ms, '
-              f'share {bnd[0] / ms:.1%}), plain {plain:.3f} ms; for scale '
+        print(f'zogy_normalize: {H}x{W}: {ms:.4f} ms on the card (graph '
+              f'replay; bound {bnd[0]:.4f} ms, share {bnd[0] / ms:.1%}), '
+              f'{call_ms:.4f} ms per wrapper call with its host cost, plain '
+              f'{plain:.3f} ms; for scale '
               f'torch.linalg.vector_norm(p_d) alone {norm_ms:.4f} ms; max '
               f'abs err {err16:.3g}', flush=True)
         record('zogy_normalize', err_s, ms, plain, bnd, runs=launches,
@@ -1721,12 +1726,16 @@ def zogy_phase(wrappers, name, record, hotpants_s):
         call_ms = cuda_ms(lambda: launch.psf_stamps(new, xs, ys, valid, 25))
         plain = cuda_ms(lambda: zogy.psf_stamps_plain(new, xs, ys, valid),
                         1, 3)
-        # per stamp: reads its 25x25 window and writes it (5 KB); four
-        # 25-point DFT passes in double (one on a real plane: 4 FLOP per
-        # term, three complex: 8) per pixel
+        # the function's own work, as the reference does it in f32: per
+        # stamp it reads its 25x25 window and writes it (5 KB); fft2 and
+        # ifft2 of 625 points (5 n log2 n each), the ramp's argument,
+        # cosine, sine and complex product (12 per pixel), the border
+        # median's subtraction, the sum and the scale (3 per pixel). H17
+        # itself issues more: four direct 25-point DFT passes in double
+        # (S * 625 * 25 * 28 = 2.8e7 FLOP for 64 stamps)
         S = ZOGY_STAMPS
-        bnd = bound(S * (2 * 625 * 4 + 9), S * 625 * 25 * (4 + 3 * 8),
-                    FP64_FLOP_S)
+        bnd = bound(S * (2 * 625 * 4 + 9),
+                    S * (2 * 5 * 625 * math.log2(625) + 15 * 625))
         print(f'psf_stamps: {S} stamps of 25x25 on {H}x{W}: {ms:.4f} ms on '
               f'the card (graph replay; bound {bnd[0]:.5f} ms by {bnd[1]}, '
               f'share {bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call '

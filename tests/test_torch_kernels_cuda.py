@@ -973,11 +973,11 @@ def _spectra(dev, H, W, seed):
     from zuds_tpu_torch.ops import zogy
     new = _rand((H, W), dev, seed, 3.0)
     ref = _rand((H, W), dev, seed + 1, 3.0)
-    # row-major, as ops.zogy hands them to H15 (cuFFT's may be transposed)
-    return tuple(t.contiguous() for t in (
-        torch.fft.rfft2(new), torch.fft.rfft2(ref),
-        zogy._psf_to_otf(_gauss(dev, 2.0), (H, W)),
-        zogy._psf_to_otf(_gauss(dev, 1.5), (H, W))))
+    # in rfft2's own layout, as ops.zogy hands them to H15 (cuFFT's may be
+    # transposed)
+    return (torch.fft.rfft2(new), torch.fft.rfft2(ref),
+            zogy._psf_to_otf(_gauss(dev, 2.0), (H, W)),
+            zogy._psf_to_otf(_gauss(dev, 1.5), (H, W)))
 
 
 def _close_c(a, b, rtol):
@@ -1006,7 +1006,14 @@ def test_zogy_spectral_kernel(dev, H, W):
     p = zogy.spectral_pass_plain(N, R, Pn, Pr, **sc)
     for a, b in zip(k, p):
         assert a.shape == N.shape and a.dtype == torch.complex64
+        assert a.stride() == N.stride()
         _close_c(a, b, 1e-6)
+    # the same modes from row-major copies: H15 is elementwise, so the
+    # layout changes nothing
+    rows = launch.zogy_spectral(*(t.contiguous() for t in (N, R, Pn, Pr)),
+                                **sc)
+    for a, b in zip(rows, k):
+        assert a.is_contiguous() and torch.equal(a, b)
     # a NaN in N: D_hat and S_hat NaN at that mode only; one in P_r:
     # max(denom) is NaN, so every mode is
     N[5, 7] = complex(float('nan'), 0.0)
@@ -1208,9 +1215,14 @@ def test_h15_h18_refuse_wrong_inputs(dev):
                              1.0, 1.0, 1.0)
     with pytest.raises(ValueError):
         launch.zogy_spectral(c, c[:4], c, c, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0)
-    with pytest.raises(ValueError, match='contiguous'):
+    # dense layouts that differ, and a view that is not dense
+    with pytest.raises(ValueError, match='dense layout'):
         launch.zogy_spectral(c, c, c, c.t().contiguous().t(), 1.0, 1.0, 1.0,
                              1.0, 1.0, 1.0)
+    wide = torch.zeros((8, 10), dtype=torch.complex64, device=dev)[:, ::2]
+    with pytest.raises(ValueError, match='dense layout'):
+        launch.zogy_spectral(wide, wide, wide, wide, 1.0, 1.0, 1.0, 1.0, 1.0,
+                             1.0)
     f = torch.zeros((8, 8), device=dev)
     with pytest.raises(ValueError):
         launch.zogy_normalize(f, f[:4], 1.0)

@@ -356,3 +356,14 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match='CUDA'):
         launch.psf_clip(torch.zeros((2, 3, 3)),
                         torch.ones(2, dtype=torch.bool), 2)
+
+
+def test_spectral_wrapper_takes_any_shared_dense_layout():
+    # H15 is elementwise: the wrapper takes the four spectra in any dense
+    # layout (cuFFT's rfft2 gives a transposed one), never a strided view
+    c = torch.zeros((8, 5), dtype=torch.complex64)
+    assert launch._dense(c) and launch._dense(c.t().contiguous().t())
+    assert launch._dense(c[:4]) and launch._dense(torch.zeros((1, 5))[:, :])
+    assert not launch._dense(c[:, :3])
+    assert not launch._dense(torch.zeros((8, 10))[:, ::2])
+    assert not launch._dense(c.expand(2, 8, 5))

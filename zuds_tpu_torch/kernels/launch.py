@@ -46,6 +46,19 @@ def _require(name, t, dtype, shape=None):
         raise ValueError(f'{name}: expected a contiguous tensor')
 
 
+def _dense(t):
+    """Whether ``t``'s elements fill ``t.numel()`` consecutive slots from
+    its data pointer, in any order of its dimensions."""
+    step = 1
+    for size, stride in sorted(zip(t.shape, t.stride()), key=lambda p: p[1]):
+        if size == 1:
+            continue
+        if stride != step:
+            return False
+        step *= size
+    return True
+
+
 def warp(ref, mask, u, v, covb, window, ref2=None):
     """H1 (kernels/warp.cu): (refw f32, refm i32, cov f32), each (H, W).
     With a second float plane ``ref2`` (H, W), warped with the taps and
@@ -469,10 +482,23 @@ def zogy_spectral(N, R, Pn, Pr, c_r, c_n, f_ref, f_new, f_rn, f_d):
     OTFs ``Pn``, ``Pr`` (complex64, one shape) and the f32 scalars of
     ``ops.zogy.zogy_scalars`` (host numbers, passed by value), the maximum
     of ``denom`` into a device scalar and then (D_hat, P_d_hat, S_hat),
-    complex64 of that shape. Nothing is read back to the host."""
-    _require('N', N, torch.complex64)
-    for name, t in (('R', R), ('Pn', Pn), ('Pr', Pr)):
-        _require(name, t, torch.complex64, N.shape)
+    complex64 of that shape. Nothing is read back to the host.
+
+    The pass is elementwise, so the four inputs may have any dense layout
+    they share (cuFFT's ``rfft2`` gives a transposed one); the outputs take
+    it too."""
+    for name, t in (('N', N), ('R', R), ('Pn', Pn), ('Pr', Pr)):
+        if not t.is_cuda:
+            raise ValueError(f'{name}: expected a CUDA tensor, got {t.device}')
+        if t.dtype != torch.complex64:
+            raise TypeError(f'{name}: expected torch.complex64, got {t.dtype}')
+        if t.shape != N.shape:
+            raise ValueError(f'{name}: expected shape {tuple(N.shape)}, '
+                             f'got {tuple(t.shape)}')
+        if not _dense(t) or t.stride() != N.stride():
+            raise ValueError(f'{name}: expected a dense layout shared by the '
+                             f'four spectra, got strides {t.stride()} '
+                             f'against N\'s {N.stride()}')
     n = N.numel()
     dmax = torch.empty((), dtype=torch.int32, device=N.device)
     D, Pd, S = (torch.empty_like(N) for _ in range(3))

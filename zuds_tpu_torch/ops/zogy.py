@@ -107,7 +107,8 @@ def spectral_pass_plain(N, R, Pn, Pr, c_r, c_n, f_ref, f_new, f_rn, f_d):
 
 def spectral_pass(N, R, Pn, Pr, c_r, c_n, f_ref, f_new, f_rn, f_d):
     """The spectral pass of :func:`spectral_pass_plain`: H15 on CUDA
-    tensors (complex64, row-major), the plain version on CPU tensors."""
+    tensors (complex64, one dense layout), the plain version on CPU
+    tensors."""
     if N.is_cuda:
         return launch.zogy_spectral(N, R, Pn, Pr, c_r, c_n, f_ref, f_new,
                                     f_rn, f_d)
@@ -135,14 +136,12 @@ def score_normalize(p_d, s, f_d):
 def _zogy(new, ref, psf_new, psf_ref, sigma_new, sigma_ref, f_new, f_ref,
           spectral, normalize):
     H, W = new.shape
-    # cuFFT's rfft2 may return a transposed layout: the spectra are made
-    # row-major, as H15 takes them, so that the plain passes' products
-    # (which keep their inputs' layout) reach the inverse transforms in the
-    # same layout as H15's, and both paths round alike there
-    N, R, Pn, Pr = (t.contiguous() for t in (
-        torch.fft.rfft2(new), torch.fft.rfft2(ref),
-        _psf_to_otf(psf_new.to(new.dtype), (H, W)),
-        _psf_to_otf(psf_ref.to(new.dtype), (H, W))))
+    # the four spectra share rfft2's layout (transposed on the card); H15's
+    # outputs and the plain passes' products keep it, so both paths reach
+    # the inverse transforms in one layout and round alike there
+    N, R, Pn, Pr = (torch.fft.rfft2(new), torch.fft.rfft2(ref),
+                    _psf_to_otf(psf_new.to(new.dtype), (H, W)),
+                    _psf_to_otf(psf_ref.to(new.dtype), (H, W)))
     sc = zogy_scalars(sigma_new, sigma_ref, f_new, f_ref, new.dtype)
     D_hat, P_d_hat, S_hat = spectral(N, R, Pn, Pr, **sc)
     d = torch.fft.irfft2(D_hat, s=(H, W))
