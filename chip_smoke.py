@@ -41,7 +41,15 @@ tensor-core rate; H5 and H6 also on a quadrant-size busy blend field; H8
 also on ::4 views and a mask with holes). Small inputs run on the card and
 on the CPU for each deblend mode, a 1024^2 crop of the blend field through
 ``detect_sources`` on both, and the stamp selection and stamp-moment
-SEEING of the night's frame without SEEING on both. Prints the card,
+SEEING of the night's frame without SEEING on both. Then braai training:
+``make_train_state(0)`` on the card and 256 triplets of
+``inputs.labelled_triplets``; one step's own tensors hold H13t, H19, H20
+and H21 against their plain versions (times, bounds, cuDNN's and fused
+Adam's times beside them); one step against ``train_step_plain`` with
+the same masks; 50 counted, timed steps with a loss gate, ten more under
+the profiler (the device's busy share); the trained weights through
+``save_braai``, ``load_braai`` and ``rb_scores`` on the card; one step at
+the dry run's batch of 2. Prints the card,
 per-kernel errors and times, the slice's ms/frame and the deblend's
 load, then one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -107,6 +115,14 @@ SOURCES = {
                    'zuds_tpu/ops/zogy.py:89'),
     'psf_clip': ('cuda', 'zuds_tpu_torch/kernels/zogy.cu',
                  'zuds_tpu/ops/zogy.py:116'),
+    'braai_conv3x3_train': ('cuda', 'zuds_tpu_torch/kernels/braai.cu',
+                            'zuds_tpu/models/braai.py:96'),
+    'braai_conv3x3_dgrad': ('cuda', 'zuds_tpu_torch/kernels/braai.cu',
+                            'zuds_tpu/models/braai.py:102'),
+    'braai_conv3x3_wgrad': ('cuda', 'zuds_tpu_torch/kernels/braai.cu',
+                            'zuds_tpu/models/braai.py:102'),
+    'adam_step': ('cuda', 'zuds_tpu_torch/kernels/adam.cu',
+                  'zuds_tpu/models/braai.py:103'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
@@ -125,6 +141,20 @@ ZOGY_LAUNCHES = {'zogy_spectral': 1, 'zogy_normalize': 1, 'psf_stamps': 2,
                  'psf_clip': 2}
 ZOGY_ONLY = tuple(ZOGY_LAUNCHES)
 ZOGY_STAMPS = 64        # _select_stamps(sci, smax=64)
+# braai training (make_train_state, train_step): the kernels only it
+# launches and how often per step (H13t on the four layers, H19 on layers
+# 2-4, H20 on the four, H21 once); TRAIN_N triplets a step at full width,
+# TRAIN_STEPS counted steps; the mean loss of the last 10 steps must lie
+# TRAIN_LOSS_DROP below the first 10's (a CPU rehearsal of the same set:
+# 0.608 -> 0.018, PERF.md); the dry run's batch (__graft_entry__.py:195)
+TRAIN_LAUNCHES = {'braai_conv3x3_train': 4, 'braai_conv3x3_dgrad': 3,
+                  'braai_conv3x3_wgrad': 4, 'adam_step': 1}
+TRAIN_ONLY = tuple(TRAIN_LAUNCHES)
+TRAIN_N = 256
+TRAIN_STEPS = 50
+TRAIN_LR = 3e-4
+TRAIN_LOSS_DROP = 0.25
+TRAIN_DRYRUN_N = 2
 # the scoring phase: N candidates and triplets for the kernels' records;
 # the night's filter (FILTERID 2) cuts at RB_CUT[2]
 SCORE_N = 256
@@ -600,7 +630,8 @@ def night_phase(wrappers, name, record):
               f'GB/s ({host.numel() * 4 / 1e6:.1f} MB pinned -> card in '
               f'{link_ms:.3f} ms, CUDA events) on {name}', flush=True)
         for k, n in launches.items():
-            check(n > 0 or k in COADD_ONLY + ML_ONLY + ZOGY_ONLY,
+            check(n > 0 or k in COADD_ONLY + ML_ONLY + ZOGY_ONLY
+                  + TRAIN_ONLY,
                   f'kernel {k} was not launched by the night')
         for i, (tx, ty) in enumerate(truths):
             cat = night_catalog(d, i)
@@ -1807,6 +1838,487 @@ def zogy_phase(wrappers, name, record, hotpants_s):
               flush=True)
 
 
+class recording_step:
+    """While open, the dispatchers of the training layers (H13t, H19, H20)
+    and the Adam update keep their arguments: each layer's inputs at the
+    main path's shapes, for the kernels' checks against their plain
+    versions."""
+
+    def __enter__(self):
+        from zuds_tpu_torch.models import adam, braai
+        self.fwd, self.dgrad, self.wgrad, self.adam = [], [], [], []
+        self._saved = (braai.conv3x3_train, braai.conv3x3_dgrad,
+                       braai.conv3x3_wgrad, adam.Adam.update)
+        fwd, dgrad, wgrad, update = self._saved
+
+        def keep(store, fn):
+            def call(*args):
+                store.append(args)
+                return fn(*args)
+            return call
+
+        def upd(tx, grads, state, params, plain=False):
+            self.adam.append(tuple(adam.flat_tree(t)[0].clone() for t in (
+                params, grads, state['mu'], state['nu']))
+                + (state['count'].clone(),))
+            return update(tx, grads, state, params, plain)
+
+        braai.conv3x3_train = keep(self.fwd, fwd)
+        braai.conv3x3_dgrad = keep(self.dgrad, dgrad)
+        braai.conv3x3_wgrad = keep(self.wgrad, wgrad)
+        adam.Adam.update = upd
+        return self
+
+    def __exit__(self, *exc):
+        from zuds_tpu_torch.models import adam, braai
+        (braai.conv3x3_train, braai.conv3x3_dgrad, braai.conv3x3_wgrad,
+         adam.Adam.update) = self._saved
+
+
+def near_ties(r, ho, wo, tol):
+    """NHWC bool: the 2x2 windows of the pool over the pre-activations
+    ``r`` (N, C, Hc, Wc; before ReLU) whose largest value lies within
+    ``tol`` of 0 (ReLU may or may not pass it) or, positive, within ``tol``
+    of the second (their first maximum may move with the summation
+    order)."""
+    n, c = r.shape[:2]
+    win = r[:, :, :2 * ho, :2 * wo].reshape(n, c, ho, 2, wo, 2)
+    win = win.permute(0, 1, 2, 4, 3, 5).reshape(n, c, ho, wo, 4)
+    top = win.topk(2, dim=-1).values
+    tie = (top[..., 0].abs() <= tol) | (
+        (top[..., 0] > 0) & (top[..., 0] - top[..., 1] <= tol))
+    return tie.permute(0, 2, 3, 1)
+
+
+def close_to_max(name, got, want, rel):
+    """Max abs error of ``got`` against ``want``; fail past ``rel`` times
+    the largest magnitude of ``want``."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= rel * scale, f'{name}: max abs err {err:.3g} past {rel} x '
+          f'{scale:.3g}')
+    return err
+
+
+def adam_aware(name, got, want, mu, lr=TRAIN_LR):
+    """The parameters of a step by the Adam-aware rule: within 1e-5 where
+    the gradient (``mu``, 0.1 g after one step) is over 1e-3 of its
+    largest, within 2 lr elsewhere (a near-zero gradient whose sign
+    differs moves its parameter by 2 lr), at most 0.1% past 1e-5."""
+    d = (got - want).abs()
+    near0 = mu.abs() <= 1e-3 * float(mu.abs().max())
+    far = int((d > 1e-5).sum())
+    check(float(d[~near0].max()) <= 1e-5
+          and (float(d[near0].max()) if near0.any() else 0.0) <= 2 * lr
+          and far <= 1e-3 * d.numel(),
+          f'{name}: parameters differ by {float(d.max()):.3g} '
+          f'({far} past 1e-5)')
+    return float(d.max()), far
+
+
+def train_kernel_checks(rec, params, name):
+    """H13t, H19, H20 (per layer) and H21 against their plain versions on
+    the tensors of the step :class:`recording_step` kept, timed beside
+    their bounds and library calls; ``params`` the step's result.
+    Returns the layer kernels' sums (ms, plain, lib, flop, bytes, err
+    per kernel) and H21's (ms, plain ms, library ms, bound)."""
+    import torch
+    import torch.nn.functional as F
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import adam, braai
+    dev = torch.device('cuda')
+    tot = {k: {'ms': 0.0, 'plain': 0.0, 'lib': 0.0, 'flop': 0.0,
+               'bytes': 0.0, 'err': 0.0} for k in TRAIN_ONLY[:3]}
+    ties = []
+    for i, (xi, w, b, pool, mask, keep) in enumerate(rec.fwd):
+        cin, cout = w.shape[2], w.shape[3]
+        k, kr = launch.braai_conv3x3_train(xi, w, b, pool, mask, keep)
+        p, pr = braai.conv3x3_train_plain(xi, w, b, pool, mask, keep)
+        err = close(f'braai_conv3x3_train layer {i + 1}', k, p, 1e-5, 1e-6)
+        n, ho, wo, _ = p.shape
+        hc, wc = xi.shape[1] - 2, xi.shape[2] - 2
+        conv = (2 * ho) * (2 * wo) if pool else ho * wo
+        xc = xi.permute(0, 3, 1, 2).contiguous()
+        wcn = w.permute(3, 2, 0, 1).contiguous()
+        mc = None if mask is None else mask.permute(0, 3, 1, 2).contiguous()
+        if pool:
+            r = F.conv2d(xc, wcn, b)
+            tie = near_ties(r, ho, wo, 1e-5 * float(r.abs().max()))
+            check(torch.equal(kr[~tie], pr[~tie]),
+                  f'H13t layer {i + 1}: routing bytes differ off the near '
+                  'ties')
+            ties.append(float(tie.float().mean()))
+            check(ties[-1] < 0.01, f'H13t layer {i + 1}: {ties[-1]:.3%} of '
+                  'the windows are near ties')
+        keep_t = torch.full((), keep, device=dev)
+
+        def lib_fwd(xc=xc, wcn=wcn, b=b, pool=pool, mc=mc, keep_t=keep_t):
+            z = torch.relu(F.conv2d(xc, wcn, b))
+            if not pool:
+                return z
+            v, idx = F.max_pool2d(z, 2, 2, return_indices=True)
+            return torch.where(mc, v / keep_t, 0.0), idx
+
+        ms = cuda_ms(lambda: launch.braai_conv3x3_train(xi, w, b, pool, mask,
+                                                        keep))
+        plain = cuda_ms(lambda: braai.conv3x3_train_plain(xi, w, b, pool,
+                                                          mask, keep), 1, 3)
+        lib_ms = cuda_ms(lib_fwd)
+        flop = 2 * n * conv * cout * 9 * cin
+        nbytes = 4 * (xi.numel() + p.numel() + w.numel() + b.numel()) \
+            + (2 * p.numel() if pool else 0)
+        bnd = bound(nbytes, flop)
+        print(f'braai_conv3x3_train layer {i + 1} ({cin}->{cout}'
+              f'{", pool, dropout" if pool else ""}), {n} triplets: '
+              f'{ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, share '
+              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, cuDNN sequence '
+              f'{lib_ms:.3f} ms (TF32 off); max abs err {err:.3g}'
+              + (f'; routing bytes equal off {ties[-1]:.4%} near ties'
+                 if pool else '') + f' on {name}', flush=True)
+        for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
+                       ('flop', flop), ('bytes', nbytes)):
+            tot['braai_conv3x3_train'][key] += v
+        tot['braai_conv3x3_train']['err'] = max(
+            tot['braai_conv3x3_train']['err'], err)
+    for gy, w, saved, mask, keep, pool, in_shape in rec.dgrad:
+        i = [tuple(f[0].shape) for f in rec.fwd].index(tuple(in_shape))
+        cin, cout = w.shape[2], w.shape[3]
+        k = launch.braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool,
+                                       in_shape)
+        p = braai.conv3x3_dgrad_plain(gy, w, saved, mask, keep, pool,
+                                      in_shape)
+        err = close_to_max(f'braai_conv3x3_dgrad layer {i + 1}', k, p, 1e-5)
+        n, h, wd, _ = in_shape
+        he, we = ((h - 2) // 2 * 2, (wd - 2) // 2 * 2) if pool else \
+            (h - 2, wd - 2)
+        gz = braai.grad_z_plain(gy, saved, mask, keep, pool,
+                                (h - 2, wd - 2)).permute(0, 3, 1, 2)\
+            .contiguous()
+        wcn = w.permute(3, 2, 0, 1).contiguous()
+        ms = cuda_ms(lambda: launch.braai_conv3x3_dgrad(
+            gy, w, saved, mask, keep, pool, in_shape))
+        plain = cuda_ms(lambda: braai.conv3x3_dgrad_plain(
+            gy, w, saved, mask, keep, pool, in_shape), 1, 3)
+        lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
+            (n, cin, h, wd), wcn, gz))
+        flop = 2 * n * he * we * cout * 9 * cin
+        nbytes = 4 * (gy.numel() + w.numel() + n * h * wd * cin) + (
+            saved.numel() * saved.element_size()) + (
+            0 if mask is None else mask.numel())
+        bnd = bound(nbytes, flop)
+        print(f'braai_conv3x3_dgrad layer {i + 1} ({cin}<-{cout}'
+              f'{", pool" if pool else ""}): {ms:.4f} ms (bound '
+              f'{bnd[0]:.4f} ms by {bnd[1]}, share {bnd[0] / ms:.1%}), plain '
+              f'{plain:.3f} ms, cuDNN conv2d_input {lib_ms:.3f} ms; max abs '
+              f'err {err:.3g} on {name}', flush=True)
+        for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
+                       ('flop', flop), ('bytes', nbytes)):
+            tot['braai_conv3x3_dgrad'][key] += v
+        tot['braai_conv3x3_dgrad']['err'] = max(
+            tot['braai_conv3x3_dgrad']['err'], err)
+    for i, (xi, gy, saved, mask, keep, pool) in enumerate(reversed(rec.wgrad)):
+        cin, cout = xi.shape[-1], gy.shape[-1]
+        kw, kb = launch.braai_conv3x3_wgrad(xi, gy, saved, mask, keep, pool)
+        kw2, kb2 = launch.braai_conv3x3_wgrad(xi, gy, saved, mask, keep,
+                                              pool)
+        check(torch.equal(kw, kw2) and torch.equal(kb, kb2),
+              f'H20 layer {i + 1}: two calls differ')
+        # the sums run over up to 861k terms in two orders: 1e-4 of the
+        # largest gradient, the gradients' tolerance of the CPU tests; both
+        # against a float64 run beside it
+        pw, pb = braai.conv3x3_wgrad_plain(xi, gy, saved, mask, keep, pool)
+        err = max(close_to_max(f'braai_conv3x3_wgrad layer {i + 1}', kw, pw,
+                               1e-4),
+                  close_to_max(f'braai_conv3x3_wgrad bias {i + 1}', kb, pb,
+                               1e-4))
+        n, h, wd, _ = xi.shape
+        he, we = ((h - 2) // 2 * 2, (wd - 2) // 2 * 2) if pool else \
+            (h - 2, wd - 2)
+        gz = braai.grad_z_plain(gy, saved, mask, keep, pool,
+                                (h - 2, wd - 2)).permute(0, 3, 1, 2)\
+            .contiguous()
+        xc = xi.permute(0, 3, 1, 2).contiguous()
+        w64 = torch.nn.grad.conv2d_weight(
+            xc.double(), (cout, cin, 3, 3), gz.double()).permute(2, 3, 1, 0)
+        e64 = (float((kw - w64).abs().max()), float((pw - w64).abs().max()))
+
+        def lib_w(xc=xc, gz=gz, shape=(cout, cin, 3, 3)):
+            return torch.nn.grad.conv2d_weight(xc, shape, gz), gz.sum((0, 2,
+                                                                        3))
+
+        ms = cuda_ms(lambda: launch.braai_conv3x3_wgrad(xi, gy, saved, mask,
+                                                        keep, pool))
+        plain = cuda_ms(lambda: braai.conv3x3_wgrad_plain(
+            xi, gy, saved, mask, keep, pool), 1, 3)
+        lib_ms = cuda_ms(lib_w)
+        flop = 2 * n * he * we * cout * 9 * cin
+        nbytes = 4 * (xi.numel() + gy.numel() + 9 * cin * cout + cout) + (
+            saved.numel() * saved.element_size()) + (
+            0 if mask is None else mask.numel())
+        bnd = bound(nbytes, flop)
+        print(f'braai_conv3x3_wgrad layer {i + 1} ({cin}x{cout}'
+              f'{", pool" if pool else ""}): {ms:.4f} ms (bound '
+              f'{bnd[0]:.4f} ms by {bnd[1]}, share {bnd[0] / ms:.1%}), plain '
+              f'{plain:.3f} ms, cuDNN conv2d_weight and the bias sum '
+              f'{lib_ms:.3f} ms; two calls bit-equal; max abs err {err:.3g}; '
+              f'against float64 the kernel {e64[0]:.3g}, the plain version '
+              f'{e64[1]:.3g} (largest |gw| {float(w64.abs().max()):.3g}) on '
+              f'{name}', flush=True)
+        for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
+                       ('flop', flop), ('bytes', nbytes)):
+            tot['braai_conv3x3_wgrad'][key] += v
+        tot['braai_conv3x3_wgrad']['err'] = max(
+            tot['braai_conv3x3_wgrad']['err'], err)
+    # H21 on the step's own buffers: bit-equal, timed on copies
+    p, g, mu, nu, count = rec.adam[0]
+    bc1, bc2 = adam.bias_corrections(count + 1)
+    kp, kmu, knu = p.clone(), mu.clone(), nu.clone()
+    launch.adam_step(kp, g, kmu, knu, bc1, bc2, TRAIN_LR, adam.B1, adam.B2,
+                     adam.EPS)
+    want = adam.adam_update_plain(p, g, mu, nu, bc1, bc2, TRAIN_LR)
+    for a, b_, what in zip((kp, kmu, knu), want, ('p', 'mu', 'nu')):
+        check(torch.equal(a, b_), f'H21: {what} differs from the plain '
+              f'version by {float((a - b_).abs().max()):.3g}')
+    check(torch.equal(kp, adam.flat_tree(params)[0]),
+          'H21 on the recorded buffers differs from the step\'s update')
+    adam_ms = graph_ms(lambda: launch.adam_step(
+        kp, g, kmu, knu, bc1, bc2, TRAIN_LR, adam.B1, adam.B2, adam.EPS))
+    adam_call = cuda_ms(lambda: launch.adam_step(
+        kp, g, kmu, knu, bc1, bc2, TRAIN_LR, adam.B1, adam.B2, adam.EPS))
+    adam_plain = cuda_ms(lambda: adam.adam_update_plain(
+        p, g, mu, nu, bc1, bc2, TRAIN_LR), 1, 3)
+    leaf = torch.nn.Parameter(p.clone())
+    leaf.grad = g.clone()
+    opt = torch.optim.Adam([leaf], lr=TRAIN_LR, fused=True)
+    adam_lib = cuda_ms(opt.step)
+    npar = p.numel()
+    adam_bnd = bound(28 * npar, 12 * npar)
+    print(f'adam_step: {npar} parameters: {adam_ms:.4f} ms (graph replay; '
+          f'bound {adam_bnd[0]:.4f} ms by {adam_bnd[1]}, share '
+          f'{adam_bnd[0] / adam_ms:.1%}), {adam_call:.4f} ms per wrapper '
+          f'call, plain {adam_plain:.3f} ms, torch.optim.Adam(fused=True) '
+          f'{adam_lib:.4f} ms (other rounding: time only); bit-equal to the '
+          f'plain version on {name}', flush=True)
+    return tot, (adam_ms, adam_plain, adam_lib, adam_bnd)
+
+
+def train_phase(wrappers, name, record):
+    """braai training at full width: make_train_state(0) on the card and
+    TRAIN_N labelled triplets; H13t, H19, H20 and H21 against their plain
+    versions on one step's own tensors, with their times, bounds and
+    library times; a step against the plain step with the same masks;
+    TRAIN_STEPS counted and timed steps (the loss gate), ten more under the
+    profiler; the trained weights through save_braai, load_braai and
+    rb_scores on the card; one step at the dry run's batch of 2."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import adam, braai
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32,
+          'TF32 is on for cuDNN or matmul')
+    dev = torch.device('cuda')
+    t_np, y_np = inputs.labelled_triplets(TRAIN_N, seed=0)
+    x = torch.from_numpy(t_np).to(dev)
+    y = torch.from_numpy(y_np).to(dev)
+
+    # one step, its tensors kept: the kernels against their plain versions
+    model, params, tx, state = braai.make_train_state(0)
+    check(model.Conv_0['kernel'].is_cuda and state['count'].is_cuda,
+          'make_train_state did not build on the card')
+    gen = torch.Generator(device=dev).manual_seed(0)
+    masks = braai.draw_masks(TRAIN_N, gen, dev)
+    with recording_step() as rec:
+        params, state, loss0 = braai.train_step(params, state, x, y, 0,
+                                                masks=masks)
+    check(len(rec.fwd) == 4 and len(rec.dgrad) == 3 and len(rec.wgrad) == 4
+          and len(rec.adam) == 1, 'train: the recorded step ran '
+          f'{len(rec.fwd)} H13t, {len(rec.dgrad)} H19, {len(rec.wgrad)} H20'
+          f', {len(rec.adam)} Adam calls')
+    with torch.no_grad():
+        tot, (adam_ms, adam_plain, adam_lib, adam_bnd) = \
+            train_kernel_checks(rec, params, name)
+    npar = adam.flat_tree(params)[0].numel()
+
+    # a step on the card against the plain step, same state and masks
+    _, pk, _, sk = braai.make_train_state(0)
+    _, pp, _, sp = braai.make_train_state(0)
+    masks = braai.draw_masks(TRAIN_N, torch.Generator(device=dev)
+                             .manual_seed(1), dev)
+    pk, sk, lk = braai.train_step(pk, sk, x, y, 0, masks=masks)
+    pp, sp, lp = braai.train_step_plain(pp, sp, x, y, 0, masks=masks)
+    lk, lp = float(lk), float(lp)
+    check(abs(lk - lp) <= 1e-5 * abs(lp), f'train: loss {lk} on the card, '
+          f'{lp} plain')
+    # mu = 0.1 g. Where a pool window's two largest values lie within the
+    # rounding of the two paths (0.09% of layer 2's windows lie within
+    # 1e-5 of its largest value, ROADMAP section 3) the paths may route
+    # its gradient to different positions, and a convolution
+    # kernel's gradient gains one other term of its sum over 861k
+    # positions: ~1/sqrt(terms) of it, so mu is held at 1e-3 of its
+    # largest here (the layers alone, fed one routing, at 1e-5 and 1e-4)
+    mu_p = adam.flat_tree(sp['mu'])[0]
+    mu_k = adam.flat_tree(sk['mu'])[0]
+    mu_err = close_to_max('train: mu', mu_k, mu_p, 1e-3)
+    mu_far = int(((mu_k - mu_p).abs() > 1e-4 * float(mu_p.abs().max()))
+                 .sum())
+    p_err, far = adam_aware('train: parameters', adam.flat_tree(pk)[0],
+                            adam.flat_tree(pp)[0], mu_p)
+    print(f'train: one step on the card against the plain step (same '
+          f'masks): loss {lk:.7f} vs {lp:.7f}, mu within {mu_err:.3g} of a '
+          f'largest {float(mu_p.abs().max()):.3g} ({mu_far} elements past '
+          f'1e-4 of it), parameters within {p_err:.3g} ({far} past 1e-5 of '
+          f'{npar})', flush=True)
+
+    # TRAIN_STEPS steps, counted and timed: the main path
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        params, state, loss = braai.train_step(params, state, x, y, gen)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for k, n in launches.items():
+        want = TRAIN_STEPS * TRAIN_LAUNCHES.get(k, 0)
+        check(n == want, f'train: {k} launched {n} times in '
+              f'{TRAIN_STEPS} steps, expected {want}')
+    losses = torch.stack(losses).cpu().numpy()
+    check(np.isfinite(losses).all(), 'train: a loss is not finite')
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first - TRAIN_LOSS_DROP, f'train: the mean loss of the '
+          f'last 10 steps {last:.4f} is not below the first 10\'s '
+          f'{first:.4f} by {TRAIN_LOSS_DROP}')
+    ms_step = secs * 1e3 / TRAIN_STEPS
+    print(f'train: {TRAIN_STEPS} steps of {TRAIN_N} triplets: '
+          f'{ms_step:.3f} ms/step, {TRAIN_N * TRAIN_STEPS / secs:.1f} '
+          f'triplets/s (host clock) on {name}; loss {losses[0]:.4f} -> '
+          f'{losses[-1]:.4f} (mean of the first 10 {first:.4f}, of the last '
+          f'10 {last:.4f}); launches per step '
+          + ', '.join(f'{k} {launches[k] // TRAIN_STEPS}'
+                      for k in TRAIN_ONLY), flush=True)
+    # ten more steps under the profiler: the device's busy share
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(10):
+            params, state, loss = braai.train_step(params, state, x, y, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    # the kernels' own device time (an op's total would count its
+    # kernels again)
+    by_name = {}
+    for e in prof.key_averages():
+        t = getattr(e, 'self_device_time_total', None) or getattr(
+            e, 'self_cuda_time_total', 0)
+        if t:
+            by_name[e.key] = t / 1e3 / 10
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f'train: profiler over 10 steps: wall {wall * 1e3 / 10:.3f} '
+          f'ms/step, device busy {busy / 10:.3f} ms/step ('
+          + (f'{busy / (wall * 1e3):.1%}' if busy else 'not measured: no '
+             'device events') + f') on {name}; device ms/step by name: '
+          + '; '.join(f'{k[:60]} {v:.4f}' for k, v in top), flush=True)
+
+    # the library step: autograd of F.conv2d (cuDNN, TF32 off) and the
+    # dense head, same masks, torch.optim.Adam(fused=True)
+    lib_params = [t.detach().clone().requires_grad_() for t in (
+        [model.Conv_0['kernel'], model.Conv_0['bias'], model.Conv_1['kernel'],
+         model.Conv_1['bias'], model.Conv_2['kernel'], model.Conv_2['bias'],
+         model.Conv_3['kernel'], model.Conv_3['bias'],
+         model.Dense_0['kernel'], model.Dense_0['bias'],
+         model.Dense_1['kernel'], model.Dense_1['bias']])]
+    lib_opt = torch.optim.Adam(lib_params, lr=TRAIN_LR, fused=True)
+    xc = x.permute(0, 3, 1, 2).contiguous()
+    mcs = [masks['Dropout_0'].permute(0, 3, 1, 2).contiguous(),
+           masks['Dropout_1'].permute(0, 3, 1, 2).contiguous(),
+           masks['Dropout_2']]
+    kc = torch.full((), braai.KEEP_CONV, device=dev)
+    kd = torch.full((), braai.KEEP_DENSE, device=dev)
+
+    def lib_step():
+        lib_opt.zero_grad(set_to_none=False)
+        h = xc
+        for j in range(4):
+            wj = lib_params[2 * j].permute(3, 2, 0, 1)
+            h = torch.relu(F.conv2d(h, wj, lib_params[2 * j + 1]))
+            if j % 2:
+                h = torch.where(mcs[j // 2], F.max_pool2d(h, 2, 2) / kc, 0.0)
+        h = h.permute(0, 2, 3, 1).reshape(h.shape[0], -1)
+        h = torch.relu(h @ lib_params[8] + lib_params[9])
+        h = torch.where(mcs[2], h / kd, 0.0)
+        s = torch.sigmoid(h @ lib_params[10] + lib_params[11])[..., 0]
+        braai.bce_loss(s, y).backward()
+        lib_opt.step()
+
+    lib_step_ms = cuda_ms(lib_step, 2, 10)
+    conv_flop = sum(tot[k]['flop'] for k in TRAIN_ONLY[:3])
+    head_flop = 3 * 2 * TRAIN_N * (9216 * 256 + 256)
+    step_bnd = (bound(0, conv_flop)[0] + bound(0, head_flop)[0]
+                + adam_bnd[0])
+    print(f'train: the step\'s bound {step_bnd:.4f} ms (convolutions '
+          f'{conv_flop:.4g} FLOP, {bound(0, conv_flop)[0]:.4f} ms; dense '
+          f'head {head_flop:.4g} FLOP, {bound(0, head_flop)[0]:.4f} ms; Adam '
+          f'{adam_bnd[0]:.4f} ms by bytes): {ms_step:.3f} ms/step, share '
+          f'{step_bnd / ms_step:.1%}; the library step (cuDNN autograd, '
+          f'fused Adam) {lib_step_ms:.3f} ms/step on {name}', flush=True)
+
+    # the trained weights: save_braai, load_braai, rb_scores on the card
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as d:
+        path = os.path.join(d, 'braai_d6_m9.npz')
+        braai.save_braai(params, path)
+        loaded, _ = braai.load_braai(path)
+    check(loaded.Conv_0['kernel'].is_cuda, 'load_braai did not load onto '
+          'the card')
+    with torch.no_grad():
+        s_trained = braai.rb_scores(model, x)
+    s_loaded = braai.rb_scores(loaded, x)
+    check(torch.equal(s_trained, s_loaded), 'train: the saved and loaded '
+          'model scores otherwise than the trained one')
+    real = float(s_loaded[y == 1].mean())
+    bogus = float(s_loaded[y == 0].mean())
+    check(real > bogus, f'train: trained scores real {real:.3f} not above '
+          f'bogus {bogus:.3f}')
+    print(f'train: trained weights saved, loaded on the card and scored: '
+          f'mean RB real {real:.3f}, bogus {bogus:.3f}', flush=True)
+
+    # the dry run's shape: one step on 2 Gaussian triplets, labels 0 and 1
+    rng = np.random.default_rng(0)
+    t2 = rng.normal(size=(TRAIN_DRYRUN_N, 63, 63, 3)).astype('f4')
+    _, p2, _, s2 = braai.make_train_state(0)
+    n0 = {k: launch.WRAPPERS[k].launches for k in TRAIN_ONLY}
+    p2, s2, l2 = braai.train_step(p2, s2, t2, np.array([0.0, 1.0], 'f4'), 0)
+    check(bool(torch.isfinite(l2)) and bool(torch.isfinite(
+        adam.flat_tree(p2)[0]).all()), 'train: the dry run\'s step is not '
+        'finite')
+    check(all(launch.WRAPPERS[k].launches - n0[k] == TRAIN_LAUNCHES[k]
+              for k in TRAIN_ONLY), 'train: the dry run\'s step did not '
+          'launch every training kernel')
+    print(f'train: one step at the dry run\'s batch of {TRAIN_DRYRUN_N}: '
+          f'loss {float(l2):.4f}', flush=True)
+
+    for k in TRAIN_ONLY[:3]:
+        t = tot[k]
+        bnd = bound(t['bytes'], t['flop'])
+        record(k, t['err'], t['ms'], t['plain'], bnd, library_ms=t['lib'],
+               runs=launches, per=f'{TRAIN_STEPS} training steps of '
+               f'{TRAIN_N}')
+    record('adam_step', 0.0, adam_ms, adam_plain, adam_bnd,
+           library_ms=adam_lib, runs=launches,
+           per=f'{TRAIN_STEPS} training steps')
+    return ms_step
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
@@ -1846,7 +2358,8 @@ def main():
     # night below), every other kernel here
     for k, n in launches.items():
         check(n > 0 or k == 'stamp_candidates'
-              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY,
+              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY
+              + TRAIN_ONLY,
               f'kernel {k} was not launched by the main path')
 
     submask = out['submask']
@@ -1881,7 +2394,8 @@ def main():
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
         check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
-              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY,
+              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY
+              + TRAIN_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
@@ -1956,6 +2470,9 @@ def main():
 
     # ---- the ZOGY subtraction: from_images(method='zogy') on both pairs --
     zogy_phase(wrappers, name, record, pair_s)
+
+    # ---- braai training: make_train_state and train_step, counted --------
+    train_phase(wrappers, name, record)
 
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     for mode in (False, True, 'watershed'):

@@ -16,6 +16,8 @@ package's flax model on the CPU.
   ``max_pool``): rtol 1e-5, atol 1e-6.
 * ``init_braai`` draws flax's distribution (truncated normal, variance 1 /
   fan_in, zero biases) from a seeded ``torch.Generator``.
+* Without a device the entry points mean the card (``device='cpu'`` is
+  the only way onto the CPU), so the tests pass it.
 """
 import math
 
@@ -79,7 +81,7 @@ def test_npz_from_jax_to_port(tmp_path, flax_init):
         keys = set(f.files)
     assert keys == {f"['params']['{n}']['{k}']" for n in LAYERS
                     for k in ('kernel', 'bias')}
-    model, params = tbraai.load_braai(path, seed=5)
+    model, params = tbraai.load_braai(path, seed=5, device='cpu')
     for name in LAYERS:
         for k in ('kernel', 'bias'):
             np.testing.assert_array_equal(
@@ -89,7 +91,7 @@ def test_npz_from_jax_to_port(tmp_path, flax_init):
 
 
 def test_npz_from_port_to_jax(tmp_path):
-    model, params = tbraai.init_braai(3)
+    model, params = tbraai.init_braai(3, device='cpu')
     path = str(tmp_path / 'port.npz')
     tbraai.save_braai(model, path)
     _, jparams = jbraai.load_braai(path)
@@ -99,7 +101,8 @@ def test_npz_from_port_to_jax(tmp_path):
                 np.asarray(jparams['params'][name][k]),
                 params['params'][name][k].numpy(), err_msg=f'{name} {k}')
     # a missing file is the fresh init, as in the reference
-    fresh, _ = tbraai.load_braai(str(tmp_path / 'absent.npz'), seed=3)
+    fresh, _ = tbraai.load_braai(str(tmp_path / 'absent.npz'), seed=3,
+                                 device='cpu')
     assert torch.equal(fresh.Dense_0['kernel'], model.Dense_0['kernel'])
 
 
@@ -118,7 +121,8 @@ def test_scores_match_flax(flax_init, spread):
         assert np.abs(want - 0.498).max() < 0.005
     # the parameter tree scores as the model does
     np.testing.assert_array_equal(
-        tbraai.rb_scores(model.params(), t).numpy(), got.numpy())
+        tbraai.rb_scores(model.params(), t, device='cpu').numpy(),
+        got.numpy())
 
 
 def test_a_permuted_flatten_shows_at_the_spread_weights(flax_init):
@@ -169,9 +173,9 @@ def test_each_layer_matches_flax(flax_init, i):
 
 
 def test_init_draws_flax_s_distribution():
-    _, a = tbraai.init_braai(0)
-    _, b = tbraai.init_braai(0)
-    _, c = tbraai.init_braai(1)
+    _, a = tbraai.init_braai(0, device='cpu')
+    _, b = tbraai.init_braai(0, device='cpu')
+    _, c = tbraai.init_braai(1, device='cpu')
     for name, shape in tbraai.param_shapes().items():
         k = a['params'][name]['kernel']
         assert torch.equal(k, b['params'][name]['kernel'])
@@ -212,3 +216,23 @@ def test_h13_wrapper_refuses_cpu_tensors_and_other_layers():
         for i, s in enumerate(list(tbraai.param_shapes().values())[:4]))
     assert {'triplet_cut', 'negpix_veto', 'braai_conv3x3'} <= set(
         launch.WRAPPERS)
+
+
+def test_entry_points_default_to_the_card(flax_init, tmp_path):
+    """Without a device the braai entry points mean the card: on a machine
+    without one they raise and name ``device='cpu'``; a model stays where
+    the caller put it."""
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: device=None is the card')
+    t = unit_triplets(2)
+    for call in (lambda: tbraai.init_braai(0),
+                 lambda: tbraai.load_braai(str(tmp_path / 'absent.npz')),
+                 lambda: tbraai.rb_scores(flax_init, t),
+                 lambda: tbraai.make_train_state(0),
+                 lambda: tbraai.opt_state_from_optax(
+                     (0, flax_init, flax_init))):
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()
+    model = tbraai.BraaiD6().load_params(flax_init)
+    assert tbraai.rb_scores(model, t).device.type == 'cpu'
+    assert tbraai.rb_scores(flax_init, t, device='cpu').device.type == 'cpu'

@@ -162,7 +162,7 @@ def catalog(xs, ys, header_cls, fid, wcs):
 @pytest.fixture(scope='module')
 def weights(tmp_path_factory):
     d = tmp_path_factory.mktemp('braai')
-    model, _ = tbraai.init_braai(0)
+    model, _ = tbraai.init_braai(0, device='cpu')
     path = str(d / 'braai_d6_m9.npz')
     tbraai.save_braai(inputs.spread_braai(model.params()), path)
     return path
@@ -174,7 +174,8 @@ def one_model(weights, monkeypatch):
     monkeypatch.setattr(jfilter, 'load_model_helper',
                         lambda *a, **k: jbraai.load_braai(weights))
     monkeypatch.setattr(tfilter, 'load_model_helper',
-                        lambda *a, **k: tbraai.load_braai(weights))
+                        lambda *a, **k: tbraai.load_braai(
+                            weights, device=k.get('device')))
 
 
 def funnel(out):
@@ -230,16 +231,16 @@ def test_load_model_helper_caches_per_file_and_device(tmp_path):
     a, pa = tfilter.load_model_helper(device='cpu')
     b, _ = tfilter.load_model_helper(device='cpu')
     assert a is b and isinstance(a, tbraai.BraaiD6)
-    fresh, _ = tbraai.init_braai(0)
+    fresh, _ = tbraai.init_braai(0, device='cpu')
     assert torch.equal(pa['params']['Conv_0']['kernel'],
                        fresh.Conv_0['kernel'])
-    model, _ = tbraai.init_braai(9)
+    model, _ = tbraai.init_braai(9, device='cpu')
     tbraai.save_braai(model, str(tmp_path / 'braai_d6_m9.npz'))
     c, _ = tfilter.load_model_helper(str(tmp_path), device='cpu')
     assert c is not a and torch.equal(c.Conv_0['kernel'],
                                       model.Conv_0['kernel'])
     # the file rewritten (a new modification time): read again
-    model2, _ = tbraai.init_braai(10)
+    model2, _ = tbraai.init_braai(10, device='cpu')
     path = tmp_path / 'braai_d6_m9.npz'
     before = path.stat().st_mtime_ns
     tbraai.save_braai(model2, str(path))

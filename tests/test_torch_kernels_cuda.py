@@ -35,7 +35,19 @@ rtol 1e-6 (both sum the squares in double, in other orders); the PSF stamps and 
 and the plain version's cuFFT both transform in double and round once),
 ``good0`` and ``good`` equal;
 ``zogy_subtract`` on the card against the CPU as the CPU against the JAX
-package (``tests/test_torch_zogy.py``).
+package (``tests/test_torch_zogy.py``). The training kernels: H13t per
+layer against its plain version (values rtol 1e-5, atol 1e-6; without a
+mask bit-equal to H13; the routing bytes equal wherever the window's
+largest pre-activation is further than 1e-5 of the layer's largest from 0
+and, positive, from the second, and such near ties under 1% of the
+windows),
+H19 and H20 per layer on the plain version's saved bytes, within 1e-5
+of the plain gradient's largest magnitude (another summation order, at a
+batch of 7; ``chip_smoke.py`` holds H20 at 1e-4 at the main path's batch
+of 256), two H20 calls bit-equal; H21 bit-equal to ``adam_update_plain``; one
+``train_step`` on the card against ``train_step_plain`` with the same
+masks (loss 1e-5 relative, parameters by the Adam-aware rule of
+``tests/test_torch_braai_train.py``).
 """
 from pathlib import Path
 
@@ -878,7 +890,7 @@ def test_braai_scores_card_equals_plain(dev):
     from zuds_tpu_torch import inputs
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.models import braai
-    model, params = braai.init_braai(0)
+    model, params = braai.init_braai(0, device='cpu')
     model.load_params(inputs.spread_braai(params))
     rng = np.random.default_rng(0)
     t = rng.normal(size=(33, 63, 63, 3)).astype('f4')
@@ -1239,3 +1251,168 @@ def test_h15_h18_refuse_wrong_inputs(dev):
 def launch_counts():
     from zuds_tpu_torch.kernels import launch
     return launch.triplet_cut.launches, launch.braai_conv3x3.launches
+
+
+def _near_ties(r, pool_out, tol):
+    """Windows of the 2x2 pool over the pre-activations ``r`` (N, C, Hc,
+    Wc; before ReLU) whose largest value lies within ``tol`` of 0 or,
+    positive, within ``tol`` of the second: their first maximum may move
+    with the summation order. NHWC bool."""
+    n, c, ho, wo = pool_out.shape
+    win = r[:, :, :2 * ho, :2 * wo].reshape(n, c, ho, 2, wo, 2)
+    win = win.permute(0, 1, 2, 4, 3, 5).reshape(n, c, ho, wo, 4)
+    top = win.topk(2, dim=-1).values
+    tie = (top[..., 0].abs() <= tol) | (
+        (top[..., 0] > 0) & (top[..., 0] - top[..., 1] <= tol))
+    return tie.permute(0, 2, 3, 1)
+
+
+def _close_to_max(a, b, rel):
+    err = float((a - b).abs().max())
+    assert err <= rel * float(b.abs().max()), (err, float(b.abs().max()))
+
+
+@pytest.mark.parametrize('i', range(4))
+def test_braai_training_kernels(dev, i):
+    """H13t, H19 (layers 2-4) and H20 on one layer at a batch of 7."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    cin, cout, pool = launch.BRAAI_LAYERS[i]
+    side = (63, 61, 29, 27)[i]
+    x = _rand((7, side, side, cin), dev, 80 + i, 0.05).abs()
+    w = _rand((3, 3, cin, cout), dev, 90 + i, (1.0 / (9 * cin)) ** 0.5)
+    b = _rand((cout,), dev, 100 + i, 0.01)
+    hc = side - 2
+    shape = (7, hc // 2, hc // 2, cout) if pool else (7, hc, hc, cout)
+    g = torch.Generator(device=dev).manual_seed(110 + i)
+    mask = torch.rand(shape, generator=g, device=dev) < 0.75 if pool else None
+    keep = 0.75 if pool else 1.0
+    n0 = {k: launch.WRAPPERS[k].launches for k in (
+        'braai_conv3x3_train', 'braai_conv3x3_dgrad', 'braai_conv3x3_wgrad')}
+    k, kr = braai.conv3x3_train(x, w, b, pool, mask, keep)
+    p, pr = braai.conv3x3_train_plain(x, w, b, pool, mask, keep)
+    assert k.shape == p.shape == shape
+    _allclose(k, p, 1e-5, 1e-6)
+    bare, _ = launch.braai_conv3x3_train(x, w, b, pool)
+    assert torch.equal(bare, launch.braai_conv3x3(x, w, b, pool))
+    if pool:
+        r = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b)
+        tie = _near_ties(r, F.max_pool2d(r, 2, 2),
+                         1e-5 * float(r.abs().max()))
+        assert kr.dtype == torch.uint8 and kr.shape == shape
+        assert torch.equal(kr[~tie], pr[~tie])
+        assert float(tie.float().mean()) < 0.01
+        assert bool((pr == 255).any()) and bool((pr < 4).any())
+        # the dropout: zero where the mask drops, the bare value / keep
+        assert not bool(k[~mask].any())
+        assert torch.equal(k[mask], bare[mask] / torch.full(
+            (), keep, device=dev))
+    else:
+        assert kr is None and pr is None
+    gy = _rand(shape, dev, 120 + i)
+    saved = pr if pool else p
+    if i > 0:
+        gk = braai.conv3x3_dgrad(gy, w, saved, mask, keep, pool, x.shape)
+        gp = braai.conv3x3_dgrad_plain(gy, w, saved, mask, keep, pool,
+                                       x.shape)
+        assert gk.shape == x.shape
+        _close_to_max(gk, gp, 1e-5)
+    else:
+        with pytest.raises(ValueError, match='triplets'):
+            launch.braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool,
+                                       tuple(x.shape))
+    wk, bk = braai.conv3x3_wgrad(x, gy, saved, mask, keep, pool)
+    wk2, bk2 = braai.conv3x3_wgrad(x, gy, saved, mask, keep, pool)
+    assert torch.equal(wk, wk2) and torch.equal(bk, bk2)
+    wp, bp = braai.conv3x3_wgrad_plain(x, gy, saved, mask, keep, pool)
+    assert wk.shape == w.shape and bk.shape == b.shape
+    _close_to_max(wk, wp, 1e-5)
+    _close_to_max(bk, bp, 1e-5)
+    assert launch.braai_conv3x3_train.launches == \
+        n0['braai_conv3x3_train'] + 2
+    assert launch.braai_conv3x3_dgrad.launches == \
+        n0['braai_conv3x3_dgrad'] + (1 if i > 0 else 0)
+    assert launch.braai_conv3x3_wgrad.launches == \
+        n0['braai_conv3x3_wgrad'] + 2
+
+
+def test_adam_kernel_bit_equal(dev):
+    """H21 on braai's 2,425,377 parameters at step 3, with exact zeros and
+    tiny gradients among them, against adam_update_plain."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import adam
+    n = 2425377
+    p = _rand((n,), dev, 130, 0.05)
+    g = _rand((n,), dev, 131, 1e-3)
+    g[:1000] = 0.0
+    g[1000:2000] *= 1e-7
+    mu = _rand((n,), dev, 132, 1e-4)
+    nu = _rand((n,), dev, 133, 1e-7).abs()
+    bc1, bc2 = adam.bias_corrections(torch.tensor(3, dtype=torch.int32,
+                                                  device=dev))
+    want = adam.adam_update_plain(p, g, mu, nu, bc1, bc2, 3e-4)
+    got = [t.clone() for t in (p, mu, nu)]
+    n0 = launch.adam_step.launches
+    launch.adam_step(got[0], g, got[1], got[2], bc1, bc2, 3e-4, 0.9, 0.999,
+                     1e-8)
+    assert launch.adam_step.launches == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+def test_train_step_card_equals_plain(dev):
+    """One train_step on the card (H13t x4, H19 x3, H20 x4, H21 x1) against
+    train_step_plain from the same state with the same masks."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import adam, braai
+    t, y = inputs.labelled_triplets(32, seed=1)
+    masks = braai.draw_masks(32, 5, dev)
+    runs = {}
+    for plain in (False, True):
+        _, params, _, state = braai.make_train_state(0, device=dev)
+        step = braai.train_step_plain if plain else braai.train_step
+        # the gradient the first step sees, for the Adam-aware rule
+        n0 = {k: launch.WRAPPERS[k].launches for k in (
+            'braai_conv3x3_train', 'braai_conv3x3_dgrad',
+            'braai_conv3x3_wgrad', 'adam_step')}
+        params, state, loss = step(params, state, t, y, 0, masks=masks)
+        counts = {k: launch.WRAPPERS[k].launches - v for k, v in n0.items()}
+        runs[plain] = (adam.flat_tree(params)[0],
+                       adam.flat_tree(state['mu'])[0], float(loss), counts)
+    (pk, mk, lk, ck), (pp, mp, lp, cp) = runs[False], runs[True]
+    assert ck == {'braai_conv3x3_train': 4, 'braai_conv3x3_dgrad': 3,
+                  'braai_conv3x3_wgrad': 4, 'adam_step': 1}
+    assert set(cp.values()) == {0}
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    # step 1: mu = 0.1 g, the update about lr sign(g)
+    _close_to_max(mk, mp, 1e-4)
+    d = (pk - pp).abs()
+    near0 = mp.abs() <= 1e-3 * float(mp.abs().max())
+    assert float(d[~near0].max()) <= 1e-5
+    assert float(d[near0].max()) <= 2 * 3e-4
+    assert int((d > 1e-5).sum()) <= 1e-3 * d.numel()
+
+
+def test_training_wrappers_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    x = torch.zeros((2, 61, 61, 32), device=dev)
+    w, b = torch.zeros((3, 3, 32, 32), device=dev), torch.zeros(32,
+                                                                device=dev)
+    gy = torch.zeros((2, 29, 29, 32), device=dev)
+    route = torch.zeros((2, 29, 29, 32), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match='not a layer'):
+        launch.braai_conv3x3_train(x, w, b, False)
+    with pytest.raises(ValueError, match='no dropout mask'):
+        launch.braai_conv3x3_train(
+            torch.zeros((2, 63, 63, 3), device=dev),
+            torch.zeros((3, 3, 3, 32), device=dev), b,
+            False, torch.ones((2, 61, 61, 32), dtype=torch.bool, device=dev))
+    with pytest.raises(TypeError):
+        launch.braai_conv3x3_wgrad(x, gy, route.float(), None, 0.75, True)
+    with pytest.raises(ValueError, match='shape'):
+        launch.braai_conv3x3_dgrad(gy[:, :28].contiguous(), w, route, None,
+                                   0.75, True, tuple(x.shape))
+    p = torch.zeros(16, device=dev)
+    with pytest.raises(ValueError, match='shape'):
+        launch.adam_step(p, p[:8], p, p, p[0], p[0], 3e-4, 0.9, 0.999, 1e-8)

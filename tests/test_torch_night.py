@@ -435,13 +435,14 @@ def test_run_night_scores_like_the_reference(scene, pipeline_outputs,
     from zuds_tpu_torch.models import braai as tbraai
     d, truths = scene
     spread = pipeline_outputs[3]
-    model, _ = tbraai.init_braai(0)
+    model, _ = tbraai.init_braai(0, device='cpu')
     weights = str(tmp_path / 'braai_d6_m9.npz')
     tbraai.save_braai(spread_braai(model.params()), weights)
     monkeypatch.setattr(jfilter, 'load_model_helper',
                         lambda *a, **k: jbraai.load_braai(weights))
     monkeypatch.setattr(tfilter, 'load_model_helper',
-                        lambda *a, **k: tbraai.load_braai(weights))
+                        lambda *a, **k: tbraai.load_braai(
+                            weights, device=k.get('device')))
     counts, cats, stats = {}, {}, {}
     for pkg in ('jax', 'torch'):
         dd = tmp_path / pkg

@@ -657,13 +657,14 @@ def test_do_one_scores_like_the_reference(pair_dirs, tmp_path, monkeypatch):
     from zuds_tpu_torch import filterobjects as tfilter
     from zuds_tpu_torch.inputs import spread_braai
     from zuds_tpu_torch.models import braai as tbraai
-    model, _ = tbraai.init_braai(0)
+    model, _ = tbraai.init_braai(0, device='cpu')
     weights = str(tmp_path / 'braai_d6_m9.npz')
     tbraai.save_braai(spread_braai(model.params()), weights)
     monkeypatch.setattr(jfilter, 'load_model_helper',
                         lambda *a, **k: jbraai.load_braai(weights))
     monkeypatch.setattr(tfilter, 'load_model_helper',
-                        lambda *a, **k: tbraai.load_braai(weights))
+                        lambda *a, **k: tbraai.load_braai(
+                            weights, device=k.get('device')))
     jsub, jdets = jdosub.do_one(' '.join(pair_dirs['jml']))
     stats = {}
     tsub, tdets = tsubmod.do_one(' '.join(pair_dirs['tml']), device='cpu',

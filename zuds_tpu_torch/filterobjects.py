@@ -52,8 +52,7 @@ def load_model_helper(path=None, model_base_name=BRAAI_MODEL, device=None):
             st = os.stat(weights)
             key = (weights, st.st_mtime_ns, st.st_size, str(device))
     if key not in _MODELS:
-        model, _ = load_braai(weights)
-        model = model.to(device)
+        model, _ = load_braai(weights, device=device)
         _MODELS[key] = (model, model.params())
     return _MODELS[key]
 

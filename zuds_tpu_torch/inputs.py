@@ -22,7 +22,8 @@ from .ops.subtract import KernelBasis
 
 __all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
            'COADD_INPUT_NAMES', 'resolve_device', 'upload', 'upload_mask',
-           'write_night_pairs', 'write_coadd_epochs', 'spread_braai']
+           'write_night_pairs', 'write_coadd_epochs', 'spread_braai',
+           'labelled_triplets']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -413,3 +414,46 @@ def spread_braai(params):
         if last:
             layer['bias'] = torch.full_like(layer['bias'], SPREAD_LOGIT_BIAS)
     return out
+
+
+def labelled_triplets(n, seed=0):
+    """A learnable braai training set from ``seed``: (triplets (n, 63, 63,
+    3) f32 NHWC new/ref/sub, labels (n,) f32). Even rows are real (1): a
+    Gaussian source (sigma 1.2-2.5 px, peak 15-60 times the unit noise,
+    within 2 px of the centre) in new and sub, none in ref. Odd rows are
+    bogus (0), in turn: noise alone; a one-pixel hot spot (15-60) in new
+    and sub; a dipole, a source in new and ref 1-3 px apart and their
+    difference in sub. Each window is divided by its L2 norm (at least
+    1e-10), as ``filterobjects.make_triplets_batch`` does."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:63, :63] - 31.0
+    t = rng.normal(size=(n, 63, 63, 3))
+    labels = np.zeros(n, np.float32)
+
+    def source(dx, dy, sigma, amp):
+        return amp * np.exp(-((xx - dx) ** 2 + (yy - dy) ** 2)
+                            / (2 * sigma ** 2))
+
+    for i in range(n):
+        sigma, amp = rng.uniform(1.2, 2.5), rng.uniform(15.0, 60.0)
+        dx, dy = rng.uniform(-2.0, 2.0, 2)
+        if i % 2 == 0:
+            s = source(dx, dy, sigma, amp)
+            t[i, :, :, 0] += s
+            t[i, :, :, 2] += s
+            labels[i] = 1.0
+        elif i // 2 % 3 == 1:
+            y, x = 31 + int(round(dy)), 31 + int(round(dx))
+            t[i, y, x, 0] += amp
+            t[i, y, x, 2] += amp
+        elif i // 2 % 3 == 2:
+            ang = rng.uniform(0.0, 2 * np.pi)
+            sep = rng.uniform(1.0, 3.0)
+            ox, oy = 0.5 * sep * np.cos(ang), 0.5 * sep * np.sin(ang)
+            new = source(dx + ox, dy + oy, sigma, amp)
+            ref = source(dx - ox, dy - oy, sigma, amp)
+            t[i, :, :, 0] += new
+            t[i, :, :, 1] += ref
+            t[i, :, :, 2] += new - ref
+    norm = np.sqrt((t * t).sum((1, 2), keepdims=True))
+    return (t / np.maximum(norm, 1e-10)).astype(np.float32), labels

@@ -23,7 +23,7 @@ __all__ = ['library', 'check', 'ApplyParams']
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
            'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
-           'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu')
+           'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu', 'adam.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -93,6 +93,21 @@ SIGNATURES = {
     'zuds_psf_stamps': (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     # stamps, good0(u8), S, npix, iters, psf, good(u8), stream
     'zuds_psf_clip': (_P, _P, _I, _I, _I, _P, _P, _P),
+    # in, w, bias, out, route (u8 or null), mask (u8 or null), keep, N, H,
+    # W, Cin, Cout, pool, stream
+    'zuds_braai_conv3x3_train': (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                                 _I, _I, _P),
+    # gy, route, mask, y (each or null), keep, w, gx, N, H, W, Cin, Cout,
+    # pool, stream
+    'zuds_braai_conv3x3_dgrad': (_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P),
+    # x, gy, route, mask, y (each or null), keep, partial, out, N, H, W, Cin,
+    # Cout, pool, stream
+    'zuds_braai_conv3x3_wgrad': (_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _P),
+    # p, g, mu, nu, bc1, bc2, n, b1, 1 - b1, b2, 1 - b2, eps, -lr, stream
+    'zuds_adam_step': (_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
+                       _P),
 }
 
 

@@ -3,7 +3,9 @@ H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
 candidates, H8 frame median, H9 clipped combine, H10 gather warp, H11
 subtraction epilogue, H12 triplet cutter, H13 braai convolution layer, H14
 negative-pixel veto, H15 ZOGY spectral pass, H16 ZOGY score normalisation,
-H17 PSF star stamps, H18 PSF clipped mean).
+H17 PSF star stamps, H18 PSF clipped mean, H13t the braai layer's training
+forward, H19 its input gradient, H20 its weight gradient, H21 the fused
+Adam step).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -13,6 +15,7 @@ Nothing here synchronises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -23,7 +26,9 @@ __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
            'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
            'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
            'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
-           'psf_clip', 'BRAAI_LAYERS', 'COMBINE_MAX_EPOCHS', 'WRAPPERS']
+           'psf_clip', 'braai_conv3x3_train', 'braai_conv3x3_dgrad',
+           'braai_conv3x3_wgrad', 'adam_step', 'BRAAI_LAYERS',
+           'COMBINE_MAX_EPOCHS', 'WRAPPERS']
 
 
 def _ptr(t):
@@ -446,35 +451,190 @@ BRAAI_LAYERS = ((3, 32, False), (32, 32, True), (32, 64, False),
                 (64, 64, True))
 
 
+def _braai_layer(name, x, cout, pool):
+    """(N, H, W, Cin) of a braai layer's NHWC f32 input ``x`` (or its
+    shape), checked with ``cout`` and ``pool`` against
+    :data:`BRAAI_LAYERS`."""
+    shape = tuple(x.shape) if torch.is_tensor(x) else tuple(x)
+    if torch.is_tensor(x):
+        _require('x', x, torch.float32)
+    if len(shape) != 4 or shape[1] < 3 or shape[2] < 3 \
+            or math.prod(shape) >= 2 ** 31:
+        raise ValueError(f'{name}: expected an (N, H, W, Cin) batch of at '
+                         f'least 3x3 under 2^31 elements, got {shape}')
+    cin = shape[-1]
+    if (cin, cout, bool(pool)) not in BRAAI_LAYERS:
+        raise ValueError(f'{name}: (Cin, Cout, pool) = ({cin}, {cout}, '
+                         f'{bool(pool)}) is not a layer of BraaiD6')
+    return shape
+
+
+def _braai_out_shape(N, H, W, cout, pool):
+    hc, wc = H - 2, W - 2
+    return (N, hc // 2, wc // 2, cout) if pool else (N, hc, wc, cout)
+
+
+def _aligned(name, *ts):
+    for t in ts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f'{name}: every tensor must be 16-byte aligned')
+
+
+def _braai_saved(name, gy, saved, mask, pool, shape):
+    """Check what H19 and H20 read of a layer: its output gradient ``gy``
+    of ``shape``; for a pooled layer ``saved`` the u8 routing bytes and
+    ``mask`` a bool dropout mask (or None), for an unpooled one ``saved``
+    the layer's output and no mask. Returns (route, mask, y)."""
+    _require('gy', gy, torch.float32, shape)
+    if pool:
+        _require('route', saved, torch.uint8, shape)
+        if mask is not None:
+            _require('mask', mask, torch.bool, shape)
+        return saved, mask, None
+    if mask is not None:
+        raise ValueError(f'{name}: an unpooled layer takes no dropout mask')
+    _require('y', saved, torch.float32, shape)
+    return None, None, saved
+
+
 def braai_conv3x3(x, w, b, pool):
     """H13 (kernels/braai.cu): ``relu(conv3x3_valid(x, w) + b)``, then with
     ``pool`` the 2x2/2 max pool (odd last row and column dropped), for an
     NHWC f32 batch ``x`` (N, H, W, Cin), an HWIO kernel ``w`` (3, 3, Cin,
     Cout) and ``b`` (Cout,), at the four layers' shapes
     (:data:`BRAAI_LAYERS`). Returns (N, Ho, Wo, Cout) f32."""
-    _require('x', x, torch.float32)
-    if x.dim() != 4 or x.shape[1] < 3 or x.shape[2] < 3:
-        raise ValueError(f'braai_conv3x3: expected an (N, H, W, Cin) batch '
-                         f'of at least 3x3, got {tuple(x.shape)}')
-    N, H, W, cin = x.shape
     cout = w.shape[-1] if w.dim() == 4 else -1
-    if (cin, cout, bool(pool)) not in BRAAI_LAYERS:
-        raise ValueError(f'braai_conv3x3: (Cin, Cout, pool) = ({cin}, '
-                         f'{cout}, {bool(pool)}) is not a layer of BraaiD6')
+    N, H, W, cin = _braai_layer('braai_conv3x3', x, cout, pool)
     _require('w', w, torch.float32, (3, 3, cin, cout))
     _require('b', b, torch.float32, (cout,))
-    if x.data_ptr() % 16 or x.numel() >= 2 ** 31:
-        raise ValueError('braai_conv3x3: x must be 16-byte aligned and '
-                         'under 2^31 elements')
-    hc, wc = H - 2, W - 2
-    ho, wo = (hc // 2, wc // 2) if pool else (hc, wc)
-    out = torch.empty((N, ho, wo, cout), dtype=torch.float32, device=x.device)
+    _aligned('braai_conv3x3', x)
+    out = torch.empty(_braai_out_shape(N, H, W, cout, pool),
+                      dtype=torch.float32, device=x.device)
     err = build.library().zuds_braai_conv3x3(
         _ptr(x), _ptr(w), _ptr(b), _ptr(out), N, H, W, cin, cout,
         int(bool(pool)), _stream())
     build.check(err, 'zuds_braai_conv3x3')
     braai_conv3x3.launches += 1
     return out
+
+
+def braai_conv3x3_train(x, w, b, pool, mask=None, keep=1.0):
+    """H13t (kernels/braai.cu, H13's training mode): H13's output of the
+    layer and, for a pooled layer, the u8 routing bytes of its gradient
+    (0-3, the first maximum in the 2x2 window in row-major order, or 255
+    where that maximum is <= 0) with the bool dropout ``mask`` (the
+    output's shape, or None) applied as ``mask ? v / keep : 0``. Returns
+    (out, route), route None for an unpooled layer (which takes no mask).
+    """
+    cout = w.shape[-1] if w.dim() == 4 else -1
+    N, H, W, cin = _braai_layer('braai_conv3x3_train', x, cout, pool)
+    _require('w', w, torch.float32, (3, 3, cin, cout))
+    _require('b', b, torch.float32, (cout,))
+    shape = _braai_out_shape(N, H, W, cout, pool)
+    if mask is not None:
+        if not pool:
+            raise ValueError('braai_conv3x3_train: an unpooled layer takes '
+                             'no dropout mask')
+        _require('mask', mask, torch.bool, shape)
+    _aligned('braai_conv3x3_train', x, mask)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    route = (torch.empty(shape, dtype=torch.uint8, device=x.device)
+             if pool else None)
+    null = ctypes.c_void_p(None)
+    err = build.library().zuds_braai_conv3x3_train(
+        _ptr(x), _ptr(w), _ptr(b), _ptr(out),
+        null if route is None else _ptr(route),
+        null if mask is None else _ptr(mask), float(keep), N, H, W, cin,
+        cout, int(bool(pool)), _stream())
+    build.check(err, 'zuds_braai_conv3x3_train')
+    braai_conv3x3_train.launches += 1
+    return out, route
+
+
+def braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool, in_shape):
+    """H19 (kernels/braai.cu): the gradient (``in_shape``, NHWC f32) of a
+    braai layer's input from the gradient ``gy`` of its output and what
+    H13t saved (``saved``, ``mask``: see H20), for layers 2-4 (the
+    triplets need none)."""
+    _require('gy', gy, torch.float32)
+    cout = w.shape[-1] if w.dim() == 4 else -1
+    N, H, W, cin = _braai_layer('braai_conv3x3_dgrad', in_shape, cout, pool)
+    _require('w', w, torch.float32, (3, 3, cin, cout))
+    if cin == 3:
+        raise ValueError('braai_conv3x3_dgrad: the first layer\'s input (the '
+                         'triplets) has no gradient kernel')
+    shape = _braai_out_shape(N, H, W, cout, pool)
+    route, mask, y = _braai_saved('braai_conv3x3_dgrad', gy, saved, mask,
+                                  pool, shape)
+    _aligned('braai_conv3x3_dgrad', gy, route, mask, y)
+    gx = torch.empty((N, H, W, cin), dtype=torch.float32, device=gy.device)
+    null = ctypes.c_void_p(None)
+
+    def p(t):
+        return null if t is None else _ptr(t)
+
+    err = build.library().zuds_braai_conv3x3_dgrad(
+        _ptr(gy), p(route), p(mask), p(y), float(keep), _ptr(w), _ptr(gx),
+        N, H, W, cin, cout, int(bool(pool)), _stream())
+    build.check(err, 'zuds_braai_conv3x3_dgrad')
+    braai_conv3x3_dgrad.launches += 1
+    return gx
+
+
+def braai_conv3x3_wgrad(x, gy, saved, mask, keep, pool):
+    """H20 (kernels/braai.cu): (gw (3, 3, Cin, Cout), gb (Cout,)) of a braai
+    layer from its input ``x`` (NHWC f32), the gradient ``gy`` of its
+    output and what H13t saved: for a pooled layer ``saved`` its routing
+    bytes and ``mask`` its bool dropout mask (or None) with ``keep``; for
+    an unpooled one ``saved`` its output (the ReLU mask) and no mask.
+    Fixed-order partials per image, then a second pass in image order: two
+    calls give the same bits."""
+    cout = gy.shape[-1] if gy.dim() == 4 else -1
+    N, H, W, cin = _braai_layer('braai_conv3x3_wgrad', x, cout, pool)
+    if N > 65535:
+        raise ValueError(f'braai_conv3x3_wgrad: a batch of {N} is past the '
+                         '65535 images of the grid')
+    shape = _braai_out_shape(N, H, W, cout, pool)
+    route, mask, y = _braai_saved('braai_conv3x3_wgrad', gy, saved, mask,
+                                  pool, shape)
+    _aligned('braai_conv3x3_wgrad', x, gy, route, mask, y)
+    count = 9 * cin * cout + cout
+    partial = torch.empty(max(N, 1) * count, dtype=torch.float32,
+                          device=x.device)
+    out = torch.empty(count, dtype=torch.float32, device=x.device)
+    null = ctypes.c_void_p(None)
+
+    def p(t):
+        return null if t is None else _ptr(t)
+
+    err = build.library().zuds_braai_conv3x3_wgrad(
+        _ptr(x), _ptr(gy), p(route), p(mask), p(y), float(keep),
+        _ptr(partial), _ptr(out), N, H, W, cin, cout, int(bool(pool)),
+        _stream())
+    build.check(err, 'zuds_braai_conv3x3_wgrad')
+    braai_conv3x3_wgrad.launches += 1
+    return out[:-cout].view(3, 3, cin, cout), out[-cout:]
+
+
+def adam_step(p, g, mu, nu, bc1, bc2, lr, b1, b2, eps):
+    """H21 (kernels/adam.cu): optax's Adam update and its application over
+    the flat f32 buffers ``p``, ``g``, ``mu``, ``nu`` (one shape), in place
+    on ``p``, ``mu`` and ``nu``, with the bias corrections ``bc1``, ``bc2``
+    (f32 device scalars, ``1 - b^count`` of the incremented count). The
+    hyperparameters are rounded to f32 here, as JAX rounds its weakly typed
+    Python floats."""
+    _require('p', p, torch.float32)
+    for name, t in (('g', g), ('mu', mu), ('nu', nu)):
+        _require(name, t, torch.float32, p.shape)
+    _require('bc1', bc1, torch.float32, ())
+    _require('bc2', bc2, torch.float32, ())
+    err = build.library().zuds_adam_step(
+        _ptr(p), _ptr(g), _ptr(mu), _ptr(nu), _ptr(bc1), _ptr(bc2),
+        p.numel(), float(b1), 1.0 - b1, float(b2), 1.0 - b2, float(eps),
+        -float(lr), _stream())
+    build.check(err, 'zuds_adam_step')
+    adam_step.launches += 1
+    return p, mu, nu
 
 
 def zogy_spectral(N, R, Pn, Pr, c_r, c_n, f_ref, f_new, f_rn, f_d):
@@ -622,6 +782,10 @@ zogy_spectral.launches = 0
 zogy_normalize.launches = 0
 psf_stamps.launches = 0
 psf_clip.launches = 0
+braai_conv3x3_train.launches = 0
+braai_conv3x3_dgrad.launches = 0
+braai_conv3x3_wgrad.launches = 0
+adam_step.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
@@ -634,4 +798,7 @@ WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'triplet_cut': triplet_cut, 'negpix_veto': negpix_veto,
             'braai_conv3x3': braai_conv3x3, 'zogy_spectral': zogy_spectral,
             'zogy_normalize': zogy_normalize, 'psf_stamps': psf_stamps,
-            'psf_clip': psf_clip}
+            'psf_clip': psf_clip, 'braai_conv3x3_train': braai_conv3x3_train,
+            'braai_conv3x3_dgrad': braai_conv3x3_dgrad,
+            'braai_conv3x3_wgrad': braai_conv3x3_wgrad,
+            'adam_step': adam_step}
