@@ -1858,7 +1858,7 @@ class recording_step:
             return call
 
         def upd(tx, grads, state, params, plain=False):
-            self.adam.append(tuple(adam.flat_tree(t)[0].clone() for t in (
+            self.adam.append(tuple(t.flat.clone() for t in (
                 params, grads, state['mu'], state['nu']))
                 + (state['count'].clone(),))
             return update(tx, grads, state, params, plain)
@@ -1873,6 +1873,36 @@ class recording_step:
         from zuds_tpu_torch.models import adam, braai
         (braai.conv3x3_train, braai.conv3x3_dgrad, braai.conv3x3_wgrad,
          adam.Adam.update) = self._saved
+
+
+class card_forward:
+    """While open, the plain training forward (``conv3x3_train_plain``)
+    gives H13t's output and routing bytes instead of its own, so the plain
+    step's backward and update run on the card's forward decisions.
+    ``differ`` gains, per layer, the routing bytes (a pooled layer) or the
+    ReLU signs of the output (an unpooled one) where the plain forward
+    decided otherwise."""
+
+    def __enter__(self):
+        from zuds_tpu_torch.kernels import launch
+        from zuds_tpu_torch.models import braai
+        self._saved = plain = braai.conv3x3_train_plain
+        self.differ = []
+
+        def call(x, w, b, pool, mask=None, keep=1.0):
+            y, route = plain(x, w, b, pool, mask, keep)
+            ky, kr = launch.braai_conv3x3_train(x.contiguous(), w, b, pool,
+                                                mask, keep)
+            self.differ.append(int((kr != route).sum()) if pool
+                               else int(((ky > 0) != (y > 0)).sum()))
+            return ky, kr
+
+        braai.conv3x3_train_plain = call
+        return self
+
+    def __exit__(self, *exc):
+        from zuds_tpu_torch.models import braai
+        braai.conv3x3_train_plain = self._saved
 
 
 def near_ties(r, ho, wo, tol):
@@ -1914,6 +1944,15 @@ def adam_aware(name, got, want, mu, lr=TRAIN_LR):
           f'{name}: parameters differ by {float(d.max()):.3g} '
           f'({far} past 1e-5)')
     return float(d.max()), far
+
+
+def routed_flop(gy, cin):
+    """The FLOP of one backward convolution (H19's or H20's) from the
+    layer's output gradient ``gy``: each element reaches one position of
+    the convolution's output (a pooled layer's through its routing byte,
+    to one position of its 2x2 window), which takes 9 Cin products and
+    sums."""
+    return 2 * gy.numel() * 9 * cin
 
 
 def train_kernel_checks(rec, params, name):
@@ -1989,8 +2028,6 @@ def train_kernel_checks(rec, params, name):
                                       in_shape)
         err = close_to_max(f'braai_conv3x3_dgrad layer {i + 1}', k, p, 1e-5)
         n, h, wd, _ = in_shape
-        he, we = ((h - 2) // 2 * 2, (wd - 2) // 2 * 2) if pool else \
-            (h - 2, wd - 2)
         gz = braai.grad_z_plain(gy, saved, mask, keep, pool,
                                 (h - 2, wd - 2)).permute(0, 3, 1, 2)\
             .contiguous()
@@ -2001,7 +2038,7 @@ def train_kernel_checks(rec, params, name):
             gy, w, saved, mask, keep, pool, in_shape), 1, 3)
         lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_input(
             (n, cin, h, wd), wcn, gz))
-        flop = 2 * n * he * we * cout * 9 * cin
+        flop = routed_flop(gy, cin)
         nbytes = 4 * (gy.numel() + w.numel() + n * h * wd * cin) + (
             saved.numel() * saved.element_size()) + (
             0 if mask is None else mask.numel())
@@ -2031,9 +2068,7 @@ def train_kernel_checks(rec, params, name):
                                1e-4),
                   close_to_max(f'braai_conv3x3_wgrad bias {i + 1}', kb, pb,
                                1e-4))
-        n, h, wd, _ = xi.shape
-        he, we = ((h - 2) // 2 * 2, (wd - 2) // 2 * 2) if pool else \
-            (h - 2, wd - 2)
+        h, wd = xi.shape[1:3]
         gz = braai.grad_z_plain(gy, saved, mask, keep, pool,
                                 (h - 2, wd - 2)).permute(0, 3, 1, 2)\
             .contiguous()
@@ -2051,7 +2086,7 @@ def train_kernel_checks(rec, params, name):
         plain = cuda_ms(lambda: braai.conv3x3_wgrad_plain(
             xi, gy, saved, mask, keep, pool), 1, 3)
         lib_ms = cuda_ms(lib_w)
-        flop = 2 * n * he * we * cout * 9 * cin
+        flop = routed_flop(gy, cin)
         nbytes = 4 * (xi.numel() + gy.numel() + 9 * cin * cout + cout) + (
             saved.numel() * saved.element_size()) + (
             0 if mask is None else mask.numel())
@@ -2079,7 +2114,7 @@ def train_kernel_checks(rec, params, name):
     for a, b_, what in zip((kp, kmu, knu), want, ('p', 'mu', 'nu')):
         check(torch.equal(a, b_), f'H21: {what} differs from the plain '
               f'version by {float((a - b_).abs().max()):.3g}')
-    check(torch.equal(kp, adam.flat_tree(params)[0]),
+    check(torch.equal(kp, params.flat),
           'H21 on the recorded buffers differs from the step\'s update')
     adam_ms = graph_ms(lambda: launch.adam_step(
         kp, g, kmu, knu, bc1, bc2, TRAIN_LR, adam.B1, adam.B2, adam.EPS))
@@ -2142,7 +2177,7 @@ def train_phase(wrappers, name, record):
     with torch.no_grad():
         tot, (adam_ms, adam_plain, adam_lib, adam_bnd) = \
             train_kernel_checks(rec, params, name)
-    npar = adam.flat_tree(params)[0].numel()
+    npar = params.flat.numel()
 
     # a step on the card against the plain step, same state and masks
     _, pk, _, sk = braai.make_train_state(0)
@@ -2155,24 +2190,41 @@ def train_phase(wrappers, name, record):
     check(abs(lk - lp) <= 1e-5 * abs(lp), f'train: loss {lk} on the card, '
           f'{lp} plain')
     # mu = 0.1 g. Where a pool window's two largest values lie within the
-    # rounding of the two paths (0.09% of layer 2's windows lie within
+    # rounding of the two forwards (0.09% of layer 2's windows lie within
     # 1e-5 of its largest value, ROADMAP section 3) the paths may route
-    # its gradient to different positions, and a convolution
-    # kernel's gradient gains one other term of its sum over 861k
-    # positions: ~1/sqrt(terms) of it, so mu is held at 1e-3 of its
-    # largest here (the layers alone, fed one routing, at 1e-5 and 1e-4)
-    mu_p = adam.flat_tree(sp['mu'])[0]
-    mu_k = adam.flat_tree(sk['mu'])[0]
+    # its gradient to different positions, and a convolution kernel's
+    # gradient gains one other term of its sum over up to 861k positions.
+    # So mu is held at 1e-3 of its largest against the plain step, and at
+    # 1e-4 against the plain step on the card's forward decisions (below)
+    mu_p = sp['mu'].flat
+    mu_k = sk['mu'].flat
     mu_err = close_to_max('train: mu', mu_k, mu_p, 1e-3)
     mu_far = int(((mu_k - mu_p).abs() > 1e-4 * float(mu_p.abs().max()))
                  .sum())
-    p_err, far = adam_aware('train: parameters', adam.flat_tree(pk)[0],
-                            adam.flat_tree(pp)[0], mu_p)
+    p_err, far = adam_aware('train: parameters', pk.flat, pp.flat, mu_p)
     print(f'train: one step on the card against the plain step (same '
           f'masks): loss {lk:.7f} vs {lp:.7f}, mu within {mu_err:.3g} of a '
           f'largest {float(mu_p.abs().max()):.3g} ({mu_far} elements past '
           f'1e-4 of it), parameters within {p_err:.3g} ({far} past 1e-5 of '
           f'{npar})', flush=True)
+    # the same plain step on the card's forward decisions: where the two
+    # forwards route a pool window or pass a ReLU alike, mu holds at 1e-4
+    _, pf, _, sf = braai.make_train_state(0)
+    with card_forward() as fwd:
+        pf, sf, lf = braai.train_step_plain(pf, sf, x, y, 0, masks=masks)
+    mu_f = sf['mu'].flat
+    mu_err_f = close_to_max('train: mu on the card\'s forward', mu_k, mu_f,
+                            1e-4)
+    mu_far_f = int(((mu_k - mu_f).abs() > 1e-4 * float(mu_f.abs().max()))
+                   .sum())
+    p_err_f, far_f = adam_aware('train: parameters on the card\'s forward',
+                                pk.flat, pf.flat, mu_f)
+    print(f'train: the plain step on the card\'s forward (H13t\'s outputs '
+          f'and routing bytes; the plain forward decided otherwise at '
+          f'{fwd.differ} routing bytes or ReLU signs of layers 1-4): loss '
+          f'{float(lf):.7f}, mu within {mu_err_f:.3g} of the card\'s step '
+          f'({mu_far_f} elements past 1e-4 of its largest), parameters '
+          f'within {p_err_f:.3g} ({far_f} past 1e-5)', flush=True)
 
     # TRAIN_STEPS steps, counted and timed: the main path
     for w in wrappers.values():
@@ -2299,7 +2351,7 @@ def train_phase(wrappers, name, record):
     n0 = {k: launch.WRAPPERS[k].launches for k in TRAIN_ONLY}
     p2, s2, l2 = braai.train_step(p2, s2, t2, np.array([0.0, 1.0], 'f4'), 0)
     check(bool(torch.isfinite(l2)) and bool(torch.isfinite(
-        adam.flat_tree(p2)[0]).all()), 'train: the dry run\'s step is not '
+        p2.flat).all()), 'train: the dry run\'s step is not '
         'finite')
     check(all(launch.WRAPPERS[k].launches - n0[k] == TRAIN_LAUNCHES[k]
               for k in TRAIN_ONLY), 'train: the dry run\'s step did not '

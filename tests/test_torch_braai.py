@@ -34,6 +34,7 @@ from zuds_tpu_torch import constants as tconst
 from zuds_tpu_torch import inputs
 from zuds_tpu_torch.kernels import launch
 from zuds_tpu_torch.models import braai as tbraai
+from zuds_tpu_torch.models.adam import flat_tree as tflat_tree
 
 torch.set_num_threads(2)
 
@@ -230,9 +231,15 @@ def test_entry_points_default_to_the_card(flax_init, tmp_path):
                  lambda: tbraai.rb_scores(flax_init, t),
                  lambda: tbraai.make_train_state(0),
                  lambda: tbraai.opt_state_from_optax(
-                     (0, flax_init, flax_init))):
+                     (0, flax_init, flax_init)),
+                 lambda: tflat_tree(tbraai.params_from_flax(flax_init))):
         with pytest.raises(RuntimeError, match="device=\"cpu\""):
             call()
+    # train_step takes no tree it would have to place: a numpy or
+    # params_from_flax tree is refused, not trained on the CPU
+    for tree in (flax_init, tbraai.params_from_flax(flax_init)):
+        with pytest.raises(TypeError, match='flat_tree'):
+            tbraai.train_step(tree, None, t, np.array([0.0, 1.0], 'f4'), 0)
     model = tbraai.BraaiD6().load_params(flax_init)
     assert tbraai.rb_scores(model, t).device.type == 'cpu'
     assert tbraai.rb_scores(flax_init, t, device='cpu').device.type == 'cpu'

@@ -208,7 +208,7 @@ def test_adam_matches_optax_within_one_ulp():
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     jst = tx.init(jp)
     adam = tadam.Adam(LR)
-    tp = tbraai.params_from_flax(params)
+    tp = tadam.flat_tree(tbraai.params_from_flax(params), 'cpu')
     tst = adam.init(tp)
     for step in range(STEPS):
         grads = _random_tree(rng, 10.0 ** -(step + 2))
@@ -218,7 +218,8 @@ def test_adam_matches_optax_within_one_ulp():
         updates, jst = tx.update(jax.tree_util.tree_map(jnp.asarray, grads),
                                  jst, jp)
         jp = optax.apply_updates(jp, updates)
-        tp, tst = adam.update(tbraai.params_from_flax(grads), tst, tp)
+        tp, tst = adam.update(
+            tadam.flat_tree(tbraai.params_from_flax(grads), 'cpu'), tst, tp)
         assert int(tst['count']) == int(jst[0].count) == step + 1
         for name in LAYERS:
             for k in ('kernel', 'bias'):
@@ -231,8 +232,10 @@ def test_adam_matches_optax_within_one_ulp():
 
 def test_adam_updates_flat_buffers_in_place():
     tp = tbraai.params_from_flax(_random_tree(np.random.default_rng(4), 0.1))
-    flat, views = tadam.flat_tree(tp)
-    assert tadam.flat_tree(views)[0].data_ptr() == flat.data_ptr()
+    views = tadam.flat_tree(tp, 'cpu')
+    flat = views.flat
+    assert views['params']['Conv_0']['kernel'].data_ptr() == flat.data_ptr()
+    assert tp['params']['Conv_0']['kernel'].data_ptr() != flat.data_ptr()
     adam = tadam.Adam(LR)
     state = adam.init(views)
     before = flat.clone()
@@ -240,12 +243,18 @@ def test_adam_updates_flat_buffers_in_place():
     out, state = adam.update(grads, state, views)
     assert out is views and int(state['count']) == 1
     assert torch.allclose(flat, before - LR, rtol=0, atol=1e-6)
-    # a tree that is not flat comes back as a flat copy, the input kept
-    out2, _ = adam.update(grads, state, tp)
-    assert out2 is not tp and torch.equal(
-        tp['params']['Conv_0']['kernel'],
-        tbraai.params_from_flax(_random_tree(np.random.default_rng(4), 0.1))
-        ['params']['Conv_0']['kernel'])
+    # any other tree is refused, and so are moments on another device than
+    # the parameters: nothing is copied or written
+    after = flat.clone()
+    with pytest.raises(TypeError, match='flat_tree'):
+        adam.update(grads, state, tp)
+    with pytest.raises(TypeError, match='flat_tree'):
+        adam.init(tp)
+    elsewhere = dict(state, mu=tadam.views_like(
+        torch.zeros(flat.numel(), device='meta'), views))
+    with pytest.raises(ValueError, match='meta'):
+        adam.update(grads, elsewhere, views)
+    assert torch.equal(flat, after) and int(state['count']) == 1
 
 
 def test_opt_state_both_ways(flax_init):
@@ -274,10 +283,11 @@ def test_opt_state_both_ways(flax_init):
     back = (optax.ScaleByAdamState(*tbraai.opt_state_to_numpy(st)),
             optax.EmptyState())
     again = tbraai.opt_state_from_optax(back, device='cpu')
-    assert torch.equal(tadam.flat_tree(again['nu'])[0],
-                       tadam.flat_tree(st['nu'])[0])
+    assert torch.equal(again['nu'].flat, st['nu'].flat)
     # the moments are views of one flat buffer each
-    assert tadam.flat_tree(st['mu'])[1] is st['mu']
+    assert isinstance(st['mu'], tadam.FlatTree)
+    assert st['mu']['params']['Conv_0']['kernel'].data_ptr() == \
+        st['mu'].flat.data_ptr()
 
 
 @pytest.fixture(scope='module')
@@ -289,7 +299,7 @@ def chained(flax_init):
     t, y = unit_triplets(), labels()
     jp = jax.tree_util.tree_map(jnp.asarray, flax_init)
     jst = optax.adam(LR).init(jp)
-    tp = tbraai.params_from_flax(flax_init)
+    tp = tadam.flat_tree(tbraai.params_from_flax(flax_init), 'cpu')
     tst = tbraai.opt_state_from_optax(np_tree(jst), device='cpu')
     out = []
     for step in range(STEPS):
@@ -405,8 +415,7 @@ def test_make_train_state_and_the_slice_whole(tmp_path):
     assert int(state['count']) == 0
     assert params['params']['Conv_0']['kernel'].data_ptr() == \
         model.Conv_0['kernel'].data_ptr()
-    flat = tadam.flat_tree(params)[0]
-    assert flat.numel() == 2425377
+    assert params.flat.numel() == 2425377
     t, y = inputs.labelled_triplets(16, seed=0)
     gen = torch.Generator().manual_seed(0)
     losses = []
@@ -428,11 +437,26 @@ def test_make_train_state_and_the_slice_whole(tmp_path):
 
 
 def test_train_step_copies_other_trees(flax_init):
+    """Only ``flat_tree`` copies a tree: ``train_step`` refuses any tree
+    that is not a FlatTree, and moments on another device than the
+    parameters, before it writes anything; on the explicit copy it works in
+    place, the tree it came from left as it was."""
     tp = tbraai.params_from_flax(flax_init)
-    st = tadam.Adam().init(tp, device='cpu')
     t, y = unit_triplets(2), labels(2)
-    out, st2, _ = tbraai.train_step(tp, st, t, y, 1)
-    assert out is not tp
+    flat = tadam.flat_tree(tp, 'cpu')
+    st = tadam.Adam().init(flat)
+    for params in (tp, flax_init):
+        with pytest.raises(TypeError, match='flat_tree'):
+            tbraai.train_step(params, st, t, y, 1)
+    before = flat.flat.clone()
+    elsewhere = dict(st, nu=tadam.views_like(
+        torch.zeros(before.numel(), device='meta'), flat))
+    with pytest.raises(ValueError, match='meta'):
+        tbraai.train_step(flat, elsewhere, t, y, 1)
+    assert torch.equal(flat.flat, before) and int(st['count']) == 0
+    out, st2, _ = tbraai.train_step(flat, st, t, y, 1)
+    assert out is flat and st2['mu'] is st['mu']
+    assert not torch.equal(flat.flat, before)
     np.testing.assert_array_equal(tp['params']['Conv_0']['kernel'].numpy(),
                                   flax_init['params']['Conv_0']['kernel'])
     out2, _, _ = tbraai.train_step(out, st2, t, y, 2)

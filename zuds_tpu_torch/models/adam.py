@@ -3,9 +3,10 @@
 braai's ``train_step`` uses it (``zuds_tpu/models/braai.py:90-105``).
 
 The state is ``{'count', 'mu', 'nu'}``: an int32 0-d count and two trees of
-the parameters' shape, optax's ``ScaleByAdamState``. The moments live in
-one flat f32 buffer each, the trees are views of it, so one pass of H21
-(``kernels/adam.cu``) updates every parameter. The update keeps optax's
+the parameters' shape, optax's ``ScaleByAdamState``. The parameters, their
+gradients and the moments are each a :class:`FlatTree`, views of one flat
+f32 buffer, so one pass of H21 (``kernels/adam.cu``) updates every
+parameter in place. The update keeps optax's
 order of operations, each rounded on its own:
 
     mu = (1 - b1) g + b1 mu,  nu = (1 - b2) (g g) + b2 nu,  count += 1
@@ -21,8 +22,8 @@ import torch
 
 from ..kernels import launch
 
-__all__ = ['Adam', 'adam_update_plain', 'bias_corrections', 'flat_tree',
-           'views_like', 'B1', 'B2', 'EPS']
+__all__ = ['Adam', 'FlatTree', 'adam_update_plain', 'bias_corrections',
+           'flat_buffer', 'flat_tree', 'views_like', 'B1', 'B2', 'EPS']
 
 # optax.adam's defaults
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -54,49 +55,35 @@ def _rebuild(tree, leaves):
     return walk(tree)
 
 
-def _on(t, device):
-    """Whether ``t`` lies on ``device`` ('cuda' without an index: any
-    card)."""
-    return t.device.type == device.type and (
-        device.index is None or t.device.index == device.index)
+class FlatTree(dict):
+    """A tree of the parameters' structure (nested dicts of f32 tensors)
+    whose leaves are consecutive views of the one 1-D buffer ``flat``, in
+    the tree's order: one pass over ``flat`` updates every leaf. The
+    training step and :class:`Adam` take only such trees, made by
+    :func:`flat_tree` (or ``make_train_state``, :meth:`Adam.init`,
+    ``opt_state_from_optax``)."""
+
+    def __init__(self, flat, tree):
+        super().__init__(tree)
+        self.flat = flat
 
 
 def flat_tree(tree, device=None):
-    """(flat, views): a 1-D f32 buffer holding the tree's leaves one after
-    another, in the tree's order, and a tree of the same structure whose
-    leaves are views of it. A tree whose leaves already are such views of
-    one buffer (as :func:`flat_tree` and ``make_train_state`` give) is
-    returned as it is, buffer and all, so an update of the buffer updates
-    it in place; any other is copied (to ``device``, or its leaves')."""
-    leaves = [t for _, t in _leaves(tree)]
-    if not leaves:
-        raise ValueError('flat_tree: the tree has no leaves')
-    first = leaves[0]
-    if device is None and torch.is_tensor(first):
-        device = first.device
-    device = torch.device(device if device is not None else 'cpu')
-    if all(torch.is_tensor(t) for t in leaves):
-        base = first.storage_offset()
-        ptr = first.untyped_storage().data_ptr()
-        off, ok = base, True
-        for t in leaves:
-            ok = ok and (t.dtype == torch.float32 and _on(t, device)
-                         and t.is_contiguous()
-                         and t.untyped_storage().data_ptr() == ptr
-                         and t.storage_offset() == off)
-            off += t.numel()
-        if ok:
-            flat = torch.as_strided(first, (off - base,), (1,), base)
-            return flat, tree
+    """A :class:`FlatTree` on ``device`` (the card unless ``'cpu'``)
+    holding a copy of the leaves of ``tree`` (tensors or arrays, e.g.
+    ``params_from_flax``'s), the tree left as it is."""
+    from ..inputs import resolve_device
+    device = resolve_device(device)
     parts = [torch.as_tensor(t).detach().to(device, torch.float32).reshape(-1)
-             for t in leaves]
-    flat = torch.cat(parts) if len(parts) > 1 else parts[0].clone()
-    return flat, views_like(flat, tree)
+             for _, t in _leaves(tree)]
+    if not parts:
+        raise ValueError('flat_tree: the tree has no leaves')
+    return views_like(torch.cat(parts), tree)
 
 
 def views_like(flat, tree):
-    """A tree of the structure and leaf shapes of ``tree`` whose leaves are
-    consecutive views of the 1-D ``flat``."""
+    """A :class:`FlatTree` of the structure and leaf shapes of ``tree``
+    whose leaves are consecutive views of the 1-D ``flat``."""
     leaves, off = [], 0
     for _, t in _leaves(tree):
         n = int(torch.Size(tuple(t.shape)).numel())
@@ -105,7 +92,20 @@ def views_like(flat, tree):
     if off != flat.numel():
         raise ValueError(f'views_like: the tree holds {off} values, the '
                          f'buffer {flat.numel()}')
-    return _rebuild(tree, leaves)
+    return FlatTree(flat, _rebuild(tree, leaves))
+
+
+def flat_buffer(tree, what, device=None):
+    """The buffer of the :class:`FlatTree` ``tree``; raises TypeError for
+    any other tree, and ValueError where ``device`` is given and the
+    buffer lies elsewhere (nothing is copied)."""
+    if not isinstance(tree, FlatTree):
+        raise TypeError(f'{what} is not a FlatTree: make one with '
+                        'flat_tree(tree, device)')
+    if device is not None and tree.flat.device != device:
+        raise ValueError(f'{what} lies on {tree.flat.device}, the '
+                         f'parameters on {device}')
+    return tree.flat
 
 
 def bias_corrections(count, b1=B1, b2=B2):
@@ -146,32 +146,37 @@ class Adam:
     def __init__(self, lr=3e-4, b1=B1, b2=B2, eps=EPS):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
 
-    def init(self, params, device=None):
-        """The zero state of ``params`` (a tree of tensors): count 0, and
-        ``mu``, ``nu`` zero trees of views of one flat buffer each, on
-        ``device`` or the parameters'."""
-        flat, views = flat_tree(params, device)
+    def init(self, params):
+        """The zero state of the :class:`FlatTree` ``params``: count 0, and
+        ``mu``, ``nu`` zero :class:`FlatTree` s on the parameters'
+        device."""
+        flat = flat_buffer(params, 'Adam.init: params')
         return {'count': torch.zeros((), dtype=torch.int32,
                                      device=flat.device),
-                'mu': views_like(torch.zeros_like(flat), views),
-                'nu': views_like(torch.zeros_like(flat), views)}
+                'mu': views_like(torch.zeros_like(flat), params),
+                'nu': views_like(torch.zeros_like(flat), params)}
 
     def update(self, grads, state, params, plain=False):
         """One step: (params, state) after ``grads``, computed by H21 where
         the parameters lie on the card and by :func:`adam_update_plain` on
         the CPU (or anywhere with ``plain``). Unlike optax's ``update``,
-        the step is applied: trees of flat buffers (as ``init`` and
-        :func:`flat_tree` give) are updated in place and returned; any
-        other tree is first copied into one."""
-        p, params = flat_tree(params)
-        g, _ = flat_tree(grads, p.device)
-        mu, mu_tree = flat_tree(state['mu'], p.device)
-        nu, nu_tree = flat_tree(state['nu'], p.device)
+        the step is applied, in place: ``params``, ``grads`` and the
+        moments are :class:`FlatTree` s on one device (TypeError or
+        ValueError otherwise, before anything is written), and the same
+        trees come back with the count's successor."""
+        p = flat_buffer(params, 'Adam.update: params')
+        dev = p.device
+        g = flat_buffer(grads, 'Adam.update: grads', dev)
+        mu = flat_buffer(state['mu'], 'Adam.update: mu', dev)
+        nu = flat_buffer(state['nu'], 'Adam.update: nu', dev)
+        count = state['count']
+        if not torch.is_tensor(count) or count.device != dev:
+            raise ValueError('Adam.update: the count is not a tensor on '
+                             f'the parameters\' device {dev}')
         if not p.shape == g.shape == mu.shape == nu.shape:
             raise ValueError('Adam.update: the parameters, gradients and '
                              'moments differ in size')
-        count = torch.as_tensor(state['count']).to(p.device, torch.int32)
-        count = count + 1
+        count = count.to(torch.int32) + 1
         bc1, bc2 = bias_corrections(count, self.b1, self.b2)
         if p.is_cuda and not plain:
             launch.adam_step(p, g, mu, nu, bc1, bc2, self.lr, self.b1,
@@ -181,4 +186,5 @@ class Adam:
                                     self.b2, self.eps)
             for buf, val in zip((p, mu, nu), new):
                 buf.copy_(val)
-        return params, {'count': count, 'mu': mu_tree, 'nu': nu_tree}
+        return params, {'count': count, 'mu': state['mu'],
+                        'nu': state['nu']}

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import launch
-from .adam import Adam, flat_tree, views_like
+from .adam import Adam, flat_buffer, flat_tree, views_like
 
 __all__ = ['BraaiD6', 'init_braai', 'load_braai', 'save_braai',
            'params_from_flax', 'rb_scores', 'conv3x3', 'conv3x3_plain',
@@ -341,7 +341,7 @@ class BraaiD6(nn.Module):
 
     def bind_params(self, params):
         """Make this model's parameters the tensors of ``params`` (a tree
-        on the model's device, as :func:`flat_tree` gives): no copy, so an
+        on the model's device, such as a ``FlatTree``): no copy, so an
         update of the tree is an update of the model."""
         for name, layer in params['params'].items():
             for k, t in layer.items():
@@ -460,11 +460,12 @@ def bce_loss(scores, labels):
 def make_train_state(seed=0, lr=3e-4, device=None):
     """(model, params, tx, opt_state) on ``device`` (the card unless
     ``'cpu'``), as braai.py:84-87: the init of ``seed``, its parameters as
-    views of one flat buffer (bound to ``model``: training the tree trains
-    the model), ``tx = Adam(lr)`` and its zero state. As in the reference,
+    a ``FlatTree`` (bound to ``model``: training the tree trains the
+    model), ``tx = Adam(lr)`` and its zero state. As in the reference,
     :func:`train_step` steps with lr 3e-4 whatever ``lr`` is."""
+    device = _device(device)
     model, params = init_braai(seed, device)
-    _, params = flat_tree(params)
+    params = flat_tree(params, device)
     model.bind_params(params)
     tx = Adam(lr)
     return model, params, tx, tx.init(params)
@@ -474,14 +475,17 @@ def train_step(params, opt_state, triplets, labels, rng, masks=None):
     """One BCE training step with Adam (braai.py:90-105): (params,
     opt_state, loss). The forward and backward run H13t, H19 and H20 on the
     card (the dense head through autograd of ``torch.matmul``), the update
-    H21, all on the parameters' device.
+    H21, all on the device where the parameters lie.
 
-    The step updates IN PLACE on the device: ``params`` and ``opt_state``
-    as ``make_train_state`` (or an earlier step) gives them are views of
-    flat buffers, and those buffers are overwritten; the same trees come
-    back. Other trees (``params_from_flax``, ``opt_state_from_optax`` on
-    another device) are first copied into flat buffers, and the copies
-    come back. As in the reference, the step uses Adam at lr 3e-4, not the
+    The step updates IN PLACE on that device. ``params`` and the moments
+    of ``opt_state`` are ``FlatTree`` s, views of flat buffers, as
+    ``make_train_state``, ``opt_state_from_optax`` and an earlier step
+    give them; their buffers are overwritten and the same trees come
+    back. Any other tree (a ``params_from_flax`` tree, numpy arrays) is
+    refused with a TypeError: ``flat_tree(tree, device)`` makes a
+    ``FlatTree`` of it, on the card unless ``device='cpu'``. Moments on
+    another device than the parameters raise a ValueError; nothing is
+    copied. As in the reference, the step uses Adam at lr 3e-4, not the
     lr of ``make_train_state`` (ROADMAP section 3).
 
     ``triplets`` (N, 63, 63, 3) and ``labels`` (N,) in 0/1 go to the
@@ -499,7 +503,7 @@ def train_step_plain(params, opt_state, triplets, labels, rng, masks=None):
 
 
 def _step(params, opt_state, triplets, labels, rng, masks, plain):
-    flat, params = flat_tree(params)
+    flat = flat_buffer(params, 'train_step: params')
     dev = flat.device
     x = torch.as_tensor(triplets, dtype=torch.float32).to(dev).contiguous()
     y = torch.as_tensor(labels, dtype=torch.float32).to(dev)
@@ -537,8 +541,8 @@ def opt_state_from_optax(state, device=None):
     dev = _device(device)
     return {'count': torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                                   device=dev),
-            'mu': flat_tree(params_from_flax(mu), dev)[1],
-            'nu': flat_tree(params_from_flax(nu), dev)[1]}
+            'mu': flat_tree(params_from_flax(mu), dev),
+            'nu': flat_tree(params_from_flax(nu), dev)}
 
 
 def opt_state_to_numpy(state):
