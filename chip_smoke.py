@@ -49,7 +49,17 @@ Adam's times beside them); one step against ``train_step_plain`` with
 the same masks; 50 counted, timed steps with a loss gate, ten more under
 the profiler (the device's busy share); the trained weights through
 ``save_braai``, ``load_braai`` and ``rb_scores`` on the card; one step at
-the dry run's batch of 2. Prints the card,
+the dry run's batch of 2. The measure stage's kernels are held to their
+plain versions on the slice's frame 0 at its 4096 detection rows (H22 at
+r = 3 with the submask and at r = 6 on two planes, H23, H14 at the
+pipeline's H8 medians). Forced photometry: one flagship pair through
+``sub.do_one``, the product read back by ``ScienceImage.from_file``, 4096
+seeded positions (``inputs.forced_positions``), dophot's
+``aperture_photometry`` call, ``raw_aperture_photometry`` on the three
+product files and the call again with the background mesh, counted and
+timed; the transient's forced flux, the off-frame rows and the masked rows
+checked, the blank-sky pulls printed, H22 held to its plain version at
+those positions. Prints the card,
 per-kernel errors and times, the slice's ms/frame and the deblend's
 load, then one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -123,6 +133,12 @@ SOURCES = {
                             'zuds_tpu/models/braai.py:102'),
     'adam_step': ('cuda', 'zuds_tpu_torch/kernels/adam.cu',
                   'zuds_tpu/models/braai.py:103'),
+    'aperture_photometry': ('cuda', 'zuds_tpu_torch/kernels/photometry.cu',
+                            'zuds_tpu/ops/photometry.py:64'),
+    'aperture_sums': ('cuda', 'zuds_tpu_torch/kernels/photometry.cu',
+                      'zuds_tpu/parallel/pipeline.py:306'),
+    'refine_detections': ('cuda', 'zuds_tpu_torch/kernels/measure.cu',
+                          'zuds_tpu/ops/measure.py:139'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
@@ -130,11 +146,35 @@ COADD_ONLY = ('clipped_combine',)
 # the kernels only the per-pair path launches (sub.do_one: the night's
 # fallback pair and the per-pair phase)
 PAIR_ONLY = ('warp_gather', 'apply_model_variance', 'subtract_epilogue')
-# the kernels of the scoring path: H12 and H13 run only at ml=True; H14
-# runs wherever filter_sexcat reads the frames (the per-pair chain), never
-# in the slice or the batched night's frames
+# the kernels of the scoring path: H12 and H13 run only at ml=True
 ML_ONLY = ('triplet_cut', 'braai_conv3x3')
-SCORING_ONLY = ML_ONLY + ('negpix_veto',)
+# the measure stage's launches per slice frame: H22 in both modes, H23,
+# H14 (besides H8's medians)
+MEASURE_LAUNCHES = {'aperture_photometry': 1, 'aperture_sums': 1,
+                    'refine_detections': 1, 'negpix_veto': 1}
+# operations, counted from the sources (a transcendental as one), by the
+# branch each pixel takes in this run's data. H22 (photometry.cu), per
+# window pixel: its offset 4, its four corners with their sum and clamp 9,
+# and four signed quadrant areas without their arc term, 22 each
+# (APERTURE_OPS_PX); its sums (APERTURE_SUM_OPS: three sums and the test
+# w > 0 at r = 3, two sums on two planes), and the mask's AND and OR
+# where w > 0; and the arc term, two arc integrals of 14 and their
+# difference (APERTURE_ARC_OPS), only for a quadrant area whose corner
+# lies outside the circle. H23 (measure.cu), per window pixel: four
+# centroid iterations of 15, the moments 36, the Kron pass 21 and the AUTO
+# pass 18 (REFINE_OPS_PX), and two sums and a square for a pixel inside
+# the AUTO ellipse (REFINE_AUTO_OPS).
+APERTURE_OPS_PX = 101
+APERTURE_SUM_OPS = {'photometry': 7, 'sums': 4}
+APERTURE_ARC_OPS = 29
+REFINE_OPS_PX = 135
+REFINE_AUTO_OPS = 3
+# the forced-photometry phase: dophot's call on a flagship subtraction at
+# PHOT_N positions (inputs.forced_positions); the transient's forced flux
+# within PHOT_FLUX_TOL of its planted flux times the Gaussian's enclosed
+# fraction at r = 3 px
+PHOT_N = 4096
+PHOT_FLUX_TOL = 0.15
 # the kernels only the ZOGY subtraction launches (from_images at
 # method='zogy'), and how often per pair: two PSFs, one spectral pass
 ZOGY_LAUNCHES = {'zogy_spectral': 1, 'zogy_normalize': 1, 'psf_stamps': 2,
@@ -247,6 +287,148 @@ def bound(nbytes, flop, flop_rate=FP32_FLOP_S):
     operations over the peak rate of their type."""
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flop / flop_rate * 1e3
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
+
+
+def aperture_flop(xs, ys, H, W, r, mode):
+    """Operations of one H22 launch at (xs, ys) on an H x W frame in
+    ``mode`` ('photometry' or 'sums'), counted by the branch each window
+    pixel and quadrant area take on these positions (APERTURE_OPS_PX)."""
+    import torch
+    from zuds_tpu_torch.ops import photometry as ph
+    cut = ph.aperture_cut(r)
+    x0, y0, _ = ph.aperture_corners(xs, ys, H, W, cut)
+    ar = torch.arange(cut, dtype=torch.float32, device=xs.device)
+    dx = x0.float()[:, None, None] + ar[None, None, :] - xs[:, None, None]
+    dy = y0.float()[:, None, None] + ar[None, :, None] - ys[:, None, None]
+    arcs = 0
+    for cx in (dx - 0.5, dx + 0.5):
+        for cy in (dy - 0.5, dy + 0.5):
+            x, y = cx.abs().clamp(max=r), cy.abs().clamp(max=r)
+            arcs += int((x > (r * r - y * y).clamp(min=0.0).sqrt()).sum())
+    flop = (xs.numel() * cut * cut * (APERTURE_OPS_PX + APERTURE_SUM_OPS[mode])
+            + arcs * APERTURE_ARC_OPS)
+    if mode == 'photometry':
+        flop += 2 * int((ph.aperture_weights(xs, ys, x0, y0, r, cut) > 0)
+                        .sum())
+    return flop
+
+
+def refine_flop(img, rms, args, k, cut=33):
+    """Operations of one H23 launch on detections ``args`` with outputs
+    ``k``: REFINE_OPS_PX a window pixel and REFINE_AUTO_OPS for each pixel
+    inside its AUTO ellipse (r_ell at H23's centroid)."""
+    from zuds_tpu_torch.ops import measure as ms
+    xs, ys, a, b, theta, _ = args
+    _, _, xx, yy = ms.refine_windows(img, rms, xs, ys, cut)
+    r_ell = ms.ellipse_radius(xx, yy, k['xwin'], k['ywin'], a, b, theta)
+    inside = int((r_ell <= (ms.KRON_FACT * k['kron_radius'])[:, None, None])
+                 .sum())
+    return xs.numel() * cut * cut * REFINE_OPS_PX + inside * REFINE_AUTO_OPS
+
+
+def measure_records(out, record, name):
+    """The measure stage's kernels on the slice's frame 0, at its max_det
+    detection rows: H22 at r = 3 with the submask and at r = 6 on the two
+    planes, H23, and H14 at the pipeline's own H8 medians, each against
+    its plain version (and H22 and H23 at N = 0), timed (device time: a
+    CUDA graph of 20 launches) beside the plain version and the bound."""
+    import torch
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.kernels.checks import (aperture_check, refine_check,
+                                               sum_gap_bound)
+    from zuds_tpu_torch.ops import background, cutouts
+    from zuds_tpu_torch.ops import measure as ms
+    from zuds_tpu_torch.ops import photometry as ph
+    diff, rms, mask = out['diff'][0], out['rms'][0], out['submask'][0]
+    H, W = diff.shape
+    args = tuple(out[f'det_{k}'][0].contiguous()
+                 for k in ('x', 'y', 'a', 'b', 'theta', 'fwhm'))
+    xs, ys = args[:2]
+    n = xs.numel()
+    badf = ((mask & BAD_SUM) > 0).to(torch.float32)
+    e = xs[:0]
+    check(all(v.numel() == 0 for v in launch.aperture_photometry(
+        diff, rms, mask, e, e, 3.0, 9).values())
+        and all(v.numel() == 0 for v in launch.aperture_sums(
+            rms, badf, e, e, 6.0, 15))
+        and all(v.numel() == 0 for v in launch.refine_detections(
+            diff, rms, e, e, e, e, e, e, 33).values()),
+        'H22 or H23 at N = 0')
+
+    # H22 at r = 3: reads img, rms and mask in each 9x9 window, the
+    # position, writes four outputs and oob
+    err = aperture_check(diff, rms, mask, xs, ys, 3.0, 'slice r=3')
+    record('aperture_photometry', err,
+           graph_ms(lambda: launch.aperture_photometry(diff, rms, mask, xs,
+                                                       ys, 3.0, 9)),
+           cuda_ms(lambda: ph.aperture_photometry_batched_plain(
+               diff, rms, mask, xs, ys, 3.0), 1, 3),
+           bound(n * (81 * 12 + 25),
+                 aperture_flop(xs, ys, H, W, 3.0, 'photometry')))
+    # H22 at r = 6 on two planes against the plain two-plane sums, each
+    # within the order bound of its sum of |plane| w
+    ka = launch.aperture_sums(rms, badf, xs, ys, 6.0, 15)
+    pa = ph.aperture_sums_plain((rms, badf), xs, ys, 6.0)
+    rel = sum_gap_bound(225)
+    err = 0.0
+    for tag, kv, pv in (('rms', ka[0], pa[0]), ('bad', ka[1], pa[1])):
+        err = max(err, close(f'slice r=6 {tag} sums', kv, pv, rel, 0.0))
+    record('aperture_sums', err,
+           graph_ms(lambda: launch.aperture_sums(rms, badf, xs, ys, 6.0,
+                                                 15)),
+           cuda_ms(lambda: ph.aperture_sums_plain((rms, badf), xs, ys, 6.0),
+                   1, 3),
+           bound(n * (225 * 8 + 16), aperture_flop(xs, ys, H, W, 6.0,
+                                                   'sums')))
+
+    # H23: two calls bit-identical, then against the plain version
+    k1 = launch.refine_detections(diff, rms, *args, 33)
+    k2 = launch.refine_detections(diff, rms, *args, 33)
+    check(all(torch.equal(k1[key].nan_to_num(7.0), k2[key].nan_to_num(7.0))
+              for key in k1), 'H23: two calls differ')
+    p = ms.refine_detections_plain(diff, rms, *args)
+    gaps, near, crossed = refine_check(diff, rms, args, k1, p)
+    print('refine_detections against the plain version (max abs gap, '
+          'angles mod pi): '
+          + ', '.join(f'{key} {g:.3g}' for key, g in gaps.items()),
+          flush=True)
+    print(f'refine_detections: {n} rows, {near} with a pixel within 1e-5 '
+          f'of an ellipse edge, {crossed} with a pixel between its two '
+          f'AUTO edges (H23\'s and the plain formulas\' at H23\'s '
+          f'centroid); two calls bit-identical', flush=True)
+    # reads the 33x33 windows of img and rms and six inputs, writes 11
+    record('refine_detections', max(gaps.values()),
+           graph_ms(lambda: launch.refine_detections(diff, rms, *args, 33)),
+           cuda_ms(lambda: ms.refine_detections_plain(diff, rms, *args),
+                   1, 3),
+           bound(n * (2 * 33 * 33 * 4 + 17 * 4),
+                 refine_flop(diff, rms, args, k1)))
+
+    # H14 at the pipeline's medians: the ::4 subsample's H8 median and
+    # 1.48 MAD
+    dsub = diff[::4, ::4]
+    dmed = background.frame_median(dsub)
+    dsig = torch.clamp(1.48 * background.frame_median(dsub, center=dmed),
+                       min=1e-12)
+    x0, y0 = cutouts.clamped_corners(xs, ys, cutouts.NEGPIX_BOX,
+                                     *diff.shape)
+    kv = launch.negpix_veto(diff, dmed, dsig, x0, y0)
+    check(torch.equal(kv, cutouts.negpix_veto_plain(diff, dmed, dsig, x0,
+                                                    y0))
+          and torch.equal(kv, out['det_negpix'][0]),
+          'negpix_veto differs from its plain version or the slice')
+    # reads a 13x13 window and a corner per candidate, writes a byte; a
+    # subtract, a divide, nine maxima and two compares per pixel
+    record('negpix_veto', 0.0,
+           graph_ms(lambda: launch.negpix_veto(diff, dmed, dsig, x0, y0)),
+           cuda_ms(lambda: cutouts.negpix_veto_plain(diff, dmed, dsig, x0,
+                                                     y0), 1, 3),
+           bound(n * (13 * 13 * 4 + 9), n * 13 * 13 * 13))
+    print(f'measure stage on {name}: H22 flags, oob and overlaps bit-equal '
+          f'to the plain version at {n} rows (r = 3), the r = 6 sums and '
+          f'H23 within their bounds, H14 bit-equal ({int(kv.sum())} vetoed)',
+          flush=True)
 
 
 def apply_flops(ye, xe, K, Nm):
@@ -607,7 +789,7 @@ def night_phase(wrappers, name, record):
               and launches['apply_model'] == NIGHT_PAIRS + 1
               and launches['apply_model_variance'] == 1
               and launches['subtract_epilogue'] == 1
-              and launches['negpix_veto'] == 1,
+              and launches['negpix_veto'] == NIGHT_PAIRS + 1,
               f'night: launches {launches}')
         prep = stats['prepare_s'] - stats['upload_s']
         print(f'night: host seconds per phase: load '
@@ -706,7 +888,7 @@ def scoring_night(wrappers, name, record, d, work, truths, pipe):
     nbatches = sum(1 for n in st['scored'] if n)
     check(launches['triplet_cut'] == nbatches > 0
           and launches['braai_conv3x3'] == 4 * nbatches
-          and launches['negpix_veto'] == 0,
+          and launches['negpix_veto'] == NIGHT_PAIRS,
           f'scoring night: launches {launches}, scored {st["scored"]}')
     err = check_scores(sm.calls, 'scoring night')
     print(f'scoring night: {NIGHT_PAIRS} pairs at ml=True in {secs:.2f} s '
@@ -1257,8 +1439,6 @@ def pair_phase(wrappers, name, record, fused_pair_s):
               f'call with its host cost, plain {plain:.3f} ms; the two '
               f'median sorts before it {med_ms:.3f} ms; {int(kv.sum())} '
               f'vetoed', flush=True)
-        record('negpix_veto', 0.0, ms, plain, bnd, runs=ml_launches,
-               per='pair')
 
         # ---- the rotated pair's product and tensors ------------------------
         product, pair_launches, line = results['gather'][:3]
@@ -1452,6 +1632,113 @@ def pair_phase(wrappers, name, record, fused_pair_s):
               f'diff pixels past 0.05 counts (the fit moves at the ulp)',
               flush=True)
     return pair_s
+
+
+def phot_phase(wrappers, name):
+    """Forced photometry on a flagship subtraction: one pair of the
+    night's scene through ``sub.do_one`` (ml=False), the product read back
+    by ``ScienceImage.from_file``, PHOT_N seeded positions on it
+    (``inputs.forced_positions``: the transient, the catalogue stars,
+    blank sky, edge and off-frame rows, rows on masked pixels). Counted:
+    dophot's call ``aperture_photometry(sub, ra, dec,
+    apply_calibration=True, assume_background_subtracted=True)`` (one H22
+    launch); ``raw_aperture_photometry`` on the three product files; the
+    call again on the frame alone (``load_others=False``), where the
+    background mesh (H2) runs first. Checked: the transient's forced flux,
+    the off-frame rows NaN and bad, the masked rows flagged (raw: the mask
+    file), H22 against its plain version at these positions; printed: the
+    blank-sky pulls' robust sigma and the host seconds per call."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import inputs, night, sub as zsub
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels.checks import aperture_check
+    from zuds_tpu_torch.mask import MaskImageBase
+    from zuds_tpu_torch.photometry import (aperture_photometry,
+                                           raw_aperture_photometry)
+    cfg = night.FLAGSHIP
+    H, W = cfg.height, cfg.width
+    sig = inputs.NIGHT_SEEING[1] / 2.3548
+    want = inputs.NIGHT_TRANSIENT_FLUX * (1 - math.exp(-9.0 / (2 * sig ** 2)))
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_phot_') as d:
+        work, truths = inputs.write_night_pairs(
+            d, 1, H, W, header_json=Path(__file__).resolve().parent
+            / 'tests' / 'data' / 'ztf_real_header.json')
+        product, _ = zsub.do_one(work[0], ml=False)
+        path = product.local_path
+        mask_path = product.mask_image.local_path
+        rms_path = path.replace('.fits', '.rms.fits')
+        mask = MaskImageBase.from_file(mask_path).data
+        img = ScienceImage.from_file(path)
+        ra, dec, kind = inputs.forced_positions(
+            img.wcs, H, W, PHOT_N, truths[0], inputs.night_stars(H, W),
+            mask=mask, seed=13)
+        print(f'phot: flagship subtraction {os.path.basename(path)}, '
+              f'{PHOT_N} positions: ' + ', '.join(
+                  f'{int((kind == k).sum())} {k}'
+                  for k in inputs.FORCED_KINDS), flush=True)
+
+        def counted(fn):
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return (res, time.perf_counter() - t0,
+                    {k: w.launches for k, w in wrappers.items() if w.launches})
+
+        runs = {
+            'dophot': counted(lambda: aperture_photometry(
+                img, ra, dec, apply_calibration=True,
+                assume_background_subtracted=True)),
+            'raw': counted(lambda: raw_aperture_photometry(
+                path, rms_path, mask_path, ra, dec, apply_calibration=True)),
+            'mesh': counted(lambda: aperture_photometry(
+                ScienceImage.from_file(path, load_others=False), ra, dec,
+                apply_calibration=True)),
+        }
+        sky, off = kind == 'sky', kind == 'off'
+        for tag, (res, secs, used) in runs.items():
+            h2 = 1 if tag == 'mesh' else 0
+            check(used == {'aperture_photometry': 1,
+                           **({'background_cells': 1} if h2 else {})},
+                  f'phot ({tag}): launches {used}')
+            got = float(res['flux'][0])
+            check(abs(got - want) <= PHOT_FLUX_TOL * want,
+                  f'phot ({tag}): the transient\'s forced flux {got:.1f} '
+                  f'is not within {PHOT_FLUX_TOL:.0%} of {want:.1f}')
+            check(bool(np.isnan(res['flux'][off]).all()
+                       and np.isnan(res['fluxerr'][off]).all()
+                       and res['bad'][off].all()),
+                  f'phot ({tag}): off-frame rows not NaN and bad')
+            pull = res['flux'][sky] / res['fluxerr'][sky]
+            rsig = 1.4826 * float(np.median(np.abs(pull - np.median(pull))))
+            print(f'phot ({tag}): {secs * 1e3:.1f} ms for {PHOT_N} positions '
+                  f'(host clock, to synchronize) on {name}; transient '
+                  f'{got:.1f} against {want:.1f} planted in r = 3 px '
+                  f'({got / want:.4f}); zp {res["zp"]}; '
+                  f'{int(res["bad"].sum())} bad; blank-sky pulls median '
+                  f'{float(np.median(pull)):.3f}, robust sigma {rsig:.3f} '
+                  f'(no gate); launches {used}', flush=True)
+        raw = runs['raw'][0]
+        check(bool((raw['flags'][kind == 'masked'] != 0).all()),
+              'phot (raw): a row on a masked pixel is not flagged')
+
+        # H22 against its plain version at these positions, on the
+        # product's own tensors
+        dev = torch.device('cuda')
+        x, y = (torch.as_tensor(np.asarray(v, 'f4'), device=dev)
+                for v in img.wcs.sky2pix_0(ra, dec))
+        t = {k: torch.as_tensor(np.ascontiguousarray(v), device=dev)
+             for k, v in (('img', np.asarray(img.data, 'f4')),
+                          ('rms', np.asarray(img.rms_image.data, 'f4')),
+                          ('mask', np.asarray(mask).astype(np.int32)))}
+        err = aperture_check(t['img'], t['rms'], t['mask'], x, y, 3.0,
+                             'phot')
+        print(f'phot: H22 at the {PHOT_N} positions: flags, oob and '
+              f'overlaps bit-equal to the plain version, flux within its '
+              f'order bound (max abs err {err:.3g})', flush=True)
 
 
 def star_free(sci, ok, margin=64, box=25):
@@ -2410,9 +2697,12 @@ def main():
     # night below), every other kernel here
     for k, n in launches.items():
         check(n > 0 or k == 'stamp_candidates'
-              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY
+              or k in COADD_ONLY + PAIR_ONLY + ML_ONLY + ZOGY_ONLY
               + TRAIN_ONLY,
               f'kernel {k} was not launched by the main path')
+    check(all(launches[k] == n * B for k, n in MEASURE_LAUNCHES.items()),
+          f'the measure stage launched {launches} for {B} frames, not '
+          f'{MEASURE_LAUNCHES} per frame')
 
     submask = out['submask']
     unmasked = submask == 0
@@ -2446,7 +2736,7 @@ def main():
           f'frames; kernel launches {launches0}', flush=True)
     for k, n in launches0.items():
         check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
-              or k in COADD_ONLY + PAIR_ONLY + SCORING_ONLY + ZOGY_ONLY
+              or k in COADD_ONLY + PAIR_ONLY + ML_ONLY + ZOGY_ONLY
               + TRAIN_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
@@ -2510,6 +2800,9 @@ def main():
               f'library {lib}; {n} launches on the main path '
               f'({per}) on {name}', flush=True)
 
+    # ---- the measure stage's kernels on the slice's frame 0 ---------------
+    measure_records(out, record, name)
+
     # ---- the night: FITS pairs -> catalogs through run_night, counted,
     # then the scoring night at ml=True ------------------------------------
     night_launches, night_s, night_stats = night_phase(wrappers, name, record)
@@ -2519,6 +2812,9 @@ def main():
 
     # ---- the per-pair path: sub.do_one on rotated and unrotated pairs -----
     pair_s = pair_phase(wrappers, name, record, night_s / NIGHT_PAIRS)
+
+    # ---- forced photometry: dophot's call on a flagship subtraction -------
+    phot_phase(wrappers, name)
 
     # ---- the ZOGY subtraction: from_images(method='zogy') on both pairs --
     zogy_phase(wrappers, name, record, pair_s)

@@ -1,4 +1,4 @@
-"""The port's hand kernels (H1-H14) against their plain PyTorch versions,
+"""The port's hand kernels (H1-H23) against their plain PyTorch versions,
 on a CUDA card, at small and ragged shapes (partial tiles, partial cells),
 H5/H6 at the flagship's capacities, H8 up to a flagship frame, the
 two-plane H1 on the coadd's 3200x3200 canvas, H9 from 1 to 64 epochs, the
@@ -6,7 +6,9 @@ gather warp H10 on rotated mappings into sources of another shape, H3 at
 one term against the variance propagation, the epilogue H11, the triplet
 cutter H12, each braai layer H13, the negative-pixel veto H14, and the
 ZOGY kernels: the spectral pass H15, the score normalisation H16, the PSF
-star stamps H17 and their clipped mean H18.
+star stamps H17 and their clipped mean H18, braai training's H13t and
+H19-H21, the aperture photometry H22 in both modes and the windowed and
+Kron refinement H23.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -47,7 +49,11 @@ batch of 7; ``chip_smoke.py`` holds H20 at 1e-4 at the main path's batch
 of 256), two H20 calls bit-equal; H21 bit-equal to ``adam_update_plain``; one
 ``train_step`` on the card against ``train_step_plain`` with the same
 masks (loss 1e-5 relative, parameters by the Adam-aware rule of
-``tests/test_torch_braai_train.py``).
+``tests/test_torch_braai_train.py``). H22's overlaps, flags and oob
+bit-equal, its sums within the bound of two summation orders
+(``kernels.checks.sum_gap_bound``); H23 within
+``kernels.checks.refine_check``'s tolerances, two calls bit-identical;
+both take N = 0 without a launch.
 """
 from pathlib import Path
 
@@ -1415,3 +1421,154 @@ def test_training_wrappers_refuse_wrong_inputs(dev):
     p = torch.zeros(16, device=dev)
     with pytest.raises(ValueError, match='shape'):
         launch.adam_step(p, p[:8], p, p, p[0], p[0], 3e-4, 0.9, 0.999, 1e-8)
+
+
+def _phot_frame(H, W, dev, seed):
+    """A frame of Gaussian sources over sky, its rms and a sparse 20-bit
+    mask (bits past the 18 the flags keep included)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = _rand((H, W), dev, seed, 5.0, 100.0)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    rng = np.random.default_rng(seed)
+    for x, y, f in zip(rng.uniform(0, W, 12), rng.uniform(0, H, 12),
+                       rng.uniform(1e3, 3e4, 12)):
+        img += f / 28.3 * torch.exp(-((xx - x) ** 2 + (yy - y) ** 2) / 9.0)
+    rms = (5.0 + 0.01 * img.abs()).contiguous()
+    mask = torch.where(
+        torch.rand((H, W), generator=g, device=dev) < 0.05,
+        torch.randint(0, 1 << 20, (H, W), generator=g, device=dev,
+                      dtype=torch.int32), 0).to(torch.int32)
+    return img.contiguous(), rms, mask
+
+
+def _f32(v, dev):
+    return torch.as_tensor(np.asarray(v, 'f4'), device=dev)
+
+
+@pytest.mark.parametrize('H,W,n,r', [(200, 180, 48, 3.0), (40, 37, 9, 6.0),
+                                     (3080, 3072, 4096, 3.0)])
+def test_aperture_photometry_kernel(dev, H, W, n, r):
+    """H22 against its plain version (checks.aperture_check: overlaps,
+    flags and oob bit-equal, the sums within the order bound), with a sixth
+    of the positions past an edge; rms and mask None as zeros."""
+    from zuds_tpu_torch.kernels import checks
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import photometry as ph
+    img, rms, mask = _phot_frame(H, W, dev, 70)
+    xs, ys = (_f32(v, dev) for v in _positions(H, W, n, 71))
+    n0 = launch.aperture_photometry.launches
+    k = ph.aperture_photometry_batched(img, rms, mask, xs, ys, r)
+    assert launch.aperture_photometry.launches == n0 + 1
+    assert k['oob'].dtype == torch.bool and k['flags'].dtype == torch.int32
+    checks.aperture_check(img, rms, mask, xs, ys, r, 'test')
+    k0 = ph.aperture_photometry_batched(img, None, None, xs, ys, r)
+    p0 = ph.aperture_photometry_batched_plain(img, None, None, xs, ys, r)
+    assert torch.equal(k0['flags'], p0['flags']) and not k0['flags'].any()
+    assert torch.equal(k0['fluxerr'], torch.zeros_like(k0['fluxerr']))
+    assert torch.equal(k0['flux'], k['flux'])
+
+
+def test_aperture_photometry_kernel_odd_positions(dev):
+    """Positions at half-pixel corners (rounded half to even), on and past
+    the edges, far off the frame and NaN: oob, flags and overlaps as the
+    plain version's."""
+    from zuds_tpu_torch.kernels import checks
+    H, W = 64, 70
+    img, rms, mask = _phot_frame(H, W, dev, 73)
+    xs = [2.5, 3.5, 4.5, -0.5, 0.5, W - 0.5, W - 4.5, 1e10, -1e10,
+          float('nan'), float('inf'), 30.0, 31.49999, 12.0]
+    ys = [10.5, 11.5, 3.5, 20.0, -0.5, 30.0, H - 3.5, 5.0, 5.0, 9.0, 9.0,
+          float('nan'), 40.5, -1e10]
+    for r in (3.0, 6.0):
+        checks.aperture_check(img, rms, mask, _f32(xs, dev),
+                              _f32(ys, dev), r, f'odd positions r={r}')
+
+
+@pytest.mark.parametrize('H,W,n', [(200, 180, 48), (3080, 3072, 4096)])
+def test_aperture_sums_kernel(dev, H, W, n):
+    """H22's two-plane mode against its plain version, within the order
+    bound of the sums."""
+    from zuds_tpu_torch.kernels import checks
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import photometry as ph
+    img, rms, mask = _phot_frame(H, W, dev, 74)
+    badf = ((mask & 0x3) > 0).to(torch.float32)
+    xs, ys = (_f32(v, dev) for v in _positions(H, W, n, 75))
+    n0 = launch.aperture_sums.launches
+    ka = ph.aperture_sums((rms, badf), xs, ys, 6.0)
+    assert launch.aperture_sums.launches == n0 + 1
+    pa = ph.aperture_sums_plain((rms, badf), xs, ys, 6.0)
+    rel = checks.sum_gap_bound(225)
+    for kv, pv in zip(ka, pa):
+        _allclose(kv, pv, rel, 0.0)
+    assert float(ka[1].max()) > 0
+
+
+@pytest.mark.parametrize('H,W,n', [(150, 170, 40), (3080, 3072, 4096)])
+def test_refine_detections_kernel(dev, H, W, n):
+    """H23 against its plain version within checks.refine_check's
+    tolerances, on sources and sky, a sixth of the positions past an edge;
+    two calls bit-identical."""
+    from zuds_tpu_torch.kernels import checks
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import measure as ms
+    img, rms, _ = _phot_frame(H, W, dev, 76)
+    rng = np.random.default_rng(77)
+    xs, ys = _positions(H, W, n, 78)
+    args = tuple(_f32(v, dev) for v in (
+        xs, ys, rng.uniform(0.3, 4.0, n), rng.uniform(0.3, 2.0, n),
+        rng.uniform(-1.6, 1.6, n), rng.uniform(1.0, 6.0, n)))
+    n0 = launch.refine_detections.launches
+    k = ms.refine_detections(img, rms, *args)
+    assert launch.refine_detections.launches == n0 + 1
+    k2 = ms.refine_detections(img, rms, *args)
+    for key in k:
+        assert torch.equal(k[key].nan_to_num(7.0), k2[key].nan_to_num(7.0))
+    p = ms.refine_detections_plain(img, rms, *args)
+    checks.refine_check(img, rms, args, k, p)
+
+
+def test_h22_h23_take_no_rows(dev):
+    """N = 0: empty outputs, no launch counted, no launch error."""
+    from zuds_tpu_torch.kernels import launch
+    img = torch.zeros((64, 64), device=dev)
+    e = torch.zeros(0, device=dev)
+    counts = [w.launches for w in (launch.aperture_photometry,
+                                   launch.aperture_sums,
+                                   launch.refine_detections)]
+    ph = launch.aperture_photometry(img, img, None, e, e, 3.0, 9)
+    sa, sb = launch.aperture_sums(img, img, e, e, 6.0, 15)
+    ref = launch.refine_detections(img, img, e, e, e, e, e, e, 33)
+    torch.cuda.synchronize()
+    assert all(v.shape == (0,) for v in (*ph.values(), sa, sb,
+                                         *ref.values()))
+    assert counts == [w.launches for w in (launch.aperture_photometry,
+                                           launch.aperture_sums,
+                                           launch.refine_detections)]
+
+
+def test_h22_h23_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    img = torch.zeros((64, 64), device=dev)
+    xs = torch.zeros(4, device=dev)
+    mask = torch.zeros((64, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.aperture_photometry(img.cpu(), None, None, xs, xs, 3.0, 9)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.aperture_sums(img, img, xs.cpu(), xs, 6.0, 15)
+    with pytest.raises(TypeError):
+        launch.aperture_photometry(img.double(), None, None, xs, xs, 3.0, 9)
+    with pytest.raises(TypeError):
+        launch.aperture_photometry(img, None, mask.long(), xs, xs, 3.0, 9)
+    with pytest.raises(ValueError, match='shape'):
+        launch.aperture_photometry(img, img[:10], None, xs, xs, 3.0, 9)
+    with pytest.raises(ValueError, match='at least'):
+        launch.aperture_sums(img[:8], img[:8], xs, xs, 6.0, 15)
+    with pytest.raises(ValueError, match='shape'):
+        launch.refine_detections(img, img, xs, xs, xs[:3], xs, xs, xs, 33)
+    with pytest.raises(TypeError):
+        launch.refine_detections(img, img, xs, xs.double(), xs, xs, xs, xs,
+                                 33)
+    with pytest.raises(ValueError, match='CUDA'):
+        launch.refine_detections(img, img.cpu(), xs, xs, xs, xs, xs, xs, 33)

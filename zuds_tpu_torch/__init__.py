@@ -8,8 +8,8 @@ model convolution (``kernels/apply.cu``), in the 3xTF32 hi/lo split, which
 keeps fp32 accuracy; a single TF32 pass (~3 digits) is not allowed.
 
 The flat namespace holds, imported lazily as in ``zuds_tpu/__init__.py``,
-the filter's entry points; the rest of the reference's namespace is not
-there yet (ROADMAP queue 1, item 10).
+the filter's and the forced photometry's entry points; the rest of the
+reference's namespace is not there yet (ROADMAP queue 1, item 10).
 """
 import torch
 
@@ -23,6 +23,9 @@ _LAZY_SYMBOLS = {
     'filter_sexcat': 'zuds_tpu_torch.filterobjects',
     'make_triplet_for_braai': 'zuds_tpu_torch.filterobjects',
     'load_model_helper': 'zuds_tpu_torch.filterobjects',
+    'aperture_photometry': 'zuds_tpu_torch.photometry',
+    'raw_aperture_photometry': 'zuds_tpu_torch.photometry',
+    'ForcedPhotometry': 'zuds_tpu_torch.photometry',
 }
 
 

@@ -5,9 +5,9 @@ funnel over a subtraction catalog, then braai on the survivors.
 A catalog from the fused pipeline carries the r=6 px aperture sums and
 the negative-pixel veto as columns, so the cuts read columns only. A
 catalog without them takes the frames from its image, on the card unless
-the caller asks for the CPU: the port's ``aperture_photometry_batched``
-and :func:`_negpix_veto` (two library sorts for the medians, then the
-stencil H14). At ``ml=True`` the survivors' 63x63x3 triplets (H12) are
+the caller asks for the CPU: the r=6 sums of ``aperture_sums`` (H22) and
+:func:`_negpix_veto` (two library sorts for the medians, then the stencil
+H14). At ``ml=True`` the survivors' 63x63x3 triplets (H12) are
 scored by braai (``models/braai.py``, H13) and those below
 ``RB_CUT[fid]`` dropped.
 """
@@ -158,7 +158,7 @@ def filter_sexcat(cat, ml=True, ml_frames=None, device=None, stats=None):
         medcut = float(hdr['RMSMED']) * 1.1
         negpix_pre = data['NEGPIX'].astype(bool)
     else:
-        from .ops.photometry import aperture_photometry_batched
+        from .ops.photometry import aperture_sums
         device = _device(device)
         rms = np.asarray(image.rms_image.data)
         bpm = np.asarray(image.mask_image.boolean.data).astype(bool) \
@@ -168,15 +168,12 @@ def filter_sexcat(cat, ml=True, ml_frames=None, device=None, stats=None):
         medcut = med * 1.1
         negpix_pre = None
         txs, tys = _positions(xs, ys, device)
-        zeros_m = torch.zeros(rms.shape, dtype=torch.int32, device=device)
-        rms_t = _upload(rms, device)
-        zeros = torch.zeros_like(rms_t)
-        rms_ap = aperture_photometry_batched(rms_t, zeros, zeros_m, txs, tys,
-                                             r=6.0)
-        bpm_ap = aperture_photometry_batched(_upload(bpm, device), zeros,
-                                             zeros_m, txs, tys, r=6.0)
-        bpmcut = bpm_ap['flux'].cpu().numpy()
-        rmscut = rms_ap['flux'].cpu().numpy() / area
+        # the r=6 rms and bad-pixel sums in one two-plane pass (H22)
+        rms_ap, bpm_ap = aperture_sums((_upload(rms, device),
+                                        _upload(bpm, device)), txs, tys,
+                                       r=6.0)
+        bpmcut = bpm_ap.cpu().numpy()
+        rmscut = rms_ap.cpu().numpy() / area
 
     if 'SEEING' not in image.header:
         from .seeing import estimate_seeing

@@ -198,6 +198,42 @@ class CalibratedImage(CalibratableImage):
     def apcor(self):
         return self.header.get(APER_KEY, 0.0)
 
+    def force_photometry(self, sources, assume_background_subtracted=False,
+                         use_cutout=False, direct_load=None, device=None):
+        """Forced aperture photometry at the sources' sky positions
+        (image.py:289-320): objects with ``.ra`` and ``.dec``, dicts, or
+        (ra, dec) pairs, measured in one launch of H22 on ``device`` (the
+        image's own when None; the card unless ``'cpu'``) with the
+        aperture correction applied. Returns a list of
+        :class:`~zuds_tpu_torch.photometry.ForcedPhotometry` records."""
+        from .photometry import ForcedPhotometry, aperture_photometry
+        ra = [_sky(s, 'ra', 0) for s in sources]
+        dec = [_sky(s, 'dec', 1) for s in sources]
+        result = aperture_photometry(
+            self, np.asarray(ra, dtype=float), np.asarray(dec, dtype=float),
+            apply_calibration=True,
+            assume_background_subtracted=assume_background_subtracted,
+            device=device)
+        return [ForcedPhotometry(
+            source=s, image=self, flux=float(result['flux'][i]),
+            fluxerr=float(result['fluxerr'][i]),
+            flags=int(result['flags'][i]), ra=float(ra[i]),
+            dec=float(dec[i]), obsjd=self.header.get('OBSJD'),
+            zp=float(result['zp']),
+            filtercode=self.header.get('FILTER',
+                                       self.header.get('FILTERCODE')))
+            for i, s in enumerate(sources)]
+
+
+def _sky(source, key, i):
+    """``source[key]`` of a dict, else its attribute ``key``, else item
+    ``i`` of a (ra, dec) pair. (The reference's ``getattr(s, 'ra', s[0])``
+    indexes every source first, so an object with ``.ra`` that cannot be
+    indexed raises there: ROADMAP section 3.)"""
+    if isinstance(source, dict):
+        return source[key]
+    return getattr(source, key) if hasattr(source, key) else source[i]
+
 
 class ScienceImage(CalibratedImage):
     """A single-epoch IPAC science quadrant frame; ``from_file`` reflects

@@ -22,8 +22,8 @@ from .ops.subtract import KernelBasis
 
 __all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
            'COADD_INPUT_NAMES', 'resolve_device', 'upload', 'upload_mask',
-           'write_night_pairs', 'write_coadd_epochs', 'spread_braai',
-           'labelled_triplets']
+           'write_night_pairs', 'night_stars', 'forced_positions',
+           'write_coadd_epochs', 'spread_braai', 'labelled_triplets']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -248,9 +248,7 @@ def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7,
     from .fits import HDU, Header, write_fits
     from .wcs import TPVWCS
     rng = np.random.default_rng(seed)
-    xs = rng.uniform(40, W - 40, nstars)
-    ys = rng.uniform(40, H - 40, nstars)
-    fluxes = rng.uniform(5000, 50000, nstars)
+    xs, ys, fluxes = _night_star_draws(rng, H, W, nstars)
     k = 12
     yy, xx = np.mgrid[-k:k + 1, -k:k + 1]
 
@@ -322,6 +320,80 @@ def write_night_pairs(d, npairs, H, W, header_json, no_seeing=(), seed=7,
         work.append(f'{p} {pair_ref}')
         truths.append(t[:2])
     return work, truths
+
+
+def _night_star_draws(rng, H, W, nstars):
+    """The stars' x, y (science-frame pixels, 0-based) and fluxes: the
+    first draws of :func:`write_night_pairs`' generator."""
+    xs = rng.uniform(40, W - 40, nstars)
+    ys = rng.uniform(40, H - 40, nstars)
+    return xs, ys, rng.uniform(5000, 50000, nstars)
+
+
+def night_stars(H, W, seed=7, nstars=NIGHT_STARS):
+    """(x, y) of the stars :func:`write_night_pairs` renders with the same
+    arguments, in the science frames' pixels (0-based)."""
+    return _night_star_draws(np.random.default_rng(seed), H, W, nstars)[:2]
+
+
+# the rows of a forced-photometry run (forced_positions), and how near an
+# edge an 'edge' row lies (px)
+FORCED_KINDS = ('transient', 'star', 'sky', 'edge', 'off', 'masked')
+FORCED_EDGE = 4.0
+
+
+def forced_positions(wcs, H, W, n, transient, stars, mask=None, seed=0):
+    """Sky positions for forced photometry on an (H, W) frame whose TPV
+    WCS is ``wcs``: row 0 the transient at pixel ``transient``; up to n / 4
+    of the catalogue stars ``stars`` ((x, y) arrays); n / 16 within
+    FORCED_EDGE px of an edge and n / 32 5-50 px off the frame (together
+    over 9% of the rows); where ``mask`` (H, W) has set pixels at least
+    FORCED_EDGE px inside the frame, n / 32 on such pixels; the rest blank
+    sky, at least 12 px from every star and the transient. Returns (ra,
+    dec, kind): float64 degrees and each row's name in FORCED_KINDS."""
+    rng = np.random.default_rng(seed)
+    sx, sy = (np.asarray(a, float) for a in stars)
+    xs, ys, kind = [float(transient[0])], [float(transient[1])], ['transient']
+
+    def add(x, y, name):
+        xs.extend(np.asarray(x, float))
+        ys.extend(np.asarray(y, float))
+        kind.extend([name] * len(x))
+
+    pick = rng.choice(len(sx), min(n // 4, len(sx)), replace=False)
+    add(sx[pick], sy[pick], 'star')
+    for name, m, lo, hi in (('edge', n // 16, -0.49, FORCED_EDGE),
+                            ('off', n // 32, -50.0, -5.0)):
+        # distance inside the nearest edge (negative: outside), a side,
+        # and a place along it
+        depth = rng.uniform(lo, hi, m)
+        side = rng.integers(0, 4, m)
+        along = rng.uniform(0, 1, m)
+        x = np.where(side == 0, depth, np.where(side == 1, W - 1 - depth,
+                                                along * (W - 1)))
+        y = np.where(side == 2, depth, np.where(side == 3, H - 1 - depth,
+                                                along * (H - 1)))
+        add(x, y, name)
+    if mask is not None:
+        e = int(FORCED_EDGE)
+        my, mx = np.nonzero(np.asarray(mask)[e:H - e, e:W - e])
+        if len(mx):
+            at = rng.choice(len(mx), min(n // 32, len(mx)), replace=False)
+            add(mx[at] + e, my[at] + e, 'masked')
+    px = np.append(sx, transient[0])
+    py = np.append(sy, transient[1])
+    while len(xs) < n:
+        x = rng.uniform(8, W - 9, 4 * (n - len(xs)))
+        y = rng.uniform(8, H - 9, len(x))
+        near = np.zeros(len(x), bool)
+        for i in range(0, len(px), 256):
+            near |= ((np.hypot(x[:, None] - px[None, i:i + 256],
+                               y[:, None] - py[None, i:i + 256]) < 12.0)
+                     .any(1))
+        keep = ~near
+        add(x[keep][:n - len(xs)], y[keep][:n - len(xs)], 'sky')
+    ra, dec = wcs.pix2sky_0(np.asarray(xs[:n]), np.asarray(ys[:n]))
+    return np.asarray(ra, float), np.asarray(dec, float), np.asarray(kind[:n])
 
 
 # write_coadd_epochs' scene (bench.py:main_coadd)

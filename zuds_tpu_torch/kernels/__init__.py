@@ -3,8 +3,9 @@
 H1 and H10 ``warp.cu``, H2 ``background.cu``, H3 ``apply.cu``, H5
 ``deblend.cu``, H6 ``compact.cu``, H7 ``stamps.cu``, H8 ``median.cu``, H9
 ``coadd.cu``, H11 ``subtract.cu``, H12 and H14 ``cutouts.cu``, H13, H13t,
-H19 and H20 ``braai.cu``, H15-H18 ``zogy.cu`` and H21 ``adam.cu`` are CUDA
-C++ for ``sm_90a`` (built by
+H19 and H20 ``braai.cu``, H15-H18 ``zogy.cu``, H21 ``adam.cu``, H22
+``photometry.cu`` and H23 ``measure.cu`` are CUDA C++ for ``sm_90a`` (built
+by
 :mod:`.build`, wrapped by :mod:`.launch`); H4 ``detect_filter.py`` is
 Triton. Nothing
 here builds or imports triton at import time: the kernels are built on

@@ -23,7 +23,8 @@ __all__ = ['library', 'check', 'ApplyParams']
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
            'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
-           'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu', 'adam.cu')
+           'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu', 'adam.cu',
+           'photometry.cu', 'measure.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -108,6 +109,15 @@ SIGNATURES = {
     # p, g, mu, nu, bc1, bc2, n, b1, 1 - b1, b2, 1 - b2, eps, -lr, stream
     'zuds_adam_step': (_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
                        _P),
+    # img, rms, mask (each or null), xs, ys, N, H, W, r, cut, flux,
+    # fluxerr, area, flags, oob(u8), w (or null), stream
+    'zuds_aperture_photometry': (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P,
+                                 _P, _P, _P, _P, _P, _P),
+    # a, b, xs, ys, N, H, W, r, cut, sa, sb, stream
+    'zuds_aperture_sums': (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P, _P, _P),
+    # img, rms, H, W, xs, ys, a, b, theta, fwhm, N, cut, out (11, N), stream
+    'zuds_refine_detections': (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                               _I, _P, _P),
 }
 
 

@@ -14,3 +14,38 @@ __device__ __forceinline__ int wrap_index(int i, int n) {
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(b) || b > a) ? b : a;
 }
+
+// PyTorch's NaN rules for torch.maximum/minimum (a NaN operand wins) and
+// torch.clamp (a NaN input stays NaN; its bounds are never NaN here).
+__device__ __forceinline__ float torch_max(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float torch_min(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fminf(a, b));
+}
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float clamp_to(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+
+// The corner of a cut x cut window about the f32 position p, as the plain
+// versions form it on the card: round half to even, to int64 (a NaN or an
+// out-of-range value converts as PyTorch's conversion does: the same cvt
+// instruction, rounding to nearest instead of toward zero after its
+// round), minus cut / 2, clamped to [0, n - cut].
+// The int64 arithmetic wraps (unsigned here: signed overflow is undefined
+// in C++), as PyTorch's int64 tensors wrap. ``out`` is true where the
+// window about the rounded position runs off [0, n).
+__device__ __forceinline__ int window_corner(float p, int n, int cut,
+                                             bool* out) {
+  const long long half = cut / 2;
+  const long long i = __float2ll_rn(p);
+  const long long lo =
+      (long long)((unsigned long long)i - (unsigned long long)half);
+  const long long hi =
+      (long long)((unsigned long long)i + (unsigned long long)half);
+  *out = lo < 0 || hi >= n;
+  return (int)(lo < 0 ? 0 : (lo > n - cut ? n - cut : lo));
+}

@@ -5,7 +5,8 @@ subtraction epilogue, H12 triplet cutter, H13 braai convolution layer, H14
 negative-pixel veto, H15 ZOGY spectral pass, H16 ZOGY score normalisation,
 H17 PSF star stamps, H18 PSF clipped mean, H13t the braai layer's training
 forward, H19 its input gradient, H20 its weight gradient, H21 the fused
-Adam step).
+Adam step, H22 aperture photometry and its two-plane sums, H23 the
+windowed and Kron refinement).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -27,7 +28,8 @@ __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
            'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
            'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
            'psf_clip', 'braai_conv3x3_train', 'braai_conv3x3_dgrad',
-           'braai_conv3x3_wgrad', 'adam_step', 'BRAAI_LAYERS',
+           'braai_conv3x3_wgrad', 'adam_step', 'aperture_photometry',
+           'aperture_sums', 'refine_detections', 'BRAAI_LAYERS',
            'COMBINE_MAX_EPOCHS', 'WRAPPERS']
 
 
@@ -446,6 +448,109 @@ def negpix_veto(img, med, sig, x0, y0):
     return veto.view(torch.bool)
 
 
+def _require_positions(xs, ys):
+    n = xs.shape[0] if xs.dim() == 1 else -1
+    _require('xs', xs, torch.float32, (n,))
+    _require('ys', ys, torch.float32, (n,))
+    return n
+
+
+def _require_frame(name, img, cut):
+    _require(name, img, torch.float32)
+    if img.dim() != 2 or min(img.shape) < cut or img.numel() >= 2 ** 31:
+        raise ValueError(f'{name}: expected a 2-D frame of at least '
+                         f'{cut}x{cut} under 2^31 px, got {tuple(img.shape)}')
+
+
+def aperture_photometry(img, rms, mask, xs, ys, r, cut, weights=False):
+    """H22 (kernels/photometry.cu): the circular apertures of radius ``r``
+    at the f32 positions ``xs``, ``ys`` (N,) on ``img`` (f32 (H, W)), each
+    from the ``cut`` x ``cut`` window at its clamped rounded corner; ``rms``
+    (f32) and ``mask`` (int32) of the frame's shape, or None for zeros.
+    Returns a dict of (N,) ``flux``, ``fluxerr``, ``area`` (f32), ``flags``
+    (int32: the OR of ``mask & 0x3FFFF`` under the aperture) and ``oob``
+    (bool); with ``weights`` also ``w``, the (N, cut, cut) overlaps."""
+    _require_frame('img', img, cut)
+    if rms is not None:
+        _require('rms', rms, torch.float32, img.shape)
+    if mask is not None:
+        _require('mask', mask, torch.int32, img.shape)
+    n = _require_positions(xs, ys)
+    dev = img.device
+    flux = torch.empty(n, dtype=torch.float32, device=dev)
+    out = {'flux': flux, 'fluxerr': torch.empty_like(flux),
+           'area': torch.empty_like(flux),
+           'flags': torch.empty(n, dtype=torch.int32, device=dev),
+           'oob': torch.empty(n, dtype=torch.uint8, device=dev)}
+    if weights:
+        out['w'] = torch.empty((n, cut, cut), dtype=torch.float32, device=dev)
+    if n:
+        null = ctypes.c_void_p(None)
+        err = build.library().zuds_aperture_photometry(
+            _ptr(img), null if rms is None else _ptr(rms),
+            null if mask is None else _ptr(mask), _ptr(xs), _ptr(ys), n,
+            img.shape[0], img.shape[1], float(r), int(cut), _ptr(flux),
+            _ptr(out['fluxerr']), _ptr(out['area']), _ptr(out['flags']),
+            _ptr(out['oob']), _ptr(out['w']) if weights else null, _stream())
+        build.check(err, 'zuds_aperture_photometry')
+        aperture_photometry.launches += 1
+    out['oob'] = out['oob'].view(torch.bool)
+    return out
+
+
+def aperture_sums(a, b, xs, ys, r, cut):
+    """H22's second mode (kernels/photometry.cu): (sum a w, sum b w), each
+    (N,) f32, over the circular apertures of radius ``r`` at ``xs``, ``ys``
+    on the two f32 planes ``a`` and ``b`` of one (H, W) shape."""
+    _require_frame('a', a, cut)
+    _require('b', b, torch.float32, a.shape)
+    n = _require_positions(xs, ys)
+    sa = torch.empty(n, dtype=torch.float32, device=a.device)
+    sb = torch.empty_like(sa)
+    if n:
+        err = build.library().zuds_aperture_sums(
+            _ptr(a), _ptr(b), _ptr(xs), _ptr(ys), n, a.shape[0], a.shape[1],
+            float(r), int(cut), _ptr(sa), _ptr(sb), _stream())
+        build.check(err, 'zuds_aperture_sums')
+        aperture_sums.launches += 1
+    return sa, sb
+
+
+# refine_detections' outputs, in the order of kernels/measure.cu (and of
+# the pipeline's det_* columns)
+REFINE_KEYS = ('xwin', 'ywin', 'kron_radius', 'flux_auto', 'fluxerr_auto',
+               'awin', 'bwin', 'thetawin', 'errawin', 'errbwin',
+               'errthetawin')
+# the two cut^2 tiles of measure.cu within 48 KB of shared memory
+REFINE_MAX_CUT = 78
+
+
+def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut):
+    """H23 (kernels/measure.cu): the windowed centroids, shapes and their
+    errors, the Kron radius and the AUTO flux at the (N,) f32 detections
+    ``xs``, ``ys``, ``a``, ``b``, ``theta``, ``fwhm`` on ``img`` and ``rms``
+    (f32 (H, W)), from the ``cut`` x ``cut`` windows at their clamped
+    rounded corners. Returns a dict of REFINE_KEYS -> (N,) f32."""
+    _require_frame('img', img, cut)
+    _require('rms', rms, torch.float32, img.shape)
+    if cut > REFINE_MAX_CUT:
+        raise ValueError(f'refine_detections: cut={cut} over '
+                         f'{REFINE_MAX_CUT}')
+    n = _require_positions(xs, ys)
+    for name, t in (('a', a), ('b', b), ('theta', theta), ('fwhm', fwhm)):
+        _require(name, t, torch.float32, (n,))
+    out = torch.empty((len(REFINE_KEYS), n), dtype=torch.float32,
+                      device=img.device)
+    if n:
+        err = build.library().zuds_refine_detections(
+            _ptr(img), _ptr(rms), img.shape[0], img.shape[1], _ptr(xs),
+            _ptr(ys), _ptr(a), _ptr(b), _ptr(theta), _ptr(fwhm), n, int(cut),
+            _ptr(out), _stream())
+        build.check(err, 'zuds_refine_detections')
+        refine_detections.launches += 1
+    return dict(zip(REFINE_KEYS, out))
+
+
 # (Cin, Cout, pool) of the four layers of BraaiD6 (kernels/braai.cu)
 BRAAI_LAYERS = ((3, 32, False), (32, 32, True), (32, 64, False),
                 (64, 64, True))
@@ -786,6 +891,9 @@ braai_conv3x3_train.launches = 0
 braai_conv3x3_dgrad.launches = 0
 braai_conv3x3_wgrad.launches = 0
 adam_step.launches = 0
+aperture_photometry.launches = 0
+aperture_sums.launches = 0
+refine_detections.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
@@ -801,4 +909,7 @@ WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'psf_clip': psf_clip, 'braai_conv3x3_train': braai_conv3x3_train,
             'braai_conv3x3_dgrad': braai_conv3x3_dgrad,
             'braai_conv3x3_wgrad': braai_conv3x3_wgrad,
-            'adam_step': adam_step}
+            'adam_step': adam_step,
+            'aperture_photometry': aperture_photometry,
+            'aperture_sums': aperture_sums,
+            'refine_detections': refine_detections}

@@ -1,8 +1,9 @@
 """Per-frame measurements (twin of ``zuds_tpu/ops/measure.py``): the
 kernel-fit stamp selector with its hand kernel H7 (``kernels/stamps.cu``),
 the stamp-moment seeing, and the windowed centroids and Kron photometry at
-detections (plain PyTorch on either device, all detections of a frame at
-once)."""
+all detections of a frame at once with their hand kernel H23
+(``kernels/measure.cu``). A wrapper launches its kernel on a CUDA tensor
+and runs the plain version on a CPU tensor."""
 from __future__ import annotations
 
 import math
@@ -17,7 +18,8 @@ from .ordered import fma, sum_last, sum_last2
 from .photometry import cutouts
 
 __all__ = ['stamp_candidates', 'stamp_candidates_plain',
-           'select_stamps_device', 'seeing_from_stamps', 'refine_detections']
+           'select_stamps_device', 'seeing_from_stamps', 'refine_detections',
+           'refine_detections_plain', 'refine_windows', 'ellipse_radius']
 
 # candidate capacity of the stamp selector (measure.py:67)
 STAMP_CAP = 4096
@@ -133,11 +135,13 @@ def _sqrt0(x, floor):
     return torch.sqrt(torch.clamp(x, min=floor))
 
 
-def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut=33):
-    """Windowed centroids, windowed shapes and errors, Kron radius and AUTO
-    flux at each detection (measure.py:139-244). Returns dict of (N,)
-    arrays: xwin, ywin, kron_radius, flux_auto, fluxerr_auto, awin, bwin,
-    thetawin, errawin, errbwin, errthetawin."""
+def _col(v):
+    return v[:, None, None]
+
+
+def refine_windows(img, rms, xs, ys, cut=33):
+    """The (N, cut, cut) windows of ``img`` and ``rms`` at the clamped
+    rounded corners about (xs, ys), and their pixels' x and y."""
     H, W = img.shape
     half = cut // 2
     x0 = torch.clamp(torch.round(xs).to(torch.int64) - half, 0, W - cut)
@@ -146,20 +150,51 @@ def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut=33):
     ar = torch.arange(cut, dtype=torch.float32, device=img.device)
     yy = y0.to(torch.float32)[:, None, None] + ar[None, :, None]
     xx = x0.to(torch.float32)[:, None, None] + ar[None, None, :]
+    return sub, sub_r, xx, yy
+
+
+def ellipse_radius(xx, yy, xwin, ywin, a, b, theta):
+    """r_ell of the window pixels ``xx``, ``yy`` about (xwin, ywin) in the
+    ellipse (a, b, theta), a and b floored at 0.5 (measure.py:219-227)."""
+    ct, st = _col(torch.cos(theta)), _col(torch.sin(theta))
+    dxw, dyw = xx - _col(xwin), yy - _col(ywin)
+    xr = dxw * ct + dyw * st
+    yr = -dxw * st + dyw * ct
+    return torch.sqrt((xr / _col(torch.clamp(a, min=0.5))) ** 2
+                      + (yr / _col(torch.clamp(b, min=0.5))) ** 2)
+
+
+def refine_detections_plain(img, rms, xs, ys, a, b, theta, fwhm, cut=33):
+    """Plain version of H23: windowed centroids, windowed shapes and
+    errors, Kron radius and AUTO flux at each detection
+    (measure.py:139-244). Returns dict of (N,) arrays: xwin, ywin,
+    kron_radius, flux_auto, fluxerr_auto, awin, bwin, thetawin, errawin,
+    errbwin, errthetawin."""
+    sub, sub_r, xx, yy = refine_windows(img, rms, xs, ys, cut)
     pos = torch.clamp(sub, min=0.0)
-
-    def col(v):
-        return v[:, None, None]
-
-    swin = col(torch.clamp(fwhm / 2.355 * 2.0, min=1.0))
-    two_s2 = 2 * swin * swin
+    two_s2 = _two_s2(fwhm)
     xwin, ywin = xs, ys
     for _ in range(4):
-        w = torch.exp(-((xx - col(xwin)) ** 2 + (yy - col(ywin)) ** 2)
+        w = torch.exp(-((xx - _col(xwin)) ** 2 + (yy - _col(ywin)) ** 2)
                       / two_s2) * pos
         tot = torch.clamp(sum_last2(w), min=1e-20)
         xwin, ywin = sum_last2(w * xx) / tot, sum_last2(w * yy) / tot
+    return _refine_at(sub, sub_r, xx, yy, pos, two_s2, xwin, ywin, a, b,
+                      theta)
 
+
+def _two_s2(fwhm):
+    """2 s^2 of the centroid's Gaussian window, s = max(2 fwhm / 2.355,
+    1), as an (N, 1, 1) column."""
+    swin = _col(torch.clamp(fwhm / 2.355 * 2.0, min=1.0))
+    return 2 * swin * swin
+
+
+def _refine_at(sub, sub_r, xx, yy, pos, two_s2, xwin, ywin, a, b, theta):
+    """The windowed moments and their errors, the Kron radius and the
+    AUTO sums about (xwin, ywin) of the windows ``sub``, ``sub_r`` (pixels
+    ``xx``, ``yy``, ``pos`` = max(sub, 0)) (measure.py:185-244)."""
+    col = _col
     dxw, dyw = xx - col(xwin), yy - col(ywin)
     g = torch.exp(-(dxw ** 2 + dyw ** 2) / two_s2)
     wI = g * pos
@@ -178,16 +213,12 @@ def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut=33):
     et2 = _sqrt0(((ex2 - ey2) / 2.0) ** 2 + exy * exy, 0.0)
 
     # Kron radius inside the KRON_INT_RADIUS ellipse, then the AUTO flux
-    ct, st = col(torch.cos(theta)), col(torch.sin(theta))
-    xr = dxw * ct + dyw * st
-    yr = -dxw * st + dyw * ct
-    ai_s = torch.clamp(a, min=0.5)
-    bi_s = torch.clamp(b, min=0.5)
-    r_ell = torch.sqrt((xr / col(ai_s)) ** 2 + (yr / col(bi_s)) ** 2)
+    r_ell = ellipse_radius(xx, yy, xwin, ywin, a, b, theta)
     wflux = torch.where(r_ell <= KRON_INT_RADIUS, pos, 0.0)
     rkron = sum_last2(wflux * r_ell) / torch.clamp(sum_last2(wflux),
                                                    min=1e-20)
-    rkron = torch.maximum(rkron, KRON_MIN_RADIUS / KRON_FACT / ai_s)
+    rkron = torch.maximum(rkron, KRON_MIN_RADIUS / KRON_FACT
+                          / torch.clamp(a, min=0.5))
     ap = r_ell <= col(KRON_FACT * rkron)
     return {
         'xwin': xwin, 'ywin': ywin, 'kron_radius': rkron,
@@ -200,3 +231,13 @@ def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut=33):
         'errbwin': _sqrt0(et1 - et2, 1e-20),
         'errthetawin': 0.5 * torch.atan2(2.0 * exy, ex2 - ey2),
     }
+
+
+def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut=33):
+    """The measurements of :func:`refine_detections_plain`: H23 on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if img.is_cuda:
+        return launch.refine_detections(
+            img.contiguous(), rms.contiguous(),
+            *(t.contiguous() for t in (xs, ys, a, b, theta, fwhm)), cut)
+    return refine_detections_plain(img, rms, xs, ys, a, b, theta, fwhm, cut)

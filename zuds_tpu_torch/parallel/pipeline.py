@@ -7,7 +7,9 @@ host feed (``prepare_frame_inputs``, pipeline.py:581-764).
 CUDA device the warp (H1), the background cells (H2), the model
 convolution (H3), the matched filter (H4), the deblend tree's level labels
 (H5), the compactions (H6) and the whole-frame medians (H8) run as
-hand-written kernels; everything between them is plain PyTorch. With
+hand-written kernels, and so do the measure stage's apertures (H22), its
+windowed and Kron refinement (H23) and its negative-pixel veto (H14);
+everything between them is plain PyTorch. With
 ``ref_rms_mesh=True`` the noise stage is H3 at one term (the reference
 variance through the squared centre kernels) and H11 (difference, noise
 and no-data fills).
@@ -30,13 +32,13 @@ from ..constants import (BAD_SUM, BIG_RMS, BKG_BOX_SIZE, BKG_VAL,
                          DETECT_NSIGMA, MASK_BIT_NODATA_ALIGN,
                          MASK_BIT_NODATA_SUB, SATUR_FRAC,
                          SUB_NODATA_SENTINEL)
+from ..kernels.launch import REFINE_KEYS
 from ..ops.background import background_mesh, frame_median
 from ..ops.coadd import clipped_combine, fluxscale
-from ..ops.convolve import dilate_max
+from ..ops.cutouts import NEGPIX_BOX, clamped_corners, negpix_veto
 from ..ops.detect import DETECTION_FIELDS, detect_sources
 from ..ops.measure import refine_detections
-from ..ops.photometry import (aperture_photometry_batched,
-                              circle_pixel_overlap, cutouts)
+from ..ops.photometry import aperture_photometry_batched, aperture_sums
 from ..ops.ordered import sum_last2
 from ..ops.resample import upsample_mapping, warp_epoch, warp_reference
 from ..ops.subtract import (apply_kernel_fast, center_kernels, fit_kernel,
@@ -47,9 +49,6 @@ __all__ = ['PipelineConfig', 'SubtractDetectPipeline', 'prepare_frame_inputs',
            'REF_CACHE_SIZE', 'CoaddPipeline', 'embed_roll',
            'prepare_epoch_inputs']
 
-REFINE_KEYS = ('xwin', 'ywin', 'kron_radius', 'flux_auto', 'fluxerr_auto',
-               'awin', 'bwin', 'thetawin', 'errawin', 'errbwin',
-               'errthetawin')
 
 
 @dataclass(frozen=True)
@@ -216,8 +215,10 @@ class SubtractDetectPipeline(nn.Module):
             ref_meas = refine_detections(diff, rms_out, det['x'], det['y'],
                                          det['a'], det['b'], det['theta'],
                                          det['fwhm'])
-            rms_ap6, bpm_ap6 = self._aperture6(rms_out, bad, det['x'],
-                                               det['y'])
+            # the r=6 rms and bad-pixel sums in one two-plane pass
+            # (pipeline.py:306-328)
+            rms_ap6, bpm_ap6 = aperture_sums(
+                (rms_out, bad.to(torch.float32)), det['x'], det['y'], r=6.0)
             rms_med = frame_median(rms_out[::4, ::4], ~bad[::4, ::4])
             negpix = self._negpix(diff, det['x'], det['y'])
 
@@ -244,37 +245,21 @@ class SubtractDetectPipeline(nn.Module):
         out['rms_med'] = rms_med
         return out
 
-    def _aperture6(self, rms_out, bad, xs, ys, r6=6.0, cut6=15):
-        """r=6 rms and bad-pixel aperture sums (pipeline.py:306-328)."""
-        H, W = rms_out.shape
-        half6 = cut6 // 2
-        x0 = torch.clamp(torch.round(xs).to(torch.int64) - half6, 0, W - cut6)
-        y0 = torch.clamp(torch.round(ys).to(torch.int64) - half6, 0, H - cut6)
-        sr, sb = cutouts(torch.stack([rms_out, bad.to(torch.float32)]),
-                         x0, y0, cut6)
-        ar = torch.arange(cut6, dtype=torch.float32, device=xs.device)
-        yy = y0.to(torch.float32)[:, None, None] + ar[None, :, None]
-        xx = x0.to(torch.float32)[:, None, None] + ar[None, None, :]
-        w = circle_pixel_overlap(xx - xs[:, None, None],
-                                 yy - ys[:, None, None], r6).clamp(0.0, 1.0)
-        return sum_last2(sr * w), sum_last2(sb * w)
-
-    def _negpix(self, diff, xs, ys, big=13):
+    def _negpix(self, diff, xs, ys):
         """Negative-pixel veto: a < -5 sigma pixel next to a > +5 sigma one
-        inside the 11x11 box around each candidate (pipeline.py:338-365)."""
+        inside the 11x11 box around each candidate (pipeline.py:338-365),
+        standardised by the frame's ::4 median and 1.48 MAD (H8). The
+        reference takes it full-frame (a 3x3 and an 11x11 max dilation,
+        then one gather); every inner pixel of the per-candidate 13x13
+        window has its 3x3 neighbourhood inside the window and the frame,
+        so the stencil H14 on the windows decides alike."""
         H, W = diff.shape
         dsub = diff[::4, ::4]
         dmed = frame_median(dsub)
         dmad = frame_median(dsub, center=dmed)
         dsig = torch.clamp(1.48 * dmad, min=1e-12)
-        half = big // 2
-        x0 = torch.clamp(torch.round(xs).to(torch.int64) - half, 0, W - big)
-        y0 = torch.clamp(torch.round(ys).to(torch.int64) - half, 0, H - big)
-        s_full = (diff - dmed) / dsig
-        m3 = dilate_max(s_full, 1)
-        badpx = ((s_full < -5.0) & (m3 > 5.0)).to(torch.float32)
-        or11 = dilate_max(badpx, half - 1, fill=0.0)
-        return or11[y0 + half, x0 + half] > 0.0
+        x0, y0 = clamped_corners(xs, ys, NEGPIX_BOX, H, W)
+        return negpix_veto(diff, dmed, dsig, x0, y0)
 
 
 # references kept on the card by prepare_frame_inputs' ref_cache
