@@ -59,7 +59,13 @@ seeded positions (``inputs.forced_positions``), dophot's
 product files and the call again with the background mesh, counted and
 timed; the transient's forced flux, the off-frame rows and the masked rows
 checked, the blank-sky pulls printed, H22 held to its plain version at
-those positions. Prints the card,
+those positions. The detect stage: ``detect_sources`` on the slice's two
+frames through H24-H27 (the seeds, the base components, the per-object
+statistics, CLEAN) against the same call with their plain versions, at
+the three deblend modes; each of the four against its plain version on
+frame 0's own inputs, timed; the profiler's count of host copies and
+waits inside the ``ccl``, ``stats`` and ``clean`` ranges (0). Prints the
+card,
 per-kernel errors and times, the slice's ms/frame and the deblend's
 load, then one JSON line of kernel records
 and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
@@ -139,6 +145,14 @@ SOURCES = {
                       'zuds_tpu/parallel/pipeline.py:306'),
     'refine_detections': ('cuda', 'zuds_tpu_torch/kernels/measure.cu',
                           'zuds_tpu/ops/measure.py:139'),
+    'seed_sweeps': ('cuda', 'zuds_tpu_torch/kernels/ccl.cu',
+                    'zuds_tpu/ops/detect.py:657'),
+    'ccl_fixpoint': ('cuda', 'zuds_tpu_torch/kernels/ccl.cu',
+                     'zuds_tpu/ops/detect.py:667'),
+    'object_stats': ('cuda', 'zuds_tpu_torch/kernels/objects.cu',
+                     'zuds_tpu/ops/detect.py:840'),
+    'clean': ('cuda', 'zuds_tpu_torch/kernels/objects.cu',
+              'zuds_tpu/ops/detect.py:954'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
@@ -164,6 +178,21 @@ MEASURE_LAUNCHES = {'aperture_photometry': 1, 'aperture_sums': 1,
 # centroid iterations of 15, the moments 36, the Kron pass 21 and the AUTO
 # pass 18 (REFINE_OPS_PX), and two sums and a square for a pixel inside
 # the AUTO ellipse (REFINE_AUTO_OPS).
+# the detect stage's launches per slice frame: H24, H25, H26, H27 (at
+# every deblend mode)
+DETECT_LAUNCHES = {'seed_sweeps': 1, 'ccl_fixpoint': 1, 'object_stats': 1,
+                   'clean': 1}
+# operations, counted from the sources: H24 9 a detected pixel a sweep (8
+# minima and the mask's select); H25 4 an edge (two finds' first steps,
+# the compare, the hook); H26 25 an entry (its 6 products, 8 tree adds, 9
+# maxima, minima and ORs, 2 conversions) and 40 a row (the epilogue); H27
+# 3 a (valid row, column) pair (the tests and the sum's add) and 14 more
+# for each brighter valid neighbour (the wing: 11 for r2, its scale, the
+# add, powf as one, the product)
+SEED_OPS = 9
+CCL_OPS = 4
+STATS_OPS = (25, 40)
+CLEAN_OPS = (3, 14)
 APERTURE_OPS_PX = 101
 APERTURE_SUM_OPS = {'photometry': 7, 'sums': 4}
 APERTURE_ARC_OPS = 29
@@ -429,6 +458,125 @@ def measure_records(out, record, name):
           f'to the plain version at {n} rows (r = 3), the r = 6 sums and '
           f'H23 within their bounds, H14 bit-equal ({int(kv.sum())} vetoed)',
           flush=True)
+
+
+def detect_phase(out, cfg, record, name):
+    """The detect stage on the slice's flagship frames (the pipeline's
+    diff, rms and mask): detect_sources through H24-H27 against the same
+    call with their plain versions forced (kernels.checks.plain_detect),
+    at each deblend mode, held by kernels.checks.detect_check; the plain
+    CCL's rounds per frame; each kernel against its plain version on frame
+    0's own inputs (detect_taps), timed (device time: a CUDA graph of 20
+    launches) beside its plain version, its bound and a library call; the
+    host copies and waits the profiler sees in the ccl, stats and clean
+    ranges (0 each)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from zuds_tpu_torch.constants import BAD_SUM, CLEAN_PARAM
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import detect
+    from zuds_tpu_torch.profile import host_waits
+    kw = dict(nsigma=cfg.nsigma, max_det=cfg.max_det, det_cap=cfg.det_cap,
+              deb_cap=cfg.deb_cap)
+    frames = [(out['diff'][b], out['rms'][b], out['submask'][b],
+               (out['submask'][b] & BAD_SUM) == 0)
+              for b in range(out['diff'].shape[0])]
+    for mode in (True, 'watershed', False):
+        gaps, ns, ms_k, ms_p = [], [], [], []
+        for b, fr in enumerate(frames):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k = detect.detect_sources(*fr, deblend=mode, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with checks.plain_detect():
+                p = detect.detect_sources(*fr, deblend=mode, **kw)
+            torch.cuda.synchronize()
+            ms_k.append((t1 - t0) * 1e3)
+            ms_p.append((time.perf_counter() - t1) * 1e3)
+            taps = detect.detect_taps(*fr, deblend=mode, **kw)
+            gaps.append(checks.detect_check(k, p, taps['clean']))
+            ns.append(int(k['n']))
+            if mode is True:
+                print(f'detect, slice frame {b}: the plain CCL takes '
+                      f'{detect.label_compact_rounds(*taps["ccl"])} rounds '
+                      f'that change the labels (the reference stops at 64)',
+                      flush=True)
+        print(f'detect_sources (deblend={mode!r}) on the slice frames, '
+              f'H24-H27 against their plain versions: labels, n {ns}, '
+              f'valid, npix, boxes, imaflags, flags and overflow counters '
+              f'bit-equal, the float fields within detect_check\'s '
+              f'tolerances (largest float gap {max(gaps):.3g}); host clock '
+              f'{[round(t, 2) for t in ms_k]} ms, plain '
+              f'{[round(t, 2) for t in ms_p]} ms on {name}', flush=True)
+
+    diff, rms, mask, wok = frames[0]
+    taps = detect.detect_taps(diff, rms, mask, wok, **kw)
+    # H24 on the detection mask: reads 1 B, writes 4 B a pixel
+    det = taps['seeds']
+    checks.seeds_check(det)
+    H, W = det.shape
+    ndet = int(det.sum())
+    lab = torch.where(det, torch.arange(H * W, device=det.device,
+                                        dtype=torch.float32).reshape(H, W),
+                      float('inf'))[None, None]
+    record('seed_sweeps', 0.0, graph_ms(lambda: launch.seed_sweeps(det)),
+           cuda_ms(lambda: detect.seed_labels_plain(det), 1, 3),
+           bound(5 * H * W, 12 * SEED_OPS * ndet),
+           cuda_ms(lambda: [F.max_pool2d(lab, 3, 1, 1) for _ in range(12)]))
+    # H25 on the compact list: (8, n) int64 positions and bool edges,
+    # lab0, the labels
+    nbr_pos, okb, lab0 = taps['ccl']
+    checks.ccl_check(nbr_pos, okb, lab0)
+    n = lab0.numel()
+    record('ccl_fixpoint', 0.0,
+           graph_ms(lambda: launch.ccl_fixpoint(nbr_pos, okb, lab0)),
+           cuda_ms(lambda: detect.label_compact_plain(nbr_pos, okb, lab0),
+                   1, 3),
+           bound(88 * n, CCL_OPS * int(okb.sum())))
+    # H26: reads 30 B an entry and ndet_pix, writes 81 B a row
+    sargs = taps['stats']
+    err = checks.stats_check(sargs)
+    cap, nseg = sargs[0].numel(), sargs[9]
+    record('object_stats', err, graph_ms(lambda: launch.object_stats(*sargs)),
+           cuda_ms(lambda: detect.object_stats_plain(*sargs), 1, 3),
+           bound(30 * cap + 8 + 81 * nseg,
+                 STATS_OPS[0] * cap + STATS_OPS[1] * nseg),
+           cuda_ms(lambda: torch.sort(sargs[0], stable=True)))
+    # H27: reads 11 row fields, writes 4
+    cargs = taps['clean']
+    flux_gap, rel, ncleaned, near = checks.clean_check(cargs)
+    valid, peak = cargs[10], cargs[5]
+    pf = peak[valid]
+    nok = int((pf[None, :] > pf[:, None]).sum())
+    inv = float(np.float32(1.0) / np.float32(2.0 * CLEAN_PARAM ** 2))
+    print(f'clean on slice frame 0: {int(valid.sum())} valid rows, '
+          f'{ncleaned} cleaned, {near} within one ulp of the threshold; the '
+          f'contributions (powf, cosf, sinf of the toolkit against '
+          f'PyTorch\'s) within {rel:.3g} of the row\'s peak; merged flux gap '
+          f'{flux_gap:.3g}', flush=True)
+    record('clean', flux_gap,
+           graph_ms(lambda: launch.clean(*cargs, inv)),
+           cuda_ms(lambda: detect._clean_plain(*cargs), 1, 3),
+           bound(60 * nseg, CLEAN_OPS[0] * int(valid.sum()) * nseg
+                 + CLEAN_OPS[1] * nok))
+
+    # the profiler's host copies and waits inside the detect ranges
+    detect.detect_sources(diff, rms, mask, wok, return_labels=False, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        detect.detect_sources(diff, rms, mask, wok, return_labels=False, **kw)
+        torch.cuda.synchronize()
+    waits = host_waits(prof)
+    print('detect on slice frame 0, host copies and waits inside the '
+          'ranges: ' + ', '.join(f'{r}: {c["copies"]} copies, {c["syncs"]} '
+                                 f'waits' for r, c in waits.items()),
+          flush=True)
+    check(all(c['copies'] == 0 and c['syncs'] == 0 for c in waits.values()),
+          f'the detect stage reads back to the host in a range: {waits}')
 
 
 def apply_flops(ye, xe, K, Nm):
@@ -2703,6 +2851,9 @@ def main():
     check(all(launches[k] == n * B for k, n in MEASURE_LAUNCHES.items()),
           f'the measure stage launched {launches} for {B} frames, not '
           f'{MEASURE_LAUNCHES} per frame')
+    check(all(launches[k] == n * B for k, n in DETECT_LAUNCHES.items()),
+          f'the detect stage launched {launches} for {B} frames, not '
+          f'{DETECT_LAUNCHES} per frame')
 
     submask = out['submask']
     unmasked = submask == 0
@@ -2739,6 +2890,8 @@ def main():
               or k in COADD_ONLY + PAIR_ONLY + ML_ONLY + ZOGY_ONLY
               + TRAIN_ONLY,
               f'kernel {k} was not launched with deblend=False')
+    check(all(launches0[k] == n * B for k, n in DETECT_LAUNCHES.items()),
+          f'the detect stage launched {launches0} with deblend=False')
     check_planted(out0, planted, 'slice deblend=False')
 
     # the host clock spreads with the host's other load: the median of
@@ -2796,12 +2949,15 @@ def main():
         lib = 'none' if library_ms is None else f'{library_ms:.3f} ms'
         per = per or f'{NIGHT_PAIRS if runs else B} frames'
         print(f'{kname}: max abs err {err:.3g}, kernel {ms:.3f} ms, plain '
-              f'{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), '
-              f'library {lib}; {n} launches on the main path '
-              f'({per}) on {name}', flush=True)
+              f'{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, share '
+              f'{bnd[0] / ms:.1%}), library {lib}; {n} launches on the main '
+              f'path ({per}) on {name}', flush=True)
 
     # ---- the measure stage's kernels on the slice's frame 0 ---------------
     measure_records(out, record, name)
+
+    # ---- the detect stage: H24-H27 against their plain versions ----------
+    detect_phase(out, cfg, record, name)
 
     # ---- the night: FITS pairs -> catalogs through run_night, counted,
     # then the scoring night at ml=True ------------------------------------

@@ -8,7 +8,8 @@ cutter H12, each braai layer H13, the negative-pixel veto H14, and the
 ZOGY kernels: the spectral pass H15, the score normalisation H16, the PSF
 star stamps H17 and their clipped mean H18, braai training's H13t and
 H19-H21, the aperture photometry H22 in both modes and the windowed and
-Kron refinement H23.
+Kron refinement H23, and the detect stage's label seeds H24, base
+components H25, per-object statistics H26 and CLEAN H27.
 
 These need the card: they skip on a CPU-only machine. The card machine has
 no JAX, and tests/conftest.py imports it, so run them there with
@@ -53,7 +54,13 @@ masks (loss 1e-5 relative, parameters by the Adam-aware rule of
 bit-equal, its sums within the bound of two summation orders
 (``kernels.checks.sum_gap_bound``); H23 within
 ``kernels.checks.refine_check``'s tolerances, two calls bit-identical;
-both take N = 0 without a launch.
+both take N = 0 without a launch. H24 and H25 bit-equal to their plain
+versions; H26 bit-equal but ``theta`` (within ``checks.THETA_ATOL``); H27
+as ``checks.clean_check`` (which rows are cleaned and where they merge,
+valid, flags and npix bit-equal, flux within the merge order's bound);
+``detect_sources`` through H24-H27 as ``checks.detect_check`` against the
+same call with their plain versions, at the three deblend modes; no host
+copy or wait inside the ``ccl``, ``stats`` and ``clean`` ranges.
 """
 from pathlib import Path
 
@@ -1572,3 +1579,209 @@ def test_h22_h23_refuse_wrong_inputs(dev):
                                  33)
     with pytest.raises(ValueError, match='CUDA'):
         launch.refine_detections(img, img.cpu(), xs, xs, xs, xs, xs, xs, 33)
+
+
+def _detect_scene(dev, H, W, nsrc, seed, plateau=False):
+    """tests/test_torch_detect.py's scene (sources stamped in 25x25
+    windows), as (diff, rms, mask, weight_ok) on the card."""
+    rng = np.random.default_rng(seed)
+    diff = rng.normal(0, 5, (H, W)).astype('f4')
+    for _ in range(nsrc):
+        x0, y0 = rng.uniform(-2, W + 2), rng.uniform(-2, H + 2)
+        s, f = rng.uniform(1.2, 3.0), rng.uniform(200, 2e4)
+        xi, yi = int(x0), int(y0)
+        ys, xs = np.mgrid[max(0, yi - 12):min(H, yi + 13),
+                          max(0, xi - 12):min(W, xi + 13)]
+        diff[ys, xs] += (f * np.exp(-((xs - x0) ** 2 + (ys - y0) ** 2)
+                                    / (2 * s * s))
+                         / (2 * np.pi * s * s)).astype('f4')
+    if plateau:
+        diff[60:200, 40:220] += 40.0
+    diff[rng.random((H, W)) < 2e-4] = np.nan
+    rms = (5.0 * (1 + 0.1 * rng.random((H, W)))).astype('f4')
+    mask = np.where(rng.random((H, W)) < 0.01,
+                    rng.integers(0, 1 << 17, (H, W)), 0).astype('i4')
+    wok = rng.random((H, W)) > 0.01
+    return tuple(torch.as_tensor(a).to(dev) for a in (diff, rms, mask, wok))
+
+
+def _wing_scene(dev):
+    """A bright star with three marginal bumps in its wing (CLEAN merges
+    all three into it) and one on blank sky (tests/test_detect.py's
+    recipe)."""
+    rng = np.random.default_rng(11)
+    H = W = 128
+    img = rng.normal(0, 0.3, (H, W)).astype('f4')
+    yy, xx = np.mgrid[0:H, 0:W]
+    img += (400000.0 / (2 * np.pi * 36) * np.exp(
+        -((xx - 64) ** 2 + (yy - 64) ** 2) / (2 * 36.0))).astype('f4')
+    for x0, y0 in ((94, 64), (64, 94), (43, 43), (20, 110)):
+        img += (3.0 * np.exp(-((xx - x0) ** 2 + (yy - y0) ** 2)
+                             / (2 * 2.25))).astype('f4')
+    return (torch.as_tensor(img).to(dev), torch.ones((H, W), device=dev),
+            torch.zeros((H, W), dtype=torch.int32, device=dev),
+            torch.ones((H, W), dtype=torch.bool, device=dev))
+
+
+# (scene, detect_sources keywords): small, overflowing (pixels and objects
+# past their caps), a CLEAN merge of three rows, a flagship-size frame
+DETECT_SCENES = {
+    'small': (lambda d: _detect_scene(d, 256, 256, 40, 5), {'max_det': 128}),
+    'overflowing': (lambda d: _detect_scene(d, 256, 256, 200, 9, True),
+                    {'max_det': 8, 'det_cap': 4096}),
+    'wings': (_wing_scene, {'max_det': 64}),
+    'flagship': (lambda d: _detect_scene(d, 3080, 3072, 900, 1),
+                 {'max_det': 4096, 'det_cap': 1 << 16, 'deb_cap': 1 << 16}),
+}
+
+
+@pytest.mark.parametrize('H,W,p,sweeps', [(200, 136, 0.45, 12),
+                                          (97, 131, 0.7, 5), (33, 70, 1.0, 12),
+                                          (40, 40, 0.0, 12), (64, 64, 0.3, 0),
+                                          (3080, 3072, 0.01, 12)])
+def test_seed_sweeps_kernel(dev, H, W, p, sweeps):
+    from zuds_tpu_torch.kernels import checks, launch
+    g = torch.Generator(device=dev).manual_seed(H)
+    det = torch.rand((H, W), generator=g, device=dev) < p
+    n0 = launch.seed_sweeps.launches
+    checks.seeds_check(det, sweeps)
+    assert launch.seed_sweeps.launches == n0 + 1
+
+
+@pytest.mark.parametrize('which', list(DETECT_SCENES))
+def test_ccl_stats_clean_kernels(dev, which):
+    """H25, H26 and H27 on the inputs detect_sources gives them."""
+    from zuds_tpu_torch.kernels import checks
+    from zuds_tpu_torch.ops import detect
+    make, kw = DETECT_SCENES[which]
+    taps = detect.detect_taps(*make(dev), **kw)
+    checks.seeds_check(taps['seeds'])
+    checks.ccl_check(*taps['ccl'])
+    checks.stats_check(taps['stats'])
+    _, _, ncleaned, _ = checks.clean_check(taps['clean'])
+    if which == 'wings':
+        assert ncleaned == 3
+
+
+def test_ccl_fixpoint_kernel_snake(dev):
+    """A snake from the identity (many rounds for the plain loop) and a
+    random graph, bit-equal; no entries, no launch."""
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import detect
+    rng = np.random.default_rng(3)
+    det = rng.random((96, 96)) < 0.45
+    det[10, 5:90] = True
+    det[10:80, 89] = True
+    det[79, 20:90] = True
+    for mask in (det, rng.random((300, 200)) < 0.55):
+        H, W = mask.shape
+        flat = torch.as_tensor(np.flatnonzero(mask.ravel()), device=dev)
+        inv = torch.full((H * W,), -1, dtype=torch.int64, device=dev)
+        inv[flat] = torch.arange(len(flat), device=dev)
+        pok = torch.ones(len(flat), dtype=torch.bool, device=dev)
+        nbr_pos, nbr_ok = detect._adjacency(flat, pok, inv, (H, W))
+        checks.ccl_check(nbr_pos, nbr_ok, torch.arange(len(flat), device=dev))
+    n0 = launch.ccl_fixpoint.launches
+    e = torch.zeros(0, dtype=torch.int64, device=dev)
+    assert launch.ccl_fixpoint(e.reshape(8, 0), e.reshape(8, 0).bool(),
+                               e).numel() == 0
+    assert launch.ccl_fixpoint.launches == n0
+
+
+@pytest.mark.parametrize('nseg', [130, 1026, 4098])
+def test_clean_kernel_random_rows(dev, nseg):
+    """H27 on seeded rows at widths past, at and inside one 512-column
+    block, bright rows close together so that CLEAN merges some."""
+    from zuds_tpu_torch.kernels import checks
+    g = torch.Generator(device=dev).manual_seed(nseg)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(nseg, generator=g, device=dev)
+
+    a = u(0.5, 3.0)
+    peak = u(1.0, 100.0)
+    peak[::7] = 50.0                        # equal peaks
+    valid = torch.rand(nseg, generator=g, device=dev) < 0.8
+    valid[0] = valid[-1] = False
+    args = (u(0, 40), u(0, 40), a, a * u(0.3, 1.0), u(-1.5, 1.5), peak,
+            u(0.5, 60.0), u(10, 1e4), torch.round(u(5, 50)),
+            torch.zeros(nseg, dtype=torch.int32, device=dev), valid)
+    _, _, ncleaned, _ = checks.clean_check(args)
+    assert ncleaned > 0
+
+
+@pytest.mark.parametrize('mode', [True, 'watershed', False])
+@pytest.mark.parametrize('which', ['small', 'overflowing', 'wings'])
+def test_detect_sources_kernels_equal_plain(dev, which, mode):
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import detect
+    make, kw = DETECT_SCENES[which]
+    scene = make(dev)
+    n0 = {k: getattr(launch, k).launches
+          for k in ('seed_sweeps', 'ccl_fixpoint', 'object_stats', 'clean')}
+    k = detect.detect_sources(*scene, deblend=mode, **kw)
+    assert all(getattr(launch, n).launches == c + 1 for n, c in n0.items())
+    with checks.plain_detect():
+        p = detect.detect_sources(*scene, deblend=mode, **kw)
+    assert all(getattr(launch, n).launches == c + 1 for n, c in n0.items())
+    checks.detect_check(k, p, detect.detect_taps(*scene, deblend=mode,
+                                                 **kw)['clean'])
+
+
+def test_label_components_card_equals_cpu(dev):
+    from zuds_tpu_torch.ops import detect
+    g = torch.Generator(device=dev).manual_seed(0)
+    m = torch.rand((512, 384), generator=g, device=dev) < 0.45
+    assert torch.equal(detect.label_components(m).cpu(),
+                       detect.label_components(m.cpu()))
+
+
+def test_detect_ranges_read_nothing_back(dev):
+    """No host copy or wait inside the ccl, stats and clean ranges."""
+    from torch.profiler import ProfilerActivity, profile
+    from zuds_tpu_torch.ops import detect
+    from zuds_tpu_torch.profile import host_waits
+    make, kw = DETECT_SCENES['small']
+    scene = make(dev)
+    detect.detect_sources(*scene, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        detect.detect_sources(*scene, **kw)
+        torch.cuda.synchronize()
+    waits = host_waits(prof)
+    assert all(c == {'copies': 0, 'syncs': 0} for c in waits.values()), waits
+
+
+def test_h24_h27_refuse_wrong_inputs(dev):
+    from zuds_tpu_torch.kernels import launch
+    det = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):
+        launch.seed_sweeps(det, 13)
+    with pytest.raises(TypeError):
+        launch.seed_sweeps(det.int(), 12)
+    with pytest.raises(ValueError):
+        launch.seed_sweeps(det.cpu(), 12)
+    n = 10
+    pos = torch.zeros((8, n), dtype=torch.int64, device=dev)
+    ok = torch.zeros((8, n), dtype=torch.bool, device=dev)
+    lab = torch.arange(n, device=dev)
+    with pytest.raises(ValueError):
+        launch.ccl_fixpoint(pos[:7], ok, lab)
+    with pytest.raises(TypeError):
+        launch.ccl_fixpoint(pos, ok, lab.int())
+    f = torch.zeros(n, device=dev)
+    i64 = torch.zeros(n, dtype=torch.int64, device=dev)
+    b = torch.zeros(n, dtype=torch.bool, device=dev)
+    nd = torch.zeros((), dtype=torch.int64, device=dev)
+    args = (i64, i64, f, i64.int(), b, f, b, nd, (8, 8), 6, 5.0, 4)
+    launch.object_stats(*args)
+    with pytest.raises(ValueError):
+        launch.object_stats(*args[:9], launch.OBJECT_MAX_ROWS + 1,
+                            *args[10:])
+    with pytest.raises(TypeError):
+        launch.object_stats(i64, i64, f.double(), *args[3:])
+    with pytest.raises(TypeError):
+        launch.clean(f, f, f, f, f, f, f, f, f, i64, b, 0.5)
+    with pytest.raises(ValueError):
+        launch.clean(f, f, f, f, f, f, f, f, f[:5], i64.int(), b, 0.5)

@@ -24,7 +24,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
            'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
            'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu', 'adam.cu',
-           'photometry.cu', 'measure.cu')
+           'photometry.cu', 'measure.cu', 'ccl.cu', 'objects.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -118,6 +118,26 @@ SIGNATURES = {
     # img, rms, H, W, xs, ys, a, b, theta, fwhm, N, cut, out (11, N), stream
     'zuds_refine_detections': (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                                _I, _P, _P),
+    # det(u8), H, W, sweeps, out (f32), stream
+    'zuds_seed_sweeps': (_P, _I, _I, _I, _P, _P),
+    # nbr_pos (i64), okb (u8), lab0 (i64), n, parent (i32 scratch), out
+    # (i64), stream
+    'zuds_ccl_fixpoint': (_P, _P, _P, _I, _P, _P, _P),
+    # cid, pidx (i64), vals (f32), mask (i32), wok (u8), thr (f32), debovf
+    # (u8), ndet (i64 scalar), cap, H, W, nseg, minarea, max_det, scratch,
+    # outf (18, nseg), outi (2, nseg), valid (u8), stream
+    'zuds_object_stats': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _I, _P, _P, _P, _P, _P),
+    # x, y, a, b, theta, peak, thr, flux, npix (f32), flags (i32), valid
+    # (u8), nseg, inv_scale, scratch, contrib (f32), tgt (i32), flux, npix,
+    # flags, valid out, stream
+    'zuds_clean': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P,
+                   _P, _P, _P, _P, _P, _P, _P),
+}
+# host functions: the scratch bytes of H26 (cap, nseg) and H27 (nseg)
+SCRATCH_SIGNATURES = {
+    'zuds_object_stats_scratch': (_I, _I),
+    'zuds_clean_scratch': (_I,),
 }
 
 
@@ -181,6 +201,10 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in SCRATCH_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_longlong
     return lib
 
 

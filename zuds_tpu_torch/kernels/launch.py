@@ -6,7 +6,8 @@ negative-pixel veto, H15 ZOGY spectral pass, H16 ZOGY score normalisation,
 H17 PSF star stamps, H18 PSF clipped mean, H13t the braai layer's training
 forward, H19 its input gradient, H20 its weight gradient, H21 the fused
 Adam step, H22 aperture photometry and its two-plane sums, H23 the
-windowed and Kron refinement).
+windowed and Kron refinement, H24 the label seeds, H25 the base
+components, H26 the per-object statistics, H27 CLEAN).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -29,7 +30,8 @@ __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
            'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
            'psf_clip', 'braai_conv3x3_train', 'braai_conv3x3_dgrad',
            'braai_conv3x3_wgrad', 'adam_step', 'aperture_photometry',
-           'aperture_sums', 'refine_detections', 'BRAAI_LAYERS',
+           'aperture_sums', 'refine_detections', 'seed_sweeps',
+           'ccl_fixpoint', 'object_stats', 'clean', 'BRAAI_LAYERS',
            'COMBINE_MAX_EPOCHS', 'WRAPPERS']
 
 
@@ -551,6 +553,150 @@ def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut):
     return dict(zip(REFINE_KEYS, out))
 
 
+# H24 (ccl.cu) holds a 12-pixel halo: at most 12 sweeps a launch
+SEED_MAX_SWEEPS = 12
+
+
+def seed_sweeps(det, sweeps=12):
+    """H24 (kernels/ccl.cu): the (H, W) f32 label seeds of
+    ``ops.detect.seed_labels_plain`` of the bool mask ``det`` (under 2^24
+    px), ``sweeps`` (0..12) masked 3x3 min-pool sweeps of flat indices in
+    one launch."""
+    _require('det', det, torch.bool)
+    if det.dim() != 2 or det.numel() >= 2 ** 24 \
+            or not 0 <= sweeps <= SEED_MAX_SWEEPS:
+        raise ValueError(f'seed_sweeps: a mask of shape {tuple(det.shape)} '
+                         f'at {sweeps} sweeps unsupported (2-D, under 2^24 '
+                         f'px, 0..{SEED_MAX_SWEEPS} sweeps)')
+    H, W = det.shape
+    out = torch.empty((H, W), dtype=torch.float32, device=det.device)
+    if det.numel():
+        err = build.library().zuds_seed_sweeps(_ptr(det), H, W, int(sweeps),
+                                               _ptr(out), _stream())
+        build.check(err, 'zuds_seed_sweeps')
+        seed_sweeps.launches += 1
+    return out
+
+
+def ccl_fixpoint(nbr_pos, okb, lab0):
+    """H25 (kernels/ccl.cu): the (n,) int64 fixed point of
+    ``ops.detect.label_compact_plain`` for the (8, n) int64 neighbour
+    positions ``nbr_pos``, their bool validity ``okb`` and the (n,) int64
+    initial labels ``lab0``: per entry, the smallest position of its class
+    (joined by the edges and the pointers i -> lab0[i]). A union-find, no
+    host read; n = 0 takes no launch."""
+    n = lab0.shape[0] if lab0.dim() == 1 else -1
+    _require('lab0', lab0, torch.int64, (n,))
+    _require('nbr_pos', nbr_pos, torch.int64, (8, n))
+    _require('okb', okb, torch.bool, (8, n))
+    if n >= 2 ** 31:
+        raise ValueError(f'ccl_fixpoint: {n} entries, at most 2^31 - 1')
+    out = torch.empty(n, dtype=torch.int64, device=lab0.device)
+    if n:
+        parent = torch.empty(n, dtype=torch.int32, device=lab0.device)
+        err = build.library().zuds_ccl_fixpoint(
+            _ptr(nbr_pos), _ptr(okb), _ptr(lab0), n, _ptr(parent), _ptr(out),
+            _stream())
+        build.check(err, 'zuds_ccl_fixpoint')
+        ccl_fixpoint.launches += 1
+    return out
+
+
+# H26's and H27's rows: nseg ints of shared memory in H26's counting sort
+OBJECT_MAX_ROWS = 50000
+# H26's row fields, in the order of kernels/objects.cu
+OBJECT_FLOAT_KEYS = ('x', 'y', 'x2', 'y2', 'xy', 'a', 'b', 'theta',
+                     'elongation', 'fwhm', 'flux', 'peak', 'npix', 'xmin',
+                     'xmax', 'ymin', 'ymax', 'thresh')
+OBJECT_INT_KEYS = ('imaflags', 'flags')
+
+
+def object_stats(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf, ndet_pix,
+                 shape, nseg, minarea, max_det):
+    """H26 (kernels/objects.cu): the (nseg,) rows of
+    ``ops.detect.object_stats_plain`` of the compact list (object ``cid``
+    in [0, nseg) and flat index ``pidx``, int64; ``vals``, ``thr`` f32;
+    ``mask_c`` int32; ``wok_c``, ``deb_ovf`` bool; all (cap,), cap >= 1)
+    on an (H, W) ``shape`` frame, ``ndet_pix`` an int64 0-d tensor. A dict
+    of OBJECT_FLOAT_KEYS (f32), OBJECT_INT_KEYS (int32) and ``valid``
+    (bool)."""
+    n = cid.shape[0] if cid.dim() == 1 else -1
+    _require('cid', cid, torch.int64, (n,))
+    _require('pidx', pidx, torch.int64, (n,))
+    _require('vals', vals, torch.float32, (n,))
+    _require('mask', mask_c, torch.int32, (n,))
+    _require('weight_ok', wok_c, torch.bool, (n,))
+    _require('thr', thr, torch.float32, (n,))
+    _require('deb_ovf', deb_ovf, torch.bool, (n,))
+    _require('ndet_pix', ndet_pix, torch.int64, ())
+    H, W = shape
+    if not 1 <= n < 2 ** 31 or H * W >= 2 ** 31 \
+            or not 1 <= nseg <= OBJECT_MAX_ROWS:
+        raise ValueError(f'object_stats: {n} entries, {nseg} rows, a '
+                         f'{H}x{W} frame unsupported (1 <= entries < 2^31, '
+                         f'1..{OBJECT_MAX_ROWS} rows, under 2^31 px)')
+    dev = cid.device
+    lib = build.library()
+    scratch = torch.empty(lib.zuds_object_stats_scratch(n, nseg),
+                          dtype=torch.uint8, device=dev)
+    outf = torch.empty((len(OBJECT_FLOAT_KEYS), nseg), dtype=torch.float32,
+                       device=dev)
+    outi = torch.empty((len(OBJECT_INT_KEYS), nseg), dtype=torch.int32,
+                       device=dev)
+    valid = torch.empty(nseg, dtype=torch.uint8, device=dev)
+    err = lib.zuds_object_stats(
+        _ptr(cid), _ptr(pidx), _ptr(vals), _ptr(mask_c), _ptr(wok_c),
+        _ptr(thr), _ptr(deb_ovf), _ptr(ndet_pix), n, H, W, int(nseg),
+        float(minarea), int(max_det), _ptr(scratch), _ptr(outf), _ptr(outi),
+        _ptr(valid), _stream())
+    build.check(err, 'zuds_object_stats')
+    object_stats.launches += 1
+    out = dict(zip(OBJECT_FLOAT_KEYS, outf))
+    out.update(zip(OBJECT_INT_KEYS, outi))
+    out['valid'] = valid.view(torch.bool)
+    return out
+
+
+def clean(xbar, ybar, a, b, theta, peak, thr, flux, npix, flags, valid,
+          inv_scale):
+    """H27 (kernels/objects.cu): (flux, npix, flags, valid) after the CLEAN
+    pass of ``ops.detect._clean_plain`` over the (nseg,) rows (f32 but
+    ``flags`` int32 and ``valid`` bool), then (contrib f32, tgt int32):
+    each row's summed wings (0 on an invalid row) and the row it merges
+    into (nseg - 1 if it stays). ``inv_scale`` is the f32 reciprocal of
+    2 CLEAN_PARAM^2, as PyTorch's division by that Python number takes it
+    on the card."""
+    nseg = xbar.shape[0] if xbar.dim() == 1 else -1
+    for name, t in (('x', xbar), ('y', ybar), ('a', a), ('b', b),
+                    ('theta', theta), ('peak', peak), ('thresh', thr),
+                    ('flux', flux), ('npix', npix)):
+        _require(name, t, torch.float32, (nseg,))
+    _require('flags', flags, torch.int32, (nseg,))
+    _require('valid', valid, torch.bool, (nseg,))
+    if not 1 <= nseg <= OBJECT_MAX_ROWS:
+        raise ValueError(f'clean: {nseg} rows unsupported '
+                         f'(1..{OBJECT_MAX_ROWS})')
+    dev = xbar.device
+    lib = build.library()
+    scratch = torch.empty(lib.zuds_clean_scratch(nseg), dtype=torch.uint8,
+                          device=dev)
+    contrib = torch.empty_like(flux)
+    tgt = torch.empty_like(flags)
+    flux_out, npix_out = torch.empty_like(flux), torch.empty_like(npix)
+    flags_out = torch.empty_like(flags)
+    valid_out = torch.empty(nseg, dtype=torch.uint8, device=dev)
+    err = lib.zuds_clean(
+        _ptr(xbar), _ptr(ybar), _ptr(a), _ptr(b), _ptr(theta), _ptr(peak),
+        _ptr(thr), _ptr(flux), _ptr(npix), _ptr(flags), _ptr(valid), nseg,
+        float(inv_scale), _ptr(scratch), _ptr(contrib), _ptr(tgt),
+        _ptr(flux_out), _ptr(npix_out), _ptr(flags_out), _ptr(valid_out),
+        _stream())
+    build.check(err, 'zuds_clean')
+    clean.launches += 1
+    return (flux_out, npix_out, flags_out, valid_out.view(torch.bool),
+            contrib, tgt)
+
+
 # (Cin, Cout, pool) of the four layers of BraaiD6 (kernels/braai.cu)
 BRAAI_LAYERS = ((3, 32, False), (32, 32, True), (32, 64, False),
                 (64, 64, True))
@@ -894,6 +1040,10 @@ adam_step.launches = 0
 aperture_photometry.launches = 0
 aperture_sums.launches = 0
 refine_detections.launches = 0
+seed_sweeps.launches = 0
+ccl_fixpoint.launches = 0
+object_stats.launches = 0
+clean.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
@@ -912,4 +1062,6 @@ WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'adam_step': adam_step,
             'aperture_photometry': aperture_photometry,
             'aperture_sums': aperture_sums,
-            'refine_detections': refine_detections}
+            'refine_detections': refine_detections,
+            'seed_sweeps': seed_sweeps, 'ccl_fixpoint': ccl_fixpoint,
+            'object_stats': object_stats, 'clean': clean}

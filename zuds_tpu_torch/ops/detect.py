@@ -2,12 +2,16 @@
 
 The matched filter and threshold run in hand kernel H4
 (``kernels/detect_filter.py``, Triton), the compactions in H6
-(``kernels/compact.cu``) and the deblend tree's level labels in H5
-(``kernels/deblend.cu``) on a CUDA tensor; on a CPU tensor each runs its
-plain version. Connected components, the ascent cells, the rest of the
-deblend (``ops/deblend.py``), per-object statistics and CLEAN are plain
-PyTorch on either device. ``deblend`` takes the reference's three modes:
-True (the exact 32-level tree), ``'watershed'`` and False.
+(``kernels/compact.cu``), the deblend tree's level labels in H5
+(``kernels/deblend.cu``), the label seeds in H24 and the base components
+in H25 (``kernels/ccl.cu``), the per-object statistics in H26 and CLEAN in
+H27 (``kernels/objects.cu``) on a CUDA tensor; on a CPU tensor each runs
+its plain version (``*_plain`` beside its wrapper). The adjacency, the
+ascent cells, the rest of the deblend (``ops/deblend.py``) and the object
+ids are plain PyTorch on either device. ``deblend`` takes the reference's
+three modes: True (the exact 32-level tree), ``'watershed'`` and False.
+On the card the ``ccl``, ``stats`` and ``clean`` ranges read nothing back
+to the host.
 
 Float sums that cancel (second moments about a centroid) are added in the
 reference's order (:func:`.ordered.segmented_scan`), so the port agrees
@@ -27,14 +31,18 @@ import torch.nn.functional as F
 from ..constants import (CLEAN_PARAM, DEBLEND_MINCONT, DEBLEND_NTHRESH,
                          DETECT_NPIX, DETECT_NSIGMA, MAX_DETECTIONS)
 from ..kernels import detect_filter as _h4
+from ..kernels import launch
 from .compact import compact_indices, scatter_into
 from .convolve import DEFAULT_FILTER, conv2_same
 from .deblend import cell_graph, deblend_exact, split_margins
 from .ordered import fma, segmented_scan, sum_last
 
 __all__ = ['DETECTION_FIELDS', 'compact_indices', 'seed_labels',
-           'label_compact', 'matched_filter', 'matched_filter_plain',
-           'ascent_cells', 'detect_sources', 'deblend_load']
+           'seed_labels_plain', 'label_compact', 'label_compact_plain',
+           'label_compact_rounds', 'label_components', 'matched_filter',
+           'matched_filter_plain', 'ascent_cells', 'object_stats',
+           'object_stats_plain', 'clean_pass', 'detect_sources',
+           'detect_taps', 'deblend_load']
 
 DETECTION_FIELDS = [
     'x', 'y', 'x2', 'y2', 'xy', 'a', 'b', 'theta', 'elongation', 'fwhm',
@@ -70,9 +78,12 @@ def _adjacency(pidx, pok, inv, shape):
     """Compact positions of each entry's 8 neighbours and their validity
     (detect.py:227-251, the inverse-map form)."""
     H, W = shape
-    dev = pidx.device
-    dy = torch.tensor([o[0] for o in _OFFS], device=dev)[:, None]
-    dx = torch.tensor([o[1] for o in _OFFS], device=dev)[:, None]
+    # _OFFS as arithmetic on the card (a tensor built from a list would be
+    # a host copy that waits for the card): the 3x3 window's cells in
+    # row-major order, the centre skipped
+    k = torch.arange(8, device=pidx.device)[:, None]
+    k = k + (k >= 4).to(k.dtype)
+    dy, dx = k // 3 - 1, k % 3 - 1
     x = (pidx % W)[None]
     tgt = pidx[None] + dy * W + dx                               # (8, cap)
     ok = (pok[None] & (tgt >= 0) & (tgt < H * W)
@@ -82,12 +93,13 @@ def _adjacency(pidx, pok, inv, shape):
     return pos.clamp(min=0), ok
 
 
-def seed_labels(det, sweeps=12):
-    """The reference's label seeds (detect.py:657-665): ``sweeps`` 3x3
-    min-pool passes of flat indices over the FULL detection mask. When the
-    compaction overflows, two kept pieces joined only through dropped
-    pixels share a seed, so the seeds decide the overflow counters too.
-    Flat indices ride in float32, exact below 2^24."""
+def seed_labels_plain(det, sweeps=12):
+    """Plain version of H24: the reference's label seeds
+    (detect.py:657-665), ``sweeps`` 3x3 min-pool passes of flat indices
+    over the FULL detection mask, +inf off ``det``. When the compaction
+    overflows, two kept pieces joined only through dropped pixels share a
+    seed, so the seeds decide the overflow counters too. Flat indices ride
+    in float32, exact below 2^24."""
     H, W = det.shape
     if H * W >= 1 << 24:
         raise ValueError('seed_labels: flat indices exceed exact float32')
@@ -101,25 +113,90 @@ def seed_labels(det, sweeps=12):
     return lab
 
 
-def label_compact(nbr_pos, okb, lab):
-    """8-connected components of the compact pixel list (detect.py:649-700)
-    from initial labels ``lab`` (compact positions): per entry, the compact
-    position of its component's smallest label, hence, from the identity,
-    its minimum flat index (the reference's label).
+def seed_labels(det, sweeps=12):
+    """(H, W) f32 label seeds of the bool mask ``det``
+    (:func:`seed_labels_plain`): hand kernel H24 on a CUDA tensor (all
+    sweeps in one launch, bit-equal), the plain version on a CPU tensor."""
+    if det.is_cuda:
+        return launch.seed_sweeps(det, sweeps)
+    return seed_labels_plain(det, sweeps)
 
-    Shiloach-Vishkin style, as the reference: each round hooks every
-    pixel's root onto the smallest neighbouring label (scatter-min) and
-    compresses pointers, to a fixed point. From the same initial labels
-    the fixed point is unique, so the labels equal the reference's bit
-    for bit whatever the round count."""
+
+def _sv_rounds(nbr_pos, okb, lab):
+    """The reference's hook-and-compress rounds (detect.py:667-700), each
+    round's labels in turn until a round changes nothing: each round hooks
+    every pixel's root onto the smallest neighbouring label (scatter-min)
+    and compresses pointers. Waits for the card once a round."""
     while True:
         cand = torch.where(okb, lab[nbr_pos], lab[None]).amin(0)
         new = lab.scatter_reduce(0, lab, torch.minimum(lab, cand), 'amin')
         for _ in range(3):
             new = torch.minimum(new, new[new])
         if torch.equal(new, lab):
-            return lab
+            return
         lab = new
+        yield lab
+
+
+def label_compact_plain(nbr_pos, okb, lab):
+    """Plain version of H25: 8-connected components of the compact pixel
+    list (detect.py:649-700) from initial labels ``lab`` (compact
+    positions): per entry, the compact position of its component's
+    smallest label, hence, from the identity, its minimum flat index (the
+    reference's label).
+
+    Shiloach-Vishkin style, as the reference, to the fixed point. From the
+    same initial labels the fixed point is unique, so the labels equal the
+    reference's bit for bit whatever the round count; the reference stops
+    after 64 rounds (detect.py:685-687), this loop has no cap
+    (:func:`label_compact_rounds` counts them)."""
+    for lab in _sv_rounds(nbr_pos, okb, lab):
+        pass
+    return lab
+
+
+def label_compact_rounds(nbr_pos, okb, lab):
+    """How many rounds of :func:`label_compact_plain` change the labels:
+    the reference, whose loop is the same round (detect.py:667-700),
+    reaches the fixed point within its 64 rounds when this is at most
+    64."""
+    return sum(1 for _ in _sv_rounds(nbr_pos, okb, lab))
+
+
+def label_compact(nbr_pos, okb, lab):
+    """The fixed point of :func:`label_compact_plain` for the (8, n) int64
+    neighbour positions ``nbr_pos``, their bool validity ``okb`` and the
+    (n,) int64 initial labels ``lab`` (each at most its own position, as
+    the seeds are): hand kernel H25 on a CUDA tensor (a union-find with no
+    host read), the plain version on a CPU tensor."""
+    if lab.is_cuda:
+        return launch.ccl_fixpoint(nbr_pos, okb, lab)
+    return label_compact_plain(nbr_pos, okb, lab)
+
+
+def label_components(det, max_rounds=32, sweeps=8, hops=1):
+    """8-connected labels of the bool mask ``det`` (detect.py:175): int32,
+    INT_MAX off ``det``, else the flat index of the component's smallest
+    pixel. The full-frame compaction (H6 at capacity H*W), ``sweeps`` seed
+    sweeps (H24, at most 12: its halo) and the union-find (H25) give the
+    fixed point itself;
+    the reference iterates sweeps and ``hops`` pointer jumps for at most
+    ``max_rounds`` rounds, so the two agree wherever the reference reaches
+    its fixed point (``max_rounds`` and ``hops`` change nothing here)."""
+    H, W = det.shape
+    n = H * W
+    flat = det.reshape(-1)
+    pidx, ndet = compact_indices(flat, n, n - 1)
+    posidx = torch.arange(n, device=det.device)
+    pok = posidx < ndet
+    inv = scatter_into(n, pidx, pok, posidx, -1)
+    seeds = seed_labels(det, min(sweeps, 12)).reshape(-1)[pidx]
+    seedpos = inv[torch.where(pok, seeds, 0.0).to(torch.int64)].clamp(min=0)
+    nbr_pos, nbr_ok = _adjacency(pidx, pok, inv, (H, W))
+    okb = nbr_ok & pok[None] & pok[nbr_pos]
+    lab = label_compact(nbr_pos, okb, torch.where(pok, seedpos, posidx))
+    return scatter_into(n, pidx, pok, pidx[lab].to(torch.int32),
+                        np.iinfo(np.int32).max).reshape(H, W)
 
 
 def ascent_cells(filt, img, pidx, pok, okb, nbr_pos):
@@ -163,19 +240,23 @@ def _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap):
     inv[-1] = torch.where(ndet_pix < cap, -1, inv[-1])
 
     # ---- base connected components ---------------------------------------
-    seeds = seed_labels(det).reshape(-1)[pidx]
-    seedpos = inv[torch.where(pok, seeds, 0.0).to(torch.int64)].clamp(min=0)
-    nbr_pos, nbr_ok = _adjacency(pidx, pok, inv, (H, W))
-    okb = nbr_ok & pok[None] & pok[nbr_pos]
-    lab_p = label_compact(nbr_pos, okb, torch.where(pok, seedpos, posidx))
-    comppos = torch.where(pok, lab_p, cap - 1)
+    with torch.profiler.record_function('ccl'):
+        seeds = seed_labels(det).reshape(-1)[pidx]
+        seedpos = inv[torch.where(pok, seeds, 0.0).to(torch.int64)].clamp(
+            min=0)
+        nbr_pos, nbr_ok = _adjacency(pidx, pok, inv, (H, W))
+        okb = nbr_ok & pok[None] & pok[nbr_pos]
+        lab0 = torch.where(pok, seedpos, posidx)
+        lab_p = label_compact(nbr_pos, okb, lab0)
+        comppos = torch.where(pok, lab_p, cap - 1)
 
-    # DETECT_MINAREA on base components, at extraction (detect.py:709-711)
-    npix_comp = torch.zeros(cap, device=dev).index_add_(
-        0, comppos, pok.to(torch.float32))
-    return {'img': img, 'filt': filt, 'cap': cap, 'pidx': pidx,
+        # DETECT_MINAREA on base components, at extraction
+        # (detect.py:709-711)
+        npix_comp = torch.zeros(cap, device=dev).index_add_(
+            0, comppos, pok.to(torch.float32))
+    return {'img': img, 'filt': filt, 'det': det, 'cap': cap, 'pidx': pidx,
             'ndet_pix': ndet_pix, 'pok': pok, 'inv': inv,
-            'nbr_pos': nbr_pos, 'nbr_ok': nbr_ok, 'okb': okb,
+            'nbr_pos': nbr_pos, 'nbr_ok': nbr_ok, 'okb': okb, 'lab0': lab0,
             'lab_c': torch.where(pok, pidx[lab_p], H * W - 1),
             'comppos': comppos,
             'big': pok & (npix_comp[comppos] >= minarea)}
@@ -250,60 +331,29 @@ def _deblend(st, thresh_map, mode, minarea, deb_cap):
             nmulti - torch.clamp(nmulti, max=cap2) + edge_ovf)
 
 
-def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
-                   nsigma=DETECT_NSIGMA, minarea=DETECT_NPIX,
-                   max_det=MAX_DETECTIONS, return_labels=True, deblend=True,
-                   clean=True, det_cap=None, deb_cap=None):
-    """Detect sources on a background-subtracted frame (detect.py:573).
+def object_stats_plain(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf,
+                       ndet_pix, shape, nseg, minarea, max_det):
+    """Plain version of H26: the per-object statistics (detect.py:840-953)
+    of the compact list, object ``cid`` (int64, in [0, nseg)) per entry,
+    with its flat index ``pidx``, detection-image value ``vals``, mask bits
+    ``mask_c`` (int32), weight ``wok_c`` (bool), threshold ``thr`` and
+    deblend-overflow bit ``deb_ovf``; ``ndet_pix`` (0-d) counts the
+    detected pixels before the cap. Returns the (nseg,) rows of
+    DETECTION_FIELDS (``imaflags`` and ``flags`` int32) and ``valid``.
 
-    ``mask`` is an int32 bitmask, ``weight_ok`` bool. Returns the dict of
-    the reference: fixed (max_det,) rows of DETECTION_FIELDS, ``valid``,
-    ``n``, the three overflow counters and, with ``return_labels``, the
-    (H, W) int32 segmentation map ``labels`` (0 background, 1..n objects).
-    The reference's ``kernel`` (the filter is H4's 3x3 pyramid) and
-    ``dbg_stop_after`` arguments are not ported.
-    """
-    H, W = bkgsub.shape
-    dev = bkgsub.device
-    if weight_ok is None:
-        weight_ok = torch.ones((H, W), dtype=torch.bool, device=dev)
-    if mask is None:
-        mask = torch.zeros((H, W), dtype=torch.int32, device=dev)
-    thresh_map = nsigma * rms
-    nseg = max_det + 2
-    st = _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap)
-    cap, pidx, pok, big = st['cap'], st['pidx'], st['pok'], st['big']
-
-    # ---- deblending (detect.py:713-821) ----------------------------------
-    key_c = st['lab_c']
-    deb_ovf = torch.zeros(cap, dtype=torch.bool, device=dev)
-    deblend_overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    if deblend:
-        with torch.profiler.record_function('deblend'):
-            key_c, deb_ovf, deblend_overflow = _deblend(
-                st, thresh_map, deblend, minarea, deb_cap)
-
-    # ---- raster-order object ids (detect.py:826-839) ---------------------
-    key_c = torch.where(big, key_c, H * W - 1)
-    robj = torch.cumsum(big & (pidx == key_c), 0)         # 1-based at roots
-    nroots = robj[-1]
-    obj_overflow = nroots - torch.clamp(nroots, max=max_det)
-    rootpos = st['inv'][key_c.clamp(0, H * W - 1)].clamp(min=0)
-    obj = robj[rootpos]
-    obj = torch.where(obj > max_det, max_det + 1, obj)
-    cid = torch.where(big, obj, nseg - 1)
-
-    # ---- per-object statistics (detect.py:844-916) -----------------------
-    vals = st['img'].reshape(-1)[pidx]
+    One stable sort by object, then segmented scans in the reference's
+    pairing: the sums cancel (``x2 = sxx / wsum - xbar^2``), so their
+    order is what keeps them bit-equal to the reference."""
+    H, W = shape
+    cap = cid.shape[0]
+    dev = cid.device
     pxx = (pidx % W).to(torch.float32)
     pyy = torch.div(pidx, W, rounding_mode='floor').to(torch.float32)
-    m32 = mask.reshape(-1)[pidx].to(torch.int32)
-    wnot = torch.where(weight_ok.reshape(-1)[pidx], 0, 1)
-    thr = thresh_map.reshape(-1)[pidx]
+    wnot = torch.where(wok_c, 0, 1)
 
     cid_s, perm = torch.sort(cid, stable=True)
     vals_s, pxx_s, pyy_s, thr_s = (a[perm] for a in (vals, pxx, pyy, thr))
-    m32_s, wnot_s, debovf_s = m32[perm], wnot[perm], deb_ovf[perm]
+    m32_s, wnot_s, debovf_s = mask_c[perm], wnot[perm], deb_ovf[perm]
     pos_s = torch.clamp(vals_s, min=0.0)
     start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                        cid_s[1:] != cid_s[:-1]])
@@ -346,7 +396,7 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
                           np.array([np.inf, np.inf], np.float32))
     imaflags = seg_stat(m32_s[None], torch.bitwise_or,
                         np.zeros(1, np.int32))[0]
-    pix_overflow = st['ndet_pix'] - pok.sum()
+    pix_overflow = ndet_pix - torch.clamp(ndet_pix, max=cap)
 
     # shape parameters (detect.py:918-925)
     t1 = (x2 + y2) / 2.0
@@ -366,38 +416,129 @@ def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
         torch.div(pidx[-1], W, rounding_mode='floor').to(torch.float32) - 1,
         torch.tensor(float(H), device=dev))
     flags = flags | torch.where(ymax >= trunc_row, 128, 0)
+    return {'x': xbar, 'y': ybar, 'x2': x2, 'y2': y2, 'xy': xy, 'a': a,
+            'b': b, 'theta': theta, 'elongation': elong, 'fwhm': fwhm,
+            'flux': flux, 'peak': peak, 'npix': npix, 'xmin': xmin,
+            'xmax': xmax, 'ymin': ymin, 'ymax': ymax, 'imaflags': imaflags,
+            'flags': flags.to(torch.int32), 'thresh': thr_at_peak,
+            'valid': valid}
 
+
+def object_stats(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf, ndet_pix,
+                 shape, nseg, minarea, max_det):
+    """The per-object rows of :func:`object_stats_plain`: hand kernel H26
+    on a CUDA tensor (a stable counting sort, the scan's pairwise tree
+    walked at each row's end, bit-equal), the plain version on a CPU
+    tensor."""
+    if cid.is_cuda:
+        return launch.object_stats(cid, pidx, vals, mask_c, wok_c, thr,
+                                   deb_ovf, ndet_pix, shape, nseg, minarea,
+                                   max_det)
+    return object_stats_plain(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf,
+                              ndet_pix, shape, nseg, minarea, max_det)
+
+
+def _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
+            return_labels, deblend, clean, det_cap, deb_cap):
+    """:func:`detect_sources`' output, and the inputs H24-H27 took on the
+    way (:func:`detect_taps`)."""
+    H, W = bkgsub.shape
+    dev = bkgsub.device
+    if weight_ok is None:
+        weight_ok = torch.ones((H, W), dtype=torch.bool, device=dev)
+    if mask is None:
+        mask = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    thresh_map = nsigma * rms
+    nseg = max_det + 2
+    st = _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap)
+    cap, pidx, pok, big = st['cap'], st['pidx'], st['pok'], st['big']
+
+    # ---- deblending (detect.py:713-821) ----------------------------------
+    key_c = st['lab_c']
+    deb_ovf = torch.zeros(cap, dtype=torch.bool, device=dev)
+    deblend_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if deblend:
+        with torch.profiler.record_function('deblend'):
+            key_c, deb_ovf, deblend_overflow = _deblend(
+                st, thresh_map, deblend, minarea, deb_cap)
+
+    with torch.profiler.record_function('stats'):
+        # ---- raster-order object ids (detect.py:826-839) -----------------
+        key_c = torch.where(big, key_c, H * W - 1)
+        robj = torch.cumsum(big & (pidx == key_c), 0)     # 1-based at roots
+        nroots = robj[-1]
+        obj_overflow = nroots - torch.clamp(nroots, max=max_det)
+        rootpos = st['inv'][key_c.clamp(0, H * W - 1)].clamp(min=0)
+        obj = robj[rootpos]
+        obj = torch.where(obj > max_det, max_det + 1, obj)
+        cid = torch.where(big, obj, nseg - 1)
+
+        # ---- per-object statistics (detect.py:840-953) -------------------
+        stats_args = (cid, pidx, st['img'].reshape(-1)[pidx],
+                      mask.reshape(-1)[pidx].to(torch.int32),
+                      weight_ok.reshape(-1)[pidx],
+                      thresh_map.reshape(-1)[pidx], deb_ovf, st['ndet_pix'],
+                      (H, W), nseg, minarea, max_det)
+        r = object_stats(*stats_args)
+        pix_overflow = st['ndet_pix'] - pok.sum()
+
+    clean_args = None
     if clean:
-        flux, npix, flags, valid = _clean(xbar, ybar, a, b, theta, peak,
-                                          thr_at_peak, flux, npix, flags,
-                                          valid)
+        with torch.profiler.record_function('clean'):
+            clean_args = tuple(r[k] for k in CLEAN_FIELDS)
+            r['flux'], r['npix'], r['flags'], r['valid'] = _clean(
+                *clean_args)
 
     sl = slice(1, max_det + 1)
-    out = {
-        'x': xbar[sl], 'y': ybar[sl], 'x2': x2[sl], 'y2': y2[sl],
-        'xy': xy[sl], 'a': a[sl], 'b': b[sl], 'theta': theta[sl],
-        'elongation': elong[sl], 'fwhm': fwhm[sl], 'flux': flux[sl],
-        'peak': peak[sl], 'npix': npix[sl], 'xmin': xmin[sl],
-        'xmax': xmax[sl], 'ymin': ymin[sl], 'ymax': ymax[sl],
-        'imaflags': imaflags[sl], 'flags': flags[sl].to(torch.int32),
-        'thresh': thr_at_peak[sl],
-        'pix_overflow': pix_overflow.to(torch.int32),
-        'deblend_overflow': deblend_overflow.to(torch.int32),
-        'obj_overflow': obj_overflow.to(torch.int32),
-        'valid': valid[sl],
-    }
-    out['n'] = valid[sl].sum().to(torch.int32)
+    out = {k: r[k][sl] for k in DETECTION_FIELDS}
+    out.update({'pix_overflow': pix_overflow.to(torch.int32),
+                'deblend_overflow': deblend_overflow.to(torch.int32),
+                'obj_overflow': obj_overflow.to(torch.int32),
+                'valid': r['valid'][sl]})
+    out['n'] = out['valid'].sum().to(torch.int32)
     if return_labels:
         # segmentation map (detect.py:1025-1033); padded slots, which the
         # reference writes 0 through at H*W-1, go to the discard slot
         keep = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
-                          valid[1:]])
+                          r['valid'][1:]])
         obj_masked = torch.where(big & keep[obj.clamp(0, max_det + 1)],
                                  obj, 0).to(torch.int32)
         seg = scatter_into(H * W, pidx, pok, obj_masked, 0)
         seg[-1] = torch.where(st['ndet_pix'] < cap, 0, seg[-1])
         out['labels'] = seg.reshape(H, W)
-    return out
+    taps = {'seeds': st['det'],
+            'ccl': (st['nbr_pos'], st['okb'], st['lab0']),
+            'stats': stats_args, 'clean': clean_args}
+    return out, taps
+
+
+def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
+                   nsigma=DETECT_NSIGMA, minarea=DETECT_NPIX,
+                   max_det=MAX_DETECTIONS, return_labels=True, deblend=True,
+                   clean=True, det_cap=None, deb_cap=None):
+    """Detect sources on a background-subtracted frame (detect.py:573).
+
+    ``mask`` is an int32 bitmask, ``weight_ok`` bool. Returns the dict of
+    the reference: fixed (max_det,) rows of DETECTION_FIELDS, ``valid``,
+    ``n``, the three overflow counters and, with ``return_labels``, the
+    (H, W) int32 segmentation map ``labels`` (0 background, 1..n objects).
+    The reference's ``kernel`` (the filter is H4's 3x3 pyramid) and
+    ``dbg_stop_after`` arguments are not ported.
+    """
+    return _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
+                   return_labels, deblend, clean, det_cap, deb_cap)[0]
+
+
+def detect_taps(bkgsub, rms, mask=None, weight_ok=None,
+                nsigma=DETECT_NSIGMA, minarea=DETECT_NPIX,
+                max_det=MAX_DETECTIONS, deblend=True, det_cap=None,
+                deb_cap=None):
+    """The arguments :func:`detect_sources` passes to H24-H27 on this
+    frame: ``seeds`` (the (H, W) detection mask), ``ccl`` (nbr_pos, okb,
+    lab0), ``stats`` (those of :func:`object_stats`) and ``clean`` (the
+    row fields of CLEAN_FIELDS, before CLEAN)."""
+    return _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
+                   False, deblend, True, det_cap, deb_cap)[1]
 
 
 def deblend_load(bkgsub, rms, weight_ok=None, nsigma=DETECT_NSIGMA,
@@ -427,11 +568,18 @@ def deblend_load(bkgsub, rms, weight_ok=None, nsigma=DETECT_NSIGMA,
             'graph': g, 'margins': split_margins(*t['args'])}
 
 
-def _clean(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix, flags,
-           valid, blk=512):
-    """SExtractor CLEAN pass (detect.py:966-1008): an object whose peak
-    owes more than its threshold to brighter neighbours' Moffat wings is
-    merged into its dominant contributor."""
+# the row fields CLEAN reads, in the order of its arguments
+CLEAN_FIELDS = ('x', 'y', 'a', 'b', 'theta', 'peak', 'thresh', 'flux',
+                'npix', 'flags', 'valid')
+
+
+def clean_pass(xbar, ybar, a, b, theta, peak, valid, blk=512):
+    """CLEAN's contributions (detect.py:966-993): per row, the summed
+    Moffat wings of its brighter valid neighbours at its centroid
+    (``contrib_sum``, in 512-column blocks, each added in XLA:CPU's
+    windowed order, the blocks in sequence) and its dominant contributor
+    (``best_j``: the first column of the largest wing, block by block,
+    taken only on a strictly larger value)."""
     nseg = xbar.shape[0]
     dev = xbar.device
     rows = torch.arange(nseg, device=dev)
@@ -461,6 +609,18 @@ def _clean(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix, flags,
         take = blk_val > best_c
         best_c = torch.where(take, blk_val, best_c)
         best_j = torch.where(take, blk_best + j0, best_j)
+    return contrib_sum, best_j
+
+
+def _clean_plain(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix,
+                 flags, valid):
+    """Plain version of H27: the SExtractor CLEAN pass (detect.py:966-1008).
+    An object whose peak owes more than its threshold to brighter
+    neighbours' Moffat wings (:func:`clean_pass`) is merged into its
+    dominant contributor. Returns (flux, npix, flags, valid)."""
+    nseg = xbar.shape[0]
+    dev = xbar.device
+    contrib_sum, best_j = clean_pass(xbar, ybar, a, b, theta, peak, valid)
     cleaned = valid & (peak - contrib_sum <= thr_at_peak)
     tgt = torch.where(cleaned, best_j, nseg - 1)
     zero = torch.zeros(nseg, device=dev)
@@ -468,5 +628,19 @@ def _clean(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix, flags,
     npix = npix + zero.index_add(0, tgt, torch.where(cleaned, npix, 0.0))
     got = torch.zeros(nseg, dtype=torch.int32, device=dev).scatter_reduce(
         0, tgt, cleaned.to(torch.int32), 'amax')
-    flags = flags | torch.where(got > 0, 2, 0)
+    flags = flags | torch.where(got > 0, 2, 0).to(flags.dtype)
     return flux, npix, flags, valid & ~cleaned
+
+
+def _clean(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix, flags,
+           valid):
+    """(flux, npix, flags, valid) after CLEAN (:func:`_clean_plain`): hand
+    kernel H27 on a CUDA tensor (one block a row; the merge adds in
+    ascending row order, as ``index_add`` on the CPU), the plain version
+    on a CPU tensor."""
+    if xbar.is_cuda:
+        inv = float(np.float32(1.0) / np.float32(2.0 * CLEAN_PARAM ** 2))
+        return launch.clean(xbar, ybar, a, b, theta, peak, thr_at_peak, flux,
+                            npix, flags, valid, inv)[:4]
+    return _clean_plain(xbar, ybar, a, b, theta, peak, thr_at_peak, flux,
+                        npix, flags, valid)

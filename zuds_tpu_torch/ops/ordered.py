@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ['fma', 'sum_last', 'sum_last2', 'cumsum_last', 'segmented_scan']
+__all__ = ['fma', 'sum_last', 'sum_last2', 'cumsum_last', 'segmented_scan',
+           'tree_scan_at', 'counting_sort']
 
 _WIN = 32
 
@@ -133,6 +134,79 @@ def segmented_scan(vals, start, combine):
         return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
 
     return scan(vals, start)[0]
+
+
+def tree_scan_at(vals, start, ends, combine):
+    """``segmented_scan(vals, start, combine)[..., ends]`` without the whole
+    scan: the value at each position ``e`` of ``ends`` walked up the
+    scan's pairwise tree, the plain twin of H26's walk
+    (``kernels/objects.cu``).
+
+    The tree's level L+1 pairs level L, ``a[k] = op(a[2k], a[2k+1])``
+    with ``op((va, sa), (vb, sb)) = (vb if sb else combine(va, vb),
+    sa | sb)``, level 0 being ``(vals, start)``. By the recursion of
+    :func:`segmented_scan`, the scan at level L is, at position i: ``a[0]``
+    for i = 0; the scan at level L+1 at (i - 1) / 2 for odd i; and
+    ``op(scan_{L+1}((i / 2) - 1), a[i])`` for even i > 0. So the value at
+    ``e`` is the first ``a[0]`` the walk up reaches, combined with the
+    even positions' ``a[i]`` it passed, from the top level down: the same
+    combines, in the same order, as the full scan."""
+    start = torch.broadcast_to(start, vals.shape)
+    levels = [(vals, start)]
+    while levels[-1][0].shape[-1] >= 2:
+        v, s = levels[-1]
+        h = v.shape[-1] // 2
+        vb, sb = v[..., 1:2 * h:2], s[..., 1:2 * h:2]
+        levels.append((torch.where(sb, vb, combine(v[..., 0:2 * h:2], vb)),
+                       s[..., 0:2 * h:2] | sb))
+    # the walk up: per level, the index reached and whether it is an even
+    # position > 0 (an operand) or the 0 that ends the walk (the base)
+    i = ends.to(torch.int64)
+    base = torch.full_like(i, -1)
+    steps = []
+    for lev in range(len(levels)):
+        live = base < 0
+        base = torch.where(live & (i == 0), lev, base)
+        steps.append((i, live & (i > 0) & (i % 2 == 0)))
+        i = torch.where(i % 2 == 1, (i - 1) // 2,
+                        torch.where(i > 0, i // 2 - 1, 0))
+    acc = None
+    for lev in reversed(range(len(levels))):
+        v, s = levels[lev]
+        idx, operand = steps[lev]
+        idx = idx.clamp(0, v.shape[-1] - 1)
+        vi, si = v[..., idx], s[..., idx]
+        acc = vi if acc is None else torch.where(base == lev, vi, acc)
+        acc = torch.where(operand, torch.where(si, vi, combine(acc, vi)), acc)
+    return acc
+
+
+def counting_sort(keys, nkeys, tile=1024):
+    """(perm, starts, counts) of a stable counting sort of the int64
+    ``keys`` in [0, nkeys), in the passes of H26's sort
+    (``kernels/objects.cu``), the plain twin that the tests hold to
+    ``torch.sort(keys, stable=True)``: each tile of ``tile`` entries
+    ranks its entries among its equal keys in order and counts its keys;
+    each key's counts over the tiles become the tiles' offsets and its
+    total the key's count, whose exclusive scan gives ``starts``; an entry
+    goes to its key's start + its tile's offset + its rank."""
+    n = keys.shape[0]
+    ntiles = -(-n // tile)
+    ranks, hist = [], []
+    for t in range(ntiles):
+        onehot = F.one_hot(keys[t * tile:(t + 1) * tile], nkeys)
+        before = torch.cumsum(onehot, 0) - onehot
+        ranks.append(before.gather(1, keys[t * tile:(t + 1) * tile, None])[:, 0])
+        hist.append(onehot.sum(0))
+    hist = torch.stack(hist)                                # (ntiles, nkeys)
+    offsets = torch.cumsum(hist, 0) - hist
+    counts = hist.sum(0)
+    starts = torch.cumsum(counts, 0) - counts
+    tiles = torch.arange(n, device=keys.device) // tile
+    pos = starts[keys] + offsets[tiles, keys] + torch.cat(ranks)
+    perm = torch.empty_like(pos).scatter_(0, pos, torch.arange(
+        n, device=keys.device))
+    return perm, starts, counts
 
 
 def _interleave(a, b):

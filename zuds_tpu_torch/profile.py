@@ -10,9 +10,11 @@ Runs ``SubtractDetectPipeline`` at the flagship configuration (the
 reference's default ``deblend=True``) on synthetic frames, warms up, then
 traces ``N`` frames with ``torch.profiler`` and prints, next to the card's
 name and power limit: host wall time per frame, the device's busy share, each
-pipeline stage's host and device time (``deblend`` is the part of
-``detect`` spent in the deblend tree), and the kernels that take the most
-device time. With ``--night N`` it writes N flagship FITS pairs
+pipeline stage's host and device time (``ccl``, ``deblend``, ``stats`` and
+``clean`` are the parts of ``detect``: the base components, the deblend
+tree, the per-object statistics and CLEAN), the host waits inside the
+detect stage's ``ccl``, ``stats`` and ``clean`` ranges, and the kernels
+that take the most device time. With ``--night N`` it writes N flagship FITS pairs
 (``inputs.write_night_pairs``, the real ZTF header of
 ``tests/data/ztf_real_header.json``) to a temporary directory and traces
 ``night.run_night`` over them after a warm-up, with the night's phases
@@ -42,8 +44,14 @@ from .inputs import synth_inputs, to_torch
 from .night import FLAGSHIP
 from .parallel import SubtractDetectPipeline
 
-STAGES = ('warp', 'background', 'fit', 'apply', 'noise', 'detect',
-          'deblend', 'measure')
+STAGES = ('warp', 'background', 'fit', 'apply', 'noise', 'detect', 'ccl',
+          'deblend', 'stats', 'clean', 'measure')
+# the detect stage's ranges that read nothing back to the host on the card
+NO_WAIT_RANGES = ('ccl', 'stats', 'clean')
+# host calls that wait for the card (or copy through the host)
+SYNC_CALLS = ('cudaStreamSynchronize', 'cudaDeviceSynchronize',
+              'cudaEventSynchronize', 'aten::_local_scalar_dense',
+              'aten::item', 'aten::equal')
 NIGHT_RANGES = ('load', 'prepare', 'pipeline', 'commit') + STAGES
 COADD_RANGES = ('load', 'prepare', 'pipeline', 'fetch', 'write',
                 'background', 'weight', 'warp', 'combine')
@@ -198,6 +206,27 @@ def trace_sub(d, cfg, rot_deg):
     return prof, wall, mem0, torch.cuda.memory_stats()
 
 
+def host_waits(prof, ranges=NO_WAIT_RANGES):
+    """Per range of ``ranges``: how many host copies (``cudaMemcpy*``
+    calls, any direction) and waits for the card (SYNC_CALLS) started
+    inside it, from the profiler's host events."""
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if e.name in ranges and e.device_type == DeviceType.CPU]
+    out = {r: {'copies': 0, 'syncs': 0} for r in ranges}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        kind = ('copies' if e.name.startswith('cudaMemcpy') else
+                'syncs' if e.name in SYNC_CALLS else None)
+        if kind is None:
+            continue
+        for name, t0, t1 in spans:
+            if t0 <= e.time_range.start <= t1:
+                out[name][kind] += 1
+    return out
+
+
 def report(card, what, frames, ranges, prof, wall, mem0, mem1, unit='frame'):
     """Print wall and device busy time per frame (or ``unit``), the
     allocator's device mallocs, each range's host time and device span, and
@@ -230,6 +259,10 @@ def report(card, what, frames, ranges, prof, wall, mem0, mem1, unit='frame'):
     for s in ranges:
         print(f'{s:12s} {span.get((s, "cpu"), 0) / frames / 1e3:13.2f} '
               f'{span.get((s, "dev"), 0) / frames / 1e3:21.2f}')
+    if 'ccl' in ranges:
+        print('host copies and waits in the detect ranges: '
+              + ', '.join(f'{r} {c["copies"]} and {c["syncs"]}'
+                          for r, c in host_waits(prof).items()))
     print(events.table(sort_by='self_cuda_time_total', row_limit=25))
 
 
