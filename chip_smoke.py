@@ -43,9 +43,11 @@ on the CPU for each deblend mode, a 1024^2 crop of the blend field through
 ``detect_sources`` on both, and the stamp selection and stamp-moment
 SEEING of the night's frame without SEEING on both. Then braai training:
 ``make_train_state(0)`` on the card and 256 triplets of
-``inputs.labelled_triplets``; one step's own tensors hold H13t, H19, H20
-and H21 against their plain versions (times, bounds, cuDNN's and fused
-Adam's times beside them); one step against ``train_step_plain`` with
+``inputs.labelled_triplets``; ``ptxas -v`` and the launch resources of
+H19 and H20; one step's own tensors hold H13t, H19, H20 and H21 against
+their plain versions (times, bounds, cuDNN's and fused Adam's times
+beside them; H19 and H20 two calls bit-equal and, against float64, no
+further than cuDNN with TF32 off); one step against ``train_step_plain`` with
 the same masks; 50 counted, timed steps with a loss gate, ten more under
 the profiler (the device's busy share); the trained weights through
 ``save_braai``, ``load_braai`` and ``rb_scores`` on the card; one step at
@@ -2381,6 +2383,15 @@ def adam_aware(name, got, want, mu, lr=TRAIN_LR):
     return float(d.max()), far
 
 
+def train_bound(kname, nbytes, flop):
+    """The bound of a training layer kernel on its own unit: H13t's fp32
+    FMAs; H19's and H20's 3xTF32, three tensor-core products per
+    product."""
+    if kname in ('braai_conv3x3_dgrad', 'braai_conv3x3_wgrad'):
+        return bound(nbytes, 3 * flop, TF32_FLOP_S)
+    return bound(nbytes, flop)
+
+
 def routed_flop(gy, cin):
     """The FLOP of one backward convolution (H19's or H20's) from the
     layer's output gradient ``gy``: each element reaches one position of
@@ -2388,6 +2399,35 @@ def routed_flop(gy, cin):
     to one position of its 2x2 window), which takes 9 Cin products and
     sums."""
     return 2 * gy.numel() * 9 * cin
+
+
+def backward_resources(widths):
+    """Print ptxas's report (``nvcc -Xptxas -v``) of H19's and H20's
+    kernels and what a launch gets on this card per layer (registers,
+    spills, dynamic shared memory, resident blocks); ``widths`` the
+    layers' input widths."""
+    import re
+    from zuds_tpu_torch.kernels import build, launch
+    lines, fn = [], None
+    for line in build.ptxas_report('braai.cu').splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            k = re.search(r'([dw]grad)_kernelILi(\d+)ELi(\d+)ELb([01])E',
+                          m.group(1))
+            fn = (f'{k.group(1)}_kernel<{k.group(2)}, {k.group(3)}, '
+                  f'{k.group(4)}>' if k else None)
+        elif fn and ('Used' in line or 'spill' in line):
+            lines.append(f'{fn}: {line.split(":", 1)[-1].strip()}')
+    check(len(lines) >= 7, f'ptxas reported {len(lines)} lines for H19 and '
+          'H20')
+    print('ptxas -v, H19 and H20: ' + '; '.join(lines), flush=True)
+    for (cin, cout, pool), wd in zip(launch.BRAAI_LAYERS, widths):
+        for kind in (('dgrad', 'wgrad') if cin > 3 else ('wgrad',)):
+            r = launch.braai_backward_resources(kind, cin, cout, pool, wd)
+            print(f'{kind} {cin}x{cout}{" pool" if pool else ""} at width '
+                  f'{wd}: {r["registers"]} registers, {r["spill_bytes"]} '
+                  f'bytes spilled, {r["smem_bytes"]} bytes of dynamic shared '
+                  f'memory, {r["blocks_per_sm"]} blocks per SM', flush=True)
 
 
 def train_kernel_checks(rec, params, name):
@@ -2454,11 +2494,17 @@ def train_kernel_checks(rec, params, name):
             tot['braai_conv3x3_train'][key] += v
         tot['braai_conv3x3_train']['err'] = max(
             tot['braai_conv3x3_train']['err'], err)
+    # H19 and H20 run 3xTF32 on the tensor cores: their bound is three
+    # times the routed FLOP over the TF32 peak (the fp32 bound beside it);
+    # against float64 each is held to cuDNN's own error (TF32 off)
     for gy, w, saved, mask, keep, pool, in_shape in rec.dgrad:
         i = [tuple(f[0].shape) for f in rec.fwd].index(tuple(in_shape))
         cin, cout = w.shape[2], w.shape[3]
         k = launch.braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool,
                                        in_shape)
+        k2 = launch.braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool,
+                                        in_shape)
+        check(torch.equal(k, k2), f'H19 layer {i + 1}: two calls differ')
         p = braai.conv3x3_dgrad_plain(gy, w, saved, mask, keep, pool,
                                       in_shape)
         err = close_to_max(f'braai_conv3x3_dgrad layer {i + 1}', k, p, 1e-5)
@@ -2467,6 +2513,13 @@ def train_kernel_checks(rec, params, name):
                                 (h - 2, wd - 2)).permute(0, 3, 1, 2)\
             .contiguous()
         wcn = w.permute(3, 2, 0, 1).contiguous()
+        lib = torch.nn.grad.conv2d_input((n, cin, h, wd), wcn, gz)
+        g64 = torch.nn.grad.conv2d_input((n, cin, h, wd), wcn.double(),
+                                         gz.double()).permute(0, 2, 3, 1)
+        e64 = (float((k - g64).abs().max()),
+               float((lib.permute(0, 2, 3, 1) - g64).abs().max()))
+        check(e64[0] <= e64[1], f'H19 layer {i + 1}: {e64[0]:.3g} from '
+              f'float64, cuDNN {e64[1]:.3g}')
         ms = cuda_ms(lambda: launch.braai_conv3x3_dgrad(
             gy, w, saved, mask, keep, pool, in_shape))
         plain = cuda_ms(lambda: braai.conv3x3_dgrad_plain(
@@ -2477,12 +2530,15 @@ def train_kernel_checks(rec, params, name):
         nbytes = 4 * (gy.numel() + w.numel() + n * h * wd * cin) + (
             saved.numel() * saved.element_size()) + (
             0 if mask is None else mask.numel())
-        bnd = bound(nbytes, flop)
+        bnd = train_bound('braai_conv3x3_dgrad', nbytes, flop)
         print(f'braai_conv3x3_dgrad layer {i + 1} ({cin}<-{cout}'
               f'{", pool" if pool else ""}): {ms:.4f} ms (bound '
-              f'{bnd[0]:.4f} ms by {bnd[1]}, share {bnd[0] / ms:.1%}), plain '
-              f'{plain:.3f} ms, cuDNN conv2d_input {lib_ms:.3f} ms; max abs '
-              f'err {err:.3g} on {name}', flush=True)
+              f'{bnd[0]:.4f} ms by {bnd[1]} on 3xTF32, share '
+              f'{bnd[0] / ms:.1%}; fp32 bound {bound(nbytes, flop)[0]:.4f}'
+              f'), plain {plain:.3f} ms, cuDNN conv2d_input {lib_ms:.3f} ms;'
+              f' two calls bit-equal; max abs err {err:.3g}; against float64'
+              f' the kernel {e64[0]:.3g}, cuDNN {e64[1]:.3g} (largest |gx| '
+              f'{float(g64.abs().max()):.3g}) on {name}', flush=True)
         for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
                        ('flop', flop), ('bytes', nbytes)):
             tot['braai_conv3x3_dgrad'][key] += v
@@ -2496,8 +2552,7 @@ def train_kernel_checks(rec, params, name):
         check(torch.equal(kw, kw2) and torch.equal(kb, kb2),
               f'H20 layer {i + 1}: two calls differ')
         # the sums run over up to 861k terms in two orders: 1e-4 of the
-        # largest gradient, the gradients' tolerance of the CPU tests; both
-        # against a float64 run beside it
+        # largest gradient, the gradients' tolerance of the CPU tests
         pw, pb = braai.conv3x3_wgrad_plain(xi, gy, saved, mask, keep, pool)
         err = max(close_to_max(f'braai_conv3x3_wgrad layer {i + 1}', kw, pw,
                                1e-4),
@@ -2508,14 +2563,21 @@ def train_kernel_checks(rec, params, name):
                                 (h - 2, wd - 2)).permute(0, 3, 1, 2)\
             .contiguous()
         xc = xi.permute(0, 3, 1, 2).contiguous()
-        w64 = torch.nn.grad.conv2d_weight(
-            xc.double(), (cout, cin, 3, 3), gz.double()).permute(2, 3, 1, 0)
-        e64 = (float((kw - w64).abs().max()), float((pw - w64).abs().max()))
 
         def lib_w(xc=xc, gz=gz, shape=(cout, cin, 3, 3)):
             return torch.nn.grad.conv2d_weight(xc, shape, gz), gz.sum((0, 2,
                                                                         3))
 
+        lw, lb = lib_w()
+        w64 = torch.nn.grad.conv2d_weight(
+            xc.double(), (cout, cin, 3, 3), gz.double())
+        b64 = gz.double().sum((0, 2, 3))
+        e64 = (max(float((kw - w64.permute(2, 3, 1, 0)).abs().max()),
+                   float((kb - b64).abs().max())),
+               max(float((lw - w64).abs().max()),
+                   float((lb - b64).abs().max())))
+        check(e64[0] <= e64[1], f'H20 layer {i + 1}: {e64[0]:.3g} from '
+              f'float64, cuDNN {e64[1]:.3g}')
         ms = cuda_ms(lambda: launch.braai_conv3x3_wgrad(xi, gy, saved, mask,
                                                         keep, pool))
         plain = cuda_ms(lambda: braai.conv3x3_wgrad_plain(
@@ -2525,13 +2587,14 @@ def train_kernel_checks(rec, params, name):
         nbytes = 4 * (xi.numel() + gy.numel() + 9 * cin * cout + cout) + (
             saved.numel() * saved.element_size()) + (
             0 if mask is None else mask.numel())
-        bnd = bound(nbytes, flop)
+        bnd = train_bound('braai_conv3x3_wgrad', nbytes, flop)
         print(f'braai_conv3x3_wgrad layer {i + 1} ({cin}x{cout}'
               f'{", pool" if pool else ""}): {ms:.4f} ms (bound '
-              f'{bnd[0]:.4f} ms by {bnd[1]}, share {bnd[0] / ms:.1%}), plain '
-              f'{plain:.3f} ms, cuDNN conv2d_weight and the bias sum '
-              f'{lib_ms:.3f} ms; two calls bit-equal; max abs err {err:.3g}; '
-              f'against float64 the kernel {e64[0]:.3g}, the plain version '
+              f'{bnd[0]:.4f} ms by {bnd[1]} on 3xTF32, share '
+              f'{bnd[0] / ms:.1%}; fp32 bound {bound(nbytes, flop)[0]:.4f}'
+              f'), plain {plain:.3f} ms, cuDNN conv2d_weight and the bias '
+              f'sum {lib_ms:.3f} ms; two calls bit-equal; max abs err '
+              f'{err:.3g}; against float64 the kernel {e64[0]:.3g}, cuDNN '
               f'{e64[1]:.3g} (largest |gw| {float(w64.abs().max()):.3g}) on '
               f'{name}', flush=True)
         for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
@@ -2609,6 +2672,7 @@ def train_phase(wrappers, name, record):
           and len(rec.adam) == 1, 'train: the recorded step ran '
           f'{len(rec.fwd)} H13t, {len(rec.dgrad)} H19, {len(rec.wgrad)} H20'
           f', {len(rec.adam)} Adam calls')
+    backward_resources([f[0].shape[2] for f in rec.fwd])
     with torch.no_grad():
         tot, (adam_ms, adam_plain, adam_lib, adam_bnd) = \
             train_kernel_checks(rec, params, name)
@@ -2750,12 +2814,14 @@ def train_phase(wrappers, name, record):
 
     lib_step_ms = cuda_ms(lib_step, 2, 10)
     conv_flop = sum(tot[k]['flop'] for k in TRAIN_ONLY[:3])
+    conv_ms = sum(train_bound(k, 0, tot[k]['flop'])[0]
+                  for k in TRAIN_ONLY[:3])
     head_flop = 3 * 2 * TRAIN_N * (9216 * 256 + 256)
-    step_bnd = (bound(0, conv_flop)[0] + bound(0, head_flop)[0]
-                + adam_bnd[0])
+    step_bnd = conv_ms + bound(0, head_flop)[0] + adam_bnd[0]
     print(f'train: the step\'s bound {step_bnd:.4f} ms (convolutions '
-          f'{conv_flop:.4g} FLOP, {bound(0, conv_flop)[0]:.4f} ms; dense '
-          f'head {head_flop:.4g} FLOP, {bound(0, head_flop)[0]:.4f} ms; Adam '
+          f'{conv_flop:.4g} FLOP, {conv_ms:.4f} ms, H19 and H20 on 3xTF32; '
+          f'dense head {head_flop:.4g} FLOP, {bound(0, head_flop)[0]:.4f} '
+          f'ms; Adam '
           f'{adam_bnd[0]:.4f} ms by bytes): {ms_step:.3f} ms/step, share '
           f'{step_bnd / ms_step:.1%}; the library step (cuDNN autograd, '
           f'fused Adam) {lib_step_ms:.3f} ms/step on {name}', flush=True)
@@ -2796,7 +2862,7 @@ def train_phase(wrappers, name, record):
 
     for k in TRAIN_ONLY[:3]:
         t = tot[k]
-        bnd = bound(t['bytes'], t['flop'])
+        bnd = train_bound(k, t['bytes'], t['flop'])
         record(k, t['err'], t['ms'], t['plain'], bnd, library_ms=t['lib'],
                runs=launches, per=f'{TRAIN_STEPS} training steps of '
                f'{TRAIN_N}')

@@ -29,6 +29,14 @@ the CPU, at the full width of the d6 net and a batch of 8.
   ``inputs.labelled_triplets``, ``save_braai``, then the JAX package's
   ``load_braai`` and ``rb_scores`` score as the port does (1e-6).
 * The new wrappers refuse CPU tensors.
+* The precision of H19 and H20 (3xTF32 on the card's tensor cores)
+  emulated here: ``cvt.rna`` on the uint32 view (round half away from
+  zero on the 13 dropped mantissa bits), hi*hi + hi*lo + lo*hi in f32,
+  on one CPU step's own tensors at a batch of 4 (layer 3's input
+  gradient, layer 2's weight gradient): within 1e-5 (H19) and 1e-4 (H20)
+  of the float64 gradient's largest magnitude, the tolerances
+  ``chip_smoke.py`` holds the kernels to, and no further from float64
+  than the fp32 plain version times 4.
 """
 import numpy as np
 import jax
@@ -484,3 +492,106 @@ def test_training_wrappers_refuse_cpu_tensors():
                          0.9, 0.999, 1e-8)
     for k, n in counts.items():
         assert launch.WRAPPERS[k].launches == n
+
+
+def tf32_rna(a):
+    """``cvt.rna.tf32.f32`` in numpy: the 13 low mantissa bits dropped,
+    the magnitude rounded half away from zero (the sign bit is apart)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def mm_3xtf32(a, b):
+    """``a @ b`` as H19 and H20 form it: each operand split hi = tf32(v),
+    lo = tf32(v - hi); lo*hi + hi*lo + hi*hi, each product exact in f32
+    (11-bit significands), summed in f32."""
+    ah = tf32_rna(a)
+    al = tf32_rna(a - ah)
+    bh = tf32_rna(b)
+    bl = tf32_rna(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.fixture(scope='module')
+def backward_args():
+    """The arguments of H19 and H20 in one CPU train_step at a batch of 4
+    (the card's dispatchers, recorded): {'dgrad': [...], 'wgrad': [...]}"""
+    t, y = inputs.labelled_triplets(4, seed=3)
+    _, params, _, state = tbraai.make_train_state(0, device='cpu')
+    rec = {'dgrad': [], 'wgrad': []}
+    saved = tbraai.conv3x3_dgrad, tbraai.conv3x3_wgrad
+
+    def keep(store, fn):
+        def call(*args):
+            store.append(tuple(a.detach() if torch.is_tensor(a) else a
+                               for a in args))
+            return fn(*args)
+        return call
+
+    tbraai.conv3x3_dgrad = keep(rec['dgrad'], saved[0])
+    tbraai.conv3x3_wgrad = keep(rec['wgrad'], saved[1])
+    try:
+        tbraai.train_step(params, state, t, y, 0)
+    finally:
+        tbraai.conv3x3_dgrad, tbraai.conv3x3_wgrad = saved
+    return rec
+
+
+def _max_err(got, want):
+    return float(np.abs(np.asarray(got, np.float64) - want).max())
+
+
+def test_h19_precision_3xtf32_layer3(backward_args):
+    """Layer 3's input gradient (29x29x32 from the 27x27x64 gradient of its
+    output): per tap gz_shift @ w[ky, kx]^T in 3xTF32, the taps added in
+    f32 as the kernel flushes them."""
+    gy, w, saved, mask, keep, pool, in_shape = next(
+        a for a in backward_args['dgrad'] if tuple(a[6])[1] == 29)
+    n, h, wd, cin = in_shape
+    gz = tbraai.grad_z_plain(gy, saved, mask, keep, pool,
+                             (h - 2, wd - 2)).numpy()
+    pad = np.pad(gz, ((0, 0), (2, 2), (2, 2), (0, 0)))
+    wn = w.numpy()
+    emu = np.zeros((n * h * wd, cin), np.float32)
+    ref = np.zeros((n * h * wd, cin), np.float64)
+    for ky in range(3):
+        for kx in range(3):
+            a = pad[:, 2 - ky:2 - ky + h, 2 - kx:2 - kx + wd].reshape(
+                n * h * wd, -1)
+            emu += mm_3xtf32(a, np.ascontiguousarray(wn[ky, kx].T))
+            ref += a.astype(np.float64) @ wn[ky, kx].T.astype(np.float64)
+    ref = ref.reshape(n, h, wd, cin)
+    plain = tbraai.conv3x3_dgrad_plain(gy, w, saved, mask, keep, pool,
+                                       in_shape).numpy()
+    e3, ep = _max_err(emu.reshape(ref.shape), ref), _max_err(plain, ref)
+    scale = float(np.abs(ref).max())
+    assert scale > 0 and e3 <= 1e-5 * scale, (e3, scale)
+    assert e3 <= 4 * ep, (e3, ep)
+
+
+def test_h20_precision_3xtf32_layer2(backward_args):
+    """Layer 2's weight gradient (3x3x32x32 over 4 images of 58x58 routed
+    positions): per image and tap x_shift^T @ gz in 3xTF32, the images
+    added in f32 as the kernel's chunks are."""
+    x, gy, saved, mask, keep, pool = next(
+        a for a in backward_args['wgrad'] if a[0].shape[1] == 61)
+    n, h, wd, cin = x.shape
+    gz = tbraai.grad_z_plain(gy, saved, mask, keep, pool,
+                             (h - 2, wd - 2)).numpy()
+    he, we = 2 * gy.shape[1], 2 * gy.shape[2]
+    xn = x.numpy()
+    emu = np.zeros((3, 3, cin, gz.shape[-1]), np.float32)
+    ref = np.zeros(emu.shape, np.float64)
+    for i in range(n):
+        g = gz[i, :he, :we].reshape(he * we, -1)
+        for ky in range(3):
+            for kx in range(3):
+                a = np.ascontiguousarray(
+                    xn[i, ky:ky + he, kx:kx + we].reshape(he * we, cin).T)
+                emu[ky, kx] += mm_3xtf32(a, g)
+                ref[ky, kx] += a.astype(np.float64) @ g.astype(np.float64)
+    plain, _ = tbraai.conv3x3_wgrad_plain(x, gy, saved, mask, keep, pool)
+    e3, ep = _max_err(emu, ref), _max_err(plain.numpy(), ref)
+    scale = float(np.abs(ref).max())
+    assert scale > 0 and e3 <= 1e-4 * scale, (e3, scale)
+    assert e3 <= 4 * ep, (e3, ep)

@@ -118,3 +118,20 @@ def test_sources_and_symbols_of_the_zogy_kernels(tmp_path, fake_nvcc,
     (copy / 'zogy.cu').write_text(text + '// changed\n')
     monkeypatch.setattr(build, '_HERE', copy)
     assert build._digest() != before
+
+
+def test_ptxas_report_compiles_one_source_alone(tmp_path, fake_nvcc,
+                                                monkeypatch):
+    """``ptxas_report`` runs nvcc -Xptxas -v on the one source with the
+    library's flags, into a scratch object it removes; a failed compile
+    raises with the compiler's output."""
+    monkeypatch.setattr(build, '_HERE', tmp_path)
+    assert build.ptxas_report('braai.cu') == ''
+    (call,) = [line.split() for line in fake_nvcc.read_text().splitlines()]
+    assert call[-1] == str(tmp_path / 'braai.cu')
+    assert '-Xptxas' in call and call[call.index('-Xptxas') + 1] == '-v'
+    assert '-c' in call and 'arch=compute_90a,code=sm_90a' in call
+    assert list((tmp_path / '_build').iterdir()) == []
+    monkeypatch.setenv('NVCC_FAIL', 'braai.cu')
+    with pytest.raises(RuntimeError, match='error in braai.cu'):
+        build.ptxas_report('braai.cu')

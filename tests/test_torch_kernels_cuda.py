@@ -45,9 +45,11 @@ largest pre-activation is further than 1e-5 of the layer's largest from 0
 and, positive, from the second, and such near ties under 1% of the
 windows),
 H19 and H20 per layer on the plain version's saved bytes, within 1e-5
-of the plain gradient's largest magnitude (another summation order, at a
-batch of 7; ``chip_smoke.py`` holds H20 at 1e-4 at the main path's batch
-of 256), two H20 calls bit-equal; H21 bit-equal to ``adam_update_plain``; one
+of the plain gradient's largest magnitude (3xTF32 in another summation
+order, at a batch of 7, and at batches of 1, 3 and 5 with and without a
+dropout mask; ``chip_smoke.py`` holds H20 at 1e-4 at the main path's
+batch of 256), two H19 and two H20 calls bit-equal, two blocks of each
+resident per SM; H21 bit-equal to ``adam_update_plain``; one
 ``train_step`` on the card against ``train_step_plain`` with the same
 masks (loss 1e-5 relative, parameters by the Adam-aware rule of
 ``tests/test_torch_braai_train.py``). H22's overlaps, flags and oob
@@ -1347,6 +1349,95 @@ def test_braai_training_kernels(dev, i):
         n0['braai_conv3x3_dgrad'] + (1 if i > 0 else 0)
     assert launch.braai_conv3x3_wgrad.launches == \
         n0['braai_conv3x3_wgrad'] + 2
+
+
+@pytest.mark.parametrize('n', (1, 3, 5))
+@pytest.mark.parametrize('i', range(4))
+def test_braai_backward_kernels_at_small_batches(dev, i, n):
+    """H19 (layers 2-4) and H20 at batches of 1, 3 and 5: one image, and
+    batches that leave H20's last chunk of images (2 at layer 3, 4 at
+    layer 4) part-filled; with and without the dropout mask on a pooled
+    layer. Within 1e-5 of the plain gradient's largest magnitude, two
+    calls bit-equal, one launch each."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    cin, cout, pool = launch.BRAAI_LAYERS[i]
+    side = (63, 61, 29, 27)[i]
+    x = _rand((n, side, side, cin), dev, 140 + i, 0.05).abs()
+    w = _rand((3, 3, cin, cout), dev, 150 + i, (1.0 / (9 * cin)) ** 0.5)
+    b = _rand((cout,), dev, 160 + i, 0.01)
+    hc = side - 2
+    shape = (n, hc // 2, hc // 2, cout) if pool else (n, hc, hc, cout)
+    gy = _rand(shape, dev, 170 + i)
+    g = torch.Generator(device=dev).manual_seed(180 + i)
+    masks = ((None, torch.rand(shape, generator=g, device=dev) < 0.75)
+             if pool else (None,))
+    for mask in masks:
+        keep = 0.75 if mask is not None else 1.0
+        p, pr = braai.conv3x3_train_plain(x, w, b, pool, mask, keep)
+        saved = pr if pool else p
+        if i > 0:
+            n0 = launch.braai_conv3x3_dgrad.launches
+            gk = launch.braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool,
+                                            tuple(x.shape))
+            gk2 = launch.braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool,
+                                             tuple(x.shape))
+            assert launch.braai_conv3x3_dgrad.launches == n0 + 2
+            assert torch.equal(gk, gk2)
+            gp = braai.conv3x3_dgrad_plain(gy, w, saved, mask, keep, pool,
+                                           x.shape)
+            _close_to_max(gk, gp, 1e-5)
+        n0 = launch.braai_conv3x3_wgrad.launches
+        wk, bk = launch.braai_conv3x3_wgrad(x, gy, saved, mask, keep, pool)
+        wk2, bk2 = launch.braai_conv3x3_wgrad(x, gy, saved, mask, keep, pool)
+        assert launch.braai_conv3x3_wgrad.launches == n0 + 2
+        assert torch.equal(wk, wk2) and torch.equal(bk, bk2)
+        wp, bp = braai.conv3x3_wgrad_plain(x, gy, saved, mask, keep, pool)
+        _close_to_max(wk, wp, 1e-5)
+        _close_to_max(bk, bp, 1e-5)
+
+
+def test_braai_backward_resources(dev):
+    """H19 and H20 at the four layers' widths: two blocks resident per SM,
+    as their tiles are sized for (registers, shared memory), under the
+    card's 227 KB a block; H19 has no kernel for the triplets."""
+    from zuds_tpu_torch.kernels import launch
+    for (cin, cout, pool), side in zip(launch.BRAAI_LAYERS,
+                                       (63, 61, 29, 27)):
+        for kind in ('dgrad', 'wgrad'):
+            if kind == 'dgrad' and cin == 3:
+                with pytest.raises(RuntimeError, match='CUDA error'):
+                    launch.braai_backward_resources(kind, cin, cout, pool,
+                                                    side)
+                continue
+            r = launch.braai_backward_resources(kind, cin, cout, pool, side)
+            assert r['blocks_per_sm'] >= 2, r
+            assert 0 < r['smem_bytes'] <= 227 * 1024, r
+
+
+def test_braai_backward_refuses_inputs_too_wide(dev):
+    """Layer 2 a thousand columns wide: H19's span and H20's bands do not
+    fit in shared memory, and both wrappers raise at launch, counting
+    nothing; the next call at the layer's width runs."""
+    from zuds_tpu_torch.kernels import launch
+    x = torch.zeros((1, 61, 1000, 32), device=dev)
+    w = torch.zeros((3, 3, 32, 32), device=dev)
+    gy = torch.zeros((1, 29, 499, 32), device=dev)
+    route = torch.zeros((1, 29, 499, 32), dtype=torch.uint8, device=dev)
+    n0 = (launch.braai_conv3x3_dgrad.launches,
+          launch.braai_conv3x3_wgrad.launches)
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        launch.braai_conv3x3_dgrad(gy, w, route, None, 0.75, True,
+                                   tuple(x.shape))
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        launch.braai_conv3x3_wgrad(x, gy, route, None, 0.75, True)
+    assert (launch.braai_conv3x3_dgrad.launches,
+            launch.braai_conv3x3_wgrad.launches) == n0
+    # the refusal is not left pending for the next launcher
+    gx = launch.braai_conv3x3_dgrad(gy[:, :, :29].contiguous(), w,
+                                    route[:, :, :29].contiguous(), None,
+                                    0.75, True, (1, 61, 61, 32))
+    assert gx.shape == (1, 61, 61, 32) and bool(torch.isfinite(gx).all())
 
 
 def test_adam_kernel_bit_equal(dev):

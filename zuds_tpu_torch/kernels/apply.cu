@@ -98,22 +98,6 @@ struct ApplyParams {
 
 namespace {
 
-__device__ __forceinline__ float tf32(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return __uint_as_float(y);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         float b0, float b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
-        "r"(__float_as_uint(b1)));
-}
-
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           int bytes) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));

@@ -18,7 +18,7 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'check', 'ApplyParams']
+__all__ = ['library', 'check', 'ptxas_report', 'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
@@ -98,14 +98,17 @@ SIGNATURES = {
     # W, Cin, Cout, pool, stream
     'zuds_braai_conv3x3_train': (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                                  _I, _I, _P),
-    # gy, route, mask, y (each or null), keep, w, gx, N, H, W, Cin, Cout,
-    # pool, stream
-    'zuds_braai_conv3x3_dgrad': (_P, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _P),
+    # gy, route, mask, y (each or null), keep, w, wsplit (scratch), gx, N,
+    # H, W, Cin, Cout, pool, stream
+    'zuds_braai_conv3x3_dgrad': (_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _P),
     # x, gy, route, mask, y (each or null), keep, partial, out, N, H, W, Cin,
     # Cout, pool, stream
     'zuds_braai_conv3x3_wgrad': (_P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _P),
+    # kind (0 H19, 1 H20), Cin, Cout, pool, W, out (4 x int32): registers,
+    # spilled bytes, dynamic shared memory, blocks per SM
+    'zuds_braai_backward_resources': (_I, _I, _I, _I, _I, _P),
     # p, g, mu, nu, bc1, bc2, n, b1, 1 - b1, b2, 1 - b2, eps, -lr, stream
     'zuds_adam_step': (_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
                        _P),
@@ -206,6 +209,23 @@ def library():
         fn.argtypes = argtypes
         fn.restype = ctypes.c_longlong
     return lib
+
+
+def ptxas_report(source):
+    """ptxas's report (``nvcc -Xptxas -v``) of one source compiled alone
+    with the library's flags: per kernel its registers, spills and static
+    shared memory. Returns the compiler's stderr."""
+    build = _HERE / '_build'
+    build.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        proc = subprocess.run(
+            [_nvcc(), *FLAGS, '-Xptxas', '-v', '-c', '-o',
+             str(Path(tmp) / 'report.o'), str(_HERE / source)],
+            capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({proc.returncode}) on {source}:\n'
+                           f'{proc.stderr}')
+    return proc.stderr
 
 
 def check(err, name):

@@ -49,3 +49,25 @@ __device__ __forceinline__ int window_corner(float p, int n, int cut,
   *out = lo < 0 || hi >= n;
   return (int)(lo < 0 ? 0 : (lo > n - cut ? n - cut : lo));
 }
+
+// TF32 by cvt.rna (round half away from zero on the 13 dropped bits): the
+// hi part of a 3xTF32 split, x_hi = tf32(x), x_lo = tf32(x - x_hi).
+__device__ __forceinline__ float tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y);
+}
+
+// c += a b on the tensor cores: mma.sync m16n8k8, TF32 in, f32 accumulate.
+// a: rows (g, g+8) x cols (t, t+4) of the 16 x 8 A tile; b: rows (t, t+4)
+// of column g of the 8 x 8 B tile; c: rows (g, g+8) x cols (2t, 2t+1)
+// (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         float b0, float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}

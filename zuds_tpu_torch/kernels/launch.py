@@ -29,7 +29,8 @@ __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
            'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
            'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
            'psf_clip', 'braai_conv3x3_train', 'braai_conv3x3_dgrad',
-           'braai_conv3x3_wgrad', 'adam_step', 'aperture_photometry',
+           'braai_conv3x3_wgrad', 'braai_backward_resources', 'adam_step',
+           'aperture_photometry',
            'aperture_sums', 'refine_detections', 'seed_sweeps',
            'ccl_fixpoint', 'object_stats', 'clean', 'BRAAI_LAYERS',
            'COMBINE_MAX_EPOCHS', 'WRAPPERS']
@@ -806,7 +807,10 @@ def braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool, in_shape):
     """H19 (kernels/braai.cu): the gradient (``in_shape``, NHWC f32) of a
     braai layer's input from the gradient ``gy`` of its output and what
     H13t saved (``saved``, ``mask``: see H20), for layers 2-4 (the
-    triplets need none)."""
+    triplets need none). Two launches: the weights split hi/lo into a
+    scratch buffer, then the 3xTF32 implicit GEMM. An input too wide for
+    its shared memory (past ~560 columns) is refused at launch
+    (RuntimeError)."""
     _require('gy', gy, torch.float32)
     cout = w.shape[-1] if w.dim() == 4 else -1
     N, H, W, cin = _braai_layer('braai_conv3x3_dgrad', in_shape, cout, pool)
@@ -819,14 +823,17 @@ def braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool, in_shape):
                                   pool, shape)
     _aligned('braai_conv3x3_dgrad', gy, route, mask, y)
     gx = torch.empty((N, H, W, cin), dtype=torch.float32, device=gy.device)
+    wsplit = torch.empty(18 * cin * cout, dtype=torch.float32,
+                         device=gy.device)
     null = ctypes.c_void_p(None)
 
     def p(t):
         return null if t is None else _ptr(t)
 
     err = build.library().zuds_braai_conv3x3_dgrad(
-        _ptr(gy), p(route), p(mask), p(y), float(keep), _ptr(w), _ptr(gx),
-        N, H, W, cin, cout, int(bool(pool)), _stream())
+        _ptr(gy), p(route), p(mask), p(y), float(keep), _ptr(w),
+        _ptr(wsplit), _ptr(gx), N, H, W, cin, cout, int(bool(pool)),
+        _stream())
     build.check(err, 'zuds_braai_conv3x3_dgrad')
     braai_conv3x3_dgrad.launches += 1
     return gx
@@ -838,13 +845,12 @@ def braai_conv3x3_wgrad(x, gy, saved, mask, keep, pool):
     output and what H13t saved: for a pooled layer ``saved`` its routing
     bytes and ``mask`` its bool dropout mask (or None) with ``keep``; for
     an unpooled one ``saved`` its output (the ReLU mask) and no mask.
-    Fixed-order partials per image, then a second pass in image order: two
-    calls give the same bits."""
+    Fixed-order partials per chunk of 1-4 images, then a second pass in
+    chunk order: two calls give the same bits. An input too wide for its
+    shared memory (past 63-188 columns by layer; the d6 net's are 27-63)
+    is refused at launch (RuntimeError)."""
     cout = gy.shape[-1] if gy.dim() == 4 else -1
     N, H, W, cin = _braai_layer('braai_conv3x3_wgrad', x, cout, pool)
-    if N > 65535:
-        raise ValueError(f'braai_conv3x3_wgrad: a batch of {N} is past the '
-                         '65535 images of the grid')
     shape = _braai_out_shape(N, H, W, cout, pool)
     route, mask, y = _braai_saved('braai_conv3x3_wgrad', gy, saved, mask,
                                   pool, shape)
@@ -865,6 +871,21 @@ def braai_conv3x3_wgrad(x, gy, saved, mask, keep, pool):
     build.check(err, 'zuds_braai_conv3x3_wgrad')
     braai_conv3x3_wgrad.launches += 1
     return out[:-cout].view(3, 3, cin, cout), out[-cout:]
+
+
+def braai_backward_resources(kind, cin, cout, pool, width):
+    """What the card gives H19 (``kind`` 'dgrad') or H20 ('wgrad') at the
+    braai layer (``cin``, ``cout``, ``pool``) whose input is ``width``
+    wide: {'registers', 'spill_bytes', 'smem_bytes', 'blocks_per_sm'}."""
+    if kind not in ('dgrad', 'wgrad'):
+        raise ValueError(f'braai_backward_resources: kind {kind!r} is not '
+                         "'dgrad' or 'wgrad'")
+    out = (ctypes.c_int * 4)()
+    err = build.library().zuds_braai_backward_resources(
+        int(kind == 'wgrad'), cin, cout, int(bool(pool)), width, out)
+    build.check(err, 'zuds_braai_backward_resources')
+    return dict(zip(('registers', 'spill_bytes', 'smem_bytes',
+                     'blocks_per_sm'), out))
 
 
 def adam_step(p, g, mu, nu, bc1, bc2, lr, b1, b2, eps):
