@@ -37,22 +37,25 @@ tensors; a 256^2 rotated pair on the card and on the CPU. Holds each
 kernel against its plain
 PyTorch version on the card at the shapes the main path gives it (H3 also
 at K = 21, order 5, 2x2 regions, and its bare launch timed with its
-tensor-core rate; H5 and H6 also on a quadrant-size busy blend field; H8
-also on ::4 views and a mask with holes). Small inputs run on the card and
+tensor-core rate; H5 and H6 also on a quadrant-size busy blend field, H6
+timed by CUDA graph beside ``torch.nonzero_static`` at the slice's four
+call sites and at ``label_components``' size; H8 also on ::4 views and a
+mask with holes). Small inputs run on the card and
 on the CPU for each deblend mode, a 1024^2 crop of the blend field through
 ``detect_sources`` on both, and the stamp selection and stamp-moment
 SEEING of the night's frame without SEEING on both. Then braai training:
 ``make_train_state(0)`` on the card and 256 triplets of
-``inputs.labelled_triplets``; ``ptxas -v`` and the launch resources of
-H19 and H20; one step's own tensors hold H13t, H19, H20 and H21 against
-their plain versions (times, bounds, cuDNN's and fused Adam's times
-beside them; H19 and H20 two calls bit-equal and, against float64, no
-further than cuDNN with TF32 off); one step against ``train_step_plain`` with
-the same masks; 50 counted, timed steps with a loss gate, ten more under
-the profiler (the device's busy share); the trained weights through
-``save_braai``, ``load_braai`` and ``rb_scores`` on the card; one step at
-the dry run's batch of 2. The measure stage's kernels are held to their
-plain versions on the slice's frame 0 at its 4096 detection rows (H22 at
+``inputs.labelled_triplets``; ``ptxas -v`` of H13, H19 and H20 and the
+launch resources of H19 and H20; one step's own tensors hold H13t, H19,
+H20 and H21 against their plain versions (times, bounds, cuDNN's and
+fused Adam's times beside them; H13t, H19 and H20 two calls bit-equal
+and, against float64, no further than cuDNN with TF32 off); one step
+against ``train_step_plain`` with the same masks; 50 counted, timed steps
+with a loss gate, ten more under the profiler (the device's busy share);
+the trained weights through ``save_braai``, ``load_braai`` and
+``rb_scores`` on the card; one step at the dry run's batch of 2. The
+measure stage's kernels are held to their plain versions on the slice's
+frame 0 at its 4096 detection rows (H22 at
 r = 3 with the submask and at r = 6 on two planes, H23, H14 at the
 pipeline's H8 medians). Forced photometry: one flagship pair through
 ``sub.do_one``, the product read back by ``ScienceImage.from_file``, 4096
@@ -1087,6 +1090,7 @@ def scoring_night(wrappers, name, record, d, work, truths, pipe):
     frames.append(frames[0] - frames[1])
     triplets = triplet_record(frames, record, launches)
     braai_record(triplets, record, launches, sm.calls[0][0], name)
+    h13_float64_seeds(sm.calls[0][0], name)
 
 
 def scoring_positions(H, W, n, size, seed=17):
@@ -1101,6 +1105,31 @@ def scoring_positions(H, W, n, size, seed=17):
     return cutouts.clamped_corners(torch.as_tensor(xs, device='cuda'),
                                    torch.as_tensor(ys, device='cuda'), size,
                                    H, W)
+
+
+def compact_calls(out, cfg):
+    """(mask, size, fill) of every H6 call in one ``detect_sources`` run on
+    the slice's frame 0 (deblend=True), the masks copied."""
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.ops import deblend, detect
+    calls, real = [], detect.compact_indices
+
+    def keep(mask, size, fill):
+        calls.append((mask.clone(), size, fill))
+        return real(mask, size, fill)
+
+    detect.compact_indices = deblend.compact_indices = keep
+    try:
+        detect.detect_sources(out['diff'][0], out['rms'][0],
+                              out['submask'][0],
+                              (out['submask'][0] & BAD_SUM) == 0,
+                              deblend=True, nsigma=cfg.nsigma,
+                              max_det=cfg.max_det, det_cap=cfg.det_cap,
+                              deb_cap=cfg.deb_cap)
+    finally:
+        detect.compact_indices = deblend.compact_indices = real
+    check(len(calls) > 0, 'detect_sources made no H6 call')
+    return calls
 
 
 def triplet_record(frames, record, runs):
@@ -1128,11 +1157,81 @@ def triplet_record(frames, record, runs):
     return k
 
 
+def h13_bound(cin, nbytes, flop):
+    """(the bound of one H13 or H13t layer on its own unit, its fp32
+    bound): layer 1 (Cin = 3) runs on fp32 FMAs, layers 2-4 on 3xTF32,
+    three tensor-core products per product."""
+    fp32 = bound(nbytes, flop)
+    return (fp32 if cin == 3 else bound(nbytes, 3 * flop, TF32_FLOP_S)), fp32
+
+
+def f64_errors(got, lib, ref):
+    """(kernel, library) largest errors against the float64 ``ref``."""
+    return (float((got.double() - ref).abs().max()),
+            float((lib.double() - ref).abs().max()))
+
+
+# (batch, seed) of inputs.labelled_triplets for h13_float64_seeds: the
+# scoring path's batch on four seeds, held to cuDNN's error plus half an
+# ulp; and the case where, at a batch of 16, cuDNN came out nearer
+# float64 than H13 at layers 3 and 4 by more than that on an H100 (7.4e-7
+# against 5.2e-7, 1.01e-6 against 6.5e-7), printed only
+F64_CASES = ((256, 0), (256, 1), (256, 2), (256, 3))
+F64_RECORDED = ((16, 5),)
+
+
+def h13_float64_seeds(model, name):
+    """H13 per layer against a float64 run of the plain version, beside
+    cuDNN (TF32 off), on ``labelled_triplets`` (each layer fed the plain
+    version's output of the one before): at F64_CASES the kernel's largest
+    error is held to at most cuDNN's plus half an ulp of the layer's
+    largest output; at every case whether it is at most cuDNN's is
+    printed."""
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    strict, cases = 0, 0
+    for batch, seed in F64_CASES + F64_RECORDED:
+        gated = (batch, seed) in F64_CASES
+        t, _ = inputs.labelled_triplets(batch, seed=seed)
+        x = torch.as_tensor(t, device='cuda')
+        row = []
+        for i, (cin, cout, pool) in enumerate(launch.BRAAI_LAYERS):
+            layer = getattr(model, f'Conv_{i}')
+            w, b = layer['kernel'], layer['bias']
+            with torch.no_grad():
+                k = launch.braai_conv3x3(x, w, b, pool)
+                p = braai.conv3x3_plain(x, w, b, pool)
+                ref = braai.conv3x3_plain(x.double(), w.double(),
+                                          b.double(), pool)
+            ek, el = f64_errors(k, p, ref)
+            half = float(np.spacing(np.float32(float(ref.abs().max())))) / 2
+            check(not gated or ek <= el + half,
+                  f'H13 layer {i + 1} at batch {batch}, seed {seed}: '
+                  f'{ek:.3g} from float64, cuDNN {el:.3g} (half an ulp of '
+                  f'the largest output {half:.3g})')
+            strict += ek <= el
+            cases += 1
+            row.append(f'layer {i + 1} {ek:.3g}/{el:.3g}'
+                       f'{"" if ek <= el else " (past cuDNN)"}')
+            x = p
+        print(f'braai_conv3x3 against float64 at batch {batch}, seed {seed} '
+              f'(kernel/cuDNN){"" if gated else ", recorded, not gated"}: '
+              f'{", ".join(row)}', flush=True)
+    print(f'braai_conv3x3 against float64: no further than cuDNN at '
+          f'{strict} of {cases} layer cases; within cuDNN plus half an ulp '
+          f'of the largest output at the {len(F64_CASES)} gated cases on '
+          f'{name}', flush=True)
+
+
 def braai_record(triplets, record, runs, model, name):
     """H13 per layer against its plain version (F.conv2d, ReLU, max_pool2d
     on NHWC views) and the library sequence (the same on NCHW tensors made
-    beforehand), cuDNN with TF32 off, at SCORE_N triplets; the scores of
-    the whole net against the plain layers."""
+    beforehand), cuDNN with TF32 off, at SCORE_N triplets; each layer no
+    further from a float64 run of the plain version than cuDNN; the scores
+    of the whole net against the plain layers."""
     import torch
     import torch.nn.functional as F
     from zuds_tpu_torch.kernels import launch
@@ -1141,8 +1240,9 @@ def braai_record(triplets, record, runs, model, name):
           and not torch.backends.cuda.matmul.allow_tf32,
           'TF32 is on for cuDNN or matmul')
     x = triplets
-    tot = {'ms': 0.0, 'plain': 0.0, 'lib': 0.0, 'flop': 0.0, 'bytes': 0.0}
-    err = 0.0
+    tot = {'ms': 0.0, 'plain': 0.0, 'lib': 0.0, 'flop': 0.0, 'bytes': 0.0,
+           'bound': 0.0, 'fp32': 0.0}
+    err, top = 0.0, (0.0, 'bytes')
     for i, (cin, cout, pool) in enumerate(launch.BRAAI_LAYERS):
         layer = getattr(model, f'Conv_{i}')
         w, b = layer['kernel'], layer['bias']
@@ -1150,6 +1250,12 @@ def braai_record(triplets, record, runs, model, name):
         p = braai.conv3x3_plain(x, w, b, pool)
         err = max(err, close(f'braai_conv3x3 layer {i + 1}', k, p, 1e-5,
                              1e-6))
+        check(torch.equal(k, launch.braai_conv3x3(x, w, b, pool)),
+              f'H13 layer {i + 1}: two calls differ')
+        e64 = f64_errors(k, p, braai.conv3x3_plain(
+            x.double(), w.double(), b.double(), pool))
+        check(e64[0] <= e64[1], f'H13 layer {i + 1}: {e64[0]:.3g} from '
+              f'float64, cuDNN {e64[1]:.3g}')
         xc = x.permute(0, 3, 1, 2).contiguous()
         wc = w.permute(3, 2, 0, 1).contiguous()
 
@@ -1166,15 +1272,21 @@ def braai_record(triplets, record, runs, model, name):
         conv = (2 * ho) * (2 * wo) if pool else ho * wo
         flop = 2 * n * conv * cout * 9 * cin
         nbytes = 4 * (x.numel() + p.numel() + w.numel() + b.numel())
-        bnd = bound(nbytes, flop)
+        bnd, fp32 = h13_bound(cin, nbytes, flop)
         print(f'braai_conv3x3 layer {i + 1} ({cin}->{cout}'
               f'{", pool" if pool else ""}), {n} triplets: {ms:.4f} ms '
-              f'(bound {bnd[0]:.4f} ms by {bnd[1]}, share '
-              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, cuDNN '
-              f'{lib_ms:.3f} ms (TF32 off) on {name}', flush=True)
+              f'(bound {bnd[0]:.4f} ms by {bnd[1]}'
+              f'{" on fp32" if cin == 3 else " on 3xTF32"}, share '
+              f'{bnd[0] / ms:.1%}; fp32 bound {fp32[0]:.4f} ms, share '
+              f'{fp32[0] / ms:.1%}), plain {plain:.3f} ms, cuDNN '
+              f'{lib_ms:.3f} ms (TF32 off); two calls bit-equal; against '
+              f'float64 the kernel {e64[0]:.3g}, cuDNN {e64[1]:.3g} on '
+              f'{name}', flush=True)
         for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
-                       ('flop', flop), ('bytes', nbytes)):
+                       ('flop', flop), ('bytes', nbytes), ('bound', bnd[0]),
+                       ('fp32', fp32[0])):
             tot[key] += v
+        top = max(top, bnd)
         x = p
     with torch.no_grad():
         scores = model(triplets)
@@ -1182,7 +1294,8 @@ def braai_record(triplets, record, runs, model, name):
     serr = float((scores - plain_scores).abs().max())
     check(serr <= 1e-6, f'braai scores: card and plain differ by {serr:.3g}')
     fwd = cuda_ms(lambda: braai.rb_scores(model, triplets))
-    bnd = bound(tot['bytes'], tot['flop'])
+    # the layers' bounds on their own units, added; bound_by the largest's
+    bnd = (tot['bound'], top[1])
     # the dense head: the flattened features through Dense_0 (ReLU) and
     # Dense_1, two torch.matmul in fp32
     feat = x.reshape(x.shape[0], -1)
@@ -1192,18 +1305,19 @@ def braai_record(triplets, record, runs, model, name):
     head_flop = 2 * feat.shape[0] * (k0.numel() + k1.numel())
     head_bytes = 4 * (feat.numel() + k0.numel() + k1.numel()
                       + b0.numel() + b1.numel() + feat.shape[0])
-    whole = bound(tot['bytes'] + head_bytes, tot['flop'] + head_flop)
+    whole = (tot['bound'] + bound(head_bytes, head_flop)[0], top[1])
     print(f'braai_conv3x3: four layers per batch of {SCORE_N} triplets '
-          f'{tot["ms"]:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, '
-          f'{tot["flop"]:.4g} FLOP, share {bnd[0] / tot["ms"]:.1%}), plain '
-          f'{tot["plain"]:.3f} ms, cuDNN {tot["lib"]:.3f} ms; rb_scores (4 '
-          f'H13 and the dense head) {fwd:.4f} ms (bound {whole[0]:.4f} ms by '
-          f'{whole[1]}, {head_flop:.4g} FLOP in the head, share '
-          f'{whole[0] / fwd:.1%}; library: cuDNN and the head\'s two '
-          f'torch.matmul {tot["lib"] + head_ms:.3f} ms, the head alone '
-          f'{head_ms:.4f} ms); scores within {serr:.3g} '
-          f'of the plain layers (scores {float(scores.min()):.3f}-'
-          f'{float(scores.max()):.3f})', flush=True)
+          f'{tot["ms"]:.4f} ms (bound {bnd[0]:.4f} ms, layers 2-4 on '
+          f'3xTF32, {tot["flop"]:.4g} FLOP, share {bnd[0] / tot["ms"]:.1%}; '
+          f'fp32 bound {tot["fp32"]:.4f} ms, share '
+          f'{tot["fp32"] / tot["ms"]:.1%}), plain {tot["plain"]:.3f} ms, '
+          f'cuDNN {tot["lib"]:.3f} ms; rb_scores (4 H13 and the dense head) '
+          f'{fwd:.4f} ms (bound {whole[0]:.4f} ms, {head_flop:.4g} FLOP in '
+          f'the head, share {whole[0] / fwd:.1%}; library: cuDNN and the '
+          f'head\'s two torch.matmul {tot["lib"] + head_ms:.3f} ms, the head '
+          f'alone {head_ms:.4f} ms); scores within {serr:.3g} of the plain '
+          f'layers (scores {float(scores.min()):.3f}-'
+          f'{float(scores.max()):.3f}) on {name}', flush=True)
     record('braai_conv3x3', err, tot['ms'], tot['plain'], bnd,
            library_ms=tot['lib'], runs=runs,
            per=f'scoring night of {NIGHT_PAIRS} frames')
@@ -2384,12 +2498,10 @@ def adam_aware(name, got, want, mu, lr=TRAIN_LR):
 
 
 def train_bound(kname, nbytes, flop):
-    """The bound of a training layer kernel on its own unit: H13t's fp32
-    FMAs; H19's and H20's 3xTF32, three tensor-core products per
-    product."""
-    if kname in ('braai_conv3x3_dgrad', 'braai_conv3x3_wgrad'):
-        return bound(nbytes, 3 * flop, TF32_FLOP_S)
-    return bound(nbytes, flop)
+    """The bound of H19 or H20 on its own unit: 3xTF32, three tensor-core
+    products per product (H13t's layers: :func:`h13_bound`)."""
+    check(kname in ('braai_conv3x3_dgrad', 'braai_conv3x3_wgrad'), kname)
+    return bound(nbytes, 3 * flop, TF32_FLOP_S)
 
 
 def routed_flop(gy, cin):
@@ -2402,25 +2514,28 @@ def routed_flop(gy, cin):
 
 
 def backward_resources(widths):
-    """Print ptxas's report (``nvcc -Xptxas -v``) of H19's and H20's
-    kernels and what a launch gets on this card per layer (registers,
-    spills, dynamic shared memory, resident blocks); ``widths`` the
-    layers' input widths."""
+    """Print ptxas's report (``nvcc -Xptxas -v``) of H13's two kernels
+    (layer 1's FMA kernel and the tensor-core kernel) and H19's and H20's kernels, and what a launch of H19 and H20
+    gets on this card per layer (registers, spills, dynamic shared memory,
+    resident blocks); ``widths`` the layers' input widths."""
     import re
     from zuds_tpu_torch.kernels import build, launch
     lines, fn = [], None
     for line in build.ptxas_report('braai.cu').splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
-            k = re.search(r'([dw]grad)_kernelILi(\d+)ELi(\d+)ELb([01])E',
+            k = re.search(r'(conv3x3_mma|conv3x3|[dw]grad)_kernelILi(\d+)'
+                          r'ELi(\d+)E(?:Lb([01])E)?(?:Lb([01])E)?',
                           m.group(1))
-            fn = (f'{k.group(1)}_kernel<{k.group(2)}, {k.group(3)}, '
-                  f'{k.group(4)}>' if k else None)
+            fn = (f'{k.group(1)}_kernel<' + ', '.join(
+                g for g in k.groups()[1:] if g is not None) + '>'
+                  if k else None)
         elif fn and ('Used' in line or 'spill' in line):
             lines.append(f'{fn}: {line.split(":", 1)[-1].strip()}')
-    check(len(lines) >= 7, f'ptxas reported {len(lines)} lines for H19 and '
-          'H20')
-    print('ptxas -v, H19 and H20: ' + '; '.join(lines), flush=True)
+    check(len(lines) >= 14, f'ptxas reported {len(lines)} lines for H13, '
+          'H19 and H20')
+    print('ptxas -v, H13, H19 and H20: ' + '; '.join(lines),
+          flush=True)
     for (cin, cout, pool), wd in zip(launch.BRAAI_LAYERS, widths):
         for kind in (('dgrad', 'wgrad') if cin > 3 else ('wgrad',)):
             r = launch.braai_backward_resources(kind, cin, cout, pool, wd)
@@ -2442,13 +2557,21 @@ def train_kernel_checks(rec, params, name):
     from zuds_tpu_torch.models import adam, braai
     dev = torch.device('cuda')
     tot = {k: {'ms': 0.0, 'plain': 0.0, 'lib': 0.0, 'flop': 0.0,
-               'bytes': 0.0, 'err': 0.0} for k in TRAIN_ONLY[:3]}
-    ties = []
+               'bytes': 0.0, 'err': 0.0, 'bound': 0.0, 'opms': 0.0,
+               'by': (0.0, 'bytes')} for k in TRAIN_ONLY[:3]}
+    ties, apart = [], []
     for i, (xi, w, b, pool, mask, keep) in enumerate(rec.fwd):
         cin, cout = w.shape[2], w.shape[3]
         k, kr = launch.braai_conv3x3_train(xi, w, b, pool, mask, keep)
         p, pr = braai.conv3x3_train_plain(xi, w, b, pool, mask, keep)
         err = close(f'braai_conv3x3_train layer {i + 1}', k, p, 1e-5, 1e-6)
+        k2, kr2 = launch.braai_conv3x3_train(xi, w, b, pool, mask, keep)
+        check(torch.equal(k, k2) and (kr is None or torch.equal(kr, kr2)),
+              f'H13t layer {i + 1}: two calls differ')
+        e64 = f64_errors(k, p, braai.conv3x3_train_plain(
+            xi.double(), w.double(), b.double(), pool, mask, keep)[0])
+        check(e64[0] <= e64[1], f'H13t layer {i + 1}: {e64[0]:.3g} from '
+              f'float64, cuDNN {e64[1]:.3g}')
         n, ho, wo, _ = p.shape
         hc, wc = xi.shape[1] - 2, xi.shape[2] - 2
         conv = (2 * ho) * (2 * wo) if pool else ho * wo
@@ -2462,6 +2585,7 @@ def train_kernel_checks(rec, params, name):
                   f'H13t layer {i + 1}: routing bytes differ off the near '
                   'ties')
             ties.append(float(tie.float().mean()))
+            apart.append(int((kr != pr).sum()))
             check(ties[-1] < 0.01, f'H13t layer {i + 1}: {ties[-1]:.3%} of '
                   'the windows are near ties')
         keep_t = torch.full((), keep, device=dev)
@@ -2481,19 +2605,26 @@ def train_kernel_checks(rec, params, name):
         flop = 2 * n * conv * cout * 9 * cin
         nbytes = 4 * (xi.numel() + p.numel() + w.numel() + b.numel()) \
             + (2 * p.numel() if pool else 0)
-        bnd = bound(nbytes, flop)
+        bnd, fp32 = h13_bound(cin, nbytes, flop)
         print(f'braai_conv3x3_train layer {i + 1} ({cin}->{cout}'
               f'{", pool, dropout" if pool else ""}), {n} triplets: '
-              f'{ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, share '
-              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, cuDNN sequence '
-              f'{lib_ms:.3f} ms (TF32 off); max abs err {err:.3g}'
-              + (f'; routing bytes equal off {ties[-1]:.4%} near ties'
-                 if pool else '') + f' on {name}', flush=True)
+              f'{ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}'
+              f'{" on fp32" if cin == 3 else " on 3xTF32"}, share '
+              f'{bnd[0] / ms:.1%}; fp32 bound {fp32[0]:.4f} ms), plain '
+              f'{plain:.3f} ms, cuDNN sequence {lib_ms:.3f} ms (TF32 off); '
+              f'two calls bit-equal; max abs err {err:.3g}; against float64 '
+              f'the kernel {e64[0]:.3g}, cuDNN {e64[1]:.3g}'
+              + (f'; routing bytes equal off {ties[-1]:.4%} near ties, '
+                 f'{apart[-1]} of {kr.numel()} ({apart[-1] / kr.numel():.4%})'
+                 f' routed apart' if pool else '') + f' on {name}',
+              flush=True)
+        t13 = tot['braai_conv3x3_train']
         for key, v in (('ms', ms), ('plain', plain), ('lib', lib_ms),
-                       ('flop', flop), ('bytes', nbytes)):
-            tot['braai_conv3x3_train'][key] += v
-        tot['braai_conv3x3_train']['err'] = max(
-            tot['braai_conv3x3_train']['err'], err)
+                       ('flop', flop), ('bytes', nbytes), ('bound', bnd[0])):
+            t13[key] += v
+        t13['opms'] += h13_bound(cin, 0, flop)[0][0]
+        t13['by'] = max(t13['by'], bnd)
+        t13['err'] = max(t13['err'], err)
     # H19 and H20 run 3xTF32 on the tensor cores: their bound is three
     # times the routed FLOP over the TF32 peak (the fp32 bound beside it);
     # against float64 each is held to cuDNN's own error (TF32 off)
@@ -2814,12 +2945,13 @@ def train_phase(wrappers, name, record):
 
     lib_step_ms = cuda_ms(lib_step, 2, 10)
     conv_flop = sum(tot[k]['flop'] for k in TRAIN_ONLY[:3])
-    conv_ms = sum(train_bound(k, 0, tot[k]['flop'])[0]
-                  for k in TRAIN_ONLY[:3])
+    conv_ms = tot['braai_conv3x3_train']['opms'] + sum(
+        train_bound(k, 0, tot[k]['flop'])[0] for k in TRAIN_ONLY[1:3])
     head_flop = 3 * 2 * TRAIN_N * (9216 * 256 + 256)
     step_bnd = conv_ms + bound(0, head_flop)[0] + adam_bnd[0]
     print(f'train: the step\'s bound {step_bnd:.4f} ms (convolutions '
-          f'{conv_flop:.4g} FLOP, {conv_ms:.4f} ms, H19 and H20 on 3xTF32; '
+          f'{conv_flop:.4g} FLOP, {conv_ms:.4f} ms, H13t at layers 2-4, '
+          f'H19 and H20 on 3xTF32; '
           f'dense head {head_flop:.4g} FLOP, {bound(0, head_flop)[0]:.4f} '
           f'ms; Adam '
           f'{adam_bnd[0]:.4f} ms by bytes): {ms_step:.3f} ms/step, share '
@@ -2862,7 +2994,9 @@ def train_phase(wrappers, name, record):
 
     for k in TRAIN_ONLY[:3]:
         t = tot[k]
-        bnd = train_bound(k, t['bytes'], t['flop'])
+        # H13t: its layers' bounds on their own units, added
+        bnd = ((t['bound'], t['by'][1]) if k == 'braai_conv3x3_train'
+               else train_bound(k, t['bytes'], t['flop']))
         record(k, t['err'], t['ms'], t['plain'], bnd, library_ms=t['lib'],
                runs=launches, per=f'{TRAIN_STEPS} training steps of '
                f'{TRAIN_N}')
@@ -3209,25 +3343,37 @@ def main():
         return ms, plain, bound(12 * nedge + 4 * L * ccap,
                                 L * (nedge + 3 * ccap))
 
-    def h6_times(mask, size, tag):
+    def h6_times(mask, size, tag, fill=None):
         n = mask.numel()
-        kc = launch.compact(mask, size, n - 1)
-        pc = compact.compact_indices_plain(mask, size, n - 1)
+        fill = n - 1 if fill is None else fill
+        kc = launch.compact(mask, size, fill)
+        pc = compact.compact_indices_plain(mask, size, fill)
         check(torch.equal(kc[0], pc[0]) and torch.equal(kc[1], pc[1]),
               f'compact differs from torch.nonzero on {tag}')
-        ms = cuda_ms(lambda: launch.compact(mask, size, n - 1))
-        plain = cuda_ms(lambda: compact.compact_indices_plain(mask, size,
-                                                              n - 1))
         # the one PyTorch call of the same function, timed only
-        lib = torch.nonzero_static(mask, size=size, fill_value=n - 1)
+        lib = torch.nonzero_static(mask, size=size, fill_value=fill)
         check(torch.equal(lib.reshape(-1), kc[0]), 'nonzero_static disagrees')
-        lib_ms = cuda_ms(lambda: torch.nonzero_static(mask, size=size,
-                                                      fill_value=n - 1))
-        print(f'compact on {tag}: bit-equal to torch.nonzero, kernel '
-              f'{ms:.4f} ms, plain {plain:.3f} ms, nonzero_static '
-              f'{lib_ms}', flush=True)
+        # device time by CUDA graph (a wrapper call's host cost is ~10x
+        # the kernel's); per call with its host cost beside it
+        ms = graph_ms(lambda: launch.compact(mask, size, fill))
+        lib_ms = graph_ms(lambda: torch.nonzero_static(mask, size=size,
+                                                       fill_value=fill))
+        call_ms = cuda_ms(lambda: launch.compact(mask, size, fill))
+        lib_call = cuda_ms(lambda: torch.nonzero_static(
+            mask, size=size, fill_value=fill))
+        plain = cuda_ms(lambda: compact.compact_indices_plain(mask, size,
+                                                              fill))
         # reads the mask once (1 B/entry), writes the indices and count
-        return ms, plain, bound(n + 8 * size + 8, n), lib_ms
+        bnd = bound(n + 8 * size + 8, n)
+        print(f'compact on {tag} ({n} entries, {int(kc[1])} set, size '
+              f'{size}): bit-equal to torch.nonzero and nonzero_static; '
+              f'device time (graph replay) kernel {ms:.5f} ms, '
+              f'nonzero_static {lib_ms:.5f} ms ({lib_ms / ms:.2f}x), bound '
+              f'{bnd[0]:.5f} ms (share {bnd[0] / ms:.1%}); per call with '
+              f'its host cost kernel {call_ms:.4f} ms, nonzero_static '
+              f'{lib_call:.4f} ms; plain {plain:.3f} ms on {name}',
+              flush=True)
+        return ms, plain, bnd, lib_ms
 
     h5_times(fload, 'the blend field')
     h6_times(fmask, BUSY['det_cap'], 'the blend field')
@@ -3236,6 +3382,14 @@ def main():
     ms, plain, bnd, lib_ms = h6_times(ki[2].reshape(-1), cfg.det_cap,
                                       'slice frame 0')
     record('compact', 0.0, ms, plain, bnd, lib_ms)
+    # H6 at the slice's other call sites (detect.py:279, deblend.py:128 and
+    # :141): their masks from one detect_sources call on frame 0
+    for mask, size, fill in compact_calls(out, cfg):
+        if mask.numel() != H * W:
+            h6_times(mask, size, f'slice frame 0, a {mask.numel()}-entry '
+                     'call site', fill)
+    # and at label_components' capacity: every index of the frame mask
+    h6_times(ki[2].reshape(-1), H * W, 'slice frame 0 at size H*W')
 
     crop_card_vs_cpu(field, dev)
 

@@ -87,7 +87,7 @@ def test_sources_and_symbols_of_the_scoring_kernels():
     assert 'conv3x3_kernel' in (here / 'braai.cu').read_text()
     assert len(build.SIGNATURES['zuds_triplet_cut']) == 9
     assert len(build.SIGNATURES['zuds_negpix_veto']) == 9
-    assert len(build.SIGNATURES['zuds_braai_conv3x3']) == 11
+    assert len(build.SIGNATURES['zuds_braai_conv3x3']) == 12
 
 
 def test_sources_and_symbols_of_the_zogy_kernels(tmp_path, fake_nvcc,

@@ -19,7 +19,9 @@ no JAX, and tests/conftest.py imports it, so run them there with
 Tolerances: warp pixels rtol 3e-5, atol 5e-3 counts, mask and coverage
 bit-equal; background cells rtol 1e-4 and counts equal; model convolution
 rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
-deblend level labels and compaction bit-equal; stamp candidates (cand,
+deblend level labels and compaction bit-equal (H6 also on mask views at
+byte offsets 1, 3 and 15, at size 0 and at size = n on a full frame, and
+against ``torch.nonzero_static``); stamp candidates (cand,
 and filt at the candidates) and the frame median bit-equal; the two-plane
 warp as the one-plane warp on both planes; the clipped combine's counts and
 mask equal, its coadd and weight rtol 2e-6 (the plain version forms the
@@ -30,8 +32,10 @@ of the frame). The gather warp as the windowed one (pixels rtol 3e-5,
 atol 5e-3, mask and coverage equal); the variance launch of H3 rtol 1e-4,
 atol 1e-3 of the variance's scale; the epilogue bit-equal in both of its
 rounding modes. The triplets rtol 1e-6 (another order of the L2 sum); each
-braai layer rtol 1e-5, atol 1e-6 against ``F.conv2d`` with TF32 off, the
-scores 1e-6 absolute; the veto bit-equal. H15 rtol 1e-6 (the plain
+braai layer rtol 1e-5, atol 1e-6 against ``F.conv2d`` with TF32 off (NaN
+and +-inf inputs where the plain version puts them, two calls of H13 and
+H13t bit-equal, and at a batch of 256 no further from float64 than cuDNN),
+the scores 1e-6 absolute; the veto bit-equal. H15 rtol 1e-6 (the plain
 version rounds every step as the kernel does; the double-formed FMA of
 its complex abs may round twice), NaN where the plain version has it; H16
 rtol 1e-6 (both sum the squares in double, in other orders); the PSF stamps and the clipped PSF 1e-7 absolute (H17's direct DFT
@@ -256,6 +260,49 @@ def test_compact_kernel(dev, n, size, p):
     assert bool((idx[len(want):] == n - 1).all())
     pidx, pcnt = compact.compact_indices_plain(mask, size, n - 1)
     assert torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
+
+
+@pytest.mark.parametrize('offset', (1, 3, 15))
+@pytest.mark.parametrize('n', (5, 4099, 65536 + 7, 524288 + 13,
+                               3080 * 3072 - 5))
+def test_compact_kernel_at_byte_offsets(dev, n, offset):
+    """H6 on a view that starts ``offset`` bytes past a 16-byte boundary,
+    of a length that is not a multiple of 16 once the head is off: the head
+    and tail read as bytes, bit-equal to the plain version and to
+    ``torch.nonzero_static``."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import compact
+    g = torch.Generator(device=dev).manual_seed(n + offset)
+    base = torch.rand(n + offset, generator=g, device=dev) < 0.3
+    base[:offset + 16] = True        # the head and the first vector set
+    base[-17:] = True                # the tail and the last vector set
+    mask = base[offset:]
+    assert mask.data_ptr() % 16 == offset
+    for size in (min(n, 4096), n):
+        n0 = launch.compact.launches
+        idx, cnt = launch.compact(mask, size, n - 1)
+        assert launch.compact.launches == n0 + 1
+        pidx, pcnt = compact.compact_indices_plain(mask, size, n - 1)
+        assert torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
+        lib = torch.nonzero_static(mask, size=size, fill_value=n - 1)
+        assert torch.equal(idx, lib.reshape(-1))
+
+
+def test_compact_kernel_at_size_zero_and_full_frame(dev):
+    """H6 at size 0 (the count only) and at size = n on the full-frame
+    mask ``label_components`` compacts (3080 x 3072, 9.46 M indices),
+    dense and sparse."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import compact
+    n = 3080 * 3072
+    g = torch.Generator(device=dev).manual_seed(21)
+    for p in (0.02, 0.6):
+        mask = torch.rand(n, generator=g, device=dev) < p
+        idx, cnt = launch.compact(mask, 0, -1)
+        assert idx.shape == (0,) and int(cnt) == int(mask.sum())
+        idx, cnt = launch.compact(mask, n, n)
+        pidx, pcnt = compact.compact_indices_plain(mask, n, n)
+        assert torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
 
 
 def test_h5_h6_refuse_wrong_dtypes(dev):
@@ -897,6 +944,96 @@ def test_braai_conv3x3_kernel(dev, i):
     assert torch.equal(k.isnan().all(-1), want)
     assert torch.equal(k[~want], braai.conv3x3(
         torch.nan_to_num(x, nan=0.0), w, b, pool)[~want])
+
+
+@pytest.mark.parametrize('i', range(4))
+def test_braai_conv3x3_kernel_inf_and_repeat(dev, i):
+    """H13 with a +inf and a -inf input value (one channel each, far
+    apart): +-inf and NaN exactly where the plain version puts them (the
+    3xTF32 split keeps a non-finite value whole in its lo part, and the
+    flush drops a non-finite compensation); two calls of H13 and of H13t
+    give the same bits."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    cin, cout, pool = launch.BRAAI_LAYERS[i]
+    side = (63, 61, 29, 27)[i]
+    x = _rand((5, side, side, cin), dev, 70 + i, 0.05).abs()
+    w = _rand((3, 3, cin, cout), dev, 75 + i, (1.0 / (9 * cin)) ** 0.5)
+    b = _rand((cout,), dev, 78 + i, 0.01)
+    x[1, 3, 4, 0] = float('inf')
+    x[2, side - 5, side - 4, cin - 1] = float('-inf')
+    k = launch.braai_conv3x3(x, w, b, pool)
+    p = braai.conv3x3_plain(x, w, b, pool)
+    assert torch.equal(k.isnan(), p.isnan())
+    assert torch.equal(k.isposinf(), p.isposinf())
+    fin = torch.isfinite(p)
+    assert bool((~fin).any()) and bool(torch.isfinite(k[fin]).all())
+    _allclose(k[fin], p[fin], 1e-5, 1e-6)
+    assert torch.equal(k, launch.braai_conv3x3(x, w, b, pool))
+    mask = None
+    if pool:
+        g = torch.Generator(device=dev).manual_seed(79 + i)
+        mask = torch.rand(k.shape, generator=g, device=dev) < 0.75
+    t1 = launch.braai_conv3x3_train(x, w, b, pool, mask, 0.75)
+    t2 = launch.braai_conv3x3_train(x, w, b, pool, mask, 0.75)
+    assert torch.equal(t1[0], t2[0])
+    assert (t1[1] is None and t2[1] is None) or torch.equal(t1[1], t2[1])
+
+
+@pytest.mark.parametrize('seed', range(4))
+@pytest.mark.parametrize('i', range(4))
+def test_braai_conv3x3_no_further_from_float64_than_cudnn(dev, i, seed):
+    """Each H13 layer at the scoring path's batch of 256, on the spread
+    seed-0 weights and ``labelled_triplets(256, seed)``, against a float64
+    convolution: its largest error is at most cuDNN's (TF32 off) plus half
+    an ulp of the layer's largest output. Not at every batch: at 16
+    (seed 5) cuDNN came out nearer float64 at layers 3 and 4 on an H100,
+    by more than that (7.4e-7 against 5.2e-7, 1.01e-6 against 6.5e-7);
+    ``chip_smoke.py`` prints that case each run."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    assert not torch.backends.cudnn.allow_tf32
+    model, params = braai.init_braai(0, device='cpu')
+    model.load_params(inputs.spread_braai(params))
+    model = model.to(dev)
+    t, _ = inputs.labelled_triplets(256, seed=seed)
+    x = torch.as_tensor(t, device=dev)
+    with torch.no_grad():
+        for j in range(i):
+            layer = getattr(model, f'Conv_{j}')
+            x = braai.conv3x3_plain(x, layer['kernel'], layer['bias'],
+                                    launch.BRAAI_LAYERS[j][2])
+    pool = launch.BRAAI_LAYERS[i][2]
+    layer = getattr(model, f'Conv_{i}')
+    w, b = layer['kernel'], layer['bias']
+    k = launch.braai_conv3x3(x, w, b, pool)
+    lib = braai.conv3x3_plain(x, w, b, pool)
+    ref = braai.conv3x3_plain(x.double(), w.double(), b.double(), pool)
+    ek = float((k.double() - ref).abs().max())
+    el = float((lib.double() - ref).abs().max())
+    half = float(np.spacing(np.float32(float(ref.abs().max())))) / 2
+    assert ek <= el + half, (ek, el, half)
+
+
+@pytest.mark.parametrize('i', (1, 3))
+def test_braai_train_routing_off_only_at_near_ties(dev, i):
+    """H13t's routing bytes at a batch of 32 against the plain version's:
+    equal off the near ties, which stay under 1% of the windows."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.models import braai
+    cin, cout, pool = launch.BRAAI_LAYERS[i]
+    side = (63, 61, 29, 27)[i]
+    x = _rand((32, side, side, cin), dev, 190 + i, 0.05).abs()
+    w = _rand((3, 3, cin, cout), dev, 195 + i, (1.0 / (9 * cin)) ** 0.5)
+    b = _rand((cout,), dev, 198 + i, 0.01)
+    k, kr = launch.braai_conv3x3_train(x, w, b, pool)
+    p, pr = braai.conv3x3_train_plain(x, w, b, pool)
+    _allclose(k, p, 1e-5, 1e-6)
+    r = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b)
+    tie = _near_ties(r, F.max_pool2d(r, 2, 2), 1e-5 * float(r.abs().max()))
+    assert torch.equal(kr[~tie], pr[~tie])
+    assert float(tie.float().mean()) < 0.01
 
 
 def test_braai_scores_card_equals_plain(dev):

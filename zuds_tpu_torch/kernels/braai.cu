@@ -3,28 +3,36 @@
 // gradient.
 //
 // H13 replaces the four nn.Conv layers of zuds_tpu/models/braai.py:27-49
-// (BraaiD6, scored by rb_scores at :78-81): a direct 3x3 VALID correlation
-// of an NHWC f32 batch with an HWIO kernel (no flip, as flax and F.conv2d
+// (BraaiD6, scored by rb_scores at :78-81): a 3x3 VALID correlation of an
+// NHWC f32 batch with an HWIO kernel (no flip, as flax and F.conv2d
 // compute it), plus the bias, then ReLU, and for layers 2 and 4 the 2x2/2
 // max pool fused into the epilogue (floor: the odd last row and column
-// are dropped, 59 -> 29 and 25 -> 12). FP32 FMAs only: no TF32, no bf16.
+// are dropped, 59 -> 29 and 25 -> 12; a pooled layer computes only the
+// 58x58 and 24x24 outputs its pool reads). NaN and +-inf reach exactly the
+// outputs the plain version gives them (ReLU and the pool carry NaN).
 //
-// One thread per output pixel (per pooled pixel: its 2x2 convolution
-// outputs) and kCT output channels, held in registers; a block is 256
-// pixels of one image and one tile of kCT output channels, whose
-// 3 x 3 x Cin x kCT weights sit in shared memory (36 KB at Cin = 64, under
-// the 48 KB static limit; Conv_3's whole kernel, 147 KB, does not fit, so
-// the output channels are tiled). Each input value read (float4 over
-// four input channels where Cin allows) feeds kCT FMAs per pixel; the
-// weights are read as float4 broadcasts from shared memory. The input of
-// one image (at most 476 KB) stays in L1/L2 across its nine taps and the
-// channel tiles. NaN passes through ReLU and the pool as in the plain
-// version (torch.relu and max_pool2d propagate it).
+// Layer 1 (Cin = 3, K = 27) is bound by bytes and stays a direct
+// correlation on fp32 FMAs (conv3x3_kernel). Layers 2-4 are implicit GEMMs
+// on the tensor cores (conv3x3_mma_kernel), M = convolution outputs, N =
+// Cout, K = 9 Cin tap-major (288, 288, 576), in H19's 3xTF32 (below):
+// the input staged once a block and split hi/lo once per staged element,
+// the weights split once a call by a first launch (split_fwd_weights_kernel)
+// into fragment order and streamed in chunks of 32 input channels of one
+// tap through a cp.async double buffer, the pool, routing and dropout
+// formed in registers. A non-finite value goes whole into lo (hi = 0), so
+// inf * w stays inf (split_nf), and the flush drops a non-finite
+// compensation (flush_nf). ptxas (sm_90a): 127-128 registers a thread, no
+// spill, at every instance; 90-110 KB of shared memory (fwd_smem: the
+// staged rows split hi/lo and two weight chunks; 108,544, 92,160 and
+// 112,640 B at layers 2-4): two blocks an SM. Layer 1's conv3x3_kernel:
+// 42 registers, no spill.
 //
-// Bound: operations. 137.8 MFLOP per triplet over the four layers (6.43,
-// 62.0, 26.9 and 42.5 M: a pooled layer computes only the 58x58 and 24x24
-// outputs its pool reads), against 1.7 MB of activations moved: at 67
-// TFLOP/s fp32 a batch of 256 triplets needs 0.53 ms.
+// Bound: 137.8 MFLOP per triplet over the four layers (6.43, 62.0, 26.9
+// and 42.5 M), against 1.7 MB of activations moved: at 256 triplets layer
+// 1 0.040 ms by bytes, layers 2-4 0.096, 0.042 and 0.066 ms by operations
+// on 3xTF32 (three TF32 products a product at 495 TFLOP/s), 0.244 ms in
+// all (0.54 ms on fp32 FMAs at 67 TFLOP/s). On an H100 the four layers
+// take 0.90 ms (chip_smoke.py), 27% of that bound.
 //
 // H13t (the TRAIN flag of the same kernel) replaces the layers' forward
 // under train_step (braai.py:90-105, BraaiD6 at train=True). It computes
@@ -52,18 +60,19 @@
 //   gw[ky, kx, ci, co] = sum_{n, cy, cx} x[n, cy + ky, cx + kx, ci] gz[n, cy, cx, co]
 //   gb[co] = sum_{n, cy, cx} gz[n, cy, cx, co].
 //
-// Both are implicit GEMMs on the tensor cores, mma.sync m16n8k8 with the
-// 3xTF32 split of H3 (apply.cu): v_hi = tf32(v), v_lo = tf32(v - v_hi) by
-// cvt.rna, a*b ~ a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, each product exact, so
-// the sum keeps fp32's accuracy (the dropped a_lo*b_lo is below 2^-22 of
-// |a*b|); one TF32 pass, bf16 or fp16 are not used. A chain of a few
-// k-steps (the lo passes first in each) runs on the tensor cores, then is
-// added into a second f32 accumulator by Kahan's compensated sum, whose
-// compensation rides in the next chain's C (the flush: H19 once a tap, H20
-// every 4 k-steps). With 72 plain rounded adds an output instead (9 taps x
-// 64 channels / 8), H19's layers 3-4 came out further from float64 than
-// cuDNN (TF32 off) on an H100, at their largest error; a fourth pass
-// (lo*lo) changed nothing. H20's bias sums and second pass are compensated.
+// H13 (layers 2-4), H19 and H20 are implicit GEMMs on the tensor cores,
+// mma.sync m16n8k8 with the 3xTF32 split of H3 (apply.cu): v_hi =
+// tf32(v), v_lo = tf32(v - v_hi) by cvt.rna, a*b ~ a_lo*b_hi + a_hi*b_lo +
+// a_hi*b_hi, each product exact, so the sum keeps fp32's accuracy (the
+// dropped a_lo*b_lo is below 2^-22 of |a*b|); one TF32 pass, bf16 or fp16
+// are not used. A chain of a few k-steps (the lo passes first in each)
+// runs on the tensor cores, then is added into a second f32 accumulator by
+// Kahan's compensated sum, whose compensation rides in the next chain's C
+// (the flush: H19 once a tap, H13 and H20 every 4 k-steps). With 72 plain
+// rounded adds an output instead (9 taps x 64 channels / 8), H19's layers
+// 3-4 came out further from float64 than cuDNN (TF32 off) on an H100, at
+// their largest error; a fourth pass (lo*lo) changed nothing. H20's bias
+// sums and second pass are compensated.
 //
 // H19, M = input pixels, N = Cin, K = 9 Cout (tap-major). A block is 256
 // consecutive pixels of one image (128 at Cin = 64: the 8 warps are 32
@@ -110,13 +119,16 @@ __device__ __forceinline__ float relu_nan(float v) {
   return (v > 0.f || isnan(v)) ? v : 0.f;
 }
 
-template <int CIN, int COUT, bool POOL, bool TRAIN>
+// H13 and H13t at layer 1 (Cin = 3, unpooled): a direct correlation on
+// fp32 FMAs, bound by bytes. One thread per output pixel and kCT output
+// channels in registers; a block is 256 pixels of one image and one tile
+// of kCT channels, whose 3 x 3 x CIN x kCT weights sit in shared memory
+// and are read as float4 broadcasts.
+template <int CIN, int COUT>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_kernel(const float* __restrict__ in, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   uint8_t* __restrict__ route,
-                   const uint8_t* __restrict__ mask, float keep, int H,
-                   int W, int tiles) {
+                   int H, int W, int tiles) {
   __shared__ __align__(16) float s_w[9 * CIN * kCT];
   const int n = blockIdx.x / tiles;
   const int tile = blockIdx.x - n * tiles;
@@ -127,119 +139,42 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  const int Hc = H - 2, Wc = W - 2;       // the convolution's output
-  const int Ho = POOL ? Hc / 2 : Hc, Wo = POOL ? Wc / 2 : Wc;
+  const int Ho = H - 2, Wo = W - 2;
   const int p = tile * kThreads + threadIdx.x;
   if (p >= Ho * Wo) return;
   const int oy = p / Wo, ox = p - oy * Wo;
-  constexpr int NP = POOL ? 4 : 1;        // convolution outputs per thread
-  const int cy = POOL ? 2 * oy : oy, cx = POOL ? 2 * ox : ox;
   const float* img = in + (long long)n * H * W * CIN;
 
-  float acc[NP][kCT];
+  float acc[kCT];
 #pragma unroll
-  for (int q = 0; q < NP; ++q)
-#pragma unroll
-    for (int j = 0; j < kCT; ++j) acc[q][j] = 0.f;
-
+  for (int j = 0; j < kCT; ++j) acc[j] = 0.f;
 #pragma unroll 1
   for (int k = 0; k < 9; ++k) {
     const int ky = k / 3, kx = k - ky * 3;
-    const float* ip[NP];
-#pragma unroll
-    for (int q = 0; q < NP; ++q)
-      ip[q] = img + ((cy + (q >> 1) + ky) * W + cx + (q & 1) + kx) * CIN;
+    const float* ip = img + ((oy + ky) * W + ox + kx) * CIN;
     const float* wk = s_w + k * CIN * kCT;
-    if constexpr (CIN % 4 == 0) {
-#pragma unroll 2
-      for (int ci = 0; ci < CIN; ci += 4) {
-        float4 x[NP];
 #pragma unroll
-        for (int q = 0; q < NP; ++q)
-          x[q] = *reinterpret_cast<const float4*>(ip[q] + ci);
+    for (int ci = 0; ci < CIN; ++ci) {
+      const float xv = ip[ci];
+      const float4* w4 = reinterpret_cast<const float4*>(wk + ci * kCT);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float4* w4 =
-              reinterpret_cast<const float4*>(wk + (ci + c) * kCT);
-#pragma unroll
-          for (int j4 = 0; j4 < kCT / 4; ++j4) {
-            const float4 wv = w4[j4];
-#pragma unroll
-            for (int q = 0; q < NP; ++q) {
-              const float xv = c == 0 ? x[q].x : c == 1 ? x[q].y
-                               : c == 2 ? x[q].z : x[q].w;
-              acc[q][4 * j4 + 0] = fmaf(xv, wv.x, acc[q][4 * j4 + 0]);
-              acc[q][4 * j4 + 1] = fmaf(xv, wv.y, acc[q][4 * j4 + 1]);
-              acc[q][4 * j4 + 2] = fmaf(xv, wv.z, acc[q][4 * j4 + 2]);
-              acc[q][4 * j4 + 3] = fmaf(xv, wv.w, acc[q][4 * j4 + 3]);
-            }
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int ci = 0; ci < CIN; ++ci) {
-        const float4* w4 = reinterpret_cast<const float4*>(wk + ci * kCT);
-#pragma unroll
-        for (int q = 0; q < NP; ++q) {
-          const float xv = ip[q][ci];
-#pragma unroll
-          for (int j4 = 0; j4 < kCT / 4; ++j4) {
-            const float4 wv = w4[j4];
-            acc[q][4 * j4 + 0] = fmaf(xv, wv.x, acc[q][4 * j4 + 0]);
-            acc[q][4 * j4 + 1] = fmaf(xv, wv.y, acc[q][4 * j4 + 1]);
-            acc[q][4 * j4 + 2] = fmaf(xv, wv.z, acc[q][4 * j4 + 2]);
-            acc[q][4 * j4 + 3] = fmaf(xv, wv.w, acc[q][4 * j4 + 3]);
-          }
-        }
+      for (int j4 = 0; j4 < kCT / 4; ++j4) {
+        const float4 wv = w4[j4];
+        acc[4 * j4 + 0] = fmaf(xv, wv.x, acc[4 * j4 + 0]);
+        acc[4 * j4 + 1] = fmaf(xv, wv.y, acc[4 * j4 + 1]);
+        acc[4 * j4 + 2] = fmaf(xv, wv.z, acc[4 * j4 + 2]);
+        acc[4 * j4 + 3] = fmaf(xv, wv.w, acc[4 * j4 + 3]);
       }
     }
   }
-
-  const long long off = (((long long)n * Ho + oy) * Wo + ox) * COUT + co0;
-  constexpr bool kRoute = TRAIN && POOL;
-  uint8_t keepb[kCT];
-  if constexpr (kRoute) {
-    if (mask != nullptr) {
-      const uint4 m = *reinterpret_cast<const uint4*>(mask + off);
-      memcpy(keepb, &m, sizeof(keepb));
-    } else {
-#pragma unroll
-      for (int j = 0; j < kCT; ++j) keepb[j] = 1;
-    }
-  }
-  float res[kCT];
-  uint8_t rt[kCT];
-#pragma unroll
-  for (int j = 0; j < kCT; ++j) {
-    const float b = bias[co0 + j];
-    // nan_max's update rule, tracking where the first maximum sits
-    float v = relu_nan(acc[0][j] + b);
-    int arg = 0;
-#pragma unroll
-    for (int q = 1; q < NP; ++q) {
-      const float u = relu_nan(acc[q][j] + b);
-      if (isnan(u) || u > v) {
-        v = u;
-        arg = q;
-      }
-    }
-    if constexpr (kRoute) {
-      rt[j] = v > 0.f ? (uint8_t)arg : kNoRoute;
-      v = keepb[j] ? __fdiv_rn(v, keep) : 0.f;
-    }
-    res[j] = v;
-  }
-  float4* o = reinterpret_cast<float4*>(out + off);
+  float4* o = reinterpret_cast<float4*>(out + ((long long)n * Ho * Wo + p) *
+                                                  COUT + co0);
 #pragma unroll
   for (int j4 = 0; j4 < kCT / 4; ++j4)
-    o[j4] = make_float4(res[4 * j4], res[4 * j4 + 1], res[4 * j4 + 2],
-                        res[4 * j4 + 3]);
-  if constexpr (kRoute) {
-    uint4 r;
-    memcpy(&r, rt, sizeof(r));
-    *reinterpret_cast<uint4*>(route + off) = r;
-  }
+    o[j4] = make_float4(relu_nan(acc[4 * j4] + bias[co0 + 4 * j4]),
+                        relu_nan(acc[4 * j4 + 1] + bias[co0 + 4 * j4 + 1]),
+                        relu_nan(acc[4 * j4 + 2] + bias[co0 + 4 * j4 + 2]),
+                        relu_nan(acc[4 * j4 + 3] + bias[co0 + 4 * j4 + 3]));
 }
 
 // The gradient at the convolution's output, four channels co..co+3 at
@@ -349,6 +284,332 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- H13 on the tensor cores (layers 2-4) ----------------------------------
+// The 3xTF32 split of one value, v = hi + lo. A non-finite v (or one whose
+// TF32 rounding overflows) goes whole into lo with hi = 0: the products
+// then reduce to lo * b_hi, so +-inf times a weight stays +-inf (a split
+// lo = 0 would add inf * b_lo, NaN where b_lo is 0 or of the other sign)
+// and NaN stays NaN.
+__device__ __forceinline__ void split_nf(float v, float& hi, float& lo) {
+  const float h = tf32(v);
+  if (isfinite(h)) {
+    hi = h;
+    lo = tf32(v - h);
+  } else {
+    hi = 0.f;
+    lo = v;
+  }
+}
+
+// The flush of flush(), with the compensation dropped where the sum is not
+// finite (inf - inf would carry a NaN into the next chain).
+template <int MT, int NT>
+__device__ __forceinline__ void flush_nf(float (&sum)[MT][NT][4],
+                                         float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float t = sum[m][j][e] + acc[m][j][e];
+        const float c = acc[m][j][e] - (t - sum[m][j][e]);
+        acc[m][j][e] = isfinite(t) ? c : 0.f;
+        sum[m][j][e] = t;
+      }
+}
+
+constexpr int kFwKC = 32;       // input channels (K) of a weight chunk
+constexpr int kFwBR = 2;        // pooled rows a block
+constexpr int kFwBM = 128;      // convolution outputs a block, unpooled
+
+template <int CIN, int COUT>
+struct FwdTile {
+  static constexpr int kCG = COUT / 32;             // warps along Cout
+  static constexpr int kNTT = COUT / 8;             // n-tiles of Cout
+  static constexpr int kChunks = 9 * CIN / kFwKC;   // 9, 9, 18
+  static constexpr int kChunkF4 = kFwKC / 8 * kNTT * 32;   // float4 a chunk
+  static constexpr int kMaxPW = 32 / kCG;           // pooled columns a block
+};
+
+// A block's share of one image and the staged input. Pooled: kFwBR pooled
+// rows by a segment of at most kMaxPW pooled columns (8 pooled outputs a
+// warp group), the input rows and columns they read staged with the even
+// columns before the odd (so a tap's eight A rows, at every other column,
+// are consecutive slots). Unpooled: kFwBM consecutive outputs in row-major
+// order and the whole input rows they read.
+struct FwdGeom {
+  int H, W, Ho, Wo;
+  int bands;        // blocks an image
+  int segs, pw;     // pooled: column segments a band, pooled columns each
+  int groups;       // warp groups along M (8 pooled or 32 plain outputs)
+  int rows, ws, wh; // staged rows, slots a row, slots of the even columns
+};
+
+template <int CIN, int COUT, bool POOL>
+__host__ __device__ FwdGeom fwd_geom(int H, int W) {
+  using T = FwdTile<CIN, COUT>;
+  FwdGeom g;
+  g.H = H;
+  g.W = W;
+  if (POOL) {
+    g.Ho = (H - 2) / 2;
+    g.Wo = (W - 2) / 2;
+    g.segs = (g.Wo + T::kMaxPW - 1) / T::kMaxPW;
+    g.pw = g.segs > 0 ? (g.Wo + g.segs - 1) / g.segs : 0;
+    g.groups = (kFwBR * g.pw + 7) / 8;
+    g.bands = (g.Ho + kFwBR - 1) / kFwBR * g.segs;
+    g.rows = 2 * kFwBR + 2;
+    g.wh = g.pw + 1;
+    g.ws = 2 * g.wh;
+  } else {
+    g.Ho = H - 2;
+    g.Wo = W - 2;
+    g.segs = 1;
+    g.pw = 0;
+    g.groups = kFwBM / 32;
+    g.bands = (g.Ho * g.Wo + kFwBM - 1) / kFwBM;
+    g.rows = (kFwBM - 1) / g.Wo + 4 < H ? (kFwBM - 1) / g.Wo + 4 : H;
+    g.wh = 0;
+    g.ws = W;
+  }
+  return g;
+}
+
+template <int CIN, int COUT>
+size_t fwd_smem(const FwdGeom& g) {
+  return (2 * (size_t)g.rows * g.ws * CIN +
+          2 * (size_t)FwdTile<CIN, COUT>::kChunkF4 * 4) *
+         sizeof(float);
+}
+
+// H13's weights split once a call, in the blocks' fragment order: chunk c
+// (tap c / (CIN / 32), input channels 32 (c % (CIN / 32)) ..), entry (ks
+// kNTT + nt) 32 + lane holds w[tap][c0 + ks 8 + t (+4)][nt 8 + g], hi and
+// lo: (b0_hi, b1_hi, b0_lo, b1_lo).
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads)
+    split_fwd_weights_kernel(const float* __restrict__ w,
+                             float4* __restrict__ wf) {
+  using T = FwdTile<CIN, COUT>;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= T::kChunks * T::kChunkF4) return;
+  const int c = e / T::kChunkF4, r0 = e - c * T::kChunkF4;
+  const int ln = r0 & 31, r = r0 >> 5;
+  const int nt = r % T::kNTT, ks = r / T::kNTT;
+  const int tap = c / (CIN / kFwKC);
+  const int ci = (c % (CIN / kFwKC)) * kFwKC + ks * 8 + (ln & 3);
+  const float* src = w + (tap * CIN + ci) * COUT + nt * 8 + (ln >> 2);
+  float h0, l0, h1, l1;
+  split_nf(src[0], h0, l0);
+  split_nf(src[4 * COUT], h1, l1);
+  wf[e] = make_float4(h0, h1, l0, l1);
+}
+
+// H13 and H13t at layers 2-4: M = the block's convolution outputs, N =
+// Cout, K = 9 Cin (tap-major). Each warp holds 32 outputs x 32 channels
+// (2 m-tiles x 4 n-tiles); at a pooled layer its m-tiles are 8 pooled
+// outputs, rows g and g + 8 of m-tile dy the window positions (dy, 0) and
+// (dy, 1), so the 2x2 max, the routing byte and the dropout are formed in
+// registers. The input is staged once, split hi/lo, rows of CIN floats
+// with the 16-byte chunks XOR-swizzled by the slot (ldmatrix reads eight
+// slots of one chunk without a bank conflict); the split weights stream
+// through a cp.async double buffer, 32 input channels (4 k-steps) a chunk:
+// chunk c + 1 is copied while chunk c runs. Each chunk's chain of 4
+// k-steps is flushed into the sum by flush_nf.
+template <int CIN, int COUT, bool POOL, bool TRAIN>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv3x3_mma_kernel(const float* __restrict__ in,
+                       const float4* __restrict__ wf,
+                       const float* __restrict__ bias, float* __restrict__ out,
+                       uint8_t* __restrict__ route,
+                       const uint8_t* __restrict__ mask, float keep,
+                       FwdGeom G) {
+  using T = FwdTile<CIN, COUT>;
+  extern __shared__ __align__(16) float smem[];
+  const int nx = G.rows * G.ws * CIN;
+  float* s_hi = smem;
+  float* s_lo = s_hi + nx;
+  float4* s_w = reinterpret_cast<float4*>(s_lo + nx);
+  const int nthreads = blockDim.x;
+
+  const auto load_chunk = [&](int c) {
+    const float4* src = wf + c * T::kChunkF4;
+    float4* dst = s_w + (c & 1) * T::kChunkF4;
+    for (int i = threadIdx.x; i < T::kChunkF4; i += nthreads)
+      cp_async16(dst + i, src + i);
+  };
+  load_chunk(0);
+
+  const int n = blockIdx.x / G.bands, band = blockIdx.x - n * G.bands;
+  // the block's outputs and the input it stages: rows y0.., columns x0..
+  int y0, x0, ncol, nvalid, p0 = 0;
+  if (POOL) {
+    const int rb = band / G.segs, seg = band - rb * G.segs;
+    const int py0 = rb * kFwBR, px0 = seg * G.pw;
+    ncol = min(G.pw, G.Wo - px0);
+    nvalid = min(kFwBR, G.Ho - py0) * ncol;
+    y0 = 2 * py0;
+    x0 = 2 * px0;
+  } else {
+    p0 = band * kFwBM;
+    nvalid = min(kFwBM, G.Ho * G.Wo - p0);
+    ncol = G.Wo;
+    y0 = p0 / G.Wo;
+    x0 = 0;
+  }
+  const int srows = min(G.rows, G.H - y0);
+  const int scols = POOL ? min(G.ws, G.W - x0) : G.W;
+  {
+    const float* src = in + (((long long)n * G.H + y0) * G.W + x0) * CIN;
+    const int total = srows * scols * (CIN / 4);
+    for (int e = threadIdx.x; e < total; e += nthreads) {
+      const int c4 = e % (CIN / 4), pix = e / (CIN / 4);
+      const int row = pix / scols, col = pix - row * scols;
+      const float4 v = *reinterpret_cast<const float4*>(
+          src + ((long long)row * G.W + col) * CIN + 4 * c4);
+      const int slot = POOL ? (col & 1) * G.wh + (col >> 1) : col;
+      const int L = row * G.ws + slot;
+      const int off = L * CIN + ((c4 ^ (L & 7)) << 2);
+      float4 hi, lo;
+      split_nf(v.x, hi.x, lo.x);
+      split_nf(v.y, hi.y, lo.y);
+      split_nf(v.z, hi.z, lo.z);
+      split_nf(v.w, hi.w, lo.w);
+      *reinterpret_cast<float4*>(s_hi + off) = hi;
+      *reinterpret_cast<float4*>(s_lo + off) = lo;
+    }
+  }
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int cg = warp % T::kCG, grp = warp / T::kCG;
+  // the A row this lane addresses for ldmatrix (row lane % 16, channels
+  // +4 (lane / 16)): its slot at tap (0, 0) for each m-tile, clamped to a
+  // valid output (rows past the block's outputs are computed and dropped)
+  const int ar = lane & 15, dx = ar >> 3;
+  int abase[2];
+  if (POOL) {
+    const int s = min(grp * 8 + (ar & 7), nvalid - 1);
+    const int ly = s / ncol, lx = s - ly * ncol;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) abase[m] = (2 * ly + m) * G.ws + lx;
+  } else {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int p = min(p0 + grp * 32 + m * 16 + ar, p0 + nvalid - 1);
+      const int cy = p / G.Wo;
+      abase[m] = (cy - y0) * G.ws + p - cy * G.Wo;
+    }
+  }
+
+  float sum[2][4][4], acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[m][j][e] = acc[m][j][e] = 0.f;
+
+#pragma unroll 1
+  for (int c = 0; c < T::kChunks; ++c) {
+    cp_async_wait_all();
+    __syncthreads();     // chunk c and the staged input are visible; chunk
+                         // c - 1's buffer is free
+    if (c + 1 < T::kChunks) load_chunk(c + 1);
+    const int tap = c / (CIN / kFwKC);
+    const int ci0 = (c - tap * (CIN / kFwKC)) * kFwKC;
+    const int ky = tap / 3, kx = tap - ky * 3;
+    const int toff =
+        POOL ? ky * G.ws + ((dx + kx) & 1) * G.wh + ((dx + kx) >> 1)
+             : ky * G.ws + kx;
+    int L[2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) L[m] = abase[m] + toff;
+    const float4* wb = s_w + (c & 1) * T::kChunkF4;
+#pragma unroll
+    for (int ks = 0; ks < kFwKC / 8; ++ks) {
+      const int q = (ci0 >> 2) + ks * 2 + (lane >> 4);   // 16-byte chunk
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int off = L[m] * CIN + ((q ^ (L[m] & 7)) << 2);
+        ldsm_x4(ah[m], s_hi + off);
+        ldsm_x4(al[m], s_lo + off);
+      }
+      float4 b[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        b[j] = wb[(ks * T::kNTT + cg * 4 + j) * 32 + lane];
+      mma3<2, 4>(acc, ah, al, b);
+    }
+    flush_nf<2, 4>(sum, acc);
+  }
+  flush_nf<2, 4>(sum, acc);     // the last compensation
+
+  const int co0 = cg * 32 + 2 * t;
+  if (POOL) {
+    const int s = grp * 8 + g;
+    if (s >= nvalid) return;
+    const int ly = s / ncol, lx = s - ly * ncol;
+    const int py = y0 / 2 + ly, px = x0 / 2 + lx;
+    const long long off = (((long long)n * G.Ho + py) * G.Wo + px) * COUT;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = co0 + j * 8;
+      uchar2 kb = make_uchar2(1, 1);
+      if (TRAIN && mask != nullptr)
+        kb = *reinterpret_cast<const uchar2*>(mask + off + co);
+      float res[2];
+      uint8_t rt[2] = {0, 0};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float b = bias[co + e];
+        // positions 0-3 of the window, row-major; nan_max's update rule,
+        // tracking where the first maximum sits
+        const float q[4] = {sum[0][j][e], sum[0][j][2 + e], sum[1][j][e],
+                            sum[1][j][2 + e]};
+        float v = relu_nan(q[0] + b);
+        int arg = 0;
+#pragma unroll
+        for (int k = 1; k < 4; ++k) {
+          const float u = relu_nan(q[k] + b);
+          if (isnan(u) || u > v) {
+            v = u;
+            arg = k;
+          }
+        }
+        if constexpr (TRAIN) {
+          rt[e] = v > 0.f ? (uint8_t)arg : kNoRoute;
+          v = (e == 0 ? kb.x : kb.y) ? __fdiv_rn(v, keep) : 0.f;
+        }
+        res[e] = v;
+      }
+      *reinterpret_cast<float2*>(out + off + co) = make_float2(res[0], res[1]);
+      if constexpr (TRAIN)
+        *reinterpret_cast<uchar2*>(route + off + co) =
+            make_uchar2(rt[0], rt[1]);
+    }
+  } else {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = grp * 32 + m * 16 + g + 8 * h;
+        if (p >= nvalid) continue;
+        const long long off =
+            ((long long)n * G.Ho * G.Wo + p0 + p) * COUT + co0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int co = co0 + j * 8;
+          *reinterpret_cast<float2*>(out + off + j * 8) =
+              make_float2(relu_nan(sum[m][j][2 * h] + bias[co]),
+                          relu_nan(sum[m][j][2 * h + 1] + bias[co + 1]));
+        }
+      }
+  }
 }
 
 // ---- H19 -------------------------------------------------------------------
@@ -756,17 +1017,15 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = s - comp;
 }
 
-template <int CIN, int COUT, bool POOL, bool TRAIN>
+template <int CIN, int COUT>
 int launch(const float* in, const float* w, const float* bias, float* out,
-           uint8_t* route, const uint8_t* mask, float keep, int N, int H,
-           int W, cudaStream_t stream) {
-  const int Hc = H - 2, Wc = W - 2;
-  const int npix = POOL ? (Hc / 2) * (Wc / 2) : Hc * Wc;
+           int N, int H, int W, cudaStream_t stream) {
+  const int npix = (H - 2) * (W - 2);
   const int tiles = (npix + kThreads - 1) / kThreads;
   if (N > 0 && npix > 0) {
     const dim3 grid(N * tiles, COUT / kCT);
-    conv3x3_kernel<CIN, COUT, POOL, TRAIN><<<grid, kThreads, 0, stream>>>(
-        in, w, bias, out, route, mask, keep, H, W, tiles);
+    conv3x3_kernel<CIN, COUT><<<grid, kThreads, 0, stream>>>(in, w, bias, out,
+                                                             H, W, tiles);
   }
   return (int)cudaGetLastError();
 }
@@ -780,6 +1039,34 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) cudaGetLastError();
   return err;
+}
+
+// H13/H13t at layers 2-4: the weights split into wsplit (18 CIN COUT
+// floats, 16-byte aligned) by a first launch, then the implicit GEMM. A
+// shape whose staged input does not fit in shared memory is refused
+// (the error returned, not left pending).
+template <int CIN, int COUT, bool POOL, bool TRAIN>
+int launch_mma(const float* in, const float* w, const float* bias,
+               float* wsplit, float* out, uint8_t* route, const uint8_t* mask,
+               float keep, int N, int H, int W, cudaStream_t stream) {
+  using T = FwdTile<CIN, COUT>;
+  const FwdGeom g = fwd_geom<CIN, COUT, POOL>(H, W);
+  if (N > 0 && g.Ho > 0 && g.Wo > 0) {
+    const size_t smem = fwd_smem<CIN, COUT>(g);
+    cudaError_t err = allow_smem(conv3x3_mma_kernel<CIN, COUT, POOL, TRAIN>,
+                                 smem);
+    if (err != cudaSuccess) return (int)err;
+    constexpr int kEntries = T::kChunks * T::kChunkF4;     // float4
+    float4* wf = reinterpret_cast<float4*>(wsplit);
+    split_fwd_weights_kernel<CIN, COUT>
+        <<<(kEntries + kThreads - 1) / kThreads, kThreads, 0, stream>>>(w,
+                                                                        wf);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    conv3x3_mma_kernel<CIN, COUT, POOL, TRAIN>
+        <<<N * g.bands, 32 * T::kCG * g.groups, smem, stream>>>(
+            in, wf, bias, out, route, mask, keep, g);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <int CIN, int COUT, bool POOL>
@@ -833,23 +1120,25 @@ int launch_wgrad(const float* x, const float* gy, const uint8_t* route,
 }  // namespace
 
 // in (N, H, W, Cin), w (3, 3, Cin, Cout), bias (Cout,), out (N, Ho, Wo,
-// Cout), all f32 and contiguous; the four layers of BraaiD6 only.
+// Cout), all f32 and contiguous; the four layers of BraaiD6 only. wsplit:
+// scratch of 18 Cin Cout floats, 16-byte aligned (layers 2-4: the weights
+// split hi/lo; unused, may be null, at layer 1).
 extern "C" int zuds_braai_conv3x3(const float* in, const float* w,
-                                  const float* bias, float* out, int N,
-                                  int H, int W, int Cin, int Cout, int pool,
-                                  cudaStream_t stream) {
+                                  const float* bias, float* wsplit,
+                                  float* out, int N, int H, int W, int Cin,
+                                  int Cout, int pool, cudaStream_t stream) {
   if (Cin == 3 && Cout == 32 && !pool)
-    return launch<3, 32, false, false>(in, w, bias, out, nullptr, nullptr,
-                                       1.f, N, H, W, stream);
+    return launch<3, 32>(in, w, bias, out, N, H, W, stream);
   if (Cin == 32 && Cout == 32 && pool)
-    return launch<32, 32, true, false>(in, w, bias, out, nullptr, nullptr,
-                                       1.f, N, H, W, stream);
+    return launch_mma<32, 32, true, false>(in, w, bias, wsplit, out, nullptr,
+                                           nullptr, 1.f, N, H, W, stream);
   if (Cin == 32 && Cout == 64 && !pool)
-    return launch<32, 64, false, false>(in, w, bias, out, nullptr, nullptr,
-                                        1.f, N, H, W, stream);
+    return launch_mma<32, 64, false, false>(in, w, bias, wsplit, out,
+                                            nullptr, nullptr, 1.f, N, H, W,
+                                            stream);
   if (Cin == 64 && Cout == 64 && pool)
-    return launch<64, 64, true, false>(in, w, bias, out, nullptr, nullptr,
-                                       1.f, N, H, W, stream);
+    return launch_mma<64, 64, true, false>(in, w, bias, wsplit, out, nullptr,
+                                           nullptr, 1.f, N, H, W, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -857,23 +1146,23 @@ extern "C" int zuds_braai_conv3x3(const float* in, const float* w,
 // Cout) u8 and the dropout mask (u8 of the same shape, or null for none)
 // applied as mask ? v / keep : 0.
 extern "C" int zuds_braai_conv3x3_train(const float* in, const float* w,
-                                        const float* bias, float* out,
-                                        uint8_t* route, const uint8_t* mask,
-                                        float keep, int N, int H, int W,
-                                        int Cin, int Cout, int pool,
+                                        const float* bias, float* wsplit,
+                                        float* out, uint8_t* route,
+                                        const uint8_t* mask, float keep,
+                                        int N, int H, int W, int Cin,
+                                        int Cout, int pool,
                                         cudaStream_t stream) {
   if (Cin == 3 && Cout == 32 && !pool)
-    return launch<3, 32, false, true>(in, w, bias, out, nullptr, nullptr,
-                                      1.f, N, H, W, stream);
+    return launch<3, 32>(in, w, bias, out, N, H, W, stream);
   if (Cin == 32 && Cout == 32 && pool)
-    return launch<32, 32, true, true>(in, w, bias, out, route, mask, keep,
-                                      N, H, W, stream);
+    return launch_mma<32, 32, true, true>(in, w, bias, wsplit, out, route,
+                                          mask, keep, N, H, W, stream);
   if (Cin == 32 && Cout == 64 && !pool)
-    return launch<32, 64, false, true>(in, w, bias, out, nullptr, nullptr,
-                                       1.f, N, H, W, stream);
+    return launch_mma<32, 64, false, true>(in, w, bias, wsplit, out, nullptr,
+                                           nullptr, 1.f, N, H, W, stream);
   if (Cin == 64 && Cout == 64 && pool)
-    return launch<64, 64, true, true>(in, w, bias, out, route, mask, keep,
-                                      N, H, W, stream);
+    return launch_mma<64, 64, true, true>(in, w, bias, wsplit, out, route,
+                                          mask, keep, N, H, W, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -58,7 +58,7 @@ SIGNATURES = {
     'zuds_apply': (_P, _P, _P, _P, ctypes.POINTER(ApplyParams), _P),
     # e_src, e_dst, e_w, ecap, ccap, nlev, max_rounds, bl, stream
     'zuds_deblend_labels': (_P, _P, _P, _I, _I, _I, _I, _P, _P),
-    # mask(u8), n, size, fill, seg_scratch, out(i64), total(i64), stream
+    # mask(u8), n, size, fill, tile_scratch, out(i64), total(i64), stream
     'zuds_compact': (_P, _I, _I, _L, _P, _P, _P, _P),
     # img, H, W, med, sigma, sat, margin, filt, cand(u8), stream
     'zuds_stamp_candidates': (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P),
@@ -82,8 +82,9 @@ SIGNATURES = {
     'zuds_triplet_cut': (_P, _P, _P, _P, _P, _I, _I, _P, _P),
     # img, W, med, sig (device scalars), x0, y0 (int32), N, veto(u8), stream
     'zuds_negpix_veto': (_P, _I, _P, _P, _P, _P, _I, _P, _P),
-    # in, w (HWIO), bias, out, N, H, W, Cin, Cout, pool, stream
-    'zuds_braai_conv3x3': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # in, w (HWIO), bias, wsplit (scratch, or null at layer 1), out, N, H,
+    # W, Cin, Cout, pool, stream
+    'zuds_braai_conv3x3': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # N, R, Pn, Pr (complex64), n, c_r, c_n, f_ref, f_new, f_rn, f_d,
     # dmax (u32 scratch), D, Pd, S, stream
     'zuds_zogy_spectral': (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _P,
@@ -94,10 +95,10 @@ SIGNATURES = {
     'zuds_psf_stamps': (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     # stamps, good0(u8), S, npix, iters, psf, good(u8), stream
     'zuds_psf_clip': (_P, _P, _I, _I, _I, _P, _P, _P),
-    # in, w, bias, out, route (u8 or null), mask (u8 or null), keep, N, H,
-    # W, Cin, Cout, pool, stream
-    'zuds_braai_conv3x3_train': (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
-                                 _I, _I, _P),
+    # in, w, bias, wsplit (as above), out, route (u8 or null), mask (u8 or
+    # null), keep, N, H, W, Cin, Cout, pool, stream
+    'zuds_braai_conv3x3_train': (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+                                 _I, _I, _I, _P),
     # gy, route, mask, y (each or null), keep, w, wsplit (scratch), gx, N,
     # H, W, Cin, Cout, pool, stream
     'zuds_braai_conv3x3_dgrad': (_P, _P, _P, _P, _F, _P, _P, _P, _I, _I, _I,

@@ -41,7 +41,9 @@ def _ptr(t):
 
 
 def _stream():
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    """PyTorch's current stream on the current device, as a pointer (an
+    int: the wrappers' stream argument is a void pointer)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def _require(name, t, dtype, shape=None):
@@ -205,26 +207,33 @@ def deblend_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds):
     return bl
 
 
+# entries of H6's smallest tile (compact.cu: 256 threads x one uint4)
+COMPACT_TILE = 4096
+
+
 def compact(mask, size, fill_value):
     """H6 (kernels/compact.cu): (int64 (size,) flat indices of the first
     ``size`` True entries of the flat bool ``mask``, ascending, padded with
-    ``fill_value``; int64 () count of True entries), both on the card."""
+    ``fill_value``; int64 () count of True entries), both on the card. Two
+    launches (count, write); ``mask`` may start at any byte."""
     _require('mask', mask, torch.bool)
     n = mask.numel()
     if mask.dim() != 1 or n >= 2 ** 31 or size < 0:
         raise ValueError(f'compact: expected a 1-D mask under 2^31 entries '
                          f'and size >= 0, got {tuple(mask.shape)}, {size}')
-    dev = mask.device
-    out = torch.empty(size, dtype=torch.int64, device=dev)
-    total = torch.empty((), dtype=torch.int64, device=dev)
-    scratch = torch.empty(max(1, -(-n // 1024)), dtype=torch.int32,
-                          device=dev)
+    # one allocation, the pointers passed as ints (the call's host cost is
+    # several times the kernels' device time): the indices, the count, and
+    # one int32 count a tile
+    tiles = max(1, -(-n // COMPACT_TILE))
+    buf = torch.empty(size + 1 + (tiles + 1) // 2, dtype=torch.int64,
+                      device=mask.device)
+    p = buf.data_ptr()
     err = build.library().zuds_compact(
-        _ptr(mask), n, int(size), int(fill_value), _ptr(scratch), _ptr(out),
-        _ptr(total), _stream())
+        mask.data_ptr(), n, int(size), int(fill_value), p + 8 * (size + 1),
+        p, p + 8 * size, _stream())
     build.check(err, 'zuds_compact')
     compact.launches += 1
-    return out, total
+    return buf[:size], buf[size]
 
 
 def stamp_candidates(img, med, sigma, sat, margin):
@@ -749,12 +758,28 @@ def _braai_saved(name, gy, saved, mask, pool, shape):
     return None, None, saved
 
 
+def _ptr_or_null(t):
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
+
+
+def _braai_wsplit(cin, cout, device):
+    """H13's scratch for the weights split hi/lo (layers 2-4), or None
+    (layer 1 runs on fp32 FMAs)."""
+    if cin == 3:
+        return None
+    return torch.empty(18 * cin * cout, dtype=torch.float32, device=device)
+
+
 def braai_conv3x3(x, w, b, pool):
     """H13 (kernels/braai.cu): ``relu(conv3x3_valid(x, w) + b)``, then with
     ``pool`` the 2x2/2 max pool (odd last row and column dropped), for an
     NHWC f32 batch ``x`` (N, H, W, Cin), an HWIO kernel ``w`` (3, 3, Cin,
     Cout) and ``b`` (Cout,), at the four layers' shapes
-    (:data:`BRAAI_LAYERS`). Returns (N, Ho, Wo, Cout) f32."""
+    (:data:`BRAAI_LAYERS`). Returns (N, Ho, Wo, Cout) f32. Layers 2-4 are
+    two launches (the weights split hi/lo into a scratch buffer, then the
+    3xTF32 implicit GEMM); an unpooled input too wide for its staged rows
+    in shared memory (past ~200 columns) is refused at launch
+    (RuntimeError)."""
     cout = w.shape[-1] if w.dim() == 4 else -1
     N, H, W, cin = _braai_layer('braai_conv3x3', x, cout, pool)
     _require('w', w, torch.float32, (3, 3, cin, cout))
@@ -762,9 +787,10 @@ def braai_conv3x3(x, w, b, pool):
     _aligned('braai_conv3x3', x)
     out = torch.empty(_braai_out_shape(N, H, W, cout, pool),
                       dtype=torch.float32, device=x.device)
+    wsplit = _braai_wsplit(cin, cout, x.device)
     err = build.library().zuds_braai_conv3x3(
-        _ptr(x), _ptr(w), _ptr(b), _ptr(out), N, H, W, cin, cout,
-        int(bool(pool)), _stream())
+        _ptr(x), _ptr(w), _ptr(b), _ptr_or_null(wsplit), _ptr(out), N, H, W,
+        cin, cout, int(bool(pool)), _stream())
     build.check(err, 'zuds_braai_conv3x3')
     braai_conv3x3.launches += 1
     return out
@@ -792,11 +818,10 @@ def braai_conv3x3_train(x, w, b, pool, mask=None, keep=1.0):
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     route = (torch.empty(shape, dtype=torch.uint8, device=x.device)
              if pool else None)
-    null = ctypes.c_void_p(None)
+    wsplit = _braai_wsplit(cin, cout, x.device)
     err = build.library().zuds_braai_conv3x3_train(
-        _ptr(x), _ptr(w), _ptr(b), _ptr(out),
-        null if route is None else _ptr(route),
-        null if mask is None else _ptr(mask), float(keep), N, H, W, cin,
+        _ptr(x), _ptr(w), _ptr(b), _ptr_or_null(wsplit), _ptr(out),
+        _ptr_or_null(route), _ptr_or_null(mask), float(keep), N, H, W, cin,
         cout, int(bool(pool)), _stream())
     build.check(err, 'zuds_braai_conv3x3_train')
     braai_conv3x3_train.launches += 1
@@ -825,11 +850,7 @@ def braai_conv3x3_dgrad(gy, w, saved, mask, keep, pool, in_shape):
     gx = torch.empty((N, H, W, cin), dtype=torch.float32, device=gy.device)
     wsplit = torch.empty(18 * cin * cout, dtype=torch.float32,
                          device=gy.device)
-    null = ctypes.c_void_p(None)
-
-    def p(t):
-        return null if t is None else _ptr(t)
-
+    p = _ptr_or_null
     err = build.library().zuds_braai_conv3x3_dgrad(
         _ptr(gy), p(route), p(mask), p(y), float(keep), _ptr(w),
         _ptr(wsplit), _ptr(gx), N, H, W, cin, cout, int(bool(pool)),
@@ -859,11 +880,7 @@ def braai_conv3x3_wgrad(x, gy, saved, mask, keep, pool):
     partial = torch.empty(max(N, 1) * count, dtype=torch.float32,
                           device=x.device)
     out = torch.empty(count, dtype=torch.float32, device=x.device)
-    null = ctypes.c_void_p(None)
-
-    def p(t):
-        return null if t is None else _ptr(t)
-
+    p = _ptr_or_null
     err = build.library().zuds_braai_conv3x3_wgrad(
         _ptr(x), _ptr(gy), p(route), p(mask), p(y), float(keep),
         _ptr(partial), _ptr(out), N, H, W, cin, cout, int(bool(pool)),
