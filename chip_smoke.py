@@ -40,8 +40,12 @@ at K = 21, order 5, 2x2 regions, and its bare launch timed with its
 tensor-core rate; H5 and H6 also on a quadrant-size busy blend field, H6
 timed by CUDA graph beside ``torch.nonzero_static`` at the slice's four
 call sites and at ``label_components``' size; H8 also on ::4 views and a
-mask with holes). Small inputs run on the card and
-on the CPU for each deblend mode, a 1024^2 crop of the blend field through
+mask with holes; H1, its two-plane mode and H10 also timed by CUDA graph
+and held no further from their plain versions run in float64 than the f32
+plain versions, two calls bit-equal). Small inputs run on the card and
+on the CPU for each deblend mode (the CPU also fed the card's H1 output,
+against which the detection count is held), a 1024^2 crop of the blend
+field through
 ``detect_sources`` on both, and the stamp selection and stamp-moment
 SEEING of the night's frame without SEEING on both. Then braai training:
 ``make_train_state(0)`` on the card and 256 triplets of
@@ -249,6 +253,16 @@ PAIR_ROT = 0.5          # degrees, the per-pair phase: residual ~14 px
 COADD_EPOCHS = 8
 COSMIC = (3, 1500, 1600, 500.0)
 COADD_NOISE = 5.0
+# f32 operations a pixel of H1's and H10's function (kernels/warp.cu) as
+# the plain versions define it, whatever the kernel does, an FMA as two:
+# the 12 weights lanczos3(t) = sinc(t) sinc(t / 3) (t, t / 3, the two
+# pi x and the product: 60), the 36 weight products wx wy and their sum,
+# the normaliser (36), and each plane's 36 multiply-adds (72). Their 24
+# sines and 24 divisions (and a plane's normalising division) are not
+# f32 multiply-adds, and the data sheet gives no peak for them: they enter
+# no bound.
+# WARP_FLOP_PX: (one plane, each more plane).
+WARP_FLOP_PX = (60 + 36 + 72 + 36, 72)
 # the card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
@@ -321,6 +335,25 @@ def bound(nbytes, flop, flop_rate=FP32_FLOP_S):
     operations over the peak rate of their type."""
     tb, tf = nbytes / HBM_BYTES_S * 1e3, flop / flop_rate * 1e3
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
+
+
+def warp_f64(name, got, plain, want64, covered):
+    """The largest errors of a warp kernel's pixels and of its f32 plain
+    version's against the plain version run in float64, on the covered
+    pixels; fails if the kernel's is the larger."""
+    ek = float((got.double() - want64).abs()[covered].max())
+    ep = float((plain.double() - want64).abs()[covered].max())
+    check(ek <= ep, f'{name}: {ek:.4g} from the float64 plain version, '
+          f'further than the f32 plain version ({ep:.4g})')
+    return ek, ep
+
+
+def warp_bound(npx, planes):
+    """H1's or H10's bound on ``npx`` output pixels: 28 bytes a pixel
+    with one plane and a mask, 8 more a plane; WARP_FLOP_PX operations."""
+    one, more = WARP_FLOP_PX
+    return bound((28 + 8 * (planes - 1)) * npx,
+                 (one + more * (planes - 1)) * npx)
 
 
 def aperture_flop(xs, ys, H, W, r, mode):
@@ -663,15 +696,24 @@ def check_planted(out, planted, tag):
 
 def small_card_vs_cpu(mode, dev):
     """The slice on a small input, card (kernels) against CPU (plain
-    versions). det_n within 1 with deblend=False; with the tree, within 1
-    plus twice the CPU's own spread under 1e-7 relative perturbations of
-    ``sci`` (the card's diff differs from the CPU's at the ulp level, and
-    the tree's splits in noise follow that spread)."""
+    versions): submask equal and the planted sources within 0.01 px. det_n
+    within 1 plus twice the CPU's own spread under 1e-7 relative
+    perturbations of ``sci`` (none with deblend=False), against the CPU
+    run whose first stage is the card's H1 (its warped reference, mask and
+    coverage fed to the CPU's remaining stages): H1 rounds its weights
+    otherwise than the plain warp (held to it, and to float64, at the warp
+    record), which moves the warped reference by a few ulp, and the tree's
+    splits in noise follow that as they follow any such change. With
+    deblend=False det_n is also within 1 of the all-plain CPU run. Printed
+    beside: det_n against the all-plain CPU run, and where and how far the
+    two warped references differ."""
+    from unittest import mock
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.ops import resample
     from zuds_tpu_torch.parallel import (PipelineConfig,
-                                         SubtractDetectPipeline)
+                                         SubtractDetectPipeline, pipeline)
     small = PipelineConfig(**SMALL, deblend=mode)
     sargs, splanted = inputs.plant_sources(
         inputs.synth_inputs(2, small.height, small.width, small, seed=0),
@@ -679,22 +721,40 @@ def small_card_vs_cpu(mode, dev):
     spipe = SubtractDetectPipeline(small)
     on_card = spipe(*inputs.to_torch(sargs, dev))
     on_cpu = spipe(*inputs.to_torch(sargs, 'cpu'))
+    diff = []
+
+    def card_warp(ref, ref_mask, u, v, covb, window):
+        k = tuple(t.cpu() for t in resample.warp_reference(
+            *(t.to(dev) for t in (ref, ref_mask, u, v, covb)), window))
+        p = resample.warp_reference_plain(ref, ref_mask, u, v, covb, window)
+        gap = (k[0] - p[0]).abs()
+        diff.append((float(gap.max()), int((gap > 0).sum()), gap.numel()))
+        return k
+
     spread = np.zeros(2, int)
-    if mode is not False:
-        for e in (1e-7, -1e-7, 2e-7):
-            pert = ((sargs[0] * np.float32(1 + e)).astype('f4'),) + sargs[1:]
-            n = spipe(*inputs.to_torch(pert, 'cpu'))['det_n'].numpy()
-            spread = np.maximum(spread, np.abs(n - on_cpu['det_n'].numpy()))
+    with mock.patch.object(pipeline, 'warp_reference', card_warp):
+        fed = spipe(*inputs.to_torch(sargs, 'cpu'))
+        if mode is not False:
+            for e in (1e-7, -1e-7, 2e-7):
+                pert = ((sargs[0] * np.float32(1 + e)).astype('f4'),) \
+                    + sargs[1:]
+                n = spipe(*inputs.to_torch(pert, 'cpu'))['det_n'].numpy()
+                spread = np.maximum(spread, np.abs(n - fed['det_n'].numpy()))
     for k, v in on_cpu.items():
         check(tuple(on_card[k].shape) == tuple(v.shape), f'{k}: shape')
     check(torch.equal(on_card['submask'].cpu(), on_cpu['submask']),
           f'small input, deblend={mode!r}: submask differs')
-    dn = []
+    dn, dp = [], []
     for b in range(2):
-        dn.append(int(on_card['det_n'][b]) - int(on_cpu['det_n'][b]))
+        dn.append(int(on_card['det_n'][b]) - int(fed['det_n'][b]))
+        dp.append(int(on_card['det_n'][b]) - int(on_cpu['det_n'][b]))
         check(abs(dn[-1]) <= 1 + 2 * int(spread[b]),
               f'small input, deblend={mode!r}: detection counts differ by '
-              f'{dn[-1]} (CPU spread {int(spread[b])})')
+              f'{dn[-1]} from the CPU fed the card\'s warp (CPU spread '
+              f'{int(spread[b])})')
+        if mode is False:
+            check(abs(dp[-1]) <= 1, f'small input, deblend=False: detection '
+                  f'counts differ by {dp[-1]} from the CPU')
         for px, py in splanted[b]:
             near = []
             for o in (on_card, on_cpu):
@@ -710,8 +770,11 @@ def small_card_vs_cpu(mode, dev):
                   f'{shift:.4f} px between card and CPU')
     print(f'small input (256x256, order 2, 2x2 regions, deblend={mode!r}): '
           f'card and CPU agree on submask and the 6 planted sources '
-          f'(<= 0.01 px); det_n card - CPU {dn}, CPU own spread '
-          f'{spread.tolist()}', flush=True)
+          f'(<= 0.01 px); det_n card - CPU fed the card\'s warp {dn}, CPU '
+          f'own spread {spread.tolist()}; card - all-plain CPU {dp}; the '
+          f'card\'s and the plain warped references differ at '
+          f'{[d[1] for d in diff[:2]]} of {diff[0][2]} pixels, by at most '
+          f'{max(d[0] for d in diff[:2]):.3g}', flush=True)
 
 
 def crop_card_vs_cpu(img, dev):
@@ -1493,19 +1556,33 @@ def coadd_phase(wrappers, name, record):
         check(torch.equal(one[0], k1[0]) and torch.equal(one[1], k1[2]),
               'two-plane warp: its first plane differs from the one-plane '
               'launch')
-        ms = cuda_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
-                                         cfg.max_shift, ref2=wgt0))
-        one_ms = cuda_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
-                                             cfg.max_shift))
+        check(all(torch.equal(a, b) for a, b in zip(
+            launch.warp(img0, m0, u, v, covbs[0], cfg.max_shift, ref2=wgt0),
+            launch.warp(img0, m0, u, v, covbs[0], cfg.max_shift,
+                        ref2=wgt0))),
+              'two-plane warp: two calls differ')
+        dbl = [t.double() for t in (img0, wgt0, u, v, covbs[0])]
+        p64 = resample.warp_epoch_plain(dbl[0], dbl[1], m0, dbl[2], dbl[3],
+                                        dbl[4], cfg.max_shift)
+        e64 = warp_f64('two-plane warp pixels', k1[0], p1[0], p64[0], p1[3])
+        w64 = warp_f64('two-plane warp weight', k1[1], p1[1], p64[1], p1[3])
+        del p64, dbl
+        ms = graph_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
+                                          cfg.max_shift, ref2=wgt0))
+        call = cuda_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
+                                           cfg.max_shift, ref2=wgt0))
+        one_ms = graph_ms(lambda: launch.warp(img0, m0, u, v, covbs[0],
+                                              cfg.max_shift))
         plain = cuda_ms(lambda: resample.warp_epoch_plain(
             img0, wgt0, m0, u, v, covbs[0], cfg.max_shift), 1, 2)
-        # reads two planes, mask, u, v (20 B/px), writes two planes, mask,
-        # coverage (16 B/px); ~190 operations per pixel (36 taps on two
-        # planes, 36 weight products, 6 normaliser terms, 12 weights)
-        bnd = bound(36 * npx, 190 * npx)
-        print(f'warp_two_planes: {Hb}x{Wb}: {ms:.4f} ms (one plane '
-              f'{one_ms:.4f} ms at this shape; bound {bnd[0]:.4f} ms, share '
-              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms', flush=True)
+        bnd = warp_bound(npx, 2)
+        print(f'warp_two_planes: {Hb}x{Wb}: {ms:.4f} ms on the card (graph '
+              f'replay; {call:.4f} ms per wrapper call with its host cost; '
+              f'one plane {one_ms:.4f} ms at this shape; bound {bnd[0]:.4f} '
+              f'ms by {bnd[1]}, share {bnd[0] / ms:.1%}), plain {plain:.3f} '
+              f'ms; against the float64 plain version: pixels {e64[0]:.4g} '
+              f'(f32 plain {e64[1]:.4g}), weight {w64[0]:.4g} ({w64[1]:.4g})',
+              flush=True)
         record('warp_two_planes', err, ms, plain, bnd,
                runs={'warp_two_planes': launches['warp']},
                per=f'stack of {N} epochs')
@@ -1756,22 +1833,32 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         check(np.array_equal(one[3].cpu().numpy(), aligned.coverage)
               and np.array_equal(one[0].cpu().numpy(), aligned.data),
               'pair: the aligned reference is not H10 of the reference')
-        ms = cuda_ms(lambda: launch.warp_gather(img, rmask, u, v))
-        two_ms = cuda_ms(lambda: launch.warp_gather(img, rmask, u, v,
-                                                    img2=rms_src))
+        check(all(torch.equal(a, b) for a, b in zip(
+            k, launch.warp_gather(img, rmask, u, v, img2=rms_src))),
+              'warp_gather: two calls differ')
+        (q64, s64), _, _ = resample._gather_plain(
+            [img.double(), rms_src.double()], None, u.double(), v.double())
+        e64 = warp_f64('warp_gather pixels', k[0], pa, q64, pc > 0)
+        r64 = warp_f64('warp_gather second plane', k[1], pb, s64, pc > 0)
+        del q64, s64
+        ms = graph_ms(lambda: launch.warp_gather(img, rmask, u, v))
+        call = cuda_ms(lambda: launch.warp_gather(img, rmask, u, v))
+        two_ms = graph_ms(lambda: launch.warp_gather(img, rmask, u, v,
+                                                     img2=rms_src))
         plain = cuda_ms(lambda: resample._gather_plain([img], rmask, u, v),
                         1, 2)
-        # reads img, mask, u, v (16 B/px), writes pixels, mask, coverage
-        # (12 B/px); ~130 operations per pixel (36 taps, 36 weight
-        # products, 36 normaliser terms, 12 Lanczos weights)
-        bnd = bound(28 * H * W, 130 * H * W)
-        bnd2 = bound(36 * H * W, 200 * H * W)
+        bnd = warp_bound(H * W, 1)
+        bnd2 = warp_bound(H * W, 2)
         print(f'warp_gather: {H}x{W}, rotation {PAIR_ROT} deg: {ms:.4f} ms '
-              f'(bound {bnd[0]:.4f} ms, share {bnd[0] / ms:.1%}); with a '
-              f'second plane {two_ms:.4f} ms (bound {bnd2[0]:.4f} ms, share '
-              f'{bnd2[0] / two_ms:.1%}); plain {plain:.3f} ms; no PyTorch '
-              f'call warps with a Lanczos kernel (grid_sample is bilinear '
-              f'or bicubic)', flush=True)
+              f'on the card (graph replay; {call:.4f} ms per wrapper call '
+              f'with its host cost; bound {bnd[0]:.4f} ms by {bnd[1]}, share '
+              f'{bnd[0] / ms:.1%}); with a second plane {two_ms:.4f} ms '
+              f'(bound {bnd2[0]:.4f} ms, share {bnd2[0] / two_ms:.1%}); '
+              f'plain {plain:.3f} ms; against the float64 plain version: '
+              f'pixels {e64[0]:.4g} (f32 plain {e64[1]:.4g}), second plane '
+              f'{r64[0]:.4g} ({r64[1]:.4g}); no PyTorch call warps with a '
+              f'Lanczos kernel (grid_sample is bilinear or bicubic)',
+              flush=True)
         record('warp_gather', err, ms, plain, bnd, runs=pair_launches,
                per='pair')
 
@@ -3199,15 +3286,26 @@ def main():
     err = close('warp pixels', k[0], p[0], 3e-5, 5e-3)
     check(torch.equal(k[1], p[1]), 'warp mask differs from the plain version')
     check(torch.equal(k[2], p[2]), 'warp coverage differs')
-    # reads ref, mask, u, v, writes refw, refm, cov: 28 B/px; ~120 FLOP/px
-    # (36 weighted taps, 36 weight products, 6 normaliser terms, 12
-    # Lanczos weights)
-    record('warp', err,
-           cuda_ms(lambda: launch.warp(ref, rmask, u, v, covb,
-                                       cfg.max_shift)),
+    again = launch.warp(ref, rmask, u, v, covb, cfg.max_shift)
+    check(all(torch.equal(a, b) for a, b in zip(k, again)),
+          'warp: two calls differ')
+    p64 = resample.warp_reference_plain(ref.double(), rmask, u.double(),
+                                        v.double(), covb.double(),
+                                        cfg.max_shift)
+    e64 = warp_f64('warp pixels', k[0], p[0], p64[0], p[2] > 0)
+    del p64, again
+    ms = graph_ms(lambda: launch.warp(ref, rmask, u, v, covb,
+                                      cfg.max_shift))
+    call = cuda_ms(lambda: launch.warp(ref, rmask, u, v, covb,
+                                       cfg.max_shift))
+    print(f'warp: {H}x{W}: {ms:.4f} ms on the card (graph replay), '
+          f'{call:.4f} ms per wrapper call with its host cost; against the '
+          f'float64 plain version {e64[0]:.4g} (f32 plain {e64[1]:.4g})',
+          flush=True)
+    record('warp', err, ms,
            cuda_ms(lambda: resample.warp_reference_plain(
                ref, rmask, u, v, covb, cfg.max_shift), 1, 3),
-           bound(28 * H * W, 120 * H * W))
+           warp_bound(H * W, 1))
 
     # H2: the slice's science frame with its bad-pixel mask
     sci = targs[0][0]

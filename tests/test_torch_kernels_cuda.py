@@ -17,7 +17,13 @@ no JAX, and tests/conftest.py imports it, so run them there with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: warp pixels rtol 3e-5, atol 5e-3 counts, mask and coverage
-bit-equal; background cells rtol 1e-4 and counts equal; model convolution
+bit-equal (H1 also at window 8, with wild and NaN displacements, at
+integer and half-integer shifts, with non-finite reference pixels; H10 at
+integer and half-integer phases into sources of other shapes; each two
+calls bit-equal and, on a 1024^2 star field, no further from the plain
+version run in float64 than the f32 plain version; from inputs inside NaN
+guard bands into poisoned outputs, 20 launches each bit-equal to the
+wrapper's); background cells rtol 1e-4 and counts equal; model convolution
 rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
 deblend level labels and compaction bit-equal (H6 also on mask views at
 byte offsets 1, 3 and 15, at size 0 and at size = n on a full frame, and
@@ -704,6 +710,195 @@ def test_warp_planned_card_equals_cpu_composition(dev, src, plan):
     _allclose(k[1].cpu(), p[1], 3e-5, 1e-6)
     assert torch.equal(k[2].cpu(), p[2]) and torch.equal(k[3].cpu(), p[3])
     assert 0 < float(k[3].mean()) < 1
+
+
+def _h1_support_nonfinite(ref, u, v, window):
+    """Where H1's own 6x6 support (first tap floor(d) - 2, wrapped rows and
+    columns) holds a non-finite reference pixel."""
+    H, W = ref.shape
+    reach = window + 3
+    yy = torch.arange(H, device=ref.device)[:, None]
+    xx = torch.arange(W, device=ref.device)[None, :]
+    bad = ~torch.isfinite(ref)
+
+    def first(d):
+        f = torch.fmin(torch.fmax(torch.floor(d), torch.tensor(
+            -reach - 4.0, device=d.device)), torch.tensor(reach + 4.0,
+                                                          device=d.device))
+        return f.to(torch.int64) - 2
+    dx0, dy0 = first(u - xx), first(v - yy)
+    out = torch.zeros((H, W), dtype=torch.bool, device=ref.device)
+    for ky in range(6):
+        for kx in range(6):
+            out |= bad[(yy + dy0 + ky) % H, (xx + dx0 + kx) % W]
+    return out
+
+
+@pytest.mark.parametrize('window,amp', [(8, (9.6, -10.4)), (2, (1.9, 1.7))])
+def test_warp_kernel_wide_window_and_wild_displacement(dev, window, amp):
+    """H1 at the widest window plan_warp gives (8: reach 11) and at the
+    slice's, with wild displacements (past the clamp, NaN) in the mapping:
+    pixels within the warp contract, mask and coverage bit-equal, two
+    calls bit-equal, both planes."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    H, W = 240, 264
+    ref, wgt, mask, _, _, _ = _warp_inputs(dev, H, W, 41)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    u = (xx + amp[0] * torch.sin(xx / 37.0 + 0.4)
+         * torch.cos(yy / 29.0)).contiguous()
+    v = (yy + amp[1] * torch.cos(xx / 31.0 - yy / 43.0)).contiguous()
+    u[5, 7], v[9, 11], u[30, 40] = 1e6, -3e9, float('nan')
+    u[60, 60], v[60, 60] = xx[0, 60] + 40.0, yy[60, 0] - 17.0
+    covb = torch.tensor([3.0, W - 5.0, 2.5, H - 4.0], device=dev)
+    k = launch.warp(ref, mask, u, v, covb, window, ref2=wgt)
+    p = resample.warp_epoch_plain(ref, wgt, mask, u, v, covb, window)
+    _allclose(k[0], p[0], 3e-5, 5e-3)
+    _allclose(torch.clamp(k[1], min=0.0), p[1], 3e-5, 1e-6)
+    assert torch.equal(k[2], p[2]) and torch.equal(k[3] > 0, p[3])
+    assert float(k[0][60, 60]) == 0.0 or bool(k[3][60, 60] > 0)
+    again = launch.warp(ref, mask, u, v, covb, window, ref2=wgt)
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    one = launch.warp(ref, mask, u, v, covb, window)
+    assert torch.equal(one[0], k[0]) and torch.equal(one[1], k[2])
+
+
+def test_warp_kernels_at_integer_and_half_phases(dev):
+    """u and v at exact integers (a tap at t = 0, the others on the zeros
+    of lanczos3) and at half-integers: H1 and H10 within the warp contract
+    of their plain versions, masks and coverage bit-equal; at integer
+    shifts both give the shifted source to rounding."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    H, W = 200, 216
+    ref, _, mask, _, _, _ = _warp_inputs(dev, H, W, 43)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    covb = torch.tensor([2.0, W - 3.0, 2.0, H - 3.0], device=dev)
+    for frac in (0.0, 0.5):
+        u = (xx + torch.round(1.7 * torch.sin(yy / 21.0)) + frac).contiguous()
+        v = (yy - torch.round(1.4 * torch.cos(xx / 17.0)) - frac) \
+            .expand(H, W).contiguous()
+        u = u.expand(H, W).contiguous()
+        k = launch.warp(ref, mask, u, v, covb, 2)
+        p = resample.warp_reference_plain(ref, mask, u, v, covb, 2)
+        _allclose(k[0], p[0], 3e-5, 5e-3)
+        assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+        g = launch.warp_gather(ref, mask, u, v)
+        (pg,), pm, pc = resample._gather_plain([ref], mask, u, v)
+        _allclose(g[0], pg, 3e-5, 5e-3)
+        assert torch.equal(g[2], pm) and torch.equal(g[3], pc)
+        if frac == 0.0:
+            iu, iv = u.long().clamp(0, W - 1), v.long().clamp(0, H - 1)
+            shifted = torch.where(pc > 0, ref[iv, iu], 0.0)
+            _allclose(g[0], shifted, 1e-6, 1e-4)
+            _allclose(k[0][k[2] > 0], ref[iv, iu][k[2] > 0], 1e-6, 1e-4)
+
+
+@pytest.mark.parametrize('Hs,Ws,Ho,Wo', [(180, 150, 130, 250),
+                                         (64, 300, 96, 96)])
+def test_warp_gather_kernel_phases_and_other_source_shapes(dev, Hs, Ws, Ho,
+                                                           Wo):
+    """H10 into a source unlike the output in shape, at integer and
+    half-integer phases and between: as the plain gather, two calls
+    bit-equal."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    img, wgt, mask, _, _, _ = _warp_inputs(dev, Hs, Ws, 47)
+    yy = torch.arange(Ho, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(Wo, device=dev, dtype=torch.float32)[None, :]
+    for step in (1.0, 0.5, 0.37):
+        u = (2.0 + (xx * step) % (Ws - 8) + 0.0 * yy).contiguous()
+        v = (2.5 + (yy * step * 0.5) % (Hs - 8) + 0.0 * xx).contiguous()
+        k = launch.warp_gather(img, mask, u, v, img2=wgt)
+        (pa, pb), pm, pc = resample._gather_plain([img, wgt], mask, u, v)
+        _allclose(k[0], pa, 3e-5, 5e-3)
+        _allclose(k[1], pb, 3e-5, 1e-6)
+        assert torch.equal(k[2], pm) and torch.equal(k[3], pc)
+        assert bool(pc.all())
+        again = launch.warp_gather(img, mask, u, v, img2=wgt)
+        assert all(torch.equal(a, b) for a, b in zip(k, again))
+
+
+def test_warp_kernels_non_finite_pixels(dev):
+    """A NaN and an Inf reference pixel. H10's non-finite outputs are
+    exactly the plain gather's (both read the 6x6 support). H1 reads its
+    6x6 support, as before; the plain version's rolls read the whole
+    (2 reach + 1)^2 window, so H1's non-finite outputs are exactly those
+    whose support holds one, inside the coverage, all of them non-finite
+    in the plain version too; the finite pixels within the warp
+    contract."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    H, W = 160, 176
+    ref, _, mask, u, v, covb = _warp_inputs(dev, H, W, 53)
+    ref = ref.clone()
+    ref[70, 80] = float('nan')
+    ref[40, 120] = float('inf')
+    ref[100, 30] = float('-inf')
+    covb = torch.tensor([2.0, W - 3.0, 2.0, H - 3.0], device=dev)
+    k = launch.warp(ref, mask, u, v, covb, 2)
+    p = resample.warp_reference_plain(ref, mask, u, v, covb, 2)
+    c = k[2] > 0
+    want = _h1_support_nonfinite(ref, u, v, 2) & c
+    got = ~torch.isfinite(k[0])
+    assert torch.equal(got, want) and int(got.sum()) >= 3 * 30
+    assert bool((~torch.isfinite(p[0])[got]).all())
+    fin = torch.isfinite(p[0]) & ~got
+    _allclose(k[0][fin], p[0][fin], 3e-5, 5e-3)
+    assert bool((k[0][~c] == 0).all())
+    g = launch.warp_gather(ref, mask, u, v)
+    (pg,), _, _ = resample._gather_plain([ref], mask, u, v)
+    assert torch.equal(torch.isfinite(g[0]), torch.isfinite(pg))
+    fin = torch.isfinite(pg)
+    _allclose(g[0][fin], pg[fin], 3e-5, 5e-3)
+
+
+def test_warp_kernels_no_further_from_float64_than_plain(dev):
+    """On a star field at 1024^2 (cores to 1e5 counts): H1 (one and two
+    planes, the slice's smooth field) and H10 (a 0.5 degree rotation, one
+    and two planes) no further from their plain versions run in float64
+    than the f32 plain versions are."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    from zuds_tpu_torch.bench_warp import star_field
+    H = W = 1024
+    ref = torch.as_tensor(star_field(H, W, 61, nstar=150), device=dev)
+    wgt = (0.01 + 0.04 * torch.rand((H, W), device=dev,
+                                    generator=torch.Generator(
+                                        device=dev).manual_seed(62)))
+    mask = torch.zeros((H, W), dtype=torch.int32, device=dev)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    u = (xx + 1.9 * torch.sin(xx / 41.0 + 0.3)
+         * torch.cos(yy / 53.0 - 0.3)).contiguous()
+    v = (yy + 1.7 * torch.sin(xx / 41.0 + 1.1)
+         * torch.cos(yy / 53.0 - 1.1)).contiguous()
+    covb = torch.tensor([8.0, W - 9.0, 8.0, H - 9.0], device=dev)
+    d = lambda t: t.double()  # noqa: E731
+    k = launch.warp(ref, mask, u, v, covb, 2, ref2=wgt)
+    p = resample.warp_epoch_plain(ref, wgt, mask, u, v, covb, 2)
+    p64 = resample.warp_epoch_plain(d(ref), d(wgt), mask, d(u), d(v),
+                                    d(covb), 2)
+    c = p[3]
+    for kk, pp, qq in ((k[0], p[0], p64[0]),
+                       (torch.clamp(k[1], min=0.0), p[1], p64[1])):
+        ek = float((d(kk) - qq).abs()[c].max())
+        ep = float((d(pp) - qq).abs()[c].max())
+        assert ek <= ep, (ek, ep)
+    ang = np.deg2rad(0.5)
+    ur = (np.cos(ang) * xx - np.sin(ang) * yy + 3.3).contiguous()
+    vr = (np.sin(ang) * xx + np.cos(ang) * yy - 4.6).contiguous()
+    g = launch.warp_gather(ref, None, ur, vr, img2=wgt)
+    (pa, pb), _, pc = resample._gather_plain([ref, wgt], None, ur, vr)
+    (qa, qb), _, _ = resample._gather_plain([d(ref), d(wgt)], None, d(ur),
+                                            d(vr))
+    c = pc > 0
+    for kk, pp, qq in ((g[0], pa, qa), (g[1], pb, qb)):
+        ek = float((d(kk) - qq).abs()[c].max())
+        ep = float((d(pp) - qq).abs()[c].max())
+        assert ek <= ep, (ek, ep)
 
 
 @pytest.mark.parametrize('H,W,K,nreg', [(200, 136, 9, 1), (264, 256, 15, 3),
@@ -2013,3 +2208,85 @@ def test_h24_h27_refuse_wrong_inputs(dev):
         launch.clean(f, f, f, f, f, f, f, f, f, i64, b, 0.5)
     with pytest.raises(ValueError):
         launch.clean(f, f, f, f, f, f, f, f, f[:5], i64.int(), b, 0.5)
+
+
+def _guarded(t, fill, guard=8192):
+    """``t`` copied into the middle of a buffer that holds ``fill`` for
+    ``guard`` elements on either side: a read past either end of the
+    tensor picks the fill up."""
+    buf = torch.full((t.numel() + 2 * guard,), fill, dtype=t.dtype,
+                     device=t.device)
+    view = buf[guard:guard + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _poisoned(like):
+    """An output the kernel must overwrite: NaN, or 0x5a5a5a5a."""
+    if like.dtype == torch.int32:
+        return torch.full_like(like, 0x5a5a5a5a)
+    return torch.full_like(like, float('nan'))
+
+
+@pytest.mark.parametrize('H,W,window', [(200, 136, 2), (97, 131, 3),
+                                        (240, 264, 8), (13, 17, 2)])
+def test_warp_kernel_reads_and_writes_only_its_planes(dev, H, W, window):
+    """H1, one and two planes, 20 times on inputs that lie inside NaN
+    guard bands (the mask's all bits set) and into outputs filled with
+    NaN or 0x5a5a5a5a: every launch bit-equal to the wrapper's launch on
+    plain tensors. A read outside an input plane, a pixel left unwritten
+    or a launch that differs from the next would show here (the card's
+    machine has no memory checker)."""
+    from zuds_tpu_torch.kernels import build, launch
+    ref, wgt, mask, _, _, covb = _warp_inputs(dev, H, W, 71)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    amp = window + 0.8
+    u = (xx + amp * torch.sin(yy / 23.0 + xx / 31.0)).contiguous()
+    v = (yy + amp * torch.cos(xx / 19.0)).contiguous()
+    u[H // 2, W // 3], v[H // 3, W // 2] = 1e6, float('nan')
+    covb = torch.tensor([2.0, W - 3.0, 4.5, H - 7.0], device=dev)
+    nan = float('nan')
+    g = [_guarded(ref, nan), _guarded(wgt, nan), _guarded(mask, -1),
+         _guarded(u, nan), _guarded(v, nan), _guarded(covb, nan)]
+    for two in (False, True):
+        want = launch.warp(ref, mask, u, v, covb, window,
+                           ref2=wgt if two else None)
+        want = (want if two else (want[0], None) + want[1:])
+        for _ in range(20):
+            outs = [None if w is None else _poisoned(w) for w in want]
+            p = launch._ptr_or_null
+            err = build.library().zuds_warp(
+                p(g[0]), p(g[1] if two else None), p(g[2]), p(g[3]),
+                p(g[4]), p(g[5]), p(outs[0]), p(outs[1]), p(outs[2]),
+                p(outs[3]), H, W, window, launch._stream())
+            build.check(err, 'zuds_warp')
+            for a, b in zip(outs, want):
+                assert (a is None and b is None) or torch.equal(a, b)
+    assert bool(torch.isfinite(want[0]).all())
+
+
+@pytest.mark.parametrize('Hs,Ws,Ho,Wo', [(200, 180, 160, 224),
+                                         (97, 131, 140, 90),
+                                         (64, 300, 96, 96)])
+def test_warp_gather_kernel_reads_and_writes_only_its_planes(dev, Hs, Ws,
+                                                             Ho, Wo):
+    """H10 with two planes and a mask, as H1 above: 20 launches from
+    guarded inputs into poisoned outputs, each bit-equal to the wrapper's
+    launch on plain tensors."""
+    from zuds_tpu_torch.kernels import build, launch
+    img, wgt, mask, u, v = _gather_inputs(dev, Hs, Ws, Ho, Wo, 73)
+    nan = float('nan')
+    g = [_guarded(img, nan), _guarded(wgt, nan), _guarded(mask, -1),
+         _guarded(u, nan), _guarded(v, nan)]
+    want = launch.warp_gather(img, mask, u, v, img2=wgt)
+    for _ in range(20):
+        outs = [_poisoned(w) for w in want]
+        p = launch._ptr_or_null
+        err = build.library().zuds_warp_gather(
+            p(g[0]), p(g[1]), p(g[2]), p(g[3]), p(g[4]), p(outs[0]),
+            p(outs[1]), p(outs[2]), p(outs[3]), Hs, Ws, Ho, Wo,
+            launch._stream())
+        build.check(err, 'zuds_warp_gather')
+        assert all(torch.equal(a, b) for a, b in zip(outs, want))
+    assert bool(torch.isfinite(want[0]).all())

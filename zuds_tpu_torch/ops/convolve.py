@@ -1,5 +1,8 @@
 """Convolution helpers (twin of ``zuds_tpu/ops/convolve.py``) and the
-sliding maximum of the pipeline and the stamp selector."""
+sliding maximum of the pipeline and the stamp selector. No path of the
+pipeline runs :func:`fft_convolve_same` or :func:`gaussian_kernel`: they are
+the reference's exported helpers, in plain torch (``torch.fft`` as the
+reference uses ``jnp.fft``)."""
 from __future__ import annotations
 
 import math
@@ -8,7 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ['DEFAULT_FILTER', 'conv2_same', 'dilate_max']
+__all__ = ['DEFAULT_FILTER', 'conv2_same', 'fft_convolve_same',
+           'gaussian_kernel', 'dilate_max']
 
 # SExtractor's default.conv pyramid filter, normalised to unit sum
 DEFAULT_FILTER = np.array([[1.0, 2.0, 1.0],
@@ -31,6 +35,34 @@ def conv2_same(img, kernel):
             if w != 0.0:
                 out = out + w * pad[dy:dy + H, dx:dx + W]
     return out
+
+
+def fft_convolve_same(img, kernel):
+    """FFT-based 'same' convolution (convolve.py:58): the linear
+    convolution of ``img`` (H, W) with ``kernel`` (kh, kw), both
+    zero-padded to (H + kh - 1, W + kw - 1), cropped at (kh // 2, kw // 2)
+    to (H, W). ``kernel`` may be a tensor or an array; it takes ``img``'s
+    dtype and device."""
+    H, W = img.shape
+    k = torch.as_tensor(np.asarray(kernel) if not torch.is_tensor(kernel)
+                        else kernel, dtype=img.dtype, device=img.device)
+    kh, kw = k.shape
+    fh, fw = H + kh - 1, W + kw - 1
+    full = torch.fft.irfft2(torch.fft.rfft2(img, (fh, fw))
+                            * torch.fft.rfft2(k, (fh, fw)), (fh, fw))
+    y0, x0 = kh // 2, kw // 2
+    return full[y0:y0 + H, x0:x0 + W]
+
+
+def gaussian_kernel(sigma, size, device=None):
+    """Normalised 2-D Gaussian of odd ``size`` (convolve.py:70), f32, on
+    ``device`` (the card when None, as the port's entry points)."""
+    r = size // 2
+    ax = torch.arange(-r, r + 1, dtype=torch.int32,
+                      device='cuda' if device is None else device)
+    r2 = ax[:, None] * ax[:, None] + ax[None, :] * ax[None, :]
+    g = torch.exp(-r2.to(torch.float32) / (2.0 * sigma * sigma))
+    return g / g.sum()
 
 
 def dilate_max(x, reach, fill=-math.inf):

@@ -26,7 +26,7 @@ __all__ = ['SUPPORT', 'lanczos3', 'upsample_mapping', 'warp_shift_image',
            'warp_reference_plain', 'warp_epoch', 'warp_epoch_plain',
            'warp_image', 'warp_mask', 'warp_image_mask', 'warp_image_plain',
            'warp_mask_plain', 'warp_image_mask_plain', 'warp_gather',
-           'plan_warp', 'warp_planned']
+           'box_mask_or', 'plan_warp', 'warp_planned']
 
 SUPPORT = 3
 
@@ -118,6 +118,32 @@ def warp_shift_mask(mask, u, v, window=4):
         out = out | torch.where(_sig_lanczos(dv - dy),
                                 torch.roll(inner, -dy, dims=0), zero)
     return torch.where(inb, out, zero)
+
+
+def _shift_or(m, k, dim):
+    """m | m shifted by +-k along ``dim``, the edges padded with 0
+    (resample.py:141)."""
+    n = m.shape[dim]
+    z = torch.zeros_like(m.narrow(dim, 0, k))
+    up = torch.cat([m.narrow(dim, k, n - k), z], dim)
+    dn = torch.cat([z, m.narrow(dim, 0, n - k)], dim)
+    return m | up | dn
+
+
+def box_mask_or(mask, reach=7):
+    """(2 reach + 1)^2 sliding bitwise-OR dilation of an integer mask by
+    log-doubling shifts, edges padded with 0 (resample.py:154): each pixel
+    gets the OR of every mask pixel within ``reach`` of it. No path of the
+    pipeline runs it; plain torch, bit-equal to the reference."""
+    out = mask
+    covered, step = 0, 1
+    while covered < reach:
+        k = min(step, reach - covered)
+        for dim in (0, 1):
+            out = _shift_or(out, k, dim)
+        covered += k
+        step = covered + 1
+    return out
 
 
 def coverage_gate(u, v, covb, refw, refm, cov):
