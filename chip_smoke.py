@@ -40,7 +40,10 @@ at K = 21, order 5, 2x2 regions, and its bare launch timed with its
 tensor-core rate; H5 and H6 also on a quadrant-size busy blend field, H6
 timed by CUDA graph beside ``torch.nonzero_static`` at the slice's four
 call sites and at ``label_components``' size; H8 also on ::4 views and a
-mask with holes; H1, its two-plane mode and H10 also timed by CUDA graph
+mask with holes, timed by CUDA graph and per call, the view's bound from
+the sectors it reads; H2 bit-equal on the slice's frame and on an epoch
+of the coadd's canvas, timed by CUDA graph and per call; H1, its
+two-plane mode and H10 also timed by CUDA graph
 and held no further from their plain versions run in float64 than the f32
 plain versions, two calls bit-equal). Small inputs run on the card and
 on the CPU for each deblend mode (the CPU also fed the card's H1 output,
@@ -1486,6 +1489,19 @@ def coadd_phase(wrappers, name, record):
         for n in range(N):
             pipe.warp_epoch(imgs[n], sats[n], masks[n], gus[n], gvs[n],
                             covbs[n], valid[n], iw[n], ww[n], mw[n], cov[n])
+        # H2 on an epoch on the canvas, as warp_epoch runs it
+        bad0 = (masks[0] & BAD_SUM) > 0
+        kb = launch.background_cells(imgs[0], ~bad0, cfg.box, 3)
+        pb = background.background_cells_plain(imgs[0], ~bad0, cfg.box, 3)
+        check(all(torch.equal(a, b) for a, b in zip(kb, pb)),
+              'coadd: background_cells not bit-equal to the plain version '
+              'on the canvas')
+        cells_ms = graph_ms(lambda: launch.background_cells(
+            imgs[0], ~bad0, cfg.box, 3))
+        print(f'background_cells: epoch 0 on the {Hb}x{Wb} canvas: back, '
+              f'sigma, n bit-equal to the plain version; {cells_ms:.4f} ms '
+              f'(graph replay)', flush=True)
+        del kb, pb, bad0
         k = combine.clipped_combine(iw, ww, mw, cov, scales)
         p = combine.clipped_combine_plain(iw, ww, mw, cov, scales)
         torch.cuda.synchronize()
@@ -3101,6 +3117,7 @@ def main():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this check needs one CUDA card')
     from zuds_tpu_torch import inputs, kernels, night
+    from zuds_tpu_torch.bench_stats import sector_bytes
     from zuds_tpu_torch.constants import BAD_SUM
     from zuds_tpu_torch.kernels import build, launch
     from zuds_tpu_torch.ops import (background, compact, deblend, detect,
@@ -3315,11 +3332,17 @@ def main():
     err = max(close('background back', kb[0], pb[0], 1e-4, 0.0),
               close('background sigma', kb[1], pb[1], 1e-4, 0.0))
     check(torch.equal(kb[2], pb[2]), 'background counts differ')
+    check(torch.equal(kb[0], pb[0]) and torch.equal(kb[1], pb[1]),
+          'background back or sigma not bit-equal to the plain version')
     # reads the frame and its mask (5 B/px), writes 12 B per cell; ~4
     # sums of the stride-5 subsample per clip pass plus the full pass
     ncell = kb[0].numel()
-    record('background_cells', err,
-           cuda_ms(lambda: launch.background_cells(sci, valid, cfg.box, 3)),
+    ms = graph_ms(lambda: launch.background_cells(sci, valid, cfg.box, 3))
+    call = cuda_ms(lambda: launch.background_cells(sci, valid, cfg.box, 3))
+    print(f'background_cells: {H}x{W}, {ncell} cells: bit-equal to its '
+          f'plain version; {ms:.4f} ms on the card (graph replay), {call:.4f}'
+          f' ms per wrapper call with its host cost', flush=True)
+    record('background_cells', err, ms,
            cuda_ms(lambda: background.background_cells_plain(
                sci, valid, cfg.box, 3), 1, 3),
            bound(5 * H * W + 12 * ncell, 10 * H * W))
@@ -3511,18 +3534,25 @@ def main():
           '|frame - med|, a ::4 view with its mask, a mask with holes and '
           'an all-masked frame', flush=True)
     n = H * W
-    ms = cuda_ms(lambda: launch.frame_median(frame))
+    view, vok = out['rms'][0][::4, ::4], valid[::4, ::4]
+    ms = graph_ms(lambda: launch.frame_median(frame))
+    call = cuda_ms(lambda: launch.frame_median(frame))
     plain = cuda_ms(lambda: background.frame_median_plain(frame), 1, 3)
-    view_ms = cuda_ms(lambda: launch.frame_median(out['rms'][0][::4, ::4],
-                                                  valid[::4, ::4]))
+    view_ms = graph_ms(lambda: launch.frame_median(view, vok))
+    view_call = cuda_ms(lambda: launch.frame_median(view, vok))
     scale_ms = cuda_ms(lambda: torch.median(frame))
-    # reads the frame once (4 B/px); 13 passes of a compare and an add
+    # reads the frame once (4 B/px); 13 passes of a compare and an add. The
+    # ::4 view moves every 32-byte sector its elements and its mask's lie in
     bnd = bound(4 * n, 26 * n)
-    print(f'frame_median: frame {ms:.4f} ms (bound {bnd[0]:.4f} ms, share '
-          f'{bnd[0] / ms:.1%}), ::4 view with mask {view_ms:.4f} ms, plain '
-          f'{plain:.3f} ms, torch.median (exact, for scale) {scale_ms:.3f} '
-          f'ms; {night_launches["frame_median"] / NIGHT_PAIRS:.1f} launches '
-          f'per night frame', flush=True)
+    vbnd = bound(sector_bytes(view) + sector_bytes(vok), 26 * view.numel())
+    print(f'frame_median: frame {ms:.4f} ms on the card (graph replay; '
+          f'{call:.4f} ms per wrapper call; bound {bnd[0]:.4f} ms, share '
+          f'{bnd[0] / ms:.1%}), ::4 view with mask {view_ms:.4f} ms (graph '
+          f'replay; {view_call:.4f} per call; bound {vbnd[0]:.4f} ms by '
+          f'{vbnd[1]}, share {vbnd[0] / view_ms:.1%}), plain {plain:.3f} ms,'
+          f' torch.median (exact, for scale) {scale_ms:.3f} ms; '
+          f'{night_launches["frame_median"] / NIGHT_PAIRS:.1f} launches per '
+          f'night frame', flush=True)
     record('frame_median', 0.0, ms, plain, bnd, runs=night_launches)
 
     # H7 on the same frame with its H8 medians

@@ -23,12 +23,14 @@ integer and half-integer phases into sources of other shapes; each two
 calls bit-equal and, on a 1024^2 star field, no further from the plain
 version run in float64 than the f32 plain version; from inputs inside NaN
 guard bands into poisoned outputs, 20 launches each bit-equal to the
-wrapper's); background cells rtol 1e-4 and counts equal; model convolution
+wrapper's); background cells rtol 1e-4 and bit-equal, counts equal (also
+on the flagship quadrant and the coadd canvas); model convolution
 rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
 deblend level labels and compaction bit-equal (H6 also on mask views at
 byte offsets 1, 3 and 15, at size 0 and at size = n on a full frame, and
 against ``torch.nonzero_static``); stamp candidates (cand,
-and filt at the candidates) and the frame median bit-equal; the two-plane
+and filt at the candidates) and the frame median bit-equal (also with
++-inf values and values on the mids); the two-plane
 warp as the one-plane warp on both planes; the clipped combine's counts and
 mask equal, its coadd and weight rtol 2e-6 (the plain version forms the
 same sums in the same order; the card's own ``1/sqrt`` in the plain version
@@ -124,18 +126,24 @@ def test_warp_kernel(dev, H, W, window):
     assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
 
 
-@pytest.mark.parametrize('H,W,box', [(200, 136, 64), (264, 256, 128)])
+@pytest.mark.parametrize('H,W,box', [(200, 136, 64), (264, 256, 128),
+                                      (3080, 3072, 128)])
 def test_background_kernel(dev, H, W, box):
+    """Partial cells and the flagship quadrant: back and sigma within 1e-4
+    and bit-equal, n equal, one launch."""
     from zuds_tpu_torch.ops import background
     from zuds_tpu_torch.kernels import launch
     img = _rand((H, W), dev, 3, 5.0, 150.0)
     img[10:30, 10:40] += 500.0
     g = torch.Generator(device=dev).manual_seed(4)
     valid = torch.rand((H, W), generator=g, device=dev) > 0.05
+    n0 = launch.background_cells.launches
     k = launch.background_cells(img, valid, box, 3)
+    assert launch.background_cells.launches == n0 + 1
     p = background.background_cells_plain(img, valid, box, 3)
     _allclose(k[0], p[0], 1e-4, 0.0)
     _allclose(k[1], p[1], 1e-4, 0.0)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert torch.equal(k[2], p[2])
 
 
@@ -375,6 +383,29 @@ def test_frame_median_kernel_sizes(dev, n):
     assert launch.frame_median.launches == n0 + 2
 
 
+@pytest.mark.parametrize('iters', [1, 5, 7, 13])
+def test_frame_median_kernel_iters(dev, iters):
+    """Round counts that end on a pass of under six rounds (its bucket
+    search differs from the six-round pass's), on a frame, a ::4 view with
+    a mask and the |x - median| form."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background
+    frame = _rand((1200, 1100), dev, 31, 5.0, 150.0)
+    frame[::97, ::89] += 3e4
+    g = torch.Generator(device=dev).manual_seed(32)
+    ok = torch.rand(frame.shape, generator=g, device=dev) > 0.1
+    med = launch.frame_median(frame)
+    n0 = launch.frame_median.launches
+    cases = [(frame, None, None), (frame[::4, ::4], ok[::4, ::4], None),
+             (frame, ok, med)]
+    for i, (x, o, c) in enumerate(cases):
+        k = launch.frame_median(x, o, c, iters)
+        p = background.frame_median_plain(x, o, c, iters)
+        assert torch.equal(k.isnan(), p.isnan()), i
+        assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(p)), i
+    assert launch.frame_median.launches == n0 + len(cases)
+
+
 def test_frame_median_kernel_views_and_edges(dev):
     """::4 views read in place, the center option, a mask with holes, all
     masked (NaN), one valid element, ties at mid and NaN values."""
@@ -398,12 +429,30 @@ def test_frame_median_kernel_views_and_edges(dev):
     nanf = frame.clone()
     nanf[5, 5] = float('nan')
     cases += [(nanf, None, None), (nanf, holes, None)]
+    # +-inf: one of each, then many -inf (every mid -inf)
+    for vals in ((float('inf'),), (float('-inf'),),
+                 (float('inf'), float('-inf'))):
+        inff = frame.clone()
+        for i, v in enumerate(vals):
+            inff[11 + 4 * i, 13] = v
+        cases += [(inff, None, None), (inff, holes, None)]
+    manyinf = frame.clone()
+    manyinf[:1600] = float('-inf')
+    cases.append((manyinf, None, None))
+    # values on the mids: integers in [0, 4096] with both ends present, so
+    # every descent's 12 mids are integers that the data holds
+    onmid = torch.randint(0, 4097, (H, W), generator=g, device=dev).float()
+    onmid[0, 0], onmid[0, 1] = 0.0, 4096.0
+    cases += [(onmid, None, None), (onmid, holes, None),
+              (onmid[::4, ::4], okv, None)]
+    n0 = launch.frame_median.launches
     for i, (x, o, c) in enumerate(cases):
         k = launch.frame_median(x, o, c)
         p = background.frame_median_plain(x, o, c)
         assert torch.equal(k.isnan(), p.isnan()), i
         assert torch.equal(torch.nan_to_num(k), torch.nan_to_num(p)), i
     assert bool(launch.frame_median(frame, torch.zeros_like(holes)).isnan())
+    assert launch.frame_median.launches == n0 + len(cases) + 1
 
 
 def test_compact_kernel_stamp_capacity(dev):
@@ -609,6 +658,7 @@ def test_background_and_median_on_the_coadd_canvas(dev):
     p = background.background_cells_plain(img, valid, 128, 3)
     _allclose(k[0], p[0], 1e-4, 0.0)
     _allclose(k[1], p[1], 1e-4, 0.0)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert torch.equal(k[2], p[2])
     sub, ok = img[::4, ::4], valid[::4, ::4]
     assert torch.equal(launch.frame_median(sub, ok),

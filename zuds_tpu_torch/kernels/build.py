@@ -138,8 +138,10 @@ SIGNATURES = {
     'zuds_clean': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P,
                    _P, _P, _P, _P, _P, _P, _P),
 }
-# host functions: the scratch bytes of H26 (cap, nseg) and H27 (nseg)
+# host functions: the scratch bytes of H8 (blocks, iters), H26 (cap, nseg)
+# and H27 (nseg)
 SCRATCH_SIGNATURES = {
+    'zuds_frame_median_scratch': (_I, _I),
     'zuds_object_stats_scratch': (_I, _I),
     'zuds_clean_scratch': (_I,),
 }

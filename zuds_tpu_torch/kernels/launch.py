@@ -258,10 +258,13 @@ def stamp_candidates(img, med, sigma, sat, margin):
     return filt, cand.view(torch.bool)
 
 
-# blocks of H8 (median.cu): four per SM of the H100; every block re-reads
-# the partials of all blocks once per round
-MEDIAN_BLOCKS = 4 * 132
-MEDIAN_CHUNK = 1024
+# blocks of H8 (median.cu): its count passes keep 2^6 16-bit buckets for
+# each of 256 threads (32 KB of shared memory), so six blocks fill an SM of
+# the H100 (a thread then counts under 2^16 values a pass); a smaller view
+# takes a block per MEDIAN_PER_BLOCK values, so that a block's loads are
+# one round trip (a ::4 view of a quadrant: a row of 768 a block)
+MEDIAN_BLOCKS = 6 * 132
+MEDIAN_PER_BLOCK = 256 * 2
 
 
 def frame_median(x, ok=None, center=None, iters=12):
@@ -278,12 +281,13 @@ def frame_median(x, ok=None, center=None, iters=12):
     if iters < 1 or rows * cols >= 2 ** 31:
         raise ValueError(f'frame_median: iters={iters}, {rows}x{cols} '
                          'unsupported (iters >= 1, under 2^31 entries)')
-    nchunks = rows * -(-cols // MEDIAN_CHUNK)
-    nb = max(1, min(MEDIAN_BLOCKS, nchunks))
-    scratch = torch.empty(24 * nb + 24, dtype=torch.uint8, device=x.device)
+    nb = max(1, min(MEDIAN_BLOCKS, -(-rows * cols // MEDIAN_PER_BLOCK)))
+    lib = build.library()
+    scratch = torch.empty(lib.zuds_frame_median_scratch(nb, int(iters)),
+                          dtype=torch.uint8, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     null = ctypes.c_void_p(None)
-    err = build.library().zuds_frame_median(
+    err = lib.zuds_frame_median(
         _ptr(x), null if ok is None else _ptr(ok),
         null if center is None else _ptr(center), rows, cols, *x.stride(),
         *(ok.stride() if ok is not None else (0, 0)), nb, int(iters),
