@@ -127,6 +127,8 @@ SOURCES = {
                     'zuds_tpu/ops/resample.py:484'),
     'apply_model_variance': ('cuda', 'zuds_tpu_torch/kernels/apply.cu',
                              'zuds_tpu/ops/subtract.py:692'),
+    'apply_model_one_term': ('cuda', 'zuds_tpu_torch/kernels/apply.cu',
+                             'zuds_tpu/ops/subtract.py:380'),
     'subtract_epilogue': ('cuda', 'zuds_tpu_torch/kernels/subtract.cu',
                           'zuds_tpu/ops/subtract.py:652'),
     'triplet_cut': ('cuda', 'zuds_tpu_torch/kernels/cutouts.cu',
@@ -256,6 +258,10 @@ PAIR_ROT = 0.5          # degrees, the per-pair phase: residual ~14 px
 COADD_EPOCHS = 8
 COSMIC = (3, 1500, 1600, 500.0)
 COADD_NOISE = 5.0
+# deeper stacks for H9 (a reference takes up to ~50 epochs), held to the
+# plain version on their first DEEP_BAND rows
+DEEP_EPOCHS = (33, 50, 64)
+DEEP_BAND = 512
 # f32 operations a pixel of H1's and H10's function (kernels/warp.cu) as
 # the plain versions define it, whatever the kernel does, an FMA as two:
 # the 12 weights lanczos3(t) = sinc(t) sinc(t / 3) (t, t / 3, the two
@@ -1393,10 +1399,13 @@ def coadd_phase(wrappers, name, record):
     """ScienceCoadd.from_images over COADD_EPOCHS quadrant epochs: warm-up,
     one counted and timed build, one with the seeing estimate; the checks
     of the product; H9 and the two-plane H1 against their plain versions
-    on the phase's own stack. ``record`` takes the two kernel records."""
+    on the phase's own stack, and H9 on stacks of DEEP_EPOCHS made from it.
+    ``record`` takes the two kernel records."""
     import numpy as np
     import torch
     from zuds_tpu_torch import coadd, inputs, night
+    from zuds_tpu_torch.bench_combine import (combine_bound, deep_stack,
+                                              same as bit_equal)
     from zuds_tpu_torch.constants import (BAD_SUM, BKG_VAL, COADD_ZP,
                                           MASK_BIT_NODATA_ALIGN)
     from zuds_tpu_torch.image import ScienceImage
@@ -1505,8 +1514,8 @@ def coadd_phase(wrappers, name, record):
         k = combine.clipped_combine(iw, ww, mw, cov, scales)
         p = combine.clipped_combine_plain(iw, ww, mw, cov, scales)
         torch.cuda.synchronize()
-        for key in ('nexp', 'nclip', 'mask'):
-            check(torch.equal(k[key], p[key]),
+        for key in ('nexp', 'nclip', 'mask', 'coadd', 'weight'):
+            check(bit_equal(k[key], p[key]),
                   f'clipped_combine {key} differs from the plain version at '
                   f'{int((k[key] != p[key]).sum())} pixels')
         err = max(close('clipped_combine coadd', k['coadd'], p['coadd'],
@@ -1541,15 +1550,45 @@ def coadd_phase(wrappers, name, record):
             iw, ww, mw, cov, scales), 1, 3)
         sort_ms = cuda_ms(lambda: torch.sort(iw, dim=0), 1, 3)
         # reads pixel, weight, mask, coverage of every epoch (13 B), writes
-        # five planes (20 B); per pixel N^2 rank compares of two operations
-        # and ~12 operations per epoch
-        bnd = bound((13 * N + 20) * npx + 4 * N, (2 * N * N + 12 * N) * npx)
-        print(f'clipped_combine: {N}x{Hb}x{Wb}: {ms:.4f} ms (bound '
-              f'{bnd[0]:.4f} ms, share {bnd[0] / ms:.1%}), plain '
-              f'{plain:.3f} ms, torch.sort of the stack (for scale) '
-              f'{sort_ms:.3f} ms', flush=True)
+        # five planes (20 B); per pixel the sorting network's comparators
+        # (two operations each) and ~12 operations per epoch
+        bnd = combine_bound(N, npx)
+        print(f'clipped_combine: {N}x{Hb}x{Wb}: all five outputs bit-equal; '
+              f'{ms:.4f} ms (bound {bnd[0]:.4f} ms, share '
+              f'{bnd[0] / ms:.1%}), plain {plain:.3f} ms, torch.sort of the '
+              f'stack (for scale) {sort_ms:.3f} ms', flush=True)
         record('clipped_combine', err, ms, plain, bnd, runs=launches,
                per=f'stack of {N} epochs')
+
+        # deeper stacks, made from the phase's own warped epochs with
+        # seeded noise, cosmic rays, NaN and +-inf at weight > 0 and epochs
+        # without weight: bit-equal on a band of rows, H9 timed on the
+        # whole canvas
+        for n in DEEP_EPOCHS:
+            di, dw, dm, dc = deep_stack(iw, ww, mw, cov, n, 700 + n)
+            dscales = scales[torch.arange(n, device='cuda') % N].contiguous()
+            kd_ = combine.clipped_combine(di, dw, dm, dc, dscales)
+            pd_ = combine.clipped_combine_plain(
+                di[:, :DEEP_BAND], dw[:, :DEEP_BAND], dm[:, :DEEP_BAND],
+                dc[:, :DEEP_BAND], dscales)
+            for key in pd_:
+                check(bit_equal(kd_[key][:DEEP_BAND], pd_[key]),
+                      f'clipped_combine at {n} epochs: {key} differs from '
+                      f'the plain version on the first {DEEP_BAND} rows')
+            check(bool((kd_['nexp'][100:102, 1000:1016] == n).all()),
+                  f'clipped_combine at {n} epochs: the NaN and +-inf pixels '
+                  f'are not at weight > 0 in every epoch')
+            dms = graph_ms(lambda: launch.clipped_combine(
+                di, dw, dm, dc, dscales, 4.0, 0.3, MASK_BIT_NODATA_ALIGN))
+            dbnd = combine_bound(n, npx)
+            print(f'clipped_combine: {n}x{Hb}x{Wb} (made from the stack\'s '
+                  f'epochs): bit-equal to the plain version on the first '
+                  f'{DEEP_BAND} rows; {dms:.4f} ms (graph replay; bound '
+                  f'{dbnd[0]:.4f} ms by {dbnd[1]}, share {dbnd[0] / dms:.1%}'
+                  f'); {int((kd_["nclip"] > 0).sum())} pixels clipped',
+                  flush=True)
+            del di, dw, dm, dc, kd_, pd_
+            torch.cuda.empty_cache()
 
         # H1 with two planes: epoch 0's frame, its weight and its mask
         img0, m0 = imgs[0], masks[0]
@@ -1645,9 +1684,10 @@ def pair_phase(wrappers, name, record, fused_pair_s):
     """sub.do_one on a pair whose reference is rotated by PAIR_ROT degrees
     (the gather warp) and on an unrotated pair (the planned warp): a
     warm-up, then counted, timed runs on fresh copies; the checks of the
-    product; H10, H3 at one term and H11 against their plain versions on
-    the rotated pair's tensors; a small rotated pair on card and CPU.
-    ``record`` takes the three kernel records."""
+    product; H10, H3 at one term (the variance and the order-0 model) and
+    H11 against their plain versions on the rotated pair's tensors; a
+    small rotated pair on card and CPU. ``record`` takes the four kernel
+    records."""
     import shutil
     import numpy as np
     import torch
@@ -1900,27 +1940,51 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         pv = subtract.propagate_ref_var_plain(ref_rms, kerns)
         scale = float(pv.abs().max())
         err = close('apply_model_variance', kv, pv, 1e-4, 1e-3 * scale)
+        check(torch.equal(kv, subtract.propagate_ref_var(
+            ref_rms, coeffs, *tables, order=order, nreg=nreg)),
+              'apply_model_variance: two calls differ')
         var = (ref_rms ** 2).contiguous()
         k2 = (kerns ** 2).contiguous()
         cx, cy, _, _, wx, wy = subtract.model_geometry(H, W, order=0,
                                                        nreg=nreg)
-        ms = cuda_ms(lambda: launch.apply_model_variance(var, k2, cx, cy, wx,
-                                                         wy))
+        # the tensor-core GEMM of two or more terms, fed a zero second
+        # term: the one-term launch as it ran before the direct kernel
+        k2z = torch.stack([k2, torch.zeros_like(k2)], 1).contiguous()
+        zero_bg = torch.zeros(nreg * nreg, device=dev)
+
+        def gemm_var():
+            return launch.apply_model(var, k2z, zero_bg, cx, cy, (0, 1),
+                                      (0, 0), wx, wy)
+        v64 = subtract.propagate_ref_var_plain(ref_rms.double(),
+                                               kerns.double())
+        e64 = [float((t.double() - v64).abs().max())
+               for t in (kv, pv, gemm_var())]
+        del v64
+        ms = graph_ms(lambda: launch.apply_model_variance(var, k2, cx, cy,
+                                                          wx, wy))
+        call = cuda_ms(lambda: launch.apply_model_variance(var, k2, cx, cy,
+                                                           wx, wy))
+        gemm_ms = cuda_ms(gemm_var)
         plain = cuda_ms(lambda: subtract.propagate_ref_var_plain(ref_rms,
                                                                  kerns), 1, 3)
         conv_ms = cuda_ms(lambda: torch.nn.functional.conv2d(
             var[None, None], k2[:1, None], padding=ksize // 2), 1, 3)
         # reads the variance, writes the propagated frame (8 B/px) and the
-        # region kernels; 2 K^2 operations per pixel in three TF32 products
-        bnd = bound(8 * H * W + 4 * k2.numel(),
-                    3 * 2 * ksize * ksize * H * W, TF32_FLOP_S)
+        # region kernels; 2 K^2 fp32 operations per pixel (the GEMM's three
+        # TF32 products of the same work printed beside)
+        bnd = bound(8 * H * W + 4 * k2.numel(), 2 * ksize * ksize * H * W)
+        tf32 = 3 * 2 * ksize * ksize * H * W / TF32_FLOP_S * 1e3
         print(f'apply_model_variance: {H}x{W}, K={ksize}, {nreg}x{nreg} '
-              f'regions: {ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]}, '
-              f'share {bnd[0] / ms:.1%}), plain {plain:.3f} ms (one conv2d '
-              f'per region); one conv2d of the frame with one kernel (for '
-              f'scale; the regions\' kernels differ) {conv_ms:.3f} ms; max '
-              f'abs err {err:.3g} on a variance of up to {scale:.3g}',
-              flush=True)
+              f'regions, one term (direct fp32): {ms:.4f} ms (graph replay; '
+              f'{call:.4f} ms per wrapper call; bound {bnd[0]:.4f} ms by '
+              f'{bnd[1]}, share {bnd[0] / ms:.1%}; the same work as three '
+              f'TF32 products {tf32:.4f} ms), the GEMM with a zero second '
+              f'term {gemm_ms:.4f} ms, plain {plain:.3f} ms (one conv2d per '
+              f'region); one conv2d of the frame with one kernel (for scale; '
+              f'the regions\' kernels differ) {conv_ms:.3f} ms; max abs err '
+              f'{err:.3g} on a variance of up to {scale:.3g}; against the '
+              f'float64 plain version (not gated): kernel {e64[0]:.4g}, f32 '
+              f'plain {e64[1]:.4g}, the GEMM {e64[2]:.4g}', flush=True)
         record('apply_model_variance', err, ms, plain, bnd,
                runs=pair_launches, per='pair')
 
@@ -1933,6 +1997,48 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         refw = torch.as_tensor(aligned.data, device=dev)
         model = subtract.apply_kernel_fast(refw, coeffs, *tables, order=order,
                                            nreg=nreg)
+
+        # H3 at one term: the pair's order-0 model on its aligned reference
+        check(nm == 1, f'pair: the fit is of order {order}, not 0: H3 ran '
+              f'{nm} terms')
+        pm = subtract.apply_kernel(refw, coeffs, *tables, order=order,
+                                   nreg=nreg)
+        err = close('apply_model one term', model, pm, 1e-4, 1e-3)
+        check(torch.equal(model, subtract.apply_kernel_fast(
+            refw, coeffs, *tables, order=order, nreg=nreg)),
+              'apply_model one term: two calls differ')
+        kd1 = subtract.model_kernels(coeffs, *tables, order=order, nreg=nreg)
+        bg1 = coeffs[:, -1].contiguous()
+        geom1 = subtract.model_geometry(H, W, order=order, nreg=nreg)
+        kd1z = torch.cat([kd1, torch.zeros_like(kd1)], 1).contiguous()
+
+        def gemm_model():
+            return launch.apply_model(refw, kd1z, bg1, *geom1[:2], (0, 1),
+                                      (0, 0), *geom1[4:])
+        m64 = subtract.apply_kernel(refw.double(), coeffs.double(),
+                                    *(t.double() for t in tables),
+                                    order=order, nreg=nreg)
+        e64 = [float((t.double() - m64).abs().max())
+               for t in (model, pm, gemm_model())]
+        del m64
+        ms = graph_ms(lambda: launch.apply_model(refw, kd1, bg1, *geom1))
+        call = cuda_ms(lambda: launch.apply_model(refw, kd1, bg1, *geom1))
+        gemm_ms = cuda_ms(gemm_model)
+        plain = cuda_ms(lambda: subtract.apply_kernel(
+            refw, coeffs, *tables, order=order, nreg=nreg), 1, 3)
+        bnd = bound(8 * H * W + 4 * kd1.numel() + 4 * bg1.numel(),
+                    2 * ksize * ksize * H * W)
+        print(f'apply_model one term: {H}x{W}, K={ksize}, {nreg}x{nreg} '
+              f'regions, order {order}: {ms:.4f} ms (graph replay; '
+              f'{call:.4f} ms per wrapper call; bound {bnd[0]:.4f} ms by '
+              f'{bnd[1]}, share {bnd[0] / ms:.1%}), the GEMM with a zero '
+              f'second term {gemm_ms:.4f} ms, plain {plain:.3f} ms; max abs '
+              f'err {err:.3g}; against the float64 plain version (not '
+              f'gated): kernel {e64[0]:.4g}, f32 plain {e64[1]:.4g}, the '
+              f'GEMM {e64[2]:.4g}', flush=True)
+        record('apply_model_one_term', err, ms, plain, bnd,
+               runs={'apply_model_one_term': pair_launches['apply_model']},
+               per='pair')
         tmask = torch.as_tensor(mask & ~(1 << 17), device=dev)
         bad = (tmask & BAD_SUM) > 0
         errs = []

@@ -36,9 +36,14 @@ mask equal, its coadd and weight rtol 2e-6 (the plain version forms the
 same sums in the same order; the card's own ``1/sqrt`` in the plain version
 may round a sigma one ulp away, which only moves a pixel that lies within
 an ulp of its clip threshold: such pixels are counted and bounded at 1e-5
-of the frame). The gather warp as the windowed one (pixels rtol 3e-5,
-atol 5e-3, mask and coverage equal); the variance launch of H3 rtol 1e-4,
-atol 1e-3 of the variance's scale; the epilogue bit-equal in both of its
+of the frame), and at 1-64 epochs on stacks with NaN and +-inf at weight
+> 0 all five outputs bit-equal. The gather warp as the windowed one
+(pixels rtol 3e-5, atol 5e-3, mask and coverage equal); the variance
+launch of H3 rtol 1e-4, atol 1e-3 of the variance's scale, and H3 at one
+term the same (the order-0 model rtol 1e-4, atol 1e-3 up to K = 15, and
+no further from float64 than the tensor-core GEMM at every K), into
+NaN-filled outputs, two calls bit-identical; the epilogue bit-equal in
+both of its
 rounding modes. The triplets rtol 1e-6 (another order of the L2 sum); each
 braai layer rtol 1e-5, atol 1e-6 against ``F.conv2d`` with TF32 off (NaN
 and +-inf inputs where the plain version puts them, two calls of H13 and
@@ -76,6 +81,7 @@ valid, flags and npix bit-equal, flux within the merge order's bound);
 same call with their plain versions, at the three deblend modes; no host
 copy or wait inside the ``ccl``, ``stats`` and ``clean`` ranges.
 """
+import ctypes
 from pathlib import Path
 
 import numpy as np
@@ -601,6 +607,41 @@ def test_clipped_combine_kernel(dev, n, scaled):
         assert bool((k['nclip'][12:16] == 0).all())
 
 
+@pytest.mark.parametrize('shape', [(61, 131), (64, 132)])
+@pytest.mark.parametrize('scaled', [False, True])
+@pytest.mark.parametrize('n', [1, 8, 16, 17, 32, 33, 50, 64])
+def test_clipped_combine_kernel_bit_equal(dev, n, scaled, shape):
+    """H9 at every bucket and both sides of each edge, on stacks with NaN
+    and +-inf at weight > 0 (some at the median), epochs without weight
+    and a pixel whose every epoch is -0: all five outputs bit-equal to the
+    plain version (NaN where it has NaN), through the element-wise loads
+    (61 x 131 pixels, not a multiple of the pixels a thread takes) and
+    the vector loads (64 x 132)."""
+    from zuds_tpu_torch.ops import coadd
+    H, W = shape
+    imgs, w, masks, cov, scales = _combine_stack(dev, n, H, W, 300 + n)
+    half = n // 2 + 1
+    imgs[:half, 20, :8] = float('nan')          # at the median
+    imgs[:half, 20, 8:16] = float('inf')
+    imgs[n - 1, 21, :8] = float('nan')          # one epoch
+    imgs[n - 1, 21, 8:16] = -float('inf')
+    w[:, 20:22, :16] = 0.03
+    w[n // 2:, 20:22, 4:16:2] = 0.0
+    imgs[:, 22, :4] = -0.0
+    w[:, 22, :4] = 0.0625
+    sc = scales if scaled else None
+    k = coadd.clipped_combine(imgs, w, masks, cov, sc)
+    p = coadd.clipped_combine_plain(imgs, w, masks, cov, sc)
+    for key in p:
+        a, b = k[key], p[key]
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        if a.is_floating_point():
+            assert torch.equal(a.isnan(), b.isnan()), key
+            a, b = a.nan_to_num(0.0), b.nan_to_num(0.0)
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), (key, int((a != b).sum()))
+
+
 def test_clipped_combine_kernel_on_the_threshold(dev):
     """Third epochs exactly on the clip threshold are kept and one ulp past
     it clipped, with weights of 1/16 (sigma exactly 4)."""
@@ -981,6 +1022,119 @@ def test_apply_model_variance_kernel(dev, H, W, K, nreg):
     _allclose(k, p, 1e-4, 1e-3 * scale)
     assert float((k - p).abs().max()) < 1e-4 * scale
     assert bool((k > 0).all())
+
+
+def _one_term_inputs(dev, H, W, K, nreg, seed):
+    """Seeded order-0 coefficients and a star field for H3 at one term."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.ops import subtract
+    b = inputs.KernelBasis(K, K / 10.0)
+    tables = [torch.as_tensor(a, device=dev)
+              for a in (b.gx, b.gy, b.sums, b.b0_2d)]
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 0.01, (nreg * nreg, b.nbasis + 1))
+    c[:, 0] += 1.0
+    c[:, -1] = rng.normal(0, 3, nreg * nreg)
+    coeffs = torch.as_tensor(c, dtype=torch.float32, device=dev)
+    ref = _rand((H, W), dev, seed, 30.0, 150.0)
+    yy = torch.arange(H, device=dev)[:, None]
+    xx = torch.arange(W, device=dev)[None, :]
+    for x0, y0 in rng.uniform(0, 1, (8, 2)) * [W, H]:
+        ref += 3000 * torch.exp(-((xx - x0) ** 2 + (yy - y0) ** 2) / 4.0)
+    return subtract, tables, coeffs, ref
+
+
+@pytest.mark.parametrize('kind', ['model', 'variance'])
+@pytest.mark.parametrize('H,W,K,nreg', [
+    (200, 136, 9, 1), (211, 147, 9, 3),     # ragged: not a tile multiple
+    (264, 250, 15, 3), (97, 131, 31, 1), (130, 190, 31, 3),
+    (65, 33, 15, 3),    # regions narrower than K: border rows and windows
+                        # across regions
+])
+def test_apply_one_term_kernel(dev, kind, H, W, K, nreg):
+    """H3 at one term (the direct fp32 correlation): the variance
+    propagation against its plain version, rtol 1e-4 and atol 1e-3 of the
+    variance's scale; the order-0 model no further from the float64 plain
+    model than the GEMM of two or more terms fed a zero second term (the
+    one-term launch before the direct kernel), and within rtol 1e-4, atol
+    1e-3 of the f32 plain model up to K = 15 (at K = 31 on these stars
+    neither f32 form lies within 1e-3 of the other); the library launch
+    into an output filled with NaN bit-equal to the wrapper's, and two
+    calls bit-identical."""
+    from zuds_tpu_torch.kernels import build, launch
+    subtract, tables, coeffs, ref = _one_term_inputs(dev, H, W, K, nreg,
+                                                     K + nreg)
+    cx, cy, pexp, qexp, wx, wy = subtract.model_geometry(H, W, order=0,
+                                                         nreg=nreg)
+    if kind == 'model':
+        n0 = launch.apply_model.launches
+        k = subtract.apply_kernel_fast(ref, coeffs, *tables, order=0,
+                                       nreg=nreg)
+        assert launch.apply_model.launches == n0 + 1
+        p = subtract.apply_kernel(ref, coeffs, *tables, order=0, nreg=nreg)
+        if K <= 15:
+            _allclose(k, p, 1e-4, 1e-3)
+        src = ref
+        kd = subtract.model_kernels(coeffs, *tables, order=0, nreg=nreg)
+        bg = coeffs[:, -1].contiguous()
+        p64 = subtract.apply_kernel(ref.double(), coeffs.double(),
+                                    *(t.double() for t in tables), order=0,
+                                    nreg=nreg)
+        gemm = launch.apply_model(
+            src, torch.cat([kd, torch.zeros_like(kd)], 1).contiguous(), bg,
+            cx, cy, (0, 1), (0, 0), wx, wy)
+        assert float((k.double() - p64).abs().max()) <= float(
+            (gemm.double() - p64).abs().max())
+    else:
+        rms = 3.0 + ref.abs().sqrt() / 10.0
+        n0 = launch.apply_model_variance.launches
+        k = subtract.propagate_ref_var(rms, coeffs, *tables, order=0,
+                                       nreg=nreg)
+        assert launch.apply_model_variance.launches == n0 + 1
+        kerns = subtract.center_kernels(coeffs, *tables, order=0, nreg=nreg)
+        p = subtract.propagate_ref_var_plain(rms, kerns)
+        scale = float(p.abs().max())
+        _allclose(k, p, 1e-4, 1e-3 * scale)
+        src = (rms ** 2).contiguous()
+        kd = (kerns ** 2).reshape(nreg * nreg, 1, K, K).contiguous()
+        bg = torch.zeros(nreg * nreg, device=dev)
+    params = launch._apply_params(H, W, K, 1, cx, cy, pexp, qexp, wx, wy)
+    for _ in range(2):
+        out = torch.full_like(src, float('nan'))
+        err = build.library().zuds_apply(
+            launch._ptr(src), launch._ptr(kd), launch._ptr(bg),
+            launch._ptr(out), ctypes.byref(params), launch._stream())
+        build.check(err, 'zuds_apply')
+        assert torch.equal(out, k)
+    assert bool(torch.isfinite(k).all())
+
+
+@pytest.mark.parametrize('order,kernel', [(0, 'apply_direct_kernel'),
+                                          (1, 'apply_mma_kernel'),
+                                          (4, 'apply_mma_kernel')])
+def test_apply_routes_by_terms(dev, order, kernel):
+    """One term (order 0) runs the direct kernel and nothing else; three
+    and fifteen terms (orders 1 and 4) run the tensor-core GEMM only."""
+    from torch.profiler import ProfilerActivity, profile
+    subtract, tables, coeffs, ref = _one_term_inputs(dev, 128, 136, 15, 3,
+                                                     21)
+    nm = len(subtract.spatial_terms(order))
+    coeffs = torch.cat([coeffs[:, :-1].repeat_interleave(nm, 1) / nm,
+                        coeffs[:, -1:]], 1).contiguous()
+
+    def run():
+        return subtract.apply_kernel_fast(ref, coeffs, *tables, order=order,
+                                          nreg=3)
+    k = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if 'apply_' in e.name]
+    assert names and all(kernel in n for n in names), names
+    p = subtract.apply_kernel(ref, coeffs, *tables, order=order, nreg=3)
+    _allclose(k, p, 1e-4, 1e-3)
+    assert torch.equal(run(), k)
 
 
 @pytest.mark.parametrize('contract', [False, True])

@@ -124,6 +124,8 @@ def test_apply_with_reference_coeffs_order4_3x3():
 @pytest.mark.parametrize('H,W,K,order,nreg', [
     (128, 120, 17, 4, 3),     # K <= 17, H and W multiples of 8: JAX's s2d
     (104, 96, 21, 5, 2),      # K > 17: JAX's grouped separable form
+    (96, 88, 9, 0, 3),        # one term: H3's direct correlation on the card
+    (80, 72, 31, 0, 1),       # one term at the largest K, one region
 ])
 def test_apply_general_shapes_match_reference(H, W, K, order, nreg):
     """The plain model convolution against the reference's

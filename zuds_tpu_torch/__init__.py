@@ -4,8 +4,9 @@ A second package beside ``zuds_tpu`` (the JAX reference). It imports torch
 and never jax. Every pixel path runs in full fp32: TF32 is switched off for
 matmuls and cuDNN convolutions, as the reference pins Precision.HIGHEST
 (zuds_tpu/ops/subtract.py:51-55). The one use of TF32 tensor cores is the
-model convolution (``kernels/apply.cu``), in the 3xTF32 hi/lo split, which
-keeps fp32 accuracy; a single TF32 pass (~3 digits) is not allowed.
+model convolution (``kernels/apply.cu``, at two or more spatial terms), in
+the 3xTF32 hi/lo split, which keeps fp32 accuracy; a single TF32 pass (~3
+digits) is not allowed.
 
 The flat namespace holds, imported lazily as in ``zuds_tpu/__init__.py``,
 the filter's and the forced photometry's entry points; the rest of the

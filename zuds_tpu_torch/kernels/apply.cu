@@ -71,6 +71,31 @@
 // Shared memory: A K*KP/8 KB + window 16 B per element + power tables;
 // at K = 15 91 KB (two blocks per SM), at K = 31 218 KB (one), which is
 // the largest K that fits.
+//
+// One term (Nm = 1: the variance propagation, and the model at order 0).
+// There the only term is the constant one, T_0 = 1, so the launch is a
+// plain correlation per region, out = bg[r] + sum_{ky,kx} k[r,ky,kx] ref[..]
+// (a single term of another order is blended as above, after the sum):
+// 2 K^2 fp32 operations a pixel, 1.53e9 a 3080 x 3072 frame at K = 9,
+// 0.023 ms on the fp32 units, level with its 8 bytes a pixel (0.023 ms).
+// The GEMM above would pad the term to 16 rows of M and do 16x that work
+// three times over on the tensor cores, so this case takes its own kernel,
+// apply_direct_kernel: fp32 FMAs, no split. Tiles of 64 x 32 inside one
+// region, walked by persistent blocks as above, each tile's (64 + K - 1) x
+// (64 + K - 1) window staged by cp.async in a two-stage ring (zero fill at
+// the frame border); the region's K x K kernel sits in shared memory and
+// is read as a broadcast, four taps a 128-bit load. A thread computes four
+// rows of 8 pixels: it loads one window row of 8 + K - 1 values into
+// registers (128-bit loads) and sweeps kx across it for each output row h
+// with kernel row wy - h, so a window row feeds 32 K FMAs against its
+// 8 + K - 1 loads (measured on an H100 at K = 9, 15, 31: two rows 0.079,
+// 0.141, 0.455 ms, four 0.080, 0.132, 0.401, eight 0.171, 0.218, 0.760,
+// where a region's last tile row wastes more). Every
+// pixel's chain runs ky then kx ascending from 0, and the epilogue adds
+// bg[r] once (T_0 multiplies by exactly 1), so two calls are
+// bit-identical. K is a template parameter (odd K <= 31): the window row
+// and the sweep are unrolled into registers. Shared memory: two window
+// stages and the kernel, 41 KB at K = 9, 74 KB at K = 31.
 #include "common.cuh"
 
 namespace {
@@ -317,6 +342,224 @@ apply_mma_kernel(const float* __restrict__ ref, const float* __restrict__ kd,
   }
 }
 
+// ---- one term: the direct fp32 correlation -------------------------------
+
+constexpr int kDirStrip = 8;     // a thread's pixels along x ...
+constexpr int kDirRows = 4;      // ... in this many rows
+constexpr int kDirThreads = 128;
+constexpr int kDirTileW = 64;    // output tile of the one-term kernel
+constexpr int kDirTileH = kDirThreads / (kDirTileW / kDirStrip) * kDirRows;
+
+// window values a thread loads per row (8 + K - 1, to a multiple of 4),
+// kernel row stride, window row stride and window rows
+__host__ __device__ constexpr int dir_seg(int K) {
+  return (kDirStrip + K - 1 + 3) & ~3;
+}
+__host__ __device__ constexpr int dir_kp(int K) { return (K + 3) & ~3; }
+__host__ __device__ constexpr int dir_ws(int K) {
+  return kDirTileW - kDirStrip + dir_seg(K);
+}
+__host__ __device__ constexpr int dir_wr(int K) { return kDirTileH + K - 1; }
+
+constexpr size_t direct_smem(int K) {
+  return (2 * (size_t)dir_wr(K) * dir_ws(K) + (size_t)K * dir_kp(K)) *
+         sizeof(float);
+}
+
+// acc[i] += sum_kx krow[kx] seg[kx + i], kx ascending
+template <int K>
+__device__ __forceinline__ void fma_row(float (&acc)[kDirStrip],
+                                        const float (&seg)[dir_seg(K)],
+                                        const float* krow) {
+#pragma unroll
+  for (int q = 0; q < dir_kp(K) / 4; ++q) {
+    const float4 kq = reinterpret_cast<const float4*>(krow)[q];
+    const float kv[4] = {kq.x, kq.y, kq.z, kq.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (4 * q + e < K) {
+#pragma unroll
+        for (int i = 0; i < kDirStrip; ++i)
+          acc[i] = fmaf(kv[e], seg[4 * q + e + i], acc[i]);
+      }
+    }
+  }
+}
+
+// grid (R2, blocks per region); kd is (R2, 1, K, K), the region's one term
+template <int K>
+__global__ void __launch_bounds__(kDirThreads)
+apply_direct_kernel(const float* __restrict__ ref,
+                    const float* __restrict__ kd,
+                    const float* __restrict__ bg, float* __restrict__ model,
+                    const __grid_constant__ ApplyParams p) {
+  extern __shared__ float4 smem[];
+  constexpr int KP = dir_kp(K), SEG = dir_seg(K), WS = dir_ws(K);
+  constexpr int WR = dir_wr(K), WN = WR * WS, WC = kDirTileW + K - 1;
+  constexpr int half = K / 2;
+  const int H = p.H, W = p.W, nreg = p.nreg;
+  float* raw = reinterpret_cast<float*>(smem);   // 2 x WN
+  float* ks = raw + 2 * WN;                       // K x KP
+
+  const int r = blockIdx.x, ri = r / nreg, rj = r % nreg;
+  const int ry0 = edge(ri, H, nreg), ry1 = edge(ri + 1, H, nreg);
+  const int rx0 = edge(rj, W, nreg), rx1 = edge(rj + 1, W, nreg);
+  const int ntx = (rx1 - rx0 + kDirTileW - 1) / kDirTileW;
+  const int ntiles = ntx * ((ry1 - ry0 + kDirTileH - 1) / kDirTileH);
+  if ((int)blockIdx.y >= ntiles) return;                   // block-uniform
+
+  for (int i = threadIdx.x; i < K * KP; i += kDirThreads) {
+    const int ky = i / KP, kx = i - ky * KP;
+    ks[i] = kx < K ? kd[((size_t)r * K + ky) * K + kx] : 0.f;
+  }
+
+  auto load_window = [&](int tile, float* dst) {
+    const int gy0 = ry0 + (tile / ntx) * kDirTileH - half;
+    const int gx0 = rx0 + (tile % ntx) * kDirTileW - half;
+    for (int wy = threadIdx.x >> 5; wy < WR; wy += kDirThreads / 32) {
+      const int gy = gy0 + wy;
+      const bool row_in = gy >= 0 && gy < H;
+      for (int wx = threadIdx.x & 31; wx < WS; wx += 32) {
+        const int gx = gx0 + wx;
+        const bool in = row_in && wx < WC && gx >= 0 && gx < W;
+        cp_async4(dst + wy * WS + wx, in ? ref + (size_t)gy * W + gx : ref,
+                  in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int tx = threadIdx.x % (kDirTileW / kDirStrip);
+  const int ty = threadIdx.x / (kDirTileW / kDirStrip);
+  const float bgr = bg[r];
+  const int pe = p.pexp[0], qe = p.qexp[0];
+  load_window(blockIdx.y, raw);
+  for (int it = 0, tile = blockIdx.y; tile < ntiles;
+       ++it, tile += gridDim.y) {
+    const int next = tile + gridDim.y;
+    if (next < ntiles)
+      load_window(next, raw + ((it + 1) & 1) * WN);
+    else
+      cp_async_commit();                 // empty group: the count stays
+    cp_async_wait_prev();
+    __syncthreads();                     // this tile's window landed
+    const float* wrow =
+        raw + (it & 1) * WN + kDirRows * ty * WS + kDirStrip * tx;
+    float acc[kDirRows][kDirStrip];
+#pragma unroll
+    for (int h = 0; h < kDirRows; ++h)
+#pragma unroll
+      for (int i = 0; i < kDirStrip; ++i) acc[h][i] = 0.f;
+    // window row wy is kernel row wy - h of output row h
+#pragma unroll 1
+    for (int wy = 0; wy < K + kDirRows - 1; ++wy, wrow += WS) {
+      float seg[SEG];
+#pragma unroll
+      for (int q = 0; q < SEG / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(wrow)[q];
+        seg[4 * q] = v.x;
+        seg[4 * q + 1] = v.y;
+        seg[4 * q + 2] = v.z;
+        seg[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < kDirRows; ++h)
+        if (wy >= h && wy - h < K)
+          fma_row<K>(acc[h], seg, ks + (wy - h) * KP);
+    }
+    const int ty0 = ry0 + (tile / ntx) * kDirTileH + kDirRows * ty;
+    const int tx0 = rx0 + (tile % ntx) * kDirTileW + kDirStrip * tx;
+#pragma unroll
+    for (int h = 0; h < kDirRows; ++h) {
+      const int y = ty0 + h;
+      if (y >= ry1) continue;
+#pragma unroll
+      for (int i = 0; i < kDirStrip; ++i) {
+        const int x = tx0 + i;
+        if (x >= rx1) continue;
+        float a = acc[h][i];
+        if (pe | qe)    // a term other than the constant one, as H3 blends
+          a = __fmul_rn(
+              __fmul_rn(
+                  ipow(__fdiv_rn(__fsub_rn((float)x, p.cx[rj]), p.wx), pe),
+                  ipow(__fdiv_rn(__fsub_rn((float)y, p.cy[ri]), p.wy), qe)),
+              a);
+        model[(size_t)y * W + x] = __fadd_rn(bgr, a);
+      }
+    }
+    __syncthreads();                     // the window is read: reusable
+  }
+}
+
+// persistent blocks: the card's resident blocks shared among regions, no
+// more per region than the largest region has tiles (rounded down: one
+// block past the resident count would run as a second wave and double
+// the time)
+dim3 region_grid(const ApplyParams& p, int resident, int tile_h,
+                 int tile_w) {
+  const int R2 = p.nreg * p.nreg;
+  int max_tiles = 0;
+  for (int ri = 0; ri < p.nreg; ++ri)
+    for (int rj = 0; rj < p.nreg; ++rj) {
+      const int h = edge(ri + 1, p.H, p.nreg) - edge(ri, p.H, p.nreg);
+      const int w = edge(rj + 1, p.W, p.nreg) - edge(rj, p.W, p.nreg);
+      const int n = ((h + tile_h - 1) / tile_h) * ((w + tile_w - 1) / tile_w);
+      max_tiles = n > max_tiles ? n : max_tiles;
+    }
+  int per_region = resident / R2;
+  per_region = per_region < max_tiles ? per_region : max_tiles;
+  per_region = per_region > 0 ? per_region : 1;
+  return dim3(R2, per_region);
+}
+
+// the resident blocks of `kernel` on this card at `threads` and `smem`
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, size_t smem,
+                            int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, nsm = 0, occ = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  *out = nsm * (occ > 0 ? occ : 1);
+  return cudaSuccess;
+}
+
+template <int K>
+int launch_direct(const float* ref, const float* kd, const float* bg,
+                  float* model, const ApplyParams& p, cudaStream_t stream) {
+  constexpr size_t smem = direct_smem(K);
+  int resident = 0;
+  cudaError_t err = resident_blocks(apply_direct_kernel<K>, kDirThreads,
+                                    smem, &resident);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = region_grid(p, resident, kDirTileH, kDirTileW);
+  apply_direct_kernel<K><<<grid, kDirThreads, smem, stream>>>(ref, kd, bg,
+                                                              model, p);
+  return (int)cudaGetLastError();
+}
+
+int apply_one_term(const float* ref, const float* kd, const float* bg,
+                   float* model, const ApplyParams& p, cudaStream_t stream) {
+  switch (p.K) {
+#define ZUDS_DIRECT(K) \
+  case K:              \
+    return launch_direct<K>(ref, kd, bg, model, p, stream);
+    ZUDS_DIRECT(1) ZUDS_DIRECT(3) ZUDS_DIRECT(5) ZUDS_DIRECT(7)
+    ZUDS_DIRECT(9) ZUDS_DIRECT(11) ZUDS_DIRECT(13) ZUDS_DIRECT(15)
+    ZUDS_DIRECT(17) ZUDS_DIRECT(19) ZUDS_DIRECT(21) ZUDS_DIRECT(23)
+    ZUDS_DIRECT(25) ZUDS_DIRECT(27) ZUDS_DIRECT(29) ZUDS_DIRECT(31)
+#undef ZUDS_DIRECT
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" int zuds_apply(const float* ref, const float* kd, const float* bg,
@@ -331,35 +574,14 @@ extern "C" int zuds_apply(const float* ref, const float* kd, const float* bg,
     npow = p.pexp[m] + 1 > npow ? p.pexp[m] + 1 : npow;
     npow = p.qexp[m] + 1 > npow ? p.qexp[m] + 1 : npow;
   }
+  // one term: the direct correlation
+  if (p.Nm == 1) return apply_one_term(ref, kd, bg, model, p, stream);
   const size_t smem = smem_bytes(p.K, npow);
-  cudaError_t err = cudaFuncSetAttribute(
-      apply_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  int resident = 0;
+  cudaError_t err = resident_blocks(apply_mma_kernel, kThreads, smem,
+                                    &resident);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, nsm = 0, occ = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, apply_mma_kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  // persistent blocks: the card's resident blocks shared among regions,
-  // no more per region than the largest region has tiles
-  const int R2 = p.nreg * p.nreg;
-  int max_tiles = 0;
-  for (int ri = 0; ri < p.nreg; ++ri)
-    for (int rj = 0; rj < p.nreg; ++rj) {
-      const int h = edge(ri + 1, p.H, p.nreg) - edge(ri, p.H, p.nreg);
-      const int w = edge(rj + 1, p.W, p.nreg) - edge(rj, p.W, p.nreg);
-      const int n = ((h + kTileH - 1) / kTileH) * ((w + kTileW - 1) / kTileW);
-      max_tiles = n > max_tiles ? n : max_tiles;
-    }
-  // (rounded down: one block past the resident count would run as a
-  // second wave and double the time)
-  int per_region = nsm * (occ > 0 ? occ : 1) / R2;
-  per_region = per_region < max_tiles ? per_region : max_tiles;
-  per_region = per_region > 0 ? per_region : 1;
-  const dim3 grid(R2, per_region);
+  const dim3 grid = region_grid(p, resident, kTileH, kTileW);
   for (int mt = 0; mt * 16 < p.Nm; ++mt) {
     apply_mma_kernel<<<grid, kThreads, smem, stream>>>(ref, kd, bg, model, p,
                                                        mt, npow);

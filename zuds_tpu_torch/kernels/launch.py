@@ -123,6 +123,17 @@ def background_cells(img, valid, box, iters):
     return back, sigma, n
 
 
+def _apply_params(H, W, K, Nm, cx, cy, pexp, qexp, wx, wy):
+    """H3's by-value parameters (``build.ApplyParams``)."""
+    nreg = len(cx)
+    # c_float fields round the centres and half-widths to f32 as the
+    # reference does
+    params = build.ApplyParams(H=H, W=W, K=K, Nm=Nm, nreg=nreg, wx=wx, wy=wy)
+    params.cx[:nreg], params.cy[:nreg] = cx, cy
+    params.pexp[:Nm], params.qexp[:Nm] = pexp, qexp
+    return params
+
+
 def _launch_apply(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
     """Check and launch ``zuds_apply`` (H3); the two wrappers below count
     their own launches."""
@@ -140,11 +151,7 @@ def _launch_apply(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
     _require('ref', ref, torch.float32)
     _require('kd', kd, torch.float32, (nreg * nreg, Nm, K, K))
     _require('bg', bg, torch.float32, (R2,))
-    # c_float fields round the centres and half-widths to f32 as the
-    # reference does
-    params = build.ApplyParams(H=H, W=W, K=K, Nm=Nm, nreg=nreg, wx=wx, wy=wy)
-    params.cx[:nreg], params.cy[:nreg] = cx, cy
-    params.pexp[:Nm], params.qexp[:Nm] = pexp, qexp
+    params = _apply_params(H, W, K, Nm, cx, cy, pexp, qexp, wx, wy)
     model = torch.empty_like(ref)
     err = build.library().zuds_apply(_ptr(ref), _ptr(kd), _ptr(bg),
                                      _ptr(model), ctypes.byref(params),
@@ -156,7 +163,8 @@ def _launch_apply(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
 def apply_model(ref, kd, bg, cx, cy, pexp, qexp, wx, wy):
     """H3 (kernels/apply.cu): the spatially varying model convolution
     ``bg[r] + sum_m T_m(xn, yn) (kd[r, m] * ref)`` with zero padding, on the
-    tensor cores in 3xTF32.
+    tensor cores in 3xTF32; at one term (Nm = 1, the pair's order-0 model)
+    as a direct fp32 correlation.
 
     kd (R2, Nm, K, K) f32 and bg (R2,) f32 on the card; the rest are host
     values passed by value in the launch (no copy to the card): cx (nreg,)
@@ -176,7 +184,8 @@ def apply_model_variance(var, k2, cx, cy, wx, wy):
     K, K) of its static region: the reference's ``propagate_ref_var``. The
     single term is the constant one and the background is 0, so the launch
     computes ``k2[r] * var`` over the same region rectangles as the model,
-    in 3xTF32. ``cx``, ``cy``, ``wx``, ``wy`` as in :func:`apply_model`."""
+    as H3's direct fp32 correlation. ``cx``, ``cy``, ``wx``, ``wy`` as in
+    :func:`apply_model`."""
     R2, K, _ = k2.shape
     out = _launch_apply(var, k2.reshape(R2, 1, K, K),
                         torch.zeros(R2, dtype=torch.float32,
@@ -297,7 +306,7 @@ def frame_median(x, ok=None, center=None, iters=12):
     return out
 
 
-# the per-thread arrays of H9 (coadd.cu) hold at most this many epochs
+# H9 (coadd.cu) holds at most this many epochs of a pixel on chip
 COMBINE_MAX_EPOCHS = 64
 
 

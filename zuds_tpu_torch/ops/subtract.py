@@ -377,8 +377,9 @@ def propagate_ref_var(ref_rms, coeffs, basis_gx, basis_gy, basis_sums,
     """conv(var_ref, K_r^2) with K evaluated at each region centre
     (subtract.py:692). A CUDA tensor runs hand kernel H3 with one constant
     term whose kernel is the squared centre kernel (the same zero-padded
-    correlation over the same region rectangles as the model, in 3xTF32);
-    a CPU tensor runs :func:`propagate_ref_var_plain`."""
+    correlation over the same region rectangles as the model, in H3's
+    direct fp32 form for one term); a CPU tensor runs
+    :func:`propagate_ref_var_plain`."""
     kerns = center_kernels(coeffs, basis_gx, basis_gy, basis_sums, b0_2d,
                            order=order, nreg=nreg)
     if not ref_rms.is_cuda:
