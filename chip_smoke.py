@@ -402,12 +402,17 @@ def refine_flop(img, rms, args, k, cut=33):
     return xs.numel() * cut * cut * REFINE_OPS_PX + inside * REFINE_AUTO_OPS
 
 
-def measure_records(out, record, name):
+def measure_records(out, record, name, sci):
     """The measure stage's kernels on the slice's frame 0, at its max_det
     detection rows: H22 at r = 3 with the submask and at r = 6 on the two
     planes, H23, and H14 at the pipeline's own H8 medians, each against
     its plain version (and H22 and H23 at N = 0), timed (device time: a
-    CUDA graph of 20 launches) beside the plain version and the bound."""
+    CUDA graph of 20 launches) beside the plain version and the bound;
+    H23 also on as many seeded rows, all distinct, over the science frame
+    ``sci`` (sky, stars, noise: on the diff's windows of noise alone the
+    centroid of max(noise, 0) is too ill-conditioned for refine_check's
+    tolerance in any order of the sums)."""
+    import numpy as np
     import torch
     from zuds_tpu_torch.constants import BAD_SUM
     from zuds_tpu_torch.kernels import launch
@@ -473,13 +478,32 @@ def measure_records(out, record, name):
           f'of an ellipse edge, {crossed} with a pixel between its two '
           f'AUTO edges (H23\'s and the plain formulas\' at H23\'s '
           f'centroid); two calls bit-identical', flush=True)
-    # reads the 33x33 windows of img and rms and six inputs, writes 11
+    # the bound of the distinct work that gives the same outputs: the
+    # distinct rows' windows and operations, every row's six inputs and
+    # eleven outputs (the rows past the frame's objects share one input)
+    one = distinct_rows(args)
+    nd = one.numel()
+    sub = tuple(a[one] for a in args)
+    bnd = bound(nd * 2 * 33 * 33 * 4 + n * (24 + 44),
+                refine_flop(diff, rms, sub, {key: v[one]
+                                             for key, v in k1.items()}))
+    every = bound(n * (2 * 33 * 33 * 4 + 17 * 4),
+                  refine_flop(diff, rms, args, k1))
+    print(f'refine_detections: {nd} distinct rows of {n}; the bound of '
+          f'measuring every row {every[0]:.5f} ms ({every[1]})', flush=True)
     record('refine_detections', max(gaps.values()),
            graph_ms(lambda: launch.refine_detections(diff, rms, *args, 33)),
            cuda_ms(lambda: ms.refine_detections_plain(diff, rms, *args),
-                   1, 3),
-           bound(n * (2 * 33 * 33 * 4 + 17 * 4),
-                 refine_flop(diff, rms, args, k1)))
+                   1, 3), bnd)
+    # every row distinct: seeded positions and shapes over the science frame
+    rng = np.random.default_rng(18)
+    dargs = tuple(torch.as_tensor(v.astype('f4'), device=diff.device)
+                  for v in (rng.uniform(-5, W + 5, n),
+                            rng.uniform(-5, H + 5, n),
+                            rng.uniform(0.3, 4.0, n), rng.uniform(0.3, 2.0, n),
+                            rng.uniform(-1.6, 1.6, n),
+                            rng.uniform(1.0, 6.0, n)))
+    refine_case(sci, rms, dargs, f'{n} seeded distinct rows', name)
 
     # H14 at the pipeline's medians: the ::4 subsample's H8 median and
     # 1.48 MAD
@@ -505,6 +529,47 @@ def measure_records(out, record, name):
           f'to the plain version at {n} rows (r = 3), the r = 6 sums and '
           f'H23 within their bounds, H14 bit-equal ({int(kv.sum())} vetoed)',
           flush=True)
+
+
+def distinct_rows(args):
+    """The index of one row of each distinct bit pattern of the six
+    inputs ``args``."""
+    import torch
+    bits = torch.stack([a.contiguous().view(torch.int32) for a in args], 1)
+    _, inv = torch.unique(bits, dim=0, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), bits.shape[0],
+                       dtype=torch.int64, device=bits.device)
+    return first.scatter_reduce(0, inv, torch.arange(
+        bits.shape[0], device=bits.device), 'amin')
+
+
+def refine_case(img, rms, args, tag, name):
+    """H23 on ``args`` beside the slice's: two calls bit-identical, within
+    refine_check of the plain version, timed by CUDA graph with its
+    distinct-work bound."""
+    import torch
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.kernels.checks import refine_check
+    from zuds_tpu_torch.ops import measure as ms
+    n = args[0].numel()
+    k1 = launch.refine_detections(img, rms, *args, 33)
+    k2 = launch.refine_detections(img, rms, *args, 33)
+    check(all(torch.equal(k1[key].nan_to_num(7.0), k2[key].nan_to_num(7.0))
+              for key in k1), f'H23 ({tag}): two calls differ')
+    p = ms.refine_detections_plain(img, rms, *args)
+    gaps, near, crossed = refine_check(img, rms, args, k1, p)
+    one = distinct_rows(args)
+    nd = one.numel()
+    bnd = bound(nd * 2 * 33 * 33 * 4 + n * (24 + 44),
+                refine_flop(img, rms, tuple(a[one] for a in args),
+                            {key: v[one] for key, v in k1.items()}))
+    ms_k = graph_ms(lambda: launch.refine_detections(img, rms, *args, 33))
+    print(f'refine_detections ({tag}): N = {n}, {nd} distinct rows, within '
+          f'refine_check of the plain version (largest gap '
+          f'{max(gaps.values()):.3g}; {near} rows near an ellipse edge, '
+          f'{crossed} between the AUTO edges), two calls bit-identical; '
+          f'kernel {ms_k:.4f} ms (a CUDA graph of 20), bound {bnd[0]:.5f} '
+          f'ms ({bnd[1]}, share {bnd[0] / ms_k:.1%}) on {name}', flush=True)
 
 
 def detect_phase(out, cfg, record, name):
@@ -1699,6 +1764,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
     from zuds_tpu_torch.image import ScienceImage
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.ops import cutouts, resample, subtract
+    from zuds_tpu_torch.ops import measure as measure_ops
     from zuds_tpu_torch.subtraction import SingleEpochSubtraction
     H, W = night.FLAGSHIP.height, night.FLAGSHIP.width
     header_json = (Path(__file__).resolve().parent / 'tests' / 'data'
@@ -1718,18 +1784,31 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         check(plans[0] is not None and plans[1] is None,
               f'pair: warp plans {plans}')
 
-        def run(tag, i, ml=False):
+        def run(tag, i, ml=False, refine_calls=None):
             """do_one on a fresh copy of pair ``i`` (a pair's products are
-            cached beside it), counted and timed."""
+            cached beside it), counted and timed; ``refine_calls`` takes
+            the arguments of its catalogs' H23 calls."""
             dd = os.path.join(d, tag)
             shutil.copytree(src, dd)
             line = work[i].replace(src, dd)
             for w in wrappers.values():
                 w.launches = 0
             st = {}
+            if refine_calls is not None:
+                refine = measure_ops.refine_detections
+
+                def taken(img, rms, *args, **kw):
+                    refine_calls.append((img.contiguous(), rms.contiguous(),
+                                         tuple(a.contiguous() for a in args)))
+                    return refine(img, rms, *args, **kw)
+                measure_ops.refine_detections = taken
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            product, rows = sub.do_one(line, ml=ml, stats=st)
+            try:
+                product, rows = sub.do_one(line, ml=ml, stats=st)
+            finally:
+                if refine_calls is not None:
+                    measure_ops.refine_detections = refine
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             return (product, rows, st, secs,
@@ -1738,8 +1817,10 @@ def pair_phase(wrappers, name, record, fused_pair_s):
         _, _, _, warm_s, _, _ = run('warm', 1)
         print(f'pair: warm-up do_one {warm_s:.2f} s', flush=True)
         results, pair_s = {}, {}
+        refine_calls = []
         for tag, i in (('gather', 1), ('planned', 0)):
-            product, rows, st, secs, launches, line = run(tag, i)
+            product, rows, st, secs, launches, line = run(
+                tag, i, refine_calls=refine_calls if tag == 'gather' else None)
             results[tag] = (product, launches, line, st['filter_s'])
             pair_s[tag] = (secs, st)
             used = {k: n for k, n in launches.items() if n}
@@ -1779,6 +1860,14 @@ def pair_phase(wrappers, name, record, fused_pair_s):
                   f'({tx:.0f}, {ty:.0f}) a GOODCUT row {dist.min():.2f} px '
                   f'away ({len(rows)} GOODCUT rows); sub, mask and catalog '
                   f'on disk', flush=True)
+
+        # H23 at the pair catalogs' own N (the rotated pair's science and
+        # subtraction catalogs, their valid rows)
+        check(len(refine_calls) == 2,
+              f'pair: {len(refine_calls)} catalog refinements, not 2')
+        for j, (img, rms, rargs) in enumerate(refine_calls):
+            refine_case(img, rms, rargs, f'pair catalog {j}', name)
+        del refine_calls
 
         # ---- the scoring step: do_one on the rotated pair at ml=True -------
         with scoring_model(d) as sm:
@@ -3364,7 +3453,7 @@ def main():
               f'path ({per}) on {name}', flush=True)
 
     # ---- the measure stage's kernels on the slice's frame 0 ---------------
-    measure_records(out, record, name)
+    measure_records(out, record, name, targs[0][0].contiguous())
 
     # ---- the detect stage: H24-H27 against their plain versions ----------
     detect_phase(out, cfg, record, name)

@@ -2,7 +2,8 @@
 and the detect stage through them against the JAX package, at <= 256^2
 with compact lists of <= 16,384 entries.
 
-- ``ordered.tree_scan_at`` (H26's walk up the scan's tree) equals
+- ``ordered.tree_scan_at`` (the walk up the scan's tree from a row's end,
+  which ``tests/test_torch_row_scan.py`` holds H26's per-row twin to) equals
   ``segmented_scan(...)[:, ends]`` bit for bit at even, odd and
   non-power-of-two lengths, with single-entry and empty rows;
   ``ordered.counting_sort`` (H26's sort) gives ``torch.sort(stable=True)``'s

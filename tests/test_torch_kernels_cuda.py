@@ -2208,6 +2208,126 @@ def test_h22_h23_refuse_wrong_inputs(dev):
         launch.refine_detections(img, img.cpu(), xs, xs, xs, xs, xs, xs, 33)
 
 
+@pytest.mark.parametrize('cut', [25, 41])
+def test_refine_detections_kernel_other_cut(dev, cut):
+    """H23 at window sizes other than the catalogs' 33 (the kernel's
+    loop over a window of any size) against the plain version at the same
+    size."""
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import measure as ms
+    H, W, n = 300, 290, 200
+    img, rms, _ = _phot_frame(H, W, dev, 82)
+    rng = np.random.default_rng(83)
+    xs, ys = _positions(H, W, n, 84)
+    args = tuple(_f32(v, dev) for v in (
+        xs, ys, rng.uniform(0.3, 4.0, n), rng.uniform(0.3, 2.0, n),
+        rng.uniform(-1.6, 1.6, n), rng.uniform(1.0, 6.0, n)))
+    k = launch.refine_detections(img, rms, *args, cut)
+    k2 = launch.refine_detections(img, rms, *args, cut)
+    for key in k:
+        assert torch.equal(k[key].nan_to_num(7.0), k2[key].nan_to_num(7.0))
+    p = ms.refine_detections_plain(img, rms, *args, cut)
+    checks.refine_check(img, rms, args, k, p, cut)
+
+@pytest.mark.parametrize('nlive', [0, 3, 57, 4095])
+def test_refine_detections_kernel_repeated_rows(dev, nlive):
+    """H23 on 4096 rows of which all but ``nlive`` (interleaved) carry the
+    last row's six inputs bitwise, as detect_sources' empty rows do; one
+    row differs from the last in theta by one ulp and one in x by half a
+    pixel: those are measured on their own. Within refine_check of the plain version,
+    the copies bitwise the last row's outputs, two calls bit-identical."""
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import measure as ms
+    H, W, n = 3080, 3072, 4096
+    img, rms, _ = _phot_frame(H, W, dev, 79)
+    rng = np.random.default_rng(80 + nlive)
+    xs, ys = _positions(H, W, n, 81 + nlive)
+    cols = [np.asarray(v, 'f4').copy() for v in (
+        xs, ys, rng.uniform(0.3, 4.0, n), rng.uniform(0.3, 2.0, n),
+        rng.uniform(-1.6, 1.6, n), rng.uniform(1.0, 6.0, n))]
+    copies = np.ones(n, bool)
+    copies[rng.choice(n - 1, nlive, replace=False)] = False
+    copies[-1] = False
+    for c in cols:
+        c[copies] = c[-1]
+    if nlive >= 3:
+        live = np.flatnonzero(~copies[:-1])
+        cols[4][live[0]] = np.nextafter(cols[4][-1], np.float32(9))
+        for k in (0, 1, 2, 3, 5):
+            cols[k][live[0]] = cols[k][-1]
+            cols[k][live[1]] = cols[k][-1]
+        cols[4][live[1]] = cols[4][-1]
+        cols[0][live[1]] += np.float32(0.5)
+    args = tuple(_f32(c, dev) for c in cols)
+    k = launch.refine_detections(img, rms, *args, 33)
+    k2 = launch.refine_detections(img, rms, *args, 33)
+    for key in k:
+        assert torch.equal(k[key].nan_to_num(7.0), k2[key].nan_to_num(7.0))
+        got = k[key][torch.as_tensor(copies, device=dev)]
+        assert torch.equal(got.view(torch.int32), k[key][-1].expand(
+            got.shape).contiguous().view(torch.int32)), key
+    p = ms.refine_detections_plain(img, rms, *args)
+    checks.refine_check(img, rms, args, k, p)
+
+
+def _stats_layout(dev, counts, seed, H=700, W=600):
+    """object_stats' arguments for rows of the given entry counts (row j
+    holds counts[j] entries, at shuffled positions of the list), over
+    seeded pixels of an H x W frame."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts)
+    cap, nseg = int(counts.sum()), len(counts)
+    cid = np.repeat(np.arange(nseg), counts)
+    rng.shuffle(cid)
+    pidx = np.sort(rng.choice(H * W, cap, replace=False))
+    vals = rng.normal(5, 30, cap).astype('f4')
+    mask = np.where(rng.random(cap) < 0.05, rng.integers(0, 1 << 17, cap),
+                    0).astype('i4')
+    T = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    return (T(cid), T(pidx), T(vals), T(mask), T(rng.random(cap) > 0.02),
+            T((15.0 * (1 + 0.1 * rng.random(cap))).astype('f4')),
+            T(rng.random(cap) < 0.01), T(np.int64(cap + 3)), (H, W), nseg,
+            5.0, nseg - 2)
+
+
+def _stats_counts(seed, cap):
+    """Row lengths of a frame's list: empty rows, rows of 1-400 entries,
+    rows past one 1024-entry window, rows starting and ending on a window
+    boundary, and a discard row with the rest of ``cap``."""
+    rng = np.random.default_rng(seed)
+    lens = list(rng.integers(1, 400, 300) * (rng.random(300) > 0.4))
+    lens[:4] = [0, 7, 1024 - 7, 2048]      # rows 2, 3 on window bounds
+    lens[10:13] = [1025, 3000, 1]
+    lens += [0] * 20
+    lens.append(max(0, cap - sum(lens)))
+    return lens
+
+
+@pytest.mark.parametrize('seed,cap', [(0, 65536), (1, 40000), (2, 131072),
+                                      (3, 9999)])
+def test_object_stats_kernel_layouts(dev, seed, cap):
+    """H26 on seeded row layouts (rows of every length up to past three
+    windows, on and off the windows' bounds, a long discard row, lists of
+    odd length): bit-equal to object_stats_plain (checks.stats_check),
+    two calls bit-identical."""
+    from zuds_tpu_torch.kernels import checks, launch
+    args = _stats_layout(dev, _stats_counts(seed, cap), seed)
+    checks.stats_check(args)
+    a = launch.object_stats(*args)
+    b = launch.object_stats(*args)
+    assert all(torch.equal(a[k].nan_to_num(7.0), b[k].nan_to_num(7.0))
+               for k in a)
+
+
+def test_object_stats_kernel_single_rows(dev):
+    """H26 with one row holding the whole list (one window, several, an
+    odd length past a window) and with every entry its own row."""
+    from zuds_tpu_torch.kernels import checks
+    for counts in ([0, 1024, 0], [0, 5 * 1024, 0], [3, 4097, 0],
+                   [1] * 2050, [0, 1]):
+        checks.stats_check(_stats_layout(dev, counts, len(counts)))
+
+
 def _detect_scene(dev, H, W, nsrc, seed, plateau=False):
     """tests/test_torch_detect.py's scene (sources stamped in 25x25
     windows), as (diff, rms, mask, weight_ok) on the card."""

@@ -546,7 +546,8 @@ def aperture_sums(a, b, xs, ys, r, cut):
 REFINE_KEYS = ('xwin', 'ywin', 'kron_radius', 'flux_auto', 'fluxerr_auto',
                'awin', 'bwin', 'thetawin', 'errawin', 'errbwin',
                'errthetawin')
-# the two cut^2 tiles of measure.cu within 48 KB of shared memory
+# measure.cu's largest window: its three cut^2 tiles (img, rms, r_ell) in
+# 73 KB of shared memory
 REFINE_MAX_CUT = 78
 
 

@@ -6,28 +6,38 @@
 // flag epilogue, into nseg = max_det + 2 rows. The sums cancel
 // (x2 = sxx / wsum - xbar^2), so the reference's pairing
 // (jax.lax.associative_scan, ops/ordered.py:segmented_scan) is kept bit
-// for bit:
-//   1. a stable counting sort of the ids: one warp a tile of 1024 entries
+// for bit. The scan read at a row's last entry depends only on the row's
+// own sorted entries and its absolute start s: it is the left fold, in
+// position order, of the maximal aligned dyadic blocks inside the row's
+// span [s, s + count), each a perfect pairwise tree (ops/ordered.py:
+// row_tree_sum, the CPU twin). Four launches:
+//   1. a stable counting sort's ranks: one warp a tile of 1024 entries
 //      ranks each entry among the tile's equal ids in order
 //      (__match_any_sync) and counts the tile's ids in shared memory;
-//   2. one block scans each row's counts over the tiles and the rows'
-//      totals into their starts, which replace the searchsorted calls;
-//   3. each entry goes to start[row] + earlier tiles' count + its rank
-//      (the permutation torch.sort(stable=True) gives) with its eight
-//      summands and its segment flag, level 0 of the scan's tree;
-//   4. the tree's levels a_{L+1}[k] = op(a_L[2k], a_L[2k+1]),
-//      op((va,sa),(vb,sb)) = (sb ? vb : va + vb, sa | sb), ten per block
-//      of 1024 entries in shared memory, then the upper ones in one block;
-//   5. one block a row: the order-free maxima, minima and OR over its
-//      sorted span; eight threads walk the tree from the row's last entry
-//      (ops/ordered.py:tree_scan_at, the plain twin of the walk); one
-//      thread forms the epilogue, rounding each step as the plain version
-//      does on the card (the "c - a*b" of ordered.fma in double, true
-//      divisions, __fsqrt_rn, the products by 0.5 of PyTorch's division by
-//      a Python 2.0).
+//   2. one thread a row: its tiles' counts loaded 16 at a time, their
+//      offsets, a block scan of the rows' totals; an empty row writes its
+//      fixed outputs here, a non-empty one joins the list of live rows;
+//   3. each entry to its sorted slot (the permutation torch.sort(stable=
+//      True) gives), the rows' starts and the windows of 1024 entries that
+//      lie whole in one row marked;
+//   4. the row pass: a block a window marked whole sums it (a lane an
+//      entry, a butterfly of shuffles for levels 1-5 of its tree, one warp
+//      over the 32 group sums for levels 6-10) with its order-free maxima,
+//      minima and ORs; blocks striding over the live rows sum the blocks
+//      of levels 0-9 in the row's first and last windows the same way,
+//      pair the whole windows' sums into the blocks of levels past 9, and
+//      fold them in position order; a row with whole windows is finished
+//      by whichever of its blocks arrives last (an atomic count, no
+//      wait), its edge windows' sums stored beforehand by its own block,
+//      at the time its windows' blocks run. One thread forms the
+//      epilogue, rounding each step as the plain version does on the
+//      card (the "c - a*b" of ordered.fma in double, true divisions,
+//      __fsqrt_rn, the products by 0.5 of PyTorch's division by a Python
+//      2.0).
 // Bound: memory, a few bytes: each of the 65,536 entries' 30 bytes read
-// once, 81 bytes written a row (2.3 MB, 0.7 us at 3.35 TB/s); the sort,
-// the tree and the row pass are chains of short launches.
+// once, 81 bytes written a row (2.3 MB, 0.7 us at 3.35 TB/s). The time
+// is four launches' latency: two dependent scans of a few thousand rows,
+// the scatter, and one block's chain of shuffles a live row.
 //
 // H27 replaces zuds_tpu/ops/detect.py:954-1008 (the port's
 // ops/detect.py:_clean_plain): the Moffat-wing contribution of every
@@ -49,55 +59,81 @@
 namespace {
 
 constexpr int kRankTile = 1024;   // entries a warp ranks in the counting sort
-constexpr int kScanThreads = 1024;
-constexpr int kChunk = 1024;      // level-0 entries of a low-levels block
-constexpr int kLowLevels = 10;    // log2(kChunk)
+constexpr int kSpanLog = 10;      // the row pass's aligned windows
+constexpr int kSpan = 1 << kSpanLog;
+constexpr int kScanThreads = 1024; // H27's merge block
+constexpr int kOffThreads = 256;  // rows a block of the offsets pass
+constexpr int kMaxRowBlocks = 256; // such blocks (nseg <= 65,536)
 constexpr int kSums = 8;
 constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kGroups = kSpan / 32;               // of 32 entries a window
+constexpr int kGroupsPerWarp = kGroups / kRowWarps;
+constexpr int kMidChunk = 128;    // whole windows' sums staged at once
+constexpr int kLevels = 32;       // levels of the tree over < 2^31 entries
+// a row's edge passes as stored for its last arriver: the cover sums of
+// levels 0-9 (both ends), the six order-free extrema, the two ORs
+constexpr int kEdge = kSpanLog * 2 * kSums + 8;
 constexpr int kCleanThreads = 128;
 constexpr int kCleanBlock = 512;  // columns of a block (the plain blk)
 constexpr int kWin = 32;          // sum_last's window
+static_assert(kSpan == kRankTile, "a window is a tile of the sort");
+static_assert(kGroupsPerWarp * kRowWarps == kGroups, "whole groups a warp");
+static_assert(kMaxRowBlocks == kOffThreads, "one row block's total a thread");
 
 struct Scratch {
-  int* hist;        // (ntiles, nseg) id counts, then their offsets
+  int* hist;        // (ntiles, nseg) each tile's count of each id
+  int* toff;        // (ntiles, nseg) each tile's offset in its id's span
   int* rank;        // (cap,) rank among the tile's equal ids
-  int* starts;      // (nseg,)
+  int* local;       // (nseg,) the counts' exclusive scan in its block
+  int* blocksum;    // (kMaxRowBlocks,) each row block's total
+  int* starts;      // (nseg,) the rows' starts (non-empty rows)
   int* counts;      // (nseg,)
+  int* list;        // (nseg,) the non-empty rows, in no order
+  int* nlist;       // (1,)
+  int* arrive;      // (nseg,) blocks of a row done with their part
+  int* win_row;     // (ntiles,) the row a window lies whole in, or -1
+  float* win_sum;   // (ntiles, kSums) such a window's eight tree sums
+  float* win_mm;    // (ntiles, 6) its peak, xmax, ymax, thresh; xmin, ymin
+  int* win_or;      // (ntiles, 2) its mask OR and flag bits
+  float* edge;      // (nseg, kEdge) a long row's first and last windows'
+                    // cover sums and order-free reductions
   int* pidx_s;      // (cap,) sorted flat indices
   int* mask_s;      // (cap,)
   float* vals_s;    // (cap,)
   float* thr_s;     // (cap,)
   uint8_t* fl_s;    // (cap,) bit 0: weight not ok, bit 1: deblend overflow
-  float* tree;      // (kSums, nodes) the scan tree's values, level by level
-  uint8_t* tflag;   // (nodes,) its segment flags
 };
-
-__host__ __device__ inline long long tree_nodes(int cap) {
-  long long t = 0;
-  for (int n = cap; n >= 1; n >>= 1) t += n;
-  return t;
-}
 
 inline size_t carve(char* base, int cap, int nseg, Scratch* s) {
   const int ntiles = (cap + kRankTile - 1) / kRankTile;
-  const long long nodes = tree_nodes(cap);
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* p = base ? base + off : nullptr;
     off += (bytes + 255) & ~size_t(255);
     return p;
   };
-  s->hist = (int*)take(sizeof(int) * (size_t)ntiles * nseg);
+  const size_t tn = (size_t)ntiles * nseg;
+  s->hist = (int*)take(sizeof(int) * tn);
+  s->toff = (int*)take(sizeof(int) * tn);
   s->rank = (int*)take(sizeof(int) * (size_t)cap);
+  s->local = (int*)take(sizeof(int) * (size_t)nseg);
+  s->blocksum = (int*)take(sizeof(int) * kMaxRowBlocks);
   s->starts = (int*)take(sizeof(int) * (size_t)nseg);
   s->counts = (int*)take(sizeof(int) * (size_t)nseg);
+  s->list = (int*)take(sizeof(int) * (size_t)nseg);
+  s->nlist = (int*)take(sizeof(int));
+  s->arrive = (int*)take(sizeof(int) * (size_t)nseg);
+  s->win_row = (int*)take(sizeof(int) * (size_t)ntiles);
+  s->win_sum = (float*)take(sizeof(float) * kSums * (size_t)ntiles);
+  s->win_mm = (float*)take(sizeof(float) * 6 * (size_t)ntiles);
+  s->win_or = (int*)take(sizeof(int) * 2 * (size_t)ntiles);
+  s->edge = (float*)take(sizeof(float) * kEdge * (size_t)nseg);
   s->pidx_s = (int*)take(sizeof(int) * (size_t)cap);
   s->mask_s = (int*)take(sizeof(int) * (size_t)cap);
   s->vals_s = (float*)take(sizeof(float) * (size_t)cap);
   s->thr_s = (float*)take(sizeof(float) * (size_t)cap);
   s->fl_s = (uint8_t*)take((size_t)cap);
-  s->tree = (float*)take(sizeof(float) * (size_t)kSums * nodes);
-  s->tflag = (uint8_t*)take((size_t)nodes);
   return off;
 }
 
@@ -105,213 +141,32 @@ __device__ __forceinline__ int valid_id(long long c, int nseg) {
   return (c >= 0 && c < nseg) ? (int)c : -1;
 }
 
-// 1. per tile: each entry's rank among the tile's equal ids, in order, and
-// the tile's count of each id (one warp; nseg ints of shared memory)
-__global__ void __launch_bounds__(32)
-    rank_kernel(const long long* __restrict__ cid, int cap, int nseg,
-                int* __restrict__ rank, int* __restrict__ hist) {
-  extern __shared__ int cnt[];
-  const int lane = threadIdx.x;
-  for (int r = lane; r < nseg; r += 32) cnt[r] = 0;
-  __syncwarp();
-  const int base = blockIdx.x * kRankTile;
-  for (int s = 0; s < kRankTile; s += 32) {
-    const int i = base + s + lane;
-    const int key = i < cap ? valid_id(cid[i], nseg) : -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, key);
-    if (key >= 0) rank[i] = cnt[key] + __popc(peers & ((1u << lane) - 1u));
-    __syncwarp();
-    if (key >= 0 && lane == __ffs(peers) - 1) cnt[key] += __popc(peers);
-    __syncwarp();
+// The order-free reductions of a row: peak, xmax, ymax, thresh (maxima),
+// xmin, ymin (minima), the mask OR and the flag bits.
+struct Part {
+  float mx[4], mn[2];
+  int mor, fl;
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mx[q] = -INFINITY;
+    mn[0] = mn[1] = INFINITY;
+    mor = fl = 0;
   }
-  for (int r = lane; r < nseg; r += 32)
-    hist[(size_t)blockIdx.x * nseg + r] = cnt[r];
-}
-
-// 2. each row's counts over the tiles -> offsets; the rows' totals ->
-// starts (one block)
-__global__ void __launch_bounds__(kScanThreads)
-    offsets_kernel(int* __restrict__ hist, int ntiles, int nseg,
-                   int* __restrict__ starts, int* __restrict__ counts) {
-  extern __shared__ int tot[];
-  __shared__ int wsum[32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  for (int r = t; r < nseg; r += kScanThreads) {
-    int run = 0;
-    for (int k = 0; k < ntiles; ++k) {
-      const size_t h = (size_t)k * nseg + r;
-      const int c = hist[h];
-      hist[h] = run;
-      run += c;
-    }
-    tot[r] = run;
-    counts[r] = run;
+  __device__ __forceinline__ void add(const float* m6, int m, int f) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mx[q] = torch_max(mx[q], m6[q]);
+    mn[0] = torch_min(mn[0], m6[4]);
+    mn[1] = torch_min(mn[1], m6[5]);
+    mor |= m;
+    fl |= f;
   }
-  __syncthreads();
-  const int per = (nseg + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, nseg), hi = min(lo + per, nseg);
-  int s = 0;
-  for (int r = lo; r < hi; ++r) s += tot[r];
-  int v = s;
+  __device__ __forceinline__ void to(float* m6) const {
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
+    for (int q = 0; q < 4; ++q) m6[q] = mx[q];
+    m6[4] = mn[0];
+    m6[5] = mn[1];
   }
-  if (lane == 31) wsum[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = wsum[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, o);
-      if (lane >= o) w += y;
-    }
-    wsum[lane] = w;
-  }
-  __syncthreads();
-  int run = v - s + (warp > 0 ? wsum[warp - 1] : 0);
-  for (int r = lo; r < hi; ++r) {
-    starts[r] = run;
-    run += tot[r];
-  }
-}
-
-// 3. each entry to its sorted slot, with level 0 of the tree: the eight
-// summands of ops/detect.py:object_stats_plain and the segment flag
-__global__ void __launch_bounds__(256)
-    place_kernel(const long long* __restrict__ cid,
-                 const long long* __restrict__ pidx,
-                 const float* __restrict__ vals,
-                 const int* __restrict__ mask,
-                 const uint8_t* __restrict__ wok,
-                 const float* __restrict__ thr,
-                 const uint8_t* __restrict__ debovf, int cap, int nseg,
-                 int W, long long nodes, Scratch s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cap) return;
-  const int key = valid_id(cid[i], nseg);
-  if (key < 0) return;
-  const int start = s.starts[key];
-  const int p = start + s.hist[(size_t)(i / kRankTile) * nseg + key] +
-                s.rank[i];
-  const long long f = pidx[i];
-  const float v = vals[i];
-  s.pidx_s[p] = (int)f;
-  s.mask_s[p] = mask[i];
-  s.vals_s[p] = v;
-  s.thr_s[p] = thr[i];
-  s.fl_s[p] = (wok[i] ? 0 : 1) | (debovf[i] ? 2 : 0);
-  s.tflag[p] = p == start;
-  const float pos = clamp_min(v, 0.0f);
-  const float px = (float)(f % W), py = (float)(f / W);
-  const float ppx = __fmul_rn(pos, px), ppy = __fmul_rn(pos, py);
-  float* t = s.tree + p;
-  t[0] = 1.0f;
-  t[nodes] = v;
-  t[2 * nodes] = pos;
-  t[3 * nodes] = ppx;
-  t[4 * nodes] = ppy;
-  t[5 * nodes] = __fmul_rn(ppx, px);
-  t[6 * nodes] = __fmul_rn(ppy, py);
-  t[7 * nodes] = __fmul_rn(ppx, py);
-}
-
-// 4a. levels 1..kLowLevels of the tree over each chunk of kChunk entries
-__global__ void __launch_bounds__(kChunk / 2)
-    tree_low_kernel(float* tree, uint8_t* tflag, int cap, long long nodes) {
-  __shared__ float sv[kSums][kChunk / 2];
-  __shared__ uint8_t sf[kChunk / 2];
-  const int t = threadIdx.x;
-  long long off = cap;  // level 1's offset
-  float v[kSums] = {};
-  uint8_t f = 0;
-  {
-    const long long k = (long long)blockIdx.x * (kChunk / 2) + t;
-    if (k < (cap >> 1)) {
-      const long long a = 2 * k, b = a + 1;
-      const uint8_t sb = tflag[b];
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) {
-        const float va = tree[q * nodes + a], vb = tree[q * nodes + b];
-        v[q] = sb ? vb : __fadd_rn(va, vb);
-        tree[q * nodes + off + k] = v[q];
-      }
-      f = tflag[a] | sb;
-      tflag[off + k] = f;
-    }
-#pragma unroll
-    for (int q = 0; q < kSums; ++q) sv[q][t] = v[q];
-    sf[t] = f;
-  }
-  __syncthreads();
-  for (int L = 2; L <= kLowLevels; ++L) {
-    off += cap >> (L - 1);
-    const int width = kChunk >> L;
-    const bool act = t < width;
-    const long long k = (long long)blockIdx.x * width + t;
-    if (act) {
-      const uint8_t sb = sf[2 * t + 1];
-#pragma unroll
-      for (int q = 0; q < kSums; ++q)
-        v[q] = sb ? sv[q][2 * t + 1] : __fadd_rn(sv[q][2 * t], sv[q][2 * t + 1]);
-      f = sf[2 * t] | sb;
-    }
-    __syncthreads();
-    if (act) {
-#pragma unroll
-      for (int q = 0; q < kSums; ++q) sv[q][t] = v[q];
-      sf[t] = f;
-      if (k < (cap >> L)) {
-#pragma unroll
-        for (int q = 0; q < kSums; ++q) tree[q * nodes + off + k] = v[q];
-        tflag[off + k] = f;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// 4b. the levels above kLowLevels, in one block (no __restrict__: this
-// block reads what it wrote one level before)
-__global__ void __launch_bounds__(kScanThreads)
-    tree_high_kernel(float* tree, uint8_t* tflag, int cap, long long nodes) {
-  long long off = 0;
-  for (int L = 0; L < kLowLevels; ++L) off += cap >> L;
-  for (int L = kLowLevels + 1; (cap >> L) >= 1; ++L) {
-    const long long prev = off;
-    off += cap >> (L - 1);
-    const long long n = cap >> L;
-    for (long long k = threadIdx.x; k < n; k += blockDim.x) {
-      const long long a = prev + 2 * k, b = a + 1;
-      const uint8_t sb = tflag[b];
-      for (int q = 0; q < kSums; ++q) {
-        const float va = tree[q * nodes + a], vb = tree[q * nodes + b];
-        tree[q * nodes + off + k] = sb ? vb : __fadd_rn(va, vb);
-      }
-      tflag[off + k] = tflag[a] | sb;
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = torch_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = torch_min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_or(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v |= __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+};
 
 // ordered.fma on the card: the product exact in double, one double add,
 // one rounding to f32 (as (a.double() * b.double() + c.double()).float())
@@ -320,107 +175,45 @@ __device__ __forceinline__ float fma_plain(float a, float b, float c) {
       __dadd_rn(__dmul_rn((double)a, (double)b), (double)c));
 }
 
-// 5. one block a row: the order-free reductions over its sorted span, the
-// eight sums walked up the tree from its last entry, the epilogue
-__global__ void __launch_bounds__(kRowThreads)
-    rows_kernel(const long long* __restrict__ pidx,
-                const long long* __restrict__ ndet, int cap, int H, int W,
-                int nseg, float minarea, int max_det, long long nodes,
-                Scratch s, float* __restrict__ outf, int* __restrict__ outi,
-                uint8_t* __restrict__ valid) {
-  enum { kMax = 6, kMin = 2 };
-  __shared__ float red[kRowThreads / 32][kMax + kMin];
-  __shared__ int redi[kRowThreads / 32][2];
-  __shared__ float sums[kSums];
-  const int row = blockIdx.x, t = threadIdx.x;
-  const int cnt = s.counts[row], st = s.starts[row];
-  // peak, xmax, ymax, thresh; xmin, ymin; the mask OR; the flag bits
-  float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  float mn[2] = {INFINITY, INFINITY};
-  int mor = 0, fl = 0;
-  for (int p = st + t; p < st + cnt; p += blockDim.x) {
-    const int f = s.pidx_s[p];
-    mx[0] = torch_max(mx[0], s.vals_s[p]);
-    const float px = (float)(f % W), py = (float)(f / W);
-    mx[1] = torch_max(mx[1], px);
-    mx[2] = torch_max(mx[2], py);
-    mx[3] = torch_max(mx[3], s.thr_s[p]);
-    mn[0] = torch_min(mn[0], px);
-    mn[1] = torch_min(mn[1], py);
-    mor |= s.mask_s[p];
-    fl |= s.fl_s[p];
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q) mx[q] = warp_max(mx[q]);
-#pragma unroll
-  for (int q = 0; q < 2; ++q) mn[q] = warp_min(mn[q]);
-  mor = warp_or(mor);
-  fl = warp_or(fl);
-  const int lane = t & 31, warp = t >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) red[warp][q] = mx[q];
-    red[warp][4] = mn[0];
-    red[warp][5] = mn[1];
-    redi[warp][0] = mor;
-    redi[warp][1] = fl;
-  }
-  if (t < kSums) {
-    float acc = 0.0f;
-    if (cnt > 0) {
-      // the walk of ops/ordered.py:tree_scan_at: up from the row's last
-      // entry, collecting the even positions' nodes, to the first 0
-      long long ops[64];
-      int nops = 0;
-      long long i = (long long)st + cnt - 1, off = 0;
-      int L = 0;
-      while (i != 0) {
-        if (i & 1) {
-          i = (i - 1) >> 1;
-        } else {
-          ops[nops++] = off + i;
-          i = (i >> 1) - 1;
-        }
-        off += cap >> L;
-        ++L;
-      }
-      const float* tv = s.tree + (long long)t * nodes;
-      acc = tv[off];
-      for (int q = nops - 1; q >= 0; --q) {
-        const float v = tv[ops[q]];
-        acc = s.tflag[ops[q]] ? v : __fadd_rn(acc, v);
-      }
-    }
-    sums[t] = acc;
-  }
-  __syncthreads();
-  if (t != 0) return;
-  for (int w = 1; w < kRowThreads / 32; ++w) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) red[0][q] = torch_max(red[0][q], red[w][q]);
-    red[0][4] = torch_min(red[0][4], red[w][4]);
-    red[0][5] = torch_min(red[0][5], red[w][5]);
-    redi[0][0] |= redi[w][0];
-    redi[0][1] |= redi[w][1];
-  }
-  const bool present = cnt > 0;
-  const float peak = present ? red[0][0] : 0.0f;
-  const float xmax = present ? red[0][1] : -INFINITY;
-  const float ymax = present ? red[0][2] : -INFINITY;
-  const float thresh = present ? red[0][3] : 0.0f;
-  const float xmin = present ? red[0][4] : INFINITY;
-  const float ymin = present ? red[0][5] : INFINITY;
-  const int imaflags = present ? redi[0][0] : 0;
-  const int bits = present ? redi[0][1] : 0;
-  const float npix = sums[0], flux = sums[1];
-  const float wsum = clamp_min(sums[2], 1e-20f);
-  const float xbar = __fdiv_rn(sums[3], wsum);
-  const float ybar = __fdiv_rn(sums[4], wsum);
-  const float x2 =
-      clamp_min(fma_plain(-xbar, xbar, __fdiv_rn(sums[5], wsum)), 1.0f / 12.0f);
-  const float y2 =
-      clamp_min(fma_plain(-ybar, ybar, __fdiv_rn(sums[6], wsum)), 1.0f / 12.0f);
-  const float xy = fma_plain(-xbar, ybar, __fdiv_rn(sums[7], wsum));
+// The epilogue's arguments, passed by value to the launches that write
+// rows.
+struct RowOut {
+  const long long* pidx;
+  const long long* ndet;
+  int cap, H, W, nseg;
+  float minarea;
+  int max_det;
+  float* outf;
+  int* outi;
+  uint8_t* valid;
+};
+
+// One row's outputs from its eight sums and its order-free reductions
+// (``present``: the row has entries; else the plain version's fills).
+__device__ void write_row(int row, bool present, const float* sums,
+                          const float* m6, int mor, int fl, const RowOut& o) {
+  const int cap = o.cap, H = o.H, W = o.W, nseg = o.nseg;
+  const float peak = present ? m6[0] : 0.0f;
+  const float xmax = present ? m6[1] : -INFINITY;
+  const float ymax = present ? m6[2] : -INFINITY;
+  const float thresh = present ? m6[3] : 0.0f;
+  const float xmin = present ? m6[4] : INFINITY;
+  const float ymin = present ? m6[5] : INFINITY;
+  const int imaflags = present ? mor : 0;
+  const int bits = present ? fl : 0;
+  const float npix = present ? sums[0] : 0.0f;
+  const float flux = present ? sums[1] : 0.0f;
+  const float wsum = clamp_min(present ? sums[2] : 0.0f, 1e-20f);
+  const float xbar = __fdiv_rn(present ? sums[3] : 0.0f, wsum);
+  const float ybar = __fdiv_rn(present ? sums[4] : 0.0f, wsum);
+  const float x2 = clamp_min(
+      fma_plain(-xbar, xbar, __fdiv_rn(present ? sums[5] : 0.0f, wsum)),
+      1.0f / 12.0f);
+  const float y2 = clamp_min(
+      fma_plain(-ybar, ybar, __fdiv_rn(present ? sums[6] : 0.0f, wsum)),
+      1.0f / 12.0f);
+  const float xy =
+      fma_plain(-xbar, ybar, __fdiv_rn(present ? sums[7] : 0.0f, wsum));
   const float t1 = __fmul_rn(__fadd_rn(x2, y2), 0.5f);
   const float d = __fmul_rn(__fsub_rn(x2, y2), 0.5f);
   const float t2 = __fsqrt_rn(
@@ -434,22 +227,561 @@ __global__ void __launch_bounds__(kRowThreads)
   const float fwhm = __fmul_rn(
       __fsqrt_rn(__fmul_rn(0.693147182464599609375f, __fadd_rn(x2, y2))),
       2.0f);
-  const bool ok = row >= 1 && row <= max_det && npix >= minarea;
+  const bool ok = row >= 1 && row <= o.max_det && npix >= o.minarea;
   const bool edge = xmin <= 0.0f || ymin <= 0.0f || xmax >= (float)(W - 1) ||
                     ymax >= (float)(H - 1);
-  const long long nd = *ndet;
+  const long long nd = *o.ndet;
   const float trunc_row =
-      nd > cap ? __fsub_rn((float)(pidx[cap - 1] / W), 1.0f) : (float)H;
+      nd > cap ? __fsub_rn((float)(o.pidx[cap - 1] / W), 1.0f) : (float)H;
   const int flags = ((bits & 1) ? 1 : 0) | (edge ? 8 : 0) |
                     ((bits & 2) ? 64 : 0) | (ymax >= trunc_row ? 128 : 0);
   // the float fields in launch.OBJECT_FLOAT_KEYS' order
   const float f[18] = {xbar, ybar, x2,   y2,    xy,   a,    b,    theta, elong,
                        fwhm, flux, peak, npix, xmin, xmax, ymin, ymax, thresh};
 #pragma unroll
-  for (int q = 0; q < 18; ++q) outf[(size_t)q * nseg + row] = f[q];
-  outi[row] = imaflags;
-  outi[nseg + row] = flags;
-  valid[row] = ok;
+  for (int q = 0; q < 18; ++q) o.outf[(size_t)q * nseg + row] = f[q];
+  o.outi[row] = imaflags;
+  o.outi[nseg + row] = flags;
+  o.valid[row] = ok;
+}
+
+// 1. per tile: each entry's rank among the tile's equal ids, in order, and
+// the tile's count of each id (one warp; nseg ints of shared memory); the
+// tile's window unmarked, the list of live rows emptied
+__global__ void __launch_bounds__(32)
+    rank_kernel(const long long* __restrict__ cid, int cap, int nseg,
+                Scratch s) {
+  extern __shared__ int cnt[];
+  const int lane = threadIdx.x;
+  for (int r = lane; r < nseg; r += 32) cnt[r] = 0;
+  if (lane == 0) {
+    s.win_row[blockIdx.x] = -1;
+    if (blockIdx.x == 0) *s.nlist = 0;
+  }
+  __syncwarp();
+  const int base = blockIdx.x * kRankTile;
+#pragma unroll 4
+  for (int k = 0; k < kRankTile; k += 32) {
+    const int i = base + k + lane;
+    const int key = i < cap ? valid_id(cid[i], nseg) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (key >= 0) s.rank[i] = cnt[key] + __popc(peers & ((1u << lane) - 1u));
+    __syncwarp();
+    if (key >= 0 && lane == __ffs(peers) - 1) cnt[key] += __popc(peers);
+    __syncwarp();
+  }
+  for (int r = lane; r < nseg; r += 32)
+    s.hist[(size_t)blockIdx.x * nseg + r] = cnt[r];
+}
+
+// An exclusive scan of v over the block of kOffThreads threads; ``wsum``
+// holds kOffThreads / 32 ints. Returns the thread's prefix and writes the
+// block's total to *total.
+__device__ __forceinline__ int block_scan(int v, int* wsum, int* total) {
+  constexpr int kWarps = kOffThreads / 32;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? wsum[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < kWarps) wsum[lane] = w;
+  }
+  __syncthreads();
+  *total = wsum[kWarps - 1];
+  return x - v + (warp > 0 ? wsum[warp - 1] : 0);
+}
+
+// 2. one thread a row: its counts over the tiles -> their offsets and its
+// total; the totals' exclusive scan within the block of kOffThreads rows
+// and the block's total; empty rows written, live rows listed
+__global__ void __launch_bounds__(kOffThreads)
+    offsets_kernel(const int* __restrict__ hist, int ntiles, Scratch s,
+                   RowOut o) {
+  __shared__ int wsum[kOffThreads / 32];
+  const int nseg = o.nseg;
+  const int t = threadIdx.x, lane = t & 31;
+  const int r = blockIdx.x * kOffThreads + t;
+  int run = 0;
+  if (r < nseg) {
+    int k = 0;
+    for (; k + 16 <= ntiles; k += 16) {
+      int c[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) c[j] = hist[(size_t)(k + j) * nseg + r];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        s.toff[(size_t)(k + j) * nseg + r] = run;
+        run += c[j];
+      }
+    }
+    for (; k < ntiles; ++k) {
+      const int c = hist[(size_t)k * nseg + r];
+      s.toff[(size_t)k * nseg + r] = run;
+      run += c;
+    }
+  }
+  int total;
+  const int excl = block_scan(run, wsum, &total);
+  if (r < nseg) {
+    s.local[r] = excl;
+    s.counts[r] = run;
+    s.arrive[r] = 0;
+  }
+  if (t == 0) s.blocksum[blockIdx.x] = total;
+  const bool live = r < nseg && run > 0;
+  const unsigned m = __ballot_sync(0xffffffffu, live);
+  if (m) {
+    const int leader = __ffs(m) - 1;
+    int base = 0;
+    if (lane == leader) base = atomicAdd(s.nlist, __popc(m));
+    base = __shfl_sync(0xffffffffu, base, leader);
+    if (live) s.list[base + __popc(m & ((1u << lane) - 1u))] = r;
+  }
+  if (r < nseg && run == 0) {
+    const float zero[kSums] = {};
+    Part p;
+    p.init();
+    float m6[6];
+    p.to(m6);
+    write_row(r, false, zero, m6, 0, 0, o);
+  }
+}
+
+// 3. each entry to its sorted slot; the first entry of a row writes its
+// start, the entry at a window's first slot marks the window when it lies
+// whole in the entry's row
+__global__ void __launch_bounds__(kOffThreads)
+    place_kernel(const long long* __restrict__ cid,
+                 const long long* __restrict__ pidx,
+                 const float* __restrict__ vals,
+                 const int* __restrict__ mask,
+                 const uint8_t* __restrict__ wok,
+                 const float* __restrict__ thr,
+                 const uint8_t* __restrict__ debovf, int cap, int nseg,
+                 int nrowblk, Scratch s) {
+  __shared__ int bpre[kMaxRowBlocks];
+  __shared__ int wsum[kOffThreads / 32];
+  {
+    // the row blocks' exclusive prefix, one block a thread
+    const int b = (int)threadIdx.x < nrowblk ? s.blocksum[threadIdx.x] : 0;
+    int total;
+    bpre[threadIdx.x] = block_scan(b, wsum, &total);
+  }
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= cap) return;
+  const int key = valid_id(cid[i], nseg);
+  if (key < 0) return;
+  const int start = s.local[key] + bpre[key / kOffThreads];
+  const int p = start + s.toff[(size_t)(i / kRankTile) * nseg + key] +
+                s.rank[i];
+  if (p == start) s.starts[key] = start;
+  if ((p & (kSpan - 1)) == 0 && p + kSpan <= start + s.counts[key])
+    s.win_row[p >> kSpanLog] = key;
+  s.pidx_s[p] = (int)pidx[i];
+  s.mask_s[p] = mask[i];
+  s.vals_s[p] = vals[i];
+  s.thr_s[p] = thr[i];
+  s.fl_s[p] = (wok[i] ? 0 : 1) | (debovf[i] ? 2 : 0);
+}
+
+// The row [st, m)'s cover at level L: the block (node index) it takes at
+// the left end and at the right end, or -1 (the segment tree's loop:
+// l = ceil(st / 2^L), r = floor(m / 2^L); l's block when l is odd, r - 1's
+// when r is odd, while l < r).
+__device__ __forceinline__ void cover_at(long long st, long long m, int L,
+                                         long long* left, long long* right) {
+  const long long l = (st + (1LL << L) - 1) >> L, r = m >> L;
+  const bool hl = (l & 1) && l < r;
+  const bool hr = (r & 1) && l + (hl ? 1 : 0) < r;
+  *left = hl ? l : -1;
+  *right = hr ? r - 1 : -1;
+}
+
+struct RowShared {
+  float gsum[kGroups][kSums];         // a window's group sums
+  float piece[kSpanLog][2][kSums];    // the cover's blocks of levels 0-9
+  float ws[kMidChunk * kSums];        // whole windows' sums, a chunk
+  float stk[kSums][kLevels];          // each sum's pairing stack
+  float mm[kRowWarps][6];
+  int mi[kRowWarps][2];
+  int midsz[2 * kLevels];             // the cover's blocks past level 9
+  float sums[kSums];
+  float fin[6];
+  int fini[2];
+  int last;
+};
+
+// The block's reduction of each thread's Part into sh.fin / sh.fini
+// (thread 0 merges the warps in order).
+__device__ __forceinline__ void reduce_part(Part p, RowShared& sh) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  float m6[6];
+  p.to(m6);
+  int mor = p.mor, fl = p.fl;
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      m6[q] = torch_max(m6[q], __shfl_xor_sync(0xffffffffu, m6[q], d));
+#pragma unroll
+    for (int q = 4; q < 6; ++q)
+      m6[q] = torch_min(m6[q], __shfl_xor_sync(0xffffffffu, m6[q], d));
+    mor |= __shfl_xor_sync(0xffffffffu, mor, d);
+    fl |= __shfl_xor_sync(0xffffffffu, fl, d);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < 6; ++q) sh.mm[warp][q] = m6[q];
+    sh.mi[warp][0] = mor;
+    sh.mi[warp][1] = fl;
+  }
+  __syncthreads();
+  if (t == 0) {
+    Part all;
+    all.init();
+    for (int w = 0; w < kRowWarps; ++w) all.add(sh.mm[w], sh.mi[w][0],
+                                                sh.mi[w][1]);
+    all.to(sh.fin);
+    sh.fini[0] = all.mor;
+    sh.fini[1] = all.fl;
+  }
+  __syncthreads();
+}
+
+// A block's pass over the sorted entries [a, b) of the aligned window w:
+// their order-free reductions into ``part``; the sums of the row
+// [st, m)'s cover blocks of levels 0-9 that lie in the window into
+// sh.piece; with ``win_out``, the whole window's eight sums (level 10).
+// Levels 0-5 in each group of 32 entries (a lane an entry, a butterfly of
+// shuffles: after step L every lane holds its aligned 2^L-block's sum, the
+// tree's pairing, as a + b == b + a), levels 6-10 in warp 0 over the 32
+// group sums the same way.
+__device__ void window_pass(const Scratch& s, int W, long long w, long long a,
+                            long long b, long long st, long long m,
+                            float* win_out, RowShared& sh, Part& part) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const long long base = w << kSpanLog;
+  int ef[kGroupsPerWarp], em[kGroupsPerWarp], eb[kGroupsPerWarp];
+  float ev[kGroupsPerWarp], et[kGroupsPerWarp];
+#pragma unroll
+  for (int j = 0; j < kGroupsPerWarp; ++j) {
+    const long long p = base + (warp + j * kRowWarps) * 32 + lane;
+    const bool in = p >= a && p < b;
+    ef[j] = in ? s.pidx_s[p] : 0;
+    ev[j] = in ? s.vals_s[p] : 0.0f;
+    et[j] = in ? s.thr_s[p] : 0.0f;
+    em[j] = in ? s.mask_s[p] : 0;
+    eb[j] = in ? (int)s.fl_s[p] : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < kGroupsPerWarp; ++j) {
+    const int g = warp + j * kRowWarps;
+    const long long g0 = base + g * 32;
+    if (g0 + 32 <= a || g0 >= b) continue;  // the warp's group is outside
+    float v[kSums];
+    if (eb[j] >= 0) {
+      const int f = ef[j];
+      const float val = ev[j];
+      const float px = (float)(f % W), py = (float)(f / W);
+      const float pos = clamp_min(val, 0.0f);
+      const float ppx = __fmul_rn(pos, px), ppy = __fmul_rn(pos, py);
+      v[0] = 1.0f;
+      v[1] = val;
+      v[2] = pos;
+      v[3] = ppx;
+      v[4] = ppy;
+      v[5] = __fmul_rn(ppx, px);
+      v[6] = __fmul_rn(ppy, py);
+      v[7] = __fmul_rn(ppx, py);
+      const float m6[6] = {val, px, py, et[j], px, py};
+      part.add(m6, em[j], eb[j]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) v[q] = 0.0f;
+    }
+#pragma unroll
+    for (int L = 0; L <= 5; ++L) {
+      if (L > 0) {
+#pragma unroll
+        for (int q = 0; q < kSums; ++q)
+          v[q] = __fadd_rn(v[q],
+                           __shfl_xor_sync(0xffffffffu, v[q], 1 << (L - 1)));
+      }
+      long long nl, nr;
+      cover_at(st, m, L, &nl, &nr);
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const long long n = side ? nr : nl;
+        if (n >= 0 && ((n << L) >> 5) == (g0 >> 5) &&
+            lane == (int)((n << L) & 31)) {
+#pragma unroll
+          for (int q = 0; q < kSums; ++q) sh.piece[L][side][q] = v[q];
+        }
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) sh.gsum[g][q] = v[q];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const long long g0 = base + lane * 32;
+    const bool whole = g0 >= a && g0 + 32 <= b;
+    float v[kSums];
+#pragma unroll
+    for (int q = 0; q < kSums; ++q) v[q] = whole ? sh.gsum[lane][q] : 0.0f;
+#pragma unroll
+    for (int L = 6; L <= kSpanLog; ++L) {
+#pragma unroll
+      for (int q = 0; q < kSums; ++q)
+        v[q] = __fadd_rn(v[q],
+                         __shfl_xor_sync(0xffffffffu, v[q], 1 << (L - 6)));
+      if (L < kSpanLog) {
+        long long nl, nr;
+        cover_at(st, m, L, &nl, &nr);
+#pragma unroll
+        for (int side = 0; side < 2; ++side) {
+          const long long n = side ? nr : nl;
+          if (n >= 0 && ((n << L) >> kSpanLog) == w &&
+              lane == (int)(((n << L) - base) >> 5)) {
+#pragma unroll
+            for (int q = 0; q < kSums; ++q) sh.piece[L][side][q] = v[q];
+          }
+        }
+      }
+    }
+    if (win_out != nullptr && lane == 0) {
+#pragma unroll
+      for (int q = 0; q < kSums; ++q) win_out[q] = v[q];
+    }
+  }
+  __syncthreads();
+}
+
+// The row's outputs, by the whole block: its first and last windows'
+// passes (those not whole), the whole windows' sums (written by their
+// blocks, read past L1) paired into the cover's blocks past level 9, the
+// fold of the cover in position order by eight threads (one a sum), the
+// order-free reductions, the epilogue.
+__device__ __forceinline__ void edge_passes(int row, const Scratch& s,
+                                            const RowOut& o, RowShared& sh) {
+  const long long st = s.starts[row], m = st + s.counts[row];
+  const long long wa = st >> kSpanLog, wb = (m - 1) >> kSpanLog;
+  // the whole windows [hw, tw)
+  const long long hw = (st + kSpan - 1) >> kSpanLog, tw = m >> kSpanLog;
+  Part part;
+  part.init();
+  if (!(hw <= wa && wa < tw))
+    window_pass(s, o.W, wa, st, min(m, (wa + 1) << kSpanLog), st, m, nullptr,
+                sh, part);
+  if (wb != wa && !(hw <= wb && wb < tw))
+    window_pass(s, o.W, wb, wb << kSpanLog, m, st, m, nullptr, sh, part);
+  reduce_part(part, sh);
+}
+
+// A long row's edge passes (sh.piece, sh.fin, sh.fini) to global memory
+// for the last of its blocks, and back.
+__device__ __forceinline__ void edge_store(int row, const Scratch& s,
+                                           const RowShared& sh) {
+  float* e = s.edge + (size_t)row * kEdge;
+  const float* p = &sh.piece[0][0][0];
+  for (int j = threadIdx.x; j < kEdge; j += kRowThreads)
+    e[j] = j < kEdge - 8 ? p[j]
+                         : (j < kEdge - 2 ? sh.fin[j - (kEdge - 8)]
+                                          : __int_as_float(
+                                                sh.fini[j - (kEdge - 2)]));
+}
+__device__ __forceinline__ void edge_load(int row, const Scratch& s,
+                                          RowShared& sh) {
+  const float* e = s.edge + (size_t)row * kEdge;
+  float* p = &sh.piece[0][0][0];
+  for (int j = threadIdx.x; j < kEdge; j += kRowThreads) {
+    const float v = __ldcg(e + j);
+    if (j < kEdge - 8)
+      p[j] = v;
+    else if (j < kEdge - 2)
+      sh.fin[j - (kEdge - 8)] = v;
+    else
+      sh.fini[j - (kEdge - 2)] = __float_as_int(v);
+  }
+  __syncthreads();
+}
+
+// The row's outputs, by the whole block, after its edge passes: the whole
+// windows' order-free reductions merged, their sums (written by their
+// blocks, read past L1) paired into the cover's blocks past level 9, the
+// fold of the cover in position order by eight threads (one a sum), the
+// epilogue.
+__device__ __forceinline__ void finish_row(int row, const Scratch& s,
+                                           const RowOut& o, RowShared& sh) {
+  const int t = threadIdx.x;
+  const long long st = s.starts[row], m = st + s.counts[row];
+  // the whole windows [hw, tw)
+  const long long hw = (st + kSpan - 1) >> kSpanLog, tw = m >> kSpanLog;
+  if (tw > hw) {
+    Part part;
+    part.init();
+    if (t == 0) {
+      part.add(sh.fin, sh.fini[0], sh.fini[1]);
+      int k = 0;
+      long long nl, nr;
+      for (int L = kSpanLog; L < kLevels; ++L) {
+        cover_at(st, m, L, &nl, &nr);
+        if (nl >= 0) sh.midsz[k++] = 1 << (L - kSpanLog);
+      }
+      for (int L = kLevels - 1; L >= kSpanLog; --L) {
+        cover_at(st, m, L, &nl, &nr);
+        if (nr >= 0) sh.midsz[k++] = 1 << (L - kSpanLog);
+      }
+    }
+    for (long long w = hw + t; w < tw; w += kRowThreads) {
+      float m6[6];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) m6[q] = __ldcg(s.win_mm + w * 6 + q);
+      part.add(m6, __ldcg(s.win_or + w * 2), __ldcg(s.win_or + w * 2 + 1));
+    }
+    reduce_part(part, sh);
+  }
+
+  // the cover in position order: the left blocks of levels 0-9, the
+  // blocks past level 9 (left ascending, right descending), the right
+  // blocks of levels 9-0
+  float acc = 0.0f;
+  bool have = false;
+  if (t < kSums) {
+    for (int L = 0; L < kSpanLog; ++L) {
+      long long nl, nr;
+      cover_at(st, m, L, &nl, &nr);
+      if (nl >= 0) {
+        const float v = sh.piece[L][0][t];
+        acc = have ? __fadd_rn(acc, v) : v;
+        have = true;
+      }
+    }
+  }
+  if (tw > hw) {
+    int pi = 0, inpiece = 0, top = 0;
+    for (long long c0 = hw; c0 < tw; c0 += kMidChunk) {
+      const int n = (int)min((long long)kMidChunk, tw - c0);
+      for (int j = t; j < n * kSums; j += kRowThreads)
+        sh.ws[j] = __ldcg(s.win_sum + c0 * kSums + j);
+      __syncthreads();
+      if (t < kSums) {
+        for (int j = 0; j < n; ++j) {
+          // the binary counter of the block's windows: a pair of equal
+          // levels merges, left + right
+          float v = sh.ws[j * kSums + t];
+          for (int c = inpiece; c & 1; c >>= 1)
+            v = __fadd_rn(sh.stk[t][--top], v);
+          sh.stk[t][top++] = v;
+          if (++inpiece == sh.midsz[pi]) {
+            acc = have ? __fadd_rn(acc, sh.stk[t][0]) : sh.stk[t][0];
+            have = true;
+            top = inpiece = 0;
+            ++pi;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (t < kSums) {
+    for (int L = kSpanLog - 1; L >= 0; --L) {
+      long long nl, nr;
+      cover_at(st, m, L, &nl, &nr);
+      if (nr >= 0) {
+        const float v = sh.piece[L][1][t];
+        acc = have ? __fadd_rn(acc, v) : v;
+        have = true;
+      }
+    }
+    sh.sums[t] = acc;
+  }
+  __syncthreads();
+  if (t == 0) write_row(row, true, sh.sums, sh.fin, sh.fini[0], sh.fini[1], o);
+  __syncthreads();
+}
+
+// 4. the row pass: blocks [0, nwin) one window each (those marked whole
+// sum it, then the last of a row's blocks finishes the row), the rest
+// striding over the live rows
+__global__ void __launch_bounds__(kRowThreads)
+    rows_kernel(int nwin, Scratch s, RowOut o) {
+  __shared__ RowShared sh;
+  const int t = threadIdx.x;
+  const bool wblock = (int)blockIdx.x < nwin;
+  int row = -1;
+  if (wblock) {
+    const int w = blockIdx.x;
+    row = s.win_row[w];
+    if (row < 0) return;
+    Part part;
+    part.init();
+    const long long a = (long long)w << kSpanLog;
+    window_pass(s, o.W, w, a, a + kSpan, 0, 0, s.win_sum + (size_t)w * kSums,
+                sh, part);
+    reduce_part(part, sh);
+    if (t == 0) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) s.win_mm[(size_t)w * 6 + q] = sh.fin[q];
+      s.win_or[(size_t)w * 2] = sh.fini[0];
+      s.win_or[(size_t)w * 2 + 1] = sh.fini[1];
+      __threadfence();
+      const long long st = s.starts[row], m = st + s.counts[row];
+      const long long nmid = (m >> kSpanLog) - ((st + kSpan - 1) >> kSpanLog);
+      sh.last = atomicAdd(s.arrive + row, 1) == (int)nmid;
+    }
+    __syncthreads();
+#if ZUDS_STATS_PROBE_ROWS == 1
+    return;  // the whole windows' sums alone
+#endif
+    if (!sh.last) return;
+  }
+#if ZUDS_STATS_PROBE_ROWS == 1
+  return;
+#endif
+  // a window block's one row to finish, or the live rows in turn
+  const int nlive = wblock ? 1 : *s.nlist;
+  const int step = wblock ? 1 : gridDim.x - nwin;
+  for (int q = wblock ? 0 : blockIdx.x - nwin; q < nlive; q += step) {
+    if (wblock) {
+      __threadfence();
+      edge_load(row, s, sh);
+    } else {
+      row = s.list[q];
+      edge_passes(row, s, o, sh);
+      const long long st = s.starts[row], m = st + s.counts[row];
+      const long long nmid =
+          (m >> kSpanLog) - ((st + kSpan - 1) >> kSpanLog);
+      if (nmid > 0) {
+        // a long row: its edges stored, then the last of its blocks
+        // finishes it
+        edge_store(row, s, sh);
+        __threadfence();
+        __syncthreads();
+        if (t == 0) sh.last = atomicAdd(s.arrive + row, 1) == (int)nmid;
+        __syncthreads();
+        const bool last = sh.last;
+        __syncthreads();
+        if (!last) continue;
+        __threadfence();
+      }
+    }
+    finish_row(row, s, o, sh);
+  }
 }
 
 // ---- H27 -----------------------------------------------------------------
@@ -676,33 +1008,51 @@ extern "C" long long zuds_object_stats_scratch(int cap, int nseg) {
   return (long long)carve(nullptr, cap, nseg, &s);
 }
 
+// The row pass's blocks that stride over the live rows: two a
+// multiprocessor, at most one a row.
+inline int row_blocks(int nseg) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return nseg < 2 * sms ? nseg : 2 * sms;
+}
+
 extern "C" int zuds_object_stats(
     const long long* cid, const long long* pidx, const float* vals,
     const int* mask, const uint8_t* wok, const float* thr,
     const uint8_t* debovf, const long long* ndet, int cap, int H, int W,
     int nseg, float minarea, int max_det, void* scratch, float* outf,
     int* outi, uint8_t* valid, cudaStream_t stream) {
+  const int nrowblk = (nseg + kOffThreads - 1) / kOffThreads;
+  if (nrowblk > kMaxRowBlocks) return (int)cudaErrorInvalidValue;
   Scratch s;
   carve((char*)scratch, cap, nseg, &s);
-  const long long nodes = tree_nodes(cap);
+  const RowOut o{pidx, ndet, cap, H, W, nseg, minarea, max_det,
+                 outf, outi, valid};
   const int ntiles = (cap + kRankTile - 1) / kRankTile;
   const size_t smem = sizeof(int) * (size_t)nseg;
-  int err = set_smem((const void*)rank_kernel, smem);
-  if (!err) err = set_smem((const void*)offsets_kernel, smem);
+  const int err = set_smem((const void*)rank_kernel, smem);
   if (err) return err;
-  rank_kernel<<<ntiles, 32, smem, stream>>>(cid, cap, nseg, s.rank, s.hist);
-  offsets_kernel<<<1, kScanThreads, smem, stream>>>(s.hist, ntiles, nseg,
-                                                    s.starts, s.counts);
-  place_kernel<<<(cap + 255) / 256, 256, 0, stream>>>(
-      cid, pidx, vals, mask, wok, thr, debovf, cap, nseg, W, nodes, s);
-  tree_low_kernel<<<(cap + kChunk - 1) / kChunk, kChunk / 2, 0, stream>>>(
-      s.tree, s.tflag, cap, nodes);
-  if ((cap >> (kLowLevels + 1)) >= 1)
-    tree_high_kernel<<<1, kScanThreads, 0, stream>>>(s.tree, s.tflag, cap,
-                                                     nodes);
-  rows_kernel<<<nseg, kRowThreads, 0, stream>>>(pidx, ndet, cap, H, W, nseg,
-                                                minarea, max_det, nodes, s,
-                                                outf, outi, valid);
+  rank_kernel<<<ntiles, 32, smem, stream>>>(cid, cap, nseg, s);
+#if ZUDS_STATS_PROBE_STOP == 1
+  return (int)cudaGetLastError();
+#endif
+  offsets_kernel<<<nrowblk, kOffThreads, 0, stream>>>(s.hist, ntiles, s, o);
+#if ZUDS_STATS_PROBE_STOP == 2
+  return (int)cudaGetLastError();
+#endif
+  place_kernel<<<(cap + kOffThreads - 1) / kOffThreads, kOffThreads, 0,
+                 stream>>>(
+      cid, pidx, vals, mask, wok, thr, debovf, cap, nseg, nrowblk, s);
+#if ZUDS_STATS_PROBE_STOP == 3
+  return (int)cudaGetLastError();
+#endif
+  rows_kernel<<<ntiles + row_blocks(nseg), kRowThreads, 0, stream>>>(ntiles,
+                                                                     s, o);
   return (int)cudaGetLastError();
 }
 

@@ -427,8 +427,9 @@ def object_stats_plain(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf,
 def object_stats(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf, ndet_pix,
                  shape, nseg, minarea, max_det):
     """The per-object rows of :func:`object_stats_plain`: hand kernel H26
-    on a CUDA tensor (a stable counting sort, the scan's pairwise tree
-    walked at each row's end, bit-equal), the plain version on a CPU
+    on a CUDA tensor (a stable counting sort, each row's sums formed from
+    its own sorted span in the scan's pairing, as
+    :func:`.ordered.row_tree_sum`; bit-equal), the plain version on a CPU
     tensor."""
     if cid.is_cuda:
         return launch.object_stats(cid, pidx, vals, mask_c, wok_c, thr,

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ['fma', 'sum_last', 'sum_last2', 'cumsum_last', 'segmented_scan',
-           'tree_scan_at', 'counting_sort']
+           'tree_scan_at', 'row_tree_sum', 'counting_sort']
 
 _WIN = 32
 
@@ -139,8 +139,8 @@ def segmented_scan(vals, start, combine):
 def tree_scan_at(vals, start, ends, combine):
     """``segmented_scan(vals, start, combine)[..., ends]`` without the whole
     scan: the value at each position ``e`` of ``ends`` walked up the
-    scan's pairwise tree, the plain twin of H26's walk
-    (``kernels/objects.cu``).
+    scan's pairwise tree (the walk H26 took before it formed each row from
+    its own span, :func:`row_tree_sum`).
 
     The tree's level L+1 pairs level L, ``a[k] = op(a[2k], a[2k+1])``
     with ``op((va, sa), (vb, sb)) = (vb if sb else combine(va, vb),
@@ -179,6 +179,64 @@ def tree_scan_at(vals, start, ends, combine):
         acc = vi if acc is None else torch.where(base == lev, vi, acc)
         acc = torch.where(operand, torch.where(si, vi, combine(acc, vi)), acc)
     return acc
+
+
+def row_tree_sum(vals, starts, counts, combine, empty=0):
+    """Each segment's value of ``segmented_scan`` read at its last entry,
+    formed from the segment's own span at its absolute offset, as H26
+    forms it (``kernels/objects.cu``): the (..., nseg) values for the
+    segments ``[starts[j], starts[j] + counts[j])`` of ``vals`` (...,
+    n), ``empty`` where ``counts[j]`` is 0.
+
+    The walk of :func:`tree_scan_at` from a segment's last entry e
+    gathers the nodes of the binary decomposition of [0, e + 1) and folds
+    them left to right, each node being ``combine`` over its span in the
+    tree's pairing from the last segment start inside it on. The node
+    holding the segment's start s unfolds the same way, so the value is
+    the left fold, in position order, of the maximal aligned dyadic
+    blocks ``[k 2^L, (k + 1) 2^L)`` inside [s, e + 1) (at most two a
+    level: the segment tree's canonical cover), each block reduced as a
+    perfect pairwise tree. Only the segment's entries enter, and its
+    offset s fixes the pairing. A block of level L at node k exists in
+    level L of the tree whatever the list's length, since it ends by
+    e + 1 <= n."""
+    vals = torch.as_tensor(vals)
+    n = vals.shape[-1]
+    levels = [vals]           # level L: the perfect trees of 2^L entries
+    while levels[-1].shape[-1] >= 2:
+        v = levels[-1]
+        h = v.shape[-1] // 2
+        levels.append(combine(v[..., 0:2 * h:2], v[..., 1:2 * h:2]))
+    starts = torch.as_tensor(starts, dtype=torch.int64)
+    counts = torch.as_tensor(counts, dtype=torch.int64)
+    if bool(((starts < 0) | (counts < 0) | (starts + counts > n)).any()):
+        raise ValueError('row_tree_sum: a segment outside the list')
+    lo, hi = starts.clone(), starts + counts
+    lead = vals.shape[:-1]
+    acc = torch.zeros(lead + starts.shape, dtype=vals.dtype)
+    have = torch.zeros(starts.shape, dtype=torch.bool)
+
+    def fold(acc, have, take, piece):
+        acc = torch.where(take & have, combine(acc, piece),
+                          torch.where(take, piece, acc))
+        return acc, have | take
+
+    rights = []
+    for v in levels:
+        # the cover's two blocks of this level: lo's when lo is odd, the
+        # one before hi when hi is odd (the segment tree's loop)
+        last = v.shape[-1] - 1
+        take = (lo < hi) & (lo % 2 == 1)
+        acc, have = fold(acc, have, take, v[..., lo.clamp(0, last)])
+        lo = lo + take.long()
+        take = (lo < hi) & (hi % 2 == 1)
+        hi = hi - take.long()
+        rights.append((take, v[..., hi.clamp(0, last)]))
+        lo, hi = lo // 2, hi // 2
+    for take, piece in reversed(rights):
+        acc, have = fold(acc, have, take, piece)
+    return torch.where(counts > 0, acc,
+                       torch.as_tensor(empty, dtype=vals.dtype))
 
 
 def counting_sort(keys, nkeys, tile=1024):
