@@ -25,12 +25,14 @@ version run in float64 than the f32 plain version; from inputs inside NaN
 guard bands into poisoned outputs, 20 launches each bit-equal to the
 wrapper's); background cells rtol 1e-4 and bit-equal, counts equal (also
 on the flagship quadrant and the coadd canvas); model convolution
-rtol 1e-4, atol 1e-3; matched filter img and det equal, filt rtol 1e-6;
-deblend level labels and compaction bit-equal (H6 also on mask views at
-byte offsets 1, 3 and 15, at size 0 and at size = n on a full frame, and
-against ``torch.nonzero_static``); stamp candidates (cand,
-and filt at the candidates) and the frame median bit-equal (also with
-+-inf values and values on the mids); the two-plane
+rtol 1e-4, atol 1e-3; matched filter img, filt and det bit-equal (-0,
+subnormal values, W % 4 != 0, a batch's frame, a view at an odd offset,
+3080x3072); deblend level labels and compaction bit-equal (H6 also on mask
+views at byte offsets 1, 3 and 15, at size 0 and at size = n on a full
+frame, and against ``torch.nonzero_static``); stamp candidates (cand, and
+filt at the candidates; also on a crowded frame, a blank one, NaN near
+peaks) and the frame median bit-equal (also with +-inf values and values
+on the mids); the two-plane
 warp as the one-plane warp on both planes; the clipped combine's counts and
 mask equal, its coadd and weight rtol 2e-6 (the plain version forms the
 same sums in the same order; the card's own ``1/sqrt`` in the plain version
@@ -208,23 +210,64 @@ def test_apply_fast_copies_nothing_from_host(dev):
     assert not any('HtoD' in n for n in names), names
 
 
-@pytest.mark.parametrize('H,W', [(200, 136), (33, 70)])
-def test_detect_filter_kernel(dev, H, W):
+def _bits(t):
+    """The bytes of ``t``: equal bytes are equal values, -0 and NaN too."""
+    return t.contiguous().view(torch.uint8)
+
+
+def _h4_frames(B, H, W, dev, seed):
+    """B frames of diff, rms, weight with the cases H4 must round as the
+    plain version: NaN, +-inf, -0 on good pixels, rms <= 0, weight holes
+    and a band of subnormal values (their products with the taps are
+    inexact)."""
+    diff = _rand((B, H, W), dev, seed, 8.0)
+    rms = _rand((B, H, W), dev, seed + 1, 0.5, 5.0).abs()
+    g = torch.Generator(device=dev).manual_seed(seed + 2)
+    wok = torch.rand((B, H, W), generator=g, device=dev) > 0.02
+    sub = torch.rand((B, H, W), generator=g, device=dev)
+    for b in range(B):
+        d, r = diff[b], rms[b]
+        d[5 % H, 5 % W] = float('nan')
+        d[6 % H, 9 % W] = float('inf')
+        d[(H - 2) % H, (W - 3) % W] = float('-inf')
+        d[H // 2, :] = -0.0
+        r[3 % H, 3 % W] = 0.0
+        r[(H - 1) % H, 2 % W] = -1.0
+        band = slice(H // 3, H // 3 + 3)
+        d[band] = (sub[b, band] - 0.5) * 2e-38       # subnormal and near
+        d[band, ::3] = 1.4e-45 * torch.sign(sub[b, band, ::3] - 0.5)
+    wok[:, H // 2, 1::2] = True                      # the -0 row stays good
+    rms[:, H // 2] = 1.0
+    return diff, rms, wok
+
+
+@pytest.mark.parametrize('H,W,form', [
+    (200, 136, 'frame'), (33, 70, 'frame'), (97, 131, 'frame'),
+    (3080, 3072, 'frame'), (64, 128, 'batch'), (57, 131, 'batch'),
+    (64, 128, 'offset'), (1, 1, 'frame'), (5, 3, 'frame')])
+def test_detect_filter_kernel(dev, H, W, form):
+    """H4 bit-equal to its plain version on all three planes: the 4-column
+    form (W % 4 == 0, aligned), the 1-column form (W % 4 != 0; a frame of a
+    batch at W % 4 != 0; a view at a one-element offset), ragged strips."""
+    from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.ops import detect
-    from zuds_tpu_torch.kernels import detect_filter
-    diff = _rand((H, W), dev, 7, 8.0)
-    diff[5, 5] = float('nan')
-    diff[6, 9] = float('inf')
-    rms = (_rand((H, W), dev, 8, 0.5, 5.0)).abs()
-    rms[3, 3] = 0.0
-    g = torch.Generator(device=dev).manual_seed(9)
-    wok = torch.rand((H, W), generator=g, device=dev) > 0.02
-    n0 = detect_filter.detect_filter.launches
+    diff, rms, wok = _h4_frames(3 if form == 'batch' else 1, H, W, dev, 7)
+    b = 1 if form == 'batch' else 0
+    diff, rms, wok = diff[b], rms[b], wok[b]
+    if form == 'offset':
+        flat = torch.empty(H * W + 1, device=dev)
+        flat[1:] = diff.reshape(-1)
+        diff = flat[1:].view(H, W)
+        assert diff.data_ptr() % 16 != 0
+    n0 = launch.detect_filter.launches
     k = detect.matched_filter(diff, rms, wok, 1.5)
-    assert detect_filter.detect_filter.launches == n0 + 1
+    assert launch.detect_filter.launches == n0 + 1
     p = detect.matched_filter_plain(diff, rms, wok, 1.5)
-    assert torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
-    _allclose(k[1], p[1], 1e-6, 0.0)
+    for plane, a, b in zip(('img', 'filt', 'det'), k, p):
+        assert torch.equal(_bits(a), _bits(b)), plane
+    if H > 8:
+        assert bool(((p[0] == 0) & p[0].signbit()).any())     # -0 kept
+        assert 0 < int(p[2].sum()) < H * W
 
 
 def _graph(dev, seed, ccap, ecap, L, nchain, chain_len):
@@ -371,6 +414,72 @@ def test_stamp_candidates_kernel(dev, H, W, margin):
     assert torch.equal(kc, pc) and int(pc.sum()) > 10
     # H7 writes filt at the candidates only, the one place it is read
     assert torch.equal(kf[kc], pf[pc])
+
+
+def _crowded_field(H, W, dev, seed, density):
+    """Noise 5 about 150 and ``density`` H W point sources of flux
+    10^2.5-10^4.5 blurred by a Gaussian of sigma 1.5 px: at 0.01 some 14%
+    of the pixels pass H7's threshold and nearly every warp has a lane
+    that does."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = 150.0 + 5.0 * torch.randn((H, W), generator=g, device=dev)
+    n = int(density * H * W)
+    pos = torch.randint(0, H * W, (n,), generator=g, device=dev)
+    flux = 10 ** (2.5 + 2.0 * torch.rand((n,), generator=g, device=dev))
+    pts = torch.zeros(H * W, device=dev).index_add_(0, pos, flux)
+    ax = torch.arange(-6, 7, dtype=torch.float32, device=dev)
+    k = torch.exp(-(ax[:, None] ** 2 + ax[None, :] ** 2) / 4.5)
+    blur = torch.nn.functional.conv2d(pts.reshape(1, 1, H, W),
+                                      (k / k.sum())[None, None], padding=6)
+    return (img + blur[0, 0]).contiguous()
+
+
+@pytest.mark.parametrize('field,H,W', [
+    ('crowded', 512, 520), ('crowded', 3080, 3072), ('blank', 3080, 3072),
+    ('nan_near_peak', 200, 136), ('offset', 256, 256), ('bytes', 97, 100)])
+def test_stamp_candidates_kernel_fields(dev, field, H, W):
+    """H7 on a crowded frame (most warps with a passing lane), a blank one
+    (no candidate), NaN within 4 px of peaks, a view at a one-element
+    offset (one-float copies) and W % 16 != 0 (byte stores): cand, and filt
+    at the candidates, bit-equal to the plain version."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import background, measure
+    if field == 'crowded':
+        img = _crowded_field(H, W, dev, 5, 0.01)
+    elif field == 'blank':
+        g = torch.Generator(device=dev).manual_seed(6)
+        img = 150.0 + 5.0 * torch.randn((H, W), generator=g, device=dev)
+    else:
+        img = _stamp_field(H, W, dev, 12)
+    med = background.frame_median_plain(img)
+    sigma = 1.4826 * background.frame_median_plain(img, center=med)
+    if field == 'nan_near_peak':
+        pf, pc = measure.stamp_candidates_plain(img, med, sigma, 6e4, 5)
+        ys, xs = torch.nonzero(pc, as_tuple=True)
+        for i, (y, x) in enumerate(zip(ys.tolist()[::2], xs.tolist()[::2])):
+            dy, dx = (i % 9) - 4, ((i * 5) % 9) - 4
+            img[min(max(y + dy, 0), H - 1), min(max(x + dx, 0), W - 1)] = \
+                float('nan')
+    elif field == 'offset':
+        flat = torch.empty(H * W + 1, device=dev)
+        flat[1:] = img.reshape(-1)
+        img = flat[1:].view(H, W)
+    n0 = launch.stamp_candidates.launches
+    kf, kc = launch.stamp_candidates(img, med, sigma, 6e4, 5)
+    assert launch.stamp_candidates.launches == n0 + 1
+    pf, pc = measure.stamp_candidates_plain(img, med, sigma, 6e4, 5)
+    assert torch.equal(kc, pc)
+    assert torch.equal(_bits(kf[kc]), _bits(pf[pc]))
+    ncand = int(pc.sum())
+    if field == 'blank':
+        assert ncand == 0
+    else:
+        assert ncand > 10
+    if field == 'crowded':
+        from zuds_tpu_torch.ops.convolve import DEFAULT_FILTER, conv2_same
+        thr = med + 10 * sigma
+        assert float((conv2_same(img, DEFAULT_FILTER) > thr).float()
+                     .mean()) > 0.05
 
 
 @pytest.mark.parametrize('n', [1, 2, 7, 1023, 1025, 70001, 9461760])

@@ -24,7 +24,8 @@ _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
            'compact.cu', 'stamps.cu', 'median.cu', 'coadd.cu',
            'subtract.cu', 'cutouts.cu', 'braai.cu', 'zogy.cu', 'adam.cu',
-           'photometry.cu', 'measure.cu', 'ccl.cu', 'objects.cu')
+           'photometry.cu', 'measure.cu', 'ccl.cu', 'objects.cu',
+           'detect_filter.cu')
 FLAGS = ('-O3', '-std=c++17', '-gencode', 'arch=compute_90a,code=sm_90a',
          '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -60,6 +61,8 @@ SIGNATURES = {
     'zuds_deblend_labels': (_P, _P, _P, _I, _I, _I, _I, _P, _P),
     # mask(u8), n, size, fill, tile_scratch, out(i64), total(i64), stream
     'zuds_compact': (_P, _I, _I, _L, _P, _P, _P, _P),
+    # diff, rms, wok(u8), H, W, nsigma, img, filt, det(u8), stream
+    'zuds_detect_filter': (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
     # img, H, W, med, sigma, sat, margin, filt, cand(u8), stream
     'zuds_stamp_candidates': (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P),
     # x, ok(u8 or null), center(or null), rows, cols, x row/col strides,

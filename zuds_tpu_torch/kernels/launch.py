@@ -1,5 +1,6 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
-H3 model convolution, H5 deblend level labels, H6 compaction, H7 stamp
+H3 model convolution, H4 matched filter, H5 deblend level labels, H6
+compaction, H7 stamp
 candidates, H8 frame median, H9 clipped combine, H10 gather warp, H11
 subtraction epilogue, H12 triplet cutter, H13 braai convolution layer, H14
 negative-pixel veto, H15 ZOGY spectral pass, H16 ZOGY score normalisation,
@@ -24,7 +25,7 @@ import torch
 from . import build
 
 __all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
-           'deblend_labels',
+           'detect_filter', 'deblend_labels',
            'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
            'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
            'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
@@ -245,6 +246,32 @@ def compact(mask, size, fill_value):
     return buf[:size], buf[size]
 
 
+def detect_filter(diff, rms, weight_ok, nsigma):
+    """H4 (kernels/detect_filter.cu): (img f32, filt f32, det bool), each
+    (H, W): the good-pixel mask of ``diff``/``rms`` (f32) and ``weight_ok``
+    (bool), the masked image, its 3x3 pyramid filter and the ``nsigma``
+    threshold. Views at any element offset are taken (a batch's frame);
+    W % 4 == 0 and 16-byte aligned planes take the kernel's 4-column form."""
+    H, W = diff.shape
+    _require('diff', diff, torch.float32)
+    _require('rms', rms, torch.float32, (H, W))
+    _require('weight_ok', weight_ok, torch.bool, (H, W))
+    if H * W >= 2 ** 31:
+        raise ValueError('detect_filter: frame too large for int32 offsets')
+    img = torch.empty((H, W), dtype=torch.float32, device=diff.device)
+    filt = torch.empty_like(img)
+    det = torch.empty((H, W), dtype=torch.bool, device=diff.device)
+    if H * W == 0:
+        return img, filt, det
+    err = build.library().zuds_detect_filter(
+        diff.data_ptr(), rms.data_ptr(), weight_ok.data_ptr(), H, W,
+        float(nsigma), img.data_ptr(), filt.data_ptr(), det.data_ptr(),
+        _stream())
+    build.check(err, 'zuds_detect_filter')
+    detect_filter.launches += 1
+    return img, filt, det
+
+
 def stamp_candidates(img, med, sigma, sat, margin):
     """H7 (kernels/stamps.cu): (filt f32, cand bool), each (H, W): the
     stamp-candidate test against the device scalars ``med`` and ``sigma``
@@ -259,6 +286,8 @@ def stamp_candidates(img, med, sigma, sat, margin):
                          'offsets')
     filt = torch.empty_like(img)
     cand = torch.empty((H, W), dtype=torch.uint8, device=img.device)
+    if H * W == 0:
+        return filt, cand.view(torch.bool)
     err = build.library().zuds_stamp_candidates(
         _ptr(img), H, W, _ptr(med), _ptr(sigma), float(sat), int(margin),
         _ptr(filt), _ptr(cand), _stream())
@@ -1071,6 +1100,7 @@ warp.launches = 0
 background_cells.launches = 0
 apply_model.launches = 0
 apply_model_variance.launches = 0
+detect_filter.launches = 0
 deblend_labels.launches = 0
 compact.launches = 0
 stamp_candidates.launches = 0
@@ -1099,6 +1129,7 @@ clean.launches = 0
 WRAPPERS = {'warp': warp, 'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
+            'detect_filter': detect_filter,
             'deblend_labels': deblend_labels,
             'compact': compact, 'stamp_candidates': stamp_candidates,
             'frame_median': frame_median,

@@ -1,7 +1,6 @@
 """Device op layer of the PyTorch port (twin of ``zuds_tpu/ops``): the
-reference's flat re-exports. Importing it needs neither a card nor
-``triton``: the kernels are built and Triton imported at their first
-launch."""
+reference's flat re-exports. Importing it needs no card and builds no
+kernel: the hand kernels are built at their first launch."""
 from .resample import (upsample_mapping, warp_image, warp_mask,
                        warp_image_mask, lanczos3)
 from .background import background_mesh, interpolate_mesh

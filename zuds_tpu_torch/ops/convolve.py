@@ -68,12 +68,15 @@ def gaussian_kernel(sigma, size, device=None):
 def dilate_max(x, reach, fill=-math.inf):
     """(2*reach+1)^2 sliding max by log-doubling shifted maxes, edges
     padded with ``fill`` (pipeline.py:102; the shift rounds k = 1, 2, 1 of
-    measure.py:45-58 at reach 4). NaN propagates, as in jnp.maximum."""
+    measure.py:45-58 at reach 4). NaN propagates, as in jnp.maximum. A
+    shift past a frame narrower than it is all ``fill``, as the reference's
+    clamped slices give."""
     def shift2(a, k, dim):
+        n = a.shape[dim]
+        k = min(k, n)
         pad_shape = list(a.shape)
         pad_shape[dim] = k
         pad = torch.full(pad_shape, fill, dtype=a.dtype, device=a.device)
-        n = a.shape[dim]
         lo = torch.cat([a.narrow(dim, k, n - k), pad], dim)
         hi = torch.cat([pad, a.narrow(dim, 0, n - k)], dim)
         return torch.maximum(a, torch.maximum(lo, hi))

@@ -1,7 +1,7 @@
 """Source detection (twin of ``zuds_tpu/ops/detect.py``).
 
 The matched filter and threshold run in hand kernel H4
-(``kernels/detect_filter.py``, Triton), the compactions in H6
+(``kernels/detect_filter.cu``), the compactions in H6
 (``kernels/compact.cu``), the deblend tree's level labels in H5
 (``kernels/deblend.cu``), the label seeds in H24 and the base components
 in H25 (``kernels/ccl.cu``), the per-object statistics in H26 and CLEAN in
@@ -30,7 +30,6 @@ import torch.nn.functional as F
 
 from ..constants import (CLEAN_PARAM, DEBLEND_MINCONT, DEBLEND_NTHRESH,
                          DETECT_NPIX, DETECT_NSIGMA, MAX_DETECTIONS)
-from ..kernels import detect_filter as _h4
 from ..kernels import launch
 from .compact import compact_indices, scatter_into
 from .convolve import DEFAULT_FILTER, conv2_same
@@ -70,7 +69,7 @@ def matched_filter(diff, rms, weight_ok, nsigma):
     """(img, filt, det) of the detection stage: hand kernel H4 on a CUDA
     tensor, :func:`matched_filter_plain` on a CPU tensor."""
     if diff.is_cuda:
-        return _h4.detect_filter(diff, rms, weight_ok, nsigma)
+        return launch.detect_filter(diff, rms, weight_ok, nsigma)
     return matched_filter_plain(diff, rms, weight_ok, nsigma)
 
 
