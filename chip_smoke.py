@@ -37,8 +37,10 @@ tensors; a 256^2 rotated pair on the card and on the CPU. Holds each
 kernel against its plain
 PyTorch version on the card at the shapes the main path gives it (H3 also
 at K = 21, order 5, 2x2 regions, and its bare launch timed with its
-tensor-core rate; H5 and H6 also on a quadrant-size busy blend field, H6
-timed by CUDA graph beside ``torch.nonzero_static`` at the slice's four
+tensor-core rate; H5 bit-equal on slice frames 0 and 1, a quadrant-size
+busy blend field and an all-live 65,536-slot graph, timed by CUDA graph
+and per call, its floor beside; H6 also on the blend field, timed by CUDA
+graph beside ``torch.nonzero_static`` at the slice's four
 call sites and at ``label_components``' size; H8 also on ::4 views and a
 mask with holes, timed by CUDA graph and per call, the view's bound from
 the sectors it reads; H2 bit-equal on the slice's frame and on an epoch
@@ -75,7 +77,9 @@ those positions. The detect stage: ``detect_sources`` on the slice's two
 frames through H24-H27 (the seeds, the base components, the per-object
 statistics, CLEAN) against the same call with their plain versions, at
 the three deblend modes; each of the four against its plain version on
-frame 0's own inputs, timed; the profiler's count of host copies and
+frame 0's own inputs, timed, H25 also on scenes whose last pixel is
+detected (alone and joined, the list padded and overflowing, from the
+seeds and the identity); the profiler's count of host copies and
 waits inside the ``ccl``, ``stats`` and ``clean`` ranges (0). Prints the
 card,
 per-kernel errors and times, the slice's ms/frame and the deblend's
@@ -197,12 +201,12 @@ MEASURE_LAUNCHES = {'aperture_photometry': 1, 'aperture_sums': 1,
 DETECT_LAUNCHES = {'seed_sweeps': 1, 'ccl_fixpoint': 1, 'object_stats': 1,
                    'clean': 1}
 # operations, counted from the sources: H24 9 a detected pixel a sweep (8
-# minima and the mask's select); H25 4 an edge (two finds' first steps,
-# the compare, the hook); H26 25 an entry (its 6 products, 8 tree adds, 9
-# maxima, minima and ORs, 2 conversions) and 40 a row (the epilogue); H27
-# 3 a (valid row, column) pair (the tests and the sum's add) and 14 more
-# for each brighter valid neighbour (the wing: 11 for r2, its scale, the
-# add, powf as one, the product)
+# minima and the mask's select); H25 4 a backward edge (two finds' first
+# steps, the compare, the hook); H26 25 an entry (its 6 products, 8 tree
+# adds, 9 maxima, minima and ORs, 2 conversions) and 40 a row (the
+# epilogue); H27 3 a (valid row, column) pair (the tests and the sum's
+# add) and 14 more for each brighter valid neighbour (the wing: 11 for r2,
+# its scale, the add, powf as one, the product)
 SEED_OPS = 9
 CCL_OPS = 4
 STATS_OPS = (25, 40)
@@ -579,7 +583,8 @@ def detect_phase(out, cfg, record, name):
     at each deblend mode, held by kernels.checks.detect_check; the plain
     CCL's rounds per frame; each kernel against its plain version on frame
     0's own inputs (detect_taps), timed (device time: a CUDA graph of 20
-    launches) beside its plain version, its bound and a library call; the
+    launches) beside its plain version, its bound and a library call; H25
+    on the corner-pixel scenes (corner_ccl_checks); the
     host copies and waits the profiler sees in the ccl, stats and clean
     ranges (0 each)."""
     import numpy as np
@@ -638,16 +643,21 @@ def detect_phase(out, cfg, record, name):
            cuda_ms(lambda: detect.seed_labels_plain(det), 1, 3),
            bound(5 * H * W, 12 * SEED_OPS * ndet),
            cuda_ms(lambda: [F.max_pool2d(lab, 3, 1, 1) for _ in range(12)]))
-    # H25 on the compact list: (8, n) int64 positions and bool edges,
-    # lab0, the labels
+    # H25 on the compact list: rows 0-3 (the backward half, all the kernel
+    # reads) of the (8, n) int64 positions and bool edges, lab0, the
+    # labels: 52 B an entry; operations over the backward edges
     nbr_pos, okb, lab0 = taps['ccl']
     checks.ccl_check(nbr_pos, okb, lab0)
+    check(torch.equal(launch.ccl_fixpoint(nbr_pos, okb, lab0),
+                      launch.ccl_fixpoint(nbr_pos, okb, lab0)),
+          'two ccl_fixpoint calls differ on slice frame 0')
+    corner_ccl_checks(lab0.device)
     n = lab0.numel()
     record('ccl_fixpoint', 0.0,
            graph_ms(lambda: launch.ccl_fixpoint(nbr_pos, okb, lab0)),
            cuda_ms(lambda: detect.label_compact_plain(nbr_pos, okb, lab0),
                    1, 3),
-           bound(88 * n, CCL_OPS * int(okb.sum())))
+           bound(52 * n, CCL_OPS * int(okb[:4].sum())))
     # H26: reads 30 B an entry and ndet_pix, writes 81 B a row
     sargs = taps['stats']
     err = checks.stats_check(sargs)
@@ -691,6 +701,34 @@ def detect_phase(out, cfg, record, name):
           f'the detect stage reads back to the host in a range: {waits}')
 
 
+def corner_ccl_checks(dev):
+    """H25 where the frame's last pixel is detected, alone and joined to
+    its neighbours, with padding in the list (no neighbour's edge reaches
+    that pixel) and at overflow, from the seeds and from the identity:
+    bit-equal to label_compact_plain (kernels.checks.ccl_check)."""
+    import torch
+    from zuds_tpu_torch.bench_detect import corner_mask
+    from zuds_tpu_torch.kernels import checks
+    from zuds_tpu_torch.ops import detect
+    for joined in (False, True):
+        det = torch.as_tensor(corner_mask(joined), device=dev)
+        H, W = det.shape
+        for det_cap in (4096, 512):
+            taps = detect.detect_taps(
+                torch.full((H, W), 1000.0, device=dev),
+                torch.ones((H, W), device=dev),
+                torch.zeros((H, W), dtype=torch.int32, device=dev), det,
+                nsigma=5.0, max_det=64, deblend=False, det_cap=det_cap)
+            nbr_pos, okb, lab0 = taps['ccl']
+            check((int(det.sum()) < lab0.numel()) == (det_cap == 4096),
+                  'the corner scene neither pads nor overflows its list')
+            for lab in (lab0, torch.arange(lab0.numel(), device=dev)):
+                checks.ccl_check(nbr_pos, okb, lab)
+    print('ccl_fixpoint on the corner-pixel scenes (the last pixel alone '
+          'and joined, the list padded and overflowing, from the seeds and '
+          'the identity): bit-equal to the plain version', flush=True)
+
+
 def apply_flops(ye, xe, K, Nm):
     """(issued, useful) FLOP of one H3 model over regions with row edges
     ``ye`` and column edges ``xe``: issued counts the tensor cores'
@@ -709,33 +747,6 @@ def smooth_field(H, W, amp, phase, device):
     yy = torch.arange(H, device=device, dtype=torch.float32)[:, None]
     xx = torch.arange(W, device=device, dtype=torch.float32)[None, :]
     return amp * torch.sin(xx / 410.0 + phase) * torch.cos(yy / 530.0 - phase)
-
-
-def blend_field(H, W, nstar, seed=5):
-    """tests/test_detect.py's busy blend field (stars of flux 2e3-3e4 and
-    sigma 1.5-2.5 px, half with a companion within 6 px, noise 5) at any
-    size, in numpy from a seed."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    img = np.zeros((H, W), 'f4')
-    yy, xx = np.mgrid[-8:9, -8:9]
-    for _ in range(nstar):
-        x, y = rng.uniform(20, W - 20), rng.uniform(20, H - 20)
-        f = rng.uniform(2000, 30000)
-        sig = rng.uniform(1.5, 2.5)
-        stars = [(x, y, f)]
-        if rng.random() < 0.5:
-            stars.append((x + rng.uniform(-6, 6), y + rng.uniform(-6, 6),
-                          f * rng.uniform(0.3, 1.0)))
-        for sx, sy, sf in stars:
-            xi, yi = int(round(sx)), int(round(sy))
-            if not (8 < xi < W - 9 and 8 < yi < H - 9):
-                continue
-            psf = np.exp(-((xx + xi - sx) ** 2 + (yy + yi - sy) ** 2)
-                         / (2 * sig * sig)) / (2 * np.pi * sig * sig)
-            img[yi - 8:yi + 9, xi - 8:xi + 9] += (sf * psf).astype('f4')
-    img += rng.normal(0, 5.0, (H, W)).astype('f4')
-    return img
 
 
 def run_counted(pipe, targs, wrappers):
@@ -3312,6 +3323,7 @@ def main():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this check needs one CUDA card')
     from zuds_tpu_torch import inputs, kernels, night
+    from zuds_tpu_torch.bench_detect import blend_field, full_graph
     from zuds_tpu_torch.bench_stats import sector_bytes
     from zuds_tpu_torch.constants import BAD_SUM
     from zuds_tpu_torch.kernels import build, launch
@@ -3643,24 +3655,40 @@ def main():
           and int(fload['cells']) <= g['ccap'],
           'blend field overflows a capacity')
 
-    def h5_times(load, tag):
-        g = load['graph']
-        e = [t.to(torch.int32).contiguous() for t in (g['e_src'],
-                                                      g['e_dst'], g['e_w'])]
+    def h5_times(g, tag):
+        # the tree's int64 edge list as cell_graph gives it, its live count
+        e = (g['e_src'], g['e_dst'], g['e_w'])
         L, ccap, rounds = g['L'], g['ccap'], deblend._DEB_ROUNDS
-        check(torch.equal(launch.deblend_labels(*e, ccap, L, rounds),
-                          deblend.level_labels_plain(*e, ccap, L, rounds)),
+        k = launch.deblend_labels(*e, ccap, L, rounds, g['nedge'])
+        check(torch.equal(k, deblend.level_labels_plain(*e, ccap, L,
+                                                        rounds)),
               f'deblend_labels differs from its plain version on {tag}')
-        ms = cuda_ms(lambda: launch.deblend_labels(*e, ccap, L, rounds))
+        check(torch.equal(k, launch.deblend_labels(*e, ccap, L, rounds,
+                                                   g['nedge'])),
+              f'two deblend_labels calls differ on {tag}')
+        # device time by CUDA graph; per wrapper call by events beside it;
+        # the floor: one round with no slot read (launch, labels, output)
+        ms = graph_ms(lambda: deblend.level_labels(*e, ccap, L, rounds,
+                                                   g['nedge']))
+        call = cuda_ms(lambda: deblend.level_labels(*e, ccap, L, rounds,
+                                                    g['nedge']))
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        floor = graph_ms(lambda: launch.deblend_labels(*e, ccap, L, rounds,
+                                                       zero))
         plain = cuda_ms(lambda: deblend.level_labels_plain(*e, ccap, L,
                                                            rounds), 1, 3)
-        print(f'deblend_labels on {tag}: bit-equal, kernel {ms:.4f} ms, '
-              f'plain {plain:.3f} ms', flush=True)
-        nedge = min(int(load['edges']), e[0].numel())
-        # reads the live edges once (12 B each), writes (L, ccap) int32;
-        # one pass of integer work per level: an edge test, three jumps
-        return ms, plain, bound(12 * nedge + 4 * L * ccap,
-                                L * (nedge + 3 * ccap))
+        nedge = min(int(g['nedge']), e[0].numel())
+        # reads the live slots once (24 B each: three int64), writes
+        # (L, ccap) int32; one pass of integer work per level: an edge
+        # test, three jumps
+        bnd = bound(24 * nedge + 8 + 4 * L * ccap, L * (nedge + 3 * ccap))
+        print(f'deblend_labels on {tag} ({nedge} live slots of '
+              f'{e[0].numel()}): bit-equal, two calls equal; device time '
+              f'(graph replay) {ms:.4f} ms ({call:.4f} ms per wrapper call '
+              f'by events; floor, no slot read, {floor:.4f} ms; bound '
+              f'{bnd[0]:.5f} ms, share {bnd[0] / ms:.1%}); plain '
+              f'{plain:.3f} ms on {name}', flush=True)
+        return ms, plain, bnd
 
     def h6_times(mask, size, tag, fill=None):
         n = mask.numel()
@@ -3694,9 +3722,11 @@ def main():
               flush=True)
         return ms, plain, bnd, lib_ms
 
-    h5_times(fload, 'the blend field')
+    h5_times(g, 'the blend field')
+    h5_times(full_graph(dev), 'an all-live 65,536-slot graph')
     h6_times(fmask, BUSY['det_cap'], 'the blend field')
-    ms, plain, bnd = h5_times(loads[0], 'slice frame 0')
+    h5_times(loads[1]['graph'], 'slice frame 1')
+    ms, plain, bnd = h5_times(loads[0]['graph'], 'slice frame 0')
     record('deblend_labels', 0.0, ms, plain, bnd)
     ms, plain, bnd, lib_ms = h6_times(ki[2].reshape(-1), cfg.det_cap,
                                       'slice frame 0')

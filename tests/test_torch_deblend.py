@@ -443,7 +443,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     e = torch.zeros(16, dtype=torch.int32)
     img, s = torch.zeros((16, 16)), torch.zeros(())
     with pytest.raises(ValueError, match='CUDA'):
-        launch.deblend_labels(e, e, e, 8, 31, 6)
+        launch.deblend_labels(e, e, e, 8, 31, 6,
+                              torch.zeros((), dtype=torch.int64))
     with pytest.raises(ValueError, match='CUDA'):
         launch.compact(torch.zeros(16, dtype=torch.bool), 4, 0)
     with pytest.raises(ValueError, match='CUDA'):

@@ -27,9 +27,11 @@ wrapper's); background cells rtol 1e-4 and bit-equal, counts equal (also
 on the flagship quadrant and the coadd canvas); model convolution
 rtol 1e-4, atol 1e-3; matched filter img, filt and det bit-equal (-0,
 subnormal values, W % 4 != 0, a batch's frame, a view at an odd offset,
-3080x3072); deblend level labels and compaction bit-equal (H6 also on mask
-views at byte offsets 1, 3 and 15, at size 0 and at size = n on a full
-frame, and against ``torch.nonzero_static``); stamp candidates (cand, and
+3080x3072); deblend level labels and compaction bit-equal (H5 also with
+``nedge``, its slots past the count padded, and two calls bit-equal; H6
+also on mask views at byte offsets 1, 3 and 15, at size 0 and at size = n
+on a full frame, and against ``torch.nonzero_static``); stamp candidates
+(cand, and
 filt at the candidates; also on a crowded frame, a blank one, NaN near
 peaks) and the frame median bit-equal (also with +-inf values and values
 on the mids); the two-plane
@@ -76,7 +78,8 @@ bit-equal, its sums within the bound of two summation orders
 (``kernels.checks.sum_gap_bound``); H23 within
 ``kernels.checks.refine_check``'s tolerances, two calls bit-identical;
 both take N = 0 without a launch. H24 and H25 bit-equal to their plain
-versions; H26 bit-equal but ``theta`` (within ``checks.THETA_ATOL``); H27
+versions (H25 also where the frame's last pixel is detected, two calls
+bit-equal); H26 bit-equal but ``theta`` (within ``checks.THETA_ATOL``); H27
 as ``checks.clean_check`` (which rows are cleaned and where they merge,
 valid, flags and npix bit-equal, flux within the merge order's bound);
 ``detect_sources`` through H24-H27 as ``checks.detect_check`` against the
@@ -292,17 +295,44 @@ def _graph(dev, seed, ccap, ecap, L, nchain, chain_len):
 @pytest.mark.parametrize('ccap,ecap,rounds', [
     (8192, 65536, 6), (8192, 65536, 1), (8192, 65536, 40), (300, 1000, 6),
     (8192, 100, 6)])
-def test_deblend_labels_kernel(dev, ccap, ecap, rounds):
+@pytest.mark.parametrize('over', [0, 1000])
+def test_deblend_labels_kernel(dev, ccap, ecap, rounds, over):
+    """H5 on random graphs (the 65,536-slot ones past a block's shared
+    memory), given ``nedge = ecap`` and a count past the slots (read as
+    ecap); two calls bit-equal."""
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.ops import deblend
     L = 31
     src, dst, w = _graph(dev, ccap + ecap, ccap, ecap, L,
                          min(20, ecap // 200), 25)
+    nedge = torch.tensor(ecap + over, device=dev)
     n0 = launch.deblend_labels.launches
-    k = deblend.level_labels(src, dst, w, ccap, L, rounds)
+    k = deblend.level_labels(src, dst, w, ccap, L, rounds, nedge)
     assert launch.deblend_labels.launches == n0 + 1
     p = deblend.level_labels_plain(src, dst, w, ccap, L, rounds)
     assert k.dtype == torch.int32 and torch.equal(k, p)
+    assert torch.equal(deblend.level_labels(src, dst, w, ccap, L, rounds,
+                                            nedge), k)
+
+
+@pytest.mark.parametrize('nedge', [0, 1, 777, 30000, 65535])
+def test_deblend_labels_kernel_reads_the_live_count(dev, nedge):
+    """H5 given ``nedge`` < ecap, the slots past it padded as
+    ``cell_graph`` pads them (e_w = 0, cell ccap - 1), and every live slot
+    at level 0 (past a block's shared memory at 30000 and up)."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import deblend
+    ccap, ecap, L = 8192, 65536, 31
+    src, dst, w = (t.long() for t in _graph(dev, nedge, ccap, ecap, L, 20,
+                                            25))
+    w = torch.where(w > 0, w, 1)
+    src[nedge:], dst[nedge:], w[nedge:] = ccap - 1, ccap - 1, 0
+    cnt = torch.tensor(nedge, device=dev)
+    k = launch.deblend_labels(src, dst, w, ccap, L, 6, cnt)
+    p = deblend.level_labels_plain(src, dst, w, ccap, L, 6)
+    assert torch.equal(k, p)
+    assert torch.equal(launch.deblend_labels(src, dst, w, ccap, L, 6, cnt),
+                       k)
 
 
 @pytest.mark.parametrize('n,size,p', [
@@ -372,11 +402,15 @@ def test_h5_h6_refuse_wrong_dtypes(dev):
     from zuds_tpu_torch.kernels import launch
     e = torch.zeros(16, dtype=torch.int64, device=dev)
     with pytest.raises(TypeError):
-        launch.deblend_labels(e, e, e, 8, 31, 6)
+        launch.deblend_labels(*(e.to(torch.int32),) * 3, 8, 31, 6, e[0])
+    with pytest.raises(TypeError):
+        launch.deblend_labels(e, e, e, 8, 31, 6, e[0].int())
     with pytest.raises(TypeError):
         launch.compact(torch.zeros(16, dtype=torch.uint8, device=dev), 4, 0)
     with pytest.raises(ValueError):
-        launch.deblend_labels(*(e.to(torch.int32),) * 3, 1 << 20, 31, 6)
+        launch.deblend_labels(e, e, e, 1 << 20, 31, 6, e[0])
+    with pytest.raises(ValueError):
+        launch.deblend_labels(e, e, e, 8193, 31, 6, e[0])
 
 
 def _stamp_field(H, W, dev, seed):
@@ -2542,6 +2576,31 @@ def test_ccl_fixpoint_kernel_snake(dev):
     assert launch.ccl_fixpoint(e.reshape(8, 0), e.reshape(8, 0).bool(),
                                e).numel() == 0
     assert launch.ccl_fixpoint.launches == n0
+
+
+@pytest.mark.parametrize('det_cap', [4096, 512])
+@pytest.mark.parametrize('joined', [False, True])
+def test_ccl_fixpoint_kernel_corner_pixel(dev, joined, det_cap):
+    """H25 where the frame's last pixel is detected (its own backward
+    edges valid, no neighbour's edge reaching it when the list has
+    padding), with padding and at overflow, from the seeds and from the
+    identity; two calls bit-equal."""
+    from zuds_tpu_torch.bench_detect import corner_mask
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import detect
+    det = torch.as_tensor(corner_mask(joined), device=dev)
+    H, W = det.shape
+    diff = torch.full((H, W), 1000.0, device=dev)
+    taps = detect.detect_taps(diff, torch.ones((H, W), device=dev),
+                              torch.zeros((H, W), dtype=torch.int32,
+                                          device=dev), det, nsigma=5.0,
+                              max_det=64, deblend=False, det_cap=det_cap)
+    nbr_pos, okb, lab0 = taps['ccl']
+    assert (int(det.sum()) < lab0.numel()) == (det_cap == 4096)
+    for lab in (lab0, torch.arange(lab0.numel(), device=dev)):
+        checks.ccl_check(nbr_pos, okb, lab)
+        assert torch.equal(launch.ccl_fixpoint(nbr_pos, okb, lab),
+                           launch.ccl_fixpoint(nbr_pos, okb, lab))
 
 
 @pytest.mark.parametrize('nseg', [130, 1026, 4098])

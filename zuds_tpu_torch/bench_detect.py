@@ -1,24 +1,49 @@
-"""H23 and H26 (``kernels/measure.cu``, ``kernels/objects.cu``): the
-windowed and Kron refinement and the per-object statistics, timed at the
-main path's shapes and at the shapes the other paths give them.
+"""H5, H25, H23 and H26 (``kernels/deblend.cu``, ``kernels/ccl.cu``,
+``kernels/measure.cu``, ``kernels/objects.cu``): the deblend tree's level
+labels, the base components' union-find, the windowed and Kron
+refinement and the per-object statistics, timed at the main path's shapes
+and at the shapes the other paths give them.
 
     python3 zuds_tpu_torch/bench_detect.py [--root DIR] [--tag NAME]
-        [--out FILE]
+        [--out FILE] [--cases h5,h25,h23,h26]
 
 ``--root`` is the checkout whose ``zuds_tpu_torch`` is imported (by
 default the one this file sits in), so that two versions of the kernels
 are timed by one script on one card: unpack the other version into a
 directory and run the script once against each, in turns. ``--out``
-appends the JSON lines to a file as well.
+appends the JSON lines to a file as well; ``--cases`` keeps the groups of
+cases (``h5``, ``h25``, ``h23``, ``h26``) that start with one of its
+prefixes, and builds and reports only their sources.
 
 The inputs: the slice's flagship frame 0 (``inputs.synth_inputs`` seed 0
 with three planted sources through ``SubtractDetectPipeline`` at
 ``night.FLAGSHIP``), its diff and rms, its ``max_det`` detection rows and
-``detect.detect_taps``' statistics arguments; and a 3080x3072 field of 600
-seeded stars (``bench_warp.star_field``) about its sky of 150 counts,
-rms 5, whose valid detections stand for a pair catalog's rows (the pair
-path measures only the valid rows). Cases:
+``detect.detect_taps``' arguments; a 3080x3072 field of 600 seeded stars
+(``bench_warp.star_field``) about its sky of 150 counts, rms 5, whose
+valid detections stand for a pair catalog's rows (the pair path measures
+only the valid rows); ``chip_smoke.py``'s busy blend field
+(:func:`blend_field`, 620 stars). Cases:
 
+- ``h5_slice``, ``h5_blend``: H5 on the tree's own edge list
+  (``detect.deblend_load``) of the slice's frame 0 and of the blend field;
+  ``h5_full``: on 65,536 seeded edges over 8192 cells, every slot live at
+  level 0 (past the shared memory a block holds). Each bit-equal to
+  ``level_labels_plain`` at 6 rounds, two calls bit-identical;
+  ``graph_ms`` of ``launch.deblend_labels`` alone and ``level_ms`` of
+  ``deblend.level_labels`` (the parent's int32 casts included); the
+  rounds the levels take (``rounds``: per level, the first round that
+  changes nothing, at most 6), the live edges, distinct pairs and sources
+  of level 0. ``probes``: the same call at one round (``rounds1``), with
+  every edge dead (``dead``: the read of the slots, one round), with no
+  slot (``empty``: one round of barriers), and the probe builds below.
+- ``h25_slice``: H25 on the slice's frame 0 (``detect_taps``' ``ccl``,
+  65,536 entries), bit-equal to ``label_compact_plain``, two calls
+  bit-identical; its launches' device times by name from
+  ``torch.profiler`` over 20 calls (``split_us``); the edges and those
+  whose ends share a seed; ``probes``: the checkout's kernel given the
+  backward half of ``okb`` alone (``backward_input``) and the edges whose
+  ends differ in ``lab0`` alone (``skip_input``), both still the same
+  labels.
 - ``h23_slice``: H23 on the slice's 4096 rows (~57 detections, the rest
   the empty rows' fills); ``h23_pairlike``: on the star field's valid
   rows; ``h23_distinct``: on 4096 seeded positions over the slice's
@@ -36,25 +61,34 @@ path measures only the valid rows). Cases:
 - ``empty``: an empty kernel (one block of 32 threads) under the same
   CUDA graph: the launch floor of a graph's launch.
 
-``probes``: device time of the probe builds, where the checkout's source
-has their macros (a probe's result is not the function's): H23 at other
-block widths (``-DZUDS_REFINE_THREADS=128/256/512/1024``), H26 stopped
-after its first one, two and three launches (``-DZUDS_STATS_PROBE_STOP``)
-and with a row pass that only sums the whole windows
-(``-DZUDS_STATS_PROBE_ROWS=1``).
+Probe builds, where the checkout's source has their macros (a probe's
+result is not the function's): H5 with no edge read and every round's
+barriers run (``-DZUDS_DEBLEND_PROBE_NO_EDGES``: the floor of six
+rounds), every level through all six rounds
+(``-DZUDS_DEBLEND_PROBE_NO_EXIT``, the same labels), and so without the
+hooks (``first_hooks``: ``-DZUDS_DEBLEND_PROBE_FIRST_HOOKS``) and the
+jumps too (``first_round``: ``-DZUDS_DEBLEND_PROBE_FIRST_JUMPS``) after
+round 1, which price a round's parts; H23 at
+other block widths (``-DZUDS_REFINE_THREADS=128/256/512/1024``), H26
+stopped after its first one, two and three launches
+(``-DZUDS_STATS_PROBE_STOP``) and with a row pass that only sums the whole
+windows (``-DZUDS_STATS_PROBE_ROWS=1``).
 
 Each prints one JSON line: ``graph_ms`` (device time per call, 20 calls
 captured in one CUDA graph and replayed between two CUDA events),
 ``call_ms`` (CUDA events around 20 calls back to back, the host's cost
-included), ``bound_ms`` and ``bound_by`` (H23: the bytes of the distinct
-work, each distinct row's two 33x33 windows, every row's 24 B of inputs
-and 44 B of outputs, over 3.35 TB/s, and its ~135 operations a window
-pixel over 67 TFLOP/s fp32, ``all_rows_bound_ms`` the same for every row;
-H26: 30 B an entry and 81 B a row, 25 operations an entry and 40 a row).
-Then the card's name and power limit, ptxas's registers and spills of the
-checkout's measure.cu and objects.cu, and their kernels' SASS and
-local-memory instruction counts. The script exits non-zero at its end if
-a check failed.
+included), ``bound_ms`` and ``bound_by`` (H5: 24 B a live slot and
+4 B a label written, one edge test a live slot and three jumps a cell and
+level; H25: 52 B an entry, rows 0-3 of the positions and edges, lab0 and
+the label, 4 operations a valid backward edge; H23: the bytes of
+the distinct work, each distinct row's two 33x33 windows, every row's
+24 B of inputs and 44 B of outputs, over 3.35 TB/s, and its ~135
+operations a window pixel over 67 TFLOP/s fp32, ``all_rows_bound_ms`` the
+same for every row; H26: 30 B an entry and 81 B a row, 25 operations an
+entry and 40 a row). Then the card's name and power limit, ptxas's
+registers and spills of the checkout's sources of the cases run, and their
+kernels' SASS and local-memory instruction counts. The script exits
+non-zero at its end if a check failed.
 """
 from __future__ import annotations
 
@@ -90,6 +124,20 @@ PROBES = {('measure.cu', f't{n}'): [f'-DZUDS_REFINE_THREADS={n}']
 PROBES.update({('objects.cu', f'stop{k}'): [f'-DZUDS_STATS_PROBE_STOP={k}']
                for k in (1, 2, 3)})
 PROBES['objects.cu', 'windows_only'] = ['-DZUDS_STATS_PROBE_ROWS=1']
+PROBES['deblend.cu', 'no_edges'] = ['-DZUDS_DEBLEND_PROBE_NO_EDGES']
+PROBES['deblend.cu', 'no_exit'] = ['-DZUDS_DEBLEND_PROBE_NO_EXIT']
+PROBES['deblend.cu', 'first_hooks'] = ['-DZUDS_DEBLEND_PROBE_NO_EXIT',
+                                       '-DZUDS_DEBLEND_PROBE_FIRST_HOOKS']
+PROBES['deblend.cu', 'first_round'] = ['-DZUDS_DEBLEND_PROBE_NO_EXIT',
+                                       '-DZUDS_DEBLEND_PROBE_FIRST_HOOKS',
+                                       '-DZUDS_DEBLEND_PROBE_FIRST_JUMPS']
+# the blend field's stars (chip_smoke.py BUSY_STARS) and detect_sources'
+# keywords there (chip_smoke.py BUSY)
+BLEND_STARS = 620
+BLEND_KW = dict(nsigma=5.0, max_det=4096, det_cap=1 << 16, deb_cap=1 << 16)
+H5_ROUNDS = 6
+# H25's operations an edge (chip_smoke.py CCL_OPS)
+CCL_OPS = 4
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void zuds_empty_kernel() {}
@@ -105,6 +153,64 @@ def bound(nbytes, flop):
     return (tb, 'bytes') if tb >= tf else (tf, 'operations')
 
 
+def blend_field(H, W, nstar, seed=5):
+    """tests/test_detect.py's busy blend field (stars of flux 2e3-3e4 and
+    sigma 1.5-2.5 px, half with a companion within 6 px, noise 5) at any
+    size, in numpy f32 from a seed."""
+    rng = np.random.default_rng(seed)
+    img = np.zeros((H, W), 'f4')
+    yy, xx = np.mgrid[-8:9, -8:9]
+    for _ in range(nstar):
+        x, y = rng.uniform(20, W - 20), rng.uniform(20, H - 20)
+        f = rng.uniform(2000, 30000)
+        sig = rng.uniform(1.5, 2.5)
+        stars = [(x, y, f)]
+        if rng.random() < 0.5:
+            stars.append((x + rng.uniform(-6, 6), y + rng.uniform(-6, 6),
+                          f * rng.uniform(0.3, 1.0)))
+        for sx, sy, sf in stars:
+            xi, yi = int(round(sx)), int(round(sy))
+            if not (8 < xi < W - 9 and 8 < yi < H - 9):
+                continue
+            psf = np.exp(-((xx + xi - sx) ** 2 + (yy + yi - sy) ** 2)
+                         / (2 * sig * sig)) / (2 * np.pi * sig * sig)
+            img[yi - 8:yi + 9, xi - 8:xi + 9] += (sf * psf).astype('f4')
+    img += rng.normal(0, 5.0, (H, W)).astype('f4')
+    return img
+
+
+def corner_mask(joined, seed=4):
+    """Blobs on a 64x80 frame whose last pixel is detected: alone (its
+    three neighbours off), or joined to its neighbours; entry 0 of its
+    compact list away from that corner."""
+    rng = np.random.default_rng(seed)
+    det = rng.random((64, 80)) < 0.35
+    det[-3:, -3:] = joined
+    det[-1, -1] = True
+    det[:2, :] = False
+    det[5:9, 5:9] = True
+    return det
+
+
+def full_graph(dev, ccap=8192, ecap=1 << 16, L=31, seed=20):
+    """ecap seeded directed edges over ccap cells, every slot live at
+    level 0 (weights 1..L), with chains whose smallest cell sits at one
+    end (label 0 crawls a cell a round: the round cap decides)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, ccap, ecap)
+    dst = rng.integers(0, ccap, ecap)
+    w = rng.integers(1, L + 1, ecap)
+    k = 0
+    for c in range(20):
+        cells = np.r_[c, ccap - 1 - c * 25 - np.arange(25)]
+        for a, b in zip(cells[:-1], cells[1:]):
+            src[k:k + 2], dst[k:k + 2], w[k:k + 2] = (a, b), (b, a), L
+            k += 2
+    t = [torch.as_tensor(v, device=dev) for v in (src, dst, w)]
+    return {'e_src': t[0], 'e_dst': t[1], 'e_w': t[2], 'ccap': ccap,
+            'L': L, 'nedge': torch.tensor(ecap, device=dev)}
+
+
 def refine_bound(n, distinct):
     """H23's bound: the distinct rows' windows and operations, every
     row's inputs and outputs."""
@@ -118,17 +224,17 @@ def distinct_rows(args):
     return int(torch.unique(bits, dim=0).shape[0])
 
 
-def build_probes(root, out_dir):
-    """Compile each probe whose macro the checkout's source knows, and the
-    empty kernel, all at once. Returns ({(source, name): library}, the
-    empty kernel's library)."""
+def build_probes(root, out_dir, sources):
+    """Compile each probe of ``sources`` whose macro the checkout's source
+    knows, and the empty kernel, all at once. Returns ({(source, name):
+    library}, the empty kernel's library)."""
     import ctypes
     from zuds_tpu_torch.kernels import build
     kdir = Path(root) / 'zuds_tpu_torch' / 'kernels'
     procs = {}
     for (src, name), extra in PROBES.items():
         macro = extra[0][2:].split('=')[0]
-        if macro not in (kdir / src).read_text():
+        if src not in sources or macro not in (kdir / src).read_text():
             continue
         out = Path(out_dir) / f'{src[:-3]}_{name}.so'
         procs[src, name] = (out, subprocess.Popen(
@@ -198,6 +304,161 @@ def variant_stats(lib, args):
     if err:
         raise RuntimeError(f'probe zuds_object_stats: CUDA error {err}')
     return outf
+
+
+def _h5_takes_nedge():
+    import inspect
+    from zuds_tpu_torch.kernels import launch
+    return 'nedge' in inspect.signature(launch.deblend_labels).parameters
+
+
+def h5_call(e, g, rounds, nedge):
+    """The checkout's H5 wrapper on the edge list ``e`` as it takes it
+    (a parent's wrapper takes no ``nedge``: None)."""
+    from zuds_tpu_torch.kernels import launch
+    extra = () if nedge is None else (nedge,)
+    return launch.deblend_labels(*e, g['ccap'], g['L'], rounds, *extra)
+
+
+def variant_h5(lib, e, g, rounds, nedge):
+    """H5 through a probe build of deblend.cu (the new signature)."""
+    from zuds_tpu_torch.kernels import launch
+    bl = torch.empty((g['L'], g['ccap']), dtype=torch.int32,
+                     device=e[0].device)
+    err = lib.zuds_deblend_labels(
+        *(launch._ptr(t) for t in e), launch._ptr(nedge),
+        e[0].numel(), g['ccap'], g['L'], rounds, launch._ptr(bl),
+        launch._stream())
+    if err:
+        raise RuntimeError(f'probe zuds_deblend_labels: CUDA error {err}')
+    return bl
+
+
+def level_stats(g, rounds):
+    """Level 0's live edges, distinct (src, dst) pairs and sources, and
+    per level the first round that changes nothing (at most ``rounds``)."""
+    from zuds_tpu_torch.ops import deblend
+    n = min(int(g['nedge']), g['e_src'].numel())
+    s, d, w = g['e_src'][:n], g['e_dst'][:n], g['e_w'][:n]
+    live = w > 0
+    pairs = torch.unique(s[live] * 65536 + d[live])
+    args = (g['e_src'], g['e_dst'], g['e_w'], g['ccap'], g['L'])
+    # a level runs round r when round r - 1 changed its labels
+    prev = deblend.level_labels_plain(*args, 1)
+    run = torch.full((g['L'],), rounds, device=s.device)
+    found = torch.zeros(g['L'], dtype=torch.bool, device=s.device)
+    for r in range(2, rounds + 1):
+        cur = deblend.level_labels_plain(*args, r)
+        done = (cur == prev).all(1) & ~found
+        run = torch.where(done, r, run)
+        found |= done
+        prev = cur
+    return {'level0_edges': int(live.sum()),
+            'level0_pairs': int(pairs.numel()),
+            'level0_sources': int(torch.unique(s[live]).numel()),
+            'rounds': run.tolist()}
+
+
+def h5_cases(cfg, out, dev, libs):
+    from zuds_tpu_torch.bench_compact import call_ms, graph_ms
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.ops import deblend, detect
+    diff, rms = out['diff'][0], out['rms'][0]
+    wok = (out['submask'][0] & BAD_SUM) == 0
+    H, W = diff.shape
+    graphs = {'h5_slice': detect.deblend_load(
+        diff, rms, wok, nsigma=cfg.nsigma, max_det=cfg.max_det,
+        det_cap=cfg.det_cap, deb_cap=cfg.deb_cap)['graph']}
+    img = torch.as_tensor(blend_field(H, W, BLEND_STARS), device=dev)
+    graphs['h5_blend'] = detect.deblend_load(img, torch.full_like(img, 5.0),
+                                             **BLEND_KW)['graph']
+    graphs['h5_full'] = full_graph(dev)
+    new = _h5_takes_nedge()
+    for case, g in graphs.items():
+        ecap = g['e_src'].numel()
+        full = (g['e_src'], g['e_dst'], g['e_w'])
+        e = full if new else tuple(t.to(torch.int32).contiguous()
+                                   for t in full)
+        nedge = g['nedge'] if new else None
+        rec = {'case': case, 'ccap': g['ccap'], 'levels': g['L'],
+               'slots': ecap, 'nedge': int(g['nedge']),
+               'takes_nedge': new, **level_stats(g, H5_ROUNDS)}
+        k = h5_call(e, g, H5_ROUNDS, nedge)
+        p = deblend.level_labels_plain(*full, g['ccap'], g['L'], H5_ROUNDS)
+        rec['bit_equal'] = bool(torch.equal(k, p))
+        rec['repeat_equal'] = bool(torch.equal(
+            k, h5_call(e, g, H5_ROUNDS, nedge)))
+        _timed(rec, lambda: h5_call(e, g, H5_ROUNDS, nedge))
+        rec['level_ms'] = graph_ms(lambda: deblend.level_labels(
+            *full, g['ccap'], g['L'], H5_ROUNDS,
+            **({'nedge': g['nedge']} if new else {})))
+        rec['plain_ms'] = call_ms(lambda: deblend.level_labels_plain(
+            *full, g['ccap'], g['L'], H5_ROUNDS))
+        n = min(rec['nedge'], ecap)
+        rec['bound_ms'], rec['bound_by'] = bound(
+            24 * n + 8 + 4 * g['L'] * g['ccap'],
+            g['L'] * (n + 3 * g['ccap']))
+        dead = (e[0], e[1], torch.zeros_like(e[2]))
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        none = tuple(t[:0] for t in e)
+        probes = {
+            'rounds1': graph_ms(lambda: h5_call(e, g, 1, nedge)),
+            'dead': graph_ms(lambda: h5_call(dead, g, H5_ROUNDS, nedge)),
+            'empty': graph_ms(lambda: h5_call(e, g, H5_ROUNDS, zero) if new
+                              else h5_call(none, g, H5_ROUNDS, None))}
+        for (src, name), lib in libs.items():
+            if src != 'deblend.cu':
+                continue
+            pk = variant_h5(lib, e, g, H5_ROUNDS, nedge)
+            probes[name] = {'graph_ms': graph_ms(
+                lambda: variant_h5(lib, e, g, H5_ROUNDS, nedge)),
+                'bit_equal': bool(torch.equal(pk, p))}
+        rec['probes'] = probes
+        rec['ok'] = rec['bit_equal'] and rec['repeat_equal']
+        yield rec
+
+
+def h25_case(cfg, out):
+    from zuds_tpu_torch.bench_compact import graph_ms
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import detect
+    diff, rms, mask = out['diff'][0], out['rms'][0], out['submask'][0]
+    taps = detect.detect_taps(diff, rms, mask, (mask & BAD_SUM) == 0,
+                              nsigma=cfg.nsigma, max_det=cfg.max_det,
+                              det_cap=cfg.det_cap, deb_cap=cfg.deb_cap)
+    nbr_pos, okb, lab0 = taps['ccl']
+    n = lab0.numel()
+    same = lab0[nbr_pos] == lab0[None]
+    back = torch.zeros_like(okb)
+    back[:4] = okb[:4]
+    rec = {'case': 'h25_slice', 'entries': n,
+           'seeded_elsewhere': int((lab0 != torch.arange(
+               n, device=lab0.device)).sum()),
+           'edges': int(okb.sum()), 'backward_edges': int(back.sum()),
+           'backward_across_seeds': int((back & ~same).sum()),
+           'plain_rounds': detect.label_compact_rounds(nbr_pos, okb, lab0)}
+    k = launch.ccl_fixpoint(nbr_pos, okb, lab0)
+    p = detect.label_compact_plain(nbr_pos, okb, lab0)
+    rec['bit_equal'] = bool(torch.equal(k, p))
+    rec['repeat_equal'] = bool(torch.equal(
+        k, launch.ccl_fixpoint(nbr_pos, okb, lab0)))
+    _timed(rec, lambda: launch.ccl_fixpoint(nbr_pos, okb, lab0))
+    rec['bound_ms'], rec['bound_by'] = bound(52 * n,
+                                             CCL_OPS * int(back.sum()))
+    rec['split_us'] = profile_split(
+        lambda: launch.ccl_fixpoint(nbr_pos, okb, lab0))
+    skip = back & ~same
+    probes = {}
+    for name, ok in (('backward_input', back), ('skip_input', skip)):
+        probes[name] = {
+            'graph_ms': graph_ms(lambda: launch.ccl_fixpoint(nbr_pos, ok,
+                                                             lab0)),
+            'bit_equal': bool(torch.equal(
+                launch.ccl_fixpoint(nbr_pos, ok, lab0), p))}
+    rec['probes'] = probes
+    rec['ok'] = rec['bit_equal'] and rec['repeat_equal']
+    return rec
 
 
 def _timed(rec, fn):
@@ -357,7 +618,16 @@ def main(argv=None):
     ap.add_argument('--root', default=str(_HERE.parent))
     ap.add_argument('--tag', default='')
     ap.add_argument('--out', default=None)
+    ap.add_argument('--cases', default='h5,h25,h23,h26',
+                    help='comma-separated prefixes of the case groups to '
+                    'run (h5, h25, h23, h26)')
     args = ap.parse_args(argv)
+    wanted = tuple(args.cases.split(','))
+    # the sources of the case groups asked for
+    sources = [src for group, src in (('h5', 'deblend.cu'), ('h25', 'ccl.cu'),
+                                      ('h23', 'measure.cu'),
+                                      ('h26', 'objects.cu'))
+               if group.startswith(wanted)]
     if not torch.cuda.is_available():
         sys.exit('bench_detect: no CUDA device')
     sys.path.insert(0, args.root)
@@ -385,7 +655,7 @@ def main(argv=None):
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        libs, empty = build_probes(args.root, tmp)
+        libs, empty = build_probes(args.root, tmp, sources)
         print(f'{args.tag}: {len(libs)} probe builds in '
               f'{time.perf_counter() - t0:.1f} s', flush=True)
 
@@ -399,17 +669,25 @@ def main(argv=None):
         torch.cuda.synchronize()
         print(f'{args.tag}: slice frame in {time.perf_counter() - t0:.1f} s',
               flush=True)
-        for rec in refine_cases(cfg, sci, out, dev, libs):
-            emit(rec)
-        emit(stats_case(cfg, out, libs))
+        if 'h5'.startswith(wanted):
+            for rec in h5_cases(cfg, out, dev, libs):
+                emit(rec)
+        if 'h25'.startswith(wanted):
+            emit(h25_case(cfg, out))
+        if 'h23'.startswith(wanted):
+            for rec in refine_cases(cfg, sci, out, dev, libs):
+                emit(rec)
+        if 'h26'.startswith(wanted):
+            emit(stats_case(cfg, out, libs))
     lib_path = Path(build.library()._name)
     emit({'case': 'sass', 'sass': sass_counts(
-        lib_path, r'refine|rank_kernel|offsets|place|tree|rows_kernel')})
+        lib_path, r'refine|rank_kernel|offsets|place|tree|rows_kernel'
+        r'|deblend_labels|ccl_')})
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
     emit({'case': 'card', 'card': card})
-    for src in ('measure.cu', 'objects.cu'):
+    for src in sources:
         report = build.ptxas_report(src)
         emit({'case': f'ptxas_{src}', 'report': [
             line.strip() for line in report.splitlines()

@@ -57,8 +57,9 @@ SIGNATURES = {
     # ref, kd, bg, model, params (host struct, copied into the launch),
     # stream
     'zuds_apply': (_P, _P, _P, _P, ctypes.POINTER(ApplyParams), _P),
-    # e_src, e_dst, e_w, ecap, ccap, nlev, max_rounds, bl, stream
-    'zuds_deblend_labels': (_P, _P, _P, _I, _I, _I, _I, _P, _P),
+    # e_src, e_dst, e_w (i64), nedge (i64 scalar), ecap, ccap,
+    # nlev, max_rounds, bl, stream
+    'zuds_deblend_labels': (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
     # mask(u8), n, size, fill, tile_scratch, out(i64), total(i64), stream
     'zuds_compact': (_P, _I, _I, _L, _P, _P, _P, _P),
     # diff, rms, wok(u8), H, W, nsigma, img, filt, det(u8), stream

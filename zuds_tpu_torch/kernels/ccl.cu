@@ -25,17 +25,44 @@
 // joined by the `okb` neighbour edges and the seed pointers i -> lab0[i],
 // the smallest position in it (the seeds point down: a seed is the
 // minimum of its own neighbourhood, and the compaction keeps raster
-// order). A union-find reaches the same fixed point with no host read:
-// pass 1 sets parent = lab0 (a forest: lab0[i] <= i), pass 2 unites the
-// ends of every edge by hooking the larger root under the smaller with
-// atomicCAS (a lost race finds the roots again), the finds halving their
-// paths (as ECL-CC: a component of many seed regions would otherwise hook
-// into chains that every find walks), pass 3 writes each entry's root,
-// the smallest position of its tree.
-// Bound: memory, one read of the (8, n) int64 positions and bool edges
-// and of lab0, one write of the labels: 88 B an entry, 5.8 MB at the
-// flagship's 65,536 entries; the finds' pointer chases are short and stay
-// in L2.
+// order). A union-find reaches the same fixed point with no host read,
+// whatever the order of its unions: pass 1 sets parent = lab0 (a forest:
+// lab0[i] <= i), followed up to kInitHops steps down the seed
+// pointers (each a smaller position in the same class: in a large blob a
+// chain of seeds 12 px apart, which every find would otherwise walk);
+// pass 2 unites the ends of the edges by hooking the larger root under the
+// smaller with atomicCAS (a lost race finds the roots again), the finds
+// halving their paths (as ECL-CC); pass 3 writes each entry's root, the
+// smallest position of its tree.
+// Pass 2 unites each undirected edge once, from its larger end: rows 0-3
+// of okb, the up-left, up, up-right and left neighbours (ops/detect.py
+// _adjacency), whose positions are smaller. It must be that half. okb is
+// symmetric but at one entry: when the frame's last pixel is detected and
+// the list has padding, inv[H*W-1] is -1 (ops/detect.py _extract, as the
+// reference's padded writes leave it), so no neighbour's edge reaches
+// that pixel while its own backward edges are valid; the backward half
+// keeps them, the forward half would join that pixel through its seed
+// pointer alone and label it apart from its neighbours wherever lab0 is
+// the identity. Of the four, an entry unites only those its neighbours'
+// own backward edges do not already join (the scan mask of 8-connected
+// labelling): with its up neighbour U, U alone (U's left edge joins the
+// up-left one, the up-right one's left edge joins U, and the left one's
+// up-right edge is U); without it, the up-right one and the left one, or
+// the up-left one where there is no left one (the left one's up edge
+// joins them). The list keeps raster order and every detected pixel
+// before a listed one is listed, so those edges are there. An edge whose
+// two ends share their lab0 is skipped before any find: parent = lab0 (or
+// the hook of a seed that points up) already joins both ends to that
+// seed. In a large blob every pixel's seed differs from its neighbours'
+// (12 px up and left), so there the mask, not the skip, cuts the unions
+// to one an entry.
+// Input contract: okb is ops/detect.py _adjacency's over such a list (its
+// two producers are _extract and label_components); for another
+// neighbour graph the labels are wrong, with no error.
+// Bound: memory, one read of rows 0-3 of the (8, n) int64 positions and
+// bool edges and of lab0, one write of the labels: 52 B an entry, 3.4 MB
+// at the flagship's 65,536 entries. The time is the finds' chains of
+// dependent L2 loads and the CAS retries.
 #include "common.cuh"
 
 namespace {
@@ -125,13 +152,22 @@ __device__ void unite(volatile int* parent, int a, int b) {
   }
 }
 
+// pass 1: parent[i] = lab0[i], followed down the seed pointers while they
+// fall
+constexpr int kInitHops = 16;
 __global__ void __launch_bounds__(kThreads)
     ccl_init_kernel(const long long* __restrict__ lab0, int n,
                     int* __restrict__ parent) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long l = lab0[i];
-  parent[i] = (l >= 0 && l <= i) ? (int)l : i;
+  long long p = i, l = __ldg(&lab0[i]);
+#pragma unroll
+  for (int h = 0; h < kInitHops; ++h) {
+    if (l < 0 || l >= p) break;
+    p = l;
+    l = __ldg(&lab0[p]);
+  }
+  parent[i] = (int)p;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -141,14 +177,27 @@ __global__ void __launch_bounds__(kThreads)
                     int* parent) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const long long l = lab0[i];
-  if (l > i && l < n) unite(parent, i, (int)l);  // a seed that points up
+  const long long l = __ldg(&lab0[i]);
+  bool ok[4];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const size_t e = (size_t)k * n + i;
-    if (!okb[e]) continue;
-    const long long j = nbr_pos[e];
-    if (j >= 0 && j < n && j != i) unite(parent, i, (int)j);
+  for (int k = 0; k < 4; ++k) ok[k] = __ldg(&okb[(size_t)k * n + i]) != 0;
+  // the rows to unite: 0 up-left, 1 up, 2 up-right, 3 left
+  const int use = ok[1] ? 2 : ((ok[2] ? 4 : 0) | (ok[3] ? 8 : ok[0] ? 1 : 0));
+  // every load first (the unions below write parent, not these)
+  long long j[4], lj[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    j[k] = (use >> k) & 1 ? __ldg(&nbr_pos[(size_t)k * n + i]) : -1;
+    if (j[k] >= n || j[k] == i) j[k] = -1;
+    lj[k] = j[k] >= 0 ? __ldg(&lab0[j[k]]) : l;
+  }
+  if (l > i && l < n) unite(parent, i, (int)l);  // a seed that points up
+  // i is joined to its seed l (by pass 1 or the line above) when l is a
+  // position; so is j to its own
+  const bool seeded = l >= 0 && l < n;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (j[k] >= 0 && !(seeded && lj[k] == l)) unite(parent, i, (int)j[k]);
   }
 }
 

@@ -196,22 +196,26 @@ def apply_model_variance(var, k2, cx, cy, wx, wy):
     return out
 
 
-def deblend_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds):
+def deblend_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds, nedge):
     """H5 (kernels/deblend.cu): the deblend tree's (nlev, ccap) int32 level
-    labels over the cross-cell edge list ``e_src``/``e_dst``/``e_w`` (int32,
-    (ecap,)), at most ``max_rounds`` rounds per level."""
-    ecap = e_src.shape[0]
-    _require('e_src', e_src, torch.int32, (ecap,))
-    _require('e_dst', e_dst, torch.int32, (ecap,))
-    _require('e_w', e_w, torch.int32, (ecap,))
-    if not 0 < ccap <= DEBLEND_MAX_CELLS or nlev < 1:
-        raise ValueError(f'deblend_labels: ccap={ccap}, nlev={nlev} '
-                         f'unsupported (1..{DEBLEND_MAX_CELLS} cells, at '
-                         'least one level)')
+    labels over the cross-cell edge list ``e_src``/``e_dst``/``e_w`` (int64,
+    (ecap,), cells in [0, ccap)), at most ``max_rounds`` rounds per level.
+    ``nedge`` (a 0-d int64 tensor on the card): the slots from it on are
+    padding (e_w <= 0, as ``ops.deblend.cell_graph`` pads them) and are
+    not read."""
+    ecap = e_src.shape[0] if e_src.dim() == 1 else -1
+    _require('e_src', e_src, torch.int64, (ecap,))
+    _require('e_dst', e_dst, torch.int64, (ecap,))
+    _require('e_w', e_w, torch.int64, (ecap,))
+    _require('nedge', nedge, torch.int64, ())
+    if not 0 < ccap <= DEBLEND_MAX_CELLS or nlev < 1 or ecap >= 2 ** 31:
+        raise ValueError(f'deblend_labels: ccap={ccap}, nlev={nlev}, '
+                         f'ecap={ecap} unsupported (1..{DEBLEND_MAX_CELLS} '
+                         'cells, at least one level, under 2^31 slots)')
     bl = torch.empty((nlev, ccap), dtype=torch.int32, device=e_src.device)
     err = build.library().zuds_deblend_labels(
-        _ptr(e_src), _ptr(e_dst), _ptr(e_w), ecap, int(ccap), int(nlev),
-        int(max_rounds), _ptr(bl), _stream())
+        _ptr(e_src), _ptr(e_dst), _ptr(e_w), _ptr(nedge), ecap,
+        int(ccap), int(nlev), int(max_rounds), _ptr(bl), _stream())
     build.check(err, 'zuds_deblend_labels')
     deblend_labels.launches += 1
     return bl
@@ -637,7 +641,16 @@ def ccl_fixpoint(nbr_pos, okb, lab0):
     positions ``nbr_pos``, their bool validity ``okb`` and the (n,) int64
     initial labels ``lab0``: per entry, the smallest position of its class
     (joined by the edges and the pointers i -> lab0[i]). A union-find, no
-    host read; n = 0 takes no launch."""
+    host read; n = 0 takes no launch.
+
+    Input contract: ``okb`` is ``ops.detect._adjacency``'s over a
+    raster-ordered compact list in which every detected pixel before a
+    listed one is also listed, as ``ops.detect._extract`` and
+    ``ops.detect.label_components`` (its only producers) give it. The
+    kernel unites only rows 0-3 (the backward half) under the scan mask of
+    8-connected labelling; for any other neighbour graph (a list out of
+    raster order, another adjacency) the labels are wrong, with no
+    error."""
     n = lab0.shape[0] if lab0.dim() == 1 else -1
     _require('lab0', lab0, torch.int64, (n,))
     _require('nbr_pos', nbr_pos, torch.int64, (8, n))
@@ -1092,9 +1105,9 @@ def _require_view(name, t, dtype, shape=None):
                          + f', got {tuple(t.shape)}')
 
 
-# two shared-memory buffers of ccap int32 per level (deblend.cu) within
-# the 227 KB a block may hold
-DEBLEND_MAX_CELLS = 227 * 1024 // 8
+# H5 packs a cell into 16 bits of an edge and holds a level's labels in
+# shared memory (deblend.cu kMaxCells): the reference's cell cap
+DEBLEND_MAX_CELLS = 8192
 
 warp.launches = 0
 background_cells.launches = 0

@@ -79,14 +79,15 @@ def level_labels_plain(e_src, e_dst, e_w, ccap, nlev, max_rounds):
     return lab.to(torch.int32)
 
 
-def level_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds):
-    """The level labels: hand kernel H5 on a CUDA tensor,
+def level_labels(e_src, e_dst, e_w, ccap, nlev, max_rounds, nedge):
+    """The level labels: hand kernel H5 on a CUDA tensor (int64 edges, as
+    :func:`cell_graph` gives them, taken without a copy; ``nedge``, the
+    0-d count of live slots, spares it the padding),
     :func:`level_labels_plain` on a CPU tensor."""
     if e_src.is_cuda:
-        return launch.deblend_labels(e_src.to(torch.int32).contiguous(),
-                                     e_dst.to(torch.int32).contiguous(),
-                                     e_w.to(torch.int32).contiguous(),
-                                     ccap, nlev, max_rounds)
+        return launch.deblend_labels(
+            *(t.to(torch.int64).contiguous() for t in (e_src, e_dst, e_w)),
+            ccap, nlev, max_rounds, nedge)
     return level_labels_plain(e_src, e_dst, e_w, ccap, nlev, max_rounds)
 
 
@@ -162,7 +163,7 @@ def _tree(pidx, pok, comppos, cellpos, filt_c, pos_flux_c, thresh_c,
                    nbr_ok, nlevels)
     L, ccap, cellid = g['L'], g['ccap'], g['cellid']
     bl = level_labels(g['e_src'], g['e_dst'], g['e_w'], ccap, L,
-                      _DEB_ROUNDS).long()
+                      _DEB_ROUNDS, g['nedge']).long()
     cap = pok.shape[0]
     dev = pok.device
     flux = torch.where(pok, pos_flux_c, 0.0)

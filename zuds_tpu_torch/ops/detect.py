@@ -167,7 +167,14 @@ def label_compact(nbr_pos, okb, lab):
     neighbour positions ``nbr_pos``, their bool validity ``okb`` and the
     (n,) int64 initial labels ``lab`` (each at most its own position, as
     the seeds are): hand kernel H25 on a CUDA tensor (a union-find with no
-    host read), the plain version on a CPU tensor."""
+    host read), the plain version on a CPU tensor.
+
+    Input contract: ``okb`` is :func:`_adjacency`'s over a raster-ordered
+    compact list in which every detected pixel before a listed one is also
+    listed: :func:`_extract` and :func:`label_components` are its only
+    supported producers. H25 unites the backward half of the edges alone,
+    so for any other neighbour graph its labels differ from the plain
+    version's, with no error."""
     if lab.is_cuda:
         return launch.ccl_fixpoint(nbr_pos, okb, lab)
     return label_compact_plain(nbr_pos, okb, lab)
