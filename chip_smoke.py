@@ -66,19 +66,22 @@ the trained weights through ``save_braai``, ``load_braai`` and
 measure stage's kernels are held to their plain versions on the slice's
 frame 0 at its 4096 detection rows (H22 at
 r = 3 with the submask and at r = 6 on two planes, H23, H14 at the
-pipeline's H8 medians). Forced photometry: one flagship pair through
+pipeline's H8 medians); H22 and H23 also at 4096 seeded positions over
+the science frame, every row distinct. Forced photometry: one flagship pair through
 ``sub.do_one``, the product read back by ``ScienceImage.from_file``, 4096
 seeded positions (``inputs.forced_positions``), dophot's
 ``aperture_photometry`` call, ``raw_aperture_photometry`` on the three
 product files and the call again with the background mesh, counted and
 timed; the transient's forced flux, the off-frame rows and the masked rows
 checked, the blank-sky pulls printed, H22 held to its plain version at
-those positions. The detect stage: ``detect_sources`` on the slice's two
+those positions and the sha256 of its outputs there printed (with
+``ZUDS_PHOT_INPUTS=FILE`` in the environment, the frames and positions
+are saved to FILE for ``bench_detect.py --phot``). The detect stage: ``detect_sources`` on the slice's two
 frames through H24-H27 (the seeds, the base components, the per-object
 statistics, CLEAN) against the same call with their plain versions, at
 the three deblend modes; each of the four against its plain version on
-frame 0's own inputs, timed, H25 also on scenes whose last pixel is
-detected (alone and joined, the list padded and overflowing, from the
+frame 0's own inputs (H24 on its mask and compact list), timed, H24 and
+H25 also on scenes whose last pixel is detected (alone and joined, the list padded and overflowing, from the
 seeds and the identity); the profiler's count of host copies and
 waits inside the ``ccl``, ``stats`` and ``clean`` ranges (0). Prints the
 card,
@@ -88,6 +91,7 @@ and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero; a machine without a CUDA card fails at once.
 """
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -159,6 +163,9 @@ SOURCES = {
                   'zuds_tpu/models/braai.py:103'),
     'aperture_photometry': ('cuda', 'zuds_tpu_torch/kernels/photometry.cu',
                             'zuds_tpu/ops/photometry.py:64'),
+    'aperture_photometry_distinct': ('cuda',
+                                     'zuds_tpu_torch/kernels/photometry.cu',
+                                     'zuds_tpu/ops/photometry.py:64'),
     'aperture_sums': ('cuda', 'zuds_tpu_torch/kernels/photometry.cu',
                       'zuds_tpu/parallel/pipeline.py:306'),
     'refine_detections': ('cuda', 'zuds_tpu_torch/kernels/measure.cu',
@@ -185,14 +192,9 @@ ML_ONLY = ('triplet_cut', 'braai_conv3x3')
 MEASURE_LAUNCHES = {'aperture_photometry': 1, 'aperture_sums': 1,
                     'refine_detections': 1, 'negpix_veto': 1}
 # operations, counted from the sources (a transcendental as one), by the
-# branch each pixel takes in this run's data. H22 (photometry.cu), per
-# window pixel: its offset 4, its four corners with their sum and clamp 9,
-# and four signed quadrant areas without their arc term, 22 each
-# (APERTURE_OPS_PX); its sums (APERTURE_SUM_OPS: three sums and the test
-# w > 0 at r = 3, two sums on two planes), and the mask's AND and OR
-# where w > 0; and the arc term, two arc integrals of 14 and their
-# difference (APERTURE_ARC_OPS), only for a quadrant area whose corner
-# lies outside the circle. H23 (measure.cu), per window pixel: four
+# branch each pixel takes in this run's data. H22 (photometry.cu): its
+# distinct rows' corner grids and pixels (bench_detect.aperture_ops). H23
+# (measure.cu), per window pixel: four
 # centroid iterations of 15, the moments 36, the Kron pass 21 and the AUTO
 # pass 18 (REFINE_OPS_PX), and two sums and a square for a pixel inside
 # the AUTO ellipse (REFINE_AUTO_OPS).
@@ -211,9 +213,6 @@ SEED_OPS = 9
 CCL_OPS = 4
 STATS_OPS = (25, 40)
 CLEAN_OPS = (3, 14)
-APERTURE_OPS_PX = 101
-APERTURE_SUM_OPS = {'photometry': 7, 'sums': 4}
-APERTURE_ARC_OPS = 29
 REFINE_OPS_PX = 135
 REFINE_AUTO_OPS = 3
 # the forced-photometry phase: dophot's call on a flagship subtraction at
@@ -369,28 +368,17 @@ def warp_bound(npx, planes):
                  (one + more * (planes - 1)) * npx)
 
 
-def aperture_flop(xs, ys, H, W, r, mode):
-    """Operations of one H22 launch at (xs, ys) on an H x W frame in
-    ``mode`` ('photometry' or 'sums'), counted by the branch each window
-    pixel and quadrant area take on these positions (APERTURE_OPS_PX)."""
-    import torch
-    from zuds_tpu_torch.ops import photometry as ph
-    cut = ph.aperture_cut(r)
-    x0, y0, _ = ph.aperture_corners(xs, ys, H, W, cut)
-    ar = torch.arange(cut, dtype=torch.float32, device=xs.device)
-    dx = x0.float()[:, None, None] + ar[None, None, :] - xs[:, None, None]
-    dy = y0.float()[:, None, None] + ar[None, :, None] - ys[:, None, None]
-    arcs = 0
-    for cx in (dx - 0.5, dx + 0.5):
-        for cy in (dy - 0.5, dy + 0.5):
-            x, y = cx.abs().clamp(max=r), cy.abs().clamp(max=r)
-            arcs += int((x > (r * r - y * y).clamp(min=0.0).sqrt()).sum())
-    flop = (xs.numel() * cut * cut * (APERTURE_OPS_PX + APERTURE_SUM_OPS[mode])
-            + arcs * APERTURE_ARC_OPS)
-    if mode == 'photometry':
-        flop += 2 * int((ph.aperture_weights(xs, ys, x0, y0, r, cut) > 0)
-                        .sum())
-    return flop
+def aperture_bound(xs, ys, mode, px):
+    """The bound of one H22 launch at (xs, ys) in ``mode`` ('photometry',
+    r = 3, or 'sums', r = 6) with ``px`` bytes a window pixel: the distinct
+    rows' windows and every row's position and outputs (25 B; 16 B),
+    beside the distinct rows' operations (bench_detect.aperture_ops).
+    Returns (distinct rows, bound)."""
+    from zuds_tpu_torch.bench_detect import APERTURE_SUM_OPS, aperture_ops
+    nd = distinct_rows((xs, ys)).numel()
+    cut, row, r = (9, 25, 3.0) if mode == 'photometry' else (15, 16, 6.0)
+    return nd, bound(nd * cut * cut * px + xs.numel() * row,
+                     aperture_ops(nd, r, APERTURE_SUM_OPS[mode]))
 
 
 def refine_flop(img, rms, args, k, cut=33):
@@ -411,8 +399,9 @@ def measure_records(out, record, name, sci):
     detection rows: H22 at r = 3 with the submask and at r = 6 on the two
     planes, H23, and H14 at the pipeline's own H8 medians, each against
     its plain version (and H22 and H23 at N = 0), timed (device time: a
-    CUDA graph of 20 launches) beside the plain version and the bound;
-    H23 also on as many seeded rows, all distinct, over the science frame
+    CUDA graph of 20 launches) beside the plain version and the bound of
+    the distinct work; H22 (r = 3) and H23 also on as many seeded rows,
+    all distinct, over the science frame
     ``sci`` (sky, stars, noise: on the diff's windows of noise alone the
     centroid of max(noise, 0) is too ill-conditioned for refine_check's
     tolerance in any order of the sums)."""
@@ -441,16 +430,30 @@ def measure_records(out, record, name, sci):
             diff, rms, e, e, e, e, e, e, 33).values()),
         'H22 or H23 at N = 0')
 
-    # H22 at r = 3: reads img, rms and mask in each 9x9 window, the
-    # position, writes four outputs and oob
+    # H22 at r = 3: reads img, rms and mask in each distinct row's 9x9
+    # window, every row's position, writes four outputs and oob
     err = aperture_check(diff, rms, mask, xs, ys, 3.0, 'slice r=3')
+    nd, bnd = aperture_bound(xs, ys, 'photometry', 12)
+    print(f'aperture_photometry: {nd} distinct positions of {n} on the '
+          f'slice\'s frame 0', flush=True)
     record('aperture_photometry', err,
            graph_ms(lambda: launch.aperture_photometry(diff, rms, mask, xs,
                                                        ys, 3.0, 9)),
            cuda_ms(lambda: ph.aperture_photometry_batched_plain(
-               diff, rms, mask, xs, ys, 3.0), 1, 3),
-           bound(n * (81 * 12 + 25),
-                 aperture_flop(xs, ys, H, W, 3.0, 'photometry')))
+               diff, rms, mask, xs, ys, 3.0), 1, 3), bnd)
+    # the same at as many seeded positions over the science frame, every
+    # row distinct (dophot's kind of call)
+    rng = np.random.default_rng(18)
+    dx, dy = (torch.as_tensor(v.astype('f4'), device=diff.device)
+              for v in (rng.uniform(-5, W + 5, n), rng.uniform(-5, H + 5, n)))
+    err = aperture_check(sci, rms, mask, dx, dy, 3.0, 'distinct r=3')
+    record('aperture_photometry_distinct', err,
+           graph_ms(lambda: launch.aperture_photometry(sci, rms, mask, dx,
+                                                       dy, 3.0, 9)),
+           cuda_ms(lambda: ph.aperture_photometry_batched_plain(
+               sci, rms, mask, dx, dy, 3.0), 1, 3),
+           aperture_bound(dx, dy, 'photometry', 12)[1],
+           count_as='aperture_photometry')
     # H22 at r = 6 on two planes against the plain two-plane sums, each
     # within the order bound of its sum of |plane| w
     ka = launch.aperture_sums(rms, badf, xs, ys, 6.0, 15)
@@ -463,9 +466,7 @@ def measure_records(out, record, name, sci):
            graph_ms(lambda: launch.aperture_sums(rms, badf, xs, ys, 6.0,
                                                  15)),
            cuda_ms(lambda: ph.aperture_sums_plain((rms, badf), xs, ys, 6.0),
-                   1, 3),
-           bound(n * (225 * 8 + 16), aperture_flop(xs, ys, H, W, 6.0,
-                                                   'sums')))
+                   1, 3), aperture_bound(xs, ys, 'sums', 8)[1])
 
     # H23: two calls bit-identical, then against the plain version
     k1 = launch.refine_detections(diff, rms, *args, 33)
@@ -631,17 +632,22 @@ def detect_phase(out, cfg, record, name):
 
     diff, rms, mask, wok = frames[0]
     taps = detect.detect_taps(diff, rms, mask, wok, **kw)
-    # H24 on the detection mask: reads 1 B, writes 4 B a pixel
-    det = taps['seeds']
-    checks.seeds_check(det)
+    # H24 on the detection mask and its compact list: reads the mask (1 B
+    # a pixel) and the listed entries' positions (8 B), writes the list's
+    # seeds (4 B an entry)
+    det, pidx, count = taps['seeds']
+    checks.seeds_check(det, pidx, count)
     H, W = det.shape
-    ndet = int(det.sum())
+    cap = pidx.numel()
+    ndet = int(count)
     lab = torch.where(det, torch.arange(H * W, device=det.device,
                                         dtype=torch.float32).reshape(H, W),
                       float('inf'))[None, None]
-    record('seed_sweeps', 0.0, graph_ms(lambda: launch.seed_sweeps(det)),
-           cuda_ms(lambda: detect.seed_labels_plain(det), 1, 3),
-           bound(5 * H * W, 12 * SEED_OPS * ndet),
+    record('seed_sweeps', 0.0,
+           graph_ms(lambda: launch.seed_sweeps(det, pidx, count)),
+           cuda_ms(lambda: detect.seed_labels_plain(det, pidx, count), 1, 3),
+           bound(H * W + 8 * min(ndet, cap) + 4 * cap + 8,
+                 12 * SEED_OPS * ndet),
            cuda_ms(lambda: [F.max_pool2d(lab, 3, 1, 1) for _ in range(12)]))
     # H25 on the compact list: rows 0-3 (the backward half, all the kernel
     # reads) of the (8, n) int64 positions and bool edges, lab0, the
@@ -702,10 +708,12 @@ def detect_phase(out, cfg, record, name):
 
 
 def corner_ccl_checks(dev):
-    """H25 where the frame's last pixel is detected, alone and joined to
-    its neighbours, with padding in the list (no neighbour's edge reaches
-    that pixel) and at overflow, from the seeds and from the identity:
-    bit-equal to label_compact_plain (kernels.checks.ccl_check)."""
+    """H24 and H25 where the frame's last pixel is detected, alone and
+    joined to its neighbours, with padding in the list (no neighbour's edge
+    reaches that pixel, and _extract's inverse map drops its entry) and at
+    overflow: the seeds bit-equal to seed_labels_plain
+    (kernels.checks.seeds_check), the labels, from the seeds and from the
+    identity, to label_compact_plain (kernels.checks.ccl_check)."""
     import torch
     from zuds_tpu_torch.bench_detect import corner_mask
     from zuds_tpu_torch.kernels import checks
@@ -722,11 +730,13 @@ def corner_ccl_checks(dev):
             nbr_pos, okb, lab0 = taps['ccl']
             check((int(det.sum()) < lab0.numel()) == (det_cap == 4096),
                   'the corner scene neither pads nor overflows its list')
+            checks.seeds_check(*taps['seeds'])
             for lab in (lab0, torch.arange(lab0.numel(), device=dev)):
                 checks.ccl_check(nbr_pos, okb, lab)
-    print('ccl_fixpoint on the corner-pixel scenes (the last pixel alone '
-          'and joined, the list padded and overflowing, from the seeds and '
-          'the identity): bit-equal to the plain version', flush=True)
+    print('seed_sweeps and ccl_fixpoint on the corner-pixel scenes (the '
+          'last pixel alone and joined, the list padded and overflowing; '
+          'H25 from the seeds and the identity): bit-equal to the plain '
+          'versions', flush=True)
 
 
 def apply_flops(ye, xe, K, Nm):
@@ -2225,6 +2235,7 @@ def phot_phase(wrappers, name):
     import torch
     from zuds_tpu_torch import inputs, night, sub as zsub
     from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.kernels.checks import aperture_check
     from zuds_tpu_torch.mask import MaskImageBase
     from zuds_tpu_torch.photometry import (aperture_photometry,
@@ -2309,9 +2320,20 @@ def phot_phase(wrappers, name):
                           ('mask', np.asarray(mask).astype(np.int32)))}
         err = aperture_check(t['img'], t['rms'], t['mask'], x, y, 3.0,
                              'phot')
+        k = launch.aperture_photometry(t['img'], t['rms'], t['mask'], x, y,
+                                       3.0, 9)
+        digest = hashlib.sha256(b''.join(
+            k[key].contiguous().cpu().numpy().tobytes()
+            for key in ('flux', 'fluxerr', 'area', 'flags', 'oob')))
         print(f'phot: H22 at the {PHOT_N} positions: flags, oob and '
               f'overlaps bit-equal to the plain version, flux within its '
-              f'order bound (max abs err {err:.3g})', flush=True)
+              f'order bound (max abs err {err:.3g}); outputs sha256 '
+              f'{digest.hexdigest()}', flush=True)
+        if os.environ.get('ZUDS_PHOT_INPUTS'):
+            # the frames and positions, for bench_detect.py --phot
+            torch.save({**{key: v.cpu() for key, v in t.items()},
+                        'x': x.cpu(), 'y': y.cpu()},
+                       os.environ['ZUDS_PHOT_INPUTS'])
 
 
 def star_free(sci, ok, margin=64, box=25):
@@ -3447,11 +3469,12 @@ def main():
     records = []
 
     def record(kname, err, ms, plain_ms, bnd, library_ms=None, runs=None,
-               per=None):
+               per=None, count_as=None):
         # launches: the slice's run, or the night's or the coadd's for the
-        # kernels only those paths launch
+        # kernels only those paths launch; a mode recorded under a name of
+        # its own counts its wrapper's (count_as)
         route, source, replaces = SOURCES[kname]
-        n = (runs or launches)[kname]
+        n = (runs or launches)[count_as or kname]
         records.append({'name': kname, 'route': route, 'source': source,
                         'replaces': replaces, 'launches': n,
                         'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,

@@ -2282,6 +2282,58 @@ def test_aperture_sums_kernel(dev, H, W, n):
     assert float(ka[1].max()) > 0
 
 
+def _dup_rows(H, W, n, seed, fill):
+    """n positions whose rows past n // 3 repeat the last row's position
+    ``fill`` (the slice's empty rows), with duplicates among the first
+    rows that are not the last row's and one of the fill among them."""
+    xs, ys = _positions(H, W, n, seed)
+    xs[n // 3:], ys[n // 3:] = fill
+    xs[5:9], ys[5:9] = xs[4], ys[4]            # repeated, not the last's
+    xs[10], ys[10] = fill
+    return xs, ys
+
+
+@pytest.mark.parametrize('fill', [(12.25, 7.5), (float('nan'), 3.0),
+                                  (0.0, 0.0)])
+@pytest.mark.parametrize('H,W,n', [(200, 180, 100), (3080, 3072, 9000)])
+def test_aperture_kernel_duplicate_rows(dev, H, W, n, fill):
+    """H22's row dedupe: rows at the last row's position take its outputs
+    (and overlaps), repeated rows elsewhere are measured; both modes
+    against the plain version (overlaps, flags, oob bit-equal), each row
+    as the same call on that row alone, two calls bit-identical; past the
+    rows block 0 compares ahead (9000)."""
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import photometry as ph
+    img, rms, mask = _phot_frame(H, W, dev, 79)
+    xs, ys = (_f32(v, dev) for v in _dup_rows(H, W, n, 80, fill))
+    if fill[0] == 0.0:
+        xs[11], ys[11] = -0.0, 0.0             # the fill but for the bits
+    checks.aperture_check(img, rms, mask, xs, ys, 3.0, 'duplicate rows')
+    for r, cut in ((3.0, 9), (6.0, 15)):
+        k1 = launch.aperture_photometry(img, rms, mask, xs, ys, r, cut,
+                                        weights=True)
+        k2 = launch.aperture_photometry(img, rms, mask, xs, ys, r, cut,
+                                        weights=True)
+        for key in k1:
+            assert checks._same(k1[key], k2[key]), key
+        one = [launch.aperture_photometry(img, rms, mask, xs[i:i + 1],
+                                          ys[i:i + 1], r, cut, weights=True)
+               for i in (0, 4, 7, 10, 11, n // 2, n - 1)]
+        for i, o in zip((0, 4, 7, 10, 11, n // 2, n - 1), one):
+            for key in o:
+                assert checks._same(k1[key][i:i + 1], o[key]), (i, key)
+        s1 = launch.aperture_sums(rms, img, xs, ys, r, cut)
+        s2 = launch.aperture_sums(rms, img, xs, ys, r, cut)
+        assert all(checks._same(a, b) for a, b in zip(s1, s2))
+        sa, sb = ph.aperture_sums_plain((rms, img), xs, ys, r)
+        rel = checks.sum_gap_bound(cut * cut)
+        scale = ph.aperture_sums_plain((rms.abs(), img.abs()), xs, ys, r)
+        for kv, pv, sc in zip(s1, (sa, sb), scale):
+            fin = pv.isfinite()
+            assert torch.equal(fin, kv.isfinite())
+            assert bool(((kv - pv).abs()[fin] <= rel * sc[fin]).all())
+
+
 @pytest.mark.parametrize('H,W,n', [(150, 170, 40), (3080, 3072, 4096)])
 def test_refine_detections_kernel(dev, H, W, n):
     """H23 against its plain version within checks.refine_check's
@@ -2525,17 +2577,55 @@ DETECT_SCENES = {
 }
 
 
+def _seed_lists(det):
+    """The bool mask ``det``'s compact lists as the callers make them: at
+    capacity H*W (label_components), with padding past its detected pixels
+    and overflowing (half of them listed)."""
+    from zuds_tpu_torch.ops.compact import compact_indices
+    n = det.numel()
+    nd = int(det.sum())
+    for cap in sorted({n, min(n, nd + 37), max(1, nd // 2)}):
+        yield compact_indices(det.reshape(-1), cap, n - 1)
+
+
 @pytest.mark.parametrize('H,W,p,sweeps', [(200, 136, 0.45, 12),
                                           (97, 131, 0.7, 5), (33, 70, 1.0, 12),
                                           (40, 40, 0.0, 12), (64, 64, 0.3, 0),
                                           (3080, 3072, 0.01, 12)])
 def test_seed_sweeps_kernel(dev, H, W, p, sweeps):
+    """H24 bit-equal to its plain version at the list's entries, +inf past
+    them, at capacity, padded and overflowing; two calls bit-equal."""
     from zuds_tpu_torch.kernels import checks, launch
     g = torch.Generator(device=dev).manual_seed(H)
     det = torch.rand((H, W), generator=g, device=dev) < p
-    n0 = launch.seed_sweeps.launches
-    checks.seeds_check(det, sweeps)
-    assert launch.seed_sweeps.launches == n0 + 1
+    for pidx, count in _seed_lists(det):
+        n0 = launch.seed_sweeps.launches
+        checks.seeds_check(det, pidx, count, sweeps)
+        assert launch.seed_sweeps.launches == n0 + 2
+
+
+@pytest.mark.parametrize('joined', [False, True])
+@pytest.mark.parametrize('H,W', [(64, 80), (67, 93), (31, 33)])
+def test_seed_sweeps_kernel_corners(dev, H, W, joined):
+    """H24 where the frame's last pixel is detected (alone or joined; the
+    list padded, where _extract's inverse map drops that entry, and
+    overflowing), at widths that are no multiple of 16, with whole tiles
+    detected and a view at a byte offset."""
+    from zuds_tpu_torch.kernels import checks
+    rng = np.random.default_rng(H * W)
+    det = rng.random((H, W)) < 0.35
+    det[-3:, -3:] = joined
+    det[-1, -1] = True
+    det[:min(H, 32), :min(W, 32)] = True     # an all-detected tile
+    t = torch.as_tensor(det, device=dev)
+    for pidx, count in _seed_lists(t):
+        checks.seeds_check(t, pidx, count)
+    # a mask at an odd byte offset of its storage (no 16-byte loads)
+    base = torch.zeros(H * W + 1, dtype=torch.bool, device=dev)
+    view = base[1:].view(H, W)
+    view.copy_(t)
+    for pidx, count in _seed_lists(view):
+        checks.seeds_check(view, pidx, count)
 
 
 @pytest.mark.parametrize('which', list(DETECT_SCENES))
@@ -2545,7 +2635,7 @@ def test_ccl_stats_clean_kernels(dev, which):
     from zuds_tpu_torch.ops import detect
     make, kw = DETECT_SCENES[which]
     taps = detect.detect_taps(*make(dev), **kw)
-    checks.seeds_check(taps['seeds'])
+    checks.seeds_check(*taps['seeds'])
     checks.ccl_check(*taps['ccl'])
     checks.stats_check(taps['stats'])
     _, _, ncleaned, _ = checks.clean_check(taps['clean'])
@@ -2671,12 +2761,18 @@ def test_detect_ranges_read_nothing_back(dev):
 def test_h24_h27_refuse_wrong_inputs(dev):
     from zuds_tpu_torch.kernels import launch
     det = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    pidx = torch.zeros(16, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((), dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
-        launch.seed_sweeps(det, 13)
+        launch.seed_sweeps(det, pidx, cnt, 13)
     with pytest.raises(TypeError):
-        launch.seed_sweeps(det.int(), 12)
+        launch.seed_sweeps(det.int(), pidx, cnt, 12)
     with pytest.raises(ValueError):
-        launch.seed_sweeps(det.cpu(), 12)
+        launch.seed_sweeps(det.cpu(), pidx, cnt, 12)
+    with pytest.raises(TypeError):
+        launch.seed_sweeps(det, pidx.int(), cnt, 12)
+    with pytest.raises(ValueError):
+        launch.seed_sweeps(det, pidx, cnt[None], 12)
     n = 10
     pos = torch.zeros((8, n), dtype=torch.int64, device=dev)
     ok = torch.zeros((8, n), dtype=torch.bool, device=dev)

@@ -1,19 +1,23 @@
-"""H5, H25, H23 and H26 (``kernels/deblend.cu``, ``kernels/ccl.cu``,
-``kernels/measure.cu``, ``kernels/objects.cu``): the deblend tree's level
-labels, the base components' union-find, the windowed and Kron
-refinement and the per-object statistics, timed at the main path's shapes
-and at the shapes the other paths give them.
+"""H5, H25, H23, H26, H24 and H22 (``kernels/deblend.cu``,
+``kernels/ccl.cu``, ``kernels/measure.cu``, ``kernels/objects.cu``,
+``kernels/photometry.cu``): the deblend tree's level labels, the base
+components' union-find, the windowed and Kron refinement, the per-object
+statistics, the label seeds and the aperture photometry, timed at the
+main path's shapes and at the shapes the other paths give them.
 
     python3 zuds_tpu_torch/bench_detect.py [--root DIR] [--tag NAME]
-        [--out FILE] [--cases h5,h25,h23,h26]
+        [--out FILE] [--cases h5,h25,h23,h26,h24,h22] [--phot FILE]
 
 ``--root`` is the checkout whose ``zuds_tpu_torch`` is imported (by
 default the one this file sits in), so that two versions of the kernels
 are timed by one script on one card: unpack the other version into a
 directory and run the script once against each, in turns. ``--out``
 appends the JSON lines to a file as well; ``--cases`` keeps the groups of
-cases (``h5``, ``h25``, ``h23``, ``h26``) that start with one of its
-prefixes, and builds and reports only their sources.
+cases (``h5``, ``h25``, ``h23``, ``h26``, ``h24``, ``h22``) that start
+with one of its prefixes, and builds and reports only their sources.
+``--phot`` names the frames and positions ``chip_smoke.py`` saves where
+``ZUDS_PHOT_INPUTS`` points (its forced-photometry phase: dophot's 4096
+positions on a flagship subtraction), for the case ``h22_forced``.
 
 The inputs: the slice's flagship frame 0 (``inputs.synth_inputs`` seed 0
 with three planted sources through ``SubtractDetectPipeline`` at
@@ -58,6 +62,26 @@ only the valid rows); ``chip_smoke.py``'s busy blend field
   entries, 4098 rows), checked by ``kernels.checks.stats_check``; its
   launches' device times by name from ``torch.profiler`` over 20 calls
   (``split_us``).
+- ``h24_slice``: H24 on the slice's frame 0 (its detection mask at
+  ``det_cap``, the compact list and count); ``h24_blend``: on the blend
+  field; ``h24_overflow``: on frame 0's mask with its last pixel detected
+  under a cap of half its detected pixels. Each bit-equal to the plain
+  full-frame seeds (:func:`seed_frame`) at the listed entries and +inf
+  past them, two calls bit-identical, with the live 32x32 tiles counted
+  and a sha256 of the seeds. A checkout whose H24 writes the full frame
+  (the parent of the listed form) is timed as its callers reach the same
+  seeds: the kernel and the gather at the list (``frame_ms`` the kernel
+  alone).
+- ``h22_slice_r3``, ``h22_slice_r6``: H22 at the slice's 4096 rows at
+  r = 3 (diff, rms, submask) and r = 6 (rms and the bad-pixel plane);
+  ``h22_distinct``, ``h22_distinct_r6``: at 4096 seeded positions over the
+  science frame (every row distinct); ``h22_pairlike``: at the star
+  field's valid rows, no mask; ``h22_forced`` (with ``--phot``): dophot's
+  positions. Each checked against the plain version
+  (``kernels.checks.aperture_check`` at r = 3, the sums within the bound
+  of two orders at r = 6), two calls bit-identical, ``distinct`` counting
+  the distinct positions and ``sha256`` hashing the outputs (equal between
+  two checkouts whose kernels give the same bits).
 - ``empty``: an empty kernel (one block of 32 threads) under the same
   CUDA graph: the launch floor of a graph's launch.
 
@@ -85,7 +109,10 @@ the distinct work, each distinct row's two 33x33 windows, every row's
 24 B of inputs and 44 B of outputs, over 3.35 TB/s, and its ~135
 operations a window pixel over 67 TFLOP/s fp32, ``all_rows_bound_ms`` the
 same for every row; H26: 30 B an entry and 81 B a row, 25 operations an
-entry and 40 a row). Then the card's name and power limit, ptxas's
+entry and 40 a row; H24: the mask's 1 B a pixel, 8 + 4 B a listed entry
+and 4 B a padded one, 9 operations a detected pixel a sweep; H22: the
+distinct rows' windows, every row's position and outputs, the distinct
+rows' corner grids by :func:`aperture_ops`). Then the card's name and power limit, ptxas's
 registers and spills of the checkout's sources of the cases run, and their
 kernels' SASS and local-memory instruction counts. The script exits
 non-zero at its end if a check failed.
@@ -138,6 +165,19 @@ BLEND_KW = dict(nsigma=5.0, max_det=4096, det_cap=1 << 16, deb_cap=1 << 16)
 H5_ROUNDS = 6
 # H25's operations an edge (chip_smoke.py CCL_OPS)
 CCL_OPS = 4
+# H24's a detected pixel a sweep: 8 minima and the mask's select
+# (chip_smoke.py SEED_OPS)
+SEED_OPS = 9
+# H22's operations, counted from photometry.cu: a column edge and a row
+# edge of the corner grid (each its offset and half 2, |e| and its clamp
+# 2, the sign 1, an arc integral 14; the row edge also the circle's x, 4);
+# a corner's area from them (7); a pixel's four-term sum and clamp (4);
+# its sums (three sums and the test w > 0, the mask's AND and OR at r = 3;
+# two sums on two planes)
+APERTURE_EDGE_PAIR_OPS = 42
+APERTURE_CORNER_OPS = 7
+APERTURE_PIXEL_OPS = 4
+APERTURE_SUM_OPS = {'photometry': 9, 'sums': 4}
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void zuds_empty_kernel() {}
@@ -461,6 +501,212 @@ def h25_case(cfg, out):
     return rec
 
 
+def seed_frame(det):
+    """The full-frame seeds of the checkout's plain version (named
+    ``seed_labels_plain`` before H24 took the compact list)."""
+    from zuds_tpu_torch.ops import detect
+    return getattr(detect, 'seed_frame_plain', detect.seed_labels_plain)(det)
+
+
+def _h24_listed():
+    import inspect
+    from zuds_tpu_torch.kernels import launch
+    return 'pidx' in inspect.signature(launch.seed_sweeps).parameters
+
+
+def h24_call(det, pidx, count, listed):
+    """The checkout's H24 as its callers reach the (cap,) seeds of the
+    compact list: the list's own launch, or a parent's full frame and the
+    gather after it (+inf past the count)."""
+    from zuds_tpu_torch.kernels import launch
+    if listed:
+        return launch.seed_sweeps(det, pidx, count)
+    seeds = launch.seed_sweeps(det).reshape(-1)[pidx]
+    keep = torch.arange(pidx.numel(), device=pidx.device) < count
+    return torch.where(keep, seeds, float('inf'))
+
+
+def h24_inputs(cfg, out, dev):
+    """{case: (mask, list, count)}: the slice's frame 0 (its detection
+    mask at det_cap), the blend field, and frame 0's mask with its last
+    pixel detected under a cap of half its detected pixels."""
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.ops import detect
+    from zuds_tpu_torch.ops.compact import compact_indices
+    diff, rms, mask = out['diff'][0], out['rms'][0], out['submask'][0]
+    H, W = diff.shape
+    det = detect.matched_filter(diff, rms, (mask & BAD_SUM) == 0,
+                                cfg.nsigma)[2].contiguous()
+    img = torch.as_tensor(blend_field(H, W, BLEND_STARS), device=dev)
+    blend = detect.matched_filter(img, torch.full_like(img, 5.0),
+                                  torch.ones_like(img, dtype=torch.bool),
+                                  BLEND_KW['nsigma'])[2].contiguous()
+    over = det.clone()
+    over[-1, -1] = True
+    cases = {}
+    for case, m, cap in (('h24_slice', det, cfg.det_cap),
+                         ('h24_blend', blend, BLEND_KW['det_cap']),
+                         ('h24_overflow', over, int(over.sum()) // 2)):
+        pidx, count = compact_indices(m.reshape(-1), cap, H * W - 1)
+        cases[case] = (m, pidx, count)
+    return cases
+
+
+def h24_cases(cfg, out, dev):
+    from zuds_tpu_torch.bench_compact import graph_ms
+    listed = _h24_listed()
+    for case, (det, pidx, count) in h24_inputs(cfg, out, dev).items():
+        H, W = det.shape
+        cap = pidx.numel()
+        nl = min(int(count), cap)
+        ref = seed_frame(det).reshape(-1)[pidx]
+        ref = torch.where(torch.arange(cap, device=dev) < count, ref,
+                          float('inf'))
+        k = h24_call(det, pidx, count, listed)
+        tiles = torch.nn.functional.max_pool2d(
+            det[None, None].float(), 32, 32, ceil_mode=True)
+        rec = {'case': case, 'shape': [H, W], 'cap': cap,
+               'detected': int(count), 'listed': nl,
+               'live_tiles': int((tiles > 0).sum()),
+               'tiles': int(tiles.numel()), 'listed_form': listed,
+               'bit_equal': bool(torch.equal(k, ref)),
+               'repeat_equal': bool(torch.equal(
+                   k, h24_call(det, pidx, count, listed))),
+               'sha256': hashlib.sha256(k.cpu().numpy().tobytes())
+               .hexdigest()}
+        _timed(rec, lambda: h24_call(det, pidx, count, listed))
+        if not listed:
+            from zuds_tpu_torch.kernels import launch
+            rec['frame_ms'] = graph_ms(lambda: launch.seed_sweeps(det))
+        rec['bound_ms'], rec['bound_by'] = bound(
+            H * W + 8 * nl + 4 * cap + 8, SEED_OPS * 12 * int(count))
+        rec['ok'] = rec['bit_equal'] and rec['repeat_equal']
+        yield rec
+
+
+def aperture_ops(n, r, sum_ops):
+    """Operations of H22's corner grid for ``n`` distinct rows at radius
+    ``r``: per window its edges' terms and corner areas, per pixel the
+    four-term sum and clamp and its ``sum_ops``."""
+    from zuds_tpu_torch.ops import photometry as ph
+    cut = ph.aperture_cut(r)
+    return n * ((cut + 1) * APERTURE_EDGE_PAIR_OPS
+                + (cut + 1) ** 2 * APERTURE_CORNER_OPS
+                + cut * cut * (APERTURE_PIXEL_OPS + sum_ops))
+
+
+def distinct_positions(xs, ys):
+    """The indices of one row of each distinct (x, y) bit pattern."""
+    bits = torch.stack([xs.view(torch.int32), ys.view(torch.int32)], 1)
+    _, inv = torch.unique(bits, dim=0, return_inverse=True)
+    first = torch.full((int(inv.max()) + 1,), xs.numel(), device=xs.device)
+    return first.scatter_reduce(0, inv, torch.arange(xs.numel(),
+                                                     device=xs.device),
+                                'amin')
+
+
+def h22_inputs(cfg, sci, out, dev, phot):
+    """{case: (mode, planes, xs, ys)}: the slice's 4096 rows at r = 3 and
+    r = 6, 4096 seeded positions over the science frame at both, the star
+    field's valid rows and, from ``phot`` (a file chip_smoke.py writes),
+    dophot's forced positions."""
+    from zuds_tpu_torch.bench_warp import star_field
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.ops import detect
+    diff, rms = out['diff'][0].contiguous(), out['rms'][0].contiguous()
+    mask = out['submask'][0].contiguous()
+    H, W = diff.shape
+    badf = ((mask & BAD_SUM) > 0).to(torch.float32)
+    xs, ys = (out[f'det_{k}'][0].contiguous() for k in ('x', 'y'))
+    dx, dy = seeded_rows(cfg.max_det, H, W, dev)[:2]
+    cases = {'h22_slice_r3': ('photometry', (diff, rms, mask), xs, ys),
+             'h22_slice_r6': ('sums', (rms, badf), xs, ys),
+             'h22_distinct': ('photometry', (sci, rms, mask), dx, dy),
+             'h22_distinct_r6': ('sums', (rms, badf), dx, dy)}
+    field = torch.as_tensor(star_field(H, W, 21), device=dev) - 150.0
+    frms = torch.full_like(field, 5.0)
+    det = detect.detect_sources(field, frms, max_det=cfg.max_det,
+                                return_labels=False, det_cap=cfg.det_cap,
+                                deb_cap=cfg.deb_cap)
+    idx = torch.nonzero(det['valid']).reshape(-1)
+    cases['h22_pairlike'] = ('photometry', (field.contiguous(), frms, None),
+                             det['x'][idx].contiguous(),
+                             det['y'][idx].contiguous())
+    if phot:
+        t = torch.load(phot)
+        cases['h22_forced'] = ('photometry', tuple(
+            t[k].to(dev).contiguous() for k in ('img', 'rms', 'mask')),
+            t['x'].to(dev).contiguous(), t['y'].to(dev).contiguous())
+    return cases
+
+
+def aperture_call(mode, planes, xs, ys):
+    """H22 of the checkout in ``mode`` at r = 3 (photometry) or r = 6
+    (sums): its outputs in one list."""
+    from zuds_tpu_torch.kernels import launch
+    if mode == 'sums':
+        return list(launch.aperture_sums(*planes, xs, ys, 6.0, 15))
+    k = launch.aperture_photometry(*planes, xs, ys, 3.0, 9)
+    return [k[key] for key in ('flux', 'fluxerr', 'area', 'flags', 'oob')]
+
+
+def _outputs_equal(a, b):
+    return all(torch.equal(x.view(torch.uint8) if x.dtype == torch.bool
+                           else x.contiguous().view(torch.uint8),
+                           y.view(torch.uint8) if y.dtype == torch.bool
+                           else y.contiguous().view(torch.uint8))
+               for x, y in zip(a, b))
+
+
+def h22_cases(cfg, sci, out, dev, phot):
+    from zuds_tpu_torch.bench_compact import graph_ms
+    from zuds_tpu_torch.kernels import checks
+    from zuds_tpu_torch.ops import photometry as ph
+    for case, (mode, planes, xs, ys) in h22_inputs(cfg, sci, out, dev,
+                                                   phot).items():
+        H, W = planes[0].shape
+        n = xs.numel()
+        one = distinct_positions(xs, ys)
+        nd = one.numel()
+        k = aperture_call(mode, planes, xs, ys)
+        rec = {'case': case, 'mode': mode, 'rows': n, 'distinct': nd,
+               'repeat_equal': _outputs_equal(
+                   k, aperture_call(mode, planes, xs, ys)),
+               'sha256': hashlib.sha256(b''.join(
+                   v.contiguous().cpu().numpy().tobytes() for v in k))
+               .hexdigest()}
+        try:
+            if mode == 'photometry':
+                rec['max_gap'] = checks.aperture_check(
+                    *planes, xs, ys, 3.0, case)
+            else:
+                pa = ph.aperture_sums_plain(planes, xs, ys, 6.0)
+                scale = ph.aperture_sums_plain(tuple(p.abs() for p in planes),
+                                               xs, ys, 6.0)
+                rel = checks.sum_gap_bound(225)
+                gap = 0.0
+                for kv, pv, sc in zip(k, pa, scale):
+                    d = (kv - pv).abs()
+                    assert bool((d <= rel * sc).all()), f'{case}: sums'
+                    gap = max(gap, float(d.max()))
+                rec['max_gap'] = gap
+            rec['check_ok'] = True
+        except AssertionError as e:
+            rec.update(check_ok=False, check_error=str(e)[:300])
+        _timed(rec, lambda: aperture_call(mode, planes, xs, ys))
+        # a window pixel's bytes: 4 a plane given (img, rms, mask; a, b)
+        px = 4 * sum(t is not None for t in planes)
+        cut, row, sum_ops = ((9, 25, APERTURE_SUM_OPS['photometry'])
+                             if mode == 'photometry'
+                             else (15, 16, APERTURE_SUM_OPS['sums']))
+        rec['bound_ms'], rec['bound_by'] = bound(
+            nd * cut * cut * px + n * row,
+            aperture_ops(nd, 3.0 if cut == 9 else 6.0, sum_ops))
+        rec['all_rows_bound_ms'] = bound(n * (cut * cut * px + row), 0)[0]
+        rec['ok'] = rec['repeat_equal'] and rec['check_ok']
+        yield rec
+
+
 def _timed(rec, fn):
     from zuds_tpu_torch.bench_compact import call_ms, graph_ms
     rec['graph_ms'] = graph_ms(fn)
@@ -618,16 +864,19 @@ def main(argv=None):
     ap.add_argument('--root', default=str(_HERE.parent))
     ap.add_argument('--tag', default='')
     ap.add_argument('--out', default=None)
-    ap.add_argument('--cases', default='h5,h25,h23,h26',
+    ap.add_argument('--cases', default='h5,h25,h23,h26,h24,h22',
                     help='comma-separated prefixes of the case groups to '
-                    'run (h5, h25, h23, h26)')
+                    'run (h5, h25, h23, h26, h24, h22)')
+    ap.add_argument('--phot', default=None,
+                    help='the forced positions and frames chip_smoke.py '
+                    'saves where ZUDS_PHOT_INPUTS points (case h22_forced)')
     args = ap.parse_args(argv)
     wanted = tuple(args.cases.split(','))
     # the sources of the case groups asked for
-    sources = [src for group, src in (('h5', 'deblend.cu'), ('h25', 'ccl.cu'),
-                                      ('h23', 'measure.cu'),
-                                      ('h26', 'objects.cu'))
-               if group.startswith(wanted)]
+    sources = sorted({src for group, src in (
+        ('h5', 'deblend.cu'), ('h25', 'ccl.cu'), ('h23', 'measure.cu'),
+        ('h26', 'objects.cu'), ('h24', 'ccl.cu'), ('h22', 'photometry.cu'))
+        if group.startswith(wanted)})
     if not torch.cuda.is_available():
         sys.exit('bench_detect: no CUDA device')
     sys.path.insert(0, args.root)
@@ -679,10 +928,16 @@ def main(argv=None):
                 emit(rec)
         if 'h26'.startswith(wanted):
             emit(stats_case(cfg, out, libs))
+        if 'h24'.startswith(wanted):
+            for rec in h24_cases(cfg, out, dev):
+                emit(rec)
+        if 'h22'.startswith(wanted):
+            for rec in h22_cases(cfg, sci, out, dev, args.phot):
+                emit(rec)
     lib_path = Path(build.library()._name)
     emit({'case': 'sass', 'sass': sass_counts(
         lib_path, r'refine|rank_kernel|offsets|place|tree|rows_kernel'
-        r'|deblend_labels|ccl_')})
+        r'|deblend_labels|ccl_|seed_kernel|aperture_kernel')})
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()

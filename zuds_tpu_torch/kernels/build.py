@@ -126,8 +126,9 @@ SIGNATURES = {
     # img, rms, H, W, xs, ys, a, b, theta, fwhm, N, cut, out (11, N), stream
     'zuds_refine_detections': (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                                _I, _P, _P),
-    # det(u8), H, W, sweeps, out (f32), stream
-    'zuds_seed_sweeps': (_P, _I, _I, _I, _P, _P),
+    # det(u8), H, W, sweeps, pidx (i64), count (i64 scalar), cap, out
+    # (f32), stream
+    'zuds_seed_sweeps': (_P, _I, _I, _I, _P, _P, _I, _P, _P),
     # nbr_pos (i64), okb (u8), lab0 (i64), n, parent (i32 scratch), out
     # (i64), stream
     'zuds_ccl_fixpoint': (_P, _P, _P, _I, _P, _P, _P),

@@ -3,20 +3,33 @@
 // H24 replaces zuds_tpu/ops/detect.py:657-665 (the label seeds: 12 masked
 // 3x3 min-pool sweeps of flat indices over the full detection mask, +inf
 // or INT_MAX off it), which the TPU runs as 12 full-frame passes of six
-// shifted minimums. After k sweeps a pixel depends only on the pixels
-// within Chebyshev distance k, so one block takes a 32x32 output tile with
-// a 12-pixel halo (56x56, two ping-pong buffers of f32 in shared memory),
-// lists the span's detected cells, runs all the sweeps over them there
-// (a cell off the mask stays +inf; sweep s recomputes only the cells at
-// least s from the span's edge, the only ones still exact) and writes the
-// tile once: a span without a detected pixel costs its load and its
-// store. Cells outside the frame hold +inf, as max_pool2d's padding and the
-// reference's INT_MAX rows do. The minimum of exact integers and +inf is
-// exact in any order, so the seeds are bit-equal to
+// shifted minimums. Both callers read the seeds only at the compact
+// list's entries (ops/detect.py _extract, label_components), so H24 takes
+// that list (pidx, the H6 compaction of the same mask: its first
+// min(count, cap) entries are the detected pixels in raster order) and
+// writes the (cap,) seeds of its entries, +inf past the listed ones.
+// After k sweeps a pixel depends only on the pixels within Chebyshev
+// distance k, so a 32x32 output tile needs its 12-pixel halo (a 56x56
+// span). One block of 128 threads a tile: it reads the tile's centre in
+// 16-byte words, and a tile with no detected pixel is done (85% of the
+// flagship's tiles). Otherwise warps 0-2 read the span in 16-byte words
+// (the halo's rereads from L2), hold it as span-local indices r * 56 + c
+// (uint16: the same order as the flat indices, 0xFFFF off the mask or the
+// frame), list its detected cells with one shared atomic a warp (a prefix
+// of the lanes' counts by shuffles) and run all the sweeps over them
+// (sweep s recomputes only the cells at least s from the span's edge, the
+// only ones still exact; the three warps meet at a named barrier), while
+// warp 3 finds, for each of the tile's 32 rows that holds a detected
+// pixel, the list position of that row's first one (a binary search of
+// pidx); a detected pixel's position is then that plus its rank in the
+// row. When the compaction overflowed (count > cap), pixels past the list
+// still carry the sweeps and get no position. The minimum of exact
+// integers is exact in any order, so the seeds are bit-equal to
 // ops/detect.py:seed_labels_plain.
-// Bound: memory. The mask is read once (1 B a pixel; the halo's rereads,
-// 3.1x, hit L2) and the seeds written once (4 B a pixel): 47.3 MB at the
-// flagship's 3080x3072, 0.014 ms at 3.35 TB/s.
+// Bound: memory. The mask read once (1 B a pixel), the list's positions
+// read and its seeds written once (8 + 4 B a listed entry, 4 B a padded
+// one): 10.0 MB at the flagship's 3080x3072 and 34,254 of 65,536 entries
+// listed, 0.0030 ms at 3.35 TB/s.
 //
 // H25 replaces zuds_tpu/ops/detect.py:667-700 (the base components on the
 // compact list: Shiloach-Vishkin hook and compress rounds in a while loop
@@ -70,52 +83,159 @@ namespace {
 constexpr int kTile = 32;
 constexpr int kHalo = 12;                  // the most sweeps one launch runs
 constexpr int kSpan = kTile + 2 * kHalo;   // 56
-constexpr int kSeedThreads = 256;
+constexpr int kSeedThreads = 128;
+constexpr int kSweepThreads = kSeedThreads - 32;  // all warps but the last
+constexpr uint16_t kOff = 0xFFFF;          // a cell off the mask
 constexpr int kThreads = 256;
 
+// the 16 mask bytes of row y from column x (a multiple of 16) as a 16-bit
+// set of the nonzero ones, none off the frame; vec: 16-byte loads (W a
+// multiple of 16, the mask 16-byte aligned)
+__device__ __forceinline__ uint32_t mask_bits(const uint8_t* __restrict__ det,
+                                              int H, int W, int y, int x,
+                                              bool vec) {
+  if (y < 0 || y >= H || x >= W || x + 16 <= 0) return 0;
+  const uint8_t* row = det + (size_t)y * W;
+  uint32_t bits = 0;
+  if (vec) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + x));
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        bits |= ((w[k] >> (8 * b)) & 0xFFu ? 1u : 0u) << (4 * k + b);
+    return bits;
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int c = x + j;
+    if (c >= 0 && c < W && row[c]) bits |= 1u << j;
+  }
+  return bits;
+}
+
+// the sweep warps only, while the last warp searches
+__device__ __forceinline__ void sweep_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"r"(kSweepThreads) : "memory");
+}
+
+// One block a tile (blockIdx.x, blockIdx.y).
 __global__ void __launch_bounds__(kSeedThreads)
     seed_kernel(const uint8_t* __restrict__ det, int H, int W, int sweeps,
+                bool vec, const long long* __restrict__ pidx,
+                const long long* __restrict__ count, int cap,
                 float* __restrict__ out) {
-  __shared__ float buf[2][kSpan][kSpan];
-  __shared__ short live[kSpan * kSpan];  // the span's detected cells
+  __shared__ uint16_t buf[2][kSpan][kSpan];
+  __shared__ uint16_t live[kSpan * kSpan];  // the span's detected cells
+  __shared__ uint32_t rowbits[kTile];       // the centre's, a word a row
+  __shared__ int first[kTile];              // each row's first position
   __shared__ int nlive;
-  const int x0 = blockIdx.x * kTile - kHalo;
-  const int y0 = blockIdx.y * kTile - kHalo;
-  if (threadIdx.x == 0) nlive = 0;
-  __syncthreads();
-  for (int k = threadIdx.x; k < kSpan * kSpan; k += blockDim.x) {
-    const int r = k / kSpan, c = k % kSpan;
-    const int y = y0 + r, x = x0 + c;
-    const bool d = y >= 0 && y < H && x >= 0 && x < W &&
-                   det[(size_t)y * W + x] != 0;
-    const float v = d ? (float)(y * W + x) : INFINITY;
-    buf[0][r][c] = v;
-    buf[1][r][c] = v;  // cells off det stay +inf in both buffers
-    if (d) live[atomicAdd(&nlive, 1)] = (short)k;
-  }
-  __syncthreads();
-  const int m = nlive;
-  int cur = 0;
-  for (int s = 1; s <= sweeps && m > 0; ++s) {
-    // only the cells at least s from the span's edge are still exact
-    for (int q = threadIdx.x; q < m; q += blockDim.x) {
-      const int r = live[q] / kSpan, c = live[q] % kSpan;
-      if (r < s || c < s || r >= kSpan - s || c >= kSpan - s) continue;
-      float v = INFINITY;
+  const int t = threadIdx.x, lane = t & 31;
+  const int tx = blockIdx.x, ty = blockIdx.y;
+  const long long c = __ldg(count);
+  const int nl = (int)(c < cap ? c : cap);  // the listed entries
+  // +inf past them, a share a block
+  const long long nblk = (long long)gridDim.x * gridDim.y;
+  for (long long k = nl + ((long long)ty * gridDim.x + tx) * kSeedThreads + t;
+       k < cap; k += nblk * kSeedThreads)
+    out[k] = INFINITY;
+  // the tile's centre, one 16-byte word a thread: row t / 2, half t % 2
+  const bool any =
+      t < 2 * kTile && mask_bits(det, H, W, ty * kTile + t / 2,
+                                 tx * kTile + 16 * (t & 1), vec) != 0;
+  if (t == 0) nlive = 0;
+  if (!__syncthreads_or(any) || nl == 0) return;
+
+  const int x0 = tx * kTile - kHalo, y0 = ty * kTile - kHalo;
+  if (t < kSweepThreads) {
+    for (int i0 = 0; i0 < kSpan * 4; i0 += kSweepThreads) {
+      // row r, word w: span columns 16 w - 4 .. 16 w + 11
+      const int i = i0 + t, r = i >> 2, w = i & 3, c0 = 16 * w - 4;
+      uint32_t bits = 0;
+      if (i < kSpan * 4) {
+        bits = mask_bits(det, H, W, y0 + r, x0 + c0, vec);
+        bits &= w == 0 ? 0xFFF0u : (w == 3 ? 0x0FFFu : 0xFFFFu);
 #pragma unroll
-      for (int dy = -1; dy <= 1; ++dy)
+        for (int j = 0; j < 16; ++j) {
+          const int cc = c0 + j;
+          if (cc >= 0 && cc < kSpan) {
+            const uint16_t v =
+                (bits >> j) & 1u ? (uint16_t)(r * kSpan + cc) : kOff;
+            buf[0][r][cc] = v;
+            buf[1][r][cc] = v;  // cells off det stay off in both buffers
+          }
+        }
+        // the centre's rows, a 16-bit half each from words 1 and 2
+        if ((w == 1 || w == 2) && r >= kHalo && r < kHalo + kTile)
+          reinterpret_cast<uint16_t*>(rowbits)[2 * (r - kHalo) + w - 1] =
+              (uint16_t)bits;
+      }
+      // append the word's detected cells: one shared atomic a warp
+      const int cnt = __popc(bits);
+      int incl = cnt;
 #pragma unroll
-        for (int dx = -1; dx <= 1; ++dx)
-          v = fminf(v, buf[cur][r + dy][c + dx]);
-      buf[cur ^ 1][r][c] = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      int base = 0;
+      if (lane == 31 && incl) base = atomicAdd(&nlive, incl);
+      base = __shfl_sync(0xffffffffu, base, 31) + incl - cnt;
+      while (bits) {
+        const int j = __ffs(bits) - 1;
+        bits &= bits - 1;
+        live[base++] = (uint16_t)((r << 8) | (c0 + j));
+      }
     }
-    cur ^= 1;
-    __syncthreads();
   }
-  for (int k = threadIdx.x; k < kTile * kTile; k += blockDim.x) {
-    const int r = kHalo + k / kTile, c = kHalo + k % kTile;
-    const int y = y0 + r, x = x0 + c;
-    if (y < H && x < W) out[(size_t)y * W + x] = buf[cur][r][c];
+  __syncthreads();
+  if (t < kSweepThreads) {
+    const int m = nlive;
+    int cur = 0;
+    for (int s = 1; s <= sweeps; ++s) {
+      // only the cells at least s from the span's edge are still exact
+      for (int q = t; q < m; q += kSweepThreads) {
+        const int r = live[q] >> 8, cc = live[q] & 0xFF;
+        if (r < s || cc < s || r >= kSpan - s || cc >= kSpan - s) continue;
+        uint16_t v = kOff;
+#pragma unroll
+        for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+          for (int dx = -1; dx <= 1; ++dx)
+            v = min(v, buf[cur][r + dy][cc + dx]);
+        buf[cur ^ 1][r][cc] = v;
+      }
+      cur ^= 1;
+      sweep_barrier();
+    }
+  } else {
+    // the last warp: a lane a tile row; the first list position at or
+    // past the row's first pixel in the tile (a lower bound over the
+    // listed entries)
+    const uint32_t bits = rowbits[lane];
+    int lo = 0;
+    if (bits) {
+      const long long key = (long long)(ty * kTile + lane) * W + tx * kTile;
+      int hi = nl;
+      while (lo < hi) {
+        const int mid = (int)(((unsigned)lo + (unsigned)hi) >> 1);
+        if (__ldg(&pidx[mid]) < key) lo = mid + 1; else hi = mid;
+      }
+    }
+    first[lane] = lo;
+  }
+  __syncthreads();
+  const int cur = sweeps & 1;  // the buffer the sweeps ended in
+  for (int k = t; k < kTile * kTile; k += kSeedThreads) {
+    const int rr = k / kTile, cc = k % kTile;
+    const uint32_t bits = rowbits[rr];
+    if (!((bits >> cc) & 1u)) continue;
+    const int pos = first[rr] + __popc(bits & ((1u << cc) - 1u));
+    if (pos >= nl) continue;  // past the list (an overflowing compaction)
+    const uint16_t v = buf[cur][kHalo + rr][kHalo + cc];
+    const int r = v / kSpan, c2 = v - r * kSpan;
+    out[pos] = (float)((y0 + r) * W + x0 + c2);
   }
 }
 
@@ -210,10 +330,16 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// det (H, W) u8, pidx (cap,) i64 its compaction, count (i64 scalar) its
+// detected pixels; out (cap,) f32.
 extern "C" int zuds_seed_sweeps(const uint8_t* det, int H, int W, int sweeps,
-                                float* out, cudaStream_t stream) {
+                                const long long* pidx,
+                                const long long* count, int cap, float* out,
+                                cudaStream_t stream) {
   const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  seed_kernel<<<grid, kSeedThreads, 0, stream>>>(det, H, W, sweeps, out);
+  const bool vec = W % 16 == 0 && reinterpret_cast<uintptr_t>(det) % 16 == 0;
+  seed_kernel<<<grid, kSeedThreads, 0, stream>>>(det, H, W, sweeps, vec, pidx,
+                                                  count, cap, out);
   return (int)cudaGetLastError();
 }
 

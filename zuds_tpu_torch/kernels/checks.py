@@ -210,11 +210,15 @@ def _gap(a, b):
     return float(d.max()) if d.numel() else 0.0
 
 
-def seeds_check(det, sweeps=12):
-    """H24 on the bool mask ``det``: bit-equal to seed_labels_plain."""
-    k = launch.seed_sweeps(det, sweeps)
-    _check(_same(k, dt.seed_labels_plain(det, sweeps)),
+def seeds_check(det, pidx, count, sweeps=12):
+    """H24 on the bool mask ``det`` and its compact list ``pidx`` with
+    ``count`` detected pixels: bit-equal to seed_labels_plain, two calls
+    bit-identical."""
+    k = launch.seed_sweeps(det, pidx, count, sweeps)
+    _check(_same(k, dt.seed_labels_plain(det, pidx, count, sweeps)),
            'H24 seeds differ from the plain version\'s')
+    _check(_same(k, launch.seed_sweeps(det, pidx, count, sweeps)),
+           'two H24 calls differ')
 
 
 def ccl_check(nbr_pos, okb, lab0):

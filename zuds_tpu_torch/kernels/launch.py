@@ -614,22 +614,34 @@ def refine_detections(img, rms, xs, ys, a, b, theta, fwhm, cut):
 SEED_MAX_SWEEPS = 12
 
 
-def seed_sweeps(det, sweeps=12):
-    """H24 (kernels/ccl.cu): the (H, W) f32 label seeds of
-    ``ops.detect.seed_labels_plain`` of the bool mask ``det`` (under 2^24
-    px), ``sweeps`` (0..12) masked 3x3 min-pool sweeps of flat indices in
-    one launch."""
+def seed_sweeps(det, pidx, count, sweeps=12):
+    """H24 (kernels/ccl.cu): the (cap,) f32 label seeds of
+    ``ops.detect.seed_labels_plain`` at the compact list ``pidx`` ((cap,)
+    int64, the compaction of the bool mask ``det``, under 2^24 px) whose
+    first ``count`` (an int64 scalar on the card, the mask's detected
+    pixels; at most cap of them listed) entries are listed; +inf past
+    them. ``sweeps`` (0..12) masked 3x3 min-pool sweeps of flat indices
+    over the whole mask, in one launch.
+
+    Input contract: ``pidx`` is ``ops.compact.compact_indices(det.reshape(
+    -1), cap, fill)``'s (its listed entries the detected pixels in raster
+    order); for another list the seeds land at other entries, with no
+    error."""
     _require('det', det, torch.bool)
     if det.dim() != 2 or det.numel() >= 2 ** 24 \
             or not 0 <= sweeps <= SEED_MAX_SWEEPS:
         raise ValueError(f'seed_sweeps: a mask of shape {tuple(det.shape)} '
                          f'at {sweeps} sweeps unsupported (2-D, under 2^24 '
                          f'px, 0..{SEED_MAX_SWEEPS} sweeps)')
+    cap = pidx.shape[0] if pidx.dim() == 1 else -1
+    _require('pidx', pidx, torch.int64, (cap,))
+    _require('count', count, torch.int64, ())
     H, W = det.shape
-    out = torch.empty((H, W), dtype=torch.float32, device=det.device)
-    if det.numel():
-        err = build.library().zuds_seed_sweeps(_ptr(det), H, W, int(sweeps),
-                                               _ptr(out), _stream())
+    out = torch.empty(cap, dtype=torch.float32, device=det.device)
+    if cap:
+        err = build.library().zuds_seed_sweeps(
+            _ptr(det), H, W, int(sweeps), _ptr(pidx), _ptr(count), cap,
+            _ptr(out), _stream())
         build.check(err, 'zuds_seed_sweeps')
         seed_sweeps.launches += 1
     return out

@@ -37,7 +37,8 @@ from .deblend import cell_graph, deblend_exact, split_margins
 from .ordered import fma, segmented_scan, sum_last
 
 __all__ = ['DETECTION_FIELDS', 'compact_indices', 'seed_labels',
-           'seed_labels_plain', 'label_compact', 'label_compact_plain',
+           'seed_labels_plain', 'seed_frame_plain', 'label_compact',
+           'label_compact_plain',
            'label_compact_rounds', 'label_components', 'matched_filter',
            'matched_filter_plain', 'ascent_cells', 'object_stats',
            'object_stats_plain', 'clean_pass', 'detect_sources',
@@ -92,13 +93,13 @@ def _adjacency(pidx, pok, inv, shape):
     return pos.clamp(min=0), ok
 
 
-def seed_labels_plain(det, sweeps=12):
-    """Plain version of H24: the reference's label seeds
-    (detect.py:657-665), ``sweeps`` 3x3 min-pool passes of flat indices
-    over the FULL detection mask, +inf off ``det``. When the compaction
-    overflows, two kept pieces joined only through dropped pixels share a
-    seed, so the seeds decide the overflow counters too. Flat indices ride
-    in float32, exact below 2^24."""
+def seed_frame_plain(det, sweeps=12):
+    """The reference's label seeds (detect.py:657-665): ``sweeps`` 3x3
+    min-pool passes of flat indices over the FULL detection mask, (H, W)
+    f32, +inf off ``det``. When the compaction overflows, two kept pieces
+    joined only through dropped pixels share a seed, so the seeds decide
+    the overflow counters too. Flat indices ride in float32, exact below
+    2^24."""
     H, W = det.shape
     if H * W >= 1 << 24:
         raise ValueError('seed_labels: flat indices exceed exact float32')
@@ -112,13 +113,26 @@ def seed_labels_plain(det, sweeps=12):
     return lab
 
 
-def seed_labels(det, sweeps=12):
-    """(H, W) f32 label seeds of the bool mask ``det``
-    (:func:`seed_labels_plain`): hand kernel H24 on a CUDA tensor (all
-    sweeps in one launch, bit-equal), the plain version on a CPU tensor."""
+def seed_labels_plain(det, pidx, count, sweeps=12):
+    """Plain version of H24: the seeds of :func:`seed_frame_plain` at the
+    compact list ``pidx`` of ``det`` (:func:`compact_indices`' (cap,)
+    indices) whose first ``count`` entries (the 0-d count of detected
+    pixels, at most cap of them listed) are listed, +inf past them: the
+    only entries the callers read."""
+    seeds = seed_frame_plain(det, sweeps).reshape(-1)[pidx]
+    listed = torch.arange(pidx.shape[0], device=pidx.device) < count
+    return torch.where(listed, seeds, float('inf'))
+
+
+def seed_labels(det, pidx, count, sweeps=12):
+    """(cap,) f32 label seeds of the bool mask ``det`` at its compact list
+    ``pidx`` with ``count`` detected pixels (:func:`seed_labels_plain`):
+    hand kernel H24 on a CUDA tensor (all sweeps in one launch, only the
+    listed entries' seeds written, bit-equal), the plain version on a CPU
+    tensor."""
     if det.is_cuda:
-        return launch.seed_sweeps(det, sweeps)
-    return seed_labels_plain(det, sweeps)
+        return launch.seed_sweeps(det, pidx, count, sweeps)
+    return seed_labels_plain(det, pidx, count, sweeps)
 
 
 def _sv_rounds(nbr_pos, okb, lab):
@@ -196,7 +210,7 @@ def label_components(det, max_rounds=32, sweeps=8, hops=1):
     posidx = torch.arange(n, device=det.device)
     pok = posidx < ndet
     inv = scatter_into(n, pidx, pok, posidx, -1)
-    seeds = seed_labels(det, min(sweeps, 12)).reshape(-1)[pidx]
+    seeds = seed_labels(det, pidx, ndet, min(sweeps, 12))
     seedpos = inv[torch.where(pok, seeds, 0.0).to(torch.int64)].clamp(min=0)
     nbr_pos, nbr_ok = _adjacency(pidx, pok, inv, (H, W))
     okb = nbr_ok & pok[None] & pok[nbr_pos]
@@ -247,7 +261,7 @@ def _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap):
 
     # ---- base connected components ---------------------------------------
     with torch.profiler.record_function('ccl'):
-        seeds = seed_labels(det).reshape(-1)[pidx]
+        seeds = seed_labels(det, pidx, ndet_pix)
         seedpos = inv[torch.where(pok, seeds, 0.0).to(torch.int64)].clamp(
             min=0)
         nbr_pos, nbr_ok = _adjacency(pidx, pok, inv, (H, W))
@@ -513,7 +527,7 @@ def _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
         seg = scatter_into(H * W, pidx, pok, obj_masked, 0)
         seg[-1] = torch.where(st['ndet_pix'] < cap, 0, seg[-1])
         out['labels'] = seg.reshape(H, W)
-    taps = {'seeds': st['det'],
+    taps = {'seeds': (st['det'], st['pidx'], st['ndet_pix']),
             'ccl': (st['nbr_pos'], st['okb'], st['lab0']),
             'stats': stats_args, 'clean': clean_args}
     return out, taps
@@ -541,7 +555,8 @@ def detect_taps(bkgsub, rms, mask=None, weight_ok=None,
                 max_det=MAX_DETECTIONS, deblend=True, det_cap=None,
                 deb_cap=None):
     """The arguments :func:`detect_sources` passes to H24-H27 on this
-    frame: ``seeds`` (the (H, W) detection mask), ``ccl`` (nbr_pos, okb,
+    frame: ``seeds`` (the (H, W) detection mask, its compact list and
+    its count of detected pixels), ``ccl`` (nbr_pos, okb,
     lab0), ``stats`` (those of :func:`object_stats`) and ``clean`` (the
     row fields of CLEAN_FIELDS, before CLEAN)."""
     return _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
