@@ -80,7 +80,9 @@ are saved to FILE for ``bench_detect.py --phot``). The detect stage: ``detect_so
 frames through H24-H27 (the seeds, the base components, the per-object
 statistics, CLEAN) against the same call with their plain versions, at
 the three deblend modes; each of the four against its plain version on
-frame 0's own inputs (H24 on its mask and compact list), timed, H24 and
+frame 0's own inputs (H24 on its mask and compact list), timed (H27 also
+on 4098 crowded seeded rows, ``bench_detect.clean_rows``, two calls
+bit-equal), H24 and
 H25 also on scenes whose last pixel is detected (alone and joined, the list padded and overflowing, from the
 seeds and the identity); the profiler's count of host copies and
 waits inside the ``ccl``, ``stats`` and ``clean`` ranges (0). Prints the
@@ -206,13 +208,14 @@ DETECT_LAUNCHES = {'seed_sweeps': 1, 'ccl_fixpoint': 1, 'object_stats': 1,
 # minima and the mask's select); H25 4 a backward edge (two finds' first
 # steps, the compare, the hook); H26 25 an entry (its 6 products, 8 tree
 # adds, 9 maxima, minima and ORs, 2 conversions) and 40 a row (the
-# epilogue); H27 3 a (valid row, column) pair (the tests and the sum's
-# add) and 14 more for each brighter valid neighbour (the wing: 11 for r2,
-# its scale, the add, powf as one, the product)
+# epilogue); H27 3 a pair of valid rows (the tests and the sum's add) and
+# 14 more for each brighter valid neighbour (the wing: 11 for r2, its
+# scale, the add, powf as one, the product)
 SEED_OPS = 9
 CCL_OPS = 4
 STATS_OPS = (25, 40)
 CLEAN_OPS = (3, 14)
+CLEAN_CROWDED = 4098    # H27 also timed on as many seeded rows
 REFINE_OPS_PX = 135
 REFINE_AUTO_OPS = 3
 # the forced-photometry phase: dophot's call on a flagship subtraction at
@@ -244,6 +247,7 @@ TRAIN_DRYRUN_N = 2
 # the scoring phase: N candidates and triplets for the kernels' records;
 # the night's filter (FILTERID 2) cuts at RB_CUT[2]
 SCORE_N = 256
+TRIPLET_MORE = 2048     # H12 also timed at as many candidates
 RB_CUT_ZR = 0.3
 # seconds of the 0.5 deg pair's filter step when its frames branch ran on
 # the host (PERF.md, section 6)
@@ -673,23 +677,33 @@ def detect_phase(out, cfg, record, name):
            bound(30 * cap + 8 + 81 * nseg,
                  STATS_OPS[0] * cap + STATS_OPS[1] * nseg),
            cuda_ms(lambda: torch.sort(sargs[0], stable=True)))
-    # H27: reads 11 row fields, writes 4
-    cargs = taps['clean']
-    flux_gap, rel, ncleaned, near = checks.clean_check(cargs)
-    valid, peak = cargs[10], cargs[5]
-    pf = peak[valid]
-    nok = int((pf[None, :] > pf[:, None]).sum())
+    # H27: reads 11 row fields, writes 4; on slice frame 0 (recorded) and
+    # on a crowded row set (CLEAN_CROWDED rows, about 80% valid)
+    from zuds_tpu_torch.bench_detect import clean_rows
     inv = float(np.float32(1.0) / np.float32(2.0 * CLEAN_PARAM ** 2))
-    print(f'clean on slice frame 0: {int(valid.sum())} valid rows, '
-          f'{ncleaned} cleaned, {near} within one ulp of the threshold; the '
-          f'contributions (powf, cosf, sinf of the toolkit against '
-          f'PyTorch\'s) within {rel:.3g} of the row\'s peak; merged flux gap '
-          f'{flux_gap:.3g}', flush=True)
-    record('clean', flux_gap,
-           graph_ms(lambda: launch.clean(*cargs, inv)),
-           cuda_ms(lambda: detect._clean_plain(*cargs), 1, 3),
-           bound(60 * nseg, CLEAN_OPS[0] * int(valid.sum()) * nseg
-                 + CLEAN_OPS[1] * nok))
+    for what, cargs in (('slice frame 0', taps['clean']),
+                        (f'{CLEAN_CROWDED} crowded rows',
+                         clean_rows(CLEAN_CROWDED, diff.device))):
+        flux_gap, rel, ncleaned, near = checks.clean_check(cargs)
+        check(all(torch.equal(u, v) for u, v in zip(
+            launch.clean(*cargs, inv), launch.clean(*cargs, inv))),
+            f'two clean calls differ on {what}')
+        valid, peak = cargs[10], cargs[5]
+        pf = peak[valid]
+        nv, nrows = int(valid.sum()), valid.numel()
+        nok = int((pf[None, :] > pf[:, None]).sum())
+        ms = graph_ms(lambda: launch.clean(*cargs, inv))
+        bnd = bound(60 * nrows, CLEAN_OPS[0] * nv * nv + CLEAN_OPS[1] * nok)
+        print(f'clean on {what}: {nv} valid rows, {ncleaned} cleaned, '
+              f'{near} within one ulp of the threshold; the contributions '
+              f'(powf, cosf, sinf of the toolkit against PyTorch\'s) within '
+              f'{rel:.3g} of the row\'s peak; merged flux gap {flux_gap:.3g}; '
+              f'{ms:.5f} ms on the card (graph replay; bound {bnd[0]:.6f} ms '
+              f'by {bnd[1]}, share {bnd[0] / ms:.2%}) on {card()}',
+              flush=True)
+        if what == 'slice frame 0':
+            record('clean', flux_gap, ms,
+                   cuda_ms(lambda: detect._clean_plain(*cargs), 1, 3), bnd)
 
     # the profiler's host copies and waits inside the detect ranges
     detect.detect_sources(diff, rms, mask, wok, return_labels=False, **kw)
@@ -1177,7 +1191,8 @@ def scoring_night(wrappers, name, record, d, work, truths, pipe):
     """The night's batched pairs again at ml=True, db=False (the ml=False
     run's catalogs are the pre-ML GOODCUT), counted; the checks of RB and
     GOODCUT frame by frame and of the card's scores against the plain
-    layers; then H12 and H13 at SCORE_N candidates."""
+    layers; then H12 and H13 at SCORE_N candidates (H12 also timed at
+    TRIPLET_MORE)."""
     import numpy as np
     import torch
     from zuds_tpu_torch import night
@@ -1254,15 +1269,8 @@ def scoring_night(wrappers, name, record, d, work, truths, pipe):
 def scoring_positions(H, W, n, size, seed=17):
     """int32 corners on the card of n seeded positions, a few past each
     edge (clamped as the filter clamps them)."""
-    import numpy as np
-    import torch
-    from zuds_tpu_torch.ops import cutouts
-    rng = np.random.default_rng(seed)
-    xs = rng.uniform(-3, W + 2, n).astype('f4')
-    ys = rng.uniform(-3, H + 2, n).astype('f4')
-    return cutouts.clamped_corners(torch.as_tensor(xs, device='cuda'),
-                                   torch.as_tensor(ys, device='cuda'), size,
-                                   H, W)
+    from zuds_tpu_torch.bench_detect import scoring_corners
+    return scoring_corners(H, W, n, size, seed)
 
 
 def compact_calls(out, cfg):
@@ -1291,28 +1299,37 @@ def compact_calls(out, cfg):
 
 
 def triplet_record(frames, record, runs):
-    """H12 against its plain version at SCORE_N candidates."""
+    """H12 against its plain version at SCORE_N candidates, then at
+    TRIPLET_MORE (timed beside its bound, not recorded)."""
+    import torch
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.ops import cutouts
     H, W = frames[0].shape
-    x0, y0 = scoring_positions(H, W, SCORE_N, 63)
-    k = launch.triplet_cut(*frames, x0, y0)
-    p = cutouts.triplet_cut_plain(*frames, x0, y0)
-    err = close('triplet_cut', k, p, 1e-6, 0.0)
-    ms = graph_ms(lambda: launch.triplet_cut(*frames, x0, y0))
-    call_ms = cuda_ms(lambda: launch.triplet_cut(*frames, x0, y0))
-    plain = cuda_ms(lambda: cutouts.triplet_cut_plain(*frames, x0, y0), 1, 3)
-    # reads three 63x63 windows per candidate and its corner, writes as
-    # many floats; a square-add, a divide per value
-    n = SCORE_N * 3 * 63 * 63
-    bnd = bound(8 * n + 8 * SCORE_N, 3 * n)
-    print(f'triplet_cut: {SCORE_N} candidates on {H}x{W}: {ms:.4f} ms on '
-          f'the card (graph replay; bound {bnd[0]:.5f} ms, share '
-          f'{bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call with its '
-          f'host cost, plain {plain:.3f} ms', flush=True)
-    record('triplet_cut', err, ms, plain, bnd, runs=runs,
-           per=f'scoring night of {NIGHT_PAIRS} frames')
-    return k
+    for n in (SCORE_N, TRIPLET_MORE):
+        x0, y0 = scoring_positions(H, W, n, 63)
+        k = launch.triplet_cut(*frames, x0, y0)
+        p = cutouts.triplet_cut_plain(*frames, x0, y0)
+        err = close('triplet_cut', k, p, 1e-6, 0.0)
+        check(torch.equal(k, launch.triplet_cut(*frames, x0, y0)),
+              f'two triplet_cut calls differ at {n} candidates')
+        ms = graph_ms(lambda: launch.triplet_cut(*frames, x0, y0))
+        call_ms = cuda_ms(lambda: launch.triplet_cut(*frames, x0, y0))
+        plain = cuda_ms(lambda: cutouts.triplet_cut_plain(*frames, x0, y0),
+                        1, 3)
+        # reads three 63x63 windows per candidate and its corner, writes
+        # as many floats; a square-add, a divide per value
+        nv = n * 3 * 63 * 63
+        bnd = bound(8 * nv + 8 * n, 3 * nv)
+        print(f'triplet_cut: {n} candidates on {H}x{W}: {ms:.4f} ms on '
+              f'the card (graph replay; bound {bnd[0]:.5f} ms, share '
+              f'{bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call with '
+              f'its host cost, plain {plain:.3f} ms, max abs err {err:.3g} '
+              f'on {card()}', flush=True)
+        if n == SCORE_N:
+            record('triplet_cut', err, ms, plain, bnd, runs=runs,
+                   per=f'scoring night of {NIGHT_PAIRS} frames')
+            kept = k
+    return kept
 
 
 def h13_bound(cin, nbytes, flop):

@@ -1409,7 +1409,8 @@ def _positions(H, W, n, seed):
 
 
 @pytest.mark.parametrize('H,W,n', [(200, 180, 48), (63, 70, 5),
-                                   (3080, 3072, 256)])
+                                   (3080, 3072, 256), (3080, 3071, 1),
+                                   (65, 3071, 5), (3080, 3071, 2048)])
 def test_triplet_cut_kernel(dev, H, W, n):
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.ops import cutouts
@@ -1425,6 +1426,7 @@ def test_triplet_cut_kernel(dev, H, W, n):
     p = cutouts.triplet_cut_plain(*frames, x0, y0)
     assert k.shape == p.shape == (n, 63, 63, 3)
     _allclose(k, p, 1e-6, 0.0)
+    assert torch.equal(k, cutouts.triplet_cut(*frames, x0, y0))
     # an all-zero window divides by the floor, not by zero
     z = torch.zeros((H, W), device=dev)
     assert torch.equal(cutouts.triplet_cut(z, z, z, x0, y0),
@@ -2693,26 +2695,52 @@ def test_ccl_fixpoint_kernel_corner_pixel(dev, joined, det_cap):
                            launch.ccl_fixpoint(nbr_pos, okb, lab))
 
 
-@pytest.mark.parametrize('nseg', [130, 1026, 4098])
+def _clean_twice(args):
+    """H27's outputs from two calls, bit-equal, each one launch."""
+    from zuds_tpu_torch.bench_detect import clean_inv
+    from zuds_tpu_torch.kernels import launch
+    inv = clean_inv()
+    n0 = launch.clean.launches
+    first = launch.clean(*args, inv)
+    assert launch.clean.launches == n0 + 1
+    again = launch.clean(*args, inv)
+    assert all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(first, again))
+    return first
+
+
+@pytest.mark.parametrize('nseg', [130, 1026, 4098, 4099, 50000])
 def test_clean_kernel_random_rows(dev, nseg):
     """H27 on seeded rows at widths past, at and inside one 512-column
-    block, bright rows close together so that CLEAN merges some."""
+    block, bright rows close together so that CLEAN merges some
+    (``bench_detect.clean_rows``); two calls bit-equal."""
+    from zuds_tpu_torch.bench_detect import clean_rows
     from zuds_tpu_torch.kernels import checks
-    g = torch.Generator(device=dev).manual_seed(nseg)
-
-    def u(lo, hi):
-        return lo + (hi - lo) * torch.rand(nseg, generator=g, device=dev)
-
-    a = u(0.5, 3.0)
-    peak = u(1.0, 100.0)
-    peak[::7] = 50.0                        # equal peaks
-    valid = torch.rand(nseg, generator=g, device=dev) < 0.8
-    valid[0] = valid[-1] = False
-    args = (u(0, 40), u(0, 40), a, a * u(0.3, 1.0), u(-1.5, 1.5), peak,
-            u(0.5, 60.0), u(10, 1e4), torch.round(u(5, 50)),
-            torch.zeros(nseg, dtype=torch.int32, device=dev), valid)
+    args = clean_rows(nseg, dev)
     _, _, ncleaned, _ = checks.clean_check(args)
     assert ncleaned > 0
+    _clean_twice(args)
+
+
+@pytest.mark.parametrize('nseg,nvalid', [(130, None), (1026, None),
+                                         (4098, None), (4099, None),
+                                         (50000, None), (4098, 0),
+                                         (4098, 1), (130, 1)])
+def test_clean_kernel_edge_rows(dev, nseg, nvalid):
+    """H27 with -0, NaN, negative, zero and equal peaks, NaN positions and
+    angles, -0 fluxes (``bench_detect.clean_edge_rows``), and with no
+    valid row or one; two calls bit-equal."""
+    from zuds_tpu_torch.bench_detect import clean_edge_rows
+    from zuds_tpu_torch.kernels import checks
+    args = tuple(torch.as_tensor(v, device=dev)
+                 for v in clean_edge_rows(nseg, nseg, nvalid))
+    _, _, ncleaned, _ = checks.clean_check(args)
+    if nvalid is None:
+        assert ncleaned > 0
+    flux, npix, flags, valid, contrib, tgt = _clean_twice(args)
+    assert int(valid.sum()) == int(args[10].sum()) - ncleaned
+    assert bool((contrib[~args[10]] == 0).all())
+    assert bool((tgt[~args[10]] == nseg - 1).all())
 
 
 @pytest.mark.parametrize('mode', [True, 'watershed', False])

@@ -1,20 +1,22 @@
-"""H5, H25, H23, H26, H24 and H22 (``kernels/deblend.cu``,
+"""H5, H25, H23, H26, H24, H22, H27 and H12 (``kernels/deblend.cu``,
 ``kernels/ccl.cu``, ``kernels/measure.cu``, ``kernels/objects.cu``,
-``kernels/photometry.cu``): the deblend tree's level labels, the base
-components' union-find, the windowed and Kron refinement, the per-object
-statistics, the label seeds and the aperture photometry, timed at the
-main path's shapes and at the shapes the other paths give them.
+``kernels/photometry.cu``, ``kernels/cutouts.cu``): the deblend tree's
+level labels, the base components' union-find, the windowed and Kron
+refinement, the per-object statistics, the label seeds, the aperture
+photometry, CLEAN and the braai triplets, timed at the main path's shapes
+and at the shapes the other paths give them.
 
     python3 zuds_tpu_torch/bench_detect.py [--root DIR] [--tag NAME]
-        [--out FILE] [--cases h5,h25,h23,h26,h24,h22] [--phot FILE]
+        [--out FILE] [--cases h5,h25,h23,h26,h24,h22,h27,h12] [--phot FILE]
 
 ``--root`` is the checkout whose ``zuds_tpu_torch`` is imported (by
 default the one this file sits in), so that two versions of the kernels
 are timed by one script on one card: unpack the other version into a
 directory and run the script once against each, in turns. ``--out``
 appends the JSON lines to a file as well; ``--cases`` keeps the groups of
-cases (``h5``, ``h25``, ``h23``, ``h26``, ``h24``, ``h22``) that start
-with one of its prefixes, and builds and reports only their sources.
+cases (``h5``, ``h25``, ``h23``, ``h26``, ``h24``, ``h22``, ``h27``,
+``h12``) that start with one of its prefixes, and builds and reports
+only their sources.
 ``--phot`` names the frames and positions ``chip_smoke.py`` saves where
 ``ZUDS_PHOT_INPUTS`` points (its forced-photometry phase: dophot's 4096
 positions on a flagship subtraction), for the case ``h22_forced``.
@@ -82,6 +84,20 @@ only the valid rows); ``chip_smoke.py``'s busy blend field
   of two orders at r = 6), two calls bit-identical, ``distinct`` counting
   the distinct positions and ``sha256`` hashing the outputs (equal between
   two checkouts whose kernels give the same bits).
+- ``h27_slice``, ``h27_blend``: H27 on CLEAN's row fields of the slice's
+  frame 0 and of the blend field (``detect_taps``' ``clean``);
+  ``h27_rows4098``, ``h27_rows50000``: on :func:`clean_rows` (the card
+  test's seeded rows, about 80% valid, close together: crowded). Each
+  checked against the plain version (``kernels.checks.clean_check``), two
+  calls bit-identical, ``sha256`` hashing flux, npix, flags, valid,
+  contrib and tgt (equal between two checkouts whose kernels give the
+  same bits), the valid and cleaned rows counted.
+- ``h12_n256``, ``h12_n2048``: H12 at 256 and 2048 seeded candidates
+  (:func:`scoring_corners`, chip_smoke.py's ``scoring_positions``) on the
+  night's frame 0, its reference and their difference (written by
+  ``inputs.write_night_pairs`` as chip_smoke.py writes them), within
+  rtol 1e-6 of the plain version, two calls bit-identical, ``sha256``
+  hashing the triplets.
 - ``empty``: an empty kernel (one block of 32 threads) under the same
   CUDA graph: the launch floor of a graph's launch.
 
@@ -112,9 +128,12 @@ same for every row; H26: 30 B an entry and 81 B a row, 25 operations an
 entry and 40 a row; H24: the mask's 1 B a pixel, 8 + 4 B a listed entry
 and 4 B a padded one, 9 operations a detected pixel a sweep; H22: the
 distinct rows' windows, every row's position and outputs, the distinct
-rows' corner grids by :func:`aperture_ops`). Then the card's name and power limit, ptxas's
-registers and spills of the checkout's sources of the cases run, and their
-kernels' SASS and local-memory instruction counts. The script exits
+rows' corner grids by :func:`aperture_ops`; H27: 60 B a row, 3 operations
+a pair of valid rows and 14 more a brighter valid neighbour; H12: each
+window read and each triplet value written once, 8 B a candidate's
+corner). Then the card's name and power limit, ptxas's registers and
+spills of the checkout's sources of the cases run, and their kernels'
+SASS and local-memory instruction counts. The script exits
 non-zero at its end if a check failed.
 """
 from __future__ import annotations
@@ -178,6 +197,12 @@ APERTURE_EDGE_PAIR_OPS = 42
 APERTURE_CORNER_OPS = 7
 APERTURE_PIXEL_OPS = 4
 APERTURE_SUM_OPS = {'photometry': 9, 'sums': 4}
+# H27's operations (chip_smoke.py CLEAN_OPS): 3 a (valid row, valid
+# column) pair, 14 more a brighter valid neighbour
+CLEAN_OPS = (3, 14)
+# H27's crowded row sets (rows, about 80% valid); H12's candidates
+CLEAN_ROWS = (4098, 50000)
+TRIPLET_N = (256, 2048)
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void zuds_empty_kernel() {}
@@ -707,6 +732,172 @@ def h22_cases(cfg, sci, out, dev, phot):
         yield rec
 
 
+def clean_rows(nseg, dev):
+    """CLEAN's row fields (ops.detect.CLEAN_FIELDS) of ``nseg`` seeded rows
+    on ``dev``, about 80% valid, bright rows close together so that CLEAN
+    merges some, every seventh peak equal (a torch generator seeded with
+    ``nseg`` on ``dev``)."""
+    g = torch.Generator(device=dev).manual_seed(nseg)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(nseg, generator=g, device=dev)
+
+    a = u(0.5, 3.0)
+    peak = u(1.0, 100.0)
+    peak[::7] = 50.0                        # equal peaks
+    valid = torch.rand(nseg, generator=g, device=dev) < 0.8
+    valid[0] = valid[-1] = False
+    return (u(0, 40), u(0, 40), a, a * u(0.3, 1.0), u(-1.5, 1.5), peak,
+            u(0.5, 60.0), u(10, 1e4), torch.round(u(5, 50)),
+            torch.zeros(nseg, dtype=torch.int32, device=dev), valid)
+
+
+def clean_edge_rows(nseg, seed, nvalid=None):
+    """CLEAN's row fields as numpy arrays: :func:`clean_rows`' kind of
+    rows from a numpy seed, with equal, negative, zero, -0 and NaN peaks,
+    a faint row with a NaN position and one with a NaN angle (NaN wings on
+    the rows fainter still) and -0 fluxes; ``nvalid`` 0 or 1 keeps that
+    many valid rows."""
+    rng = np.random.default_rng(seed)
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, nseg).astype('f4')
+
+    a = u(0.5, 3.0)
+    peak = u(1.0, 100.0)
+    peak[::7] = 50.0
+    peak[3::11] = -u(0.0, 5.0)[3::11]
+    peak[5::13] = -0.0
+    peak[9::17] = 0.0
+    peak[10::97] = np.nan
+    x, y, theta = u(0, 40), u(0, 40), u(-1.5, 1.5)
+    valid = rng.random(nseg) < 0.8
+    valid[0] = valid[-1] = False
+    x[4], peak[4], theta[6], peak[6] = np.nan, 1.5, np.nan, 2.0
+    valid[4] = valid[6] = True
+    if nvalid is not None:
+        valid[:] = False
+        valid[nseg // 3:nseg // 3 + nvalid] = True
+    flux = u(10, 1e4)
+    flux[8::29] = -0.0
+    return (x, y, a, (a * u(0.3, 1.0)).astype('f4'), theta, peak,
+            u(0.5, 60.0), flux, np.round(u(5, 50)), np.zeros(nseg, 'i4'),
+            valid)
+
+
+def clean_inv():
+    """The f32 reciprocal of 2 CLEAN_PARAM^2 that H27 takes."""
+    from zuds_tpu_torch.constants import CLEAN_PARAM
+    return float(np.float32(1.0) / np.float32(2.0 * CLEAN_PARAM ** 2))
+
+
+def clean_inputs(cfg, out, dev):
+    """{case: CLEAN's row fields}: the slice's frame 0 and the blend field
+    as ``detect_taps`` gives them, and :func:`clean_rows` at CLEAN_ROWS."""
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.ops import detect
+    diff, rms, mask = out['diff'][0], out['rms'][0], out['submask'][0]
+    H, W = diff.shape
+    cases = {'h27_slice': detect.detect_taps(
+        diff, rms, mask, (mask & BAD_SUM) == 0, nsigma=cfg.nsigma,
+        max_det=cfg.max_det, det_cap=cfg.det_cap,
+        deb_cap=cfg.deb_cap)['clean']}
+    img = torch.as_tensor(blend_field(H, W, BLEND_STARS), device=dev)
+    cases['h27_blend'] = detect.detect_taps(
+        img, torch.full_like(img, 5.0), torch.zeros_like(img,
+                                                         dtype=torch.int32),
+        torch.ones_like(img, dtype=torch.bool), **BLEND_KW)['clean']
+    for n in CLEAN_ROWS:
+        cases[f'h27_rows{n}'] = clean_rows(n, dev)
+    return cases
+
+
+def h27_cases(cfg, out, dev):
+    from zuds_tpu_torch.bench_compact import call_ms
+    from zuds_tpu_torch.kernels import checks, launch
+    from zuds_tpu_torch.ops import detect
+    inv = clean_inv()
+    for case, args in clean_inputs(cfg, out, dev).items():
+        nseg = args[0].numel()
+        valid, peak = args[10], args[5]
+        pf = peak[valid]
+        nv = int(valid.sum())
+        k = launch.clean(*args, inv)
+        rec = {'case': case, 'rows': nseg, 'valid': nv,
+               'repeat_equal': _outputs_equal(k, launch.clean(*args, inv)),
+               'sha256': hashlib.sha256(b''.join(
+                   v.contiguous().cpu().numpy().tobytes() for v in k))
+               .hexdigest()}
+        try:
+            gap, rel, ncleaned, near = checks.clean_check(args)
+            rec.update(check_ok=True, flux_gap=gap, contrib_rel=rel,
+                       cleaned=ncleaned, near_threshold=near)
+        except AssertionError as e:
+            rec.update(check_ok=False, check_error=str(e)[:300])
+        _timed(rec, lambda: launch.clean(*args, inv))
+        rec['plain_ms'] = call_ms(lambda: detect._clean_plain(*args), 1, 3)
+        nok = int((pf[None, :] > pf[:, None]).sum())
+        rec['bound_ms'], rec['bound_by'] = bound(
+            60 * nseg, CLEAN_OPS[0] * nv * nv + CLEAN_OPS[1] * nok)
+        rec['ok'] = rec['repeat_equal'] and rec['check_ok']
+        yield rec
+
+
+def scoring_corners(H, W, n, size, seed=17):
+    """int32 corners on the card of n seeded positions, a few past each
+    edge (clamped as the filter clamps them)."""
+    from zuds_tpu_torch.ops import cutouts
+    rng = np.random.default_rng(seed)
+    xs = rng.uniform(-3, W + 2, n).astype('f4')
+    ys = rng.uniform(-3, H + 2, n).astype('f4')
+    return cutouts.clamped_corners(torch.as_tensor(xs, device='cuda'),
+                                   torch.as_tensor(ys, device='cuda'), size,
+                                   H, W)
+
+
+def night_frames(cfg, tmp):
+    """The night's frame 0 (``inputs.write_night_pairs`` as chip_smoke.py
+    writes it), its reference and their difference, on the card."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.fits import read_fits
+    work, _ = inputs.write_night_pairs(
+        tmp, 1, cfg.height, cfg.width,
+        header_json=_HERE.parent / 'tests' / 'data' / 'ztf_real_header.json')
+    frames = [torch.as_tensor(np.ascontiguousarray(
+        next(h for h in read_fits(p) if h.data is not None).data, 'f4'),
+        device='cuda') for p in work[0].split()]
+    frames.append(frames[0] - frames[1])
+    return frames
+
+
+def h12_cases(cfg, tmp):
+    from zuds_tpu_torch.bench_compact import call_ms
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import cutouts
+    frames = night_frames(cfg, tmp)
+    H, W = frames[0].shape
+    for n in TRIPLET_N:
+        x0, y0 = scoring_corners(H, W, n, 63)
+        k = launch.triplet_cut(*frames, x0, y0)
+        p = cutouts.triplet_cut_plain(*frames, x0, y0)
+        gap = (k - p).abs()
+        rec = {'case': f'h12_n{n}', 'candidates': n, 'shape': [H, W],
+               'repeat_equal': bool(torch.equal(
+                   k, launch.triplet_cut(*frames, x0, y0))),
+               'max_abs_err': float(gap.max()),
+               'check_ok': bool((gap <= 1e-6 * p.abs()).all()),
+               'sha256': hashlib.sha256(k.cpu().numpy().tobytes())
+               .hexdigest()}
+        _timed(rec, lambda: launch.triplet_cut(*frames, x0, y0))
+        rec['plain_ms'] = call_ms(
+            lambda: cutouts.triplet_cut_plain(*frames, x0, y0), 1, 3)
+        # each window read once, each triplet written once, the corners
+        rec['bound_ms'], rec['bound_by'] = bound(
+            8 * n * 3 * 63 * 63 + 8 * n, 3 * n * 3 * 63 * 63)
+        rec['ok'] = rec['repeat_equal'] and rec['check_ok']
+        yield rec
+
+
 def _timed(rec, fn):
     from zuds_tpu_torch.bench_compact import call_ms, graph_ms
     rec['graph_ms'] = graph_ms(fn)
@@ -864,9 +1055,9 @@ def main(argv=None):
     ap.add_argument('--root', default=str(_HERE.parent))
     ap.add_argument('--tag', default='')
     ap.add_argument('--out', default=None)
-    ap.add_argument('--cases', default='h5,h25,h23,h26,h24,h22',
+    ap.add_argument('--cases', default='h5,h25,h23,h26,h24,h22,h27,h12',
                     help='comma-separated prefixes of the case groups to '
-                    'run (h5, h25, h23, h26, h24, h22)')
+                    'run (h5, h25, h23, h26, h24, h22, h27, h12)')
     ap.add_argument('--phot', default=None,
                     help='the forced positions and frames chip_smoke.py '
                     'saves where ZUDS_PHOT_INPUTS points (case h22_forced)')
@@ -875,7 +1066,8 @@ def main(argv=None):
     # the sources of the case groups asked for
     sources = sorted({src for group, src in (
         ('h5', 'deblend.cu'), ('h25', 'ccl.cu'), ('h23', 'measure.cu'),
-        ('h26', 'objects.cu'), ('h24', 'ccl.cu'), ('h22', 'photometry.cu'))
+        ('h26', 'objects.cu'), ('h24', 'ccl.cu'), ('h22', 'photometry.cu'),
+        ('h27', 'objects.cu'), ('h12', 'cutouts.cu'))
         if group.startswith(wanted)})
     if not torch.cuda.is_available():
         sys.exit('bench_detect: no CUDA device')
@@ -934,10 +1126,17 @@ def main(argv=None):
         if 'h22'.startswith(wanted):
             for rec in h22_cases(cfg, sci, out, dev, args.phot):
                 emit(rec)
+        if 'h27'.startswith(wanted):
+            for rec in h27_cases(cfg, out, dev):
+                emit(rec)
+        if 'h12'.startswith(wanted):
+            for rec in h12_cases(cfg, tmp):
+                emit(rec)
     lib_path = Path(build.library()._name)
     emit({'case': 'sass', 'sass': sass_counts(
         lib_path, r'refine|rank_kernel|offsets|place|tree|rows_kernel'
-        r'|deblend_labels|ccl_|seed_kernel|aperture_kernel')})
+        r'|deblend_labels|ccl_|seed_kernel|aperture_kernel|clean_'
+        r'|triplet_cut')})
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()

@@ -4,11 +4,16 @@
 // each candidate and each of the three frames (new, ref, sub, all on the
 // reference frame's grid) the 63x63 window at the clamped rounded corner,
 // divided by sqrt(max(sum c^2, 1e-20)), written as channel 0/1/2 of the
-// NHWC (N, 63, 63, 3) triplet. One block per (candidate, frame): each
-// thread keeps its ~16 window values in registers, the block reduces
-// sum c^2 (warp shuffles, then one warp over the eight partials) and the
-// threads write their values divided by the norm. The sum's order is not
-// XLA:CPU's, so the output agrees with the plain version to a few ulp.
+// NHWC (N, 63, 63, 3) triplet. One block a candidate: three groups of 256
+// threads, one a frame. A group's thread squares and adds its ~16 window
+// values (fmaf, in window order), the group reduces sum c^2 (warp
+// shuffles, then one warp over the eight partials) and stages its raw
+// values interleaved in shared memory (pixel i of frame f at 3 i + f,
+// offset so that the triplet's 16-byte aligned floats sit 16-byte aligned
+// there). The block then writes the candidate's contiguous 11,907 floats,
+// each divided by its frame's norm: scalar stores to the first 16-byte
+// boundary, 16-byte stores, scalar stores at the end. The sum's order is
+// not XLA:CPU's, so the output agrees with the plain version to a few ulp.
 //
 // H14 replaces the per-candidate part of zuds_tpu/filterobjects.py:37-61
 // (_negpix_veto): the 13x13 window at the clamped corner standardised by
@@ -23,60 +28,81 @@
 // Bound: memory, and tiny at the main path's sizes. H12 reads 3 x 63 x 63
 // floats and writes as many per candidate (95 KB); H14 reads 13 x 13
 // floats and writes one byte. Both are launch-bound for a few hundred
-// candidates; H12's output write is strided by 3 floats (NHWC).
+// candidates.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kCut = 63;                  // CUTOUT_SIZE
 constexpr int kCutThreads = 256;
-constexpr int kPerThread = (kCut * kCut + kCutThreads - 1) / kCutThreads;
+constexpr int kCutPix = kCut * kCut;
+constexpr int kTriplet = 3 * kCutPix;     // floats of a candidate's triplet
+constexpr int kPerThread = (kCutPix + kCutThreads - 1) / kCutThreads;
 constexpr int kBig = 13;                  // ops/cutouts.NEGPIX_BOX
 constexpr int kInner = 11;                // ops/cutouts.NEGPIX_INNER
 constexpr int kVetoWarps = 4;
 
-__global__ void __launch_bounds__(kCutThreads)
+__global__ void __launch_bounds__(3 * kCutThreads, 2)
     triplet_cut_kernel(const float* __restrict__ f0,
                        const float* __restrict__ f1,
                        const float* __restrict__ f2,
                        const int* __restrict__ x0,
                        const int* __restrict__ y0, int W,
                        float* __restrict__ out) {
-  __shared__ float s_part[kCutThreads / 32];
-  __shared__ float s_norm;
-  const int n = blockIdx.x, f = blockIdx.y, t = threadIdx.x;
+  // the raw values, shifted by up to 3 floats (see the stores); 16-byte
+  // aligned for the float4 reads
+  __shared__ __align__(16) float s_val[kTriplet + 4];
+  __shared__ float s_part[3][kCutThreads / 32];
+  __shared__ float s_norm[3];
+  const int n = blockIdx.x, f = threadIdx.x / kCutThreads;
+  const int t = threadIdx.x - f * kCutThreads;
+  float* dst = out + (long long)n * kTriplet;
+  // dst[e] is 16-byte aligned where (e + shift) % 4 == 0
+  const int shift = (int)(((size_t)dst >> 2) & 3);
   const float* frame = f == 0 ? f0 : (f == 1 ? f1 : f2);
   const long long corner = (long long)y0[n] * W + x0[n];
-  float v[kPerThread];
   float acc = 0.f;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int i = t + k * kCutThreads;
-    v[k] = 0.f;
-    if (i < kCut * kCut) {
+    if (i < kCutPix) {
       const int r = i / kCut, c = i - r * kCut;
-      v[k] = frame[corner + (long long)r * W + c];
-      acc = fmaf(v[k], v[k], acc);
+      const float v = frame[corner + (long long)r * W + c];
+      s_val[shift + 3 * i + f] = v;
+      acc = fmaf(v, v, acc);
     }
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if ((t & 31) == 0) s_part[t >> 5] = acc;
+  if ((t & 31) == 0) s_part[f][t >> 5] = acc;
   __syncthreads();
   if (t < 32) {
-    float s = t < kCutThreads / 32 ? s_part[t] : 0.f;
+    float s = t < kCutThreads / 32 ? s_part[f][t] : 0.f;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (t == 0) s_norm = sqrtf(fmaxf(s, 1e-20f));
+    if (t == 0) s_norm[f] = sqrtf(fmaxf(s, 1e-20f));
   }
   __syncthreads();
-  const float norm = s_norm;
-  float* o = out + (long long)n * kCut * kCut * 3 + f;
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int i = t + k * kCutThreads;
-    if (i < kCut * kCut) o[(long long)i * 3] = __fdiv_rn(v[k], norm);
+  const int tid = threadIdx.x;
+  const int head = (4 - shift) & 3;            // floats before the boundary
+  const int nvec = (kTriplet - head) / 4;
+  const int tail = head + 4 * nvec;
+  if (tid < head) dst[tid] = __fdiv_rn(s_val[shift + tid], s_norm[tid % 3]);
+  const float4* v4 = reinterpret_cast<const float4*>(s_val + shift + head);
+  float4* o4 = reinterpret_cast<float4*>(dst + head);
+  for (int q = tid; q < nvec; q += 3 * kCutThreads) {
+    const int f0q = (head + 4 * q) % 3;        // the frame of its first float
+    const float4 v = v4[q];
+    float4 w;
+    w.x = __fdiv_rn(v.x, s_norm[f0q]);
+    w.y = __fdiv_rn(v.y, s_norm[f0q == 2 ? 0 : f0q + 1]);
+    w.z = __fdiv_rn(v.z, s_norm[f0q == 0 ? 2 : f0q - 1]);
+    w.w = __fdiv_rn(v.w, s_norm[f0q]);
+    o4[q] = w;
   }
+  if (tail + tid < kTriplet)
+    dst[tail + tid] = __fdiv_rn(s_val[shift + tail + tid],
+                              s_norm[(tail + tid) % 3]);
 }
 
 __global__ void __launch_bounds__(kVetoWarps * 32)
@@ -121,9 +147,8 @@ extern "C" int zuds_triplet_cut(const float* f0, const float* f1,
                                 const int* y0, int N, int W, float* out,
                                 cudaStream_t stream) {
   if (N > 0) {
-    const dim3 grid(N, 3);
-    triplet_cut_kernel<<<grid, kCutThreads, 0, stream>>>(f0, f1, f2, x0, y0,
-                                                         W, out);
+    triplet_cut_kernel<<<N, 3 * kCutThreads, 0, stream>>>(f0, f1, f2, x0,
+                                                          y0, W, out);
   }
   return (int)cudaGetLastError();
 }

@@ -47,13 +47,29 @@
 // sequence; the dominant contributor (the first column of a block's
 // largest wing, taken only on a strictly larger value, block by block);
 // then the merge of each cleaned row's flux and npix into its contributor.
-// One block a valid row, one thread a window; the merge is one block that
-// adds the cleaned rows in ascending row order, as index_add does on the
-// CPU (on the card index_add adds in atomic order). pow(x, -2.5) is
-// powf, as torch.pow on the card.
-// Bound: operations, ~14 a (valid row, column) pair and a powf for each
-// brighter valid neighbour; 4098^2 pairs would take ~0.01 ms at fp32's
-// 67 TFLOP/s, the flagship frames' ~60 valid rows far less.
+// An invalid row's wing is +0, and a +0 term changes no bit of a sum that
+// starts from +0, so only the valid rows are visited. Two launches:
+//   1. a warp a valid row, the k-th on block k % G (a short list spreads
+//      over the card): each block lists the valid rows in shared memory
+//      (ballots of the valid flags, a thread a window or two, one block
+//      scan) with the non-empty windows, writes its 32 rows as no merge
+//      leaves them, and exits there if it holds no listed row; then 32
+//      windows at a time it stages their columns' ellipse coefficients in
+//      shared memory, a lane folds one window for its warp's row (where
+//      the group has few windows, the lanes first compute a column's wing
+//      each) and the warp the windows' partials in order (shuffles);
+//   2. one block merges, launched as a programmatic dependent launch so
+//      that its start overlaps launch 1: the cleaned rows in ascending
+//      order, a chunk at a time sorted by (target, position), each
+//      target's run added in that order, as index_add does on the CPU (on
+//      the card index_add adds in atomic order), and the target's flux,
+//      npix and flags written again. pow(x, -2.5) is powf, as torch.pow on
+//      the card.
+// Bound: operations, ~3 a pair of valid rows and ~14 more with a powf for
+// each brighter valid neighbour, and 60 B a row; the flagship frames' ~60
+// valid rows are far below a launch's latency (the time is two launches'
+// chains of dependent reads, scans and barriers), 3,300 (a crowded
+// 4098-row set) take ~0.002 ms at fp32's 67 TFLOP/s.
 #include "common.cuh"
 
 namespace {
@@ -61,7 +77,6 @@ namespace {
 constexpr int kRankTile = 1024;   // entries a warp ranks in the counting sort
 constexpr int kSpanLog = 10;      // the row pass's aligned windows
 constexpr int kSpan = 1 << kSpanLog;
-constexpr int kScanThreads = 1024; // H27's merge block
 constexpr int kOffThreads = 256;  // rows a block of the offsets pass
 constexpr int kMaxRowBlocks = 256; // such blocks (nseg <= 65,536)
 constexpr int kSums = 8;
@@ -74,9 +89,12 @@ constexpr int kLevels = 32;       // levels of the tree over < 2^31 entries
 // a row's edge passes as stored for its last arriver: the cover sums of
 // levels 0-9 (both ends), the six order-free extrema, the two ORs
 constexpr int kEdge = kSpanLog * 2 * kSums + 8;
-constexpr int kCleanThreads = 128;
+constexpr int kCleanThreads = 1024; // H27's rows: a warp a listed row
+constexpr int kMergeThreads = 256;  // H27's merge block: a chunk's rows
+constexpr int kCleanMaxRows = 50000; // launch.OBJECT_MAX_ROWS
 constexpr int kCleanBlock = 512;  // columns of a block (the plain blk)
 constexpr int kWin = 32;          // sum_last's window
+constexpr int kBlockWins = kCleanBlock / kWin;
 static_assert(kSpan == kRankTile, "a window is a tile of the sort");
 static_assert(kGroupsPerWarp * kRowWarps == kGroups, "whole groups a warp");
 static_assert(kMaxRowBlocks == kOffThreads, "one row block's total a thread");
@@ -787,11 +805,12 @@ __global__ void __launch_bounds__(kRowThreads)
 // ---- H27 -----------------------------------------------------------------
 
 struct CleanScratch {
-  float* contrib;    // (nseg,) the summed wings (0 on invalid rows), output
-  int* tgt;          // (nseg,) each row's target, output
-  float* coef;       // (4, nseg): cxx, cyy, cxy, peak_f
-  int* list;         // (nseg,) the cleaned rows, ascending
-  uint8_t* cleaned;  // (nseg,)
+  int* ctgt;          // (nseg,) the k-th listed row's target, -1 if kept
+  float* cflux;       // (nseg,) its flux and npix
+  float* cnpix;
+  float* accf;        // (nseg,) a target's merged flux and npix, past
+  float* accn;        // the merge's shared memory
+  int* cnt;           // the number of listed rows
 };
 
 inline size_t carve_clean(char* base, int nseg, CleanScratch* s) {
@@ -801,197 +820,476 @@ inline size_t carve_clean(char* base, int nseg, CleanScratch* s) {
     off += (bytes + 255) & ~size_t(255);
     return p;
   };
-  s->coef = (float*)take(sizeof(float) * 4 * (size_t)nseg);
-  s->list = (int*)take(sizeof(int) * (size_t)nseg);
-  s->cleaned = (uint8_t*)take((size_t)nseg);
+  const size_t n = (size_t)nseg;
+  s->ctgt = (int*)take(sizeof(int) * n);
+  s->cflux = (float*)take(sizeof(float) * n);
+  s->cnpix = (float*)take(sizeof(float) * n);
+  s->accf = (float*)take(sizeof(float) * n);
+  s->accn = (float*)take(sizeof(float) * n);
+  s->cnt = (int*)take(sizeof(int));
   return off;
 }
 
-// the ellipse coefficients and the masked peak of each row, rounded as
-// ops/detect.py:clean_pass on the card (1.0 / d is reciprocal(d) * 1.0)
-__global__ void __launch_bounds__(256)
-    clean_coef_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      const float* __restrict__ theta,
-                      const float* __restrict__ peak,
-                      const uint8_t* __restrict__ valid, int nseg,
-                      CleanScratch s) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= nseg) return;
-  const float aj = a[j], bj = b[j];
-  const float da = clamp_min(__fmul_rn(aj, aj), 1e-6f);
-  const float db = clamp_min(__fmul_rn(bj, bj), 1e-6f);
-  const float ct = cosf(theta[j]), st = sinf(theta[j]);
-  const float cc = __fmul_rn(ct, ct), ss = __fmul_rn(st, st);
-  s.coef[j] = __fadd_rn(__fdiv_rn(cc, da), __fdiv_rn(ss, db));
-  s.coef[nseg + j] = __fadd_rn(__fdiv_rn(ss, da), __fdiv_rn(cc, db));
-  s.coef[2 * nseg + j] =
-      __fmul_rn(__fmul_rn(__fmul_rn(2.0f, ct), st),
-                __fsub_rn(__frcp_rn(da), __frcp_rn(db)));
-  s.coef[3 * nseg + j] = valid[j] ? peak[j] : 0.0f;
-}
-
-__device__ __forceinline__ int clean_width(int nseg, int blk) {
-  return min(kCleanBlock, nseg - blk * kCleanBlock);
-}
-// sum_last's windows of a block of m columns: one sequential run when
-// m <= 32, else ceil(m / 32) windows over the zero-padded block
-__device__ __forceinline__ int clean_windows(int m) {
-  return m <= kWin ? 1 : (m + kWin - 1) / kWin;
-}
-
-// one block a valid row: each thread sums one window of one column block
-// in order and keeps its first largest wing; thread 0 then adds the
-// windows and the blocks in sequence and picks the dominant contributor
-__global__ void __launch_bounds__(kCleanThreads)
-    clean_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                      const float* __restrict__ peak,
-                      const float* __restrict__ thr,
-                      const uint8_t* __restrict__ valid, int nseg,
-                      float inv_scale, int npairs, CleanScratch s) {
-  extern __shared__ float wsum[];
-  float* wmax = wsum + npairs;
-  int* warg = (int*)(wmax + npairs);
-  uint8_t* wnan = (uint8_t*)(warg + npairs);
-  const int i = blockIdx.x;
-  if (!valid[i]) {
-    if (threadIdx.x == 0) {
-      s.contrib[i] = 0.0f;
-      s.cleaned[i] = 0;
-      s.tgt[i] = nseg - 1;
-    }
-    return;
-  }
-  const float xi = x[i], yi = y[i];
-  const float* cxx = s.coef;
-  const float* cyy = s.coef + nseg;
-  const float* cxy = s.coef + 2 * nseg;
-  const float* pf = s.coef + 3 * nseg;
-  const float pfi = pf[i];
-  const int nfull = nseg / kCleanBlock;  // blocks of 512 columns, 16 windows
-  for (int q = threadIdx.x; q < npairs; q += blockDim.x) {
-    const int blk = q < nfull * 16 ? q / 16 : nfull;
-    const int w = q - blk * 16;
-    const int m = clean_width(nseg, blk);
-    const int pad = m <= kWin ? 0 : (kWin - m % kWin) % kWin;
-    const int lo = pad / 2;
-    const int len = m <= kWin ? m : kWin;
-    float acc = 0.0f, best = -INFINITY;
-    int arg = -1;
-    bool nan = false;
-    for (int u = 0; u < len; ++u) {
-      const int col = w * kWin + u - lo;  // column within the block
-      float c = 0.0f;
-      if (col >= 0 && col < m) {
-        const int j = blk * kCleanBlock + col;
-        if (valid[j] && pf[j] > pfi && j != i) {
-          const float dx = __fsub_rn(xi, x[j]), dy = __fsub_rn(yi, y[j]);
-          const float r2 = __fadd_rn(
-              __fadd_rn(__fmul_rn(__fmul_rn(cxx[j], dx), dx),
-                        __fmul_rn(__fmul_rn(cyy[j], dy), dy)),
-              __fmul_rn(__fmul_rn(cxy[j], dx), dy));
-          c = __fmul_rn(pf[j],
-                        powf(__fadd_rn(__fmul_rn(r2, inv_scale), 1.0f), -2.5f));
-        }
-        if (isnan(c)) {
-          nan = true;
-        } else if (arg < 0 || c > best) {
-          best = c;
-          arg = j;
-        }
-      }
-      acc = u == 0 ? c : __fadd_rn(acc, c);
-    }
-    wsum[q] = acc;
-    wmax[q] = best;
-    warg[q] = arg;
-    wnan[q] = nan;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  float contrib = 0.0f, best_c = 0.0f;
-  int best_j = 0;
-  const int nblk = (nseg + kCleanBlock - 1) / kCleanBlock;
-  for (int blk = 0, q = 0; blk < nblk; ++blk) {
-    const int nw = clean_windows(clean_width(nseg, blk));
-    float bsum = wsum[q], bmax = wmax[q];
-    int barg = warg[q];
-    bool bnan = wnan[q];
-    for (int w = 1; w < nw; ++w) {
-      bsum = __fadd_rn(bsum, wsum[q + w]);
-      bnan |= wnan[q + w];
-      if (warg[q + w] >= 0 && (barg < 0 || wmax[q + w] > bmax)) {
-        bmax = wmax[q + w];
-        barg = warg[q + w];
-      }
-    }
-    q += nw;
-    contrib = __fadd_rn(contrib, bsum);
-    if (!bnan && barg >= 0 && bmax > best_c) {
-      best_c = bmax;
-      best_j = barg;
-    }
-  }
-  const bool cleaned = __fsub_rn(peak[i], contrib) <= thr[i];
-  s.contrib[i] = contrib;
-  s.cleaned[i] = cleaned;
-  s.tgt[i] = cleaned ? best_j : nseg - 1;
-}
-
-// the merge, one block: the cleaned rows listed in ascending order, then
-// each target adds theirs in that order
-__global__ void __launch_bounds__(kScanThreads)
-    clean_merge_kernel(const float* __restrict__ flux,
-                       const float* __restrict__ npix,
-                       const int* __restrict__ flags,
-                       const uint8_t* __restrict__ valid, int nseg,
-                       CleanScratch s, float* __restrict__ flux_out,
-                       float* __restrict__ npix_out,
-                       int* __restrict__ flags_out,
-                       uint8_t* __restrict__ valid_out) {
-  __shared__ int wsum[32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (nseg + kScanThreads - 1) / kScanThreads;
-  const int lo = min(t * per, nseg), hi = min(lo + per, nseg);
-  int c = 0;
-  for (int r = lo; r < hi; ++r) c += s.cleaned[r];
-  int v = c;
+// An exclusive sum of v over the block, and its total; sh holds 32 ints,
+// and a barrier must pass before sh is written again. Every thread of the
+// block calls it.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* sh,
+                                                   int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int x = v;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += y;
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
   }
-  if (lane == 31) wsum[warp] = v;
+  if (lane == 31) sh[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int w = wsum[lane];
+    int w = lane < nwarps ? sh[lane] : 0;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += y;
     }
-    wsum[lane] = w;
+    sh[lane] = w;
   }
   __syncthreads();
-  int pos = v - c + (warp > 0 ? wsum[warp - 1] : 0);
-  for (int r = lo; r < hi; ++r)
-    if (s.cleaned[r]) s.list[pos++] = r;
-  __syncthreads();
-  const int m = wsum[31];
-  for (int r = t; r < nseg; r += blockDim.x) {
-    float af = 0.0f, an = 0.0f;
-    bool got = false;
-    for (int q = 0; q < m; ++q) {
-      const int src = s.list[q];
-      if (s.tgt[src] == r) {
-        af = __fadd_rn(af, flux[src]);
-        an = __fadd_rn(an, npix[src]);
-        got = true;
+  const int ex = x - v + (warp > 0 ? sh[warp - 1] : 0);
+  *total = sh[nwarps - 1];
+  return ex;
+}
+
+// The windows of sum_last over nseg columns, numbered across the
+// 512-column blocks (16 a full block; the partial last block's over its
+// centred zero padding, one when it has at most 32 columns): their count,
+// and the columns [lo, hi) of window g.
+__host__ __device__ __forceinline__ int clean_windows(int nseg) {
+  const int nfull = nseg / kCleanBlock, m = nseg - nfull * kCleanBlock;
+  const int last = m == 0 ? 0 : (m <= kWin ? 1 : (m + kWin - 1) / kWin);
+  return nfull * kBlockWins + last;
+}
+__device__ __forceinline__ void clean_window_cols(int g, int nseg, int* lo,
+                                                  int* hi) {
+  const int blk = g / kBlockWins, w = g - blk * kBlockWins;
+  const int base = blk * kCleanBlock;
+  const int m = min(kCleanBlock, nseg - base);
+  if (m <= kWin) {
+    *lo = base;
+    *hi = base + m;
+    return;
+  }
+  const int pad = ((kWin - m % kWin) % kWin) / 2;
+  *lo = base + max(0, w * kWin - pad);
+  *hi = base + min(m, w * kWin - pad + kWin);
+}
+
+// the rows launch's dynamic shared memory: the column tile (a 32-column
+// window's columns skewed by one entry, so that the lanes' windows fall in
+// other banks), the warps' wings of a sparse group, the non-empty
+// windows' first list positions and blocks, the list of valid rows
+// (uint16), the valid flags as bits
+constexpr int kTile = kCleanThreads + kCleanThreads / 32;
+// a group of fewer windows than this (so fewer than kSparseCols columns)
+// has its wings computed a lane a column, a larger one a lane a window
+constexpr int kLaneColumnsBelow = 8;
+constexpr int kSparseCols = kLaneColumnsBelow * kWin;
+struct CleanSmem {
+  float4* tileA;  // x, y, cxx, cyy
+  float2* tileB;  // cxy, peak
+  float* wings;   // a warp's wings of a sparse group (kSparseCols a warp)
+  int* wstart;
+  int* wblk;
+  uint16_t* list;
+  uint32_t* vbits;  // the valid flags, 32 rows a word, a zero word after
+};
+__host__ __device__ __forceinline__ size_t clean_smem(int nseg,
+                                                     char* base,
+                                                     CleanSmem* m) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base ? base + off : nullptr;
+    off += (bytes + 15) & ~size_t(15);
+    return p;
+  };
+  const int nw = clean_windows(nseg);
+  m->tileA = (float4*)take(sizeof(float4) * kTile);
+  m->tileB = (float2*)take(sizeof(float2) * kTile);
+  m->wings = (float*)take(sizeof(float) * kCleanThreads / 32 * kSparseCols);
+  m->wstart = (int*)take(sizeof(int) * (nw + 1));
+  m->wblk = (int*)take(sizeof(int) * nw);
+  m->list = (uint16_t*)take(sizeof(uint16_t) * nseg);
+  m->vbits = (uint32_t*)take(sizeof(uint32_t) * ((nseg + 31) / 32 + 1));
+  return off;
+}
+
+// the wing of tile column e at the row (xi, yi, pfi), list position k,
+// column position q: kept where the column is brighter and not the row
+__device__ __forceinline__ float clean_wing(const CleanSmem& m, int e, int q,
+                                            int k, float xi, float yi,
+                                            float pfi, float inv_scale) {
+  const float4 cj = m.tileA[e];
+  const float2 dj = m.tileB[e];
+  const float dx = __fsub_rn(xi, cj.x), dy = __fsub_rn(yi, cj.y);
+  const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(cj.z, dx), dx),
+                                       __fmul_rn(__fmul_rn(cj.w, dy), dy)),
+                             __fmul_rn(__fmul_rn(dj.x, dx), dy));
+  const float pw = powf(__fadd_rn(__fmul_rn(r2, inv_scale), 1.0f), -2.5f);
+  return dj.y > pfi && q != k ? __fmul_rn(dj.y, pw) : 0.0f;
+}
+
+// a fold of wings in order: the sum, the first largest and its position,
+// whether one was NaN
+struct WingFold {
+  float sum, best;
+  int arg;
+  bool nan;
+  __device__ void init() {
+    sum = 0.0f;
+    best = -INFINITY;
+    arg = -1;
+    nan = false;
+  }
+  __device__ void add(float c, int q) {
+    const bool isn = isnan(c);
+    const bool take = !isn && (arg < 0 || c > best);
+    best = take ? c : best;
+    arg = take ? q : arg;
+    nan = nan || isn;
+    sum = __fadd_rn(sum, c);
+  }
+};
+
+// a row's windows folded in order: the open block's fold, and the
+// contribution and dominant contributor of the blocks closed
+struct RowFold {
+  float contrib, best_c;
+  int best_q, cur;
+  WingFold blk;
+  __device__ void init() {
+    contrib = 0.0f;
+    best_c = 0.0f;
+    best_q = -1;
+    cur = -1;
+  }
+  __device__ void close() {
+    if (cur < 0) return;
+    contrib = __fadd_rn(contrib, blk.sum);
+    if (!blk.nan && blk.arg >= 0 && blk.best > best_c) {
+      best_c = blk.best;
+      best_q = blk.arg;
+    }
+  }
+  __device__ void add(const WingFold& w, int b) {
+    if (b != cur) {
+      close();
+      cur = b;
+      blk = w;
+    } else {
+      blk.sum = __fadd_rn(blk.sum, w.sum);
+      blk.nan |= w.nan;
+      if (w.arg >= 0 && (blk.arg < 0 || w.best > blk.best)) {
+        blk.best = w.best;
+        blk.arg = w.arg;
       }
     }
-    flux_out[r] = __fadd_rn(flux[r], af);
-    npix_out[r] = __fadd_rn(npix[r], an);
-    flags_out[r] = flags[r] | (got ? 2 : 0);
-    valid_out[r] = valid[r] && !s.cleaned[r];
+  }
+};
+
+// Launch 1, a warp a valid row: the k-th listed row on block k % G (G
+// blocks), so that a short list spreads over the card. Each block lists
+// the valid rows itself: the valid flags as ballots in shared memory, a
+// thread's count of the valid rows of its windows (at most two), one
+// block scan numbering the rows and the non-empty windows. It writes its
+// own 32 rows as no merge leaves them; a block past the list exits there.
+// Then, 32 windows at a time, the block stages their columns' ellipse
+// coefficients (rounded as ops/detect.py:clean_pass on the card: 1.0 / d
+// is reciprocal(d) * 1.0) and peaks in shared memory, a lane folds one
+// window (its listed columns in order) for its warp's row, and the warp
+// folds the windows' partials in order, block by block. A window, a block
+// or a column the list skips adds +0 in the plain version: it changes no
+// bit of the sum, which starts from +0 (only a zero's sign could differ),
+// and a +0 wing is never a block's maximum that is taken (bmax > best_c
+// >= 0). The wing is computed for every listed column and kept where the
+// column is brighter, so that the lanes do not diverge.
+__global__ void __launch_bounds__(kCleanThreads, 1)
+    clean_rows_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ a, const float* __restrict__ b,
+                      const float* __restrict__ theta,
+                      const float* __restrict__ peak,
+                      const float* __restrict__ thr,
+                      const float* __restrict__ flux,
+                      const float* __restrict__ npix,
+                      const int* __restrict__ flags,
+                      const uint8_t* __restrict__ valid, int nseg,
+                      float inv_scale, CleanScratch s,
+                      float* __restrict__ contrib, int* __restrict__ tgt,
+                      float* __restrict__ flux_out,
+                      float* __restrict__ npix_out,
+                      int* __restrict__ flags_out,
+                      uint8_t* __restrict__ valid_out) {
+  extern __shared__ __align__(16) char smem_raw[];
+  __shared__ int sh[32];
+  CleanSmem m;
+  clean_smem(nseg, smem_raw, &m);
+  // the merge may start: it waits for this grid before reading its rows
+  asm volatile("griddepcontrol.launch_dependents;");
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  // the block's 32 rows as no merge leaves them (the merge rewrites its
+  // targets' flux, npix and flags), an invalid row's contribution, target
+  // and valid flag: read now, written after the list
+  const int own = blockIdx.x * 32 + t;
+  float own_f = 0.0f, own_n = 0.0f;
+  int own_fl = 0;
+  bool own_v = true;
+  if (t < 32 && own < nseg) {
+    own_f = flux[own];
+    own_n = npix[own];
+    own_fl = flags[own];
+    own_v = valid[own];
+  }
+  // the valid flags as words of 32 rows: a warp's ballots, its loads first
+  const int nwords = (nseg + 31) / 32;
+  constexpr int kLoads = 8;
+  for (int j0 = warp; j0 < nwords; j0 += 32 * kLoads) {
+    bool v[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int r = (j0 + 32 * u) * 32 + lane;
+      v[u] = r < nseg && valid[r];
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const uint32_t w = __ballot_sync(0xffffffffu, v[u]);
+      if (lane == 0 && j0 + 32 * u < nwords) m.vbits[j0 + 32 * u] = w;
+    }
+  }
+  if (t == 0) m.vbits[nwords] = 0;
+  __syncthreads();
+  // a thread's windows g0 and g0 + 1 (of nwin; at most two a thread):
+  // their valid rows' bits
+  const int nwin = clean_windows(nseg);
+  const int wpt = (nwin + kCleanThreads - 1) / kCleanThreads;
+  const int g0 = t * wpt;
+  auto window_bits = [&](int g) -> uint32_t {
+    if (g >= nwin || g >= g0 + wpt) return 0u;
+    int wl, wh;
+    clean_window_cols(g, nseg, &wl, &wh);
+    const uint32_t word = __funnelshift_r(m.vbits[wl >> 5],
+                                          m.vbits[(wl >> 5) + 1], wl & 31);
+    return wh - wl == 32 ? word : word & ((1u << (wh - wl)) - 1u);
+  };
+  const uint32_t bits0 = window_bits(g0), bits1 = window_bits(g0 + 1);
+  const int count = __popc(bits0) + __popc(bits1);
+  const int opens = (bits0 != 0) + (bits1 != 0);
+  // rows in bits 0-16, windows from bit 17 (nseg <= 65,536 rows, fewer
+  // than 2^14 windows)
+  int total;
+  const int ex = block_exclusive_sum(count | (opens << 17), sh, &total);
+  const int nv = total & 0x1ffff, nw = total >> 17;
+  int pos = ex & 0x1ffff, wp = ex >> 17;
+  for (int h = 0; h < 2; ++h) {
+    uint32_t u = h ? bits1 : bits0;
+    if (!u) continue;
+    int wl, wh;
+    clean_window_cols(g0 + h, nseg, &wl, &wh);
+    m.wstart[wp] = pos;
+    m.wblk[wp++] = (g0 + h) / kBlockWins;
+    for (; u; u &= u - 1) m.list[pos++] = (uint16_t)(wl + __ffs(u) - 1);
+  }
+  if (t == 0) {
+    m.wstart[nw] = nv;
+    if (blockIdx.x == 0) s.cnt[0] = nv;
+  }
+  __syncthreads();
+  if (t < 32 && own < nseg) {
+    flux_out[own] = __fadd_rn(own_f, 0.0f);
+    npix_out[own] = __fadd_rn(own_n, 0.0f);
+    flags_out[own] = own_fl;
+    if (!own_v) {
+      contrib[own] = 0.0f;
+      tgt[own] = nseg - 1;
+      valid_out[own] = 0;
+    }
+  }
+  if ((int)blockIdx.x >= nv) return;
+  // the warp's row
+  const int k = warp * (int)gridDim.x + blockIdx.x;
+  const bool live = k < nv;
+  const int i = live ? m.list[k] : 0;
+  const float xi = x[i], yi = y[i], pfi = peak[i];
+  float thr_i = 0.0f, flux_i = 0.0f, npix_i = 0.0f;
+  if (lane == 0) {
+    thr_i = thr[i];
+    flux_i = flux[i];
+    npix_i = npix[i];
+  }
+  RowFold row;
+  row.init();
+  for (int w0 = 0; w0 < nw; w0 += 32) {
+    const int q0 = m.wstart[w0], q1 = m.wstart[min(w0 + 32, nw)];
+    if (t < q1 - q0) {
+      const int r = m.list[q0 + t];
+      const float ar = a[r], br = b[r], th = theta[r];
+      const float xr = x[r], yr = y[r], pr = peak[r];
+      const float da = clamp_min(__fmul_rn(ar, ar), 1e-6f);
+      const float db = clamp_min(__fmul_rn(br, br), 1e-6f);
+      const float ct = cosf(th), st = sinf(th);
+      const float cc = __fmul_rn(ct, ct), ss = __fmul_rn(st, st);
+      const int e = t + (t >> 5);
+      m.tileA[e] = make_float4(
+          xr, yr, __fadd_rn(__fdiv_rn(cc, da), __fdiv_rn(ss, db)),
+          __fadd_rn(__fdiv_rn(ss, da), __fdiv_rn(cc, db)));
+      m.tileB[e] = make_float2(
+          __fmul_rn(__fmul_rn(__fmul_rn(2.0f, ct), st),
+                    __fsub_rn(__frcp_rn(da), __frcp_rn(db))),
+          pr);
+    }
+    __syncthreads();
+    if (live) {
+      // lane l's window g = w0 + l, then the windows folded in order
+      const int g = w0 + lane;
+      const int ws = g < nw ? m.wstart[g] : q1;
+      const int we = g < nw ? m.wstart[g + 1] : q1;
+      WingFold win;
+      win.init();
+      if (min(32, nw - w0) < kLaneColumnsBelow) {
+        // a lane a column's wing into the warp's buffer, then each
+        // window's lane folds its own columns from it
+        float* wb = m.wings + warp * kSparseCols;
+#pragma unroll 4
+        for (int c = lane; c < q1 - q0; c += 32)
+          wb[c] = clean_wing(m, c + (c >> 5), q0 + c, k, xi, yi, pfi,
+                             inv_scale);
+        __syncwarp();
+#pragma unroll 8
+        for (int q = ws; q < we; ++q) win.add(wb[q - q0], q);
+        __syncwarp();
+      } else {
+        // a lane a window, its columns in order
+#pragma unroll 4
+        for (int q = ws; q < we; ++q)
+          win.add(clean_wing(m, (q - q0) + ((q - q0) >> 5), q, k, xi, yi,
+                             pfi, inv_scale), q);
+      }
+      const int blk = g < nw ? m.wblk[g] : -1;
+      for (int l = 0; l < 32 && w0 + l < nw; ++l) {
+        WingFold wl;
+        wl.sum = __shfl_sync(0xffffffffu, win.sum, l);
+        wl.best = __shfl_sync(0xffffffffu, win.best, l);
+        wl.arg = __shfl_sync(0xffffffffu, win.arg, l);
+        wl.nan = __shfl_sync(0xffffffffu, (int)win.nan, l);
+        row.add(wl, __shfl_sync(0xffffffffu, blk, l));
+      }
+    }
+    __syncthreads();
+  }
+  if (!live || lane != 0) return;
+  row.close();
+  const int best_j = row.best_q >= 0 ? m.list[row.best_q] : 0;
+  const bool cleaned = __fsub_rn(pfi, row.contrib) <= thr_i;
+  contrib[i] = row.contrib;
+  tgt[i] = cleaned ? best_j : nseg - 1;
+  valid_out[i] = !cleaned;
+  s.ctgt[k] = cleaned ? best_j : -1;
+  s.cflux[k] = flux_i;
+  s.cnpix[k] = npix_i;
+}
+
+// Launch 2, one block: the merge. It may start beside launch 1 (a
+// programmatic dependent launch): up to kMergeSmemRows rows it copies the
+// rows' flux, npix and flags into shared memory, then waits for launch 1.
+// The cleaned rows come in ascending order, kMergeThreads list positions
+// at a time; each chunk's (target, position) keys are sorted (a key's rank
+// is the count of the chunk's smaller keys: keys are distinct, so the
+// order is stable), and each target's run is added in that order onto its
+// sums, which start at +0 as the plain version's. The run's first row
+// writes its target's flux, npix and flags (launch 1 wrote every row as
+// no merge leaves it); a target of several chunks is written after each.
+constexpr int kMergeSmemRows = 8192;  // the rows' fields in shared memory
+__global__ void __launch_bounds__(kMergeThreads, 1)
+    clean_merge_kernel(const float* __restrict__ flux,
+                       const float* __restrict__ npix,
+                       const int* __restrict__ flags, int nseg,
+                       CleanScratch s, float* __restrict__ flux_out,
+                       float* __restrict__ npix_out,
+                       int* __restrict__ flags_out) {
+  __shared__ uint32_t got[kCleanMaxRows / 32 + 1];
+  __shared__ uint32_t key[kMergeThreads], sorted[kMergeThreads];
+  __shared__ float mf[kMergeThreads], mn[kMergeThreads];
+  // up to kMergeSmemRows rows: the targets' merged sums and the rows'
+  // flux, npix and flags in shared memory; past it, in device memory
+  extern __shared__ float msm[];
+  const bool in_smem = nseg <= kMergeSmemRows;
+  float* accf = in_smem ? msm : s.accf;
+  float* accn = in_smem ? msm + nseg : s.accn;
+  const float* rflux = in_smem ? msm + 2 * nseg : flux;
+  const float* rnpix = in_smem ? msm + 3 * nseg : npix;
+  const int* rflags = in_smem ? (const int*)(msm + 4 * nseg) : flags;
+  const int t = threadIdx.x;
+  for (int w = t; w <= nseg / 32; w += kMergeThreads) got[w] = 0;
+  constexpr int kCopy = 8;  // rows a thread loads before it stores
+  for (int r0 = t; in_smem && r0 < nseg; r0 += kCopy * kMergeThreads) {
+    float f[kCopy], n[kCopy];
+    int fl[kCopy];
+#pragma unroll
+    for (int u = 0; u < kCopy; ++u) {
+      const int r = r0 + u * kMergeThreads;
+      if (r < nseg) {
+        f[u] = flux[r];
+        n[u] = npix[r];
+        fl[u] = flags[r];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCopy; ++u) {
+      const int r = r0 + u * kMergeThreads;
+      if (r < nseg) {
+        msm[2 * nseg + r] = f[u];
+        msm[3 * nseg + r] = n[u];
+        ((int*)msm)[4 * nseg + r] = fl[u];
+      }
+    }
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int nv = s.cnt[0];
+  for (int c0 = 0; c0 < nv; c0 += kMergeThreads) {
+    const int k = c0 + t;
+    // read before the count is known: the scratch holds nseg entries
+    const int tk = k < nseg ? s.ctgt[k] : -1;
+    const float fk = k < nseg ? s.cflux[k] : 0.0f;
+    const float nk = k < nseg ? s.cnpix[k] : 0.0f;
+    const int to = k < nv ? tk : -1;
+    key[t] = to >= 0 ? ((uint32_t)to << 16) | (uint32_t)t : 0xffffffffu;
+    mf[t] = fk;
+    mn[t] = nk;
+    const int mcount = __syncthreads_count(to >= 0);
+    if (mcount == 0) continue;
+    if (to >= 0) {
+      const uint32_t mine = key[t];
+      const int len = min(kMergeThreads, nv - c0);
+      int rank = 0;
+      for (int q = 0; q < len; ++q) rank += key[q] < mine;
+      sorted[rank] = mine;
+    }
+    __syncthreads();
+    if (t < mcount && (t == 0 || (sorted[t - 1] >> 16) != (sorted[t] >> 16))) {
+      const int r = (int)(sorted[t] >> 16);
+      const bool again = (got[r >> 5] >> (r & 31)) & 1u;
+      float af = again ? accf[r] : 0.0f, an = again ? accn[r] : 0.0f;
+      for (int q = t; q < mcount && (int)(sorted[q] >> 16) == r; ++q) {
+        const int idx = (int)(sorted[q] & 0xffffu);
+        af = __fadd_rn(af, mf[idx]);
+        an = __fadd_rn(an, mn[idx]);
+      }
+      accf[r] = af;
+      accn[r] = an;
+      atomicOr(got + (r >> 5), 1u << (r & 31));
+      flux_out[r] = __fadd_rn(rflux[r], af);
+      npix_out[r] = __fadd_rn(rnpix[r], an);
+      flags_out[r] = rflags[r] | 2;
+    }
+    __syncthreads();
   }
 }
 
@@ -1070,22 +1368,37 @@ extern "C" int zuds_clean(const float* x, const float* y, const float* a,
                           int* tgt, float* flux_out, float* npix_out,
                           int* flags_out, uint8_t* valid_out,
                           cudaStream_t stream) {
+  if (nseg < 1 || nseg > kCleanMaxRows) return (int)cudaErrorInvalidValue;
   CleanScratch s;
   carve_clean((char*)scratch, nseg, &s);
-  s.contrib = contrib;
-  s.tgt = tgt;
-  const int nfull = nseg / kCleanBlock, rest = nseg % kCleanBlock;
-  const int npairs =
-      nfull * 16 + (rest == 0 ? 0 : (rest <= kWin ? 1 : (rest + kWin - 1) / kWin));
-  const size_t smem = (size_t)npairs * (2 * sizeof(float) + sizeof(int) + 1);
+  CleanSmem m;
+  const size_t smem = clean_smem(nseg, nullptr, &m);
   const int err = set_smem((const void*)clean_rows_kernel, smem);
   if (err) return err;
-  clean_coef_kernel<<<(nseg + 255) / 256, 256, 0, stream>>>(a, b, theta, peak,
-                                                            valid, nseg, s);
-  clean_rows_kernel<<<nseg, kCleanThreads, smem, stream>>>(
-      x, y, peak, thr, valid, nseg, inv_scale, npairs, s);
-  clean_merge_kernel<<<1, kScanThreads, 0, stream>>>(
-      flux, npix, flags, valid, nseg, s, flux_out, npix_out, flags_out,
-      valid_out);
+  constexpr int kWarps = kCleanThreads / 32;
+  clean_rows_kernel<<<(nseg + kWarps - 1) / kWarps, kCleanThreads, smem,
+                      stream>>>(x, y, a, b, theta, peak, thr, flux, npix,
+                                flags, valid, nseg, inv_scale, s, contrib,
+                                tgt, flux_out, npix_out, flags_out,
+                                valid_out);
+  // the merge as a programmatic dependent launch
+  const size_t msmem =
+      nseg <= kMergeSmemRows ? 5 * sizeof(float) * (size_t)nseg : 0;
+  const int merr = set_smem((const void*)clean_merge_kernel, msmem);
+  if (merr) return merr;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.dynamicSmemBytes = msmem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, clean_merge_kernel, flux, npix, flags, nseg, s,
+                         flux_out, npix_out, flags_out);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -657,7 +657,7 @@ def _clean_plain(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix,
 def _clean(xbar, ybar, a, b, theta, peak, thr_at_peak, flux, npix, flags,
            valid):
     """(flux, npix, flags, valid) after CLEAN (:func:`_clean_plain`): hand
-    kernel H27 on a CUDA tensor (one block a row; the merge adds in
+    kernel H27 on a CUDA tensor (a warp a valid row; the merge adds in
     ascending row order, as ``index_add`` on the CPU), the plain version
     on a CPU tensor."""
     if xbar.is_cuda:
