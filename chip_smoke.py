@@ -411,6 +411,7 @@ def measure_records(out, record, name, sci):
     tolerance in any order of the sums)."""
     import numpy as np
     import torch
+    from zuds_tpu_torch.bench_detect import negpix_bound
     from zuds_tpu_torch.constants import BAD_SUM
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.kernels.checks import (aperture_check, refine_check,
@@ -527,13 +528,19 @@ def measure_records(out, record, name, sci):
                                                     y0))
           and torch.equal(kv, out['det_negpix'][0]),
           'negpix_veto differs from its plain version or the slice')
-    # reads a 13x13 window and a corner per candidate, writes a byte; a
-    # subtract, a divide, nine maxima and two compares per pixel
-    record('negpix_veto', 0.0,
-           graph_ms(lambda: launch.negpix_veto(diff, dmed, dsig, x0, y0)),
+    # the bound of the distinct work (the rows past the frame's objects
+    # repeat one corner)
+    nd, bnd = negpix_bound(x0, y0)
+    every = bound(n * (13 * 13 * 4 + 9), n * 13 * 13 * 13)
+    ms = graph_ms(lambda: launch.negpix_veto(diff, dmed, dsig, x0, y0))
+    call_ms = cuda_ms(lambda: launch.negpix_veto(diff, dmed, dsig, x0, y0))
+    print(f'negpix_veto: {nd} distinct corners of {n} rows: {ms:.5f} ms on '
+          f'the card (graph replay), {call_ms:.4f} ms per wrapper call with '
+          f'its host cost; bound {bnd[0]:.6f} ms ({bnd[1]}; every row\'s '
+          f'window read: {every[0]:.5f} ms)', flush=True)
+    record('negpix_veto', 0.0, ms,
            cuda_ms(lambda: cutouts.negpix_veto_plain(diff, dmed, dsig, x0,
-                                                     y0), 1, 3),
-           bound(n * (13 * 13 * 4 + 9), n * 13 * 13 * 13))
+                                                     y0), 1, 3), bnd)
     print(f'measure stage on {name}: H22 flags, oob and overlaps bit-equal '
           f'to the plain version at {n} rows (r = 3), the r = 6 sums and '
           f'H23 within their bounds, H14 bit-equal ({int(kv.sum())} vetoed)',
@@ -1795,6 +1802,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs, night, sub
+    from zuds_tpu_torch.bench_detect import negpix_bound
     from zuds_tpu_torch.catalog import PipelineFITSCatalog
     from zuds_tpu_torch.coadd import ReferenceImage
     from zuds_tpu_torch.constants import (BAD_SUM, BKG_VAL,
@@ -1954,15 +1962,15 @@ def pair_phase(wrappers, name, record, fused_pair_s):
                                                           x0, y0), 1, 3)
         med_ms = cuda_ms(lambda: 1.48 * cutouts.frame_median_exact(
             (diff_t - cutouts.frame_median_exact(diff_t)).abs()), 1, 3)
-        # reads a 13x13 window and a corner per candidate, writes a byte;
-        # a subtract, a divide, nine maxima and two compares per pixel
-        bnd = bound(SCORE_N * (13 * 13 * 4 + 9), SCORE_N * 13 * 13 * 13)
-        print(f'negpix_veto: {SCORE_N} candidates on {H}x{W}: bit-equal, '
-              f'{ms:.4f} ms on the card (graph replay; bound {bnd[0]:.6f} '
-              f'ms, share {bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper '
-              f'call with its host cost, plain {plain:.3f} ms; the two '
-              f'median sorts before it {med_ms:.3f} ms; {int(kv.sum())} '
-              f'vetoed', flush=True)
+        # the distinct corners' windows, a row's corner and verdict
+        nd, bnd = negpix_bound(x0, y0)
+        print(f'negpix_veto: {SCORE_N} candidates ({nd} distinct corners) '
+              f'on {H}x{W}: bit-equal, {ms:.5f} ms on the card (graph '
+              f'replay; bound {bnd[0]:.6f} ms by {bnd[1]}, share '
+              f'{bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call with '
+              f'its host cost, plain {plain:.3f} ms; the two median sorts '
+              f'before it {med_ms:.3f} ms; {int(kv.sum())} vetoed',
+              flush=True)
 
         # ---- the rotated pair's product and tensors ------------------------
         product, pair_launches, line = results['gather'][:3]
@@ -2679,8 +2687,10 @@ def zogy_phase(wrappers, name, record, hotpants_s):
         # reads the stamps and flags once, writes the PSF and the flags;
         # three passes of ~6 operations per stamp pixel
         bnd = bound(S * 625 * 4 + 2 * S + 625 * 4, 3 * 6 * S * 625)
-        print(f'psf_clip: {S} stamps of 25x25, 2 clip passes: {ms:.4f} ms on '
-              f'the card (graph replay; bound {bnd[0]:.5f} ms, share '
+        kept = launch.psf_clip(ks, kg, 2)[1]
+        print(f'psf_clip: {S} stamps of 25x25 ({int(kg.sum())} good, '
+              f'{int(kept.sum())} kept), 2 clip passes: {ms:.5f} ms on the '
+              f'card (graph replay; bound {bnd[0]:.5f} ms, share '
               f'{bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call with '
               f'its host cost, plain {plain:.3f} ms', flush=True)
         record('psf_clip', errs['psf_clip'], ms, plain, bnd, runs=launches,

@@ -1460,6 +1460,77 @@ def test_negpix_veto_kernel(dev):
     assert 0 < int(k.sum()) < len(xs)
 
 
+def _negpix_frame(dev, H, W, x0, y0, seed):
+    """A noise frame about 100 with a -/+ pair (40 and 170 against a
+    sigma of ~5) at every third window's centre, a lone low pixel at every
+    third one more, a pair with a NaN beside its low pixel (no veto: the
+    maximum is NaN), and the frame's median and 1.48 MAD."""
+    from zuds_tpu_torch.ops import cutouts
+    img = _rand((H, W), dev, seed, 5.0, 100.0)
+    cx, cy = x0.long() + 6, y0.long() + 6
+    img[cy[::3], cx[::3]] = 40.0
+    img[cy[::3] + 1, cx[::3] - 1] = 170.0
+    img[cy[1::3], cx[1::3]] = 40.0
+    if len(cx) > 2:                     # a NaN among the neighbours
+        img[cy[2] - 1, cx[2]] = float('nan')
+        img[cy[2], cx[2]] = 40.0
+        img[cy[2] + 1, cx[2] + 1] = 170.0
+    med = cutouts.frame_median_exact(img)
+    sig = 1.48 * cutouts.frame_median_exact((img - med).abs())
+    return img, med, sig
+
+
+def _negpix_rows(kind, H, W, n, seed):
+    """int32 corners (clamped) of n rows: ``distinct`` all different,
+    ``repeated`` the slice's fill (rows past n // 3 at the last row's
+    corner) with a repeat in the middle and a fill row among the first,
+    ``one`` every row at one corner."""
+    rng = np.random.default_rng(seed)
+    flat = rng.choice((H - 12) * (W - 12), n, replace=False)
+    y0, x0 = (flat // (W - 12)).astype('i4'), (flat % (W - 12)).astype('i4')
+    if kind == 'repeated':
+        x0[n // 3:], y0[n // 3:] = x0[-1], y0[-1]
+        x0[5:9], y0[5:9] = x0[4], y0[4]
+        x0[min(10, n - 1)], y0[min(10, n - 1)] = x0[-1], y0[-1]
+    elif kind == 'one':
+        x0[:], y0[:] = x0[0], y0[0]
+    return x0, y0
+
+
+@pytest.mark.parametrize('kind,H,W,n', [
+    ('distinct', 3080, 3072, 4096), ('repeated', 3080, 3072, 4096),
+    ('repeated', 300, 280, 100), ('one', 300, 280, 4096),
+    ('one', 300, 280, 1), ('distinct', 63, 70, 5), ('repeated', 200, 180, 5000)])
+def test_negpix_veto_kernel_rows(dev, kind, H, W, n):
+    """H14 on repeated corners (the slice's fill, a repeat in the middle,
+    every row one corner), on all-distinct corners and at N = 1: bit-equal
+    to the plain version, and 20 launches into poisoned verdicts each
+    bit-equal to the wrapper's."""
+    from zuds_tpu_torch.kernels import build, launch
+    from zuds_tpu_torch.ops import cutouts
+    x0, y0 = (torch.as_tensor(v, device=dev)
+              for v in _negpix_rows(kind, H, W, n, 33))
+    img, med, sig = _negpix_frame(dev, H, W, x0, y0, 34)
+    for last_hit in (False, True):
+        if last_hit:                    # the last row's window vetoed
+            img[int(y0[-1]) + 3, int(x0[-1]) + 3] = 40.0
+            img[int(y0[-1]) + 2, int(x0[-1]) + 4] = 170.0
+        k = launch.negpix_veto(img, med, sig, x0, y0)
+        p = cutouts.negpix_veto_plain(img, med, sig, x0, y0)
+        assert torch.equal(k, p)
+        assert bool(k[-1]) or not last_hit
+        for _ in range(20):
+            out = torch.full((n,), 0x5a, dtype=torch.uint8, device=dev)
+            err = build.library().zuds_negpix_veto(
+                launch._ptr(img), W, launch._ptr(med), launch._ptr(sig),
+                launch._ptr(x0), launch._ptr(y0), n, launch._ptr(out),
+                launch._stream())
+            build.check(err, 'zuds_negpix_veto')
+            assert torch.equal(out.view(torch.bool), k)
+    if n > 10:
+        assert 0 < int(k.sum()) < n or kind == 'one'
+
+
 @pytest.mark.parametrize('i', range(4))
 def test_braai_conv3x3_kernel(dev, i):
     from zuds_tpu_torch.kernels import launch
@@ -1817,6 +1888,52 @@ def test_psf_clip_kernel(dev, iters):
     k = zogy.psf_clip(stamps, good0, iters)
     assert bool(k[0].isnan().all())
     assert bool(zogy.psf_clip_plain(stamps, good0, iters)[0].isnan().all())
+
+
+def _psf_stack(dev, S, seed):
+    """S stamps of a Gaussian PSF with noise, an outlier in stamp 0,
+    good0 False on the last fifth."""
+    st = _gauss(dev, 1.8) + _rand((S, 25, 25), dev, seed, 2e-4)
+    st[0, 14, 15] += 0.05
+    good0 = torch.arange(S, device=dev) < S - S // 5
+    return st, good0
+
+
+@pytest.mark.parametrize('S', [1, 64, 65, 300, 600])
+@pytest.mark.parametrize('iters', [0, 1, 2, 3])
+@pytest.mark.parametrize('case', ['clean', 'nan_stamp', 'inf_pixel'])
+def test_psf_clip_kernel_stamps(dev, S, iters, case):
+    """H18 at 1, 64, 65, 300 and 600 stamps (300 past the shared memory of
+    a one-block layout; 600 past the cluster's too, read from global
+    memory each pass), 0-3 passes, with a NaN stamp (dropped or good) and
+    an inf pixel: ``good`` bit-equal to the plain version's, the PSF
+    within 1e-7 and NaN where it is; 20 launches into poisoned outputs
+    each bit-equal to the wrapper's."""
+    from zuds_tpu_torch.kernels import build, launch
+    from zuds_tpu_torch.ops import zogy
+    st, good0 = _psf_stack(dev, S, 95 + S)
+    if case == 'nan_stamp':
+        st[S - 1] = float('nan')
+    elif case == 'inf_pixel':
+        st[S // 2, 3, 4] = float('inf')
+    k, kg = launch.psf_clip(st, good0, iters)
+    p, pg = zogy.psf_clip_plain(st, good0, iters)
+    assert kg.dtype == torch.bool and torch.equal(kg, pg)
+    assert torch.equal(k.isnan(), p.isnan())
+    fin = ~p.isnan()
+    _allclose(k[fin], p[fin], 0.0, 1e-7)
+    if case == 'clean' and S > 1:
+        assert bool(kg[0]) == (iters == 0) and int(kg.sum()) > S // 2
+    for _ in range(20):
+        psf = torch.full((25, 25), float('nan'), device=dev)
+        good = torch.full((S,), 0x5a, dtype=torch.uint8, device=dev)
+        err = build.library().zuds_psf_clip(
+            launch._ptr(st), launch._ptr(good0), S, 625, iters,
+            launch._ptr(psf), launch._ptr(good), launch._stream())
+        build.check(err, 'zuds_psf_clip')
+        assert torch.equal(good.view(torch.bool), kg)
+        assert torch.equal(psf.isnan(), k.isnan())
+        assert torch.equal(psf[~k.isnan()], k[~k.isnan()])
 
 
 def _zogy_star_scene():

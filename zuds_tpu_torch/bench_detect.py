@@ -1,13 +1,15 @@
-"""H5, H25, H23, H26, H24, H22, H27 and H12 (``kernels/deblend.cu``,
-``kernels/ccl.cu``, ``kernels/measure.cu``, ``kernels/objects.cu``,
-``kernels/photometry.cu``, ``kernels/cutouts.cu``): the deblend tree's
-level labels, the base components' union-find, the windowed and Kron
-refinement, the per-object statistics, the label seeds, the aperture
-photometry, CLEAN and the braai triplets, timed at the main path's shapes
-and at the shapes the other paths give them.
+"""H5, H25, H23, H26, H24, H22, H27, H12, H14 and H18
+(``kernels/deblend.cu``, ``kernels/ccl.cu``, ``kernels/measure.cu``,
+``kernels/objects.cu``, ``kernels/photometry.cu``, ``kernels/cutouts.cu``,
+``kernels/zogy.cu``): the deblend tree's level labels, the base
+components' union-find, the windowed and Kron refinement, the per-object
+statistics, the label seeds, the aperture photometry, CLEAN, the braai
+triplets, the negative-pixel veto and the ZOGY PSF's clipped mean, timed
+at the main path's shapes and at the shapes the other paths give them.
 
     python3 zuds_tpu_torch/bench_detect.py [--root DIR] [--tag NAME]
-        [--out FILE] [--cases h5,h25,h23,h26,h24,h22,h27,h12] [--phot FILE]
+        [--out FILE] [--cases h5,h25,h23,h26,h24,h22,h27,h12,h14,h18]
+        [--phot FILE]
 
 ``--root`` is the checkout whose ``zuds_tpu_torch`` is imported (by
 default the one this file sits in), so that two versions of the kernels
@@ -15,8 +17,8 @@ are timed by one script on one card: unpack the other version into a
 directory and run the script once against each, in turns. ``--out``
 appends the JSON lines to a file as well; ``--cases`` keeps the groups of
 cases (``h5``, ``h25``, ``h23``, ``h26``, ``h24``, ``h22``, ``h27``,
-``h12``) that start with one of its prefixes, and builds and reports
-only their sources.
+``h12``, ``h14``, ``h18``) that start with one of its prefixes, and
+builds and reports only their sources.
 ``--phot`` names the frames and positions ``chip_smoke.py`` saves where
 ``ZUDS_PHOT_INPUTS`` points (its forced-photometry phase: dophot's 4096
 positions on a flagship subtraction), for the case ``h22_forced``.
@@ -112,7 +114,8 @@ round 1, which price a round's parts; H23 at
 other block widths (``-DZUDS_REFINE_THREADS=128/256/512/1024``), H26
 stopped after its first one, two and three launches
 (``-DZUDS_STATS_PROBE_STOP``) and with a row pass that only sums the whole
-windows (``-DZUDS_STATS_PROBE_ROWS=1``).
+windows (``-DZUDS_STATS_PROBE_ROWS=1``). H18 is also timed at 0-3 passes
+(``iters_ms``: a pass's cost).
 
 Each prints one JSON line: ``graph_ms`` (device time per call, 20 calls
 captured in one CUDA graph and replayed between two CUDA events),
@@ -131,7 +134,9 @@ distinct rows' windows, every row's position and outputs, the distinct
 rows' corner grids by :func:`aperture_ops`; H27: 60 B a row, 3 operations
 a pair of valid rows and 14 more a brighter valid neighbour; H12: each
 window read and each triplet value written once, 8 B a candidate's
-corner). Then the card's name and power limit, ptxas's registers and
+corner; H14: each distinct corner's 13x13 window, 8 B of corner and 1 B
+of verdict a row; H18: the stamps, their flags, the PSF and the flags
+out). Then the card's name and power limit, ptxas's registers and
 spills of the checkout's sources of the cases run, and their kernels'
 SASS and local-memory instruction counts. The script exits
 non-zero at its end if a check failed.
@@ -203,6 +208,10 @@ CLEAN_OPS = (3, 14)
 # H27's crowded row sets (rows, about 80% valid); H12's candidates
 CLEAN_ROWS = (4098, 50000)
 TRIPLET_N = (256, 2048)
+# H14's rows: the scoring site's candidates, the distinct case's corners
+NEGPIX_N = (256, 4096)
+# H18: the ZOGY pair's stamps (chip_smoke.py ZOGY_STAMPS), the seeded set
+PSF_STAMPS = (64, 300)
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void zuds_empty_kernel() {}
@@ -898,6 +907,127 @@ def h12_cases(cfg, tmp):
         yield rec
 
 
+def negpix_bound(x0, y0):
+    """H14's distinct corners and the bound of its distinct work: each
+    distinct corner's 13x13 window, 8 B of corner and 1 B of verdict a row
+    (bytes); a subtract, a divide, nine maxima and two compares a distinct
+    window's pixel (operations)."""
+    nd = int(torch.unique(torch.stack([x0, y0], 1), dim=0).shape[0])
+    return nd, bound(nd * 13 * 13 * 4 + 9 * x0.numel(), nd * 13 * 13 * 13)
+
+
+def negpix_inputs(cfg, out, dev, tmp):
+    """H14's cases: (image, median, sigma, x0, y0)."""
+    from zuds_tpu_torch.ops import background, cutouts
+    diff = out['diff'][0].contiguous()
+    H, W = diff.shape
+    dsub = diff[::4, ::4]
+    dmed = background.frame_median(dsub)
+    dsig = torch.clamp(1.48 * background.frame_median(dsub, center=dmed),
+                       min=1e-12)
+    cases = {'h14_slice': (diff, dmed, dsig) + cutouts.clamped_corners(
+        out['det_x'][0], out['det_y'][0], cutouts.NEGPIX_BOX, H, W)}
+    nd = night_frames(cfg, tmp)[2].contiguous()
+    med = cutouts.frame_median_exact(nd)
+    sig = 1.48 * cutouts.frame_median_exact((nd - med).abs())
+    cases[f'h14_n{NEGPIX_N[0]}'] = (nd, med, sig) + scoring_corners(
+        H, W, NEGPIX_N[0], cutouts.NEGPIX_BOX)
+    # distinct corners, a -/+ pair at every eighth's centre
+    rng = np.random.default_rng(19)
+    flat = rng.choice((H - 12) * (W - 12), NEGPIX_N[1], replace=False)
+    y0 = torch.as_tensor((flat // (W - 12)).astype('i4'), device=dev)
+    x0 = torch.as_tensor((flat % (W - 12)).astype('i4'), device=dev)
+    img = diff.clone()
+    cy, cx = y0[::8].long() + 6, x0[::8].long() + 6
+    img[cy, cx] = dmed - 50 * dsig
+    img[cy + 1, cx - 1] = dmed + 50 * dsig
+    cases['h14_distinct'] = (img, dmed, dsig, x0, y0)
+    return cases
+
+
+def h14_cases(cfg, out, dev, tmp):
+    from zuds_tpu_torch.bench_compact import call_ms
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import cutouts
+    for case, args in negpix_inputs(cfg, out, dev, tmp).items():
+        k = launch.negpix_veto(*args)
+        again = launch.negpix_veto(*args)
+        p = cutouts.negpix_veto_plain(*args)
+        nd, (bms, by) = negpix_bound(*args[3:])
+        rec = {'case': case, 'rows': args[3].numel(), 'distinct': nd,
+               'vetoed': int(k.sum()), 'equal': bool(torch.equal(k, p)),
+               'repeat_equal': bool(torch.equal(k, again)),
+               'sha256': hashlib.sha256(k.cpu().numpy().tobytes())
+               .hexdigest(), 'bound_ms': bms, 'bound_by': by}
+        _timed(rec, lambda: launch.negpix_veto(*args))
+        rec['plain_ms'] = call_ms(lambda: cutouts.negpix_veto_plain(*args),
+                                  1, 3)
+        rec['ok'] = rec['equal'] and rec['repeat_equal']
+        yield rec
+
+
+def psf_inputs(cfg, dev, tmp):
+    """H18's cases: (stamps, good0)."""
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.subtraction import _select_stamps
+    d = Path(tmp) / 'zogy'
+    d.mkdir(exist_ok=True)
+    work, _ = inputs.write_night_pairs(
+        d, 1, cfg.height, cfg.width,
+        header_json=_HERE.parent / 'tests' / 'data' / 'ztf_real_header.json')
+    sci = ScienceImage.from_file(work[0].split()[0])
+    pos = [torch.as_tensor(a, device=dev)
+           for a in _select_stamps(sci, smax=PSF_STAMPS[0])]
+    new = torch.as_tensor(np.ascontiguousarray(
+        sci.background_subtracted_image.data, 'f4'), device=dev)
+    cases = {'h18_zogy': launch.psf_stamps(new, *pos, 25)}
+    # seeded stamps: a Gaussian of sigma 1.8 px, noise, an outlier in
+    # every 23rd, the last eight padding rows
+    rng = np.random.default_rng(21)
+    n = PSF_STAMPS[1]
+    yy, xx = np.mgrid[-12:13, -12:13]
+    g = np.exp(-(xx ** 2 + yy ** 2) / (2 * 1.8 ** 2))
+    st = g / g.sum() + rng.normal(0, 2e-4, (n, 25, 25))
+    st[::23, 12, 13] += 0.05
+    good0 = np.arange(n) < n - 8
+    cases[f'h18_s{n}'] = (torch.as_tensor(st.astype('f4'), device=dev),
+                          torch.as_tensor(good0, device=dev))
+    return cases
+
+
+def h18_cases(cfg, dev, tmp):
+    from zuds_tpu_torch.bench_compact import call_ms, graph_ms
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    for case, (st, g0) in psf_inputs(cfg, dev, tmp).items():
+        kp, kg = launch.psf_clip(st, g0, 2)
+        pp, pg = zogy.psf_clip_plain(st, g0, 2)
+        rp, rg = launch.psf_clip(st, g0, 2)
+        S, k1, k2 = st.shape
+        err = float((kp - pp).abs().max())
+        rec = {'case': case, 'stamps': S, 'good0': int(g0.sum()),
+               'good': int(kg.sum()), 'good_equal': bool(torch.equal(kg, pg)),
+               'max_abs_err': err, 'check_ok': err <= 1e-7,
+               'repeat_equal': bool(torch.equal(kp, rp)
+                                    and torch.equal(kg, rg)),
+               'sha256': hashlib.sha256(
+                   kp.cpu().numpy().tobytes() + kg.cpu().numpy().tobytes())
+               .hexdigest()}
+        _timed(rec, lambda: launch.psf_clip(st, g0, 2))
+        rec['plain_ms'] = call_ms(lambda: zogy.psf_clip_plain(st, g0, 2), 1,
+                                  3)
+        rec['bound_ms'], rec['bound_by'] = bound(
+            S * k1 * k2 * 4 + 2 * S + k1 * k2 * 4, 3 * 6 * S * k1 * k2)
+        # a pass's cost: the same stamps at 0-3 passes
+        rec['iters_ms'] = [graph_ms(lambda: launch.psf_clip(st, g0, i))
+                           for i in range(4)]
+        rec['ok'] = (rec['good_equal'] and rec['check_ok']
+                     and rec['repeat_equal'])
+        yield rec
+
+
 def _timed(rec, fn):
     from zuds_tpu_torch.bench_compact import call_ms, graph_ms
     rec['graph_ms'] = graph_ms(fn)
@@ -1055,9 +1185,10 @@ def main(argv=None):
     ap.add_argument('--root', default=str(_HERE.parent))
     ap.add_argument('--tag', default='')
     ap.add_argument('--out', default=None)
-    ap.add_argument('--cases', default='h5,h25,h23,h26,h24,h22,h27,h12',
+    ap.add_argument('--cases',
+                    default='h5,h25,h23,h26,h24,h22,h27,h12,h14,h18',
                     help='comma-separated prefixes of the case groups to '
-                    'run (h5, h25, h23, h26, h24, h22, h27, h12)')
+                    'run (h5, h25, h23, h26, h24, h22, h27, h12, h14, h18)')
     ap.add_argument('--phot', default=None,
                     help='the forced positions and frames chip_smoke.py '
                     'saves where ZUDS_PHOT_INPUTS points (case h22_forced)')
@@ -1067,7 +1198,8 @@ def main(argv=None):
     sources = sorted({src for group, src in (
         ('h5', 'deblend.cu'), ('h25', 'ccl.cu'), ('h23', 'measure.cu'),
         ('h26', 'objects.cu'), ('h24', 'ccl.cu'), ('h22', 'photometry.cu'),
-        ('h27', 'objects.cu'), ('h12', 'cutouts.cu'))
+        ('h27', 'objects.cu'), ('h12', 'cutouts.cu'), ('h14', 'cutouts.cu'),
+        ('h18', 'zogy.cu'))
         if group.startswith(wanted)})
     if not torch.cuda.is_available():
         sys.exit('bench_detect: no CUDA device')
@@ -1132,11 +1264,17 @@ def main(argv=None):
         if 'h12'.startswith(wanted):
             for rec in h12_cases(cfg, tmp):
                 emit(rec)
+        if 'h14'.startswith(wanted):
+            for rec in h14_cases(cfg, out, dev, tmp):
+                emit(rec)
+        if 'h18'.startswith(wanted):
+            for rec in h18_cases(cfg, dev, tmp):
+                emit(rec)
     lib_path = Path(build.library()._name)
     emit({'case': 'sass', 'sass': sass_counts(
         lib_path, r'refine|rank_kernel|offsets|place|tree|rows_kernel'
         r'|deblend_labels|ccl_|seed_kernel|aperture_kernel|clean_'
-        r'|triplet_cut')})
+        r'|triplet_cut|negpix_veto|psf_clip')})
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()

@@ -74,10 +74,12 @@ def _negpix_veto(image_data, xs, ys, device=None):
     pixel sits next to a > +5 sigma one in the 11x11 box at a candidate.
     The frame's median and 1.48 MAD are sorts on ``device`` (the card
     unless ``'cpu'``) that stay there; the per-candidate stencil is H14 on
-    the card."""
+    the card. A frame that holds a NaN has a NaN median, as jnp.median
+    gives it, and then no candidate is vetoed."""
     device = _device(device)
     data = _upload(image_data, device)
-    med = frame_median_exact(data)
+    med = torch.where(data.isnan().any(), torch.nan,
+                      frame_median_exact(data))
     sig = 1.48 * frame_median_exact((data - med).abs())
     H, W = data.shape
     x0, y0 = clamped_corners(*_positions(xs, ys, device), NEGPIX_BOX, H, W)

@@ -19,16 +19,37 @@
 // (_negpix_veto): the 13x13 window at the clamped corner standardised by
 // the frame's median and 1.48 MAD (device scalars from the library sort;
 // the host reads neither), the 3x3 maximum with -inf outside the window,
-// and any(s < -5 & max > 5) over the central 11x11. One warp per
-// candidate. The central 11x11's 3x3 neighbourhoods lie inside the 13x13
-// window, so the -inf padding is never reached there. The maximum carries
-// a NaN as torch.max_pool2d and XLA's max do. Bit-equal to the plain
-// version: (v - med) / max(sig, 1e-12) with __fsub_rn and __fdiv_rn.
+// and any(s < -5 & max > 5) over the central 11x11. The central 11x11's
+// 3x3 neighbourhoods lie inside the 13x13 window, so the -inf padding is
+// never reached there. The maximum carries a NaN as torch.max_pool2d and
+// XLA's max do. Bit-equal to the plain version: s = (v - med) / max(sig,
+// 1e-12) with __fsub_rn and __fdiv_rn.
+//
+// One warp a row: its lanes load the window's raw values into the warp's
+// shared row (six loads a lane, all issued at once) and test s < -5 at
+// their inner pixels first; the 3x3 maximum is taken only where that
+// holds, which on a sky frame is almost nowhere. It is the maximum of the
+// nine raw values, standardised once: v -> fl(fl(v - med) / d) never
+// decreases for d > 0, so the largest standardised value is the
+// standardised largest value, and a NaN among the nine stays a NaN either
+// way (max > 5 false). Where med or d is infinite the centre test or the
+// maximum's test fails in both forms (tests/test_torch_negpix_rows.py).
+// So a lane divides once an inner pixel, and once more where its centre
+// passes.
+//
+// A row whose corner (x0, y0) is bitwise row N - 1's has row N - 1's
+// verdict: its warp exits at once, and block 0, whose warp 0 decides row
+// N - 1, writes that verdict to every such row (its threads compare the
+// rows' corners while warp 0's window loads). The slice hands all max_det
+// = 4096 rows of detect_sources, of which a flagship frame fills ~57: the
+// rows past its objects repeat one corner, so ~60 warps read a window. No
+// count from the caller and no host read: a call whose corners are all
+// distinct decides every row.
 //
 // Bound: memory, and tiny at the main path's sizes. H12 reads 3 x 63 x 63
 // floats and writes as many per candidate (95 KB); H14 reads 13 x 13
-// floats and writes one byte. Both are launch-bound for a few hundred
-// candidates.
+// floats a distinct corner, and a row's corner (8 B) and verdict (1 B).
+// Both are launch-bound for a few hundred candidates.
 #include "common.cuh"
 
 namespace {
@@ -40,7 +61,12 @@ constexpr int kTriplet = 3 * kCutPix;     // floats of a candidate's triplet
 constexpr int kPerThread = (kCutPix + kCutThreads - 1) / kCutThreads;
 constexpr int kBig = 13;                  // ops/cutouts.NEGPIX_BOX
 constexpr int kInner = 11;                // ops/cutouts.NEGPIX_INNER
-constexpr int kVetoWarps = 4;
+constexpr int kBox = kBig * kBig;
+constexpr int kVetoWarps = 8;
+constexpr int kVetoThreads = kVetoWarps * 32;
+// chunks of kVetoThreads rows block 0 compares ahead, a bit each: 4096
+// rows
+constexpr int kVetoAhead = 16;
 
 __global__ void __launch_bounds__(3 * kCutThreads, 2)
     triplet_cut_kernel(const float* __restrict__ f0,
@@ -105,39 +131,105 @@ __global__ void __launch_bounds__(3 * kCutThreads, 2)
                               s_norm[(tail + tid) % 3]);
 }
 
-__global__ void __launch_bounds__(kVetoWarps * 32)
+// The veto of the window at ``corner`` for one warp: its raw values into
+// the warp's shared row ``s``, then the inner pixels, centre first.
+__device__ __forceinline__ bool window_veto(const float* __restrict__ img,
+                                            int W, long long corner,
+                                            float m, float d, float* s,
+                                            int lane) {
+  constexpr int kPer = (kBox + 31) / 32;
+  float v[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int i = lane + 32 * j;
+    if (i < kBox) {
+      const int r = i / kBig, c = i - r * kBig;
+      v[j] = img[corner + (long long)r * W + c];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+    if (lane + 32 * j < kBox) s[lane + 32 * j] = v[j];
+  __syncwarp();
+  bool hit = false;
+#pragma unroll
+  for (int j = 0; j < (kInner * kInner + 31) / 32; ++j) {
+    const int i = lane + 32 * j;
+    if (i >= kInner * kInner) break;
+    const int r = 1 + i / kInner, c = 1 + i % kInner;
+    if (__fdiv_rn(__fsub_rn(s[r * kBig + c], m), d) < -5.f) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx)
+          mx = nan_max(mx, s[(r + dy) * kBig + c + dx]);
+      hit |= __fdiv_rn(__fsub_rn(mx, m), d) > 5.f;
+    }
+  }
+  return __any_sync(0xffffffffu, hit);
+}
+
+// Block 0 decides row N - 1 (warp 0) and writes its verdict to every row
+// of that corner; block b > 0 rows 8 (b - 1) .. 8 b - 1, a warp each, short
+// of the last and of the rows of its corner.
+__global__ void __launch_bounds__(kVetoThreads)
     negpix_veto_kernel(const float* __restrict__ img, int W,
                        const float* __restrict__ med,
                        const float* __restrict__ sig,
                        const int* __restrict__ x0,
                        const int* __restrict__ y0, int N,
                        uint8_t* __restrict__ veto) {
-  __shared__ float s_win[kVetoWarps][kBig * kBig];
+  __shared__ float s_win[kVetoWarps][kBox];
+  __shared__ uint8_t s_last;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kVetoWarps + warp;
-  if (n >= N) return;                      // whole warps only
-  const float m = *med;
-  const float d = fmaxf(*sig, 1e-12f);
-  const long long corner = (long long)y0[n] * W + x0[n];
-  float* s = s_win[warp];
-  for (int i = lane; i < kBig * kBig; i += 32) {
-    const int r = i / kBig, c = i - r * kBig;
-    s[i] = __fdiv_rn(__fsub_rn(img[corner + (long long)r * W + c], m), d);
+  const int last = N - 1;
+  const bool lead = blockIdx.x == 0;
+  const int lx = x0[last], ly = y0[last];
+  int n = last;
+  if (!lead) {
+    n = (blockIdx.x - 1) * kVetoWarps + warp;
+    if (n >= last || (x0[n] == lx && y0[n] == ly)) return;
   }
-  __syncwarp();
-  bool hit = false;
-  for (int i = lane; i < kInner * kInner; i += 32) {
-    const int r = 1 + i / kInner, c = 1 + i % kInner;
-    float mx = -INFINITY;
+  // block 0: which rows of its thread's first kVetoAhead chunks share the
+  // last row's corner, all read at once, beside warp 0's window
+  uint32_t ahead = 0;
+  if (lead) {
+    int qx[kVetoAhead], qy[kVetoAhead];
 #pragma unroll
-    for (int dy = -1; dy <= 1; ++dy)
+    for (int k = 0; k < kVetoAhead; ++k) {
+      const int q = min((int)threadIdx.x + k * kVetoThreads, last);
+      qx[k] = x0[q];
+      qy[k] = y0[q];
+    }
 #pragma unroll
-      for (int dx = -1; dx <= 1; ++dx)
-        mx = nan_max(mx, s[(r + dy) * kBig + c + dx]);
-    hit |= s[r * kBig + c] < -5.f && mx > 5.f;
+    for (int k = 0; k < kVetoAhead; ++k) {
+      const bool same = (int)threadIdx.x + k * kVetoThreads < last &&
+                        qx[k] == lx && qy[k] == ly;
+      ahead |= (same ? 1u : 0u) << k;
+    }
   }
-  hit = __any_sync(0xffffffffu, hit);
-  if (lane == 0) veto[n] = hit ? 1 : 0;
+  if (!lead || warp == 0) {
+    const float m = *med;
+    const float d = fmaxf(*sig, 1e-12f);
+    const long long corner = (long long)(lead ? ly : y0[n]) * W +
+                             (lead ? lx : x0[n]);
+    const bool hit = window_veto(img, W, corner, m, d, s_win[warp], lane);
+    if (lane == 0) {
+      veto[n] = hit ? 1 : 0;
+      if (lead) s_last = hit ? 1 : 0;
+    }
+  }
+  if (!lead) return;
+  __syncthreads();
+  const uint8_t v = s_last;
+  for (int b = 0; b < last; b += kVetoThreads) {
+    const int k = b / kVetoThreads, q = b + threadIdx.x;
+    const bool dup = k < kVetoAhead
+                         ? (ahead >> k) & 1u
+                         : q < last && x0[q] == lx && y0[q] == ly;
+    if (dup) veto[q] = v;
+  }
 }
 
 }  // namespace
@@ -158,8 +250,8 @@ extern "C" int zuds_negpix_veto(const float* img, int W, const float* med,
                                 const int* y0, int N, uint8_t* veto,
                                 cudaStream_t stream) {
   if (N > 0) {
-    const int blocks = (N + kVetoWarps - 1) / kVetoWarps;
-    negpix_veto_kernel<<<blocks, kVetoWarps * 32, 0, stream>>>(
+    const int blocks = 1 + (N - 1 + kVetoWarps - 1) / kVetoWarps;
+    negpix_veto_kernel<<<blocks, kVetoThreads, 0, stream>>>(
         img, W, med, sig, x0, y0, N, veto);
   }
   return (int)cudaGetLastError();

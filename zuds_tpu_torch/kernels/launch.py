@@ -1085,8 +1085,9 @@ def psf_stamps(img, xs, ys, valid, size):
 def psf_clip(stamps, good0, iters):
     """H18 (kernels/zogy.cu): the clipped mean of
     ``ops.zogy.psf_clip_plain`` over the (S, k, k) f32 ``stamps`` (k^2 up
-    to 1024) with the bool (S,) ``good0``, in one block: (psf (k, k) f32,
-    good (S,) bool after the last pass)."""
+    to 1024) with the bool (S,) ``good0``, in one cluster of blocks that
+    split the pixels: (psf (k, k) f32, good (S,) bool after the last
+    pass)."""
     _require('stamps', stamps, torch.float32)
     if stamps.dim() != 3 or not 1 <= stamps.shape[1] * stamps.shape[2] \
             <= 1024 or stamps.shape[0] < 1 or iters < 0:

@@ -44,14 +44,37 @@
 // rounded in f32, cosf and sinf. Bound: ~0.46 MFLOP per stamp (fp64) and
 // 5 KB read and written, about a microsecond for 64.
 //
-// H18 replaces zogy.py:116-132: one block, a thread per pixel. Each of the
-// clip passes sums the good stamps in stamp order for the mean and the
-// variance, and the largest |s - mean| / (sig + 1e-12) of each stamp is a
-// warp-shuffle maximum and a shared atomicMax per warp; a stamp stays good
-// while that stays under 5. The final mean is clamped at 0 and divided by
-// its block sum. NaN flows as in the reference: s * g keeps a NaN of a
-// dropped stamp.
+// H18 replaces zogy.py:116-132: `iters` passes of the 5 sigma clip (the
+// mean and variance of the good stamps per pixel, each summed in stamp
+// order; a stamp stays good while max |s - mean| / (sig + 1e-12) < 5),
+// then the final mean clamped at 0 over its sum. NaN flows as in the
+// reference: s * g keeps a NaN of a dropped stamp. The blocks of one
+// thread-block cluster split the pixels, a thread a pixel, and each block
+// holds every stamp's values of its pixels in shared memory (read once,
+// by cp.async, for all passes); a stamp count whose values do not fit is
+// read from global memory each pass by the same kernel. The good flags
+// are bit words: a pass's count is their popcount. A stamp fails a pass
+// where any pixel's quotient is >= 5 or NaN, so the maximum gives way to a
+// vote: a lane sets bit j of its mask where its pixel fails stamp j, one
+// warp OR (__reduce_or_sync) of the masks votes 32 stamps at once, and one
+// atomicOr a warp and word goes into every block of the cluster
+// (distributed shared memory); after the cluster barrier each block reads
+// its own words. The quotient is decided without a division where it
+// can be: q = fl(|d| fl(1 / den)) is within 2^-23 of |d| / den, so q < 5
+// (1 - 2^-20) means fl(|d| / den) < 5 and q > 5 (1 + 2^-20) means >= 5;
+// only in between, or for a NaN, is __fdiv_rn asked, where a lane of the
+// warp needs it (tests/test_torch_psf_clip_passes.py). The loops hold a
+// word of 32 stamps' values in registers at a time. Every sum keeps
+// the parent's order, so `good` and the per-pixel means are its bits; the
+// final unit sum adds the blocks' partials in block order.
+// Bound: 160 KB of stamps for 64 stamps of 25x25, 0.05 us; the passes are
+// chains of S dependent adds a pixel and a cluster barrier a pass.
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -343,67 +366,158 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- H18 -------------------------------------------------------------------
 
-__global__ void psf_clip_kernel(const float* __restrict__ stamps,
-                                const uint8_t* __restrict__ good0, int S,
-                                int npix, int iters, float* __restrict__ psf,
-                                uint8_t* __restrict__ good_out) {
-  extern __shared__ unsigned smem[];
-  unsigned* dev = smem;                                   // S keys
-  uint8_t* good = reinterpret_cast<uint8_t*>(smem + S);   // S flags
+// H18's cluster: the blocks that split a stamp's pixels (8 beat one block
+// of 640 threads and a cluster of 16 on an H100; PERF.md has the times)
+constexpr int kClipBlocks = 8;
+// a block's shared memory on sm_90 (227 KB), less H18's static arrays
+constexpr size_t kClipSmem = 232448 - 256;
+constexpr float kBelow5 = 0x1.3fffecp+2f;   // 5 (1 - 2^-20)
+constexpr float kAbove5 = 0x1.400014p+2f;   // 5 (1 + 2^-20)
+
+// a block's threads: one a pixel of its share (npix <= 1024)
+constexpr int kClipThreads = 1024 / kClipBlocks;
+
+template <bool kStaged>
+__global__ void __launch_bounds__(kClipThreads)
+    psf_clip_kernel(const float* __restrict__ stamps,
+                    const uint8_t* __restrict__ good0, int S, int npix,
+                    int chunk, int iters, float* __restrict__ psf,
+                    uint8_t* __restrict__ good_out) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int nw = (S + 31) >> 5;
+  unsigned* g0w = smem;                 // good0's bits
+  unsigned* gw = g0w + nw;              // the good bits of the pass
+  unsigned* fw = gw + nw;               // 2 x nw: a pass's failures
+  float* st = reinterpret_cast<float*>(fw + 2 * nw);  // 32 nw x T values
   __shared__ float red[32];
-  __shared__ float s_n;
-  const int p = threadIdx.x, lane = p & 31;
-  const bool live = p < npix;
-  for (int s = p; s < S; s += blockDim.x) good[s] = good0[s] ? 1 : 0;
-  __syncthreads();
-  for (int pass = 0; pass <= iters; ++pass) {
-    if (p == 0) {
-      int cnt = 0;
-      for (int s = 0; s < S; ++s) cnt += good[s];
-      s_n = fmaxf((float)cnt, 1.f);
+  __shared__ float part[kClipBlocks];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks(), b = (int)cluster.block_rank();
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int p = b * chunk + t;
+  const bool live = t < chunk && p < npix;
+  const float* src = stamps + p;
+  // staged: stamp s's value of the block's pixel t at st[s T + t] for the
+  // 32 nw stamps of the words, 0 past S and off the pixels, so that the
+  // loops read whole words without a guard
+  const int T = blockDim.x;
+  if (kStaged)
+    for (int s = 0; s < 32 * nw; ++s) {
+      if (live && s < S)
+        __pipeline_memcpy_async(st + s * T + t, src + (long long)s * npix,
+                                sizeof(float));
+      else
+        st[s * T + t] = 0.f;
     }
-    for (int s = p; s < S; s += blockDim.x) dev[s] = 0u;
-    __syncthreads();
-    const float nf = s_n;
-    float mean = 0.f;
-    if (live) {
-      for (int s = 0; s < S; ++s)
-        mean = __fadd_rn(mean, __fmul_rn(stamps[(long long)s * npix + p],
-                                         good[s] ? 1.f : 0.f));
-      mean = __fdiv_rn(mean, nf);
+  __pipeline_commit();
+  for (int w = warp; w < nw; w += nwarps) {
+    const int s = 32 * w + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, s < S && good0[s]);
+    if (lane == 0) {
+      g0w[w] = gw[w] = bits;
+      fw[w] = fw[nw + w] = 0u;
     }
-    if (pass == iters) {              // the final mean
-      float v = live ? (isnan(mean) ? mean : fmaxf(mean, 0.f)) : 0.f;
-      const float tot = block_sum(v, red);
-      if (live) psf[p] = __fdiv_rn(v, nan_maximum(tot, 1e-20f));
-      break;
-    }
-    float den = 1.f;
-    if (live) {
-      float var = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const float d = __fsub_rn(stamps[(long long)s * npix + p], mean);
-        var = __fadd_rn(var, __fmul_rn(__fmul_rn(d, d), good[s] ? 1.f : 0.f));
-      }
-      var = __fdiv_rn(var, nf);
-      den = __fadd_rn(__fsqrt_rn(nan_maximum(var, 1e-20f)), 1e-12f);
-    }
-    for (int s = 0; s < S; ++s) {
-      float v = live ? __fdiv_rn(fabsf(__fsub_rn(
-                                     stamps[(long long)s * npix + p], mean)),
-                                 den)
-                     : 0.f;
+  }
+  __pipeline_wait_prior(0);
+  // every block's words cleared before any block ORs into them
+  cluster.sync();
+  // a word of 32 stamps' values of the thread's pixel, in registers (0
+  // past S and off the pixels)
+  float v[32];
+  auto load = [&](int w) {
+    const float* col = st + 32 * w * T + t;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-      if (lane == 0) atomicMax(&dev[s], max_key(v));
+    for (int j = 0; j < 32; ++j) {
+      const int s = 32 * w + j;
+      v[j] = kStaged ? col[j * T]
+                     : (live && s < S ? src[(long long)s * npix] : 0.f);
     }
-    __syncthreads();
-    for (int s = p; s < S; s += blockDim.x)
-      good[s] = (good0[s] && __uint_as_float(dev[s]) < 5.f) ? 1 : 0;
+  };
+  float mean;
+  for (int pass = 0;; ++pass) {
+    int cnt = 0;
+    for (int w = 0; w < nw; ++w) cnt += __popc(gw[w]);
+    const float nf = fmaxf((float)cnt, 1.f);
+    // past S a word adds 0 * 0 = +0, which leaves the sum (never -0: it
+    // starts at +0) as it is
+    mean = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      load(w);
+      const unsigned g = gw[w];
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        mean = __fadd_rn(mean, __fmul_rn(v[j], (g >> j) & 1u ? 1.f : 0.f));
+    }
+    mean = __fdiv_rn(mean, nf);
+    if (pass == iters) break;
+    float var = 0.f;
+    for (int w = 0; w < nw; ++w) {
+      load(w);
+      const unsigned g = gw[w];
+      const int m = S - 32 * w;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float d = __fsub_rn(v[j], mean);
+        if (j < m)
+          var = __fadd_rn(var, __fmul_rn(__fmul_rn(d, d),
+                                         (g >> j) & 1u ? 1.f : 0.f));
+      }
+    }
+    var = __fdiv_rn(var, nf);
+    const float den = __fadd_rn(__fsqrt_rn(nan_maximum(var, 1e-20f)), 1e-12f);
+    const float r = __frcp_rn(den);
+    unsigned* out = fw + (pass & 1) * nw;
+    for (int w = 0; w < nw; ++w) {
+      load(w);
+      const int m = S - 32 * w;
+      // the lane's bits: stamp j's quotient may reach 5 (q >= kBelow5 or
+      // NaN), and of those, its q lies in the band or is NaN
+      unsigned fail = 0u, band = 0u;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float q = __fmul_rn(fabsf(__fsub_rn(v[j], mean)), r);
+        const bool in = live && j < m && !(q < kBelow5);
+        fail |= (in ? 1u : 0u) << j;
+        band |= (in && !(q > kAbove5) ? 1u : 0u) << j;
+      }
+      // there the division decides (rare)
+      if (__any_sync(0xffffffffu, band != 0u)) {
+        for (unsigned rest = band; rest; rest &= rest - 1) {
+          const int j = __ffs(rest) - 1, s = 32 * w + j;
+          const float x = kStaged ? st[s * T + t] : src[(long long)s * npix];
+          if (__fdiv_rn(fabsf(__fsub_rn(x, mean)), den) < 5.f)
+            fail &= ~(1u << j);
+        }
+      }
+      // bit j: any lane's pixel fails stamp j (the stamp's vote)
+      const unsigned bad = __reduce_or_sync(0xffffffffu, fail);
+      if (lane == 0 && bad)
+        for (int q = 0; q < G; ++q)
+          atomicOr(cluster.map_shared_rank(out + w, q), bad);
+    }
+    cluster.sync();
+    // a word's thread reads it and clears it: the next OR into this buffer
+    // comes two passes on, after the next cluster barrier
+    for (int w = t; w < nw; w += blockDim.x) {
+      gw[w] = g0w[w] & ~out[w];
+      out[w] = 0u;
+    }
     __syncthreads();
   }
-  for (int s = p; s < S; s += blockDim.x) good_out[s] = good[s];
+  const float pos = live ? (isnan(mean) ? mean : fmaxf(mean, 0.f)) : 0.f;
+  float tot = block_sum(pos, red);
+  if (G > 1) {
+    if (t == 0)
+      for (int q = 0; q < G; ++q) *cluster.map_shared_rank(part + b, q) = tot;
+    cluster.sync();
+    tot = part[0];
+    for (int q = 1; q < G; ++q) tot = __fadd_rn(tot, part[q]);
+  }
+  if (live) psf[p] = __fdiv_rn(pos, nan_maximum(tot, 1e-20f));
+  if (b == 0)
+    for (int s = t; s < S; s += blockDim.x)
+      good_out[s] = (gw[s >> 5] >> (s & 31)) & 1u;
 }
 
 int grid_for(long long n) {
@@ -469,9 +583,36 @@ extern "C" int zuds_psf_clip(const float* stamps, const uint8_t* good0,
                              uint8_t* good, cudaStream_t stream) {
   if (npix < 1 || npix > 1024 || S < 1 || iters < 0)
     return (int)cudaErrorInvalidValue;
-  const int threads = (npix + 31) / 32 * 32;
-  const size_t shared = (size_t)S * (sizeof(unsigned) + 1);
-  psf_clip_kernel<<<1, threads, shared, stream>>>(stamps, good0, S, npix,
-                                                  iters, psf, good);
+  const int G = min(kClipBlocks, (npix + 31) / 32);
+  const int chunk = (npix + G - 1) / G;
+  const int threads = (chunk + 31) / 32 * 32;
+  const size_t words = 4 * (size_t)((S + 31) / 32) * sizeof(unsigned);
+  const size_t staged =
+      words + (size_t)((S + 31) / 32 * 32) * threads * sizeof(float);
+  const bool fits = staged <= kClipSmem;
+  const size_t bytes = fits ? staged : words;
+  if (bytes > kClipSmem) return (int)cudaErrorInvalidValue;
+  const auto kernel = fits ? psf_clip_kernel<true> : psf_clip_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, stamps, good0, S, npix, chunk, iters,
+                           psf, good);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
