@@ -230,6 +230,7 @@ ZOGY_LAUNCHES = {'zogy_spectral': 1, 'zogy_normalize': 1, 'psf_stamps': 2,
                  'psf_clip': 2}
 ZOGY_ONLY = tuple(ZOGY_LAUNCHES)
 ZOGY_STAMPS = 64        # _select_stamps(sci, smax=64)
+ZOGY_EVEN_STAMP = 24    # H17 at an even size beside the path's 25
 # braai training (make_train_state, train_step): the kernels only it
 # launches and how often per step (H13t on the four layers, H19 on layers
 # 2-4, H20 on the four, H21 once); TRAIN_N triplets a step at full width,
@@ -2394,6 +2395,7 @@ def zogy_phase(wrappers, name, record, hotpants_s):
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs, night
+    from zuds_tpu_torch.bench_detect import stamps_bound
     from zuds_tpu_torch.coadd import ReferenceImage
     from zuds_tpu_torch.constants import BAD_SUM, BKG_VAL, SUB_NODATA_SENTINEL
     from zuds_tpu_torch.filterobjects import filter_sexcat
@@ -2581,6 +2583,18 @@ def zogy_phase(wrappers, name, record, hotpants_s):
                   f'{int(pg.sum())} good0, {int(kgood.sum())} kept by the '
                   f'clip (equal on the card and in the plain version); '
                   f'peak {float(whole.max()):.5f}', flush=True)
+        # H17 at an even size (fftfreq's -1/2 at n / 2: the ramped spectrum
+        # is not Hermitian there) on the science frame
+        ks, kg = launch.psf_stamps(new, xs, ys, valid, ZOGY_EVEN_STAMP)
+        ps, pg = zogy.psf_stamps_plain(new, xs, ys, valid, ZOGY_EVEN_STAMP)
+        check(torch.equal(kg, pg), f'psf_stamps good0 differs at size '
+              f'{ZOGY_EVEN_STAMP}')
+        err_even = close(f'psf_stamps size {ZOGY_EVEN_STAMP}', ks[pg], ps[pg],
+                         0.0, 1e-7)
+        errs['psf_stamps'] = max(errs['psf_stamps'], err_even)
+        print(f'psf_stamps at size {ZOGY_EVEN_STAMP} on the science frame: '
+              f'{int(pg.sum())} good0 (equal), max abs err {err_even:.3g} '
+              f'against the plain version', flush=True)
         # H15 alone on the pair's spectra: the modes where it and the plain
         # version differ, and cuFFT's inverse of one input twice
         sc = zogy.zogy_scalars(sn, sr)
@@ -2664,16 +2678,12 @@ def zogy_phase(wrappers, name, record, hotpants_s):
         call_ms = cuda_ms(lambda: launch.psf_stamps(new, xs, ys, valid, 25))
         plain = cuda_ms(lambda: zogy.psf_stamps_plain(new, xs, ys, valid),
                         1, 3)
-        # the function's own work, as the reference does it in f32: per
-        # stamp it reads its 25x25 window and writes it (5 KB); fft2 and
-        # ifft2 of 625 points (5 n log2 n each), the ramp's argument,
-        # cosine, sine and complex product (12 per pixel), the border
-        # median's subtraction, the sum and the scale (3 per pixel). H17
-        # itself issues more: four direct 25-point DFT passes in double
-        # (S * 625 * 25 * 28 = 2.8e7 FLOP for 64 stamps)
+        # the function's own work, as the reference does it in f32
+        # (bench_detect.stamps_bound). H17 itself issues more: four DFT
+        # passes in double over the half spectrum, 50,050 FMAs a 25x25
+        # stamp (bench_detect.stamp_flop: 6.4e6 FLOP for 64 stamps)
         S = ZOGY_STAMPS
-        bnd = bound(S * (2 * 625 * 4 + 9),
-                    S * (2 * 5 * 625 * math.log2(625) + 15 * 625))
+        bnd = stamps_bound(S, 25)
         print(f'psf_stamps: {S} stamps of 25x25 on {H}x{W}: {ms:.4f} ms on '
               f'the card (graph replay; bound {bnd[0]:.5f} ms by {bnd[1]}, '
               f'share {bnd[0] / ms:.1%}), {call_ms:.4f} ms per wrapper call '

@@ -99,11 +99,11 @@ def test_sources_and_symbols_of_the_zogy_kernels(tmp_path, fake_nvcc,
     here = Path(build.__file__).resolve().parent
     assert 'zogy.cu' in build.SOURCES
     text = (here / 'zogy.cu').read_text()
-    for kernel in ('spectral_max_kernel', 'spectral_kernel', 'sumsq_kernel',
-                   'scale_kernel', 'psf_stamps_kernel', 'psf_clip_kernel'):
+    for kernel in ('spectral_max_kernel', 'spectral_kernel',
+                   'normalize_kernel', 'psf_stamps_kernel', 'psf_clip_kernel'):
         assert kernel in text
     assert len(build.SIGNATURES['zuds_zogy_spectral']) == 16
-    assert len(build.SIGNATURES['zuds_zogy_normalize']) == 10
+    assert len(build.SIGNATURES['zuds_zogy_normalize']) == 8
     assert len(build.SIGNATURES['zuds_psf_stamps']) == 11
     assert len(build.SIGNATURES['zuds_psf_clip']) == 8
     build._compile(tmp_path / 'lib' / 'libzuds_kernels.so')

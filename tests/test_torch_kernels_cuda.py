@@ -55,8 +55,12 @@ H13t bit-equal, and at a batch of 256 no further from float64 than cuDNN),
 the scores 1e-6 absolute; the veto bit-equal. H15 rtol 1e-6 (the plain
 version rounds every step as the kernel does; the double-formed FMA of
 its complex abs may round twice), NaN where the plain version has it; H16
-rtol 1e-6 (both sum the squares in double, in other orders); the PSF stamps and the clipped PSF 1e-7 absolute (H17's direct DFT
-and the plain version's cuFFT both transform in double and round once),
+rtol 1e-6 (both sum the squares in double, in other orders; also at
+lengths that are no multiple of 4, under one slab and at a storage offset
+off 16 bytes; one kernel and no memset a call, capturable in a CUDA
+graph); the PSF stamps and the clipped PSF 1e-7 absolute (H17's DFT
+passes and the plain version's cuFFT both transform in double and round
+once; H17 also at sizes 1, 24 and 32 with 1 and 300 stamps),
 ``good0`` and ``good`` equal;
 ``zogy_subtract`` on the card against the CPU as the CPU against the JAX
 package (``tests/test_torch_zogy.py``). The training kernels: H13t per
@@ -1824,6 +1828,58 @@ def test_zogy_normalize_kernel(dev, H, W):
     assert bool(zogy.score_normalize(p_d, s, 0.7).isnan().all())
 
 
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('n', [1, 3, 1001, 250 * 197])
+def test_zogy_normalize_lengths_and_offsets(dev, n, offset):
+    """H16 at lengths that are no multiple of 4 (the floats past the
+    16-byte chunks), under one block's slab, and at a storage offset 4
+    bytes past a 16-byte boundary (the single-float path): within 1e-6
+    relative of the plain version, two calls bit-equal, zeros clamped at
+    1e-20 as in the plain version, a NaN in the last float spread."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    p_d = _rand(n + offset, dev, 83, 1e-3)[offset:]
+    s = _rand(n + offset, dev, 84, 5.0)[offset:]
+    assert (p_d.data_ptr() % 16 == 0) == (offset == 0)
+    k = launch.zogy_normalize(p_d, s, 0.7)
+    _allclose(k, zogy.score_normalize_plain(p_d, s, 0.7), 1e-6, 0.0)
+    assert torch.equal(k, launch.zogy_normalize(p_d, s, 0.7))
+    z = torch.zeros(n + offset, device=dev)[offset:]
+    assert torch.equal(launch.zogy_normalize(z, s, 0.7),
+                       zogy.score_normalize_plain(z, s, 0.7))
+    p_d[n - 1] = float('nan')
+    assert bool(launch.zogy_normalize(p_d, s, 0.7).isnan().all())
+
+
+def test_zogy_normalize_is_one_launch_without_a_memset(dev):
+    """One H16 call is one kernel launch and no memset (the runtime calls
+    the profiler records), and it can be captured in a CUDA graph (its
+    replay gives the direct call's bits)."""
+    from torch.profiler import ProfilerActivity, profile
+    from zuds_tpu_torch.kernels import launch
+    p_d = _rand((250, 197), dev, 85, 1e-3)
+    s = _rand((250, 197), dev, 86, 5.0)
+    want = launch.zogy_normalize(p_d, s, 0.7)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        launch.zogy_normalize(p_d, s, 0.7)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert not any('memset' in n.lower() for n in names), names
+    assert sum(n.startswith('cudaLaunch') for n in names) == 1, names
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch.zogy_normalize(p_d, s, 0.7)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = launch.zogy_normalize(p_d, s, 0.7)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
 def _psf_field(dev, H, W, n, seed):
     """Stars of 3e4 (sigma 1.8, noise 1) at n seeded positions, three at a
     border (their corners clamp) and one in the corner (0, 0), where the
@@ -1863,6 +1919,33 @@ def test_psf_stamps_kernel(dev, H, W, n, size):
     p, pg = zogy.psf_stamps_plain(img, xs, ys, valid, size)
     assert torch.equal(k.isnan(), p.isnan()) and torch.equal(kg, pg)
     assert bool(k[n:].isnan().all())
+
+
+@pytest.mark.parametrize('S', [1, 300])
+@pytest.mark.parametrize('size', [1, 24, 32])
+def test_psf_stamps_sizes(dev, size, S):
+    """H17 at size 1, at even sizes (fftfreq puts -1/2 at n / 2: the
+    ramped spectrum is not Hermitian there) and at one and at 300 stamps
+    (the first a star whose corner clamps; past it stars at
+    test_psf_stamps_kernel's density, 64 on 256^2, and four padding
+    rows): good0 equal, stamps within 1e-7 of the plain version, two
+    calls bit-equal. Far denser fields put stamps whose sum cancels (or
+    is <= 0, left in counts) past 1e-7 for any f32 order of the sum
+    against the plain version's."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    side = 256 if S < 64 else 560
+    img, xs, ys, valid = _psf_field(dev, side, side, max(S - 4, 4), 93)
+    xs, ys, valid = xs[:S], ys[:S], valid[:S]
+    n0 = launch.psf_stamps.launches
+    k, kg = zogy.psf_stamps(img, xs, ys, valid, size)
+    assert launch.psf_stamps.launches == n0 + 1
+    p, pg = zogy.psf_stamps_plain(img, xs, ys, valid, size)
+    assert k.shape == p.shape == (S, size, size)
+    assert torch.equal(kg, pg) and bool(pg.any()) == (size > 1)
+    _allclose(k, p, 0.0, 1e-7)
+    r, rg = launch.psf_stamps(img, xs, ys, valid, size)
+    assert torch.equal(r, k) and torch.equal(rg, kg)
 
 
 @pytest.mark.parametrize('iters', [0, 2, 3])

@@ -1,14 +1,15 @@
-"""H5, H25, H23, H26, H24, H22, H27, H12, H14 and H18
+"""H5, H25, H23, H26, H24, H22, H27, H12, H14, H18, H17 and H16
 (``kernels/deblend.cu``, ``kernels/ccl.cu``, ``kernels/measure.cu``,
 ``kernels/objects.cu``, ``kernels/photometry.cu``, ``kernels/cutouts.cu``,
 ``kernels/zogy.cu``): the deblend tree's level labels, the base
 components' union-find, the windowed and Kron refinement, the per-object
 statistics, the label seeds, the aperture photometry, CLEAN, the braai
-triplets, the negative-pixel veto and the ZOGY PSF's clipped mean, timed
-at the main path's shapes and at the shapes the other paths give them.
+triplets, the negative-pixel veto, the ZOGY PSF's clipped mean, its star
+stamps and the ZOGY score's normalisation, timed at the main path's
+shapes and at the shapes the other paths give them.
 
     python3 zuds_tpu_torch/bench_detect.py [--root DIR] [--tag NAME]
-        [--out FILE] [--cases h5,h25,h23,h26,h24,h22,h27,h12,h14,h18]
+        [--out FILE] [--cases h5,h25,h23,h26,h24,h22,h27,h12,h14,h18,h17,h16]
         [--phot FILE]
 
 ``--root`` is the checkout whose ``zuds_tpu_torch`` is imported (by
@@ -17,8 +18,8 @@ are timed by one script on one card: unpack the other version into a
 directory and run the script once against each, in turns. ``--out``
 appends the JSON lines to a file as well; ``--cases`` keeps the groups of
 cases (``h5``, ``h25``, ``h23``, ``h26``, ``h24``, ``h22``, ``h27``,
-``h12``, ``h14``, ``h18``) that start with one of its prefixes, and
-builds and reports only their sources.
+``h12``, ``h14``, ``h18``, ``h17``, ``h16``) that start with one of its
+prefixes, and builds and reports only their sources.
 ``--phot`` names the frames and positions ``chip_smoke.py`` saves where
 ``ZUDS_PHOT_INPUTS`` points (its forced-photometry phase: dophot's 4096
 positions on a flagship subtraction), for the case ``h22_forced``.
@@ -100,6 +101,25 @@ only the valid rows); ``chip_smoke.py``'s busy blend field
   ``inputs.write_night_pairs`` as chip_smoke.py writes them), within
   rtol 1e-6 of the plain version, two calls bit-identical, ``sha256``
   hashing the triplets.
+- ``h18_zogy``, ``h18_s300``: H18 on H17's stamps of the night's first
+  pair (``zogy_frames``: the science frame less its background at
+  ``_select_stamps(sci, 64)``) and on 300 seeded stamps, within 1e-7 of the
+  plain version, ``good`` equal, 0-3 passes timed.
+- ``h17_zogy``, ``h17_zogy_ref``: H17 at those 64 positions on the
+  science frame and on the reference aligned to it (its sky pedestal
+  kept); ``h17_zogy_n24``, ``h17_zogy_n32``: the science frame at sizes
+  24 and 32; ``h17_s300``: 300 seeded stars on a 3080x3072 sky of 150
+  counts (:func:`stamp_field`, four corners clamped). Each against the
+  plain version (the good stamps within 1e-7, ``good0`` equal), two calls
+  bit-identical, ``sha256`` of the stamps and flags, ``issued_flop``
+  (:func:`stamp_flop`) and its time at the fp64 peak.
+- ``h16_zogy``: H16 on that pair's ``p_d`` and ``s`` at 3080x3072 (its
+  PSFs, H15 and cuFFT's inverses); ``h16_250x197``: seeded planes of that
+  shape (n % 4 = 2); ``h16_zogy_offset``: ``p_d`` as a view 4 bytes past
+  a 16-byte boundary (the single-float path). Each within 1e-6 relative
+  of the plain version, two calls bit-identical, ``sha256``, the device
+  activities of one call by name (``events``, from torch.profiler: no
+  memset), ``norm_ms`` (``torch.linalg.vector_norm(p_d)`` for scale).
 - ``empty``: an empty kernel (one block of 32 threads) under the same
   CUDA graph: the launch floor of a graph's launch.
 
@@ -136,7 +156,8 @@ a pair of valid rows and 14 more a brighter valid neighbour; H12: each
 window read and each triplet value written once, 8 B a candidate's
 corner; H14: each distinct corner's 13x13 window, 8 B of corner and 1 B
 of verdict a row; H18: the stamps, their flags, the PSF and the flags
-out). Then the card's name and power limit, ptxas's registers and
+out; H17: :func:`stamps_bound`, the reference's f32 work; H16: 12 B and
+3 operations a pixel). Then the card's name and power limit, ptxas's registers and
 spills of the checkout's sources of the cases run, and their kernels'
 SASS and local-memory instruction counts. The script exits
 non-zero at its end if a check failed.
@@ -212,6 +233,9 @@ TRIPLET_N = (256, 2048)
 NEGPIX_N = (256, 4096)
 # H18: the ZOGY pair's stamps (chip_smoke.py ZOGY_STAMPS), the seeded set
 PSF_STAMPS = (64, 300)
+# H17: the stamp sizes timed beside the pair's 25 (an even one, the most)
+STAMP_SIZES = (25, 24, 32)
+FP64_FLOP_S = 33.5e12
 EMPTY_CU = r'''
 #include <cuda_runtime.h>
 __global__ void zuds_empty_kernel() {}
@@ -966,22 +990,40 @@ def h14_cases(cfg, out, dev, tmp):
         yield rec
 
 
-def psf_inputs(cfg, dev, tmp):
-    """H18's cases: (stamps, good0)."""
+def zogy_frames(cfg, dev, tmp):
+    """The night's first pair as the ZOGY path takes it (subtraction.py's
+    zogy branch): the science frame less its background and the reference
+    aligned to it (f32 on the card), the star positions of
+    ``_select_stamps(sci, 64)`` (xs, ys, valid on the card) and the
+    median rms of each frame."""
     from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.coadd import ReferenceImage
     from zuds_tpu_torch.image import ScienceImage
-    from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.subtraction import _select_stamps
     d = Path(tmp) / 'zogy'
     d.mkdir(exist_ok=True)
     work, _ = inputs.write_night_pairs(
         d, 1, cfg.height, cfg.width,
         header_json=_HERE.parent / 'tests' / 'data' / 'ztf_real_header.json')
-    sci = ScienceImage.from_file(work[0].split()[0])
+    sci_path, ref_path = work[0].split()
+    sci = ScienceImage.from_file(sci_path)
+    ref = ReferenceImage.from_file(ref_path)
     pos = [torch.as_tensor(a, device=dev)
            for a in _select_stamps(sci, smax=PSF_STAMPS[0])]
     new = torch.as_tensor(np.ascontiguousarray(
         sci.background_subtracted_image.data, 'f4'), device=dev)
+    aligned = torch.as_tensor(np.ascontiguousarray(
+        ref.aligned_to(sci).data, 'f4'), device=dev)
+    sigmas = (float(np.median(sci.rms_image.data)),
+              max(float(np.median(ref.rms_image.aligned_to(sci).data)), 1e-3))
+    return new, aligned, pos, sigmas
+
+
+def psf_inputs(frames):
+    """H18's cases: (stamps, good0)."""
+    from zuds_tpu_torch.kernels import launch
+    new, _, pos, _ = frames
+    dev = new.device
     cases = {'h18_zogy': launch.psf_stamps(new, *pos, 25)}
     # seeded stamps: a Gaussian of sigma 1.8 px, noise, an outlier in
     # every 23rd, the last eight padding rows
@@ -997,11 +1039,157 @@ def psf_inputs(cfg, dev, tmp):
     return cases
 
 
-def h18_cases(cfg, dev, tmp):
+def stamp_field(H, W, n, seed=22):
+    """n stars of 3e4 (sigma 1.8 px) at seeded positions on a sky of 150
+    counts, noise 5 (a reference's pedestal, the case that wants the
+    transforms in double), four of them within 3 px of an edge (their
+    corners clamp): (img f32, xs, ys, valid all True)."""
+    rng = np.random.default_rng(seed)
+    img = 150.0 + 5.0 * rng.standard_normal((H, W))
+    xs = rng.uniform(20, W - 20, n)
+    ys = rng.uniform(20, H - 20, n)
+    xs[:4], ys[:4] = (2.2, W - 1.4, 700.3, 1500.6), (900.7, 40.2, 1.9, H - 2.6)
+    r = 10
+    yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+    for x, y in zip(xs, ys):
+        ix, iy = int(round(x)), int(round(y))
+        y0, y1 = max(iy - r, 0), min(iy + r + 1, H)
+        x0, x1 = max(ix - r, 0), min(ix + r + 1, W)
+        g = np.exp(-((xx + ix - x) ** 2 + (yy + iy - y) ** 2) / 6.48) \
+            * 3e4 / (2 * np.pi * 3.24)
+        img[y0:y1, x0:x1] += g[y0 - iy + r:y1 - iy + r, x0 - ix + r:x1 - ix + r]
+    return (img.astype('f4'), xs.astype('f4'), ys.astype('f4'),
+            np.ones(n, bool))
+
+
+def stamp_flop(S, n):
+    """H17's issued fp64 FLOP (two a fused multiply-add) at S stamps of
+    n x n: P1 n m outputs of (n - 1) // 2 paired terms of two FMAs (and a
+    Nyquist FMA at even n); P2, P3 m^2 conjugate pairs of n terms of four
+    FMAs; P4 n m column pairs of m terms of two FMAs (m = n // 2 + 1)."""
+    m = n // 2 + 1
+    fma = (n * m * (2 * ((n - 1) // 2) + (1 - n % 2)) + 2 * m * m * n * 4
+           + n * m * m * 2)
+    return 2 * S * fma
+
+
+def stamps_bound(S, n):
+    """H17's bound, the function's work as the reference does it in f32:
+    each stamp's window read and written, its position and flags (9 B);
+    fft2 and ifft2 of n^2 points at 5 n^2 log2 n^2 each, 15 operations a
+    pixel for the ramp, the median's subtraction, the sum and the scale
+    (chip_smoke.py's psf_stamps bound)."""
+    import math
+    npx = n * n
+    return bound(S * (2 * npx * 4 + 9),
+                 S * (2 * 5 * npx * math.log2(max(npx, 2)) + 15 * npx))
+
+
+def h17_cases(dev, frames):
+    from zuds_tpu_torch.bench_compact import call_ms
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    new, aligned, pos, _ = frames
+    H, W = new.shape
+    field = [torch.as_tensor(a, device=dev)
+             for a in stamp_field(H, W, PSF_STAMPS[1])]
+    cases = [('h17_zogy', new, pos, 25), ('h17_zogy_ref', aligned, pos, 25)]
+    cases += [(f'h17_zogy_n{n}', new, pos, n) for n in STAMP_SIZES[1:]]
+    cases += [(f'h17_s{PSF_STAMPS[1]}', field[0], field[1:], 25)]
+    for case, img, (xs, ys, valid), n in cases:
+        ks, kg = launch.psf_stamps(img, xs, ys, valid, n)
+        ps, pg = zogy.psf_stamps_plain(img, xs, ys, valid, n)
+        rs, rg = launch.psf_stamps(img, xs, ys, valid, n)
+        S = xs.shape[0]
+        err = float((ks[pg] - ps[pg]).abs().max()) if bool(pg.any()) else 0.0
+        rec = {'case': case, 'stamps': S, 'size': n,
+               'good0': int(pg.sum()), 'good_equal': bool(torch.equal(kg, pg)),
+               'max_abs_err': err, 'check_ok': err <= 1e-7,
+               'repeat_equal': bool(torch.equal(ks, rs)
+                                    and torch.equal(kg, rg)),
+               'sha256': hashlib.sha256(
+                   ks.cpu().numpy().tobytes() + kg.cpu().numpy().tobytes())
+               .hexdigest(),
+               'issued_flop': stamp_flop(S, n),
+               'issued_fp64_ms': stamp_flop(S, n) / FP64_FLOP_S * 1e3}
+        _timed(rec, lambda: launch.psf_stamps(img, xs, ys, valid, n))
+        rec['plain_ms'] = call_ms(
+            lambda: zogy.psf_stamps_plain(img, xs, ys, valid, n), 1, 3)
+        rec['bound_ms'], rec['bound_by'] = stamps_bound(S, n)
+        rec['ok'] = (rec['good_equal'] and rec['check_ok']
+                     and rec['repeat_equal'])
+        yield rec
+
+
+def device_events(fn, reps=5):
+    """The device activities (kernels, memsets, copies) of one call of
+    ``fn`` by name, from torch.profiler over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+    return {k: v / reps for k, v in counts.items()}
+
+
+def h16_cases(dev, frames):
+    from zuds_tpu_torch.bench_compact import call_ms
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import zogy
+    new, aligned, pos, (sn, sr) = frames
+    H, W = new.shape
+    psfs = [zogy.estimate_psf_from_stars(img, *pos) for img in (new, aligned)]
+    sc = zogy.zogy_scalars(sn, sr)
+    spectra = [torch.fft.rfft2(new), torch.fft.rfft2(aligned),
+               zogy._psf_to_otf(psfs[0], (H, W)),
+               zogy._psf_to_otf(psfs[1], (H, W))]
+    kk = zogy.spectral_pass(*spectra, **sc)
+    p_d = torch.fft.irfft2(kk[1], s=(H, W)).contiguous()
+    s = torch.fft.irfft2(kk[2], s=(H, W)).contiguous()
+    rng = np.random.default_rng(81)
+    tail = [torch.as_tensor((rng.normal(size=(250, 197)) * a).astype('f4'),
+                            device=dev) for a in (1e-3, 5.0)]
+    # a view 4 bytes past a 16-byte boundary: the single-float path
+    big = torch.as_tensor((rng.normal(size=H * W + 1) * 1e-3).astype('f4'),
+                          device=dev)
+    cases = [('h16_zogy', p_d, s, sc['f_d']),
+             ('h16_250x197', tail[0], tail[1], 0.7),
+             ('h16_zogy_offset', big[1:].view(H, W), s, sc['f_d'])]
+    for case, a, b, f_d in cases:
+        k = launch.zogy_normalize(a, b, f_d)
+        p = zogy.score_normalize_plain(a, b, f_d)
+        r = launch.zogy_normalize(a, b, f_d)
+        err = float(((k - p).abs() / p.abs().clamp(min=1e-30)).max())
+        n = a.numel()
+        rec = {'case': case, 'shape': list(a.shape),
+               'max_abs_err': float((k - p).abs().max()), 'max_rel_err': err,
+               'check_ok': err <= 1e-6,
+               'repeat_equal': bool(torch.equal(k, r)),
+               'sha256': hashlib.sha256(k.cpu().numpy().tobytes())
+               .hexdigest(),
+               'events': device_events(
+                   lambda: launch.zogy_normalize(a, b, f_d))}
+        _timed(rec, lambda: launch.zogy_normalize(a, b, f_d))
+        rec['plain_ms'] = call_ms(
+            lambda: zogy.score_normalize_plain(a, b, f_d), 1, 3)
+        rec['norm_ms'] = call_ms(lambda: torch.linalg.vector_norm(a))
+        rec['bound_ms'], rec['bound_by'] = bound(12 * n, 3 * n)
+        rec['ok'] = rec['check_ok'] and rec['repeat_equal'] and not any(
+            'memset' in e.lower() for e in rec['events'])
+        yield rec
+
+
+def h18_cases(frames):
     from zuds_tpu_torch.bench_compact import call_ms, graph_ms
     from zuds_tpu_torch.kernels import launch
     from zuds_tpu_torch.ops import zogy
-    for case, (st, g0) in psf_inputs(cfg, dev, tmp).items():
+    for case, (st, g0) in psf_inputs(frames).items():
         kp, kg = launch.psf_clip(st, g0, 2)
         pp, pg = zogy.psf_clip_plain(st, g0, 2)
         rp, rg = launch.psf_clip(st, g0, 2)
@@ -1186,9 +1374,10 @@ def main(argv=None):
     ap.add_argument('--tag', default='')
     ap.add_argument('--out', default=None)
     ap.add_argument('--cases',
-                    default='h5,h25,h23,h26,h24,h22,h27,h12,h14,h18',
+                    default='h5,h25,h23,h26,h24,h22,h27,h12,h14,h18,h17,h16',
                     help='comma-separated prefixes of the case groups to '
-                    'run (h5, h25, h23, h26, h24, h22, h27, h12, h14, h18)')
+                    'run (h5, h25, h23, h26, h24, h22, h27, h12, h14, h18, '
+                    'h17, h16)')
     ap.add_argument('--phot', default=None,
                     help='the forced positions and frames chip_smoke.py '
                     'saves where ZUDS_PHOT_INPUTS points (case h22_forced)')
@@ -1199,7 +1388,7 @@ def main(argv=None):
         ('h5', 'deblend.cu'), ('h25', 'ccl.cu'), ('h23', 'measure.cu'),
         ('h26', 'objects.cu'), ('h24', 'ccl.cu'), ('h22', 'photometry.cu'),
         ('h27', 'objects.cu'), ('h12', 'cutouts.cu'), ('h14', 'cutouts.cu'),
-        ('h18', 'zogy.cu'))
+        ('h18', 'zogy.cu'), ('h17', 'zogy.cu'), ('h16', 'zogy.cu'))
         if group.startswith(wanted)})
     if not torch.cuda.is_available():
         sys.exit('bench_detect: no CUDA device')
@@ -1267,14 +1456,23 @@ def main(argv=None):
         if 'h14'.startswith(wanted):
             for rec in h14_cases(cfg, out, dev, tmp):
                 emit(rec)
+        frames = None
+        if any(g.startswith(wanted) for g in ('h18', 'h17', 'h16')):
+            frames = zogy_frames(cfg, dev, tmp)
         if 'h18'.startswith(wanted):
-            for rec in h18_cases(cfg, dev, tmp):
+            for rec in h18_cases(frames):
+                emit(rec)
+        if 'h17'.startswith(wanted):
+            for rec in h17_cases(dev, frames):
+                emit(rec)
+        if 'h16'.startswith(wanted):
+            for rec in h16_cases(dev, frames):
                 emit(rec)
     lib_path = Path(build.library()._name)
     emit({'case': 'sass', 'sass': sass_counts(
         lib_path, r'refine|rank_kernel|offsets|place|tree|rows_kernel'
         r'|deblend_labels|ccl_|seed_kernel|aperture_kernel|clean_'
-        r'|triplet_cut|negpix_veto|psf_clip')})
+        r'|triplet_cut|negpix_veto|psf_clip|psf_stamps|normalize')})
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()

@@ -93,8 +93,8 @@ SIGNATURES = {
     # dmax (u32 scratch), D, Pd, S, stream
     'zuds_zogy_spectral': (_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _P,
                            _P, _P, _P, _P),
-    # p_d, s, n, f_d, blocks, partials (f64), done (u32), total, out, stream
-    'zuds_zogy_normalize': (_P, _P, _L, _F, _I, _P, _P, _P, _P, _P),
+    # p_d, s, n, f_d, max_blocks, partials (f64, max_blocks), out, stream
+    'zuds_zogy_normalize': (_P, _P, _L, _F, _I, _P, _P, _P),
     # img, H, W, xs, ys, valid(u8), S, size, stamps, good0(u8), stream
     'zuds_psf_stamps': (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     # stamps, good0(u8), S, npix, iters, psf, good(u8), stream

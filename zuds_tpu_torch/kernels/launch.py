@@ -1028,25 +1028,25 @@ def zogy_spectral(N, R, Pn, Pr, c_r, c_n, f_ref, f_new, f_rn, f_d):
     return D, Pd, S
 
 
-# blocks of H16's sum (zogy.cu): four per SM of the H100
-NORMALIZE_BLOCKS = 4 * 132
+# the most blocks of H16's grid (zogy.cu launches as many as fit on the
+# card at once, fewer than this on the H100); its scratch holds a double a
+# block
+NORMALIZE_MAX_BLOCKS = 8 * 132
 
 
 def zogy_normalize(p_d, s, f_d):
     """H16 (kernels/zogy.cu): ``s / (f_d sqrt(max(sum p_d^2, 1e-20)))``
-    (f32, the shape of ``s``); the sum stays a device scalar between the
-    two launches."""
+    (f32, the shape of ``s``) in one launch; the sum stays on the card.
+    Any length and storage offset (16-byte loads where the three pointers
+    are 16-byte aligned)."""
     _require('p_d', p_d, torch.float32)
     _require('s', s, torch.float32, p_d.shape)
-    n = p_d.numel()
-    blocks = max(1, min(NORMALIZE_BLOCKS, -(-n // 256)))
-    partials = torch.empty(blocks, dtype=torch.float64, device=s.device)
-    done = torch.empty((), dtype=torch.int32, device=s.device)
-    total = torch.empty((), dtype=torch.float32, device=s.device)
+    partials = torch.empty(NORMALIZE_MAX_BLOCKS, dtype=torch.float64,
+                           device=s.device)
     out = torch.empty_like(s)
     err = build.library().zuds_zogy_normalize(
-        _ptr(p_d), _ptr(s), n, float(f_d), blocks, _ptr(partials),
-        _ptr(done), _ptr(total), _ptr(out), _stream())
+        _ptr(p_d), _ptr(s), p_d.numel(), float(f_d), NORMALIZE_MAX_BLOCKS,
+        _ptr(partials), _ptr(out), _stream())
     build.check(err, 'zuds_zogy_normalize')
     zogy_normalize.launches += 1
     return out

@@ -21,28 +21,49 @@
 // writes 24 B.
 //
 // H16 replaces zogy.py:74-76: sum p_d^2 over the frame into one device
-// scalar, then s_corr = s / (f_d sqrt(max(sum, 1e-20))). Launch one: each
-// block sums its grid-stride share of the f32 squares in double and
-// writes its partial; the last block to finish (a counter) adds the
-// partials in block order, so the sum is the same every run and is
-// rounded to f32 once. Launch two scales s. Bound: memory, 12 B per pixel.
+// scalar, then s_corr = s / (f_d sqrt(max(sum, 1e-20))), in one
+// cooperative launch of a co-resident grid (no memset, no counter). Each
+// block takes a contiguous slab of 16-byte chunks (single floats where a
+// pointer is not 16-byte aligned; the n % 4 floats past the chunks go to
+// the last block's thread 0), first loads the first kNormHold chunks of
+// its s into registers, sums its fl(p_d^2) in double (four chains a
+// thread, then a fixed tree) into its partial, waits at the grid barrier,
+// adds the G partials in one fixed order (every block the same bits, the
+// same every call), rounds once to f32 and scales its slab. Bound:
+// memory, 12 B per pixel; the barrier is hidden in part behind the held
+// loads.
 //
 // H17 replaces zogy.py:89-114 (estimate_psf_from_stars's cuts): one block
-// per star. The block cuts the size x size window at the clamped corner
-// of the position rounded half to even, shifts it by the sub-pixel offset
-// through the Fourier phase ramp as a direct DFT along each axis in shared
-// memory, keeps the real part rounded once to f32, takes the median of the
-// 4 size border values as jnp.median does (the midpoint of the two middle
-// values by rank; NaN when one is NaN), subtracts it, sums the stamp and
-// writes it divided by its sum where that is positive, and good0 = valid &
-// (sum > 0). The transforms run in double (twiddles from sincospi): in f32
-// a cut on a sky pedestal (an aligned reference keeps its ~150 counts)
-// carries the pedestal's rounding into every mode, which put single
-// stamps 1e-6 apart from an f32 cuFFT. The plain version transforms in
-// double too, so the two agree to the final f32 rounding. The ramp is the
-// reference's: its argument 2 pi (fy dy + fx dx) and fftfreq's k / n
-// rounded in f32, cosf and sinf. Bound: ~0.46 MFLOP per stamp (fp64) and
-// 5 KB read and written, about a microsecond for 64.
+// of 512 threads per star. The block cuts the size x size window at the
+// clamped corner of the position rounded half to even and shifts it by the
+// sub-pixel offset through the Fourier phase ramp, keeps the real part
+// rounded once to f32, takes the median of the 4 size border values as
+// jnp.median does (the midpoint of the two middle values by rank; NaN when
+// one is NaN), subtracts it, sums the stamp and writes it divided by its
+// sum where that is positive, and good0 = valid & (sum > 0). The real part
+// of the inverse of the ramped spectrum F E is the inverse of its
+// Hermitian part F (E(u, v) + conj(E(-u, -v))) / 2 (the cut is real, so F
+// is Hermitian; at even n fftfreq gives -1/2 at n / 2 for both k and -k, so
+// the ramp itself is not), which needs only the half spectrum, columns v
+// < m = n / 2 + 1: four direct DFT passes in double over it, each one
+// round of the block: P1 the real rows (columns c and n - c paired: two
+// FMAs a pair), P2 and P3 along y (the conjugate rows k and n - k from
+// four sums, the even and odd terms on two lanes), the ramp folded into
+// P2's outputs, P4 the real part along x (columns c and n - c from two
+// sums): 50,050 FMAs a 25x25 stamp. A lane's twiddles come by recurrence
+// (a complex product a term, ~1e-15 from sincospi's table after 16
+// terms): the passes are bound by shared-memory traffic, and a twiddle
+// load would be half of it. The
+// transforms run in double: in f32 a cut on a sky pedestal (an aligned
+// reference keeps its ~150 counts) carries the pedestal's rounding into
+// every mode, which put single stamps 1e-6 apart from an f32 cuFFT. The
+// plain version transforms in double too, so the two agree to the final
+// f32 rounding. The ramp is the reference's: its argument 2 pi (fy dy + fx
+// dx) and fftfreq's k / n rounded in f32, its cosine and sine (one
+// sincosf). The stamp's f32 sum runs in the order of 256 lanes, whatever
+// the block's width. CPU emulation: tests/test_torch_zogy_passes.py. Bound:
+// ~0.46 MFLOP per stamp of the reference's f32 work and 5 KB read and
+// written; the block's seven phases (PERF.md) each take 800-3100 cycles.
 //
 // H18 replaces zogy.py:116-132: `iters` passes of the 5 sigma clip (the
 // mean and variance of the good stamps per pixel, each summed in stamp
@@ -196,79 +217,231 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- H16 -------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-    sumsq_kernel(const float* __restrict__ pd, long long n,
-                 double* __restrict__ partials, unsigned* __restrict__ done,
-                 float* __restrict__ total) {
-  __shared__ double red[kThreads / 32];
-  __shared__ bool last;
-  double acc = 0.0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float v = pd[i];
-    acc += (double)__fmul_rn(v, v);
-  }
+// H16's block width, and the chunks of s (16 bytes each on the vector path)
+// a thread loads before the grid barrier and holds in registers across it
+constexpr int kNormThreads = 512;
+constexpr int kNormHold = 4;
+
+__device__ __forceinline__ void add_squares(float v, double* acc) {
+  acc[0] += (double)__fmul_rn(v, v);
+}
+__device__ __forceinline__ void add_squares(float4 v, double* acc) {
+  acc[0] += (double)__fmul_rn(v.x, v.x);
+  acc[1] += (double)__fmul_rn(v.y, v.y);
+  acc[2] += (double)__fmul_rn(v.z, v.z);
+  acc[3] += (double)__fmul_rn(v.w, v.w);
+}
+__device__ __forceinline__ float divided(float v, float d) {
+  return __fdiv_rn(v, d);
+}
+__device__ __forceinline__ float4 divided(float4 v, float d) {
+  return make_float4(__fdiv_rn(v.x, d), __fdiv_rn(v.y, d), __fdiv_rn(v.z, d),
+                     __fdiv_rn(v.w, d));
+}
+
+// the double sum of one value per thread in a fixed order: an xor
+// butterfly in each warp (every lane ends with the same bits: each add's
+// operands only swap sides), then the warps in order. Every thread gets it;
+// red holds a double per warp.
+__device__ double block_sum_d(double v, double* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w];
-    partials[blockIdx.x] = s;
-    __threadfence();
-    last = atomicAdd(done, 1u) == gridDim.x - 1;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  double s = 0.0;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += red[w];
+  return s;
+}
+
+// A block's slab of the nv chunks of V floats (V = 4 on the vector path,
+// 1 when a pointer is not 16-byte aligned): the chunks [lo, hi), thread t
+// taking lo + t, lo + t + kNormThreads, ...; the n % V floats past the
+// chunks belong to the last block's thread 0.
+struct Slab {
+  long long lo, hi, nv;
+  __device__ Slab(long long n, int V) {
+    nv = n / V;
+    const long long per = (nv + gridDim.x - 1) / gridDim.x;
+    lo = min((long long)blockIdx.x * per, nv);
+    hi = min(lo + per, nv);
   }
-  __syncthreads();
-  if (last && threadIdx.x == 0) {
-    __threadfence();
-    double s = 0.0;
-    for (unsigned b = 0; b < gridDim.x; ++b)
-      s += ((volatile double*)partials)[b];
-    *total = (float)s;
+};
+
+// phase 1: the slab's sum of fl(p_d^2) in double (four chains a thread,
+// then block_sum_d) into partials[block]
+template <typename T>
+__device__ __forceinline__ void sum_slab(const float* pd_, long long n,
+                                         const Slab& sl, double* partials,
+                                         double* red) {
+  constexpr int V = sizeof(T) / sizeof(float);
+  const T* pd = reinterpret_cast<const T*>(pd_);
+  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  // four loads in flight a thread, added in chunk order
+  long long c = sl.lo + threadIdx.x;
+  for (; c + 3 * kNormThreads < sl.hi; c += 4 * kNormThreads) {
+    const T a = pd[c], b = pd[c + kNormThreads], d = pd[c + 2 * kNormThreads],
+            e = pd[c + 3 * kNormThreads];
+    add_squares(a, acc);
+    add_squares(b, acc);
+    add_squares(d, acc);
+    add_squares(e, acc);
+  }
+  for (; c < sl.hi; c += kNormThreads) add_squares(pd[c], acc);
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
+    for (long long i = sl.nv * V; i < n; ++i) add_squares(pd_[i], acc);
+  const double v = block_sum_d((acc[0] + acc[1]) + (acc[2] + acc[3]), red);
+  if (threadIdx.x == 0) partials[blockIdx.x] = v;
+}
+
+// the first kNormHold chunks of the thread's share of s
+template <typename T>
+__device__ __forceinline__ void hold_slab(const float* s_, const Slab& sl,
+                                          T* held) {
+  const T* s = reinterpret_cast<const T*>(s_);
+#pragma unroll
+  for (int k = 0; k < kNormHold; ++k) {
+    const long long c = sl.lo + threadIdx.x + (long long)k * kNormThreads;
+    if (c < sl.hi) held[k] = s[c];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    scale_kernel(const float* __restrict__ s, long long n, float f_d,
-                 const float* __restrict__ total, float* __restrict__ out) {
-  const float t = *total;
+// phase 2: every block adds the G partials in one fixed order (so all hold
+// the same bits), rounds the sum to f32 once, and writes its slab of
+// s / (f_d sqrt(max(sum, 1e-20)))
+template <typename T>
+__device__ __forceinline__ void scale_slab(const float* s_, long long n,
+                                           float f_d, const Slab& sl,
+                                           const double* partials,
+                                           const T* held, float* out_,
+                                           double* red) {
+  constexpr int V = sizeof(T) / sizeof(float);
+  double p = 0.0;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kNormThreads)
+    p += __ldcg(partials + i);
+  const float total = (float)block_sum_d(p, red);
   const float norm =
-      __fmul_rn(f_d, __fsqrt_rn(isnan(t) ? t : fmaxf(t, 1e-20f)));
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = __fdiv_rn(s[i], norm);
+      __fmul_rn(f_d, __fsqrt_rn(isnan(total) ? total : fmaxf(total, 1e-20f)));
+  const T* s = reinterpret_cast<const T*>(s_);
+  T* out = reinterpret_cast<T*>(out_);
+  const long long first = sl.lo + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < kNormHold; ++k) {
+    const long long c = first + (long long)k * kNormThreads;
+    if (c < sl.hi) out[c] = divided(held[k], norm);
+  }
+  long long c = first + (long long)kNormHold * kNormThreads;
+  for (; c + 3 * kNormThreads < sl.hi; c += 4 * kNormThreads) {
+    const T a = s[c], b = s[c + kNormThreads], d = s[c + 2 * kNormThreads],
+            e = s[c + 3 * kNormThreads];
+    out[c] = divided(a, norm);
+    out[c + kNormThreads] = divided(b, norm);
+    out[c + 2 * kNormThreads] = divided(d, norm);
+    out[c + 3 * kNormThreads] = divided(e, norm);
+  }
+  for (; c < sl.hi; c += kNormThreads) out[c] = divided(s[c], norm);
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
+    for (long long i = sl.nv * V; i < n; ++i)
+      out_[i] = __fdiv_rn(s_[i], norm);
+}
+
+// one cooperative launch: the grid is co-resident, so a grid barrier
+// parts the phases; the held chunks of s load before it
+template <typename T>
+__global__ void __launch_bounds__(kNormThreads)
+    normalize_kernel(const float* __restrict__ pd, const float* __restrict__ s,
+                     long long n, float f_d, double* __restrict__ partials,
+                     float* __restrict__ out) {
+  __shared__ double red[kNormThreads / 32];
+  const Slab sl(n, sizeof(T) / sizeof(float));
+  T held[kNormHold];
+  hold_slab<T>(s, sl, held);
+  sum_slab<T>(pd, n, sl, partials, red);
+  cg::this_grid().sync();
+  scale_slab<T>(s, n, f_d, sl, partials, held, out, red);
 }
 
 // ---- H17 -------------------------------------------------------------------
 
-// one DFT pass over the n x n complex plane (in_re, in_im; in_im null for
-// a real plane) along rows (along_x) or columns, with twiddles tw[k] =
-// exp(-2 pi i k / n), conjugated for the inverse
-__device__ void dft_pass(const double* in_re, const double* in_im,
-                         double* out_re, double* out_im, const double2* tw,
-                         int n, bool along_x, bool inverse) {
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int r = i / n, c = i - r * n;
-    const int k = along_x ? c : r;         // the output frequency
-    double acc_re = 0.0, acc_im = 0.0;
-    for (int m = 0; m < n; ++m) {
-      const int j = along_x ? r * n + m : m * n + c;
-      const double2 w = tw[(k * m) % n];
-      const double wi = inverse ? -w.y : w.y;
-      const double xr = in_re[j], xi = in_im ? in_im[j] : 0.0;
-      acc_re = fma(xr, w.x, fma(-xi, wi, acc_re));
-      acc_im = fma(xr, wi, fma(xi, w.x, acc_im));
+constexpr int kStampThreads = 512;
+constexpr int kHalfMax = kMaxStamp / 2 + 1;   // the half spectrum's columns
+constexpr int kSumLanes = 256;   // the lanes of the stamp's sum
+static_assert(kStampThreads >= kSumLanes, "the sum's lanes are threads");
+
+// -k mod n, for k in [0, n)
+__device__ __forceinline__ int partner(int k, int n) { return k ? n - k : 0; }
+
+// a b in double (the twiddle recurrence)
+__device__ __forceinline__ double2 cmul_d(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
+
+// jnp.fft.fftfreq(n)[k] in f32 (k < n): k / n up to (n - 1) / 2, then
+// (k - n) / n
+__device__ __forceinline__ float fftfreq(int k, int n) {
+  return __fdiv_rn((float)(2 * k < n ? k : k - n), (float)n);
+}
+
+// P2 and P3: the complex DFT along the rows' axis of an n x m half
+// spectrum (in, row-major, m columns), out[k][v] = sum_j w^(kj) in[j][v]
+// forward and w^(-kj) inverse, w = exp(-2 pi i / n). A pair of lanes takes
+// the conjugate outputs k and n - k of one column v (their twiddles are
+// conjugate, so four sums over j serve both), the even j on one lane and
+// the odd j on the other; the twiddle w^(kj) by recurrence (times w^(2k)
+// a term, in double: ~1e-15 from sincospi's after 16 terms). The
+// epilogue multiplies the forward pass by the ramp (ramp[k][v]) and the
+// inverse one by the weight of its column in the real-part pass.
+template <bool kForward>
+__device__ __forceinline__ void pair_pass(const double2* in, double2* out,
+                                          const double2* tw,
+                                          const double2* ramp, int n,
+                                          int m) {
+  const int h = threadIdx.x & 1;
+  const int pairs = m * m, lanes = blockDim.x >> 1;
+  for (int base = 0; base < pairs; base += lanes) {
+    const int i = base + (threadIdx.x >> 1);
+    const bool live = i < pairs;
+    const int k = live ? i / m : 0, v = live ? i - k * m : 0;
+    double sap = 0.0, sbq = 0.0, saq = 0.0, sbp = 0.0;
+    if (live) {
+      // w^(kh), then times w^(2k) a term
+      double2 w = tw[h ? k : 0];
+      const double2 ws = tw[2 * k >= n ? 2 * k - n : 2 * k];
+#pragma unroll 4
+      for (int j = h; j < n; j += 2) {
+        const double2 x = in[j * m + v];
+        sap = fma(w.x, x.x, sap);
+        sbq = fma(w.y, x.y, sbq);
+        saq = fma(w.x, x.y, saq);
+        sbp = fma(w.y, x.x, sbp);
+        w = cmul_d(w, ws);
+      }
     }
-    out_re[i] = acc_re;
-    out_im[i] = acc_im;
+    // the pair's two halves, the same bits on both lanes
+    sap += __shfl_xor_sync(0xffffffffu, sap, 1);
+    sbq += __shfl_xor_sync(0xffffffffu, sbq, 1);
+    saq += __shfl_xor_sync(0xffffffffu, saq, 1);
+    sbp += __shfl_xor_sync(0xffffffffu, sbp, 1);
+    // w^(kj) x summed: (ap - bq, aq + bp); its conjugate twiddle's:
+    // (ap + bq, aq - bp). Lane h = 0 writes row k, lane 1 row n - k.
+    const int row = h ? partner(k, n) : k;
+    if (!live || (h && row == k)) continue;
+    const bool plus = kForward == (h == 0);
+    const double re = plus ? sap - sbq : sap + sbq;
+    const double im = plus ? saq + sbp : saq - sbp;
+    const int at = row * m + v;
+    if (kForward) {
+      const double2 e = ramp[at];
+      out[at] = make_double2(re * e.x - im * e.y, re * e.y + im * e.x);
+    } else {
+      const double wv = (v == 0 || 2 * v == n) ? 1.0 : 2.0;
+      out[at] = make_double2(wv * re, wv * im);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kStampThreads)
     psf_stamps_kernel(const float* __restrict__ img, int H, int W,
                       const float* __restrict__ xs,
                       const float* __restrict__ ys,
@@ -276,16 +449,19 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ stamps,
                       uint8_t* __restrict__ good0) {
   __shared__ double2 tw[kMaxStamp];
-  __shared__ float fq[kMaxStamp];
-  __shared__ double a_re[kMaxStamp * kMaxStamp], a_im[kMaxStamp * kMaxStamp];
-  __shared__ double b_re[kMaxStamp * kMaxStamp], b_im[kMaxStamp * kMaxStamp];
+  __shared__ double xin[kMaxStamp * kMaxStamp];
+  __shared__ double2 ramp[kMaxStamp * kHalfMax];
+  __shared__ double2 pa[kMaxStamp * kHalfMax];   // B, then C
+  __shared__ double2 pb[kMaxStamp * kHalfMax];   // H
   __shared__ float st[kMaxStamp * kMaxStamp];
   __shared__ float border[4 * kMaxStamp];
-  __shared__ float red[kThreads / 32];
+  __shared__ float red[kStampThreads / 32];
   __shared__ float mid[2];
   __shared__ int has_nan;
-  const int s = blockIdx.x, t = threadIdx.x, nn = n * n, half = n / 2;
+  const int s = blockIdx.x, t = threadIdx.x, T = blockDim.x;
+  const int nn = n * n, half = n / 2, m = n / 2 + 1;
   const float x = xs[s], y = ys[s];
+  const bool ok = valid[s] != 0;
   const int x0 = min(max((int)rintf(x) - half, 0), W - n);
   const int y0 = min(max((int)rintf(y) - half, 0), H - n);
   const float dx = __fsub_rn(x, (float)(x0 + half));
@@ -294,74 +470,147 @@ __global__ void __launch_bounds__(kThreads)
     double sv, cv;
     sincospi(2.0 * t / n, &sv, &cv);
     tw[t] = make_double2(cv, -sv);
-    fq[t] = __fdiv_rn((float)((t + n / 2) % n - n / 2), (float)n);
   }
   if (t == 0) has_nan = 0;
-  for (int i = t; i < nn; i += blockDim.x) {
-    const int r = i / n, c = i - r * n;
-    a_re[i] = (double)img[(long long)(y0 + r) * W + x0 + c];
+  // the window's values into registers first: their loads in flight
+  // under the ramp's arithmetic
+  float px[kMaxStamp * kMaxStamp / kStampThreads];
+#pragma unroll
+  for (int k = 0; k < kMaxStamp * kMaxStamp / kStampThreads; ++k) {
+    const int i = t + k * T, r = i / n, c = i - r * n;
+    if (i < nn) px[k] = img[(long long)(y0 + r) * W + x0 + c];
+  }
+  // the ramp of the half spectrum's Hermitian part: (E(u, v) +
+  // conj(E(-u, -v))) / 2, so that the real part of the inverse is the
+  // inverse of the half spectrum. fftfreq(-k) is -fftfreq(k), so the
+  // argument at (-u, -v) is exactly -theta and the ramp there is taken as
+  // E's conjugate (sincosf's odd sine and even cosine), but on the Nyquist
+  // row and column of an even n, where fftfreq gives -1/2 for both k and
+  // -k: there both are formed.
+  for (int i = t; i < n * m; i += T) {
+    const int u = i / m, v = i - u * m;
+    const float fu = fftfreq(u, n), fv = fftfreq(v, n);
+    float sn, cs;
+    sincosf(__fmul_rn(kTwoPi, __fadd_rn(__fmul_rn(fu, dy),
+                                        __fmul_rn(fv, dx))), &sn, &cs);
+    double2 e = make_double2(cs, sn);
+    if (2 * u == n || 2 * v == n) {
+      const float gu = 2 * u == n ? fu : -fu, gv = 2 * v == n ? fv : -fv;
+      float sn2, cs2;
+      sincosf(__fmul_rn(kTwoPi, __fadd_rn(__fmul_rn(gu, dy),
+                                          __fmul_rn(gv, dx))), &sn2, &cs2);
+      e = make_double2(0.5 * (e.x + (double)cs2), 0.5 * (e.y - (double)sn2));
+    }
+    ramp[i] = e;
+  }
+#pragma unroll
+  for (int k = 0; k < kMaxStamp * kMaxStamp / kStampThreads; ++k)
+    if (t + k * T < nn) xin[t + k * T] = (double)px[k];
+  __syncthreads();
+  // P1: the real rows along x into the half spectrum, B[r][v] = sum_c
+  // x[r][c] w^(vc), v < m: the columns c and n - c paired (their twiddles
+  // are conjugate), the twiddle by recurrence (times w^v a term), the
+  // Nyquist column's (even n) +-1 from the table
+  for (int i = t; i < n * m; i += T) {
+    const int r = i / m, v = i - r * m;
+    const double* row = xin + r * n;
+    double re = row[0], im = 0.0;
+    const double2 ws = tw[v];
+    double2 w = ws;
+#pragma unroll 4
+    for (int c = 1; 2 * c < n; ++c) {
+      re = fma(row[c] + row[n - c], w.x, re);
+      im = fma(row[c] - row[n - c], w.y, im);
+      w = cmul_d(w, ws);
+    }
+    if (n > 1 && (n & 1) == 0) re = fma(row[half], tw[(v & 1) * half].x, re);
+    pa[i] = make_double2(re, im);
   }
   __syncthreads();
-  // forward along x, then along y, then the phase ramp
-  dft_pass(a_re, nullptr, b_re, b_im, tw, n, true, false);
+  // P2: along y, times the ramp
+  pair_pass<true>(pa, pb, tw, ramp, n, m);
   __syncthreads();
-  dft_pass(b_re, b_im, a_re, a_im, tw, n, false, false);
+  // P3: inverse along y, each column times its weight below
+  pair_pass<false>(pb, pa, tw, ramp, n, m);
   __syncthreads();
-  for (int i = t; i < nn; i += blockDim.x) {
-    const int u = i / n, v = i - u * n;
-    const float th = __fmul_rn(
-        kTwoPi, __fadd_rn(__fmul_rn(fq[u], dy), __fmul_rn(fq[v], dx)));
-    const double er = cosf(th), ei = sinf(th), fr = a_re[i], fi = a_im[i];
-    a_re[i] = fr * er - fi * ei;
-    a_im[i] = fr * ei + fi * er;
+  // P4: the real part of the inverse along x over n^2, rounded once to
+  // f32: out[r][c] = sum_v wv Re(C[r][v] w^(-vc)) (wv = 2 but at v = 0 and
+  // n / 2, the columns the half spectrum holds once); the columns c and
+  // n - c share the sums sum wv Cr a and sum wv Ci b (the twiddle w^(vc)
+  // by recurrence, times w^c a term). Both also go into the border's
+  // slots (row 0, row n - 1, column 0, column n - 1).
+  const double inv_nn = 1.0 / nn;
+  for (int i = t; i < n * m; i += T) {
+    const int r = i / m, c = i - r * m;
+    const double2* row = pa + r * m;
+    double s1 = 0.0, s2 = 0.0;
+    const double2 ws = tw[c];
+    double2 w = make_double2(1.0, 0.0);
+#pragma unroll 4
+    for (int v = 0; v < m; ++v) {
+      const double2 cv = row[v];
+      s1 = fma(cv.x, w.x, s1);
+      s2 = fma(cv.y, w.y, s2);
+      w = cmul_d(w, ws);
+    }
+    const int c2 = partner(c, n);
+    for (int e = 0; e < (c2 != c ? 2 : 1); ++e) {
+      const int col = e ? c2 : c;
+      const float a = (float)((e ? s1 - s2 : s1 + s2) * inv_nn);
+      st[r * n + col] = a;
+      if (r == 0) border[col] = a;
+      if (r == n - 1) border[n + col] = a;
+      if (col == 0) border[2 * n + r] = a;
+      if (col == n - 1) border[3 * n + r] = a;
+    }
   }
   __syncthreads();
-  // inverse along y, then along x: the real part over n^2, rounded once
-  dft_pass(a_re, a_im, b_re, b_im, tw, n, false, true);
-  __syncthreads();
-  dft_pass(b_re, b_im, a_re, a_im, tw, n, true, true);
-  __syncthreads();
-  for (int i = t; i < nn; i += blockDim.x) st[i] = (float)(a_re[i] / nn);
-  __syncthreads();
-  // the border: row 0, row n-1, column 0, column n-1
+  // the border's median by rank (ties by position): four lanes a value,
+  // each counting a quarter of the border, added across the four
   const int nb = 4 * n;
-  for (int i = t; i < nb; i += blockDim.x) {
-    const int side = i / n, j = i - side * n;
-    const int at = side == 0 ? j : side == 1 ? (n - 1) * n + j
-                   : side == 2 ? j * n : j * n + n - 1;
-    border[i] = st[at];
-  }
-  __syncthreads();
   const int lo = (nb - 1) / 2, hi = nb / 2;
-  for (int i = t; i < nb; i += blockDim.x) {
-    const float v = border[i];
-    if (isnan(v)) {
-      has_nan = 1;
-      continue;
-    }
+  for (int base = 0; base < 4 * nb; base += T) {
+    const int q = base + t, i = q >> 2, part = q & 3;
+    const bool live = i < nb;
+    const float v = live ? border[i] : 0.f;
     int rank = 0;
-    for (int j = 0; j < nb; ++j) {
-      const float u = border[j];
-      rank += (u < v || (u == v && j < i)) ? 1 : 0;
+    if (live) {
+#pragma unroll 4
+      for (int j = part * n; j < (part + 1) * n; ++j) {
+        const float u = border[j];
+        rank += (u < v || (u == v && j < i)) ? 1 : 0;
+      }
     }
-    if (rank == lo) mid[0] = v;
-    if (rank == hi) mid[1] = v;
+    rank += __shfl_xor_sync(0xffffffffu, rank, 1);
+    rank += __shfl_xor_sync(0xffffffffu, rank, 2);
+    if (live && part == 0) {
+      if (isnan(v)) {
+        has_nan = 1;
+      } else {
+        if (rank == lo) mid[0] = v;
+        if (rank == hi) mid[1] = v;
+      }
+    }
   }
   __syncthreads();
   const float bkg = has_nan ? __int_as_float(0x7fc00000)
                             : __fmul_rn(__fadd_rn(mid[0], mid[1]), 0.5f);
+  // the stamp's f32 sum in the order of a 256-thread block: lane t < 256
+  // the pixels t, t + 256, ..., then the warps' butterflies (the other
+  // warps add zeros)
   float acc = 0.f;
-  for (int i = t; i < nn; i += blockDim.x) {
-    const float v = __fsub_rn(st[i], bkg);
-    st[i] = v;
-    acc += v;
-  }
+  if (t < kSumLanes)
+    for (int i = t; i < nn; i += kSumLanes) {
+      const float v = __fsub_rn(st[i], bkg);
+      st[i] = v;
+      acc += v;
+    }
   const float total = block_sum(acc, red);
   const bool pos = total > 0.f;
   const float div = pos ? total : 1.f;
   float* out = stamps + (long long)s * nn;
-  for (int i = t; i < nn; i += blockDim.x) out[i] = __fdiv_rn(st[i], div);
-  if (t == 0) good0[s] = (valid[s] != 0 && pos) ? 1 : 0;
+  for (int i = t; i < nn; i += T) out[i] = __fdiv_rn(st[i], div);
+  if (t == 0) good0[s] = (ok && pos) ? 1 : 0;
 }
 
 // ---- H18 -------------------------------------------------------------------
@@ -548,21 +797,70 @@ extern "C" int zuds_zogy_spectral(const float2* N, const float2* R,
   return (int)cudaGetLastError();
 }
 
-// partials: `blocks` doubles; done: one uint32, zeroed here; total: the
-// f32 sum of squares.
+namespace {
+
+// H16's grid: at most the blocks that fit on the card at once (the
+// cooperative launch needs them co-resident) and `max_blocks`, at least
+// one, and no more than one a kNormThreads chunks
+template <typename T>
+cudaError_t normalize_grid(long long nv, int max_blocks, int* grid) {
+  static int cap = 0;    // set once, outside any graph capture
+  if (cap == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, normalize_kernel<T>, kNormThreads, 0);
+    if (err != cudaSuccess) return err;
+    cap = sms * per_sm;
+  }
+  const long long want = (nv + kNormThreads - 1) / kNormThreads;
+  long long g = want < cap ? want : cap;
+  if (g > max_blocks) g = max_blocks;
+  *grid = (int)(g < 1 ? 1 : g);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_normalize(const float* pd, const float* s, long long n,
+                             float f_d, int max_blocks, double* partials,
+                             float* out, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = normalize_grid<T>(n / (long long)(sizeof(T) / 4),
+                                      max_blocks, &grid);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kNormThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  err = cudaLaunchKernelEx(&cfg, normalize_kernel<T>, pd, s, n, f_d, partials,
+                           out);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace
+
+// partials: `max_blocks` doubles of scratch (one a block). The vector path
+// (16-byte loads and stores) where p_d, s and out are 16-byte aligned.
 extern "C" int zuds_zogy_normalize(const float* pd, const float* s,
-                                   long long n, float f_d, int blocks,
-                                   double* partials, unsigned* done,
-                                   float* total, float* out,
+                                   long long n, float f_d, int max_blocks,
+                                   double* partials, float* out,
                                    cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(done, 0, sizeof(unsigned), stream);
-  if (err != cudaSuccess) return (int)err;
-  sumsq_kernel<<<blocks, kThreads, 0, stream>>>(pd, n, partials, done,
-                                                total);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scale_kernel<<<grid_for(n), kThreads, 0, stream>>>(s, n, f_d, total, out);
-  return (int)cudaGetLastError();
+  if (max_blocks < 1 || n < 0) return (int)cudaErrorInvalidValue;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(pd) |
+                         reinterpret_cast<uintptr_t>(s) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return (int)(aligned ? launch_normalize<float4>(pd, s, n, f_d, max_blocks,
+                                                  partials, out, stream)
+                       : launch_normalize<float>(pd, s, n, f_d, max_blocks,
+                                                 partials, out, stream));
 }
 
 extern "C" int zuds_psf_stamps(const float* img, int H, int W,
@@ -573,8 +871,9 @@ extern "C" int zuds_psf_stamps(const float* img, int H, int W,
   if (size < 1 || size > kMaxStamp || size > H || size > W)
     return (int)cudaErrorInvalidValue;
   if (S > 0)
-    psf_stamps_kernel<<<S, kThreads, 0, stream>>>(img, H, W, xs, ys, valid,
-                                                  size, stamps, good0);
+    psf_stamps_kernel<<<S, kStampThreads, 0, stream>>>(img, H, W, xs, ys,
+                                                       valid, size, stamps,
+                                                       good0);
   return (int)cudaGetLastError();
 }
 
