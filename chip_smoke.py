@@ -19,13 +19,21 @@ the files -> catalog rate, the host seconds per phase, the reference-cache
 hits and the detections per frame; a fifth pair, whose reference is rotated
 by 0.1 degrees, is refused by the batched feed and takes the night's
 per-pair fallback (``sub.do_one``), and the night records its count. Then
-the coadd: eight dithered epochs
+the db phase on the same pairs: a temporary sqlite file and config,
+``run_night`` at its default ``db=True`` (counted), the ``sesub`` records,
+``Detection`` rows and three thumbnails a detection checked against the
+catalogs and the frames, one ``Source`` a detection and 4096 forced
+positions, and ``phot.main`` (dophot's worker, counted: one H22 launch a
+subtraction) checked against the anti-join, with the host seconds of the
+commits, the thumbnails and each ``phot.do_one``. Then the coadd: eight
+dithered epochs
 of one quadrant (``inputs.write_coadd_epochs``, ``bench.py``'s coadd
 recipe, one cosmic ray planted in one epoch) through
 ``ScienceCoadd.from_images`` once to warm up, once counted and timed
 (epochs/s, files -> stack, and the host seconds per phase) and once with
-the seeing estimate; the product's header, noise, no-data bit and the
-clipped cosmic ray are checked, H9 and the two-plane H1 are held against
+the seeing estimate, and once more with a database bound (one
+``scicoadd`` record, one ``CoaddImage`` join an epoch); the product's
+header, noise, no-data bit and the clipped cosmic ray are checked, H9 and the two-plane H1 are held against
 their plain versions on the phase's own stack, and a 4-epoch 512^2 stack
 runs on the card and on the CPU. Then the per-pair path: ``sub.do_one`` on
 a pair whose reference is rotated by 0.5 degrees (the gather warp H10, H3
@@ -224,6 +232,13 @@ REFINE_AUTO_OPS = 3
 # fraction at r = 3 px
 PHOT_N = 4096
 PHOT_FLUX_TOL = 0.15
+# the db phase: the night's pairs again through run_night at its default
+# db=True into a temporary sqlite file, one Source per detection and
+# PHOT_N forced positions (seed 13) on subtraction 0's WCS, DB_MEASURED of
+# them given a forcedphotometry row on subtraction 0 before phot.main;
+# each transient's forced flux (but on the frame without SEEING, which
+# keeps no detection) within PHOT_FLUX_TOL of the phot phase's measured one
+DB_MEASURED = 64
 # the kernels only the ZOGY subtraction launches (from_images at
 # method='zogy'), and how often per pair: two PSFs, one spectral pass
 ZOGY_LAUNCHES = {'zogy_spectral': 1, 'zogy_normalize': 1, 'psf_stamps': 2,
@@ -1052,8 +1067,9 @@ def night_phase(wrappers, name, record):
     warm-up, then one counted, timed run; then the batched pairs again at
     ml=True (the scoring night), and H12 and H13 against their plain
     versions at SCORE_N candidates on the night's frames (``record`` takes
-    their records). Returns (launches, seconds of the batched pairs,
-    stats)."""
+    their records); then :func:`db_phase` on the same pairs. Returns
+    (launches, seconds of the batched pairs, stats, the db phase's
+    transient fluxes)."""
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs, night
@@ -1192,7 +1208,277 @@ def night_phase(wrappers, name, record):
                      if i == NO_SEEING else '')
                   + f', FWHM {row["FWHM_IMAGE"]:.2f} px', flush=True)
         scoring_night(wrappers, name, record, d, work, truths, pipe)
-    return launches, secs, stats
+        # ---- the db phase on the same pairs ------------------------------
+        db_fluxes = db_phase(wrappers, name, d, work, truths, pipe)
+    return launches, secs, stats, db_fluxes
+
+
+class bound_db:
+    """The port's sessions bound to a fresh sqlite file in ``d`` (its
+    config a file there too), its tables made; unbound on exit."""
+
+    def __init__(self, d, tag):
+        self.d = os.path.join(d, f'db_{tag}')
+
+    def __enter__(self):
+        from zuds_tpu_torch import model_util, secrets
+        os.makedirs(self.d)
+        self.env = os.environ.get('ZUDS_CONFIG')
+        os.environ['ZUDS_CONFIG'] = os.path.join(self.d, 'config')
+        secrets._manager.cache = None
+        model_util.init_db(database=os.path.join(self.d, 'zuds.db'))
+        model_util.create_tables()
+        return self
+
+    def __exit__(self, *exc):
+        from zuds_tpu_torch import core, secrets
+        for s in (core.DBSession, core.RefDBSession):
+            s.remove()
+            s.configure(None)
+        secrets._manager.cache = None
+        if self.env is None:
+            os.environ.pop('ZUDS_CONFIG', None)
+        else:
+            os.environ['ZUDS_CONFIG'] = self.env
+
+
+def counts_of(wrappers):
+    return {k: w.launches for k, w in wrappers.items() if w.launches}
+
+
+def db_phase(wrappers, name, d, work, truths, pipe):
+    """The night at its default db=True and dophot's worker from the
+    database: ``sci``/``ref`` records for the fallback pair (its per-pair
+    chain reads them through ``from_file``), then ``run_night`` over the
+    night's pairs, counted; one ``sesub`` record a frame (the batched
+    frames' target and reference ids NULL, as ``donight.py``'s images
+    read from HDUs carry none; the fallback's the records' ids), as many
+    ``Detection`` rows as GOODCUT rows, each transient a detection within
+    2 px (but on the frame without SEEING, which keeps no GOODCUT row),
+    three thumbnails a detection, each decompressing to the 63x63 cut of
+    its frame on that frame's WCS. Then one ``Source`` per
+    detection and PHOT_N ``forced_positions`` (seed 13) on subtraction
+    0, DB_MEASURED of them measured there already, and ``phot.main`` over
+    the subtractions, counted: its rows per subtraction the anti-join's
+    count, the measured pairs and the off-frame rows not listed, one H22
+    launch a ``phot.do_one``. Prints the host seconds of each span of the
+    commit (``commit.COMMIT_SPANS``), of a one-row commit right after a
+    frame's worth of bytes is written to a new file, right after they are
+    renamed over it, and of the next one, of each
+    ``phot.do_one``, and the row counts. Returns {frame: its transient's forced flux}, which
+    :func:`phot_phase` holds against its own measurement."""
+    import csv
+    import gzip
+    import io
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import core, inputs, night, phot
+    from zuds_tpu_torch.bookkeeping import Job
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.commit import COMMIT_SPANS
+    from zuds_tpu_torch.detections import Detection
+    from zuds_tpu_torch.fits import read_fits
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.mask import MaskImageBase
+    from zuds_tpu_torch.source import ForcedPhotometryRecord, Source
+    from zuds_tpu_torch.subtraction import sub_name
+    from zuds_tpu_torch.thumbnails import Thumbnail, make_stamp
+    cfg = night.FLAGSHIP
+    H, W = cfg.height, cfg.width
+    with bound_db(d, 'night') as db:
+        sess = core.DBSession()
+        fb_sci, fb_ref = work[FALLBACK].split()
+        ids = {}
+        for path, kind, cls in ((fb_sci, 'sci', ScienceImage),
+                                (fb_ref, 'ref', ReferenceImage)):
+            rec = core.record_from_image(cls.from_file(path), kind)
+            sess.add(rec)
+            sess.commit()
+            ids[kind] = rec.id
+        for w in wrappers.values():
+            w.launches = 0
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = night.run_night(work, batch=NIGHT_BATCH, ml=False, cfg=cfg,
+                              pipe=pipe, stats=st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        check(all(isinstance(r, int) for _, r in res)
+              and st['fallbacks'] == 1, f'db night: {res}')
+        for k, n in launches.items():
+            check(n > 0 or k in COADD_ONLY + ML_ONLY + ZOGY_ONLY
+                  + TRAIN_ONLY,
+                  f'kernel {k} was not launched by the db night')
+        check(launches['warp'] == NIGHT_PAIRS
+              and launches['apply_model'] == NIGHT_PAIRS + 1,
+              f'db night: launches {launches}')
+
+        subs = {}
+        for i, line in enumerate(work):
+            sci_path, ref_path = line.split()
+            base = os.path.basename(sub_name(sci_path, ref_path))
+            recs = sess.query(core.ZTFFile).filter_by(
+                basename=base).all()
+            check(len(recs) == 1 and recs[0].type == 'sesub',
+                  f'db night frame {i}: records {recs}')
+            rec = recs[0]
+            tgt = (ids['sci'], ids['ref']) if i == FALLBACK else (None, None)
+            check((rec.target_id, rec.reference_id) == tgt,
+                  f'db night frame {i}: target/reference ids '
+                  f'{(rec.target_id, rec.reference_id)}, want {tgt}')
+            cat = night_catalog(d, i).data
+            good = cat[cat['GOODCUT'] == 1]
+            dets = sess.query(Detection).filter_by(image_id=rec.id) \
+                .order_by('id').all()
+            # the frame without SEEING keeps no GOODCUT row: its
+            # stamp-moment SEEING reads wide (the night phase's check)
+            check(len(dets) == len(good) == dict(res)[sci_path]
+                  and (len(dets) >= 1 or i == NO_SEEING),
+                  f'db night frame {i}: {len(dets)} detections, '
+                  f'{len(good)} GOODCUT rows')
+            near = None
+            if i != NO_SEEING:
+                tx, ty = truths[i]
+                near = min(dets, key=lambda x: math.hypot(
+                    x.x_image - 1 - tx, x.y_image - 1 - ty))
+                dist = math.hypot(near.x_image - 1 - tx,
+                                  near.y_image - 1 - ty)
+                check(dist < 2.0, f'db night frame {i}: transient '
+                      f'{dist:.2f} px from its nearest detection')
+            frames = {}
+            for kind, path in (('sub', os.path.join(d, base)),
+                               ('new', sci_path), ('ref', ref_path)):
+                img = ScienceImage.from_file(path, load_others=False)
+                frames[kind] = (np.asarray(img.data), img.wcs)
+            nthumb = 0
+            for det in dets:
+                thumbs = sess.query(Thumbnail).filter_by(
+                    detection_id=det.id).order_by('id').all()
+                check([t.type for t in thumbs] == ['sub', 'new', 'ref'],
+                      f'db night frame {i}: thumbnails {thumbs}')
+                for t in thumbs:
+                    stamp = read_fits(io.BytesIO(
+                        gzip.decompress(t.bytes)))[0].data
+                    data, wcs = frames[t.type]
+                    cut = make_stamp(None, det.ra, det.dec, None, None,
+                                     data, wcs).astype('f4')
+                    check(stamp.shape == (63, 63)
+                          and np.array_equal(stamp, cut),
+                          f'db night frame {i}: {t.type} thumbnail of '
+                          f'detection {det.id} is not the cut of its frame')
+                    nthumb += 1
+            subs[i] = dict(rec=rec, dets=dets, near=near,
+                           path=os.path.join(d, base), thumbs=nthumb)
+        ncommit = len(st['db_s'])
+        batched = secs - st['fallback_s']
+        print(f'db: run_night at db=True over {len(work)} pairs '
+              f'{secs:.2f} s: files -> catalog and commit '
+              f'{NIGHT_PAIRS / batched:.3f} quadrants/s ({NIGHT_PAIRS} '
+              f'batched pairs, {batched:.2f} s; the per-pair fallback '
+              f'{st["fallback_s"]:.2f} s), launches {counts_of(wrappers)}',
+              flush=True)
+        spans = ', '.join(f'{k} {[round(x, 4) for x in st[k]]}'
+                          for k in COMMIT_SPANS)
+        print(f'db: host seconds per committed frame ({ncommit} batched '
+              f'frames; detections {st["detections"]}): {spans} on {name}',
+              flush=True)
+        # what the record's commit waits on: one row committed right after
+        # as many bytes as a frame's three products are written to a new
+        # file, again after they replace that file (as write_fits renames
+        # over the products the scoring night wrote), then one more
+        probe = []
+        for write in (True, True, False):
+            if write:
+                np.zeros(3 * H * W, 'f4').tofile(
+                    os.path.join(db.d, 'probe.tmp'))
+                os.replace(os.path.join(db.d, 'probe.tmp'),
+                           os.path.join(db.d, 'probe.bin'))
+            t0 = time.perf_counter()
+            sess.add(Job(status='probe'))
+            sess.commit()
+            probe.append(time.perf_counter() - t0)
+        os.remove(os.path.join(db.d, 'probe.bin'))
+        print(f'db: a one-row commit right after writing {12 * H * W} bytes '
+              f'to a new file {probe[0]:.4f} s, renamed over that file '
+              f'{probe[1]:.4f} s, the next one {probe[2]:.4f} s (host clock) '
+              f'on {name}', flush=True)
+        print(f'db: records: {len(work)} sesub (the fallback with target '
+              f'{ids["sci"]} and reference {ids["ref"]}), '
+              f'{sum(len(s["dets"]) for s in subs.values())} detections, '
+              f'{sum(s["thumbs"] for s in subs.values())} thumbnails, each '
+              f'the 63x63 cut of its frame', flush=True)
+
+        # ---- sources, and dophot's worker over the subtractions ---------
+        sub0 = ScienceImage.from_file(subs[0]['path'])
+        mask0 = MaskImageBase.from_file(
+            subs[0]['path'].replace('.fits', '.mask.fits')).data
+        ra, dec, kind = inputs.forced_positions(
+            sub0.wcs, H, W, PHOT_N, truths[0], inputs.night_stars(H, W),
+            mask=mask0, seed=13)
+        sources = [Source(id=f'F{j:04d}', ra=float(r), dec=float(dc))
+                   for j, (r, dc) in enumerate(zip(ra, dec))]
+        sources += [Source(id=f'D{x.id:05d}', ra=x.ra, dec=x.dec)
+                    for s_ in subs.values() for x in s_['dets']]
+        sess.add_all(sources)
+        measured = {f'F{j:04d}' for j in range(1, DB_MEASURED + 1)}
+        sess.add_all([ForcedPhotometryRecord(
+            source_id=sid, image_id=subs[0]['rec'].id, flux=0.0)
+            for sid in sorted(measured)])
+        sess.commit()
+        expect = {}
+        for i, s_ in subs.items():
+            img = ScienceImage.from_file(s_['path'])
+            expect[s_['rec'].id] = len(phot.unphotometered_sources(
+                img.id, img.footprint()))
+        worklist = os.path.join(db.d, 'subs.txt')
+        with open(worklist, 'w') as f:
+            f.write('\n'.join(s_['path'] for s_ in subs.values()) + '\n')
+        for w in wrappers.values():
+            w.launches = 0
+        pst = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = phot.main(worklist, db.d, stats=pst)
+        torch.cuda.synchronize()
+        psecs = time.perf_counter() - t0
+        used = counts_of(wrappers)
+        check(used == {'aperture_photometry': len(subs)},
+              f'db phot: launches {used}, not one H22 a subtraction')
+        with open(merged) as f:
+            rows = list(csv.reader(f))[1:]
+        per = {}
+        for r in rows:
+            per[int(r[1])] = per.get(int(r[1]), 0) + 1
+        check(per == expect and pst['rows'] == list(expect.values()),
+              f'db phot: rows per subtraction {per}, the anti-join {expect}')
+        id0 = str(subs[0]['rec'].id)
+        check(not [r for r in rows if r[1] == id0 and r[0] in measured],
+              'db phot: a source measured already was listed again')
+        off = {f'F{j:04d}' for j in np.flatnonzero(kind == 'off')}
+        check(off and not [r for r in rows if r[1] == id0 and r[0] in off],
+              'db phot: an off-frame source was listed')
+        fluxes = {}
+        for i, s_ in subs.items():
+            if s_['near'] is None:
+                continue
+            sid = f'D{s_["near"].id:05d}'
+            got = [float(r[4]) for r in rows
+                   if r[0] == sid and r[1] == str(s_['rec'].id)]
+            check(len(got) == 1 and math.isfinite(got[0]),
+                  f'db phot: transient of frame {i}: forced flux {got}')
+            fluxes[i] = got[0]
+        print(f'db: {len(sources)} sources ({PHOT_N} forced positions, '
+              f'{len(sources) - PHOT_N} detections), {DB_MEASURED} measured '
+              f'on subtraction 0 beforehand; phot.main over {len(subs)} '
+              f'subtractions {psecs:.2f} s: {len(rows)} rows (the '
+              f'anti-join\'s {sum(expect.values())}), phot.do_one host '
+              f'seconds {[round(x, 3) for x in pst["do_one_s"]]} (query '
+              f'{pst["query_s"]:.3f}, photometry {pst["phot_s"]:.3f}, '
+              f'CSV {pst["write_s"]:.3f} in all); launches {used} on '
+              f'{name}', flush=True)
+    return fluxes
 
 
 def scoring_night(wrappers, name, record, d, work, truths, pipe):
@@ -1596,6 +1882,9 @@ def coadd_phase(wrappers, name, record):
               f'{int((wmap == 0).sum())} no-data pixels, all with the '
               f'no-data bit', flush=True)
 
+        # ---- the stack again with a database bound (the db phase) ----------
+        coadd_db(wrappers, name, d, paths, launches)
+
         # ---- the phase's own warped stack: H9 and H1 against plain ---------
         images = [ScienceImage.from_file(p) for p in paths]
         cfg, args = coadd.fused_inputs(images, stack.wcs, oh, ow)
@@ -1789,6 +2078,53 @@ def coadd_phase(wrappers, name, record):
               f'{float((a["coadd"] - b["coadd"]).abs().max()):.3g}, '
               f'{float(far):.2e} of the pixels past 5e-3 counts', flush=True)
     return launches, secs, stats
+
+
+def coadd_db(wrappers, name, d, paths, want):
+    """The stack of the coadd phase's epochs with a database bound: ``sci``
+    records for the epochs, the epochs read by ``from_file`` (each takes
+    its record's id), ``ScienceCoadd.from_images`` counted (the launches of
+    the phase's counted build, ``want``): one ``scicoadd`` record and one
+    ``CoaddImage`` join an epoch, to the epochs' ids."""
+    import torch
+    from zuds_tpu_torch import core
+    from zuds_tpu_torch.coadd import ScienceCoadd
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.joins import CoaddImage
+    with bound_db(d, 'coadd'):
+        sess = core.DBSession()
+        t0 = time.perf_counter()
+        for p in paths:
+            sess.add(core.record_from_image(ScienceImage.from_file(p),
+                                            'sci'))
+        sess.commit()
+        rec_s = time.perf_counter() - t0
+        images = [ScienceImage.from_file(p) for p in paths]
+        ids = [im.id for im in images]
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stack = ScienceCoadd.from_images(images, os.path.join(d, 'db.fits'),
+                                         calculate_seeing=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        used = counts_of(wrappers)
+        check(used == {k: n for k, n in want.items() if n},
+              f'db coadd: launches {used}, the counted build {want}')
+        recs = sess.query(core.ZTFFile).filter_by(type='scicoadd').all()
+        joins = sess.query(CoaddImage).order_by('id').all()
+        check(len(recs) == 1 and stack.id == recs[0].id
+              and None not in ids
+              and [(j.coadd_id, j.calibratableimage_id) for j in joins]
+              == [(stack.id, i) for i in ids],
+              f'db coadd: records {recs}, joins '
+              f'{[(j.coadd_id, j.calibratableimage_id) for j in joins]}')
+        print(f'db: ScienceCoadd.from_images with a database bound '
+              f'{secs:.2f} s for {len(paths)} epochs (host clock; their '
+              f'records {rec_s:.3f} s before): one scicoadd record (id '
+              f'{stack.id}), {len(joins)} CoaddImage joins to the epochs\' '
+              f'ids {ids}; launches {used} on {name}', flush=True)
 
 
 def pair_phase(wrappers, name, record, fused_pair_s):
@@ -2243,7 +2579,7 @@ def pair_phase(wrappers, name, record, fused_pair_s):
     return pair_s
 
 
-def phot_phase(wrappers, name):
+def phot_phase(wrappers, name, db_fluxes):
     """Forced photometry on a flagship subtraction: one pair of the
     night's scene through ``sub.do_one`` (ml=False), the product read back
     by ``ScienceImage.from_file``, PHOT_N seeded positions on it
@@ -2255,8 +2591,11 @@ def phot_phase(wrappers, name):
     call again on the frame alone (``load_others=False``), where the
     background mesh (H2) runs first. Checked: the transient's forced flux,
     the off-frame rows NaN and bad, the masked rows flagged (raw: the mask
-    file), H22 against its plain version at these positions; printed: the
-    blank-sky pulls' robust sigma and the host seconds per call."""
+    file), H22 against its plain version at these positions, and each
+    of the db phase's transient fluxes ``db_fluxes`` (frame -> flux from
+    ``phot.main``) within PHOT_FLUX_TOL of this phase's dophot value;
+    printed: the blank-sky pulls' robust sigma and the host seconds per
+    call."""
     import numpy as np
     import torch
     from zuds_tpu_torch import inputs, night, sub as zsub
@@ -2331,6 +2670,16 @@ def phot_phase(wrappers, name):
                   f'{int(res["bad"].sum())} bad; blank-sky pulls median '
                   f'{float(np.median(pull)):.3f}, robust sigma {rsig:.3f} '
                   f'(no gate); launches {used}', flush=True)
+        ref_flux = float(runs['dophot'][0]['flux'][0])
+        check(set(db_fluxes) == set(range(NIGHT_PAIRS + 1)) - {NO_SEEING}
+              and all(abs(f - ref_flux) <= PHOT_FLUX_TOL * ref_flux
+                      for f in db_fluxes.values()),
+              f'db phot: transients\' forced flux {db_fluxes} not within '
+              f'{PHOT_FLUX_TOL:.0%} of the phot phase\'s {ref_flux:.1f}')
+        print(f'db: transients\' forced flux from phot.main '
+              f'{ {i: round(f, 1) for i, f in db_fluxes.items()} }, each '
+              f'within {PHOT_FLUX_TOL:.0%} of the phot phase\'s '
+              f'{ref_flux:.1f}', flush=True)
         raw = runs['raw'][0]
         check(bool((raw['flags'][kind == 'masked'] != 0).all()),
               'phot (raw): a row on a masked pixel is not flagged')
@@ -3531,8 +3880,9 @@ def main():
     detect_phase(out, cfg, record, name)
 
     # ---- the night: FITS pairs -> catalogs through run_night, counted,
-    # then the scoring night at ml=True ------------------------------------
-    night_launches, night_s, night_stats = night_phase(wrappers, name, record)
+    # then the scoring night at ml=True and the db phase --------------------
+    night_launches, night_s, night_stats, db_fluxes = night_phase(
+        wrappers, name, record)
 
     # ---- the coadd: FITS epochs -> a stack through from_images, counted ---
     coadd_phase(wrappers, name, record)
@@ -3541,7 +3891,7 @@ def main():
     pair_s = pair_phase(wrappers, name, record, night_s / NIGHT_PAIRS)
 
     # ---- forced photometry: dophot's call on a flagship subtraction -------
-    phot_phase(wrappers, name)
+    phot_phase(wrappers, name, db_fluxes)
 
     # ---- the ZOGY subtraction: from_images(method='zogy') on both pairs --
     zogy_phase(wrappers, name, record, pair_s)

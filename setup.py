@@ -7,8 +7,10 @@ setup(
     packages=find_packages(exclude=['tests', 'tests.*']),
     package_data={
         'zuds_tpu': ['config/*.yaml', 'alert_schemas/**/*.avsc'],
-        # the port builds its CUDA kernels from these at first use
-        'zuds_tpu_torch': ['kernels/*.cu', 'kernels/*.cuh'],
+        # the port builds its CUDA kernels from these at first use, and
+        # seeds its config from its own default file
+        'zuds_tpu_torch': ['kernels/*.cu', 'kernels/*.cuh',
+                           'config/*.conf'],
     },
     python_requires='>=3.10',
     install_requires=[

@@ -369,7 +369,9 @@ def test_port_runs_from_a_copy_alone(tmp_path):
     """A copy of zuds_tpu_torch/ with nothing of the repo beside it, JAX
     and yaml blocked: every module imports, it detects with the exact tree,
     runs the slice, writes, reads and maps a FITS pair, stacks two small
-    epochs and subtracts one from the other by the per-pair path."""
+    epochs and subtracts one from the other by the per-pair path, seeds
+    its config from its own copy and records the subtraction in a sqlite
+    file, from which ``from_file`` takes its id."""
     shutil.copytree(ROOT / 'zuds_tpu_torch', tmp_path / 'zuds_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
     modules = sorted(
@@ -384,7 +386,15 @@ def test_port_runs_from_a_copy_alone(tmp_path):
             'zuds_tpu_torch.swarp', 'zuds_tpu_torch.hotpants',
             'zuds_tpu_torch.sub', 'zuds_tpu_torch.subtraction',
             'zuds_tpu_torch.ops.resample',
-            'zuds_tpu_torch.ops.subtract'} <= set(modules)
+            'zuds_tpu_torch.ops.subtract', 'zuds_tpu_torch.secrets',
+            'zuds_tpu_torch.db.orm', 'zuds_tpu_torch.core',
+            'zuds_tpu_torch.model_util', 'zuds_tpu_torch.spatial',
+            'zuds_tpu_torch.detections', 'zuds_tpu_torch.thumbnails',
+            'zuds_tpu_torch.source', 'zuds_tpu_torch.archive',
+            'zuds_tpu_torch.external', 'zuds_tpu_torch.bookkeeping',
+            'zuds_tpu_torch.joins', 'zuds_tpu_torch.json_util',
+            'zuds_tpu_torch.status', 'zuds_tpu_torch.env',
+            'zuds_tpu_torch.phot', 'zuds_tpu_torch.commit'} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -425,6 +435,17 @@ def test_port_runs_from_a_copy_alone(tmp_path):
         "sub = SingleEpochSubtraction.from_images(sci, ref, device='cpu')\n"
         "assert sub.data.shape == (128, 128)\n"
         "assert sub.header['SUBMETH'] == 'hotpants'\n"
+        "import os\n"
+        "os.environ['ZUDS_CONFIG'] = os.path.abspath('config')\n"
+        "from zuds_tpu_torch import core, model_util, secrets\n"
+        "assert secrets.get_secret('db_backend') == 'sqlite'\n"
+        "assert oct(os.stat('config').st_mode & 0o777) == '0o600'\n"
+        "model_util.init_db(database='z.db')\n"
+        "model_util.create_tables()\n"
+        "s = core.DBSession()\n"
+        "s.add(core.record_from_image(sub, 'sesub'))\n"
+        "s.commit()\n"
+        "assert ScienceImage.from_file(sub.local_path).id == 1\n"
         "assert not [m for m in sys.modules if m.startswith('zuds_tpu.')"
         " or m == 'zuds_tpu']\n"
         "print('ok', int(out['det_n'][0]))\n")

@@ -89,6 +89,8 @@ valid, flags and npix bit-equal, flux within the merge order's bound);
 ``detect_sources`` through H24-H27 as ``checks.detect_check`` against the
 same call with their plain versions, at the three deblend modes; no host
 copy or wait inside the ``ccl``, ``stats`` and ``clean`` ranges.
+``phot.do_one`` (dophot's worker, from a sqlite file) on the card against
+``device='cpu'``: one H22 launch, flux and fluxerr rtol 1e-5, atol 1e-3.
 """
 import ctypes
 from pathlib import Path
@@ -3106,3 +3108,74 @@ def test_warp_gather_kernel_reads_and_writes_only_its_planes(dev, Hs, Ws,
         build.check(err, 'zuds_warp_gather')
         assert all(torch.equal(a, b) for a, b in zip(outs, want))
     assert bool(torch.isfinite(want[0]).all())
+
+
+def test_phot_do_one_on_the_card(dev, tmp_path, monkeypatch):
+    """dophot's worker on the card against ``device='cpu'``: a 256^2
+    subtraction with its rms sibling written by the port, its record and
+    64 seeded sources (``inputs.forced_positions``, seed 13) in a sqlite
+    file, ``phot.do_one`` once each way. One H22 launch on the card, the
+    same rows, flux and fluxerr within rtol 1e-5 and atol 1e-3 (the CPU's
+    arcsine and roots are not the card's), NaN rows alike."""
+    import csv
+    import io
+    from zuds_tpu_torch import core, inputs, model_util, phot, secrets
+    from zuds_tpu_torch.fits import HDU, Header, write_fits
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.source import Source
+    from zuds_tpu_torch.wcs import TPVWCS
+    H = W = 256
+    rng = np.random.default_rng(5)
+    wcs = TPVWCS.simple(crval=(150.1, 35.2), crpix=(W / 2 + 0.5, H / 2 + 0.5),
+                        scale_deg=1.01 / 3600)
+    yy, xx = np.mgrid[0:H, 0:W]
+    stars = (rng.uniform(10, W - 10, 12), rng.uniform(10, H - 10, 12))
+    img = rng.normal(0, 5.0, (H, W))
+    for x, y in zip(*stars, strict=True):
+        img += 4000 / (2 * np.pi) * np.exp(-((xx - x) ** 2
+                                             + (yy - y) ** 2) / 2)
+    h = Header()
+    wcs.to_header(h)
+    for k, v in dict(MAGZP=26.3, APCOR4=-0.05, OBSJD=2458345.5,
+                     FILTER='ZTF_r', FIELDID=679, CCDID=1, QID=2,
+                     FILTERID=2).items():
+        h.set(k, v)
+    path = str(tmp_path / 'sub.ztf_a_sciimg_ztf_b_sciimg.fits')
+    write_fits(path, [HDU(h, img.astype('f4'))])
+    write_fits(path.replace('.fits', '.rms.fits'),
+               [HDU(h.copy(), np.full((H, W), 5.0, 'f4'))])
+    monkeypatch.setenv('ZUDS_CONFIG', str(tmp_path / 'config'))
+    secrets._manager.cache = None
+    model_util.init_db(database=str(tmp_path / 'phot.db'))
+    try:
+        model_util.create_tables()
+        sess = core.DBSession()
+        sess.add(core.record_from_image(ScienceImage.from_file(path),
+                                        'sesub'))
+        ra, dec, _ = inputs.forced_positions(wcs, H, W, 64,
+                                             (stars[0][0], stars[1][0]),
+                                             stars, seed=13)
+        sess.add_all([Source(id=f'S{i:02d}', ra=float(r), dec=float(d))
+                      for i, (r, d) in enumerate(zip(ra, dec))])
+        sess.commit()
+        rows = {}
+        for device in (None, 'cpu'):
+            f = io.StringIO()
+            n0 = launch.aperture_photometry.launches
+            n = phot.do_one(path, csv.writer(f), device=device)
+            assert launch.aperture_photometry.launches == n0 + (
+                1 if device is None else 0)
+            rows[device] = list(csv.reader(io.StringIO(f.getvalue())))
+            assert n == len(rows[device]) > 40
+    finally:
+        for s in (core.DBSession, core.RefDBSession):
+            s.remove()
+            s.configure(None)
+        secrets._manager.cache = None
+    for a, b in zip(rows[None], rows['cpu'], strict=True):
+        assert a[:4] == b[:4] and a[6:] == b[6:]
+        for k in (4, 5):
+            x, y = float(a[k]), float(b[k])
+            assert np.isnan(x) == np.isnan(y)
+            assert np.isnan(y) or abs(x - y) <= 1e-3 + 1e-5 * abs(y)

@@ -403,22 +403,23 @@ def test_run_night_counts_and_products_match(nights, pipeline_outputs):
     assert names['torch'] == names['jax'] and len(names['jax']) == 2
 
 
-def test_run_night_refuses_what_is_not_ported(scene):
-    """db=True still raises and names its queue item; ml=True is the
-    default of every entry point, as in the reference, and runs
+def test_run_night_refuses_what_is_not_ported():
+    """Nothing is refused since the persistence layer came: ``db=True``
+    is the default of ``run_night`` and ``_commit_frame`` as in the
+    reference (the nights above ran at it with no database bound, which
+    writes nothing; tests/test_torch_persist.py commits), and ``ml=True``
+    the default of every entry point, as in the reference
     (test_run_night_scores_like_the_reference)."""
-    d, _ = scene
-    work = [f'{d}/ztf_night0_sciimg.fits {d}/ztf_dither_ref_sciimg.fits']
-    with pytest.raises(NotImplementedError, match='db=True.*item 5'):
-        tnight.run_night(work, db=True, device='cpu')
     for port, ref in ((tnight.run_night, jnight.run_night),
                       (tnight._commit_frame, jnight._commit_frame),
                       (tfilter.filter_sexcat, jfilter.filter_sexcat)):
         got = inspect.signature(port).parameters
         want = inspect.signature(ref).parameters
         assert got['ml'].default is want['ml'].default is True
-    assert inspect.signature(tnight._commit_frame).parameters[
-        'db'].default is False
+    for port, ref in ((tnight.run_night, jnight.run_night),
+                      (tnight._commit_frame, jnight._commit_frame)):
+        assert inspect.signature(port).parameters['db'].default is \
+            inspect.signature(ref).parameters['db'].default is True
 
 
 def test_run_night_scores_like_the_reference(scene, pipeline_outputs,

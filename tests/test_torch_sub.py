@@ -62,6 +62,7 @@ sys.path.insert(0, str(ROOT / 'scripts'))
 
 import dosub as jdosub  # noqa: E402
 from zuds_tpu import hotpants as jhot  # noqa: E402
+from zuds_tpu import subtraction as jsubtraction  # noqa: E402
 from zuds_tpu import utils as jutils  # noqa: E402
 from zuds_tpu.coadd import ReferenceImage as JRef  # noqa: E402
 from zuds_tpu.coadd import ScienceCoadd as JStack  # noqa: E402
@@ -466,7 +467,15 @@ def test_from_images_recovers_the_transient(subs):
         assert sig < 12.5, key
 
 
-def test_from_images_signature_and_waiting_options(subs, zogy_subs):
+def test_from_images_signature_and_waiting_options(subs, zogy_subs,
+                                                   tmp_path, monkeypatch):
+    """The signatures; ``data_product=True`` copies the product into the
+    archive directory of the config (``archive.archive``) in both
+    packages; ``method='zogy'`` runs and another method is refused;
+    ``overlapping_subtractions`` needs a bound database in both."""
+    from zuds_tpu import secrets as jsecrets
+    from zuds_tpu_torch import secrets as tsecrets
+    from zuds_tpu_torch.fits import read_fits
     _, tsci, tref = subs['torch']
     jpar = list(inspect.signature(JSub.from_images).parameters)
     tpar = list(inspect.signature(TSub.from_images).parameters)
@@ -475,16 +484,39 @@ def test_from_images_signature_and_waiting_options(subs, zogy_subs):
     jasm = list(inspect.signature(JSub.assemble).parameters)
     tasm = list(inspect.signature(TSub.assemble).parameters)
     assert tasm == jasm + ['device']
-    with pytest.raises(NotImplementedError, match='item 5'):
-        TSub.from_images(tsci, tref, device='cpu', data_product=True)
+    cfg = tmp_path / 'config.yaml'
+    cfg.write_text(f'base_data_directory: {tmp_path / "archive"}\n')
+    os.chmod(cfg, 0o600)
+    monkeypatch.setenv('ZUDS_CONFIG', str(cfg))
+    archived = {}
+    for key, cls, secrets, kw in (('jax', JSub, jsecrets, {}),
+                                  ('torch', TSub, tsecrets,
+                                   {'device': 'cpu'})):
+        sub, sci, ref = subs[key]
+        out = tmp_path / key / sub.basename
+        out.parent.mkdir()
+        secrets._manager.cache = None
+        try:
+            prod = cls.assemble(
+                sci, ref, np.asarray(sub.data),
+                np.asarray(sub.rms_image.data),
+                np.asarray(sub.mask_image.data), data_product=True,
+                outfile_name=str(out), **kw)
+        finally:
+            secrets._manager.cache = None
+        path = tmp_path / 'archive' / prod.basename
+        archived[key] = (path, read_fits(str(path))[0].data)
+        np.testing.assert_array_equal(archived[key][1], prod.data)
+    assert archived['torch'][0] == archived['jax'][0]
     # method='zogy' runs (the zogy_subs fixture): a product with a score
     zsub = zogy_subs['torch'][0]
     assert isinstance(zsub, TSub) and zsub.header['SUBMETH'] == 'zogy'
     assert zsub.scorr_image.data.shape == zsub.data.shape
     with pytest.raises(ValueError, match='method'):
         TSub.from_images(tsci, tref, device='cpu', method='sfft')
-    with pytest.raises(NotImplementedError, match='item 5'):
-        tsubtraction.overlapping_subtractions(tsci, tref)
+    for mod in (tsubtraction, jsubtraction):
+        with pytest.raises(RuntimeError, match='bound database'):
+            mod.overlapping_subtractions(tsci, tref)
 
 
 # ---- from_images(method='zogy') --------------------------------------------
@@ -784,8 +816,12 @@ def test_multi_epoch_subtraction_checks_its_inputs(multi):
     with pytest.raises(ValueError, match='1 vs 2'):
         TMulti.from_images(tstack, tref, input_subtractions=tsubs[:1],
                            device='cpu')
-    with pytest.raises(NotImplementedError, match='item 5'):
+    # without input_subtractions both packages ask the database
+    jm, jstack, jref, _ = multi['jax']
+    with pytest.raises(RuntimeError, match='bound database'):
         TMulti.from_images(tstack, tref, device='cpu')
+    with pytest.raises(RuntimeError, match='bound database'):
+        JMulti.from_images(jstack, jref)
     jpar = list(inspect.signature(JMulti.from_images).parameters)
     tpar = list(inspect.signature(TMulti.from_images).parameters)
     assert tpar == jpar[:-1] + ['device', 'kwargs']

@@ -13,9 +13,12 @@ whose mapping residual exceeds the ``max_shift`` bucket take the per-epoch
 loop ``_coadd_loop``: each epoch's own products, one planned (H1) or gather
 (H10) warp of pixels, weight and mask, then the same combine (H9).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP queue 1):
-``solve_astrometry=True`` (scamp, item 6) and the database association
-(``db=True``, item 5).
+With a database bound (``model_util.init_db()``) the stack is recorded as
+in the reference: its ``ZTFFile`` record and one ``CoaddImage`` join for
+each input image that has an id.
+
+Not ported yet, raising ``NotImplementedError`` (ROADMAP queue 1):
+``solve_astrometry=True`` (scamp, item 6).
 """
 from __future__ import annotations
 
@@ -185,7 +188,7 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
                        copy_inputs=False, swarp_kws=None, scamp_kws=None,
                        sci_swarp_kws=None, mask_swarp_kws=None,
                        solve_astrometry=False, fused=True, device=None,
-                       stats=None, db=False):
+                       stats=None):
     """Build a coadd of ``images`` (coadd.py:106-216) and save it, its
     ``.mask.fits`` sibling and its ``.weight.fits`` product.
 
@@ -193,9 +196,9 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
     ``stats`` (dict, optional) gains the host seconds of each phase
     (``prepare_s``, ``upload_s`` within it, ``pipeline_s``, ``fetch_s``,
     ``write_s``, ``seeing_s``; ``loop_s`` when the per-epoch loop ran) and
-    ``upload_bytes``. ``db=True`` asks for
-    the reference's database association (coadd.py:200-214), which waits.
-    The swarp and thread arguments of the reference are accepted and
+    ``upload_bytes``. With a database bound, the coadd's record and its
+    ``CoaddImage`` joins are committed (coadd.py:200-214) and ``coadd.id``
+    set. The swarp and thread arguments of the reference are accepted and
     unused, as there."""
     from .seeing import estimate_seeing
 
@@ -203,9 +206,6 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
     properties = GROUP_PROPERTIES
     ensure_images_have_the_same_properties(images, properties)
 
-    if db:
-        raise _not_ported('db=True (the coadd record and its CoaddImage '
-                          'joins)', 'item 5, persistence')
     if solve_astrometry:
         raise _not_ported('solve_astrometry=True (scamp)', 'item 6, scamp')
 
@@ -284,6 +284,22 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
         estimate_seeing(coadd)
         coadd.save()
         st['seeing_s'] = st.get('seeing_s', 0.0) + time.perf_counter() - t1
+
+    # DB association when a database is bound
+    from .core import DBSession
+    sess = DBSession()
+    if sess.conn is not None:
+        from .core import record_from_image
+        from .joins import CoaddImage
+        rec = record_from_image(coadd, getattr(cls, '__ztf_type__', 'coadd'))
+        sess.add(rec)
+        sess.commit()
+        coadd.id = rec.id
+        for im in images:
+            if getattr(im, 'id', None) is not None:
+                sess.add(CoaddImage(coadd_id=rec.id,
+                                    calibratableimage_id=im.id))
+        sess.commit()
     return coadd
 
 

@@ -16,7 +16,7 @@ import numpy as np
 
 from .header import Header, BLOCK_LEN
 
-__all__ = ['HDU', 'read_fits', 'write_fits', 'read_header',
+__all__ = ['HDU', 'read_fits', 'write_fits', 'fits_bytes', 'read_header',
            'table_to_hdu', 'hdu_to_table']
 
 
@@ -353,51 +353,67 @@ def _encode_table(header, table):
     return full.to_bytes(), out.tobytes()
 
 
+def _as_hdus(hdus):
+    if isinstance(hdus, HDU):
+        return [hdus]
+    if isinstance(hdus, tuple) and len(hdus) == 2:
+        return [HDU(hdus[0], hdus[1])]
+    return hdus
+
+
 def write_fits(path, hdus, overwrite=True):
     """Write HDUs (list of HDU, or a single HDU / (header, data) pair)."""
-    if isinstance(hdus, HDU):
-        hdus = [hdus]
-    if isinstance(hdus, tuple) and len(hdus) == 2:
-        hdus = [HDU(hdus[0], hdus[1])]
+    hdus = _as_hdus(hdus)
     if not overwrite and os.path.exists(path):
         raise FileExistsError(path)
     tmp = f'{path}.tmp{os.getpid()}'
     with open(tmp, 'wb') as f:
-        for i, hdu in enumerate(hdus):
-            primary = i == 0
-            if hdu.data is not None and hdu.data.dtype.names is not None:
-                if primary:
-                    # tables can't be primary: write an empty primary first
-                    empty = Header()
-                    empty.set('SIMPLE', True)
-                    empty.set('BITPIX', 8)
-                    empty.set('NAXIS', 0)
-                    empty.set('EXTEND', True)
-                    f.write(empty.to_bytes())
-                hb, db = _encode_table(hdu.header, hdu.data)
-            else:
-                hb, db = _encode_image(hdu.header, hdu.data, primary) \
-                    if hdu.data is not None else (None, b'')
-                if hb is None:
-                    h = hdu.header.copy()
-                    hh = Header()
-                    if primary:
-                        hh.set('SIMPLE', True)
-                    else:
-                        hh.set('XTENSION', 'IMAGE')
-                    hh.set('BITPIX', 8)
-                    hh.set('NAXIS', 0)
-                    if not primary:
-                        hh.set('PCOUNT', 0)
-                        hh.set('GCOUNT', 1)
-                    for k in h.keys():
-                        if k in ('SIMPLE', 'XTENSION', 'BITPIX', 'NAXIS',
-                                 'PCOUNT', 'GCOUNT'):
-                            continue
-                        hh.set(k, h[k], h.comments.get(k, ''))
-                    hb = hh.to_bytes()
-            f.write(hb)
-            if db:
-                f.write(db)
-                _pad_to_block(f, len(db))
+        _write_hdus(f, hdus)
     os.replace(tmp, path)
+
+
+def fits_bytes(hdus):
+    """The bytes :func:`write_fits` would write for ``hdus``, in memory."""
+    f = _io.BytesIO()
+    _write_hdus(f, _as_hdus(hdus))
+    return f.getvalue()
+
+
+def _write_hdus(f, hdus):
+    for i, hdu in enumerate(hdus):
+        primary = i == 0
+        if hdu.data is not None and hdu.data.dtype.names is not None:
+            if primary:
+                # tables can't be primary: write an empty primary first
+                empty = Header()
+                empty.set('SIMPLE', True)
+                empty.set('BITPIX', 8)
+                empty.set('NAXIS', 0)
+                empty.set('EXTEND', True)
+                f.write(empty.to_bytes())
+            hb, db = _encode_table(hdu.header, hdu.data)
+        else:
+            hb, db = _encode_image(hdu.header, hdu.data, primary) \
+                if hdu.data is not None else (None, b'')
+            if hb is None:
+                h = hdu.header.copy()
+                hh = Header()
+                if primary:
+                    hh.set('SIMPLE', True)
+                else:
+                    hh.set('XTENSION', 'IMAGE')
+                hh.set('BITPIX', 8)
+                hh.set('NAXIS', 0)
+                if not primary:
+                    hh.set('PCOUNT', 0)
+                    hh.set('GCOUNT', 1)
+                for k in h.keys():
+                    if k in ('SIMPLE', 'XTENSION', 'BITPIX', 'NAXIS',
+                             'PCOUNT', 'GCOUNT'):
+                        continue
+                    hh.set(k, h[k], h.comments.get(k, ''))
+                hb = hh.to_bytes()
+        f.write(hb)
+        if db:
+            f.write(db)
+            _pad_to_block(f, len(db))

@@ -183,8 +183,29 @@ class CalibratableImageBase(FITSImage):
 
 
 class CalibratableImage(CalibratableImageBase):
-    """Calibratable image (the reference's DB relations come with
-    ``db=True``, ROADMAP queue 1)."""
+    """DB-aware calibratable image (detections, thumbnails relations)."""
+
+    detections = None
+    thumbnails = None
+
+    @classmethod
+    def from_file(cls, f, use_existing_record=True, load_others=True):
+        """The image of file ``f`` (image.py:254-266); with
+        ``use_existing_record``, every column of the newest ``ZTFFile``
+        record with its basename (``id`` among them) fills an attribute
+        the file left unset. No database bound: no record, as there."""
+        obj = super().from_file(f, load_others=load_others)
+        if use_existing_record:
+            from .core import ZTFFile
+            existing = ZTFFile.get_by_basename(obj.basename)
+            if existing is not None:
+                for k, v in existing.items():
+                    if getattr(obj, k, None) is None:
+                        try:
+                            setattr(obj, k, v)
+                        except AttributeError:
+                            pass
+        return obj
 
 
 class CalibratedImage(CalibratableImage):
@@ -260,8 +281,9 @@ class ScienceImage(CalibratedImage):
     filefracday = None
 
     @classmethod
-    def from_file(cls, f, load_others=True, **kwargs):
-        obj = super().from_file(f, load_others=load_others, **kwargs)
+    def from_file(cls, f, use_existing_record=True, load_others=True):
+        obj = super().from_file(f, use_existing_record=use_existing_record,
+                                load_others=load_others)
         h = obj.header
         obj.field = h.get('FIELDID', obj.field)
         obj.ccdid = h.get('CCDID', obj.ccdid)

@@ -29,8 +29,14 @@ or its commit raises) runs the per-pair chain ``sub.do_one`` instead (the
 planned or the gather warp, H10), and its count is recorded; a failure
 inside the fallback is recorded as that exception.
 
-Not ported yet (ROADMAP queue 1, item 5): ``db=True`` (the ORM commit and
-thumbnails) raises ``NotImplementedError``.
+At ``db=True`` (the default, as in the reference) and with a database bound
+(``model_util.init_db()``), each committed frame also writes its products
+to disk (the frames fetched from the card once), a ``sesub`` ``ZTFFile``
+record carrying the science and reference images' ids (None for images
+built from HDUs, as the reference's night builds them), its ``Detection``
+rows and three thumbnails a detection (``sub``, ``new``, ``ref``), in the
+thread that runs the commit. With no database bound it writes nothing, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import traceback
 import numpy as np
 import torch
 
+from .commit import COMMIT_SPANS, commit_subtraction
 from .constants import KERNEL_SPATIAL_ORDER
 from .fits import read_fits
 from .inputs import INPUT_NAMES, resolve_device
@@ -152,26 +159,19 @@ def _load_pair(loader, tickets, sci_path, ref_path, ref_objs=None):
     return sci, ref
 
 
-def _not_ported(db):
-    if db:
-        raise NotImplementedError(
-            'db=True (the ORM Detection commit and thumbnails, ROADMAP queue '
-            '1 item 5) is not ported yet')
-
-
 def _commit_frame(sci, ref, small, b, frames_thunk, cfg, ml=True,
-                  db=False, device=None, stats=None):
-    """Subtraction product, catalog and filter for frame ``b`` of a batch
-    (donight.py:157-205 at db=False). ``small``: host copies of the
-    pipeline's fixed-size outputs. Returns (sub, GOODCUT rows), the rows
-    ``Detection.from_catalog(cat, filter=True)`` would keep. ``device``:
-    where the ML step runs (the card unless ``'cpu'``); ``stats`` gains
-    its ``ml_s`` and ``scored``."""
+                  db=True, device=None, stats=None):
+    """Subtraction product, catalog and filter for frame ``b`` of a batch,
+    and at ``db=True`` with a database bound the commit (donight.py:
+    157-205). ``small``: host copies of the pipeline's fixed-size outputs.
+    Returns (sub, GOODCUT rows), the rows ``Detection.from_catalog(cat,
+    filter=True)`` keeps. ``device``: where the ML step runs (the card
+    unless ``'cpu'``); ``stats`` gains its ``ml_s`` and ``scored``, and at
+    a commit the host seconds of ``commit.COMMIT_SPANS``."""
     from .catalog import PipelineFITSCatalog
     from .filterobjects import filter_sexcat
     from .subtraction import SingleEpochSubtraction
 
-    _not_ported(db)
     sub = SingleEpochSubtraction.assemble_deferred(
         sci, ref, frames_thunk, method='hotpants-fused',
         spatial_order=cfg.order, nreg_side=cfg.nreg)
@@ -182,6 +182,8 @@ def _commit_frame(sci, ref, small, b, frames_thunk, cfg, ml=True,
         raise TooManyDetections(
             f'{sub.basename}: {len(detections)} detections exceeds '
             f'MAX_DETS={MAX_DETS}; bad image quality')
+    if db:
+        commit_subtraction(sub, sci, ref, cat, stats=stats)
     return sub, detections
 
 
@@ -204,7 +206,7 @@ def _bulk_to_host(tensors):
     return out
 
 
-def run_night(work, batch=4, ml=True, db=False, cfg=None, loader=None,
+def run_night(work, batch=4, ml=True, db=True, cfg=None, loader=None,
               pipe=None, device=None, stats=None):
     """Process "sci_path ref_path" work lines through the batched pipeline
     (donight.py:208-365). Returns per-pair (sci_path, number of GOODCUT
@@ -219,8 +221,8 @@ def run_night(work, batch=4, ml=True, db=False, cfg=None, loader=None,
     ``fallback_s`` (the pairs that took the per-pair chain and their host
     seconds), and ``detections``, ``seeing`` (the SEEING the kernel
     basis used), ``scored`` (candidates braai scored) and ``ml_s`` (host
-    seconds of the ML step) per committed frame."""
-    _not_ported(db)
+    seconds of the ML step) per committed frame, and at a database commit
+    the host seconds of ``commit.COMMIT_SPANS`` per committed frame."""
     device = resolve_device(device)
     work = [str(w).split() for w in work]
     own_loader = loader is None
@@ -283,6 +285,9 @@ def run_night(work, batch=4, ml=True, db=False, cfg=None, loader=None,
             st['seeing'].append(float(sci.header['SEEING']))
             st['scored'].append(fst.get('scored', 0))
             st['ml_s'].append(fst.get('ml_s', 0.0))
+            for k in COMMIT_SPANS:
+                if k in fst:
+                    st.setdefault(k, []).append(fst[k])
         except TooManyDetections as e:
             print(f'quality guard: {e}', flush=True)
             results.append((sci_path, e))

@@ -23,9 +23,8 @@ __all__ = ['ForcedPhotometry', 'raw_aperture_photometry',
 
 @dataclass
 class ForcedPhotometry:
-    """One source x image forced-photometry measurement (the reference's
-    ``forcedphotometry`` row; the database binding is ROADMAP queue 1,
-    item 5)."""
+    """One source x image forced-photometry measurement (its database row
+    is ``source.ForcedPhotometryRecord``, as in the reference)."""
 
     flux: float = np.nan
     fluxerr: float = np.nan

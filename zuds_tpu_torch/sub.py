@@ -12,8 +12,10 @@ reported and the next one runs; the exit code is 1 if any failed.
 This is the path of a pair the batched night run cannot take (a rotated
 or badly dithered reference): ``night.run_night`` falls back to
 :func:`do_one`. At ``ml=True`` (the default) the filter scores its
-survivors with braai on the card. Not ported yet: the database commit and
-the thumbnails (ROADMAP queue 1, item 5), which are skipped.
+survivors with braai on the card. With a database bound
+(``model_util.init_db()``) the pair is committed as the reference commits
+it: a ``sesub`` record, its ``Detection`` rows and three thumbnails each
+(``commit.commit_subtraction``).
 """
 from __future__ import annotations
 
@@ -33,15 +35,18 @@ _phase = torch.profiler.record_function
 
 
 def do_one(line, sub_class=None, ml=True, device=None, stats=None):
-    """The chain for one science/reference pair (dosub.py:18-74, no
-    database): load, subtract, catalog, filter (at ``ml=True`` with the
-    braai score), the ``MAX_DETS`` guard. Returns (sub, GOODCUT rows), the
-    rows ``Detection.from_catalog(cat, filter=True)`` would keep.
+    """The chain for one science/reference pair (dosub.py:18-74): load
+    (each image takes the id of its newest file record, when a database
+    is bound), subtract, catalog, filter (at ``ml=True`` with the braai
+    score), the ``MAX_DETS`` guard, the commit when a database is bound.
+    Returns (sub, GOODCUT rows), the rows ``Detection.from_catalog(cat,
+    filter=True)`` keeps.
     ``device``: the card unless ``'cpu'``. ``stats`` (dict, optional)
     gains the host seconds of ``load_s``, of ``from_images``' steps, of
     ``catalog_s`` and ``filter_s`` of the subtraction, and the filter's
     ``ml_s`` and ``scored``."""
     from .coadd import ReferenceImage
+    from .commit import commit_subtraction
     from .filterobjects import filter_sexcat
     from .image import ScienceImage
     from .inputs import resolve_device
@@ -85,6 +90,7 @@ def do_one(line, sub_class=None, ml=True, device=None, stats=None):
         raise RuntimeError(
             f'{sub.basename}: {len(detections)} detections exceeds '
             f'MAX_DETS={MAX_DETS}; bad image quality')
+    commit_subtraction(sub, sci, ref, cat, stats=st)
     return sub, detections
 
 
@@ -100,6 +106,8 @@ def main(argv):
             do_one(str(line))
         except Exception:
             traceback.print_exc()
+            from .core import DBSession
+            DBSession().rollback()
             failed += 1
     return 1 if failed else 0
 

@@ -13,9 +13,10 @@ variance convolution (H3, twice) and the difference and noise epilogue
 and the Fourier proper subtraction (cuFFT, H15, H16), which also gives the
 ``scorr_image`` score.
 
-Not ported yet, each raising ``NotImplementedError``: ``data_product=True``
-(the archive, ROADMAP queue 1 item 5) and ``overlapping_subtractions`` (the
-database, item 5).
+``data_product=True`` copies the product into the archive directory
+(``archive.archive``); ``overlapping_subtractions`` asks the bound database
+for the single-epoch subtractions of a stack's epochs, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -68,11 +69,6 @@ def _select_stamps(sci, smax=128):
     ys[:nsel] = data['Y_IMAGE'] - 1.0
     valid[:nsel] = True
     return xs, ys, valid
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f'{what} is not ported yet (ROADMAP queue 1: {item})')
 
 
 def _inherit_header(sci, method, spatial_order, nreg_side):
@@ -146,9 +142,6 @@ class Subtraction:
         if method not in ('hotpants', 'zogy'):
             raise ValueError(f"method must be 'hotpants' or 'zogy', got "
                              f'{method!r}')
-        if data_product:
-            raise _not_ported('data_product=True (the archive)',
-                              'item 5, persistence')
         if spatial_order is None:
             spatial_order = KERNEL_SPATIAL_ORDER
         if device is not None:
@@ -278,6 +271,7 @@ class Subtraction:
         sub = cls.assemble(sci, ref, diff, rms_out, submask_data,
                            method=method, spatial_order=spatial_order,
                            nreg_side=nreg_side, scorr=scorr,
+                           data_product=data_product,
                            outfile_name=outfile_name, device=device)
         lap('assemble_s')
         return sub
@@ -291,12 +285,10 @@ class Subtraction:
         (subtraction.py:199-269): the no-data bit 17 where ``diff`` is the
         sentinel, the inherited header, the saved sub and mask when the
         science frame is mapped, the rms product, and with ``scorr`` the
-        score image ``scorr_image`` (``*.scorr.fits``, in memory).
-        ``device``: where the product computes its own products (its
-        catalog), the card unless ``'cpu'``."""
-        if data_product:
-            raise _not_ported('data_product=True (the archive)',
-                              'item 5, persistence')
+        score image ``scorr_image`` (``*.scorr.fits``, in memory), and at
+        ``data_product=True`` the product's copy in the archive
+        (``archive.archive``). ``device``: where the product computes its
+        own products (its catalog), the card unless ``'cpu'``."""
         if outfile_name is None:
             outfile_name = sub_name(
                 sci.local_path if sci.ismapped else sci.basename,
@@ -330,6 +322,11 @@ class Subtraction:
             s.header = sub.header.copy()
             s.basename = sub.basename.replace('.fits', '.scorr.fits')
             sub.scorr_image = s
+
+        if data_product:
+            from .archive import archive
+            archive(sub)
+
         return sub
 
     @classmethod
@@ -449,9 +446,21 @@ class SingleEpochSubtraction(Subtraction, CalibratedImage):
 
 def overlapping_subtractions(sci, ref):
     """Single-epoch subtractions whose targets feed coadd ``sci``
-    (subtraction.py:419-434): a database query."""
-    raise _not_ported('overlapping_subtractions (a database query)',
-                      'item 5, persistence')
+    (subtraction.py:419-434): the ``ZTFFile`` records (not images) of the
+    ``sesub`` products of ``ref`` whose targets are joined to ``sci`` in
+    ``coadd_images``. Needs a bound database."""
+    from .core import DBSession, ZTFFile
+
+    sess = DBSession()
+    if sess.conn is None:
+        raise RuntimeError('overlapping_subtractions needs a bound database')
+    rows = sess.execute(
+        'SELECT z.id FROM ztffiles z '
+        'JOIN ztffiles t ON z.target_id = t.id '
+        'JOIN coadd_images c ON c.calibratableimage_id = t.id '
+        'WHERE c.coadd_id = ? AND z.reference_id = ? AND z.type = ?',
+        (sci.id, ref.id, 'sesub')).fetchall()
+    return [sess.get(ZTFFile, r[0]) for r in rows]
 
 
 class MultiEpochSubtraction(Subtraction, CalibratableImage):
