@@ -35,7 +35,17 @@ the seeing estimate, and once more with a database bound (one
 ``scicoadd`` record, one ``CoaddImage`` join an epoch); the product's
 header, noise, no-data bit and the clipped cosmic ray are checked, H9 and the two-plane H1 are held against
 their plain versions on the phase's own stack, and a 4-epoch 512^2 stack
-runs on the card and on the CPU. Then the per-pair path: ``sub.do_one`` on
+runs on the card and on the CPU. Then the reference build: sixteen epochs
+of the same scene with SEEING, MAGLIM and INFOBITS cards registered in a
+fresh sqlite file, ``queryref`` (one line) and ``makeref.do_one`` on it
+(14 pass the cut; counted; the ``ref`` record and its version); the 14
+again with seeded header WCS errors through
+``ReferenceImage.from_images`` unsolved and with ``solve_astrometry=True``
+against a Gaia-like cache of the scene's stars and without one, counted
+(a catalog chain an epoch), each refit WCS held to the true star positions
+and each stack's SEEING and star flux to the true-WCS stack's, with the
+host seconds of the load, the catalogs, the fit, the stack and the write.
+Then the per-pair path: ``sub.do_one`` on
 a pair whose reference is rotated by 0.5 degrees (the gather warp H10, H3
 for the model and for the variance, the epilogue H11), once to warm up and
 once timed on a fresh copy, and once on an unrotated pair (the planned
@@ -281,6 +291,31 @@ PAIR_ROT = 0.5          # degrees, the per-pair phase: residual ~14 px
 COADD_EPOCHS = 8
 COSMIC = (3, 1500, 1600, 500.0)
 COADD_NOISE = 5.0
+# the reference build: REF_EPOCHS epochs of the coadd scene with SEEING,
+# MAGLIM and INFOBITS cards; REF_BAD_SEEING is written at 3.0 arcsec and
+# REF_BAD_INFOBITS with INFOBITS 4, so makeref's quality cut keeps 14. The
+# same 14 epochs then carry header WCS errors (inputs.WCS_ERR_*: CRPIX up
+# to 1.2 px, rotation up to 0.01 deg, a degree-3 distortion of 0.3 px at
+# the corners in every second epoch) and are solved twice. Each refit WCS
+# maps the true star positions within REF_SOLVE_RMS_PX (rms) and
+# REF_SOLVE_MAX_PX (max); each solved stack's SEEING lies within
+# REF_FWHM_SHARE of the true-WCS stack's and its stars' median r = 3 px
+# flux within REF_FLUX_SHARE. The unsolved stack's FWHM does not show its
+# error (the CLIPPED combine clips the misaligned cores: its SEEING read
+# 1.9% narrower on the H100, PERF.md); its stars' flux, 43% low there,
+# must lie beyond REF_FLUX_SHARE
+REF_EPOCHS = 16
+REF_BAD_SEEING = 5
+REF_BAD_INFOBITS = 11
+REF_SOLVE_RMS_PX = 0.05
+REF_SOLVE_MAX_PX = 0.25
+REF_FWHM_SHARE = 0.03
+REF_FLUX_SHARE = 0.02
+# the detect-and-measure chain's launches per catalog
+# (PipelineFITSCatalog.from_image: H4, H24-H27, H22 at r = 3 px, H23)
+CATALOG_LAUNCHES = {'detect_filter': 1, 'seed_sweeps': 1, 'ccl_fixpoint': 1,
+                    'object_stats': 1, 'clean': 1, 'aperture_photometry': 1,
+                    'refine_detections': 1}
 # deeper stacks for H9 (a reference takes up to ~50 epochs), held to the
 # plain version on their first DEEP_BAND rows
 DEEP_EPOCHS = (33, 50, 64)
@@ -2127,6 +2162,292 @@ def coadd_db(wrappers, name, d, paths, want):
               f'ids {ids}; launches {used} on {name}', flush=True)
 
 
+class gaia_config:
+    """The port's config pointed at a file in ``d`` whose
+    ``gaia_cache_directory`` is ``cache``; restored on exit."""
+
+    def __init__(self, d, cache):
+        self.path = os.path.join(d, 'gaia.conf')
+        self.cache = cache
+
+    def __enter__(self):
+        from zuds_tpu_torch import secrets
+        with open(self.path, 'w') as f:
+            f.write(f'gaia_cache_directory: {self.cache}\n')
+        os.chmod(self.path, 0o600)
+        self.env = os.environ.get('ZUDS_CONFIG')
+        os.environ['ZUDS_CONFIG'] = self.path
+        secrets._manager.cache = None
+        return self
+
+    def __exit__(self, *exc):
+        from zuds_tpu_torch import secrets
+        secrets._manager.cache = None
+        if self.env is None:
+            os.environ.pop('ZUDS_CONFIG', None)
+        else:
+            os.environ['ZUDS_CONFIG'] = self.env
+
+
+def check_stack(tag, stack, n):
+    """A reference stack's checks, as the coadd phase holds a ScienceCoadd:
+    header cards, a finite product over the epochs' frame, the no-data bit
+    exactly at weight 0, the sky's level and noise, SEEING from >= 20
+    stars and the catalog beside it; the grid's WCS undistorted. Returns
+    its SEEING and its catalog's stars (``seeing.select_stars``)."""
+    from zuds_tpu_torch.seeing import select_stars
+    import numpy as np
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.constants import (BKG_VAL, COADD_ZP,
+                                          MASK_BIT_NODATA_ALIGN)
+    from zuds_tpu_torch.ops import coadd as combine
+    data = stack.data
+    wmap = stack.weight_image.data
+    mask = stack.mask_image.data
+    oh, ow = data.shape
+    h = stack.header
+    check(h['MAGZP'] == COADD_ZP and h['NCOADD'] == n
+          and h['NAXIS1'] == ow and h['NAXIS2'] == oh
+          and not [k for k in h.keys() if k.startswith(('PV1_', 'PV2_'))],
+          f'{tag}: header cards')
+    check(np.isfinite(data).all(), f'{tag}: product not finite')
+    check(np.array_equal((mask >> MASK_BIT_NODATA_ALIGN & 1) == 1,
+                         wmap == 0),
+          f'{tag}: the no-data bit is not exactly where weight == 0')
+    inner = data[32:-32, 32:-32]
+    sky = inner[np.abs(inner - np.median(inner)) < 20]
+    limit = COADD_NOISE / np.sqrt(n) * combine.fluxscale(
+        inputs.COADD_MAGZP) * 1.25
+    check(sky.std() < limit and abs(np.median(inner) - BKG_VAL) < 0.5,
+          f'{tag}: sky noise {sky.std():.4f} (limit {limit:.4f}), level '
+          f'{np.median(inner):.3f}')
+    see = h['SEEING']
+    check(1.8 < see < 3.5 and h['NSTARSEE'] >= 20
+          and os.path.exists(stack.local_path.replace('.fits', '.cat')),
+          f'{tag}: SEEING {see} from {h["NSTARSEE"]} stars')
+    print(f'{tag}: {oh}x{ow}, NCOADD {n}, sky {np.median(inner):.3f} +- '
+          f'{sky.std():.4f} counts (limit {limit:.4f}), '
+          f'{int((wmap == 0).sum())} no-data pixels, all with the bit; '
+          f'SEEING {see:.4f} px from {h["NSTARSEE"]} stars', flush=True)
+    return see, select_stars(stack.catalog)
+
+
+def flux_ratio(stars, base):
+    """The median ratio of the r = 3 px fluxes of the stars of ``stars``
+    matched to those of ``base`` (within 2 arcsec), and the matches."""
+    import numpy as np
+    from zuds_tpu_torch.scamp import match_catalogs
+    i1, i2 = match_catalogs(stars['X_WORLD'], stars['Y_WORLD'],
+                            base['X_WORLD'], base['Y_WORLD'])
+    return (float(np.median(stars['FLUX_APER'][i1]
+                            / base['FLUX_APER'][i2])), len(i1))
+
+
+def ref_phase(wrappers, name):
+    """The reference build (makeref, queryref, scamp) on REF_EPOCHS
+    3080x3072 epochs of the coadd scene: the epochs registered in a fresh
+    sqlite file, ``queryref`` (one line), ``makeref.do_one`` on that line
+    (14 epochs pass the cut; the ``ref`` record committed; counted); then
+    the same 14 epochs with header WCS errors through
+    ``ReferenceImage.from_images`` unsolved, solved against a Gaia-like
+    cache of the scene's true star positions, and solved with no cache
+    (epoch 0's stars the reference), each counted and on fresh copies of
+    the epochs; the refit WCS and the stacks' SEEING gated."""
+    import shutil
+    import contextlib
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import core, inputs, makeref, night, queryref
+    from zuds_tpu_torch.coadd import ReferenceImage
+    from zuds_tpu_torch.constants import REFERENCE_VERSION
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.scamp import _TPV_DEG_IDX, match_catalogs
+    from zuds_tpu_torch.seeing import select_stars
+    H, W = night.FLAGSHIP.height, night.FLAGSHIP.width
+    n_ep = REF_EPOCHS
+    seeing = [inputs.COADD_SEEING] * n_ep
+    seeing[REF_BAD_SEEING] = 3.0 / (inputs.COADD_SCALE * 3600.0)
+    infobits = [0] * n_ep
+    infobits[REF_BAD_INFOBITS] = 4
+    maglim = [20.0 + 0.1 * i for i in range(n_ep)]
+    keep = [i for i in range(n_ep) if i not in (REF_BAD_SEEING,
+                                                REF_BAD_INFOBITS)]
+    kw = dict(seeing=seeing, maglim=maglim, infobits=infobits)
+    ra, dec = inputs.coadd_stars(H, W)
+    nparams = sum(len(v) for v in _TPV_DEG_IDX.values())
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_ref_') as d:
+        true_d = os.path.join(d, 'true')
+        os.makedirs(true_d)
+        t0 = time.perf_counter()
+        paths, true = inputs.write_coadd_epochs(true_d, n_ep, H, W, **kw)
+        print(f'ref: {n_ep} epochs of {H}x{W} written in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+
+        # ---- register, query, makeref --------------------------------------
+        with bound_db(d, 'ref'), contextlib.chdir(true_d):
+            sess = core.DBSession()
+            sess.add_all([core.record_from_image(ScienceImage.from_file(p),
+                                                 'sci') for p in paths])
+            sess.commit()
+            lines = queryref.main()
+            check(len(lines) == 1 and lines[0].split()[1:]
+                  == [os.path.basename(p) for p in paths],
+                  f'ref: queryref emitted {lines}')
+            for w in wrappers.values():
+                w.launches = 0
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = makeref.do_one(lines[0], stats=st)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            used = counts_of(wrappers)
+            recs = sess.query(core.ZTFFile).filter_by(type='ref').all()
+            check(len(recs) == 1 and recs[0].id == ref.id
+                  and recs[0].version == REFERENCE_VERSION
+                  and queryref.main() == [],
+                  f'ref: records {recs}; queryref after makeref')
+        check(used.get('warp') == 14 and used.get('clipped_combine') == 1
+              and all(used.get(k) == v for k, v in CATALOG_LAUNCHES.items())
+              and used.get('background_cells', 0) >= 15,
+              f'ref: makeref launches {used}: 14 H1, 1 H9, one catalog '
+              f'(the SEEING)')
+        print(f'ref: queryref -> 1 line of {n_ep} epochs; makeref.do_one '
+              f'{14 / secs:.3f} epochs/s (14 of {n_ep} pass the cut, '
+              f'{secs:.2f} s, host clock) on {name}; host s: prepare '
+              f'{st["prepare_s"]:.3f} (upload {st["upload_s"]:.3f}), '
+              f'pipeline {st["pipeline_s"]:.3f}, fetch {st["fetch_s"]:.3f}, '
+              f'write {st["write_s"]:.3f}, seeing {st["seeing_s"]:.3f}; '
+              f'launches {used}; ref record id {ref.id}, version '
+              f'{REFERENCE_VERSION}', flush=True)
+        see_true, stars_true = check_stack('ref: makeref stack (true WCS)',
+                                           ref, 14)
+        del ref
+        shutil.rmtree(true_d)
+
+        # ---- the same epochs with header WCS errors ------------------------
+        err_d = os.path.join(d, 'err')
+        os.makedirs(err_d)
+        epaths, _ = inputs.write_coadd_epochs(
+            err_d, n_ep, H, W, wcs_errors=True, **kw)
+        heads = [ScienceImage.from_file(epaths[i]).wcs for i in keep]
+        truth = [np.array(true[i].sky2pix(ra, dec)) for i in keep]
+        before = [np.hypot(*(np.array(h.sky2pix(ra, dec)) - t))
+                  for h, t in zip(heads, truth)]
+        print(f'ref: header WCS errors at the {len(ra)} stars: max '
+              f'{max(b.max() for b in before):.3f} px, rms per epoch '
+              f'{min(np.sqrt((b ** 2).mean()) for b in before):.3f}-'
+              f'{max(np.sqrt((b ** 2).mean()) for b in before):.3f} px',
+              flush=True)
+        gaia = os.path.join(d, 'gaia')
+        gaia_file = inputs.write_gaia_cache(gaia, H, W)
+
+        def run(tag, cache, solve):
+            run_d = os.path.join(d, tag)
+            os.makedirs(run_d)
+            for i in keep:
+                for q in (epaths[i], epaths[i].replace('sciimg', 'mskimg')):
+                    shutil.copy(q, run_d)
+            mine = [os.path.join(run_d, os.path.basename(epaths[i]))
+                    for i in keep]
+            with gaia_config(d, cache):
+                t0 = time.perf_counter()
+                images = [ScienceImage.from_file(p) for p in mine]
+                for im in images:
+                    im.data, im.mask_image.data     # read the files
+                load_s = time.perf_counter() - t0
+                for w in wrappers.values():
+                    w.launches = 0
+                st = {}
+                t0 = time.perf_counter()
+                stack = ReferenceImage.from_images(
+                    images, os.path.join(run_d, 'ref.fits'),
+                    solve_astrometry=solve, stats=st)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            used = counts_of(wrappers)
+            ncat = 15 if solve else 1
+            check(used.get('warp') == 14 and used.get('clipped_combine') == 1
+                  and all(used.get(k) == v * ncat
+                          for k, v in CATALOG_LAUNCHES.items())
+                  and used.get('background_cells', 0) >= 14 + ncat,
+                  f'ref {tag}: launches {used}')
+            print(f'ref {tag}: from_images(solve_astrometry={solve}) '
+                  f'{secs:.2f} s for 14 epochs (host clock) on {name}: load '
+                  f'{load_s:.3f} (before), per-epoch catalogs '
+                  f'{st.get("catalog_s", 0.0):.3f}, scamp fit '
+                  f'{st.get("scamp_s", 0.0):.3f}, stack '
+                  f'{st["prepare_s"] + st["pipeline_s"] + st["fetch_s"]:.3f}'
+                  f' (pipeline {st["pipeline_s"]:.3f}), write '
+                  f'{st["write_s"]:.3f}, seeing {st["seeing_s"]:.3f}; '
+                  f'launches {used}', flush=True)
+            return images, check_stack(f'ref {tag}', stack, 14), run_d
+
+        # ---- unsolved, solved with the cache, solved without ---------------
+        sees = {}
+        _, sees['unsolved'], run_d = run('unsolved', os.path.join(d, 'none'),
+                                         False)
+        shutil.rmtree(run_d)
+        for tag, cache in (('cache', gaia), ('nocache',
+                                             os.path.join(d, 'none'))):
+            images, sees[tag], run_d = run(tag, cache, True)
+            if tag == 'cache':
+                cached = np.load(gaia_file)
+                ref_ra, ref_dec = cached['ra'], cached['dec']
+                frame, where = (ra, dec), ''
+            else:
+                s0 = select_stars(images[0].catalog)
+                ref_ra, ref_dec = s0['X_WORLD'], s0['Y_WORLD']
+                # epoch 0's header frame: the stars where it puts them
+                frame = heads[0].pix2sky(*truth[0])
+                where = ', in epoch 0\'s header frame'
+            rows = []
+            for k, (im, t, h) in enumerate(zip(images, truth, heads)):
+                stars = select_stars(im.catalog)
+                i1, _ = match_catalogs(stars['X_WORLD'], stars['Y_WORLD'],
+                                       ref_ra, ref_dec)
+                back = ScienceImage.from_file(im.local_path).wcs
+                err = np.hypot(*(np.array(back.sky2pix(*frame)) - t))
+                rms = float(np.sqrt((err ** 2).mean()))
+                cubic = bool(np.any(back.pv1[7:11]) or np.any(back.pv2[7:11]))
+                deg3 = len(i1) >= 2 * nparams
+                check(len(i1) >= 5 and cubic == deg3 and (
+                    deg3 or not np.array_equal(back.cd, h.cd)),
+                      f'ref {tag}: epoch {keep[k]}: {len(i1)} matches, '
+                      f'cubic terms {cubic}')
+                check(rms <= REF_SOLVE_RMS_PX and err.max() <= REF_SOLVE_MAX_PX,
+                      f'ref {tag}: epoch {keep[k]}: refit WCS off the true '
+                      f'star positions by rms {rms:.4f}, max '
+                      f'{err.max():.4f} px (limits {REF_SOLVE_RMS_PX}, '
+                      f'{REF_SOLVE_MAX_PX})')
+                rows.append(f'{keep[k]}:{len(i1)}/{rms:.4f}/{err.max():.4f}')
+            print(f'ref {tag}: every epoch solved (epoch: matches/rms/max px '
+                  f'at the {len(ra)} true star positions{where}; degree 3 '
+                  f'at >= {2 * nparams} matches) {" ".join(rows)}',
+                  flush=True)
+            del images
+            shutil.rmtree(run_d)
+    rows = []
+    for tag, (see, stars) in sees.items():
+        ratio, nmatch = flux_ratio(stars, stars_true)
+        if tag == 'unsolved':
+            check(abs(ratio - 1.0) > REF_FLUX_SHARE,
+                  f'ref unsolved: its stars\' r = 3 px flux {ratio:.4f} of '
+                  f'the true-WCS stack\'s: the gate cannot see the error')
+        else:
+            check(abs(see / see_true - 1.0) <= REF_FWHM_SHARE
+                  and abs(ratio - 1.0) <= REF_FLUX_SHARE,
+                  f'ref {tag}: SEEING {see:.4f} px against the true-WCS '
+                  f'stack\'s {see_true:.4f} (share {REF_FWHM_SHARE}), star '
+                  f'flux {ratio:.4f} of its (share {REF_FLUX_SHARE})')
+        rows.append(f'{tag} {see:.4f} px ({see / see_true - 1:+.2%}), flux '
+                    f'{ratio:.4f} over {nmatch} stars')
+    print(f'ref: stack SEEING and r = 3 px star flux against the true-WCS '
+          f'stack (SEEING {see_true:.4f} px, {len(stars_true)} stars): '
+          f'{"; ".join(rows)}; limits {REF_FWHM_SHARE:.0%} and '
+          f'{REF_FLUX_SHARE:.0%} on {name}', flush=True)
+
+
 def pair_phase(wrappers, name, record, fused_pair_s):
     """sub.do_one on a pair whose reference is rotated by PAIR_ROT degrees
     (the gather warp) and on an unrotated pair (the planned warp): a
@@ -3886,6 +4207,9 @@ def main():
 
     # ---- the coadd: FITS epochs -> a stack through from_images, counted ---
     coadd_phase(wrappers, name, record)
+
+    # ---- the reference build: queryref, makeref, scamp, counted ----------
+    ref_phase(wrappers, name)
 
     # ---- the per-pair path: sub.do_one on rotated and unrotated pairs -----
     pair_s = pair_phase(wrappers, name, record, night_s / NIGHT_PAIRS)

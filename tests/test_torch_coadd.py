@@ -535,15 +535,38 @@ def test_stack_do_one_end_to_end(epochs, tmp_path):
     assert stack.main(['stack']) == 2
 
 
-def test_waiting_paths_raise(epochs):
-    """scamp (item 6) still raises and names its item. The database
-    association has no argument, as in the reference: it runs when a
-    database is bound (tests/test_torch_persist.py)."""
+def test_waiting_paths_raise(epochs, tmp_path):
+    """scamp (item 6, ported since) runs on the CPU: two of the epochs,
+    copied, are stacked with ``solve_astrometry=True``, each refit (its
+    file rewritten with the refit PV cards) and its catalog detected on
+    the CPU. The database association has no argument, as in the
+    reference: it runs when a database is bound
+    (tests/test_torch_persist.py). Mismatched epochs and a missing card
+    raise."""
+    import shutil
+    copies = []
+    for p in epochs[0][:2]:
+        for q in (p, p.replace('sciimg', 'mskimg')):
+            shutil.copy(q, tmp_path)
+        copies.append(str(tmp_path / os.path.basename(p)))
+    before = [TSci.from_file(p).wcs for p in copies]
+    solved = [TSci.from_file(p) for p in copies]
+    ref = tcoadd.Coadd.from_images(solved, str(tmp_path / 'solved.fits'),
+                                   device='cpu', solve_astrometry=True,
+                                   calculate_seeing=False)
+    assert os.path.exists(ref.local_path) and ref.header['NCOADD'] == 2
+    for p, old, im in zip(copies, before, solved):
+        assert str(im.device) == 'cpu' and len(im.catalog.data) > 20
+        back = TSci.from_file(p)
+        assert 'PV1_7' in back.header and 'PV2_10' in back.header
+        assert not np.array_equal(back.wcs.pv1, old.pv1)
+        # the refit moves the scene's linear WCS by a small fraction of a
+        # pixel over the frame
+        gy, gx = np.mgrid[1:H:64, 1:W:64].astype(float)
+        x, y = back.wcs.sky2pix(*old.pix2sky(gx.ravel(), gy.ravel()))
+        assert np.hypot(x - gx.ravel(), y - gy.ravel()).max() < 0.1
     timgs, _ = _images(epochs)
     out = os.path.join(os.path.dirname(epochs[0][0]), 'never.fits')
-    with pytest.raises(NotImplementedError, match='item 6, scamp'):
-        tcoadd.Coadd.from_images(timgs, out, device='cpu',
-                                 solve_astrometry=True)
     with pytest.raises(TypeError, match='db'):
         tcoadd.Coadd.from_images(timgs, out, device='cpu', db=True)
     assert 'db' not in inspect.signature(jcoadd._coadd_from_images).parameters

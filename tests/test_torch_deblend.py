@@ -371,7 +371,8 @@ def test_port_runs_from_a_copy_alone(tmp_path):
     runs the slice, writes, reads and maps a FITS pair, stacks two small
     epochs and subtracts one from the other by the per-pair path, seeds
     its config from its own copy and records the subtraction in a sqlite
-    file, from which ``from_file`` takes its id."""
+    file, from which ``from_file`` takes its id; ``queryref`` lists the
+    two epochs recorded there."""
     shutil.copytree(ROOT / 'zuds_tpu_torch', tmp_path / 'zuds_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
     modules = sorted(
@@ -394,7 +395,12 @@ def test_port_runs_from_a_copy_alone(tmp_path):
             'zuds_tpu_torch.external', 'zuds_tpu_torch.bookkeeping',
             'zuds_tpu_torch.joins', 'zuds_tpu_torch.json_util',
             'zuds_tpu_torch.status', 'zuds_tpu_torch.env',
-            'zuds_tpu_torch.phot', 'zuds_tpu_torch.commit'} <= set(modules)
+            'zuds_tpu_torch.phot', 'zuds_tpu_torch.commit',
+            'zuds_tpu_torch.scamp', 'zuds_tpu_torch.makeref',
+            'zuds_tpu_torch.queryref', 'zuds_tpu_torch.querystack',
+            'zuds_tpu_torch.nightly', 'zuds_tpu_torch.stamp',
+            'zuds_tpu_torch.loadphot', 'zuds_tpu_torch.load_catalogs',
+            'zuds_tpu_torch.update'} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -446,6 +452,16 @@ def test_port_runs_from_a_copy_alone(tmp_path):
         "s.add(core.record_from_image(sub, 'sesub'))\n"
         "s.commit()\n"
         "assert ScienceImage.from_file(sub.local_path).id == 1\n"
+        "from zuds_tpu_torch import queryref\n"
+        "s.add_all([core.record_from_image(ScienceImage.from_file(p), "
+        "'sci') for p in paths])\n"
+        "s.commit()\n"
+        "import contextlib, io\n"
+        "with contextlib.redirect_stdout(io.StringIO()) as said:\n"
+        "    lines = queryref.main(2)\n"
+        "assert said.getvalue() == lines[0] + '\\n'\n"
+        "assert [x.split()[1:] for x in lines] == [[os.path.basename(p) "
+        "for p in paths]]\n"
         "assert not [m for m in sys.modules if m.startswith('zuds_tpu.')"
         " or m == 'zuds_tpu']\n"
         "print('ok', int(out['det_n'][0]))\n")

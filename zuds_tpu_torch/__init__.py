@@ -9,8 +9,9 @@ the 3xTF32 hi/lo split, which keeps fp32 accuracy; a single TF32 pass (~3
 digits) is not allowed.
 
 The flat namespace holds, imported lazily as in ``zuds_tpu/__init__.py``,
-the filter's and the forced photometry's entry points and the persistence
-layer's names (sessions, models, ``init_db``); the rest of the reference's
+the filter's and the forced photometry's entry points, the persistence
+layer's names (sessions, models, ``init_db``) and scamp's
+``calibrate_astrometry``; the rest of the reference's
 namespace is not there yet (ROADMAP queue 1, item 10).
 """
 import torch
@@ -64,6 +65,7 @@ _LAZY_SYMBOLS = {
     'AlertJob': 'zuds_tpu_torch.bookkeeping',
     'FailedSubtraction': 'zuds_tpu_torch.bookkeeping',
     'to_json': 'zuds_tpu_torch.json_util',
+    'calibrate_astrometry': 'zuds_tpu_torch.scamp',
 }
 _LAZY_MODULES = {'db': 'zuds_tpu_torch.db'}
 

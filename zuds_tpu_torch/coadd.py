@@ -13,12 +13,14 @@ whose mapping residual exceeds the ``max_shift`` bucket take the per-epoch
 loop ``_coadd_loop``: each epoch's own products, one planned (H1) or gather
 (H10) warp of pixels, weight and mask, then the same combine (H9).
 
+``solve_astrometry=True`` refits each epoch's WCS first
+(``scamp.calibrate_astrometry``): each epoch's catalog is detected on the
+stack's device, matched to a Gaia cache or the first epoch's stars, and
+the refit WCS saved into the epoch's file.
+
 With a database bound (``model_util.init_db()``) the stack is recorded as
 in the reference: its ``ZTFFile`` record and one ``CoaddImage`` join for
 each input image that has an id.
-
-Not ported yet, raising ``NotImplementedError`` (ROADMAP queue 1):
-``solve_astrometry=True`` (scamp, item 6).
 """
 from __future__ import annotations
 
@@ -68,11 +70,6 @@ def coadd_grid(images):
     wcs = TPVWCS.simple(crval=(ra0, dec0), crpix=(1 - xmin, 1 - ymin),
                         scale_deg=scale)
     return wcs, (h, w)
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f'{what} is not ported yet (ROADMAP queue 1: {item})')
 
 
 def fused_inputs(images, wcs, H, W, device=None, stats=None):
@@ -193,21 +190,39 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
     ``.mask.fits`` sibling and its ``.weight.fits`` product.
 
     ``device``: where the stack is built, the card unless ``'cpu'``.
+    ``solve_astrometry``: refit the epochs' WCS first, in place
+    (``scamp.calibrate_astrometry``; an epoch without a device of its own
+    has its catalog detected on ``device``).
     ``stats`` (dict, optional) gains the host seconds of each phase
-    (``prepare_s``, ``upload_s`` within it, ``pipeline_s``, ``fetch_s``,
-    ``write_s``, ``seeing_s``; ``loop_s`` when the per-epoch loop ran) and
+    (``catalog_s`` and ``scamp_s`` when the astrometry is solved: the
+    epochs' catalogs and the fit with the epochs' saves; ``prepare_s``,
+    ``upload_s`` within it, ``pipeline_s``, ``fetch_s``, ``write_s``,
+    ``seeing_s``; ``loop_s`` when the per-epoch loop ran) and
     ``upload_bytes``. With a database bound, the coadd's record and its
     ``CoaddImage`` joins are committed (coadd.py:200-214) and ``coadd.id``
-    set. The swarp and thread arguments of the reference are accepted and
-    unused, as there."""
+    set; a ``ReferenceImage``'s record carries ``REFERENCE_VERSION``. The
+    swarp and thread arguments of the reference are accepted and unused,
+    as there."""
     from .seeing import estimate_seeing
 
     images = list(images)
     properties = GROUP_PROPERTIES
     ensure_images_have_the_same_properties(images, properties)
 
+    st = stats if stats is not None else {}
     if solve_astrometry:
-        raise _not_ported('solve_astrometry=True (scamp)', 'item 6, scamp')
+        from .inputs import resolve_device
+        from .scamp import calibrate_astrometry
+        t0 = time.perf_counter()
+        for im in images:
+            if getattr(im, 'device', None) is None:
+                im.device = resolve_device(device)
+            im.catalog          # detected here where the epoch has none
+        t1 = time.perf_counter()
+        calibrate_astrometry(images, scamp_kws=scamp_kws, tmpdir=tmpdir,
+                             inplace=True)
+        st['catalog_s'] = st.get('catalog_s', 0.0) + t1 - t0
+        st['scamp_s'] = st.get('scamp_s', 0.0) + time.perf_counter() - t1
 
     wcs, (H, W) = coadd_grid(images)
 
@@ -218,7 +233,6 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
         except KeyError:
             pass
 
-    st = stats if stats is not None else {}
     coadd_data = None
     if fused and addbkg:
         try:
@@ -245,6 +259,12 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
         coadd = cls()
         coadd.device = device
         header = images[0].header.copy()
+        # the first epoch's distortion cards would outlive the grid's
+        # undistorted WCS, which writes none (the JAX package keeps them:
+        # ROADMAP section 3)
+        for key in [k for k in header.keys() if k.startswith(('PV1_',
+                                                               'PV2_'))]:
+            del header[key]
         wcs.to_header(header)
         header.set('NAXIS1', W)
         header.set('NAXIS2', H)
@@ -292,6 +312,9 @@ def _coadd_from_images(cls, images, outfile_name, nthreads=1, addbkg=True,
         from .core import record_from_image
         from .joins import CoaddImage
         rec = record_from_image(coadd, getattr(cls, '__ztf_type__', 'coadd'))
+        # a reference's record carries its version, which queryref reads
+        # (the JAX package leaves it NULL: ROADMAP section 3)
+        rec.version = getattr(cls, 'version', None)
         sess.add(rec)
         sess.commit()
         coadd.id = rec.id

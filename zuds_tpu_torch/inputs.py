@@ -23,7 +23,8 @@ from .ops.subtract import KernelBasis
 __all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
            'COADD_INPUT_NAMES', 'resolve_device', 'upload', 'upload_mask',
            'write_night_pairs', 'night_stars', 'forced_positions',
-           'write_coadd_epochs', 'spread_braai', 'labelled_triplets']
+           'write_coadd_epochs', 'coadd_stars', 'write_gaia_cache',
+           'spread_braai', 'labelled_triplets']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -401,38 +402,114 @@ COADD_STARS = 400
 COADD_SEEING = 2.0
 COADD_MAGZP = 26.3
 COADD_DITHER = 1.5
+COADD_CENTER = (150.1, 35.2)
+COADD_SCALE = 1.01 / 3600.0
+
+
+# write_coadd_epochs' header WCS errors (wcs_errors=True): a CRPIX offset
+# of up to WCS_ERR_CRPIX_PX (uniform over the disc; the matcher's radius is
+# 2 arcsec, ~2 px), a rotation about CRPIX of up to WCS_ERR_ROT_DEG either
+# way and, in every second epoch from epoch 1, a degree-3 TPV distortion
+# whose largest displacement at the frame's corners is WCS_ERR_DISTORT_PX
+WCS_ERR_CRPIX_PX = 1.2
+WCS_ERR_ROT_DEG = 0.01
+WCS_ERR_DISTORT_PX = 0.3
+
+
+def _coadd_scene(H, W, seed, nstars):
+    """The scene's generator after its star draws, and the stars' (ra,
+    dec) and fluxes."""
+    from .wcs import TPVWCS
+    rng = np.random.default_rng(seed)
+    wcs0 = TPVWCS.simple(crval=COADD_CENTER, crpix=(W / 2 + .5, H / 2 + .5),
+                         scale_deg=COADD_SCALE)
+    xs = rng.uniform(30, W - 30, nstars)
+    ys = rng.uniform(30, H - 30, nstars)
+    fl = rng.uniform(8000, 60000, nstars)
+    ra, dec = wcs0.pix2sky_0(xs, ys)
+    return rng, ra, dec, fl
+
+
+def coadd_stars(H, W, seed=21, nstars=COADD_STARS):
+    """The true (ra, dec) of ``write_coadd_epochs``' stars."""
+    _, ra, dec, _ = _coadd_scene(H, W, seed, nstars)
+    return ra, dec
+
+
+def write_gaia_cache(d, H, W, seed=21, nstars=COADD_STARS):
+    """A Gaia-like astrometric cache of ``write_coadd_epochs``' scene: the
+    stars' true (ra, dec) in ``gaia_{int(ra)}_{int(dec)}.npz`` under
+    directory ``d``, named by the field's centre as ``scamp._gaia_cache``
+    looks it up. Returns its path."""
+    ra, dec = coadd_stars(H, W, seed, nstars)
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f'gaia_{int(COADD_CENTER[0])}_'
+                           f'{int(COADD_CENTER[1])}.npz')
+    np.savez(path, ra=ra, dec=dec)
+    return path
+
+
+def _header_wcs(true, i, H, W, rng):
+    """Epoch ``i``'s header WCS: ``true`` with the errors of
+    ``wcs_errors=True`` drawn from ``rng``."""
+    import copy
+    from .wcs.tpv import tpv_terms
+    r = WCS_ERR_CRPIX_PX * np.sqrt(rng.uniform())
+    phi = rng.uniform(0.0, 2.0 * np.pi)
+    rot = np.radians(rng.uniform(-WCS_ERR_ROT_DEG, WCS_ERR_ROT_DEG))
+    cubic = rng.uniform(-1.0, 1.0, (2, 4))
+    w = copy.deepcopy(true)
+    w.crpix = true.crpix + r * np.array([np.cos(phi), np.sin(phi)])
+    c, s = np.cos(rot), np.sin(rot)
+    w.cd = np.array([[c, -s], [s, c]]) @ true.cd
+    if i % 2 == 1:
+        # the cubic terms (TPV 7-10) scaled to WCS_ERR_DISTORT_PX at the
+        # worst of the frame's corners on the tangent plane
+        cx = np.array([-1.0, 1.0, 1.0, -1.0]) * W / 2.0 * COADD_SCALE
+        cy = np.array([-1.0, -1.0, 1.0, 1.0]) * H / 2.0 * COADD_SCALE
+        d1 = tpv_terms(cx, cy)[:, 7:11] @ cubic[0]
+        d2 = tpv_terms(cy, cx)[:, 7:11] @ cubic[1]
+        gain = WCS_ERR_DISTORT_PX / (np.hypot(d1, d2).max() / COADD_SCALE)
+        w.pv1 = w.pv1.copy()
+        w.pv2 = w.pv2.copy()
+        w.pv1[7:11] = cubic[0] * gain
+        w.pv2[7:11] = cubic[1] * gain
+    return w
 
 
 def write_coadd_epochs(d, nepochs, H, W, seed=21, nstars=COADD_STARS,
-                       cosmic=None):
+                       cosmic=None, seeing=None, maglim=None, infobits=None,
+                       wcs_errors=False):
     """FITS epochs of one synthetic quadrant in directory ``d``, the recipe
     of ``bench.py:main_coadd`` (206-258): ``nstars`` stars of flux
     8e3-6e4 at seeing 2.0 px on sky 150 with noise 5, ``MAGZP`` 26.3, one
     linear WCS per epoch whose CRPIX is dithered by up to 1.5 px on each
     axis, uint16 ``mskimg`` siblings, written with the port's FITS writer.
     ``cosmic`` = (epoch, x, y, counts) adds ``counts`` to that pixel of
-    that epoch. Returns (paths, the epochs' WCS objects)."""
+    that epoch. Optional per-epoch sequences: ``seeing`` (FWHM in px: the
+    epoch's stars are drawn at it and its SEEING card says it),
+    ``maglim`` and ``infobits`` (MAGLIM and INFOBITS cards).
+    ``wcs_errors``: each header carries its WCS off by errors drawn from
+    the seed (the ``WCS_ERR_*`` bounds) by a generator of their own; the
+    pixels are drawn with the true WCS all the same. Without these options
+    the files are the recipe's, byte for byte. Returns (paths, the
+    epochs' true WCS objects)."""
     from .fits import HDU, Header, write_fits
     from .wcs import TPVWCS
-    rng = np.random.default_rng(seed)
-    scale = 1.01 / 3600.0
-    wcs0 = TPVWCS.simple(crval=(150.1, 35.2),
-                         crpix=(W / 2 + .5, H / 2 + .5), scale_deg=scale)
-    xs = rng.uniform(30, W - 30, nstars)
-    ys = rng.uniform(30, H - 30, nstars)
-    fl = rng.uniform(8000, 60000, nstars)
-    ra, dec = wcs0.pix2sky_0(xs, ys)
+    rng, ra, dec, fl = _coadd_scene(H, W, seed, nstars)
+    rng_err = np.random.default_rng([seed, 1])
     k = 10
     yy, xx = np.mgrid[-k:k + 1, -k:k + 1]
-    sig = COADD_SEEING / 2.355
     paths, wcss = [], []
     for i in range(nepochs):
         p = os.path.join(d, f'ep{i}_sciimg.fits')
         wcs_e = TPVWCS.simple(
-            crval=(150.1, 35.2),
+            crval=COADD_CENTER,
             crpix=(W / 2 + .5 + rng.uniform(-COADD_DITHER, COADD_DITHER),
                    H / 2 + .5 + rng.uniform(-COADD_DITHER, COADD_DITHER)),
-            scale_deg=scale)
+            scale_deg=COADD_SCALE)
+        see = COADD_SEEING if seeing is None else seeing[i]
+        sig = see / 2.355
         ex, ey = wcs_e.sky2pix_0(ra, dec)
         img = np.full((H, W), 150.0, 'f4')
         for x, y, f in zip(ex, ey, fl):
@@ -447,12 +524,17 @@ def write_coadd_epochs(d, nepochs, H, W, seed=21, nstars=COADD_STARS,
         if cosmic is not None and cosmic[0] == i:
             img[cosmic[2], cosmic[1]] += np.float32(cosmic[3])
         h = Header()
-        wcs_e.to_header(h)
+        (_header_wcs(wcs_e, i, H, W, rng_err) if wcs_errors
+         else wcs_e).to_header(h)
         for key, v in (('MAGZP', COADD_MAGZP), ('OBSMJD', 58300.0 + i),
                        ('FIELDID', 679), ('CCDID', 1), ('QID', 2),
                        ('FILTERID', 2), ('SATURATE', 60000.0),
-                       ('SEEING', COADD_SEEING)):
+                       ('SEEING', see)):
             h.set(key, v)
+        if maglim is not None:
+            h.set('MAGLIM', float(maglim[i]))
+        if infobits is not None:
+            h.set('INFOBITS', int(infobits[i]))
         h.set('FILENAME', os.path.basename(p))
         write_fits(p, [HDU(h, img)])
         write_fits(p.replace('sciimg', 'mskimg'),

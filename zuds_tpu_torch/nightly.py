@@ -1,0 +1,55 @@
+"""Nightly per-pair subtraction worker of the port (twin of
+``scripts/donightly.py``): ``sub.do_one`` on each work line, a
+``FailedSubtraction`` row for each line that fails, so that a bad pair is
+never queued again.
+
+    python -m zuds_tpu_torch.nightly <worklist>
+
+``<worklist>`` holds one "sci_path ref_path" pair per line; this process
+takes its share (``mpi.get_my_share_of_work``). A failure is reported, the
+session rolled back and, with a database bound, its reason (the
+exception's text, at most 500 characters) committed; the next line runs.
+The exit code is 1 if any line failed.
+"""
+from __future__ import annotations
+
+import sys
+import traceback
+
+__all__ = ['run', 'main']
+
+
+def run(worklist, device=None):
+    """This process's share of ``worklist`` through ``sub.do_one`` on
+    ``device`` (the card unless ``'cpu'``; donightly.py:12-25). Returns
+    (line, (sub, GOODCUT rows) or the exception) a line."""
+    from .bookkeeping import FailedSubtraction
+    from .core import DBSession
+    from .mpi import get_my_share_of_work
+    from .sub import do_one
+
+    out = []
+    for line in get_my_share_of_work(worklist):
+        try:
+            out.append((str(line), do_one(str(line), device=device)))
+        except Exception as e:
+            traceback.print_exc()
+            sess = DBSession()
+            sess.rollback()
+            if sess.conn is not None:
+                sess.add(FailedSubtraction(reason=str(e)[:500]))
+                sess.commit()
+            out.append((str(line), e))
+    return out
+
+
+def main(argv):
+    if len(argv) < 2:
+        print(__doc__)
+        return 2
+    res = run(argv[1])
+    return 1 if any(isinstance(r, Exception) for _, r in res) else 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv))
