@@ -94,7 +94,21 @@ timed; the transient's forced flux, the off-frame rows and the masked rows
 checked, the blank-sky pulls printed, H22 held to its plain version at
 those positions and the sha256 of its outputs there printed (with
 ``ZUDS_PHOT_INPUTS=FILE`` in the environment, the frames and positions
-are saved to FILE for ``bench_detect.py --phot``). The detect stage: ``detect_sources`` on the slice's two
+are saved to FILE for ``bench_detect.py --phot``). The alert phase, in
+a directory and sqlite files of its own: two flagship pairs registered as
+``sci``/``ref`` records, ``control.controller.run_once`` with its local
+launcher (the ``nightly`` worker as a process on the card, ml=True, in
+the frames' directory: the work list holds basenames), its ``sesub``
+records and detections checked; then copies of the pairs through
+``sub.do_one`` (ml=False) in this process, a known source and a local PS1
+and DR8 row 1 arcsec from each transient, ``makesources.associate``,
+``phot_controller.main`` (the ``phot`` worker as a process on the card),
+``makealert.main`` and ``doalert.main`` (the thin alerts of detections
+read from the database), and ``Alert.from_detection`` of the detections
+with their subtraction attached, ``send_alert`` to the spool and
+``read_avro``: the crossmatch blocks, the three cutouts, the light curve
+and each spooled file held to ``alert_to_record``; host seconds per
+step. The detect stage: ``detect_sources`` on the slice's two
 frames through H24-H27 (the seeds, the base components, the per-object
 statistics, CLEAN) against the same call with their plain versions, at
 the three deblend modes; each of the four against its plain version on
@@ -249,6 +263,10 @@ PHOT_FLUX_TOL = 0.15
 # each transient's forced flux (but on the frame without SEEING, which
 # keeps no detection) within PHOT_FLUX_TOL of the phot phase's measured one
 DB_MEASURED = 64
+# the alert phase: ALERT_PAIRS flagship pairs of the night's scene; a
+# worker process the controller starts must end within ALERT_WAIT_S
+ALERT_PAIRS = 2
+ALERT_WAIT_S = 600
 # the kernels only the ZOGY subtraction launches (from_images at
 # method='zogy'), and how often per pair: two PSFs, one spectral pass
 ZOGY_LAUNCHES = {'zogy_spectral': 1, 'zogy_normalize': 1, 'psf_stamps': 2,
@@ -1250,18 +1268,29 @@ def night_phase(wrappers, name, record):
 
 class bound_db:
     """The port's sessions bound to a fresh sqlite file in ``d`` (its
-    config a file there too), its tables made; unbound on exit."""
+    config a file there too), its tables made; unbound on exit. With
+    ``config=True`` the config names that file (``sqlite_path``) and a
+    spool there (``base_data_directory``), so a worker process or a
+    ``main`` that binds the configured database binds the same one."""
 
-    def __init__(self, d, tag):
+    def __init__(self, d, tag, config=False):
         self.d = os.path.join(d, f'db_{tag}')
+        self.config = config
 
     def __enter__(self):
         from zuds_tpu_torch import model_util, secrets
         os.makedirs(self.d)
         self.env = os.environ.get('ZUDS_CONFIG')
         os.environ['ZUDS_CONFIG'] = os.path.join(self.d, 'config')
+        self.db = os.path.join(self.d, 'zuds.db')
+        self.spool = os.path.join(self.d, 'spool')
+        if self.config:
+            with open(os.environ['ZUDS_CONFIG'], 'w') as f:
+                f.write(f'sqlite_path: {self.db}\n'
+                        f'base_data_directory: {self.spool}\n')
+            os.chmod(os.environ['ZUDS_CONFIG'], 0o600)
         secrets._manager.cache = None
-        model_util.init_db(database=os.path.join(self.d, 'zuds.db'))
+        model_util.init_db(database=self.db)
         model_util.create_tables()
         return self
 
@@ -3032,6 +3061,364 @@ def phot_phase(wrappers, name, db_fluxes):
                        os.environ['ZUDS_PHOT_INPUTS'])
 
 
+def alert_phase(wrappers, name):
+    """The alert chain and the control plane that feeds it, from FITS
+    pairs to spooled, read-back alert packets (see the module's
+    docstring). (a) ``controller.run_once`` starts the ``nightly`` worker
+    on the card over the registered pairs: one ``sesub`` record a pair
+    with the records' target and reference ids, no ``FailedSubtraction``,
+    the detections the catalogs' GOODCUT rows, each transient among them,
+    the kernel library loaded and not rebuilt. (b) On copies, in a second
+    database: ``sub.do_one`` (ml=False, counted), a known source and one
+    PS1 and one DR8 row 1 arcsec from each transient, ``associate``
+    (stage 1 matches each transient and nothing else), ``phot_controller``
+    (its ``phot`` worker on the card; ``alert_ready`` on the transients
+    alone), ``makealert.main`` and ``doalert.main`` (one thin alert a
+    ready detection: no cutouts, the crossmatch blocks; each spooled file
+    the bytes of ``alert_to_record``), then the full alerts of the
+    detections with their subtraction attached: 123 candidate fields, the
+    ps/ls blocks equal to the local rows, the three cutouts the 63x63
+    cuts of their frames on the frames' WCS, the light curve's flux on
+    the transient's own subtraction within PHOT_FLUX_TOL of the planted
+    flux in r = 3 px, the spooled file the bytes of ``alert_to_record``.
+    Prints the host seconds of each step."""
+    import contextlib
+    import glob
+    import gzip
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import core, doalert, inputs, makealert, night
+    from zuds_tpu_torch import send, sub as zsub
+    from zuds_tpu_torch.alert import Alert
+    from zuds_tpu_torch.avro import read_avro, write_avro
+    from zuds_tpu_torch.bookkeeping import FailedSubtraction, ForcePhotJob
+    from zuds_tpu_torch.catalog import PipelineFITSCatalog
+    from zuds_tpu_torch.control import controller, makesources
+    from zuds_tpu_torch.control import phot_controller
+    from zuds_tpu_torch.crossmatch import abmag
+    from zuds_tpu_torch.detections import Detection
+    from zuds_tpu_torch.external import DR8North, PS1
+    from zuds_tpu_torch.fits import read_fits
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.kernels import build
+    from zuds_tpu_torch.source import ForcedPhotometryRecord, Source
+    from zuds_tpu_torch.spatial import angular_distance
+    from zuds_tpu_torch.subtraction import sub_name
+    from zuds_tpu_torch.thumbnails import make_stamp
+    cfg = night.FLAGSHIP
+    H, W = cfg.height, cfg.width
+    sig = inputs.NIGHT_SEEING[1] / 2.3548
+    want = inputs.NIGHT_TRANSIENT_FLUX * (1 - math.exp(-9.0 / (2 * sig ** 2)))
+    secs = {}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+        return out
+
+    def register(sess, lines):
+        # read as science images, so that the reference's record has its
+        # quadrant (ReferenceImage.from_file reads no FIELDID/CCDID/...)
+        ids = {}
+        for line in lines:
+            for path, kind in zip(line.split(), ('sci', 'ref')):
+                if path not in ids:
+                    rec = core.record_from_image(
+                        ScienceImage.from_file(path), kind)
+                    sess.add(rec)
+                    sess.commit()
+                    ids[path] = rec.id
+        return ids
+
+    def transient(sess, line, i, d):
+        """The sesub record of ``line`` and its detection nearest pair
+        ``i``'s transient (checked within 2 px), with all its detections
+        and the catalog's GOODCUT rows."""
+        sci, ref = line.split()
+        base = os.path.basename(sub_name(sci, ref))
+        recs = sess.query(core.ZTFFile).filter_by(basename=base).all()
+        check(len(recs) == 1 and recs[0].type == 'sesub',
+              f'alert: pair {i}: records {recs}')
+        dets = sess.query(Detection).filter_by(image_id=recs[0].id) \
+            .order_by('id').all()
+        cat = PipelineFITSCatalog.from_file(
+            os.path.join(d, base.replace('.fits', '.cat'))).data
+        good = cat[cat['GOODCUT'] == 1]
+        tx, ty = truths[i]
+        check(len(dets) == len(good) >= 1, f'alert: pair {i}: '
+              f'{len(dets)} detections, {len(good)} GOODCUT rows')
+        near = min(dets, key=lambda x: math.hypot(x.x_image - 1 - tx,
+                                                  x.y_image - 1 - ty))
+        dist = math.hypot(near.x_image - 1 - tx, near.y_image - 1 - ty)
+        check(dist < 2.0, f'alert: pair {i}: transient {dist:.2f} px from '
+              f'its nearest detection')
+        return recs[0], near, dets
+
+    def spooled(spool, candid):
+        paths = glob.glob(os.path.join(spool, 'alerts', '*',
+                                       f'{candid}.avro'))
+        check(len(paths) == 1, f'alert: spool files of {candid}: {paths}')
+        return paths[0]
+
+    def same_bytes(path, alert):
+        record, schema = send.alert_to_record(alert)
+        buf = io.BytesIO()
+        write_avro(buf, schema, [record])
+        with open(path, 'rb') as f:
+            raw = f.read()
+        check(raw == buf.getvalue(), f'alert: {path} is not the bytes of '
+              f'alert_to_record')
+        return read_avro(io.BytesIO(raw))[1]
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_alert_') as d:
+        da, dbd = os.path.join(d, 'a'), os.path.join(d, 'b')
+        os.makedirs(da)
+        work, truths = timed('write', lambda: inputs.write_night_pairs(
+            da, ALERT_PAIRS, H, W, header_json=Path(__file__).resolve()
+            .parent / 'tests' / 'data' / 'ztf_real_header.json'))
+        # fresh copies for (b): a pair's products are cached beside it
+        shutil.copytree(da, dbd)
+        work_b = [' '.join(os.path.join(dbd, os.path.basename(p))
+                           for p in line.split()) for line in work]
+        so = build.library_path()
+        so_state = (so.stat().st_mtime_ns, sorted(os.listdir(so.parent
+                                                             .parent)))
+
+        # ---- (a) the controller's nightly worker on the card -------------
+        with bound_db(da, 'control', config=True) as dba:
+            sess = core.DBSession()
+            ids = timed('a_records', lambda: register(sess, work))
+            pairs = controller.unprocessed_pairs(sess)
+            check(sorted(pairs) == sorted(tuple(map(os.path.basename,
+                                                    line.split()))
+                                          for line in work),
+                  f'alert: unprocessed pairs {pairs}')
+            launcher = controller.LocalLauncher()
+            with contextlib.chdir(da):
+                jobs = timed('a_submit', lambda: controller.run_once(
+                    sess, launcher, dba.d))
+            check(len(jobs) == 1, f'alert: {len(jobs)} jobs submitted')
+            proc = launcher.procs[jobs[0].slurm_id]
+            try:
+                rc = timed('a_worker', lambda: proc.wait(ALERT_WAIT_S))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                rc = None
+            check(rc == 0, f'alert: the nightly worker ended with {rc}')
+            status = [j.status for j in controller.refresh_job_status(
+                sess, launcher)]
+            check(status == ['done'], f'alert: job status {status}')
+            check(sess.query(FailedSubtraction).count() == 0,
+                  'alert: the nightly worker recorded a FailedSubtraction')
+            nd = []
+            for i, line in enumerate(work):
+                rec, near, dets = transient(sess, line, i, da)
+                sci, ref = line.split()
+                check((rec.target_id, rec.reference_id)
+                      == (ids[sci], ids[ref]),
+                      f'alert: pair {i}: target/reference ids '
+                      f'{(rec.target_id, rec.reference_id)}')
+                nd.append(len(dets))
+            check(controller.unprocessed_pairs(sess) == [],
+                  'alert: pairs left unprocessed after the worker')
+        check((so.stat().st_mtime_ns, sorted(os.listdir(so.parent.parent)))
+              == so_state, 'alert: a worker rebuilt the kernel library')
+        print(f'alert (a): controller.run_once over {len(work)} registered '
+              f'pairs, one nightly worker on the card (ml=True) in '
+              f'{secs["a_worker"]:.2f} s: exit 0, job done, one sesub '
+              f'record a pair with its target and reference ids, '
+              f'detections {nd} = the GOODCUT rows, each transient a '
+              f'detection, no FailedSubtraction, the kernel library '
+              f'loaded, not rebuilt; host s records '
+              f'{secs["a_records"]:.3f}, submit {secs["a_submit"]:.3f} on '
+              f'{name}', flush=True)
+
+        # ---- (b) the alert chain -----------------------------------------
+        with bound_db(dbd, 'alerts', config=True) as dbb:
+            sess = core.DBSession()
+            ids_b = timed('b_records', lambda: register(sess, work_b))
+            for w in wrappers.values():
+                w.launches = 0
+            subs = {}
+            for i, line in enumerate(work_b):
+                subs[i] = timed('b_do_one', lambda: zsub.do_one(
+                    line, ml=False))[0]
+            torch.cuda.synchronize()
+            used = counts_of(wrappers)
+            check(used.get('apply_model', 0) >= ALERT_PAIRS,
+                  f'alert: sub.do_one launched {used}')
+            tdets, recs = {}, {}
+            for i, line in enumerate(work_b):
+                recs[i], near, _ = transient(sess, line, i, dbd)
+                tdets[i] = near.id
+                check((recs[i].target_id, recs[i].reference_id)
+                      == tuple(ids_b[p] for p in line.split()),
+                      f'alert: pair {i}: the per-pair chain\'s ids')
+            rng = np.random.default_rng(27)
+            wcs = ScienceImage.from_file(work_b[0].split()[0]).wcs
+            local = {}
+            for i in range(ALERT_PAIRS):
+                ra, dec = (float(v) for v in wcs.pix2sky_0(*truths[i]))
+                ps = PS1(objid=int(rng.integers(10 ** 15, 10 ** 16)), ra=ra,
+                         dec=dec + 1 / 3600, sgscore=float(rng.uniform()),
+                         **{f'{b}mag': float(rng.uniform(15, 22))
+                            for b in 'griz'})
+                dr = DR8North(
+                    objid=int(rng.integers(1, 10 ** 6)),
+                    ra=ra + 1 / 3600 / math.cos(math.radians(dec)), dec=dec,
+                    type='EXP', ebv=float(rng.uniform(0, 0.1)),
+                    **{f'flux_{b}': float(rng.uniform(0.5, 50))
+                       for b in ('g', 'r', 'z', 'w1', 'w2', 'w3', 'w4')},
+                    gaia_phot_g_mean_mag=float(rng.uniform(15, 21)),
+                    parallax=float(rng.uniform(0, 2)),
+                    **{f'z_phot_{k}': float(rng.uniform(0, 1))
+                       for k in ('mean', 'median', 'std', 'l68', 'u68',
+                                 'l95', 'u95')},
+                    z_spec=float(rng.uniform(0, 1)))
+                sess.add_all([Source(id=f'ZUDS26chip{i:02d}', ra=ra,
+                                     dec=dec, origin='chip_smoke'), ps, dr])
+                local[i] = (f'ZUDS26chip{i:02d}', ps, dr)
+            sess.commit()
+            matched, new = timed('b_associate',
+                                 lambda: makesources.associate(sess))
+            linked = {x.id: (x.source_id, x.triggers_alert) for x in
+                      sess.query(Detection).filter(
+                          'source_id IS NOT NULL').all()}
+            check((matched, new) == (ALERT_PAIRS, 0) and linked == {
+                tdets[i]: (local[i][0], 1) for i in range(ALERT_PAIRS)},
+                f'alert: associate matched {matched}, new {new}: {linked}')
+            with contextlib.chdir(dbd):
+                timed('b_phot', lambda: phot_controller.main(
+                    workdir=os.path.join(dbb.d, 'phot'), once=True))
+            sess = core.DBSession()
+            pjobs = [j.status for j in sess.query(ForcePhotJob).all()]
+            nfp = sess.query(ForcedPhotometryRecord).count()
+            ready = sorted(x.id for x in sess.query(Detection).filter_by(
+                alert_ready=1).all())
+            check(pjobs == ['done'] and nfp == ALERT_PAIRS ** 2
+                  and ready == sorted(tdets.values()),
+                  f'alert: phot jobs {pjobs}, {nfp} forced rows, '
+                  f'alert_ready {ready}')
+            made = timed('b_makealert', makealert.main)
+            sess = core.DBSession()
+            thin = sess.query(Alert).order_by('id').all()
+            check(made == len(thin) == ALERT_PAIRS
+                  and sorted(a.detection_id for a in thin) == ready,
+                  f'alert: makealert built {made} alerts: {thin}')
+            worklist = os.path.join(dbb.d, 'alert_ids.txt')
+            with open(worklist, 'w') as f:
+                f.write(''.join(f'{i}\n' for i in ready))
+            rc = timed('b_doalert',
+                       lambda: doalert.main(['doalert', worklist]))
+            sess = core.DBSession()
+            sent = sess.query(Alert).filter_by(sent=1).order_by('id').all()
+            check(rc == 0 and len(sent) == ALERT_PAIRS,
+                  f'alert: doalert exit {rc}, {len(sent)} sent')
+            for a in thin + sent:
+                cand = a.payload['candidate']
+                ps = local[[i for i in tdets if tdets[i]
+                            == a.detection_id][0]][1]
+                check(a.cutout_science is None and cand['pid'] == 0
+                      and cand['objectidps1'] == ps.objid,
+                      f'alert: the thin alert of {a.detection_id}: '
+                      f'cutouts or crossmatch')
+            for a in sent:
+                same_bytes(spooled(dbb.spool, a.detection_id), a)
+
+            # the full alerts: the detections with their subtraction
+            full = []
+            for i in range(ALERT_PAIRS):
+                det = sess.query(Detection).get(tdets[i])
+                det.image = subs[i]
+                alert = timed('b_from_detection',
+                              lambda: Alert.from_detection(det))
+                timed('b_send', lambda: send.send_alert(alert))
+                path = spooled(dbb.spool, det.id)
+                got = timed('b_read', lambda: same_bytes(path, alert))
+                check(len(got) == 1, f'alert: {path}: {len(got)} records')
+                got = got[0]
+                cand = got['candidate']
+                sid, ps, dr = local[i]
+                check(len(cand) == 123 and cand['alert_type'] == 'single'
+                      and got['candid'] == det.id
+                      and got['objectId'] == sid,
+                      f'alert: pair {i}: the packet\'s envelope')
+
+                def f32(v):
+                    return None if v is None else float(np.float32(v))
+
+                def sep(row):
+                    return float(angular_distance(det.ra, det.dec, row.ra,
+                                                  row.dec) * 3600.0)
+                wants = {'objectidps1': ps.objid, 'sgscore1': f32(ps.sgscore),
+                         'distpsnr1': f32(sep(ps)), 'psgmag1': f32(ps.gmag),
+                         'psrmag1': f32(ps.rmag), 'psimag1': f32(ps.imag),
+                         'pszmag1': f32(ps.zmag), 'objectidps2': None,
+                         'lsobjectid1': dr.objid, 'lsdistnr1': f32(sep(dr)),
+                         'lstype1': dr.type, 'lsebv1': f32(dr.ebv),
+                         'lsgaiag1': f32(dr.gaia_phot_g_mean_mag),
+                         'lsgaiap1': f32(dr.parallax),
+                         'lszspec1': f32(dr.z_spec), 'lsobjectid2': None}
+                wants.update({f'ls{b}1': f32(abmag(getattr(dr, f'flux_{b}')))
+                              for b in 'grz'})
+                wants.update({f'lsw{k}_1': f32(abmag(getattr(dr,
+                                                           f'flux_w{k}')))
+                              for k in '1234'})
+                wants.update({f'lszphot{k}1': f32(getattr(dr,
+                                                          f'z_phot_{k}'))
+                              for k in ('mean', 'std', 'l68', 'u68', 'l95',
+                                        'u95')})
+                wants['lszphotmed1'] = f32(dr.z_phot_median)
+                bad = {k: (cand[k], v) for k, v in wants.items()
+                       if cand[k] != v}
+                check(not bad, f'alert: pair {i}: crossmatch blocks {bad}')
+                sci, ref = work_b[i].split()
+                for key, path in (('Difference', subs[i].local_path),
+                                  ('Science', sci), ('Template', ref)):
+                    raw = got[f'cutout{key}']
+                    check(raw is not None, f'alert: pair {i}: no {key} '
+                          f'cutout')
+                    stamp = read_fits(io.BytesIO(gzip.decompress(raw)))[0] \
+                        .data
+                    img = ScienceImage.from_file(path, load_others=False)
+                    cut = make_stamp(None, det.ra, det.dec, None, None,
+                                     np.asarray(img.data), img.wcs)
+                    check(stamp.shape == (63, 63)
+                          and np.array_equal(stamp, cut.astype('f4')),
+                          f'alert: pair {i}: the {key} cutout is not the '
+                          f'cut of its frame')
+                lc = [p['flux'] for p in got['light_curve']]
+                check(len(lc) == ALERT_PAIRS and None not in lc
+                      and abs(max(lc) - want) <= PHOT_FLUX_TOL * want,
+                      f'alert: pair {i}: light curve {lc}, planted '
+                      f'{want:.1f}')
+                full.append((det.id, cand, lc))
+        for i, (candid, cand, lc) in enumerate(full):
+            print(f'alert (b): pair {i}: candid {candid}, objectId '
+                  f'{local[i][0]}, ra {cand["ra"]:.6f} dec '
+                  f'{cand["dec"]:.6f}, jd {cand["jd"]}, snr '
+                  f'{cand["snr"]:.1f}, ndethist_single '
+                  f'{cand["ndethist_single"]}, distpsnr1 '
+                  f'{cand["distpsnr1"]:.3f}", lsdistnr1 '
+                  f'{cand["lsdistnr1"]:.3f}", light curve '
+                  f'{[round(x, 1) for x in lc]} against {want:.1f} '
+                  f'planted in r = 3 px', flush=True)
+        steps = ', '.join(f'{k} {v:.3f}' for k, v in secs.items())
+        print(f'alert (b): sub.do_one x{ALERT_PAIRS} (ml=False; launches '
+              f'{used}), associate matched {ALERT_PAIRS}, phot_controller '
+              f'(its phot worker on the card) {nfp} forced rows, makealert '
+              f'{len(thin)} and doalert {len(sent)} thin alerts, '
+              f'{len(full)} full alerts (123 fields, ps/ls blocks, three '
+              f'cutouts, light curve) spooled and read back, each file the '
+              f'bytes of alert_to_record; host seconds: {steps} on {name}',
+              flush=True)
+    return len(thin) + len(sent) + len(full)
+
+
 def star_free(sci, ok, margin=64, box=25):
     """``ok`` less a ``box`` px square about every source of ``sci``'s
     catalog and a ``margin`` px border: the star-free sky of a frame."""
@@ -4216,6 +4603,9 @@ def main():
 
     # ---- forced photometry: dophot's call on a flagship subtraction -------
     phot_phase(wrappers, name, db_fluxes)
+
+    # ---- the alert chain and the control plane that feeds it ------------
+    check(alert_phase(wrappers, name) > 0, 'alert: no alert was built')
 
     # ---- the ZOGY subtraction: from_images(method='zogy') on both pairs --
     zogy_phase(wrappers, name, record, pair_s)

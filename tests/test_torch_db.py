@@ -1,6 +1,6 @@
 """The port's persistence layer against the JAX package's, with no pipeline:
 every model's DDL string for string, the tables ``create_tables`` makes
-(the reference's but ``alerts``, whose module is not ported yet), the
+(every table of the reference, ``alerts`` among them), the
 queries and the dialects on the same inputs, the q3c-named sqlite
 functions, cone searches and footprint tests on seeded positions (RA 0/360
 wrap-around among them), the header JSON, the config reader against
@@ -31,8 +31,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 jmu._ensure_models_imported()
 tmu._ensure_models_imported()
-# the alert module (ROADMAP queue 1, item 8) is the one not ported yet
-NOT_PORTED = {'alerts'}
+# every model of the reference has its twin (alerts since the alert chain)
+NOT_PORTED = set()
 TABLES = sorted(jorm.MODELS)
 
 

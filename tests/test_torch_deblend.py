@@ -358,7 +358,8 @@ def test_cumsum_last_is_xla_order():
 
 def test_constants_equal_the_reference():
     names = [n for n in dir(tconst) if n.isupper()]
-    assert {'DEBLEND_NTHRESH', 'DEBLEND_MINCONT', 'BAD_SUM'} <= set(names)
+    assert {'DEBLEND_NTHRESH', 'DEBLEND_MINCONT', 'BAD_SUM', 'MJD_TO_JD',
+            'MATCH_RADIUS_DEG', 'RB_ASSOC_MIN'} <= set(names)
     for n in names:
         np.testing.assert_array_equal(np.asarray(getattr(tconst, n)),
                                       np.asarray(getattr(jconst, n)),
@@ -400,7 +401,13 @@ def test_port_runs_from_a_copy_alone(tmp_path):
             'zuds_tpu_torch.queryref', 'zuds_tpu_torch.querystack',
             'zuds_tpu_torch.nightly', 'zuds_tpu_torch.stamp',
             'zuds_tpu_torch.loadphot', 'zuds_tpu_torch.load_catalogs',
-            'zuds_tpu_torch.update'} <= set(modules)
+            'zuds_tpu_torch.update', 'zuds_tpu_torch.alert',
+            'zuds_tpu_torch.alert_fields', 'zuds_tpu_torch.avro',
+            'zuds_tpu_torch.send', 'zuds_tpu_torch.crossmatch',
+            'zuds_tpu_torch.makealert', 'zuds_tpu_torch.doalert',
+            'zuds_tpu_torch.worker', 'zuds_tpu_torch.control.controller',
+            'zuds_tpu_torch.control.makesources',
+            'zuds_tpu_torch.control.phot_controller'} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"

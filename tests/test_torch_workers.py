@@ -384,9 +384,14 @@ def test_nightly_failed_rows_match(config, tmp_path):
         res[pkg] = table(db, 'failedsubtractions')
     assert res['torch'] == res['jax'] and len(res['torch']) == 2
     assert 'missing_sciimg.fits' in res['torch'][0]['reason']
-    with contextlib.redirect_stderr(io.StringIO()):
-        assert tnightly.main(['nightly', str(work)]) == 1
+    with contextlib.redirect_stderr(io.StringIO()), \
+            contextlib.redirect_stdout(io.StringIO()):
+        assert tnightly.main(['nightly', str(work), '--device', 'cpu']) == 1
     assert tnightly.main(['nightly']) == 2
+    if not torch.cuda.is_available():
+        # the worker's default is the card: without one it raises
+        with pytest.raises(RuntimeError, match='no CUDA card'):
+            tnightly.main(['nightly', str(work)])
 
 
 # ---- loadphot, load_catalogs ----------------------------------------------

@@ -10,8 +10,9 @@ digits) is not allowed.
 
 The flat namespace holds, imported lazily as in ``zuds_tpu/__init__.py``,
 the filter's and the forced photometry's entry points, the persistence
-layer's names (sessions, models, ``init_db``) and scamp's
-``calibrate_astrometry``; the rest of the reference's
+layer's names (sessions, models, ``init_db``), scamp's
+``calibrate_astrometry`` and the alert chain's ``Alert``, ``xmatch``,
+``send_alert`` and ``combine_schemas``; the rest of the reference's
 namespace is not there yet (ROADMAP queue 1, item 10).
 """
 import torch
@@ -66,6 +67,10 @@ _LAZY_SYMBOLS = {
     'FailedSubtraction': 'zuds_tpu_torch.bookkeeping',
     'to_json': 'zuds_tpu_torch.json_util',
     'calibrate_astrometry': 'zuds_tpu_torch.scamp',
+    'Alert': 'zuds_tpu_torch.alert',
+    'xmatch': 'zuds_tpu_torch.crossmatch',
+    'send_alert': 'zuds_tpu_torch.send',
+    'combine_schemas': 'zuds_tpu_torch.send',
 }
 _LAZY_MODULES = {'db': 'zuds_tpu_torch.db'}
 

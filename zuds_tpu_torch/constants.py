@@ -67,6 +67,11 @@ GROUP_PROPERTIES = ['field', 'ccdid', 'qid', 'fid']
 COADD_ZP = 25.0                     # common zeropoint for FLXSCALE normalize
 CLIP_NSIGMA = 4.0                   # clipped-mean combine threshold
 
+# --- time / matching ---------------------------------------------------------
+MJD_TO_JD = 2400000.5
+MATCH_RADIUS_DEG = 0.0002777 * 2.0  # 2 arcsec association radius
+RB_ASSOC_MIN = 0.2                  # rb above which leftovers are clustered
+
 # --- execution ---------------------------------------------------------------
 NTHREADS_PER_NODE = 64              # mpi.get_nthreads without slurm
 

@@ -18,7 +18,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ['library', 'check', 'ptxas_report', 'ApplyParams']
+__all__ = ['library', 'library_path', 'check', 'ptxas_report',
+           'ApplyParams']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
@@ -201,10 +202,16 @@ def _compile(out: Path):
         os.replace(tmp_so, out)     # atomic: a concurrent loader sees all
 
 
+def library_path():
+    """Where :func:`library` builds and loads the library of these sources
+    and flags (a later process finds it there and builds nothing)."""
+    return _HERE / '_build' / _digest() / 'libzuds_kernels.so'
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """The loaded kernel library, built on first call."""
-    out = _HERE / '_build' / _digest() / 'libzuds_kernels.so'
+    out = library_path()
     if not out.exists():
         _compile(out)
     lib = ctypes.CDLL(str(out))

@@ -4,11 +4,7 @@
 from config: ``db_backend: sqlite`` (default, zero-dependency) or
 ``postgres`` (a psycopg2 driver, imported inside the postgres factory only).
 As in the reference, everything else in the package works before this is
-ever called.
-
-Not ported yet: the ``alerts`` table of ``alert.py`` (ROADMAP queue 1,
-item 8), so ``create_tables`` makes every table of the reference but that
-one.
+ever called. ``create_tables`` makes every table of the reference.
 """
 from __future__ import annotations
 
@@ -29,7 +25,7 @@ _state = {'path': None}
 def _ensure_models_imported():
     """Import every module that declares Models so DDL sees all tables."""
     from . import bookkeeping, joins, detections, source, archive  # noqa
-    from . import thumbnails, external  # noqa
+    from . import thumbnails, external, alert  # noqa
 
 
 def _sqlite_path(database=None):

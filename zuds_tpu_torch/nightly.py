@@ -3,11 +3,16 @@
 ``FailedSubtraction`` row for each line that fails, so that a bad pair is
 never queued again.
 
-    python -m zuds_tpu_torch.nightly <worklist>
+    python -m zuds_tpu_torch.nightly <worklist> [--device DEV]
 
-``<worklist>`` holds one "sci_path ref_path" pair per line; this process
-takes its share (``mpi.get_my_share_of_work``). A failure is reported, the
-session rolled back and, with a database bound, its reason (the
+``<worklist>`` holds one "sci_path ref_path" pair per line, each path
+opened as written (relative paths from the working directory); this
+process takes its share (``mpi.get_my_share_of_work``). As a process it
+binds the configured database (``model_util.init_db()``, its tables made
+where missing: the reference's ``donightly.py`` binds none, so what it
+commits from a process is lost) and runs on the card unless ``--device``
+names another device; without a card it raises. A failure is reported,
+the session rolled back and, with a database bound, its reason (the
 exception's text, at most 500 characters) committed; the next line runs.
 The exit code is 1 if any line failed.
 """
@@ -21,13 +26,16 @@ __all__ = ['run', 'main']
 
 def run(worklist, device=None):
     """This process's share of ``worklist`` through ``sub.do_one`` on
-    ``device`` (the card unless ``'cpu'``; donightly.py:12-25). Returns
+    ``device`` (the card unless ``'cpu'``, resolved before the first line:
+    without a card it raises; donightly.py:12-25). Returns
     (line, (sub, GOODCUT rows) or the exception) a line."""
     from .bookkeeping import FailedSubtraction
     from .core import DBSession
+    from .inputs import resolve_device
     from .mpi import get_my_share_of_work
     from .sub import do_one
 
+    device = resolve_device(device)
     out = []
     for line in get_my_share_of_work(worklist):
         try:
@@ -44,10 +52,18 @@ def run(worklist, device=None):
 
 
 def main(argv):
+    from .model_util import create_tables, init_db
+    from .worker import report_launches, split_device, start
+
+    argv, device = split_device(argv)
     if len(argv) < 2:
         print(__doc__)
         return 2
-    res = run(argv[1])
+    device = start('nightly', device)
+    init_db()
+    create_tables()
+    res = run(argv[1], device=device)
+    report_launches('nightly')
     return 1 if any(isinstance(r, Exception) for _, r in res) else 0
 
 

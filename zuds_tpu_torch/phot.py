@@ -2,7 +2,7 @@
 subtractions on disk and the sources in the database -> one CSV row a
 (source, subtraction) pair lacking a measurement, through H22 on the card.
 
-    python -m zuds_tpu_torch.phot <worklist> [outdir]
+    python -m zuds_tpu_torch.phot <worklist> [outdir] [--device DEV]
 
 ``<worklist>`` holds one subtraction path per line; this process takes its
 share (``mpi.get_my_share_of_work``). For each subtraction it lists the
@@ -13,7 +13,9 @@ the ranks' files into ``phot.all.csv`` under a header line. A rank stops
 taking subtractions after TIME_BUDGET_S of wall clock (dophot.py:104).
 The subtraction's id comes from its newest ``ZTFFile`` record
 (``ScienceImage.from_file``), so a database must be bound
-(``model_util.init_db()``); without one no source is listed.
+(``model_util.init_db()``, which the process entry :func:`cli` calls);
+without one no source is listed. The process runs on the card unless
+``--device`` names another device.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import traceback
 
 import numpy as np
 
-__all__ = ['TIME_BUDGET_S', 'unphotometered_sources', 'do_one', 'main']
+__all__ = ['TIME_BUDGET_S', 'unphotometered_sources', 'do_one', 'main',
+           'cli']
 
 TIME_BUDGET_S = 45 * 60
 
@@ -138,8 +141,25 @@ def main(worklist, outdir='.', device=None, stats=None):
         return merged
 
 
-if __name__ == '__main__':
-    if len(sys.argv) < 2:
+def cli(argv):
+    """The process entry: bind the configured database (its tables made
+    where missing: the reference's ``dophot.py`` binds none, so a process
+    of it lists no source), start on the card unless ``--device`` names
+    another device (without a card it raises), then :func:`main`."""
+    from .model_util import create_tables, init_db
+    from .worker import report_launches, split_device, start
+
+    argv, device = split_device(argv)
+    if len(argv) < 2:
         print(__doc__)
-        sys.exit(2)
-    main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else '.')
+        return 2
+    device = start('phot', device)
+    init_db()
+    create_tables()
+    main(argv[1], argv[2] if len(argv) > 2 else '.', device=device)
+    report_launches('phot')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(cli(sys.argv))
