@@ -117,7 +117,17 @@ on 4098 crowded seeded rows, ``bench_detect.clean_rows``, two calls
 bit-equal), H24 and
 H25 also on scenes whose last pixel is detected (alone and joined, the list padded and overflowing, from the
 seeds and the identity); the profiler's count of host copies and
-waits inside the ``ccl``, ``stats`` and ``clean`` ranges (0). Prints the
+waits inside the ``ccl``, ``stats`` and ``clean`` ranges (0). The
+surface phase: ``run_sextractor`` on a flagship frame with every check
+image, the archive daemon's round trip of two flagship frames (bytes
+unchanged), ``tracing.device_profile`` over one slice frame (its trace
+names H1's and H3's launches) and the demo twin at 512^2; dothumb's twin
+persists the db phase's thumbnails there (each PNG its stamp's zscale
+levels). The mesh phase: the slice's batch through a world of one over
+NCCL, then two ranks over gloo sharing the card (one ``spawn``): a
+flagship frame each, the coadd's rows over 'space' at both
+``subtract_back``, braai's step at 256, each against the single-process
+run (bit-equal but the step). Prints the
 card,
 per-kernel errors and times, the slice's ms/frame and the deblend's
 load, then one JSON line of kernel records
@@ -125,10 +135,12 @@ and, last, ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero; a machine without a CUDA card fails at once.
 """
 import dataclasses
+import filecmp
 import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -288,6 +300,9 @@ TRAIN_STEPS = 50
 TRAIN_LR = 3e-4
 TRAIN_LOSS_DROP = 0.25
 TRAIN_DRYRUN_N = 2
+# the mesh phase's coadd: epochs (and one padded) with rows over 2 ranks
+MESH_EPOCHS = 4
+MESH_TIMEOUT_S = 300     # the two ranks' start-up and legs
 # the scoring phase: N candidates and triplets for the kernels' records;
 # the night's filter (FILTERID 2) cuts at RB_CUT[2]
 SCORE_N = 256
@@ -1473,6 +1488,8 @@ def db_phase(wrappers, name, d, work, truths, pipe):
               f'{sum(len(s["dets"]) for s in subs.values())} detections, '
               f'{sum(s["thumbs"] for s in subs.values())} thumbnails, each '
               f'the 63x63 cut of its frame', flush=True)
+        persist_thumbs(sess, os.path.join(db.d, 'thumbs'), name,
+                       sum(s['thumbs'] for s in subs.values()))
 
         # ---- sources, and dophot's worker over the subtractions ---------
         sub0 = ScienceImage.from_file(subs[0]['path'])
@@ -4431,6 +4448,328 @@ def train_phase(wrappers, name, record):
     return ms_step
 
 
+def persist_thumbs(sess, directory, name, n):
+    """dothumb's twin over the night's committed thumbnails: every one
+    persisted (``file_uri`` set, at least the ``n`` the db phase checked),
+    each PNG decoding to its
+    stamp's zscale rendering (without matplotlib, as on the card machine)
+    or at least a PNG; prints the host seconds."""
+    import gzip
+    import io
+    import numpy as np
+    from zuds_tpu_torch import thumb
+    from zuds_tpu_torch.fits import read_fits
+    from zuds_tpu_torch.image import zscale_limits
+    from zuds_tpu_torch.thumbnails import (Thumbnail, gray_levels,
+                                           read_png_gray)
+    t0 = time.perf_counter()
+    done = thumb.persist_all(directory)
+    secs = time.perf_counter() - t0
+    rows = sess.query(Thumbnail).all()
+    check(done == len(rows) >= n and all(t.file_uri for t in rows),
+          f'surface: dothumb persisted {done} of {len(rows)} thumbnails '
+          f'({n} checked by the db phase)')
+    kinds = set()
+    for t in rows:
+        stamp = read_fits(io.BytesIO(gzip.decompress(t.bytes)))[0].data
+        with open(t.file_uri, 'rb') as f:
+            check(f.read(8) == b'\x89PNG\r\n\x1a\n',
+                  f'surface: {t.file_uri} is not a PNG')
+        try:
+            px = read_png_gray(t.file_uri)
+        except ValueError:
+            kinds.add('matplotlib')
+            continue
+        kinds.add('zlib')
+        check(np.array_equal(
+                  px, gray_levels(stamp, *zscale_limits(stamp))[::-1]),
+              f'surface: {t.file_uri} is not its stamp\'s zscale rendering')
+    print(f'surface: dothumb persisted {done} thumbnails of the night in '
+          f'{secs:.3f} s ({sorted(kinds)} PNGs, each decoding to its '
+          f'stamp\'s zscale rendering) (host clock) on {name}', flush=True)
+
+
+def mesh_phase(wrappers, name, pipe, targs, out, single_s):
+    """The mesh twin (``parallel/mesh.py``) on the card: (a) a world of one
+    over NCCL, the slice's batch placed by ``place_batch`` through
+    ``SubtractDetectPipeline(cfg, mesh)`` against the single-process
+    ``out``, then timed in turns with the single-process ``pipe``; (b) two
+    ranks over gloo
+    sharing the card (NCCL refuses two ranks on one device; gloo's
+    collectives go through the host), started once by ``spawn_ranks``:
+    one flagship frame a rank (the same batch), the coadd's rows over
+    'space' at both ``subtract_back`` and braai's step at batch TRAIN_N,
+    each against the single-process run on this card. Every comparison is
+    bit for bit but the step's (its gradient is summed in another order:
+    the share of parameters that moved apart by more than 1e-5 at most
+    1e-3, the moments within 1e-5 of their largest). Prints each leg's host
+    seconds beside ``single_s``, the single-process batch's."""
+    import dataclasses as dc
+    import torch
+    import torch.distributed as dist
+    from zuds_tpu_torch import inputs, night
+    from zuds_tpu_torch.models import braai
+    from zuds_tpu_torch.parallel import (CoaddPipeline,
+                                         SubtractDetectPipeline, legs)
+    from zuds_tpu_torch.parallel import mesh as pmesh
+    cfg = night.FLAGSHIP
+    H, W = cfg.height, cfg.width
+    B = targs[0].shape[0]
+
+    # (a) world 1 over NCCL
+    mesh1 = pmesh.quadrant_mesh()
+    check(dist.get_backend() == 'nccl' and dist.get_world_size() == 1,
+          f'mesh: world of one over {dist.get_backend()}')
+    mesh_pipe = SubtractDetectPipeline(cfg, mesh1)
+    placed = pmesh.place_batch(mesh1, *targs, device='cuda')
+    got, launches, secs = run_counted(mesh_pipe, placed, wrappers)
+    gathered = pmesh.gather_batch(mesh1, got)
+    bad = [k for k in out if not torch.equal(gathered[k], out[k])]
+    check(not bad, f'mesh: world-1 NCCL pipeline differs from the '
+          f'single-process run in {bad}')
+    check(launches['warp'] == B and launches['apply_model'] == B,
+          f'mesh: world-1 launches {launches}')
+    # the host clock spreads: batches timed one by one, in turns with the
+    # single-process pipeline, the gather included
+    batch_ms = {'mesh': [], 'single': []}
+    for _ in range(5):
+        for mode, run in (('mesh', lambda: pmesh.gather_batch(
+                mesh1, mesh_pipe(*placed))), ('single', lambda: pipe(*targs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            batch_ms[mode].append((time.perf_counter() - t0) * 1e3 / B)
+    mm, sm = batch_ms['mesh'], batch_ms['single']
+    print(f'mesh (a): world 1 over NCCL, {B} flagship frames: '
+          f'{statistics.median(mm):.1f} ms/frame (range {min(mm):.1f}-'
+          f'{max(mm):.1f}) against the single-process pipeline\'s '
+          f'{statistics.median(sm):.1f} (range {min(sm):.1f}-{max(sm):.1f}); '
+          f'host clock, median of {len(mm)} batches each in turns, the '
+          f'gather included; the first, counted run {secs * 1e3 / B:.1f} '
+          f'ms/frame; bit-equal; launches '
+          f'{dict((k, v) for k, v in launches.items() if v)} on {name}',
+          flush=True)
+    dist.destroy_process_group()
+
+    # (b) two ranks over gloo sharing the card
+    ccfg = dc.replace(cfg, map_step=32)
+    n_ep = MESH_EPOCHS
+    trip, lab = inputs.labelled_triplets(TRAIN_N, seed=3)
+    specs = [('subtract', (cfg, B, 0, 'cuda'), {'warmup': True}),
+             ('coadd', (ccfg, n_ep, 5, 'cuda'),
+              {'subtract_back': True, 'warmup': True}),
+             ('coadd', (ccfg, n_ep, 5, 'cuda'),
+              {'subtract_back': False, 'warmup': True}),
+             ('train', (trip, lab, None, 'cuda'),
+              {'seed': 4, 'warmup': True})]
+    t0 = time.perf_counter()
+    res = pmesh.spawn_ranks(legs.run_legs, 2, (specs,), backend='gloo',
+                            timeout=MESH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    sub0, sub1 = res[0][0], res[1][0]
+    check(sub0['frames'] == [0] and sub1['frames'] == [1],
+          f'mesh: ranks ran frames {sub0["frames"]}, {sub1["frames"]}')
+    bad = [k for k in out if not torch.equal(sub0['out'][k], out[k].cpu())]
+    check(not bad, f'mesh: 2-rank pipeline differs from the single-process '
+          f'run in {bad}')
+    for r in (0, 1):
+        la = res[r][0]['launches']
+        check(la['warp'] == 1 and la['apply_model'] == 1,
+              f'mesh: rank {r} launches {la}')
+    print(f'mesh (b): 2 ranks over gloo sharing the card, one flagship '
+          f'frame each (after a warm-up run): rank seconds '
+          f'{sub0["secs"]:.4f}, {sub1["secs"]:.4f}, then the gather through '
+          f'the host {sub0["gather_secs"]:.4f}, {sub1["gather_secs"]:.4f} '
+          f'(the single-process batch of {B} {single_s:.4f}); bit-equal to '
+          f'the single-process batch; {wall:.1f} s for the spawn and all '
+          f'legs, on {name}', flush=True)
+    args = inputs.to_torch(inputs.coadd_inputs(n_ep, H, W, ccfg.map_step,
+                                               seed=5), 'cuda')
+    for i, sb in ((1, True), (2, False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = CoaddPipeline(ccfg, subtract_back=sb)(*args)
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t0
+        got = res[0][i]['out']
+        bad = [k for k in want if not torch.equal(got[k], want[k].cpu())]
+        check(not bad, f'mesh: coadd rows over space (subtract_back={sb}) '
+              f'differ from the single process in {bad}')
+        la = res[0][i]['launches']
+        check(la['warp'] == n_ep + 1 and la['clipped_combine'] == 1,
+              f'mesh: coadd rank 0 launches {la}')
+        print(f'mesh (b): coadd of {n_ep} epochs and a padded one at '
+              f'{H}x{W}, rows over 2 ranks (subtract_back={sb}, after a '
+              f'warm-up run): rank '
+              f'seconds {res[0][i]["secs"]:.3f}, {res[1][i]["secs"]:.3f}; '
+              f'single process {one:.3f}; bit-equal, on {name}', flush=True)
+    _, p, _, st = braai.make_train_state(4, device='cuda')
+    masks = braai.draw_masks(TRAIN_N, 4, torch.device('cuda'))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, st, loss = braai.train_step(p, st, trip, lab, 4, masks=masks)
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0
+    got = res[0][3]['out']
+    dl = abs(float(got['loss']) - float(loss))
+    # Adam's first step moves a parameter by ~lr sign(g), so a parameter
+    # whose g differs in sign near 0 may move apart by up to 2 lr; the
+    # moments hold the gradient itself
+    d = (got['params'] - p.flat.cpu()).abs()
+    dp, moved = float(d.max()), float((d > 1e-5).float().mean())
+    dmom = {m: float((got[m] - st[m].flat.cpu()).abs().max())
+            / float(st[m].flat.abs().max()) for m in ('mu', 'nu')}
+    check(dl <= 1e-6 * abs(float(loss)) and dp <= 2 * TRAIN_LR
+          and moved <= 1e-3 and max(dmom.values()) <= 1e-5,
+          f'mesh: 2-rank train_step off the single process (loss '
+          f'{dl:.3g}, params {dp:.3g}, a share {moved:.3g} past 1e-5, '
+          f'moments {dmom})')
+    la = res[0][3]['launches']
+    check(la['adam_step'] == 1, f'mesh: train rank 0 launches {la}')
+    print(f'mesh (b): braai train_step at batch {TRAIN_N} over 2 ranks '
+          f'(after a warm-up step): rank seconds {res[0][3]["secs"]:.4f}, '
+          f'{res[1][3]["secs"]:.4f} (the all-reduce through the host '
+          f'included); single process {one:.4f} s; loss off by {dl:.3g}, '
+          f'params by at most {dp:.3g} ({moved:.3g} of them past 1e-5), mu '
+          f'and nu by {dmom["mu"]:.3g}, {dmom["nu"]:.3g} of their largest, '
+          f'on {name}', flush=True)
+
+
+def surface_phase(wrappers, name, pipe, targs):
+    """The rest of the surface on the card: ``run_sextractor`` on a
+    flagship frame with every check image, the archive daemon's round trip
+    (the files' bytes unchanged), ``device_profile`` over one slice frame
+    (its trace names H1's and H3's launches) and the demo twin. Prints
+    each step's host seconds."""
+    import json as js
+    import numpy as np
+    import torch
+    from zuds_tpu_torch import core, demo, inputs, night, tracing
+    from zuds_tpu_torch.control import archive_daemon
+    from zuds_tpu_torch.image import ScienceImage
+    from zuds_tpu_torch.sextractor import run_sextractor
+    cfg = night.FLAGSHIP
+    H, W = cfg.height, cfg.width
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_surface_') as d:
+        work, _ = inputs.write_night_pairs(
+            d, 1, H, W, header_json=Path(__file__).resolve().parent
+            / 'tests' / 'data' / 'ztf_real_header.json')
+        sci_path, ref_path = work[0].split()
+        img = ScienceImage.from_file(sci_path)
+        img.device = 'cuda'
+        t0 = time.perf_counter()
+        res = run_sextractor(img, ['rms', 'segm', 'bkgsub', 'bkg'])
+        secs = time.perf_counter() - t0
+        cat, rms, segm, bkgsub, bkg = res
+        check(len(cat.data) > 0, 'surface: run_sextractor found nothing')
+        for tag, prod in (('rms', rms), ('segm', segm), ('bkgsub', bkgsub),
+                          ('bkg', bkg)):
+            a = np.asarray(prod.data)
+            check(a.shape == (H, W) and np.isfinite(a).all(),
+                  f'surface: {tag} check image {a.shape}')
+        check(int(np.asarray(segm.data).max()) >= 1,
+              'surface: empty segmentation')
+        try:
+            run_sextractor(img, ['aper'])
+            check(False, 'surface: an unknown check image did not raise')
+        except ValueError:
+            pass
+        print(f'surface: run_sextractor on a {H}x{W} frame with rms, segm, '
+              f'bkgsub and bkg: {len(cat.data)} rows, {secs:.3f} s (host '
+              f'clock) on {name}', flush=True)
+
+        # the archive daemon's round trip
+        with bound_db(d, 'archive', config=True) as db:
+            sess = core.DBSession()
+            os.makedirs(db.spool)
+            names = []
+            for p in (sci_path, ref_path):
+                base = os.path.basename(p)
+                shutil.copyfile(p, os.path.join(db.spool, base))
+                rec = core.record_from_image(ScienceImage.from_file(p),
+                                             'sci')
+                sess.add(rec)
+                names.append(base)
+            sess.commit()
+            t0 = time.perf_counter()
+            tar = archive_daemon.archive_to_cold(sess, os.path.join(d, 'cold'))
+            back = archive_daemon.retrieve_from_cold(
+                sess, names, os.path.join(d, 'cold'), os.path.join(d, 'back'))
+            secs = time.perf_counter() - t0
+            check(tar is not None and len(back) == 2,
+                  f'surface: archive round trip {tar}, {back}')
+            for base, path in zip(names, back):
+                check(filecmp.cmp(os.path.join(db.spool, base), path,
+                                  shallow=False),
+                      f'surface: {base} changed through the cold tier')
+            check(archive_daemon.archive_to_cold(
+                sess, os.path.join(d, 'cold')) is None,
+                'surface: archived twice')
+        print(f'surface: archive daemon round trip of 2 flagship frames '
+              f'({sum(os.path.getsize(p) for p in back)} bytes) '
+              f'{secs:.3f} s, bytes unchanged (host clock) on {name}',
+              flush=True)
+
+    # device_profile over one slice frame
+    one = [a[:1] for a in targs]
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trace_') as d:
+        t0 = time.perf_counter()
+        with tracing.device_profile(d) as prof:
+            pipe(*one)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        with open(os.path.join(d, 'trace.json')) as f:
+            events = js.load(f)
+        events = events.get('traceEvents', events)
+        kernels = [e.get('name', '') for e in events
+                   if e.get('cat') == 'kernel']
+        nwarp = sum('warp_kernel' in k for k in kernels)
+        napply = sum('apply_mma_kernel' in k for k in kernels)
+        check(nwarp >= 1 and napply >= 1, f'surface: the trace has {nwarp} '
+              f'H1 and {napply} H3 launches of {len(kernels)} kernels')
+        busy = sum(e.get('dur', 0) for e in events
+                   if e.get('cat') == 'kernel') / 1e3
+    print(f'surface: device_profile over one slice frame {secs:.3f} s '
+          f'(host clock, the profiler on); the trace holds {len(kernels)} '
+          f'kernel launches, H1 {nwarp}, H3 {napply}, {busy:.2f} ms of '
+          f'kernel time, on {name}', flush=True)
+
+    # the demo twin on the card
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_demo_') as d:
+        env = os.environ.pop('ZUDS_CONFIG', None)
+        from zuds_tpu_torch import secrets
+        secrets._manager.cache = None
+        try:
+            t0 = time.perf_counter()
+            summary = demo.main(d, device='cuda')
+            secs = time.perf_counter() - t0
+        finally:
+            for s in (core.DBSession, core.RefDBSession):
+                s.remove()
+                s.configure(None)
+            secrets._manager.cache = None
+            if env is None:
+                os.environ.pop('ZUDS_CONFIG', None)
+            else:
+                os.environ['ZUDS_CONFIG'] = env
+        tx, ty, _ = demo.TRANSIENT
+        cat = summary['catalog'].data
+        good = cat[cat['GOODCUT'] == 1]
+        dist = float(np.hypot(good['X_IMAGE'] - 1 - tx,
+                              good['Y_IMAGE'] - 1 - ty).min()) \
+            if len(good) else float('inf')
+        check(dist < 2.0 and summary['topic'] and summary['flux'] > 0,
+              f'surface: demo transient {dist:.2f} px from a candidate, '
+              f'topic {summary["topic"]}, flux {summary["flux"]}')
+        spool = os.path.join(d, 'data', 'alerts', summary['topic'])
+        check(len(os.listdir(spool)) == 1, 'surface: demo spooled no alert')
+    print(f'surface: demo twin on the card {secs:.2f} s: {len(good)} '
+          f'candidates, the transient {dist:.2f} px from one, forced flux '
+          f'{summary["flux"]:.0f} +- {summary["fluxerr"]:.0f}, one alert '
+          f'spooled (host clock) on {name}', flush=True)
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
@@ -4612,6 +4951,19 @@ def main():
 
     # ---- braai training: make_train_state and train_step, counted --------
     train_phase(wrappers, name, record)
+
+    # ---- the rest of the surface: sextractor, archive, profiler, demo ----
+    t0 = time.perf_counter()
+    surface_phase(wrappers, name, pipe, targs)
+    print(f'phase surface: {time.perf_counter() - t0:.1f} s (host clock) on '
+          f'{name}', flush=True)
+
+    # ---- multi-GPU: the mesh at world 1 (NCCL) and 2 ranks (gloo) -------
+    t0 = time.perf_counter()
+    mesh_phase(wrappers, name, pipe, targs, out,
+               statistics.median(batch_ms[True]) * B / 1e3)
+    print(f'phase mesh: {time.perf_counter() - t0:.1f} s (host clock) on '
+          f'{name}', flush=True)
 
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     for mode in (False, True, 'watershed'):

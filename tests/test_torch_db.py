@@ -384,11 +384,11 @@ def test_config_reader_against_yaml(tmp_path):
     assert tsecrets.parse_config(text) == want
     extra = ('a: 7  # c\nb: -3\nc: "x # y"\nd: \'q\'\ne: \'1.5\'\n'
              'f: ~\ng:\nh: NULL\ni: some words here\nj: /p#q\n'
-             'k: ~/x.db  # path\n# end\n')
+             'k: ~/x.db  # path\nl: 1.5\nm: true\nn: Off\no: .5\n'
+             'p: -.inf\n# end\n')
     assert tsecrets.parse_config(extra) == yaml.safe_load(extra)
     for bad in ('a:\n  b: 1\n', 'a: {b: 1}\n', 'a: [1]\n', 'a\n',
-                'a: 1.5\n', 'a: true\n', 'a: Off\n', 'a: 1e3\n',
-                'a: .5\n', 'a: -.inf\n', 'a: 0x1f\n', 'a: 127.0.0.1\n',
+                'a: 1e3\n', 'a: 0x1f\n', 'a: 127.0.0.1\n',
                 'a: "x\n', '---\na: 1\n'):
         with pytest.raises(ValueError):
             tsecrets.parse_config(bad)

@@ -398,6 +398,11 @@ def test_port_runs_from_a_copy_alone(tmp_path):
             'zuds_tpu_torch.status', 'zuds_tpu_torch.env',
             'zuds_tpu_torch.phot', 'zuds_tpu_torch.commit',
             'zuds_tpu_torch.scamp', 'zuds_tpu_torch.makeref',
+            'zuds_tpu_torch.parallel.mesh', 'zuds_tpu_torch.parallel.legs',
+            'zuds_tpu_torch.tracing', 'zuds_tpu_torch.sextractor',
+            'zuds_tpu_torch.plotting', 'zuds_tpu_torch.download',
+            'zuds_tpu_torch.thumb', 'zuds_tpu_torch.demo',
+            'zuds_tpu_torch.control.archive_daemon',
             'zuds_tpu_torch.queryref', 'zuds_tpu_torch.querystack',
             'zuds_tpu_torch.nightly', 'zuds_tpu_torch.stamp',
             'zuds_tpu_torch.loadphot', 'zuds_tpu_torch.load_catalogs',

@@ -3179,3 +3179,66 @@ def test_phot_do_one_on_the_card(dev, tmp_path, monkeypatch):
             x, y = float(a[k]), float(b[k])
             assert np.isnan(x) == np.isnan(y)
             assert np.isnan(y) or abs(x - y) <= 1e-3 + 1e-5 * abs(y)
+
+
+def test_world_one_nccl_pipeline_on_the_card(dev):
+    """``SubtractDetectPipeline(cfg, mesh)`` on a world of one over NCCL
+    (``quadrant_mesh`` brings the group up in this process) at 256^2, B=2,
+    the batch placed from the host by ``place_batch``: every output
+    bit-equal to the single-process run on the card, one H1
+    and one H3 launch a frame, and ``gather_batch`` the identity. The
+    group is taken down again."""
+    import torch.distributed as dist
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.parallel import SubtractDetectPipeline
+    from zuds_tpu_torch.parallel import mesh as pmesh
+    from zuds_tpu_torch.parallel.pipeline import PipelineConfig
+    cfg = PipelineConfig(height=256, width=256, ksize=9, stamp=25, smax=32,
+                         order=2, nreg=2, max_det=128, box=64)
+    args, _ = inputs.plant_sources(inputs.synth_inputs(2, 256, 256, cfg),
+                                   n=3, flux=2e4, seed=1)
+    targs = inputs.to_torch(args, dev)
+    want = SubtractDetectPipeline(cfg)(*targs)
+    assert not dist.is_initialized()
+    mesh = pmesh.quadrant_mesh()
+    try:
+        assert dist.get_backend() == 'nccl' and dist.get_world_size() == 1
+        launch.warp.launches = launch.apply_model.launches = 0
+        placed = pmesh.place_batch(mesh, *inputs.to_torch(args, 'cpu'),
+                                   device=dev)
+        got = pmesh.gather_batch(mesh, SubtractDetectPipeline(cfg, mesh)(
+            *placed))
+        assert launch.warp.launches == 2 and launch.apply_model.launches == 2
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        flat = torch.arange(4, dtype=torch.float32, device=dev)
+        pmesh.all_reduce_(flat, mesh.get_group('data'))
+        assert flat.tolist() == [0.0, 1.0, 2.0, 3.0]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_persist_on_the_card_machine_writes_the_zscale_png(dev, tmp_path):
+    """``Thumbnail.persist`` of a stamp cut from a frame on the card: where
+    matplotlib is missing (the card machine) the PNG decodes to the
+    stamp's zscale levels, origin lower; where it is present the file is
+    matplotlib's PNG."""
+    from zuds_tpu_torch.image import zscale_limits
+    from zuds_tpu_torch.thumbnails import (Thumbnail, gray_levels,
+                                           read_png_gray)
+    rng = np.random.default_rng(3)
+    frame = torch.tensor(rng.normal(100, 5, (256, 256)).astype('f4'),
+                         device=dev)
+    frame[120:125, 60:65] += 500
+    stamp = frame[91:154, 31:94].cpu().numpy()
+    t = Thumbnail(type='sub', detection_id=4)
+    t.stamp = stamp
+    path = t.persist(str(tmp_path))
+    assert path == t.file_uri and path.endswith('thumb_sub_4.png')
+    with open(path, 'rb') as f:
+        assert f.read(8) == b'\x89PNG\r\n\x1a\n'
+    if t.png_kind == 'zlib':
+        np.testing.assert_array_equal(
+            read_png_gray(path),
+            gray_levels(stamp, *zscale_limits(stamp))[::-1])

@@ -350,17 +350,24 @@ def test_thumbnails_decompress_equal(dbs):
             np.testing.assert_array_equal(ha.data, want)
 
 
-def test_thumbnail_matches_the_reference_writer(dbs):
+def test_thumbnail_matches_the_reference_writer(dbs, tmp_path):
     """One thumbnail built by each package from the same detection and
-    frame: the same FITS bytes after decompression."""
+    frame: the same FITS bytes after decompression, and their persisted
+    PNGs (both through matplotlib here) decode to the same pixels."""
+    from PIL import Image
     sub = dbs['torch']['subs'][0]
     det = TDetection(ra=150.1, dec=35.2, id=7)
     a = tthumbs.Thumbnail.from_detection(det, sub, stamp_type='new')
     b = jthumbs.Thumbnail.from_detection(det, sub, stamp_type='new')
     assert gzip.decompress(a.bytes) == gzip.decompress(b.bytes)
     np.testing.assert_array_equal(a.stamp, b.stamp)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        a.persist()
+    pa = a.persist(str(tmp_path / 'torch'))
+    pb = b.persist(str(tmp_path / 'jax'))
+    assert a.png_kind == 'matplotlib'
+    assert os.path.basename(pa) == os.path.basename(pb) == 'thumb_new_7.png'
+    assert a.file_uri == pa and b.file_uri == pb
+    np.testing.assert_array_equal(np.asarray(Image.open(pa)),
+                                  np.asarray(Image.open(pb)))
 
 
 @pytest.mark.parametrize('image', [0, 1])

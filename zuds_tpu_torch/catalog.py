@@ -19,7 +19,7 @@ from .fits import Header, read_fits, table_to_hdu, write_fits
 from .ops.detect import DETECTION_FIELDS
 from .parallel.pipeline import REFINE_KEYS
 
-__all__ = ['CATALOG_DTYPE', 'PipelineFITSCatalog']
+__all__ = ['CATALOG_DTYPE', 'PipelineFITSCatalog', 'PipelineRegionFile']
 
 # SExtractor-compatible output columns (catalog.py:23-48)
 CATALOG_DTYPE = [
@@ -50,6 +50,8 @@ CATALOG_DTYPE = [
 
 class PipelineFITSCatalog(File):
     """Catalog of detections on one image, disk-mapped as a FITS bintable."""
+
+    __diskmapped_cached_properties__ = ['_path', '_data']
 
     image = None
 
@@ -307,3 +309,43 @@ class PipelineFITSCatalog(File):
         if image.basename:
             obj.basename = image.basename.replace('.fits', '.cat')
         return obj
+
+
+class PipelineRegionFile(File):
+    """DS9 region file of a catalog (catalog.py:350-384): green circles of
+    5 arcsec on GOODCUT rows, red on the others."""
+
+    catalog = None
+
+    @classmethod
+    def from_catalog(cls, catalog, path=None):
+        """The regions of ``catalog``, written to ``path``, or beside a
+        mapped catalog as its ``.reg``."""
+        obj = cls()
+        obj.catalog = catalog
+        if catalog.basename:
+            obj.basename = catalog.basename.replace('.cat', '.reg')
+        lines = ['# Region file format: DS9 version 4.1',
+                 'global width=2 font="helvetica 10 normal roman"', 'icrs']
+        for row in catalog.data:
+            color = 'green' if row['GOODCUT'] == 1 else 'red'
+            lines.append(
+                f"circle({row['X_WORLD']:.7f},{row['Y_WORLD']:.7f},5\") "
+                f"# color={color}")
+        obj.content = '\n'.join(lines) + '\n'
+        if path is None and catalog.ismapped:
+            path = catalog.local_path.replace('.cat', '.reg')
+        if path is not None:
+            obj.map_to_local_file(path)
+            obj.save()
+        return obj
+
+    def save(self, path=None):
+        if path is not None:
+            self.map_to_local_file(path)
+        with open(self.local_path, 'w') as f:
+            f.write(self.content)
+
+    def load(self):
+        with open(self.local_path) as f:
+            self.content = f.read()

@@ -82,3 +82,17 @@ BRAAI_MODEL = 'braai_d6_m9'
 
 # --- filters -----------------------------------------------------------------
 FID_MAP = {1: 'zg', 2: 'zr', 3: 'zi'}
+
+# --- the rest of the reference's table (its flat namespace exports them) ----
+CCL_MAX_ITERS = 64                  # label-propagation sweeps for labeling
+N_PREV_SINGLE = 1
+N_PREV_MULTI = 1
+QUADRANT_NAXIS1 = 3072              # ZTF quadrant width (px)
+QUADRANT_NAXIS2 = 3080              # ZTF quadrant height (px)
+CMAP_RANDOM_SEED = 8675309
+MASK_BORDER = 10  # px synthetic border mask when no weight map exists
+ACTIVE_FIELDS = [631, 762, 763, 722, 676, 724, 677,
+                 761, 678, 720, 721, 679, 863, 846, 823, 862,
+                 845, 822, 793, 844, 759, 821, 719, 792, 758, 791]
+STAMP_GRID_PX = 100                 # one kernel stamp per 100x100 px cell
+CLIP_GROW = 0.0

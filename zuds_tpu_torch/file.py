@@ -20,6 +20,9 @@ class UnmappedFileError(FileNotFoundError):
 
 class File:
 
+    #: attribute names cleared by ``clear()`` (cached heavyweight state)
+    __diskmapped_cached_properties__ = ['_path']
+
     def __init__(self, basename=None):
         if basename is not None:
             self.basename = basename
@@ -51,6 +54,18 @@ class File:
     @property
     def ismapped(self):
         return hasattr(self, '_path')
+
+    def unmap(self):
+        """Forget the path (file.py:57-59)."""
+        if hasattr(self, '_path'):
+            del self._path
+
+    def clear(self):
+        """Drop cached in-memory state, reloadable from disk when mapped
+        (file.py:61-65)."""
+        for attr in self.__diskmapped_cached_properties__:
+            if hasattr(self, attr):
+                delattr(self, attr)
 
     # subclasses define how bytes get to/from disk
     def save(self):

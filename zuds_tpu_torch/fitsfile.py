@@ -21,6 +21,8 @@ __all__ = ['FITSFile', 'HasWCS']
 class FITSFile(File):
     """A File whose on-disk representation is a single-HDU FITS image."""
 
+    __diskmapped_cached_properties__ = ['_path', '_data']
+
     header = None
 
     def __init__(self, basename=None, data=None, header=None):
@@ -43,6 +45,10 @@ class FITSFile(File):
             obj.load()
         return obj
 
+    def load_header(self):
+        """Read the header from the mapped file (fitsfile.py:59-60)."""
+        self.header = read_header(self.local_path)
+
     @property
     def data(self):
         try:
@@ -61,6 +67,12 @@ class FITSFile(File):
         self._data = hdu.data
         if len(hdu.header) > len(self.header or ()):
             self.header = hdu.header
+
+    def unload(self):
+        """Drop the pixels; the next read loads them again (fitsfile.py:
+        91-93)."""
+        if hasattr(self, '_data'):
+            del self._data
 
     def save(self, path=None):
         if path is not None:

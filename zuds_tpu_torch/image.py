@@ -19,17 +19,87 @@ from .constants import (APER_KEY, BIG_RMS, BKG_BOX_SIZE, FID_MAP,
 from .fitsfile import HasWCS
 
 __all__ = ['FITSImage', 'CalibratableImageBase', 'CalibratableImage',
-           'CalibratedImage', 'ScienceImage']
+           'CalibratedImage', 'ScienceImage', 'zscale_limits']
+
+
+def zscale_limits(data, contrast=0.25, nsamples=1000):
+    """Approximate IRAF/ds9 zscale display limits (image.py:24-50): a
+    robust line through the sorted samples of the finite pixels."""
+    flat = np.asarray(data, dtype=np.float64).ravel()
+    flat = flat[np.isfinite(flat)]
+    if flat.size == 0:
+        return 0.0, 1.0
+    stride = max(1, flat.size // nsamples)
+    samples = np.sort(flat[::stride])
+    n = samples.size
+    if n < 10:
+        return float(samples.min()), float(samples.max())
+    x = np.arange(n) - n / 2
+    keep = np.ones(n, dtype=bool)
+    slope, mid = 0.0, np.median(samples)
+    for _ in range(5):
+        xs, ys = x[keep], samples[keep]
+        if xs.size < 5:
+            break
+        slope, mid = np.polyfit(xs, ys, 1)
+        resid = samples - (slope * x + mid)
+        sig = np.std(resid[keep])
+        keep = np.abs(resid) < 2.5 * sig
+    if contrast > 0:
+        slope = slope / contrast
+    zmed = np.median(samples)
+    return float(zmed + slope * (0 - n / 2)), float(zmed + slope * (n / 2))
 
 
 class FITSImage(HasWCS):
-    """FITS file with pixel data."""
+    """FITS file with pixel data and display helpers (image.py:53-89); the
+    display imports matplotlib when it is called."""
 
     parent_image = None
+
+    @property
+    def datatype(self):
+        return 'float' if 'float' in self.data.dtype.name else 'int'
+
+    def cmap_limits(self):
+        if self.datatype == 'float':
+            return zscale_limits(self.data)
+        return (None, None)
+
+    def cmap(self):
+        if self.datatype == 'float':
+            return 'gray'
+        from .plotting import discrete_cmap
+        return discrete_cmap(len(np.unique(self.data)))
+
+    def cmap_norm(self):
+        if self.datatype == 'float':
+            return None
+        from matplotlib import colors
+        boundaries = np.unique(self.data)
+        return colors.BoundaryNorm(boundaries, len(boundaries))
+
+    def show(self, axis=None, align_to=None, figsize=(5, 5), limits=None):
+        """Draw the image on ``axis`` (a new figure's without one), aligned
+        to ``align_to`` first when given; returns the figure."""
+        import matplotlib.pyplot as plt
+        if axis is None:
+            _, axis = plt.subplots(figsize=figsize)
+        image = self.aligned_to(align_to) if align_to is not None else self
+        vmin, vmax = limits if limits is not None else image.cmap_limits()
+        axis.imshow(image.data, vmin=vmin, vmax=vmax,
+                    norm=image.cmap_norm(), cmap=image.cmap(),
+                    interpolation='none')
+        return axis.figure
 
 
 class CalibratableImageBase(FITSImage):
     """Image whose calibration products are cached beside it."""
+
+    __diskmapped_cached_properties__ = [
+        '_path', '_data', '_weightimg', '_bkgimg', '_rmsimg', '_bkgsubimg',
+        '_segmimg', '_catalog', '_detect_raw',
+    ]
 
     _product_suffixes = {
         '_weightimg': '.weight.fits', '_rmsimg': '.rms.fits',
@@ -40,6 +110,9 @@ class CalibratableImageBase(FITSImage):
     mask_image = None
     # where the derived products are computed: the card unless 'cpu'
     device = None
+
+    def cmap_limits(self):
+        return zscale_limits(self.data)
 
     def _bad_pixel_array(self):
         if self.mask_image is not None:
@@ -310,3 +383,33 @@ class ScienceImage(CalibratedImage):
         """Observation MJD from the header (image.py:379-382)."""
         from .utils import mjd_from_header
         return mjd_from_header(self.header)
+
+    @property
+    def obsdate(self):
+        """The observation's UTC date, ISO format (image.py:384-391)."""
+        if self.obsjd:
+            import datetime as dt
+            mjd = self.obsjd - 2400000.5
+            base = dt.datetime(1858, 11, 17) + dt.timedelta(days=mjd)
+            return base.date().isoformat()
+        return None
+
+    def ipac_path(self, suffix):
+        """IRSA archive URL of this quadrant's ``suffix`` product
+        (image.py:393-401)."""
+        sffd = str(self.filefracday)
+        return (
+            f'https://irsa.ipac.caltech.edu/ibe/data/ztf/products/sci/'
+            f'{sffd[:4]}/{sffd[4:8]}/{sffd[8:]}/'
+            f'ztf_{sffd}_{self.field:06d}_{self.filtercode}_c'
+            f'{self.ccdid:02d}_{self.imgtypecode}_q{self.qid}_{suffix}')
+
+    def download(self, suffix='sciimg.fits', destination=None, cookie=None):
+        """Fetch the product from IRSA and map to it (image.py:403-410)."""
+        from .download import ipac_authenticate, safe_download
+        if destination is None:
+            destination = self.basename
+        if cookie is None:
+            cookie = ipac_authenticate()
+        safe_download(self.ipac_path(suffix), destination, cookie)
+        self.map_to_local_file(str(destination))

@@ -24,7 +24,7 @@ __all__ = ['KernelBasis', 'synth_inputs', 'to_torch', 'INPUT_NAMES',
            'COADD_INPUT_NAMES', 'resolve_device', 'upload', 'upload_mask',
            'write_night_pairs', 'night_stars', 'forced_positions',
            'write_coadd_epochs', 'coadd_stars', 'write_gaia_cache',
-           'spread_braai', 'labelled_triplets']
+           'spread_braai', 'labelled_triplets', 'coadd_inputs']
 
 # order of the batched pipeline inputs (zuds_tpu/parallel/pipeline.py:133-140)
 INPUT_NAMES = ('sci', 'sci_mask', 'ref', 'ref_mask', 'grid_u', 'grid_v',
@@ -104,6 +104,50 @@ def synth_inputs(B, H, W, cfg, seed=0):
         rep(basis.gx), rep(basis.gy), rep(basis.sums), rep(basis.b0_2d),
         rep(covb),
     )
+
+
+def coadd_inputs(N, H, W, map_step=32, seed=0, nstars=None):
+    """Synthetic :class:`CoaddPipeline` inputs, the 8-tuple of
+    COADD_INPUT_NAMES in numpy: N epochs of one star field (Gaussian stars
+    pasted as 25x25 stamps, sigma 0.85 px, sky 150 + 20 e, noise 5), each
+    dithered by up to 1.5 px (its grids the identity plus the dither, in
+    the ``max_shift`` bucket), a bad column (bit 2) moving with the epoch,
+    a 4x4 block of bit 1 in every epoch, a saturated pixel in epoch 0,
+    flux scales 0.28-0.33, and one more epoch padded out (``valid`` 0)."""
+    rng = np.random.default_rng(seed)
+    nstars = nstars or max(40, (H * W) // 20000)
+    r = 12
+    sx = rng.uniform(r + 4, W - r - 4, nstars)
+    sy = rng.uniform(r + 4, H - r - 4, nstars)
+    fl = rng.uniform(3000, 40000, nstars)
+    yy, xx = np.mgrid[-r:r + 1, -r:r + 1]
+    ny, nx = (H - 1) // map_step + 2, (W - 1) // map_step + 2
+    gx = (np.arange(nx, dtype='f4') * map_step)[None, :]
+    gy = (np.arange(ny, dtype='f4') * map_step)[:, None]
+    imgs = np.zeros((N + 1, H, W), 'f4')
+    masks = np.zeros((N + 1, H, W), np.int32)
+    gus = np.zeros((N + 1, ny, nx), 'f4')
+    gvs = np.zeros((N + 1, ny, nx), 'f4')
+    for e in range(N):
+        dx, dy = rng.uniform(-1.5, 1.5, 2)
+        img = np.full((H, W), 150.0 + 20 * e)
+        for x, y, f in zip(sx + dx, sy + dy, fl):
+            ix, iy = int(x), int(y)
+            img[iy - r:iy + r + 1, ix - r:ix + r + 1] += f / (
+                2 * np.pi * 0.85 ** 2) * np.exp(
+                -((xx + ix - x) ** 2 + (yy + iy - y) ** 2) / (2 * 0.85 ** 2))
+        imgs[e] = img + rng.normal(0, 5.0, (H, W))
+        masks[e, :, (100 + e) % W] = 1 << 2
+        masks[e, 40:44, 40:44] = 1 << 1
+        gus[e] = gx + np.float32(dx)
+        gvs[e] = gy + np.float32(dy)
+    imgs[0, H // 2, W // 4] = 7e4
+    covb = np.asarray([[2, W - 3, 2, H - 3]] * (N + 1), 'f4')
+    covb[-1] = 0
+    scales = (0.28 + 0.05 * rng.uniform(size=N + 1)).astype('f4')
+    scales[-1] = 1.0
+    return (imgs, np.asarray([6e4] * N + [3e38], 'f4'), masks, gus, gvs,
+            covb, scales, np.asarray([1.0] * N + [0.0], 'f4'))
 
 
 def _tensor(a, dtype, device):

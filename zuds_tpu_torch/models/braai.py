@@ -30,6 +30,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -471,7 +472,8 @@ def make_train_state(seed=0, lr=3e-4, device=None):
     return model, params, tx, tx.init(params)
 
 
-def train_step(params, opt_state, triplets, labels, rng, masks=None):
+def train_step(params, opt_state, triplets, labels, rng, masks=None,
+               mesh=None):
     """One BCE training step with Adam (braai.py:90-105): (params,
     opt_state, loss). The forward and backward run H13t, H19 and H20 on the
     card (the dense head through autograd of ``torch.matmul``), the update
@@ -492,26 +494,55 @@ def train_step(params, opt_state, triplets, labels, rng, masks=None):
     parameters' device. ``rng``: a ``torch.Generator`` on that device or an
     int seed, from which one step's dropout masks are drawn
     (:func:`draw_masks`); ``masks`` hands in given ones instead (name ->
-    bool tensor), as the tests feed flax's."""
-    return _step(params, opt_state, triplets, labels, rng, masks, False)
+    bool tensor), as the tests feed flax's.
+
+    With a ``mesh`` (:func:`zuds_tpu_torch.parallel.mesh.quadrant_mesh`)
+    the step is data parallel as the reference's over ``('data',
+    'space')`` (``__graft_entry__.py:194-210``): every rank holds the same
+    parameters and the contiguous block ``[r N/R, (r+1) N/R)`` of the
+    global batch of N over its R ranks (N must divide by R). Give
+    ``triplets`` and ``labels`` as ``place_batch(mesh, triplets, labels,
+    space_dim=0)`` does, ``DTensor`` s of which each rank holds only its
+    block; host arrays or tensors are taken to hold the whole batch, of
+    which the rank uploads its block. The dropout masks of the global
+    batch are drawn on every rank from the same ``rng`` (or given) and
+    each rank keeps its block. Each rank's
+    loss and gradient are its block's share of the global mean; the flat
+    gradient and the loss are summed over the ranks (one all-reduce of the
+    gradient buffer), so the loss is the global BCE mean, and every rank
+    runs the same Adam step (H21) on identical parameters. The result
+    equals the single-process step on the same masks up to the order in
+    which the gradient is summed."""
+    return _step(params, opt_state, triplets, labels, rng, masks, False,
+                 mesh)
 
 
 def train_step_plain(params, opt_state, triplets, labels, rng, masks=None):
     """:func:`train_step` with every kernel's plain version (the layers'
     and Adam's), on any device."""
-    return _step(params, opt_state, triplets, labels, rng, masks, True)
+    return _step(params, opt_state, triplets, labels, rng, masks, True, None)
 
 
-def _step(params, opt_state, triplets, labels, rng, masks, plain):
+def _step(params, opt_state, triplets, labels, rng, masks, plain,
+          mesh=None):
     flat = flat_buffer(params, 'train_step: params')
     dev = flat.device
+    n = len(triplets)
+    if mesh is not None:
+        from ..parallel.mesh import all_reduce_, local_batch
+        # the rank's block, before any upload
+        triplets, labels = local_batch(mesh, triplets, labels, space_dim=0)
     x = torch.as_tensor(triplets, dtype=torch.float32).to(dev).contiguous()
     y = torch.as_tensor(labels, dtype=torch.float32).to(dev)
     if masks is None:
-        masks = draw_masks(x.shape[0], rng, dev)
+        masks = draw_masks(n, rng, dev)
     else:
-        masks = {k: torch.as_tensor(v).to(dev, torch.bool).contiguous()
+        masks = {k: torch.as_tensor(v).to(dev, torch.bool)
                  for k, v in masks.items()}
+    if mesh is not None:
+        masks = {k: local_batch(mesh, v, space_dim=0)
+                 for k, v in masks.items()}
+    masks = {k: v.contiguous() for k, v in masks.items()}
     grads = views_like(torch.zeros_like(flat), params)
     layers = {}
     for name, layer in params['params'].items():
@@ -522,10 +553,17 @@ def _step(params, opt_state, triplets, labels, rng, masks, plain):
             layers[name][k] = leaf
     with torch.enable_grad():
         loss = bce_loss(_apply(layers, x, True, masks, plain), y)
+        if mesh is not None:
+            # the block's share of the global mean
+            loss = loss * (x.shape[0] / n)
         loss.backward()
+    loss = loss.detach()
+    if mesh is not None:
+        all_reduce_(grads.flat, dist.group.WORLD)
+        all_reduce_(loss, dist.group.WORLD)
     params, opt_state = Adam(TRAIN_LR).update(grads, opt_state, params,
                                               plain)
-    return params, opt_state, loss.detach()
+    return params, opt_state, loss
 
 
 def opt_state_from_optax(state, device=None):

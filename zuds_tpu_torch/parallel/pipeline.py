@@ -40,10 +40,12 @@ from ..ops.detect import DETECTION_FIELDS, detect_sources
 from ..ops.measure import refine_detections
 from ..ops.photometry import aperture_photometry_batched, aperture_sums
 from ..ops.ordered import sum_last2
-from ..ops.resample import upsample_mapping, warp_epoch, warp_reference
+from ..ops.resample import (SUPPORT, upsample_mapping, warp_epoch,
+                            warp_reference)
 from ..ops.subtract import (apply_kernel_fast, center_kernels, fit_kernel,
                             propagate_ref_var, region_edges,
                             subtract_epilogue)
+from .mesh import all_gather, axis_index, axis_size, local_batch
 
 __all__ = ['PipelineConfig', 'SubtractDetectPipeline', 'prepare_frame_inputs',
            'REF_CACHE_SIZE', 'CoaddPipeline', 'embed_roll',
@@ -111,16 +113,33 @@ class SubtractDetectPipeline(nn.Module):
     with masks int32 and ``stamp_valid`` bool, and returns the reference's
     output dict (pipeline.py:367-397) with a leading batch dimension. The
     module holds no weights: its state is the configuration.
+
+    With a ``mesh`` (:func:`zuds_tpu_torch.parallel.mesh.quadrant_mesh`)
+    the batch is data parallel over its 'data' axis, as the reference's
+    ``shard_map`` over ``batch_axis`` (pipeline.py:129-147, :420-424):
+    each rank runs its contiguous block of frames (the split of
+    ``P('data')``) one by one and returns that block;
+    ``gather_batch(mesh, out)`` assembles the global dict. Give the inputs
+    as ``place_batch(mesh, *host_arrays)`` does, ``DTensor`` s of which
+    each rank holds only its block on its card, as ``P('data')`` places
+    them; a plain tensor is taken to hold the whole batch, of which the
+    rank slices its block (:func:`~zuds_tpu_torch.parallel.mesh.
+    local_batch`). A batch that does not divide by the 'data' size raises
+    ``ValueError``. Ranks that differ only over 'space' compute the same
+    frames.
     """
 
-    def __init__(self, cfg: PipelineConfig):
+    def __init__(self, cfg: PipelineConfig, mesh=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
 
     def forward(self, *args):
         if len(args) != 14:
             raise ValueError(f'expected 14 batched inputs, got {len(args)}')
+        if self.mesh is not None:
+            args = local_batch(self.mesh, *args)
         outs = [self.one_frame(*(a[i] for a in args))
                 for i in range(args[0].shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
@@ -412,14 +431,29 @@ class CoaddPipeline(nn.Module):
     is 1.4826 MAD of a ``::4`` subsample; with ``compute_weight`` the
     weight is 1/rms^2 less bad and saturated pixels, else 1 off bad
     pixels. The module holds no weights.
+
+    With a ``mesh`` whose 'space' axis holds more than one rank, the
+    output rows are split over it, the exchanges the reference leaves to
+    XLA (``__graft_entry__.py:166-192``) made explicit: rank s of n owns
+    the band of ``ceil(H / n)`` rows from ``s ceil(H / n)``. The
+    whole-frame statistics (the background mesh, or the ``::4`` MAD) stay
+    whole-frame on every rank; each epoch's band is then warped from its
+    source rows with a halo of ``max_shift + SUPPORT`` rows on each side
+    (H1's reads wrap around the frame, so the first and last bands take
+    their halos from the opposite edge), combined (H9, row by row) and
+    the bands are gathered over 'space' into the whole stack on every
+    rank, bit-equal to the single-process result. The band relies on the
+    epochs lying in the ``max_shift`` bucket, as :func:`prepare_epoch_inputs`
+    leaves them: a live epoch's grid further off raises ``ValueError``.
     """
 
     def __init__(self, cfg: PipelineConfig, subtract_back=True,
-                 compute_weight=True):
+                 compute_weight=True, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.subtract_back = subtract_back
         self.compute_weight = compute_weight
+        self.mesh = mesh
 
     def forward(self, imgs, sats, masks, gus, gvs, covbs, scales, valid):
         cfg = self.cfg
@@ -427,6 +461,9 @@ class CoaddPipeline(nn.Module):
         if (H, W) != (cfg.height, cfg.width):
             raise ValueError(f'epochs of shape {(H, W)} do not fill the '
                              f'{(cfg.height, cfg.width)} canvas')
+        if self.mesh is not None and axis_size(self.mesh, 'space') > 1:
+            return self._forward_rows(imgs, sats, masks, gus, gvs, covbs,
+                                      scales, valid)
         dev = imgs.device
         iw = torch.empty((N, H, W), dtype=torch.float32, device=dev)
         ww = torch.empty_like(iw)
@@ -440,9 +477,53 @@ class CoaddPipeline(nn.Module):
         return {'coadd': out['coadd'], 'weight': out['weight'],
                 'mask': out['mask'], 'nexp': out['nexp']}
 
-    def warp_epoch(self, img, sat, mask, gu, gv, covb, vld, iw, ww, mw, cov):
-        """One epoch onto the canvas (pipeline.py:460-491), written into
-        the stack slices ``iw``, ``ww``, ``mw``, ``cov``."""
+    def _forward_rows(self, imgs, sats, masks, gus, gvs, covbs, scales,
+                      valid):
+        """The stack with its rows over the mesh's 'space' axis (see the
+        class docstring)."""
+        cfg = self.cfg
+        N, H, W = imgs.shape
+        dev = imgs.device
+        ns, s = axis_size(self.mesh, 'space'), axis_index(self.mesh, 'space')
+        gvs = torch.as_tensor(gvs)
+        gy = torch.arange(gvs.shape[1], dtype=torch.float32,
+                          device=gvs.device)[:, None] * cfg.map_step
+        keep = torch.as_tensor(valid, device=gvs.device) > 0
+        if keep.any() and float((gvs[keep] - gy).abs().amax()) \
+                > cfg.max_shift + 0.5:
+            raise ValueError('row bands need every epoch within the '
+                             f'max_shift={cfg.max_shift} bucket '
+                             '(prepare_epoch_inputs)')
+        band = -(-H // ns)
+        halo = cfg.max_shift + SUPPORT
+        # the band's source rows from ``off``, its own rows at ``inner``;
+        # band 0 starts at row 0 and keeps its upper halo (the frame's last
+        # rows) at its end, where the warp's wrap-around reads them, so
+        # that no band shifts a row by more than its own offset: the rows'
+        # v - off and their offsets from the band's rows are then exact,
+        # the single-process arithmetic
+        off = s * band - halo if s else 0
+        rows = (torch.arange(band + 2 * halo, device=dev) + off) % H
+        if s == 0:
+            rows[band + halo:] = torch.arange(H - halo, H, device=dev)
+        inner = slice(s * band - off, s * band - off + band)
+        iw = torch.empty((N, band, W), dtype=torch.float32, device=dev)
+        ww = torch.empty_like(iw)
+        mw = torch.empty((N, band, W), dtype=torch.int32, device=dev)
+        cov = torch.empty((N, band, W), dtype=torch.bool, device=dev)
+        for n in range(N):
+            self.warp_epoch(imgs[n], sats[n], masks[n], gus[n], gvs[n],
+                            covbs[n], valid[n], iw[n], ww[n], mw[n], cov[n],
+                            band=(rows, off, inner))
+        with _stage('combine'):
+            out = clipped_combine(iw, ww, mw, cov, scales)
+        group = self.mesh.get_group('space')
+        return {k: torch.cat(all_gather(out[k].contiguous(), group))[:H]
+                for k in ('coadd', 'weight', 'mask', 'nexp')}
+
+    def _epoch_planes(self, img, sat, mask):
+        """An epoch's pixels less its background and its weight map, each
+        of the whole frame (pipeline.py:460-481)."""
         cfg = self.cfg
         bad = (mask & BAD_SUM) > 0
         with _stage('background'):
@@ -463,10 +544,32 @@ class CoaddPipeline(nn.Module):
                 wgt = torch.where(img >= SATUR_FRAC * sat, 0.0, wgt)
             else:
                 wgt = torch.where(bad, 0.0, 1.0)
+        return img_b, wgt
+
+    def warp_epoch(self, img, sat, mask, gu, gv, covb, vld, iw, ww, mw, cov,
+                   band=None):
+        """One epoch onto the canvas (pipeline.py:460-491), written into
+        the stack slices ``iw``, ``ww``, ``mw``, ``cov``. With ``band``,
+        ``(rows, off, inner)`` of :meth:`_forward_rows`, only the band's
+        source rows are warped and its own rows written."""
+        cfg = self.cfg
+        img_b, wgt = self._epoch_planes(img, sat, mask)
         with _stage('warp'):
             u, v = upsample_mapping(gu, gv, img.shape, cfg.map_step)
-            e_iw, e_ww, e_mw, e_cov = warp_epoch(
-                img_b, wgt.contiguous(), mask, u, v, covb, cfg.max_shift)
+            inner = slice(None)
+            if band is not None:
+                rows, off, inner = band
+                H = img.shape[0]
+                # the bounds fold in the whole frame's own source test
+                covb = torch.stack([
+                    covb[0], covb[1],
+                    torch.clamp(covb[2], min=SUPPORT - 1) - off,
+                    torch.clamp(covb[3], max=H - SUPPORT) - off])
+                img_b, wgt, mask, u = (t[rows] for t in (img_b, wgt, mask, u))
+                v = v[rows] - off
+            e_iw, e_ww, e_mw, e_cov = (t[inner] for t in warp_epoch(
+                img_b, wgt.contiguous(), mask.contiguous(), u.contiguous(),
+                v.contiguous(), covb.contiguous(), cfg.max_shift))
             # ``valid`` gates the epoch as the coverage does (the weight is
             # multiplied by it, as the reference multiplies)
             live = vld > 0

@@ -8,12 +8,19 @@ as the reference's ``default.conf.yaml``) on first use, with mode 0600.
 Files the group or others may read or write are refused, since the config
 holds database and service credentials.
 
-The reference parses the file with ``yaml.safe_load``. The port reads the
-flat ``key: value`` subset that file uses, with its own reader
-(:func:`parse_config`): ``null``/``~``/empty, decimal integers, quoted
-strings, bare strings that start with a letter, ``/`` or ``~``, and ``#``
-comments (also after a value). Any other value, and a nested or
-flow-style one, raises ``ValueError`` rather than come back as something
+Where ``yaml`` imports, the file is read with ``yaml.safe_load``, as the
+reference reads it (secrets.py:52). Where it does not (the card machine
+has no yaml), the port reads the flat ``key: value`` subset of YAML 1.1 a
+config holds, with its own reader (:func:`parse_config`): the scalars
+``yaml.safe_load`` resolves to null (``~``, ``null`` in its three cases,
+empty), booleans (``true``/``false``/``yes``/``no``/``on``/``off`` in the
+lower, capitalised and upper cases), decimal integers, floats (a dot, an
+optional signed exponent, ``.inf`` and ``.nan``), quoted strings, bare
+strings that start with a letter, ``/`` or ``~``, and ``#`` comments (also
+after a value). On every form it takes it gives ``yaml.safe_load``'s
+value; any other form (a nested or flow-style value, a hexadecimal,
+octal or sexagesimal number, a bare string that starts otherwise) raises
+``ValueError`` naming the form, rather than come back as something
 ``yaml.safe_load`` would not give.
 """
 import os
@@ -28,16 +35,32 @@ __all__ = ['get_secret', 'load_config', 'parse_config']
 DEFAULT_CONFIG = Path(__file__).parent / 'config' / 'default.conf'
 
 _INT = re.compile(r'^[-+]?(0|[1-9][0-9]*)$')
+# YAML 1.1's floats without '_' or sexagesimal parts (PyYAML's resolver)
+_FLOAT = re.compile(r'^(?:[-+]?[0-9]+\.[0-9]*(?:[eE][-+][0-9]+)?'
+                    r'|\.[0-9]+(?:[eE][-+][0-9]+)?'
+                    r'|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$')
 _NULL = ('', '~', 'null', 'Null', 'NULL')
-# the words YAML 1.1 reads as booleans
-_BOOL = ('yes', 'no', 'true', 'false', 'on', 'off')
+# YAML 1.1's booleans, in the cases its resolver takes
+_BOOL = {w: v for words, v in (('yes true on', True),
+                               ('no false off', False))
+         for word in words.split()
+         for w in (word, word.capitalize(), word.upper())}
+
+
+def _float(raw):
+    text = raw.lower()
+    if text.endswith('.inf'):
+        return float('-inf') if text[0] == '-' else float('inf')
+    if text == '.nan':
+        return float('nan')
+    return float(text)
 
 
 def _scalar(raw, lineno):
-    """One value of the subset: null, a decimal integer, a quoted string,
-    or a bare string that starts with a letter, ``/`` or ``~``. Anything
-    else (booleans, floats, other numbers) raises ``ValueError``: quote
-    it to have it read as a string."""
+    """One value of the subset, as ``yaml.safe_load`` reads it: null, a
+    boolean, a decimal integer, a float, a quoted string, or a bare string
+    that starts with a letter, ``/`` or ``~``. Any other form raises
+    ``ValueError`` naming it."""
     if raw[:1] in ('"', "'"):
         q = raw[0]
         end = raw.find(q, 1)
@@ -46,25 +69,47 @@ def _scalar(raw, lineno):
         rest = raw[end + 1:].strip()
         if rest and not rest.startswith('#'):
             raise ValueError(f'config line {lineno}: text after a string')
-        return raw[1:end]
-    # a comment starts at a '#' that follows whitespace
-    m = re.search(r'\s#', raw)
+        body = raw[1:end]
+        if '\\' in body and q == '"':
+            raise ValueError(f'config line {lineno}: an escape sequence in '
+                             f'a double-quoted string is not read')
+        return body
+    if raw[:1] in ('{', '['):
+        raise ValueError(f'config line {lineno}: a flow-style collection is '
+                         f'not read: {raw!r}')
+    if '\t' in raw:
+        raise ValueError(f'config line {lineno}: a tab in a value is not '
+                         f'read: {raw!r}')
+    # a comment starts at a '#' that follows a space
+    m = re.search(r' #', raw)
     if m:
         raw = raw[:m.start()]
     raw = raw.strip()
     if raw in _NULL:
         return None
+    if raw in _BOOL:
+        return _BOOL[raw]
     if _INT.match(raw):
         return int(raw)
-    if (raw[0].isalpha() or raw[0] in '/~') and raw.lower() not in _BOOL:
+    if _FLOAT.match(raw):
+        return _float(raw)
+    if (raw[0].isalpha() or raw[0] in '/~') and ': ' not in raw \
+            and not raw.endswith(':'):
         return raw
-    raise ValueError(f'config line {lineno}: only null, integers and '
-                     f'strings are read, not {raw!r}; quote a string')
+    raise ValueError(f'config line {lineno}: the form of {raw!r} is not '
+                     f'read (null, booleans, decimal integers, floats and '
+                     f'strings are); quote a string')
+
+
+_KEY = re.compile(r'^[A-Za-z_][\w .\-/]*$')
 
 
 def parse_config(text):
-    """dict of a flat ``key: value`` YAML document (the subset the
-    default config uses)."""
+    """dict of a flat ``key: value`` YAML document, each value as
+    ``yaml.safe_load`` reads it (see the module docstring); keys are
+    plain words (a letter or ``_``, then letters, digits, ``_``, ``.``,
+    ``-``, ``/`` and spaces), never a word YAML reads as null or a
+    boolean."""
     out = {}
     for lineno, line in enumerate(text.splitlines(), 1):
         stripped = line.strip()
@@ -77,10 +122,14 @@ def parse_config(text):
         if not sep or not key.strip():
             raise ValueError(f'config line {lineno}: not key: value: '
                              f'{line!r}')
+        key = key.strip()
+        if not _KEY.match(key) or key in _BOOL or key in _NULL:
+            raise ValueError(f'config line {lineno}: the key {key!r} is not '
+                             f'a plain word')
         if value and not value[0].isspace():
             raise ValueError(f'config line {lineno}: no space after the '
                              f'colon: {line!r}')
-        out[key.strip()] = _scalar(value.strip(), lineno)
+        out[key] = _scalar(value.strip(), lineno)
     return out
 
 
@@ -113,7 +162,13 @@ class SecretManager:
                 f'config file {path} must not be group/world accessible; '
                 f'run: chmod 600 {path}')
         with open(path) as f:
-            self.cache = parse_config(f.read())
+            text = f.read()
+        try:
+            import yaml
+        except ImportError:
+            self.cache = parse_config(text)
+        else:
+            self.cache = yaml.safe_load(text) or {}
         self.path = path
         return self.cache
 

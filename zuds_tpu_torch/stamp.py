@@ -7,8 +7,8 @@ binds the configured database (``model_util.init_db()``); ``<worklist>``
 holds one source id per line, of which this process takes its share
 (``mpi.get_my_share_of_work``). A source that fails is reported, the
 session rolled back and the next one runs; the exit code is 1 if any
-failed. The thumbnails are committed as gzip-FITS rows; their PNG
-rendering, ``Thumbnail.persist``, is not ported yet (ROADMAP item 10).
+failed. The thumbnails are committed as gzip-FITS rows; ``python -m
+zuds_tpu_torch.thumb`` renders them to PNG (``Thumbnail.persist``).
 """
 from __future__ import annotations
 

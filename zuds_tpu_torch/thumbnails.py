@@ -1,24 +1,26 @@
 """Detection stamp thumbnails (twin of ``zuds_tpu/thumbnails.py``).
 
 63x63 cutouts around detections in new/ref/sub frames, gzip-FITS bytes
-stored in the DB (BYTEA analogue: sqlite BLOB). The FITS bytes come from
-the port's own writer (``fits.fits_bytes``), the same bytes the reference
-writes to a temporary file; ``gzip.compress`` stamps the time into its
-header, so two runs' blobs differ there and decompress to equal files.
-
-Not ported yet: ``Thumbnail.persist``, the PNG rendering, which needs
-matplotlib and ``image.zscale_limits`` (ROADMAP queue 1, item 10).
+stored in the DB (BYTEA analogue: sqlite BLOB), rendered to PNG by
+``Thumbnail.persist``. The FITS bytes come from the port's own writer
+(``fits.fits_bytes``), the same bytes the reference writes to a temporary
+file; ``gzip.compress`` stamps the time into its header, so two runs'
+blobs differ there and decompress to equal files.
 """
 from __future__ import annotations
 
 import gzip
+import io
+import struct
+import zlib
 
 import numpy as np
 
 from .constants import CUTOUT_SIZE
 from .db.orm import Column, Model
 
-__all__ = ['Thumbnail', 'make_stamp']
+__all__ = ['Thumbnail', 'make_stamp', 'gray_levels', 'write_png_gray',
+           'read_png_gray']
 
 
 def make_stamp(name, ra, dec, vmin, vmax, data, wcs, save_fits=False,
@@ -74,8 +76,115 @@ class Thumbnail(Model):
         return obj
 
     def persist(self, directory=None):
-        """The PNG rendering of the reference (thumbnails.py:96-119)."""
-        raise NotImplementedError(
-            'Thumbnail.persist (the PNG rendering: matplotlib and '
-            'image.zscale_limits) is not ported yet (ROADMAP queue 1: item '
-            '10, the rest of the surface)')
+        """Render the stamp to ``thumb_<type>_<detection id>.png`` in
+        ``directory`` (the configured ``base_data_directory`` by default),
+        set ``file_uri`` and return the path (thumbnails.py:96-119). The
+        stamp is ``self.stamp``, or the one in ``self.bytes``.
+
+        Where matplotlib imports, the figure is the reference's, drawn with
+        its calls (a 2x2 inch figure at 100 dpi, ``imshow`` in gray between
+        the stamp's ``zscale_limits``, origin lower, no axes, saved tight);
+        ``self.png_kind`` is then ``'matplotlib'``. Without matplotlib (the
+        card machine has none) the PNG is the stamp itself, one 8-bit gray
+        pixel a stamp pixel (:func:`gray_levels`: clipped at the zscale
+        limits, the gray colormap's 256 levels, origin lower), written
+        through ``zlib`` (:func:`write_png_gray`); ``png_kind`` is then
+        ``'zlib'``."""
+        import os
+        from .image import zscale_limits
+        from .secrets import get_secret
+
+        directory = directory or get_secret('base_data_directory',
+                                            '/tmp/zuds-tpu-data')
+        os.makedirs(directory, exist_ok=True)
+        name = f'thumb_{self.type}_{self.detection_id or "x"}.png'
+        path = os.path.join(directory, name)
+        stamp = getattr(self, 'stamp', None)
+        if stamp is None and self.bytes:
+            from .fits import read_fits
+            raw = gzip.decompress(self.bytes)
+            stamp = read_fits(io.BytesIO(raw))[0].data
+        vmin, vmax = zscale_limits(stamp)
+        try:
+            import matplotlib
+        except ImportError:
+            write_png_gray(path, gray_levels(stamp, vmin, vmax)[::-1])
+            self.png_kind = 'zlib'
+        else:
+            matplotlib.use('Agg')
+            import matplotlib.pyplot as plt
+            fig, ax = plt.subplots(figsize=(2, 2), dpi=100)
+            ax.imshow(stamp, vmin=vmin, vmax=vmax, cmap='gray',
+                      origin='lower')
+            ax.axis('off')
+            fig.savefig(path, bbox_inches='tight', pad_inches=0)
+            plt.close(fig)
+            self.png_kind = 'matplotlib'
+        self.file_uri = path
+        return path
+
+
+def gray_levels(stamp, vmin, vmax):
+    """uint8 levels of ``stamp`` between ``vmin`` and ``vmax`` as
+    matplotlib's ``Normalize`` and 256-entry ``gray`` colormap index them:
+    in the stamp's float type, ``(x - vmin) / (vmax - vmin)`` each step
+    rounded to it, times 256, 256 itself the top level, truncated; under
+    the range 0, over it 255; a NaN pixel 0."""
+    x = np.asarray(stamp)
+    ft = np.float32 if x.dtype.kind in 'iub' or x.dtype.itemsize <= 4 \
+        else np.float64
+    if vmin == vmax:
+        t = np.zeros(x.shape, ft)
+    else:
+        t = (x.astype(np.float64) - vmin).astype(ft)
+        t = (t.astype(np.float64) / (vmax - vmin)).astype(ft)
+    t = t * ft(256)
+    t[t == 256] = 255
+    with np.errstate(invalid='ignore'):
+        lev = np.where(t < 0, 0, np.where(t >= 256, 255, t))
+        lev = np.where(np.isnan(t), 0, lev).astype(np.int64)
+    return lev.astype(np.uint8)
+
+
+def _chunk(tag, data):
+    return (struct.pack('>I', len(data)) + tag + data
+            + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
+
+
+def write_png_gray(path, pixels):
+    """An 8-bit grayscale PNG of the uint8 (H, W) ``pixels``, first row at
+    the top, every scanline unfiltered."""
+    pixels = np.ascontiguousarray(pixels, dtype=np.uint8)
+    H, W = pixels.shape
+    raw = b''.join(b'\x00' + row.tobytes() for row in pixels)
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + _chunk(b'IHDR', struct.pack('>IIBBBBB', W, H, 8, 0, 0, 0, 0))
+                + _chunk(b'IDAT', zlib.compress(raw, 9))
+                + _chunk(b'IEND', b''))
+
+
+def read_png_gray(path):
+    """The uint8 (H, W) pixels of an 8-bit grayscale PNG with unfiltered
+    scanlines, as :func:`write_png_gray` writes them; any other PNG
+    raises ``ValueError``."""
+    with open(path, 'rb') as f:
+        buf = f.read()
+    if buf[:8] != b'\x89PNG\r\n\x1a\n':
+        raise ValueError(f'{path}: not a PNG')
+    pos, idat, head = 8, b'', None
+    while pos < len(buf):
+        n, = struct.unpack('>I', buf[pos:pos + 4])
+        tag, data = buf[pos + 4:pos + 8], buf[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b'IHDR':
+            head = struct.unpack('>IIBBBBB', data)
+        elif tag == b'IDAT':
+            idat += data
+    if head is None or head[2:] != (8, 0, 0, 0, 0):
+        raise ValueError(f'{path}: not an 8-bit gray PNG without interlace')
+    W, H = head[:2]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, W + 1)
+    if rows[:, 0].any():
+        raise ValueError(f'{path}: filtered scanlines')
+    return rows[:, 1:].copy()

@@ -1,12 +1,32 @@
-"""Small host-side helpers (twin of ``zuds_tpu/utils.py:19-66, 79-102``):
-the observation MJD of a header, the robust background estimate of a frame
-and the group-property check of a stack's inputs."""
+"""Small host-side helpers (twin of ``zuds_tpu/utils.py``): the
+observation MJD of a header, the robust background estimate of a frame,
+the group-property check of a stack's inputs, a fresh directory, and the
+timing helpers."""
 from __future__ import annotations
+
+import shutil
+import time as _time
+from pathlib import Path
 
 import numpy as np
 
-__all__ = ['mjd_from_header', 'quick_background_estimate',
-           'ensure_images_have_the_same_properties']
+from .constants import FID_MAP
+
+__all__ = ['initialize_directory', 'get_time', 'quick_background_estimate',
+           'fid_map', 'ensure_images_have_the_same_properties', 'print_time',
+           'mjd_from_header', 'Timer']
+
+fid_map = FID_MAP
+
+
+def initialize_directory(directory):
+    """An empty ``directory``: removed first if it exists (utils.py:22-27).
+    Returns its Path."""
+    directory = Path(directory)
+    if directory.exists():
+        shutil.rmtree(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    return directory
 
 _TIME_KEYS = ('MJD-OBS', 'OBSMJD', 'MJD', 'DATE-OBS', 'DATE')
 
@@ -49,6 +69,18 @@ def mjd_from_header(header):
     raise KeyError(f'no time keyword in header (tried {_TIME_KEYS})')
 
 
+def get_time(header_or_image, output='mjd'):
+    """The observation time of a header or an image's header as MJD or, with
+    ``output='jd'``, JD (utils.py:69-76)."""
+    header = getattr(header_or_image, 'header', header_or_image)
+    mjd = mjd_from_header(header)
+    if output == 'mjd':
+        return mjd
+    if output == 'jd':
+        return mjd + 2400000.5
+    raise ValueError(f"output must be 'mjd' or 'jd', got {output!r}")
+
+
 def quick_background_estimate(image, mask_image=None):
     """Median and 1.4826 * MAD of the unmasked, finite pixels
     (utils.py:79-93). ``image`` and ``mask_image`` are image objects or
@@ -74,3 +106,27 @@ def ensure_images_have_the_same_properties(images, properties):
         if len(vals) > 1:
             raise ValueError(
                 f'images have differing {prop!r} values: {sorted(vals)}')
+
+
+def print_time(start, stop, obj, stepname):
+    """The reference's timing line (utils.py:105-106)."""
+    print(f'took {stop - start:.2f} sec to {stepname} {obj}', flush=True)
+
+
+class Timer:
+    """Context timer: ``with Timer('warp') as t: ...; t.elapsed``
+    (utils.py:109-124)."""
+
+    def __init__(self, name='', quiet=True):
+        self.name = name
+        self.quiet = quiet
+        self.elapsed = None
+
+    def __enter__(self):
+        self.t0 = _time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = _time.perf_counter() - self.t0
+        if not self.quiet:
+            print(f'[{self.name}] {self.elapsed:.3f}s', flush=True)
