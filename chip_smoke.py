@@ -224,6 +224,10 @@ SOURCES = {
                      'zuds_tpu/ops/detect.py:840'),
     'clean': ('cuda', 'zuds_tpu_torch/kernels/objects.cu',
               'zuds_tpu/ops/detect.py:954'),
+    'warp_sep': ('cuda', 'zuds_tpu_torch/kernels/warp.cu',
+                 'zuds_tpu/ops/resample.py:414'),
+    'detect_filter_taps': ('cuda', 'zuds_tpu_torch/kernels/detect_filter.cu',
+                           'zuds_tpu/ops/detect.py:614'),
 }
 # the kernels only the coadd path launches (the second plane of H1 is a
 # mode of the 'warp' wrapper, recorded under its own name)
@@ -295,6 +299,26 @@ ZOGY_EVEN_STAMP = 24    # H17 at an even size beside the path's 25
 TRAIN_LAUNCHES = {'braai_conv3x3_train': 4, 'braai_conv3x3_dgrad': 3,
                   'braai_conv3x3_wgrad': 4, 'adam_step': 1}
 TRAIN_ONLY = tuple(TRAIN_LAUNCHES)
+# the kernels only the slice at sep_warp=True (H28) and detect_sources with
+# a filter of the caller's (H4g) launch: the sep phase counts each
+SEP_ONLY = ('warp_sep', 'detect_filter_taps')
+# the sep phase: H28 at these windows on the flagship frame under a 0.1
+# degree rotation; the sep slice's warped reference against H1's within
+# SEP_REFW_REL of |H1's| + 1 (the reference's own bound for the separable
+# form, tests/test_resample.py); H4g at these filters
+SEP_WINDOWS = (2, 4)
+SEP_ROT_DEG = 0.1
+SEP_REFW_REL = 5e-5
+GENERAL_FILTERS = (5, 7)
+# the small scene whose CPU det_n does not move under 1e-7 changes of sci
+# at any deblend mode (small_stable_card_vs_cpu): SMALL with a
+# well-conditioned fit (order 0, one region) and a 5 sigma threshold. At
+# SMALL's own order 2, 2x2 regions and 1.5 sigma the tree count of every
+# seed tried moves (seeds 0-11; 0-5 at 3 and 5 sigma); here seed 0 holds
+# its count under +-1e-7 and +-2e-7 of sci and up to 1e-6 of ref on the
+# CPU at all three modes
+STABLE = dict(SMALL, order=0, nreg=1, nsigma=5.0)
+STABLE_SEED = 0
 TRAIN_N = 256
 TRAIN_STEPS = 50
 TRAIN_LR = 3e-4
@@ -489,10 +513,10 @@ def measure_records(out, record, name, sci):
     its plain version (and H22 and H23 at N = 0), timed (device time: a
     CUDA graph of 20 launches) beside the plain version and the bound of
     the distinct work; H22 (r = 3) and H23 also on as many seeded rows,
-    all distinct, over the science frame
-    ``sci`` (sky, stars, noise: on the diff's windows of noise alone the
-    centroid of max(noise, 0) is too ill-conditioned for refine_check's
-    tolerance in any order of the sums)."""
+    all distinct, over the science frame ``sci`` (sky, stars, noise) and
+    over the diff (windows of noise alone, where the centroid of
+    max(noise, 0) is ill-conditioned: refine_check holds such a centroid
+    to the plain version run in float64)."""
     import numpy as np
     import torch
     from zuds_tpu_torch.bench_detect import negpix_bound
@@ -598,6 +622,11 @@ def measure_records(out, record, name, sci):
                             rng.uniform(-1.6, 1.6, n),
                             rng.uniform(1.0, 6.0, n)))
     refine_case(sci, rms, dargs, f'{n} seeded distinct rows', name)
+    # the same rows over the slice's diff (bench_detect.py's
+    # h23_distinct_diff): most windows hold noise alone about 0, where
+    # refine_check holds a centroid past its f32 form to float64
+    refine_case(diff, rms, dargs, f'{n} seeded distinct rows over the diff',
+                name)
 
     # H14 at the pipeline's medians: the ::4 subsample's H8 median and
     # 1.48 MAD
@@ -657,7 +686,8 @@ def refine_case(img, rms, args, tag, name):
     check(all(torch.equal(k1[key].nan_to_num(7.0), k2[key].nan_to_num(7.0))
               for key in k1), f'H23 ({tag}): two calls differ')
     p = ms.refine_detections_plain(img, rms, *args)
-    gaps, near, crossed = refine_check(img, rms, args, k1, p)
+    counts = {}
+    gaps, near, crossed = refine_check(img, rms, args, k1, p, counts=counts)
     one = distinct_rows(args)
     nd = one.numel()
     bnd = bound(nd * 2 * 33 * 33 * 4 + n * (24 + 44),
@@ -667,7 +697,9 @@ def refine_case(img, rms, args, tag, name):
     print(f'refine_detections ({tag}): N = {n}, {nd} distinct rows, within '
           f'refine_check of the plain version (largest gap '
           f'{max(gaps.values()):.3g}; {near} rows near an ellipse edge, '
-          f'{crossed} between the AUTO edges), two calls bit-identical; '
+          f'{crossed} between the AUTO edges; '
+          f'{counts["centroid_rows_f64"]} centroids held to the float64 '
+          f'plain version), two calls bit-identical; '
           f'kernel {ms_k:.4f} ms (a CUDA graph of 20), bound {bnd[0]:.5f} '
           f'ms ({bnd[1]}, share {bnd[0] / ms_k:.1%}) on {name}', flush=True)
 
@@ -1230,7 +1262,7 @@ def night_phase(wrappers, name, record):
               f'{link_ms:.3f} ms, CUDA events) on {name}', flush=True)
         for k, n in launches.items():
             check(n > 0 or k in COADD_ONLY + ML_ONLY + ZOGY_ONLY
-                  + TRAIN_ONLY,
+                  + TRAIN_ONLY + SEP_ONLY,
                   f'kernel {k} was not launched by the night')
         for i, (tx, ty) in enumerate(truths):
             cat = night_catalog(d, i)
@@ -1388,7 +1420,7 @@ def db_phase(wrappers, name, d, work, truths, pipe):
               and st['fallbacks'] == 1, f'db night: {res}')
         for k, n in launches.items():
             check(n > 0 or k in COADD_ONLY + ML_ONLY + ZOGY_ONLY
-                  + TRAIN_ONLY,
+                  + TRAIN_ONLY + SEP_ONLY,
                   f'kernel {k} was not launched by the db night')
         check(launches['warp'] == NIGHT_PAIRS
               and launches['apply_model'] == NIGHT_PAIRS + 1,
@@ -4770,6 +4802,273 @@ def surface_phase(wrappers, name, pipe, targs):
           f'spooled (host clock) on {name}', flush=True)
 
 
+STOP_KEYS = {'warp': {'diff'}, 'bkg': {'diff'}, 'fit': {'diff'},
+             'fitdiag': {'diff', 'stamp_ok', 'stamp_chi2', 'coeffs'},
+             'ksum': {'diff'}, 'apply': {'diff'}, 'noise': {'diff'},
+             'detect': {'diff'}, 'phot': {'diff'}, 'refine': {'diff'},
+             'aps': {'diff'}}
+
+
+def sep_bound(npx, window):
+    """H28's bound on ``npx`` pixels: 28 bytes a pixel, as H1's; the f32
+    operations of the plain version's taps (an FMA as two): per tap of
+    the 2 window + 7 of an axis, the horizontal pass's hp, hd (2 each),
+    ws, wsd (1 each) and the vertical pass's correction product (1), its
+    two corrections and two sums (2 each). The weights' sines and
+    divisions have no peak in the data sheet and enter no bound."""
+    return bound(28 * npx, (6 + 9) * (2 * window + 7) * npx)
+
+
+def sep_phase(wrappers, name, record, cfg, targs, out, planted):
+    """The flagship slice at sep_warp=True (counted), its warped reference
+    against H1's, H28 against its plain version at SEP_WINDOWS under a
+    SEP_ROT_DEG rotation, every dbg_stop_after once, and H4g at
+    GENERAL_FILTERS against its plain version and F.conv2d; detect_sources
+    with a 5x5 filter on the slice's frames counted for H4g."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from zuds_tpu_torch.constants import BAD_SUM
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import detect, resample
+    from zuds_tpu_torch.ops.convolve import gaussian_kernel
+    from zuds_tpu_torch.parallel import SubtractDetectPipeline
+    t_phase = time.perf_counter()
+    dev = targs[0].device
+    B = targs[0].shape[0]
+    H, W = cfg.height, cfg.width
+
+    # ---- the slice at sep_warp=True: counted, planted sources ------------
+    spipe = SubtractDetectPipeline(dataclasses.replace(cfg, sep_warp=True))
+    sout, slaunch, secs = run_counted(spipe, targs, wrappers)
+    print(f'slice (sep_warp=True): first run {secs * 1e3:.1f} ms for {B} '
+          f'frames; kernel launches {slaunch}', flush=True)
+    check(slaunch['warp_sep'] == B and slaunch['warp'] == 0,
+          f'sep_warp slice: {slaunch["warp_sep"]} H28 and '
+          f'{slaunch["warp"]} H1 launches for {B} frames')
+    for k, n in slaunch.items():
+        check(n > 0 or k in ('warp', 'stamp_candidates', 'detect_filter_taps')
+              + COADD_ONLY + PAIR_ONLY + ML_ONLY + ZOGY_ONLY + TRAIN_ONLY,
+              f'kernel {k} was not launched by the sep_warp slice')
+    check(bool(torch.isfinite(sout['diff'][sout['submask'] == 0]).all())
+          and bool((sout['fit_stamps_ok'] > 0).all()),
+          'sep_warp slice: diff not finite where unmasked, or no stamp kept')
+    check_planted(sout, planted, 'slice sep_warp=True')
+    # the separable form against H1 on the slice's own references
+    rels = []
+    for b in range(B):
+        u, v = resample.upsample_mapping(targs[4][b], targs[5][b], (H, W),
+                                         cfg.map_step)
+        wargs = (targs[2][b], targs[3][b], u.contiguous(), v.contiguous(),
+                 targs[13][b])
+        r1 = resample.warp_reference(*wargs, cfg.max_shift)
+        rs = resample.warp_reference_sep(*wargs, cfg.max_shift)
+        check(torch.equal(r1[1], rs[1]) and torch.equal(r1[2], rs[2]),
+              'H28 and H1 disagree on the mask or the coverage')
+        c = r1[2] > 0
+        rels.append(float(((rs[0] - r1[0]).abs() / (r1[0].abs() + 1))[c]
+                          .max()))
+        check(rels[-1] <= SEP_REFW_REL, f'sep_warp frame {b}: refw '
+              f'{rels[-1]:.3g} of |H1 refw| + 1 from H1\'s')
+    # det_n: the exact tree's count follows any ulp-level change of its
+    # input (small_card_vs_cpu), so the count is gated at deblend=False:
+    # within 1 + twice the default warp's own spread under 1e-7 changes of
+    # sci and changes of ref the size of the H28-H1 gap just measured
+    cfg0 = dataclasses.replace(cfg, deblend=False)
+    pipe0 = SubtractDetectPipeline(cfg0)
+    n0 = pipe0(*targs)['det_n']
+    ns0 = SubtractDetectPipeline(dataclasses.replace(cfg0, sep_warp=True))(
+        *targs)['det_n']
+    spread = torch.zeros(B, dtype=torch.int64, device=dev)
+    rel = max(max(rels), 1e-7)
+    for i, e in ((0, 1e-7), (0, -1e-7), (2, rel), (2, -rel)):
+        a = list(targs)
+        a[i] = (targs[i] * (1 + e)).contiguous()
+        spread = torch.maximum(spread, (pipe0(*a)['det_n'] - n0).abs())
+    for b in range(B):
+        gap = abs(int(ns0[b]) - int(n0[b]))
+        check(gap <= 1 + 2 * int(spread[b]),
+              f'sep_warp slice frame {b} (deblend=False): det_n '
+              f'{int(ns0[b])} against {int(n0[b])} (own spread '
+              f'{int(spread[b])})')
+    print(f'slice (sep_warp=True): refw against H1\'s at most '
+          f'{max(rels):.3g} of |refw| + 1, mask and coverage equal; det_n '
+          f'{sout["det_n"].tolist()} against the default warp\'s '
+          f'{out["det_n"].tolist()} at deblend=True, {ns0.tolist()} against '
+          f'{n0.tolist()} at deblend=False (own spread {spread.tolist()}) on '
+          f'{name}', flush=True)
+
+    # ---- H28 against its plain version under a rotation ----------------
+    ref = targs[2][0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rmask = torch.where(
+        torch.rand((H, W), generator=gen, device=dev) < 0.01,
+        torch.randint(0, 1 << 18, (H, W), generator=gen, device=dev,
+                      dtype=torch.int32), 0).to(torch.int32)
+    th = math.radians(SEP_ROT_DEG)
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    cx, cy = W / 2, H / 2
+    u = (cx + math.cos(th) * (xx - cx) - math.sin(th) * (yy - cy)
+         + 1.3).contiguous()
+    v = (cy + math.sin(th) * (xx - cx) + math.cos(th) * (yy - cy)
+         - 0.7).contiguous()
+    covb = targs[13][0]
+    for window in SEP_WINDOWS:
+        k = launch.warp_sep(ref, rmask, u, v, covb, window)
+        p = resample.warp_reference_sep_plain(ref, rmask, u, v, covb, window)
+        err = close(f'warp_sep window {window} pixels', k[0], p[0], 3e-5,
+                    5e-3)
+        check(torch.equal(k[1], p[1]) and torch.equal(k[2], p[2]),
+              f'warp_sep window {window}: mask or coverage differs from '
+              'the plain version')
+        again = launch.warp_sep(ref, rmask, u, v, covb, window)
+        check(all(torch.equal(a, b) for a, b in zip(k, again)),
+              'warp_sep: two calls differ')
+        p64 = resample.warp_reference_sep_plain(
+            ref.double(), rmask, u.double(), v.double(), covb.double(),
+            window)
+        e64 = warp_f64(f'warp_sep window {window}', k[0], p[0], p64[0],
+                       p[2] > 0)
+        del p64, again
+        ms = graph_ms(lambda: launch.warp_sep(ref, rmask, u, v, covb,
+                                              window))
+        call = cuda_ms(lambda: launch.warp_sep(ref, rmask, u, v, covb,
+                                               window))
+        plain = cuda_ms(lambda: resample.warp_reference_sep_plain(
+            ref, rmask, u, v, covb, window), 1, 3)
+        bnd = sep_bound(H * W, window)
+        print(f'warp_sep: {H}x{W}, window {window}, {SEP_ROT_DEG} deg: mask '
+              f'and coverage bit-equal, pixels max abs err {err:.3g}; '
+              f'against the float64 plain version {e64[0]:.4g} (f32 plain '
+              f'{e64[1]:.4g}); {ms:.4f} ms on the card (graph replay), '
+              f'{call:.4f} ms per wrapper call, plain {plain:.3f} ms, bound '
+              f'{bnd[0]:.4f} ms ({bnd[1]}, share {bnd[0] / ms:.1%}) on '
+              f'{name}', flush=True)
+        if window == cfg.max_shift:
+            record('warp_sep', err, ms, plain, bnd, runs=slaunch,
+                   per=f'{B} frames at sep_warp=True')
+
+    # ---- every stage stop once, host ms through each --------------------
+    ok = out['submask'] == 0
+    row = []
+    for stop, keys in STOP_KEYS.items():
+        p = SubtractDetectPipeline(dataclasses.replace(cfg,
+                                                       dbg_stop_after=stop))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = p(*targs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(set(o) == keys, f'stop {stop}: keys {sorted(o)}')
+        for key, val in o.items():
+            if key == 'stamp_chi2':
+                val = val[o['stamp_ok']]
+            elif key == 'diff':
+                val = val[ok]
+            check(val.dtype == torch.bool or bool(torch.isfinite(val).all()),
+                  f'stop {stop}: {key} not finite')
+        if stop == 'detect':
+            for b in range(B):
+                got = float((o['diff'][b] - out['diff'][b])[ok[b]].median())
+                check(abs(got - int(out['det_n'][b])) < 0.5,
+                      f'stop detect frame {b}: n {got} against the full '
+                      f'run\'s {int(out["det_n"][b])}')
+        row.append(f'{stop} {ms:.1f}')
+    print(f'stage stops (dbg_stop_after, {B} flagship frames, host ms '
+          f'through the stop, first call each): {", ".join(row)}; keys '
+          f'the reference\'s, values finite, detect\'s n the full run\'s '
+          f'on {name}', flush=True)
+
+    # ---- H4g: a filter of the caller's --------------------------------
+    diff, rms = out['diff'][0], out['rms'][0]
+    wok = (out['submask'][0] & BAD_SUM) == 0
+    cudnn = torch.backends.cudnn
+    filters = {size: gaussian_kernel(size / 4.0, size, device='cpu').numpy()
+               for size in GENERAL_FILTERS}
+    for size, kf in filters.items():
+        kg = detect.matched_filter(diff, rms, wok, cfg.nsigma, kf)
+        pg = detect.matched_filter_plain(diff, rms, wok, cfg.nsigma, kf)
+        for plane, a, b in zip(('img', 'filt', 'det'), kg, pg):
+            check(torch.equal(a.view(torch.uint8), b.view(torch.uint8)),
+                  f'detect_filter_taps {size}x{size} {plane} differs from '
+                  'its plain version')
+        ms = graph_ms(lambda: launch.detect_filter_taps(diff, rms, wok,
+                                                        cfg.nsigma, kf))
+        plain = cuda_ms(lambda: detect.matched_filter_plain(
+            diff, rms, wok, cfg.nsigma, kf), 1, 3)
+        img = pg[0][None, None]
+        kt = torch.as_tensor(kf, device=dev)[None, None]
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                         allow_tf32=False):
+            lib = graph_ms(lambda: F.conv2d(img, kt, padding=size // 2))
+        bnd = bound(18 * H * W, 2 * size * size * H * W)
+        print(f'detect_filter_taps: {size}x{size} Gaussian, img, filt, det '
+              f'bit-equal to the plain version ({int(pg[2].sum())} detected '
+              f'pixels); {ms:.4f} ms on the card (graph replay), plain '
+              f'{plain:.3f} ms, F.conv2d (filt alone, TF32 off) {lib:.4f} '
+              f'ms, bound {bnd[0]:.4f} ms ({bnd[1]}, share '
+              f'{bnd[0] / ms:.1%}) on {name}', flush=True)
+        if size == GENERAL_FILTERS[0]:
+            rec5 = (ms, plain, bnd, lib)
+    # the path through H4g, counted: detect_sources with the 5x5 filter on
+    # the slice's frames
+    for w in wrappers.values():
+        w.launches = 0
+    for b in range(B):
+        sm = out['submask'][b]
+        det = detect.detect_sources(
+            out['diff'][b], out['rms'][b], sm, (sm & BAD_SUM) == 0,
+            nsigma=cfg.nsigma, max_det=cfg.max_det,
+            kernel=filters[GENERAL_FILTERS[0]], return_labels=False,
+            det_cap=cfg.det_cap or None, deb_cap=cfg.deb_cap or None)
+        check(int(det['n']) > 0, 'detect_sources with a 5x5 filter found '
+              'nothing')
+    glaunch = {k: w.launches for k, w in wrappers.items()}
+    check(glaunch['detect_filter_taps'] == B
+          and glaunch['detect_filter'] == 0,
+          f'detect_sources(kernel=5x5): launches {glaunch}')
+    record('detect_filter_taps', 0.0, rec5[0], rec5[1], rec5[2], rec5[3],
+           runs=glaunch, per=f'{B} detect_sources calls with a '
+           f'{GENERAL_FILTERS[0]}x{GENERAL_FILTERS[0]} filter')
+    print(f'phase sep: {time.perf_counter() - t_phase:.1f} s (host clock) '
+          f'on {name}', flush=True)
+
+
+def small_stable_card_vs_cpu(dev):
+    """The STABLE scene, whose detection count does not move on the CPU
+    under +-1e-7 relative changes of sci at any deblend mode (checked here
+    first): there the card's det_n must equal the all-plain CPU port's at
+    sci and at each change (the gate small_card_vs_cpu cannot make where
+    the CPU's own count moves)."""
+    import numpy as np
+    from zuds_tpu_torch import inputs
+    from zuds_tpu_torch.parallel import PipelineConfig, SubtractDetectPipeline
+    for mode in (False, True, 'watershed'):
+        small = PipelineConfig(**STABLE, deblend=mode)
+        sargs, _ = inputs.plant_sources(
+            inputs.synth_inputs(2, small.height, small.width, small,
+                                seed=STABLE_SEED),
+            n=3, flux=2e4, seed=STABLE_SEED + 1)
+        spipe = SubtractDetectPipeline(small)
+        counts = []
+        for e in (0.0, 1e-7, -1e-7):
+            a = ((sargs[0] * np.float32(1 + e)).astype('f4'),) + sargs[1:]
+            cpu = spipe(*inputs.to_torch(a, 'cpu'))['det_n'].tolist()
+            card = spipe(*inputs.to_torch(a, dev))['det_n'].tolist()
+            counts.append((cpu, card))
+        check(all(c[0] == counts[0][0] for c in counts),
+              f'stable scene, deblend={mode!r}: the CPU\'s det_n moves '
+              f'under 1e-7 changes of sci: {counts}')
+        check(all(c[0] == c[1] for c in counts),
+              f'stable scene, deblend={mode!r}: card det_n differs from the '
+              f'all-plain CPU port: {counts}')
+        print(f'small stable scene (seed {STABLE_SEED}, deblend={mode!r}): '
+              f'det_n {counts[0][1]} on the card, equal to the all-plain CPU '
+              f'port at sci and at sci (1 +- 1e-7), where the CPU\'s own '
+              f'count does not move', flush=True)
+
+
 def main():
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
@@ -4812,7 +5111,7 @@ def main():
     for k, n in launches.items():
         check(n > 0 or k == 'stamp_candidates'
               or k in COADD_ONLY + PAIR_ONLY + ML_ONLY + ZOGY_ONLY
-              + TRAIN_ONLY,
+              + TRAIN_ONLY + SEP_ONLY,
               f'kernel {k} was not launched by the main path')
     check(all(launches[k] == n * B for k, n in MEASURE_LAUNCHES.items()),
           f'the measure stage launched {launches} for {B} frames, not '
@@ -4854,7 +5153,7 @@ def main():
     for k, n in launches0.items():
         check(n > 0 or k in ('deblend_labels', 'stamp_candidates')
               or k in COADD_ONLY + PAIR_ONLY + ML_ONLY + ZOGY_ONLY
-              + TRAIN_ONLY,
+              + TRAIN_ONLY + SEP_ONLY,
               f'kernel {k} was not launched with deblend=False')
     check(all(launches0[k] == n * B for k, n in DETECT_LAUNCHES.items()),
           f'the detect stage launched {launches0} with deblend=False')
@@ -4926,6 +5225,9 @@ def main():
     # ---- the detect stage: H24-H27 against their plain versions ----------
     detect_phase(out, cfg, record, name)
 
+    # ---- sep_warp=True (H28), the stage stops, a caller's filter (H4g) ---
+    sep_phase(wrappers, name, record, cfg, targs, out, planted)
+
     # ---- the night: FITS pairs -> catalogs through run_night, counted,
     # then the scoring night at ml=True and the db phase --------------------
     night_launches, night_s, night_stats, db_fluxes = night_phase(
@@ -4968,6 +5270,7 @@ def main():
     # ---- the same path on a small input: card (kernels) vs CPU (plain) ----
     for mode in (False, True, 'watershed'):
         small_card_vs_cpu(mode, dev)
+    small_stable_card_vs_cpu(dev)
 
     # H1: smooth sub-pixel displacement (|du|, |dv| <= 2), random 18-bit mask
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -235,3 +235,175 @@ def test_refine_from_identical_detections(busy):
         else:
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6,
                                        err_msg=k)
+
+
+# ---- the reference's probes (dbg_stop_after) ---------------------------
+
+PROBE_CASES = [(p, True) for p in td.DETECT_PROBES] + [
+    ('cell', False), ('deblend', 'watershed'), ('stats', False)]
+
+
+@pytest.fixture(scope='module')
+def busy_probes(busy):
+    (diff, rms, mask, wok), _ = busy
+    out = {}
+    for probe, mode in PROBE_CASES:
+        kw = dict(max_det=MAX_DET, return_labels=False, deblend=mode,
+                  dbg_stop_after=probe)
+        j = jd.detect_sources(jnp.asarray(diff), jnp.asarray(rms),
+                              jnp.asarray(mask).astype(jnp.uint32),
+                              jnp.asarray(wok), **kw)
+        t = td.detect_sources(T(diff), T(rms), T(mask), T(wok), **kw)
+        out[probe, mode] = (np.asarray(j['dbg']), t)
+    return out
+
+
+@pytest.mark.parametrize('probe,mode', PROBE_CASES)
+def test_probe_bit_equal(busy_probes, probe, mode):
+    """Every probe of the reference, bit for bit: int32 sums that wrap as
+    JAX's x64-off sums (the compact list's and the inverse map's sums pass
+    2^31 here), the (4,) edge census; 'stats' is a float sum whose empty
+    row 0 has xmin = +inf, so +inf in both."""
+    j, t = busy_probes[probe, mode]
+    assert set(t) == {'dbg'}
+    t = t['dbg'].numpy()
+    assert t.dtype == j.dtype and t.shape == j.shape
+    np.testing.assert_array_equal(t, j)
+    if probe == 'stats':
+        assert np.isposinf(j)
+    elif probe == 'deb_edges':
+        assert j.shape == (4,) and (j > 0).all()
+    else:
+        assert j.dtype == np.int32 and j != 0
+
+
+def test_probe_past_the_path_returns_the_full_dict(busy):
+    """A tree probe at deblend=False never fires: the full dict, no 'dbg'
+    (the pipeline then raises KeyError, as the reference's)."""
+    (diff, rms, mask, wok), (_, t) = busy
+    got = td.detect_sources(T(diff), T(rms), T(mask), T(wok),
+                            max_det=MAX_DET, return_labels=False,
+                            deblend=False, dbg_stop_after='deb_lab')
+    assert 'dbg' not in got
+    for k in t:
+        np.testing.assert_array_equal(got[k].numpy(), t[k], err_msg=k)
+
+
+# ---- detect_sources(kernel=) ------------------------------------------
+
+def _filters():
+    rng = np.random.default_rng(11)
+    zeros = np.zeros((5, 5))
+    zeros[2, :] = [1, 2, 4, 2, 1]
+    zeros[:, 2] = [1, 2, 4, 2, 1]
+    zeros[0, 0] = -0.5
+    return {
+        'default': DEFAULT_FILTER,
+        'gauss5': td_gaussian(1.5, 5),
+        'row7': np.array([[1.0, 2.0, 3.0, 4.0, 3.0, 2.0, 1.0]]) / 16.0,
+        'rand7x7': rng.uniform(0.1, 1.0, (7, 7)) / 25.0,
+        'zero_taps': zeros / zeros.sum(),
+        'rand9x9': rng.uniform(0.1, 1.0, (9, 9)) / 40.0,
+    }
+
+
+def td_gaussian(sigma, size):
+    from zuds_tpu_torch.ops.convolve import gaussian_kernel
+    return gaussian_kernel(sigma, size, device='cpu')
+
+
+FILTERS = list(_filters())
+
+
+@pytest.fixture(scope='module')
+def filtered(busy):
+    """Each filter through both packages at deblend=False, and the
+    reference's filtered frame as its jitted call computes it (an explicit
+    filter is traced there, so it takes XLA's convolution)."""
+    import jax
+    from zuds_tpu.ops.convolve import conv2_same as jconv
+    (diff, rms, mask, wok), _ = busy
+    good = wok & (rms > 0) & np.isfinite(diff)
+    img = np.where(good, diff, 0).astype('f4')
+    out = {}
+    for name, k in _filters().items():
+        kn = k.numpy() if torch.is_tensor(k) else np.asarray(k)
+        j = jd.detect_sources(jnp.asarray(diff), jnp.asarray(rms),
+                              jnp.asarray(mask).astype(jnp.uint32),
+                              jnp.asarray(wok), max_det=MAX_DET,
+                              return_labels=False, deblend=False,
+                              kernel=kn)
+        t = td.detect_sources(T(diff), T(rms), T(mask), T(wok),
+                              max_det=MAX_DET, return_labels=False,
+                              deblend=False, kernel=k)
+        jf = np.asarray(jax.jit(jconv)(jnp.asarray(img), jnp.asarray(kn)))
+        tf = td.matched_filter(T(diff), T(rms), T(wok), 1.5, k)
+        out[name] = (kn, {a: np.asarray(b) for a, b in j.items()},
+                     {a: b.numpy() for a, b in t.items()}, jf,
+                     [a.numpy() for a in tf])
+    return img, rms, good, out
+
+
+@pytest.mark.parametrize('name', FILTERS)
+def test_detect_sources_with_a_filter(filtered, name):
+    """filt within 1e-6 sum|k| max|img| of the reference's (its
+    convolution sums in another order), det equal but where filt lies that
+    close to the threshold, and the catalog held as the default filter's
+    (bit-equal counts, flags and boxes; x, y to 1e-4 px; flux, peak, a,
+    b, thresh to rtol 1e-5)."""
+    img, rms, good, out = filtered
+    kn, j, t, jf, (ti, tf, tdet) = out[name]
+    np.testing.assert_array_equal(ti, img)
+    tol = 1e-6 * np.abs(kn).sum() * np.abs(img).max()
+    err = np.abs(tf.astype('f8') - jf)
+    print(f'{name}: {kn.shape}, max |filt - reference| {err.max():.3g} '
+          f'(tolerance {tol:.3g})')
+    assert err.max() <= tol
+    jdet = good & (jf > np.float32(1.5) * rms)
+    near = np.abs(jf.astype('f8') - np.float32(1.5) * rms) <= tol
+    assert not (tdet != jdet)[~near].any()
+    if (tdet != jdet).any():
+        pytest.skip(f'{name}: a pixel within the tolerance of its '
+                    'threshold flips; the catalogs may differ there')
+    assert int(j['n']) > 5
+    for k in EXACT:
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    v = j['valid']
+    for k in ('x', 'y'):
+        np.testing.assert_allclose(t[k][v], j[k][v], rtol=0, atol=1e-4)
+    for k in RELATIVE:
+        np.testing.assert_allclose(t[k][v], j[k][v], rtol=1e-5, err_msg=k)
+
+
+def test_default_filter_given_is_the_default(busy, filtered):
+    (diff, rms, mask, wok), (_, t) = busy
+    got = filtered[3]['default'][2]
+    for k in t:
+        np.testing.assert_array_equal(got[k], t[k], err_msg=k)
+    for given in (DEFAULT_FILTER.astype('f4'), T(DEFAULT_FILTER)):
+        a = td.matched_filter(T(diff), T(rms), T(wok), 1.5, given)
+        b = td.matched_filter(T(diff), T(rms), T(wok), 1.5)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_conv2_same_branches(busy):
+    """The tap-by-tap branch equals the reference's unjitted call bit for
+    bit (its numpy filter stays static there); past max_taps one
+    convolution, with asymmetric padding for even sizes."""
+    from zuds_tpu.ops.convolve import conv2_same as jconv
+    (diff, _, _, _), _ = busy
+    img = np.nan_to_num(diff).astype('f4')
+    rng = np.random.default_rng(4)
+    for shape in ((4, 6), (2, 1), (7, 7)):
+        k = rng.normal(0, 1, shape)
+        k[0, 0] = 0.0
+        np.testing.assert_array_equal(
+            conv2_same(T(img), k).numpy(),
+            np.asarray(jconv(jnp.asarray(img), k)))
+    for shape, taps in (((6, 8), 10), ((9, 9), 49), ((3, 3), 4)):
+        k = rng.normal(0, 1, shape)
+        got = conv2_same(T(img), T(k.astype('f4')), max_taps=taps).numpy()
+        want = np.asarray(jconv(jnp.asarray(img), k, max_taps=taps))
+        tol = 1e-6 * np.abs(k).sum() * np.abs(img).max()
+        assert np.abs(got.astype('f8') - want).max() <= tol, shape

@@ -91,8 +91,16 @@ same call with their plain versions, at the three deblend modes; no host
 copy or wait inside the ``ccl``, ``stats`` and ``clean`` ranges.
 ``phot.do_one`` (dophot's worker, from a sqlite file) on the card against
 ``device='cpu'``: one H22 launch, flux and fluxerr rtol 1e-5, atol 1e-3.
+H28, the separable warp: pixels rtol 3e-5, atol 5e-3 of the plain
+version and no further from it run in float64 than the f32 plain version,
+mask and coverage bit-equal, at orders 0 and 1, windows 2-4, ragged
+tiles and the flagship frame. H4g, the matched filter with a caller's
+filter: img, filt and det bit-equal to the plain version (-0, subnormal
+values, zero and negative taps, even sizes, 1x7, 7x1, 7x7); the default
+pyramid given explicitly takes H4, a 9x9 filter the plain convolution.
 """
 import ctypes
+import math
 from pathlib import Path
 
 import numpy as np
@@ -3242,3 +3250,125 @@ def test_persist_on_the_card_machine_writes_the_zscale_png(dev, tmp_path):
         np.testing.assert_array_equal(
             read_png_gray(path),
             gray_levels(stamp, *zscale_limits(stamp))[::-1])
+
+
+def _sep_inputs(dev, H, W, seed, rot_deg=0.1):
+    """A rotated, shifted mapping with a bright source and a sparse
+    18-bit mask (the CPU tests' rotation scene), coverage bounds that
+    cut the frame."""
+    ref = _rand((H, W), dev, seed, 20.0, 150.0)
+    yy = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    ref = ref + 4000.0 * torch.exp(-((xx - W / 3) ** 2 + (yy - H / 2) ** 2)
+                                   / 6.0)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    bits = torch.randint(0, 1 << 18, (H, W), generator=g, device=dev,
+                         dtype=torch.int32)
+    mask = torch.where(torch.rand((H, W), generator=g, device=dev) < 0.01,
+                       bits, 0).to(torch.int32)
+    th = math.radians(rot_deg)
+    cx, cy = W / 2, H / 2
+    u = (cx + math.cos(th) * (xx - cx) - math.sin(th) * (yy - cy)
+         + 1.3).contiguous()
+    v = (cy + math.sin(th) * (xx - cx) + math.cos(th) * (yy - cy)
+         - 0.7).contiguous()
+    covb = torch.tensor([2.0, W - 5.0, 3.5, H - 3.0], device=dev)
+    return ref.contiguous(), mask, u, v, covb
+
+
+@pytest.mark.parametrize('H,W,window,order', [
+    (200, 136, 2, 1), (97, 131, 3, 1), (33, 70, 2, 1), (200, 136, 4, 0),
+    (256, 256, 4, 1), (3080, 3072, 2, 1)])
+def test_warp_sep_kernel(dev, H, W, window, order):
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import resample
+    ref, mask, u, v, covb = _sep_inputs(dev, H, W, 3)
+    n0 = launch.warp_sep.launches
+    k = resample.warp_reference_sep(ref, mask, u, v, covb, window, order)
+    assert launch.warp_sep.launches == n0 + 1
+    p = resample.warp_reference_sep_plain(ref, mask, u, v, covb, window,
+                                          order)
+    _allclose(k[0], p[0], 3e-5, 5e-3)
+    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    assert bool((k[2] > 0).any()) and bool((k[1] != 0).any())
+    again = launch.warp_sep(ref, mask, u, v, covb, window, order)
+    assert all(torch.equal(a, b) for a, b in zip(k, again))
+    p64 = resample.warp_reference_sep_plain(ref.double(), mask, u.double(),
+                                            v.double(), covb.double(),
+                                            window, order)
+    c = p[2] > 0
+    ek = float((k[0].double() - p64[0]).abs()[c].max())
+    ep = float((p[0].double() - p64[0]).abs()[c].max())
+    assert ek <= ep, (ek, ep)
+
+
+def test_warp_sep_refuses(dev):
+    from zuds_tpu_torch.kernels import launch
+    ref, mask, u, v, covb = _sep_inputs(dev, 64, 64, 5)
+    with pytest.raises(ValueError):
+        launch.warp_sep(ref, mask, u, v, covb,
+                        launch.WARP_SEP_MAX_WINDOW + 1)
+    with pytest.raises(ValueError):
+        launch.warp_sep(ref, mask, u, v, covb, 2, order=2)
+    with pytest.raises(TypeError):
+        launch.warp_sep(ref, mask.to(torch.int64), u, v, covb, 2)
+
+
+def _filters():
+    rng = np.random.default_rng(11)
+    zeros = np.zeros((5, 5))
+    zeros[2, :] = [1, 2, 4, 2, 1]
+    zeros[:, 2] = [1, 2, 4, 2, 1]
+    zeros[0, 0] = -0.5
+    zeros[4, 4] = -0.0
+    g = np.exp(-(np.arange(-2, 3)[:, None] ** 2
+                 + np.arange(-2, 3)[None, :] ** 2) / 4.5)
+    return {'gauss5': g / g.sum(),
+            'row7': np.array([[1.0, 2.0, 3.0, 4.0, 3.0, 2.0, 1.0]]) / 16,
+            'col7': np.array([[1.0, 2.0, 3.0, 4.0, 3.0, 2.0, 1.0]]).T / 16,
+            'rand7x7': rng.uniform(0.1, 1.0, (7, 7)) / 25.0,
+            'zero_taps': zeros / 16.0,
+            'even4x6': rng.normal(0, 1, (4, 6)) / 10.0}
+
+
+@pytest.mark.parametrize('name', list(_filters()))
+@pytest.mark.parametrize('H,W', [(200, 136), (97, 131), (33, 70),
+                                 (3080, 3072)])
+def test_detect_filter_taps_kernel(dev, H, W, name):
+    """H4g bit-equal to the plain version on all three planes."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import detect
+    diff, rms, wok = _h4_frames(1, H, W, dev, 7)
+    diff, rms, wok = diff[0], rms[0], wok[0]
+    k = _filters()[name]
+    n0 = launch.detect_filter_taps.launches
+    got = detect.matched_filter(diff, rms, wok, 1.5, k)
+    assert launch.detect_filter_taps.launches == n0 + 1
+    want = detect.matched_filter_plain(diff, rms, wok, 1.5, k)
+    for plane, a, b in zip(('img', 'filt', 'det'), got, want):
+        assert torch.equal(_bits(a), _bits(b)), plane
+
+
+def test_detect_filter_routes(dev):
+    """The pyramid given explicitly takes H4; a 9x9 filter the plain
+    convolution (no launch), as the reference's XLA convolution."""
+    from zuds_tpu_torch.kernels import launch
+    from zuds_tpu_torch.ops import detect
+    from zuds_tpu_torch.ops.convolve import DEFAULT_FILTER
+    diff, rms, wok = _h4_frames(1, 97, 131, dev, 9)
+    diff, rms, wok = diff[0], rms[0], wok[0]
+    n4, ng = launch.detect_filter.launches, launch.detect_filter_taps.launches
+    a = detect.matched_filter(diff, rms, wok, 1.5, DEFAULT_FILTER)
+    b = detect.matched_filter(diff, rms, wok, 1.5)
+    assert all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+    assert launch.detect_filter.launches == n4 + 2
+    big = np.random.default_rng(3).uniform(0.1, 1.0, (9, 9)) / 40.0
+    c = detect.matched_filter(diff, rms, wok, 1.5, big)
+    assert launch.detect_filter_taps.launches == ng
+    cpu = detect.matched_filter_plain(diff.cpu(), rms.cpu(), wok.cpu(), 1.5,
+                                      big)
+    assert torch.equal(_bits(c[0].cpu()), _bits(cpu[0]))
+    tol = 1e-6 * np.abs(big).sum() * float(cpu[0].abs().max())
+    assert float((c[1].cpu() - cpu[1]).abs().max()) <= tol
+    with pytest.raises(ValueError):
+        launch.detect_filter_taps(diff, rms, wok, 1.5, big)

@@ -23,6 +23,9 @@ held here against the single-process port and the JAX package:
   init with flax's masks against the JAX ``train_step``, at
   ``tests/test_torch_braai_train.py``'s step tolerances, and against the
   single-process port's step;
+* a stage stop's partial dict (``dbg_stop_after='fitdiag'``, and
+  ``det_dbg_stop_after='deb_edges'`` at ``deblend=True``) gathered over
+  'data' is bit-equal to the single-process port's;
 * a batch that does not divide over 'data' raises ``ValueError``.
 """
 import numpy as np
@@ -49,6 +52,11 @@ B = 2
 COADD = tp.PipelineConfig(height=256, width=256, box=64)
 EPOCHS = 3
 N = 8
+# stage stops whose partial dicts come back through gather_batch: a stop
+# of four keys, and a detection probe of a (4,) vector a frame
+STOPS = (tp.PipelineConfig(**KW, dbg_stop_after='fitdiag'),
+         tp.PipelineConfig(**dict(KW, deblend=True),
+                           det_dbg_stop_after='deb_edges'))
 LR = 3e-4
 
 
@@ -89,6 +97,7 @@ def ranks(train_inputs):
              ('coadd', (COADD, EPOCHS, 0, 'cpu'), {'subtract_back': True}),
              ('coadd', (COADD, EPOCHS, 0, 'cpu'), {'subtract_back': False}),
              ('train', (t, y, masks, 'cpu'), {'params': params})]
+    specs += [('subtract', (stop, B, 0, 'cpu'), {}) for stop in STOPS]
     return tmesh.spawn_ranks(legs.run_legs, 2, (specs,), threads=2)
 
 
@@ -133,6 +142,21 @@ def test_dp_pipeline_bit_equal_to_single_process(ranks, single):
         assert dp[k].dtype == single[k].dtype, k
         assert torch.equal(dp[k], single[k]), k
     assert ranks[1][0]['out'] is None
+
+
+@pytest.mark.parametrize('i', range(len(STOPS)))
+def test_dp_partial_dict_bit_equal_to_single_process(ranks, slice_args, i):
+    """A stop's partial dict, stacked over each rank's frames and
+    gathered over 'data', is the single-process port's."""
+    single = tp.SubtractDetectPipeline(STOPS[i])(
+        *inputs.to_torch(slice_args, 'cpu'))
+    dp = ranks[0][4 + i]['out']
+    assert set(dp) == set(single)
+    for k in single:
+        assert dp[k].shape[0] == B, k
+        assert dp[k].dtype == single[k].dtype, k
+        assert torch.equal(dp[k], single[k]), k
+    assert ranks[1][4 + i]['out'] is None
 
 
 def test_dp_pipeline_against_the_reference_mesh(ranks, jax_mesh_runs):

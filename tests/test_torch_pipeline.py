@@ -233,16 +233,6 @@ def test_config_mirrors_the_reference():
     assert tf == jf
 
 
-@pytest.mark.parametrize('change', [
-    dict(sep_warp=True),
-    dict(dbg_stop_after='fit'), dict(dbg_stop_after='warp'),
-    dict(det_dbg_stop_after='ccl')])
-def test_unsupported_config_raises(change):
-    cfg = tp.PipelineConfig(**{**KW, **change})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tp.SubtractDetectPipeline(cfg)
-
-
 def test_interleave_is_accepted():
     tp.SubtractDetectPipeline(tp.PipelineConfig(**{**KW, 'interleave': 2}))
 

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the port and their build.
 
-H1 and H10 ``warp.cu``, H2 ``background.cu``, H3 ``apply.cu``, H4
-``detect_filter.cu``, H5 ``deblend.cu``, H6 ``compact.cu``, H7
+H1, H10 and H28 ``warp.cu``, H2 ``background.cu``, H3 ``apply.cu``, H4 and
+H4g ``detect_filter.cu``, H5 ``deblend.cu``, H6 ``compact.cu``, H7
 ``stamps.cu``, H8 ``median.cu``, H9 ``coadd.cu``, H11 ``subtract.cu``, H12
 and H14 ``cutouts.cu``, H13, H13t, H19 and H20 ``braai.cu``, H15-H18
 ``zogy.cu``, H21 ``adam.cu``, H22 ``photometry.cu``, H23 ``measure.cu``,

@@ -19,7 +19,7 @@ import tempfile
 from pathlib import Path
 
 __all__ = ['library', 'library_path', 'check', 'ptxas_report',
-           'ApplyParams']
+           'ApplyParams', 'FilterTaps']
 
 _HERE = Path(__file__).resolve().parent
 SOURCES = ('warp.cu', 'background.cu', 'apply.cu', 'deblend.cu',
@@ -48,11 +48,25 @@ class ApplyParams(ctypes.Structure):
                 ('qexp', ctypes.c_uint8 * APPLY_MAX_TERMS)]
 
 
+# H4g's taps (detect_filter.cu kMaxTaps)
+FILTER_MAX_TAPS = 49
+
+
+class FilterTaps(ctypes.Structure):
+    """H4g's filter (``struct FilterTaps`` in detect_filter.cu): its shape
+    and its ``n`` nonzero taps in row-major order."""
+    _fields_ = [('kh', _I), ('kw', _I), ('n', _I),
+                ('dy', _I * FILTER_MAX_TAPS), ('dx', _I * FILTER_MAX_TAPS),
+                ('w', _F * FILTER_MAX_TAPS)]
+
+
 # C signatures: (name, argtypes); every launcher returns int (cudaError_t)
 SIGNATURES = {
     # ref, ref2 (or null), mask, u, v, covb, refw, refw2 (or null), refm,
     # cov, H, W, window, stream
     'zuds_warp': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # ref, mask, u, v, covb, refw, refm, cov, H, W, window, order, stream
+    'zuds_warp_sep': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # img, valid(u8), back, sigma, n, H, W, box, iters, stream
     'zuds_background_cells': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # ref, kd, bg, model, params (host struct, copied into the launch),
@@ -65,6 +79,10 @@ SIGNATURES = {
     'zuds_compact': (_P, _I, _I, _L, _P, _P, _P, _P),
     # diff, rms, wok(u8), H, W, nsigma, img, filt, det(u8), stream
     'zuds_detect_filter': (_P, _P, _P, _I, _I, _F, _P, _P, _P, _P),
+    # diff, rms, wok(u8), H, W, nsigma, taps (host struct, copied into the
+    # launch), img, filt, det(u8), stream
+    'zuds_detect_filter_taps': (_P, _P, _P, _I, _I, _F,
+                                ctypes.POINTER(FilterTaps), _P, _P, _P, _P),
     # img, H, W, med, sigma, sat, margin, filt, cand(u8), stream
     'zuds_stamp_candidates': (_P, _I, _I, _P, _P, _F, _I, _P, _P, _P),
     # x, ok(u8 or null), center(or null), rows, cols, x row/col strides,

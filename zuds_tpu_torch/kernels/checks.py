@@ -78,12 +78,19 @@ def aperture_check(img, rms, mask, xs, ys, r, tag):
     return err
 
 
-def refine_check(img, rms, args, k, p, cut=33):
+def refine_check(img, rms, args, k, p, cut=33, counts=None):
     """H23's outputs ``k`` against the plain version's ``p`` on the same
     detections ``args`` = (xs, ys, a, b, theta, fwhm), NaN at the same
     rows, in two stages, each within R = REFINE_RTOL of its scale:
     - the windowed centroid xwin, ywin against ``p``'s, within R (|x| + 1)
-      px (four iterations of sums in another order);
+      px (four iterations of sums in another order); a row past that (a
+      window of noise alone about 0, where the centroid of max(noise, 0)
+      amplifies the order of the sums, or a window clamped at the frame's
+      edge, whose coordinates reach cut - 1 where |x| is near 0) is held
+      instead to the plain version run in float64: H23 no further from it
+      than ``p``, plus R (c + 1), c the window's largest coordinate on
+      that axis, the scale of its sums; ``counts`` (a dict), when given,
+      gets the number of such rows as ``'centroid_rows_f64'``;
     - every other output against the plain formulas taken at H23's own
       centroid (``_plain_at_centroid``; the moments move to first order
       with the centroid, which is checked above): awin^2, bwin^2 within
@@ -115,8 +122,31 @@ def refine_check(img, rms, args, k, p, cut=33):
     def tot(x):
         return x.double().flatten(1).sum(1)
 
+    far = torch.zeros_like(xs, dtype=torch.bool)
     for key in ('xwin', 'ywin'):
-        within(key, k[key], p[key], R * (p[key].double().abs() + 1))
+        d = (k[key].double() - p[key].double()).abs()
+        far |= ~(d <= R * (p[key].double().abs() + 1)) \
+            & ~(k[key].isnan() & p[key].isnan())
+    if bool(far.any()):
+        rows = torch.nonzero(far).reshape(-1)
+        p64 = ms.refine_detections_plain(
+            img.double(), rms.double(), *(v[rows].double() for v in args),
+            cut=cut)
+        for key, pos, n in (('xwin', xs, img.shape[1]),
+                            ('ywin', ys, img.shape[0])):
+            ref = p64[key]
+            # the sums' scale: the window's largest coordinate, which at
+            # a clamped corner by the frame's edge far exceeds |x|
+            top = (torch.round(pos[rows]).to(torch.int64) - cut // 2).clamp(
+                0, n - cut) + (cut - 1)
+            within(f'{key} (float64 centroid)', k[key][rows],
+                   ref, (p[key][rows].double() - ref).abs()
+                   + R * (top.double() + 1))
+    for key in ('xwin', 'ywin'):
+        within(key, k[key][~far], p[key][~far],
+               R * (p[key][~far].double().abs() + 1))
+    if counts is not None:
+        counts['centroid_rows_f64'] = int(far.sum())
     f64 = {key: v.double() for key, v in q.items()}
     for big, key in (('awin', 'awin'), ('awin', 'bwin'),
                      ('errawin', 'errawin'), ('errawin', 'errbwin')):

@@ -1,4 +1,5 @@
-// H4: the matched filter and threshold of the detection stage.
+// H4: the matched filter and threshold of the detection stage. (H4g, the
+// same stage with a filter of the caller's, follows the pyramid's kernel.)
 //
 // Replaces zuds_tpu/ops/detect.py:607-616 (the good-pixel mask, the 3x3
 // pyramid correlation of zuds_tpu/ops/convolve.py:conv2_same with zero
@@ -39,6 +40,17 @@
 #include <float.h>
 
 #include "common.cuh"
+
+// H4g's filter: at most kMaxTaps taps, the nonzero ones in row-major
+// order as (dy, dx) from the filter's top-left corner and the weight
+// (build.FilterTaps mirrors it)
+constexpr int kMaxTaps = 49;
+struct FilterTaps {
+  int kh, kw, n;
+  int dy[kMaxTaps];
+  int dx[kMaxTaps];
+  float w[kMaxTaps];
+};
 
 #ifndef ZUDS_DETECT_ROWS
 #define ZUDS_DETECT_ROWS 32   // rows of a warp's strip
@@ -240,6 +252,70 @@ bool aligned(const void* p, uintptr_t n) {
   return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0;
 }
 
+// H4g: the same stage with any filter of at most kMaxTaps taps
+// (zuds_tpu/ops/detect.py:614 with detect_sources' ``kernel``, through
+// conv2_same's tap-by-tap branch, zuds_tpu/ops/convolve.py:35-48). A
+// block of 32 x 8 threads owns a 32 x 32 output tile: it stages the
+// masked image of the tile and its halo (kh / 2 rows above, (kh - 1) / 2
+// below, kw / 2 columns left, (kw - 1) / 2 right, zero off the frame) in
+// shared memory once, then each thread adds the filter's nonzero taps in
+// row-major order from +0 with __fmul_rn / __fadd_rn at four output rows,
+// as the plain version adds them: img, filt and det bit-equal to it. The
+// taps ride in the kernel's parameters, which the card keeps in constant
+// memory: every thread of a warp reads the same tap, a broadcast.
+//
+// Bound: memory, as H4's: 9 B read and 9 B written a pixel, 51 us at
+// 3080x3072 (2 n operations a pixel for n taps: 98 at 49, still under
+// the bytes' time at the fp32 peak).
+constexpr int kTile = 32;
+constexpr int kTileYThreads = 8;
+// the largest tile with its halo: (kTile + kh - 1)(kTile + kw - 1) for
+// kh kw <= kMaxTaps is largest at 1 x 49
+constexpr int kTileFloats = kTile * (kTile + kMaxTaps - 1);
+
+__global__ void __launch_bounds__(kTile* kTileYThreads)
+    detect_filter_taps_kernel(const float* __restrict__ diff,
+                              const float* __restrict__ rms,
+                              const uint8_t* __restrict__ wok, int H, int W,
+                              float nsigma, const FilterTaps taps,
+                              float* __restrict__ img,
+                              float* __restrict__ filt,
+                              uint8_t* __restrict__ det) {
+  __shared__ float tile[kTileFloats];
+  const int th = kTile + taps.kh - 1, tw = kTile + taps.kw - 1;
+  const int x0 = blockIdx.x * kTile, y0 = blockIdx.y * kTile;
+  const int oy = y0 - taps.kh / 2, ox = x0 - taps.kw / 2;
+  for (int i = threadIdx.y * kTile + threadIdx.x; i < th * tw;
+       i += kTile * kTileYThreads) {
+    const int y = oy + i / tw, x = ox + i % tw;
+    float m = 0.f;
+    if (y >= 0 && y < H && x >= 0 && x < W) {
+      const size_t o = (size_t)y * W + x;
+      const float d = __ldg(diff + o);
+      m = good_px(d, __ldg(rms + o), __ldg(wok + o)) ? d : 0.f;
+    }
+    tile[i] = m;
+  }
+  __syncthreads();
+  const int x = x0 + threadIdx.x;
+  if (x >= W) return;
+  for (int r = threadIdx.y; r < kTile; r += kTileYThreads) {
+    const int y = y0 + r;
+    if (y >= H) break;
+    const float* base = tile + r * tw + threadIdx.x;
+    float acc = 0.f;
+    for (int t = 0; t < taps.n; ++t)
+      acc = __fadd_rn(acc,
+                      __fmul_rn(taps.w[t], base[taps.dy[t] * tw + taps.dx[t]]));
+    const size_t o = (size_t)y * W + x;
+    const float rr = __ldg(rms + o);
+    const bool good = good_px(__ldg(diff + o), rr, __ldg(wok + o));
+    img[o] = base[(taps.kh / 2) * tw + taps.kw / 2];
+    filt[o] = acc;
+    det[o] = good && acc > __fmul_rn(nsigma, rr);
+  }
+}
+
 }  // namespace
 
 // diff, rms f32 and wok (bool bytes), each (H, W) row-major; img, filt f32
@@ -259,5 +335,22 @@ extern "C" int zuds_detect_filter(const float* diff, const float* rms,
   else
     launch_detect_filter<1>(diff, rms, wok, H, W, nsigma, img, filt, det,
                             stream);
+  return (int)cudaGetLastError();
+}
+
+// H4g: as zuds_detect_filter with the filter's nonzero taps (host struct,
+// copied into the launch's parameters); kh kw <= 49, n <= kh kw.
+extern "C" int zuds_detect_filter_taps(const float* diff, const float* rms,
+                                       const uint8_t* wok, int H, int W,
+                                       float nsigma, const FilterTaps* taps,
+                                       float* img, float* filt, uint8_t* det,
+                                       cudaStream_t stream) {
+  if (taps->kh < 1 || taps->kw < 1 || taps->kh * taps->kw > kMaxTaps ||
+      taps->n < 0 || taps->n > taps->kh * taps->kw)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  detect_filter_taps_kernel<<<grid, dim3(kTile, kTileYThreads), 0,
+                              stream>>>(diff, rms, wok, H, W, nsigma, *taps,
+                                        img, filt, det);
   return (int)cudaGetLastError();
 }

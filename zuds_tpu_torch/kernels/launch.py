@@ -1,14 +1,14 @@
 """Python wrappers of the CUDA C++ kernels (H1 warp, H2 background cells,
-H3 model convolution, H4 matched filter, H5 deblend level labels, H6
-compaction, H7 stamp
-candidates, H8 frame median, H9 clipped combine, H10 gather warp, H11
-subtraction epilogue, H12 triplet cutter, H13 braai convolution layer, H14
-negative-pixel veto, H15 ZOGY spectral pass, H16 ZOGY score normalisation,
-H17 PSF star stamps, H18 PSF clipped mean, H13t the braai layer's training
-forward, H19 its input gradient, H20 its weight gradient, H21 the fused
-Adam step, H22 aperture photometry and its two-plane sums, H23 the
-windowed and Kron refinement, H24 the label seeds, H25 the base
-components, H26 the per-object statistics, H27 CLEAN).
+H3 model convolution, H4 matched filter (and H4g, its general filter), H5
+deblend level labels, H6 compaction, H7 stamp candidates, H8 frame median,
+H9 clipped combine, H10 gather warp, H11 subtraction epilogue, H12 triplet
+cutter, H13 braai convolution layer, H14 negative-pixel veto, H15 ZOGY
+spectral pass, H16 ZOGY score normalisation, H17 PSF star stamps, H18 PSF
+clipped mean, H13t the braai layer's training forward, H19 its input
+gradient, H20 its weight gradient, H21 the fused Adam step, H22 aperture
+photometry and its two-plane sums, H23 the windowed and Kron refinement,
+H24 the label seeds, H25 the base components, H26 the per-object
+statistics, H27 CLEAN, H28 the separable warp).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
@@ -20,12 +20,14 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import build
 
-__all__ = ['warp', 'background_cells', 'apply_model', 'apply_model_variance',
-           'detect_filter', 'deblend_labels',
+__all__ = ['warp', 'warp_sep', 'background_cells', 'apply_model',
+           'apply_model_variance',
+           'detect_filter', 'detect_filter_taps', 'deblend_labels',
            'compact', 'stamp_candidates', 'frame_median', 'clipped_combine',
            'warp_gather', 'subtract_epilogue', 'triplet_cut', 'negpix_veto',
            'braai_conv3x3', 'zogy_spectral', 'zogy_normalize', 'psf_stamps',
@@ -100,6 +102,39 @@ def warp(ref, mask, u, v, covb, window, ref2=None):
     if ref2 is None:
         return refw, refm, cov
     return refw, refw2, refm, cov
+
+
+# H28's largest window: window + 3 halo rows each side of a block's 32
+# rows, five planes of 32 columns (28 bytes a pixel), under 48 KB of shared
+# memory (warp.cu)
+WARP_SEP_MAX_WINDOW = 8
+
+
+def warp_sep(ref, mask, u, v, covb, window, order=1):
+    """H28 (kernels/warp.cu): the separable warp of ``ref`` with its
+    ``order``-th cross-term correction (0 or 1), the mask warp and the
+    coverage gate: (refw f32, refm i32, cov f32), each (H, W)."""
+    H, W = ref.shape
+    _require('ref', ref, torch.float32)
+    _require('ref_mask', mask, torch.int32, (H, W))
+    _require('u', u, torch.float32, (H, W))
+    _require('v', v, torch.float32, (H, W))
+    _require('cov_bounds', covb, torch.float32, (4,))
+    if not 0 <= int(window) <= WARP_SEP_MAX_WINDOW or order not in (0, 1):
+        raise ValueError(f'warp_sep: window {window} (at most '
+                         f'{WARP_SEP_MAX_WINDOW}) or order {order} (0 or 1) '
+                         'not taken')
+    refw = torch.empty_like(ref)
+    refm = torch.empty_like(mask)
+    cov = torch.empty_like(ref)
+    if H * W == 0:
+        return refw, refm, cov
+    err = build.library().zuds_warp_sep(
+        _ptr(ref), _ptr(mask), _ptr(u), _ptr(v), _ptr(covb), _ptr(refw),
+        _ptr(refm), _ptr(cov), H, W, int(window), int(order), _stream())
+    build.check(err, 'zuds_warp_sep')
+    warp_sep.launches += 1
+    return refw, refm, cov
 
 
 def background_cells(img, valid, box, iters):
@@ -273,6 +308,42 @@ def detect_filter(diff, rms, weight_ok, nsigma):
         _stream())
     build.check(err, 'zuds_detect_filter')
     detect_filter.launches += 1
+    return img, filt, det
+
+
+def detect_filter_taps(diff, rms, weight_ok, nsigma, kernel):
+    """H4g (kernels/detect_filter.cu): :func:`detect_filter` with the
+    filter ``kernel`` (a (kh, kw) float array of at most 49 taps) in place
+    of the pyramid, correlated with the zero-padded image (``kh // 2`` rows
+    above, ``kw // 2`` columns left), its zero taps skipped: (img f32,
+    filt f32, det bool), each (H, W)."""
+    H, W = diff.shape
+    _require('diff', diff, torch.float32)
+    _require('rms', rms, torch.float32, (H, W))
+    _require('weight_ok', weight_ok, torch.bool, (H, W))
+    k = np.asarray(kernel, dtype=np.float32)
+    if k.ndim != 2 or not 0 < k.size <= build.FILTER_MAX_TAPS:
+        raise ValueError(f'detect_filter_taps: a filter of shape {k.shape} '
+                         f'(at most {build.FILTER_MAX_TAPS} taps)')
+    if H * W >= 2 ** 31:
+        raise ValueError('detect_filter_taps: frame too large for int32 '
+                         'offsets')
+    taps = build.FilterTaps(kh=k.shape[0], kw=k.shape[1])
+    live = np.argwhere(k != 0)
+    taps.n = len(live)
+    for i, (dy, dx) in enumerate(live):
+        taps.dy[i], taps.dx[i], taps.w[i] = int(dy), int(dx), float(k[dy, dx])
+    img = torch.empty((H, W), dtype=torch.float32, device=diff.device)
+    filt = torch.empty_like(img)
+    det = torch.empty((H, W), dtype=torch.bool, device=diff.device)
+    if H * W == 0:
+        return img, filt, det
+    err = build.library().zuds_detect_filter_taps(
+        diff.data_ptr(), rms.data_ptr(), weight_ok.data_ptr(), H, W,
+        float(nsigma), ctypes.byref(taps), img.data_ptr(), filt.data_ptr(),
+        det.data_ptr(), _stream())
+    build.check(err, 'zuds_detect_filter_taps')
+    detect_filter_taps.launches += 1
     return img, filt, det
 
 
@@ -1123,10 +1194,12 @@ def _require_view(name, t, dtype, shape=None):
 DEBLEND_MAX_CELLS = 8192
 
 warp.launches = 0
+warp_sep.launches = 0
 background_cells.launches = 0
 apply_model.launches = 0
 apply_model_variance.launches = 0
 detect_filter.launches = 0
+detect_filter_taps.launches = 0
 deblend_labels.launches = 0
 compact.launches = 0
 stamp_candidates.launches = 0
@@ -1152,10 +1225,12 @@ seed_sweeps.launches = 0
 ccl_fixpoint.launches = 0
 object_stats.launches = 0
 clean.launches = 0
-WRAPPERS = {'warp': warp, 'background_cells': background_cells,
+WRAPPERS = {'warp': warp, 'warp_sep': warp_sep,
+            'background_cells': background_cells,
             'apply_model': apply_model,
             'apply_model_variance': apply_model_variance,
             'detect_filter': detect_filter,
+            'detect_filter_taps': detect_filter_taps,
             'deblend_labels': deblend_labels,
             'compact': compact, 'stamp_candidates': stamp_candidates,
             'frame_median': frame_median,

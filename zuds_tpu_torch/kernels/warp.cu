@@ -294,6 +294,225 @@ warp_kernel(const float* __restrict__ ref, const float* __restrict__ ref2,
   cov[i] = c ? 1.f : 0.f;
 }
 
+// H28: the separable Lanczos-3 reference warp with its first-order
+// cross-term correction, the mask warp and the coverage gate, fused.
+//
+// Replaces the reference's sep_warp=True path
+// (zuds_tpu/ops/resample.py: warp_shift_sep_image_mask :414,
+// warp_shift_image_sep :343, _lanczos3_d :319) and one_frame's coverage
+// gate (zuds_tpu/parallel/pipeline.py:162-185). Per source row r and
+// column x, pass 1 forms, at the phase du = u[r, x] - x of that row,
+//   hp = sum_dx L(du - dx) ref[r, x + dx],  hd = the same with L',
+//   ws = sum_dx L(du - dx),                 wsd = sum_dx L'(du - dx),
+//   inner = OR of mask[r, x + dx] over the dx with sig(du - dx);
+// pass 2 takes, at the output (y, x), dv = v - y, dudy = the forward
+// difference of u down the column (the last row repeats the one before),
+//   acc  = sum_dy L(dv - dy) (hp - dy dudy hd)[y + dy, x],
+//   wacc = sum_dy L(dv - dy) (ws - dy dudy wsd)[y + dy, x],
+//   out  = acc / (wacc == 0 ? 1 : wacc), refm = OR of inner[y + dy, x]
+// over the dy with sig(dv - dy); both gated by the coverage as H1's. Only
+// taps with |dx|, |dy| <= window + 3 count and reads wrap (jnp.roll), as in
+// the reference. ORDER = 0 drops the hd and wsd terms.
+//
+// Design: one launch. A block of 32 x 8 threads owns 32 columns and 32
+// output rows; pass 1 runs for those rows and window + 3 halo rows each
+// side (a halo row is formed by two blocks), its five planes kept in
+// shared memory (28 bytes a pixel: 37.6 KB at window 2, 41.2 KB at 4), so
+// the intermediate never reaches device memory. Each axis's six weights
+// come from axis_weights (H1's), the six derivative weights from one more
+// sincospif (axis_dweights). hp and ws, and pass 2's sums, are kept in
+// double and rounded once, at the output: in f32 their roundings at a
+// bright star's core (a few ulps of its value) put the pixels as far from
+// the float64 plain version as the f32 plain version's, by chance either
+// side (an emulation, tests/test_torch_sep_weights.py); in double they
+// are ~4x closer. The card's fp64 rate is half its fp32 rate, ~40 fp64
+// operations a pixel against a memory-bound launch. hd and wsd stay f32
+// (they enter times dy dudy, ~1e-2). The mask path uses only f32
+// subtractions and compares and H1's interval tests, so mask and coverage
+// are bit-equal to the plain version; chip_smoke.py holds the pixels no
+// further from the float64 plain version than the f32 plain version.
+//
+// Bound: memory, 28 bytes a pixel (ref, mask, u, v in; refw, refm, cov
+// out): 0.079 ms at 3080x3072, as H1's.
+
+// lanczos3's centre polynomial Q (lanczos3_centre) and its derivative:
+// L = (1 - s) Q(s), s = t^2, so L' = 2 t ((1 - s) Q'(s) - Q(s))
+__device__ __forceinline__ float lanczos3_centre_d(float t) {
+  const float s = __fmul_rn(t, t);
+  float q = -0x1.8eb0acp-19f;
+  q = fmaf(q, s, 0x1.fd7370p-15f);
+  q = fmaf(q, s, -0x1.b32c32p-11f);
+  q = fmaf(q, s, 0x1.140eaap-7f);
+  q = fmaf(q, s, -0x1.f4fd36p-5f);
+  q = fmaf(q, s, 0x1.2dc716p-2f);
+  q = fmaf(q, s, -0x1.a7c8e2p-1f);
+  q = fmaf(q, s, 1.f);
+  float dq = 7.f * -0x1.8eb0acp-19f;
+  dq = fmaf(dq, s, 6.f * 0x1.fd7370p-15f);
+  dq = fmaf(dq, s, 5.f * -0x1.b32c32p-11f);
+  dq = fmaf(dq, s, 4.f * 0x1.140eaap-7f);
+  dq = fmaf(dq, s, 3.f * -0x1.f4fd36p-5f);
+  dq = fmaf(dq, s, 2.f * 0x1.2dc716p-2f);
+  dq = fmaf(dq, s, -0x1.a7c8e2p-1f);
+  return __fmul_rn(2.f * t, fmaf(1.f - s, dq, -q));
+}
+
+// The reference's Taylor slope below |t| < 1e-3: L'(t) ~ -2 C t with
+// C = float32(10/54 pi^2) (resample.py:186, :338)
+constexpr float kTaylorC = 0x1.d3e472p+0f;   // 1.8277045
+
+// The six derivative weights L'(t_k), t_k = t0 - k, of axis_weights' taps.
+// Away from the centre, L' = (3 / pi^2) [(pi c1 s3 + (pi / 3) s1 c3) / t^2
+// - 2 s1 s3 / t^3] with sin and cos of pi t_k turned from those of pi t0
+// (signs (-1)^k) and those of pi t_k / 3 from those of a = pi t0 / 3 by the
+// constants of k pi / 3; the two centre taps by lanczos3_centre_d, whose
+// form does not cancel near 0. 0 at |t| >= 3, as the reference.
+__device__ __forceinline__ void axis_dweights(float t0, float (&w)[6]) {
+  constexpr float kPi = 3.14159265358979323846f;
+  float s0, c0, sa, ca;
+  sincospif(t0, &s0, &c0);
+  sincospif(__fmul_rn(t0, kThird), &sa, &ca);
+  const float hs = 0.5f * sa, hc = 0.5f * ca;
+  const float rs = kHalfSqrt3 * sa, rc = kHalfSqrt3 * ca;
+  // sin and cos of a - k pi / 3
+  const float s3[6] = {sa, hs - rc, -hs - rc, -sa, rc - hs, hs + rc};
+  const float c3[6] = {ca, hc + rs, rs - hc, -ca, -hc - rs, hc - rs};
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float t = __fsub_rn(t0, (float)k);
+    float d;
+    if (k == 2 || k == 3) {
+      d = lanczos3_centre_d(t);
+    } else {
+      const float s1 = (k & 1) ? -s0 : s0;
+      const float c1 = (k & 1) ? -c0 : c0;
+      const float t2 = __fmul_rn(t, t);
+      const float a = fmaf(kPi * c1, s3[k], __fmul_rn(kPi * kThird * s1,
+                                                      c3[k]));
+      const float b = __fmul_rn(2.f * s1, s3[k]);
+      d = __fmul_rn(kThreeOverPi2,
+                    __fdiv_rn(__fsub_rn(a, __fdiv_rn(b, t)), t2));
+    }
+    if (fabsf(t) < 1e-3f) d = __fmul_rn(-2.f * kTaylorC, t);
+    w[k] = fabsf(t) < 3.f ? d : 0.f;
+  }
+}
+
+constexpr int kSepCols = 32;     // a block's columns (one warp wide)
+constexpr int kSepRows = 32;     // a block's output rows
+constexpr int kSepYThreads = 8;  // thread rows a block
+// pass 1's planes in shared memory a pixel: hp, ws (double), hd, wsd
+// (float), inner (int)
+constexpr int kSepPlaneBytes = 28;
+
+template <int ORDER>
+__global__ void __launch_bounds__(kSepCols* kSepYThreads)
+warp_sep_kernel(const float* __restrict__ ref, const int* __restrict__ mask,
+                const float* __restrict__ u, const float* __restrict__ v,
+                const float* __restrict__ covb, float* __restrict__ refw,
+                int* __restrict__ refm, float* __restrict__ cov, int H, int W,
+                int window) {
+  extern __shared__ double sep_smem[];
+  const int reach = window + 3;
+  const int nrows = kSepRows + 2 * reach;
+  const int plane = nrows * kSepCols;
+  double* s_hp = sep_smem;
+  double* s_ws = s_hp + plane;
+  float* s_hd = reinterpret_cast<float*>(s_ws + plane);
+  float* s_wsd = s_hd + plane;
+  int* s_in = reinterpret_cast<int*>(s_wsd + plane);
+  const int tx = threadIdx.x;
+  const int x = blockIdx.x * kSepCols + tx;
+  const int y0 = blockIdx.y * kSepRows;
+
+  // ---- pass 1: the horizontal taps of each source row the block reads ----
+  for (int r = threadIdx.y; r < nrows; r += kSepYThreads) {
+    double hp = 0.0, ws = 0.0;
+    float hd = 0.f, wsd = 0.f;
+    int in = 0;
+    if (x < W) {
+      const int yr = wrap_near(y0 - reach + r, H);
+      const size_t row = (size_t)yr * W;
+      const float du = __fsub_rn(u[row + x], (float)x);
+      const int dx0 = first_tap(du, reach);
+      const float t0 = __fsub_rn(du, (float)dx0);
+      float w[6], wd[6];
+      axis_weights(t0, w);
+      if (ORDER) axis_dweights(t0, wd);
+      int col = wrap_near(x + dx0, W);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) {
+        const int dx = dx0 + k;
+        if (abs(dx) <= reach) {
+          const float p = ref[row + col];
+          hp = fma((double)w[k], (double)p, hp);
+          ws += (double)w[k];
+          if (ORDER) {
+            hd = fmaf(wd[k], p, hd);
+            wsd = __fadd_rn(wsd, wd[k]);
+          }
+          // only the middle four taps can pass the interval test (H1)
+          if (k >= 1 && k <= 4 && sig_lanczos(__fsub_rn(du, (float)dx)))
+            in |= mask[row + col];
+        }
+        col = wrap_near(col + 1, W);
+      }
+    }
+    s_hp[r * kSepCols + tx] = hp;
+    s_ws[r * kSepCols + tx] = ws;
+    if (ORDER) {
+      s_hd[r * kSepCols + tx] = hd;
+      s_wsd[r * kSepCols + tx] = wsd;
+    }
+    s_in[r * kSepCols + tx] = in;
+  }
+  __syncthreads();
+  if (x >= W) return;
+
+  // ---- pass 2: the vertical taps at each output row ---------------------
+  for (int i = threadIdx.y; i < kSepRows; i += kSepYThreads) {
+    const int y = y0 + i;
+    if (y >= H) break;
+    const size_t o = (size_t)y * W + x;
+    const float uu = u[o], vv = v[o];
+    const float dv = __fsub_rn(vv, (float)y);
+    const bool inb = (uu >= 2.f) & (uu <= (float)(W - 3)) & (vv >= 2.f) &
+                     (vv <= (float)(H - 3));
+    const bool covo = (uu >= covb[0]) & (uu <= covb[1]) & (vv >= covb[2]) &
+                      (vv <= covb[3]);
+    const bool c = inb & covo;
+    float dudy = 0.f;
+    if (ORDER)
+      dudy = y + 1 < H ? __fsub_rn(u[o + W], uu)
+                       : (H > 1 ? __fsub_rn(uu, u[o - W]) : 0.f);
+    const int dy0 = first_tap(dv, reach);
+    float wy[6];
+    axis_weights(__fsub_rn(dv, (float)dy0), wy);
+    double acc = 0.0, wacc = 0.0;
+    int m = 0;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int dy = dy0 + k;
+      if (abs(dy) > reach) continue;
+      const int s = (i + reach + dy) * kSepCols + tx;
+      double hrow = s_hp[s], wrow = s_ws[s];
+      if (ORDER) {
+        const double corr = (double)__fmul_rn((float)dy, dudy);
+        hrow = fma(-corr, (double)s_hd[s], hrow);
+        wrow = fma(-corr, (double)s_wsd[s], wrow);
+      }
+      acc = fma((double)wy[k], hrow, acc);
+      wacc = fma((double)wy[k], wrow, wacc);
+      if (k >= 1 && k <= 4 && sig_lanczos(__fsub_rn(dv, (float)dy)))
+        m |= s_in[s];
+    }
+    const double norm = wacc == 0.0 ? 1.0 : wacc;
+    refw[o] = c ? (float)(acc / norm) : 0.f;
+    refm[o] = c ? m : 0;
+    cov[o] = c ? 1.f : 0.f;
+  }
+}
+
 // H10: the Lanczos-3 gather warp, one thread per output pixel.
 //
 // Replaces the reference's gather warps (zuds_tpu/ops/resample.py:
@@ -445,6 +664,28 @@ extern "C" int zuds_warp(const float* ref, const float* ref2, const int* mask,
   else
     warp_kernel<false><<<grid, block, 0, stream>>>(
         ref, ref2, mask, u, v, covb, refw, refw2, refm, cov, H, W, window);
+  return (int)cudaGetLastError();
+}
+
+// H28: window + 3 <= 11 (shared memory under 48 KB a block), order 0 or 1
+extern "C" int zuds_warp_sep(const float* ref, const int* mask,
+                             const float* u, const float* v,
+                             const float* covb, float* refw, int* refm,
+                             float* cov, int H, int W, int window, int order,
+                             cudaStream_t stream) {
+  const int reach = window + 3;
+  if (window < 0 || reach > 11 || order < 0 || order > 1 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)(kSepRows + 2 * reach) * kSepCols * kSepPlaneBytes;
+  dim3 block(kSepCols, kSepYThreads);
+  dim3 grid((W + kSepCols - 1) / kSepCols, (H + kSepRows - 1) / kSepRows);
+  if (order)
+    warp_sep_kernel<1><<<grid, block, smem, stream>>>(
+        ref, mask, u, v, covb, refw, refm, cov, H, W, window);
+  else
+    warp_sep_kernel<0><<<grid, block, smem, stream>>>(
+        ref, mask, u, v, covb, refw, refm, cov, H, W, window);
   return (int)cudaGetLastError();
 }
 

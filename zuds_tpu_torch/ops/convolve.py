@@ -11,8 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ['DEFAULT_FILTER', 'conv2_same', 'fft_convolve_same',
-           'gaussian_kernel', 'dilate_max']
+__all__ = ['DEFAULT_FILTER', 'conv2_same', 'filter_taps',
+           'fft_convolve_same', 'gaussian_kernel', 'dilate_max']
 
 # SExtractor's default.conv pyramid filter, normalised to unit sum
 DEFAULT_FILTER = np.array([[1.0, 2.0, 1.0],
@@ -20,14 +20,34 @@ DEFAULT_FILTER = np.array([[1.0, 2.0, 1.0],
                            [1.0, 2.0, 1.0]]) / 16.0
 
 
-def conv2_same(img, kernel):
-    """'Same'-size correlation with zero padding (convolve.py:18):
-    ``out[y, x] = sum k[dy, dx] * pad[y + dy, x + dx]``, the taps added in
-    row-major order starting from zero, zero-weight taps skipped."""
-    k = np.asarray(kernel, dtype=np.float32)
+def filter_taps(kernel):
+    """A filter given as an array or a tensor, as the f32 numpy array
+    :func:`conv2_same` takes its taps from (a tensor is read to the
+    host)."""
+    if torch.is_tensor(kernel):
+        kernel = kernel.detach().cpu().numpy()
+    return np.asarray(kernel, dtype=np.float32)
+
+
+def conv2_same(img, kernel, max_taps=49):
+    """'Same'-size correlation with zero padding (convolve.py:18), the pad
+    ``kh // 2, (kh - 1) // 2`` rows and ``kw // 2, (kw - 1) // 2`` columns:
+    ``out[y, x] = sum k[dy, dx] * pad[y + dy, x + dx]``. A filter (array or
+    tensor) of at most ``max_taps`` taps is added tap by tap in row-major
+    order starting from zero, zero-weight taps skipped; a larger one is one
+    ``F.conv2d`` with TF32 off, as the reference leaves it to XLA's
+    convolution."""
+    k = filter_taps(kernel)
     kh, kw = k.shape
     H, W = img.shape
     pad = F.pad(img, (kw // 2, (kw - 1) // 2, kh // 2, (kh - 1) // 2))
+    if kh * kw > max_taps:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            return F.conv2d(pad[None, None], torch.as_tensor(
+                k, dtype=img.dtype, device=img.device)[None, None])[0, 0]
     out = torch.zeros_like(img)
     for dy in range(kh):
         for dx in range(kw):

@@ -40,7 +40,8 @@ from .compact import compact_indices, scatter_into
 from .ordered import cumsum_last
 
 __all__ = ['level_labels', 'level_labels_plain', 'cell_graph',
-           'deblend_exact', 'split_margins']
+           'deblend_exact', 'split_margins', 'deblend_probe', 'wrap32',
+           'TREE_PROBES']
 
 # hook+compress rounds per level, counting the first (detect.py:357-358)
 _DEB_ROUNDS = int(os.environ.get('ZUDS_DEB_ROUNDS', '6'))
@@ -215,6 +216,54 @@ def deblend_exact(pidx, pok, comppos, cellpos, filt_c, pos_flux_c, thresh_c,
     objdeep_pos = objdeep_cell[cellid]
     return (torch.where(pok, pidx[objdeep_pos], INT_MAX),
             g['edge_overflow'])
+
+
+# the probes of the reference's tree (detect.py:432-438, :518-519, :537-539)
+TREE_PROBES = ('deb_edges', 'deb_lab', 'deb_seg')
+
+
+def wrap32(total):
+    """A 0-d integer sum as the reference's int32 sum gives it: JAX runs
+    with x64 off, so its sums of int32 wrap modulo 2^32."""
+    v = total.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def deblend_probe(stop, pidx, pok, comppos, cellpos, filt_c, pos_flux_c,
+                  thresh_c, nbr_pos, nbr_ok, nlevels=DEBLEND_NTHRESH):
+    """The reference tree's probe ``stop`` (one of :data:`TREE_PROBES`) on
+    the tree's inputs, from the port's tree at the reference's
+    definitions:
+
+    * ``'deb_edges'`` (4,) int32: live pixels, cells (peak pixels),
+      edges between pixels of different cells live at some level, and
+      edges live at some level;
+    * ``'deb_lab'``: the int32 sum over the slots of each live pixel's
+      level-0 component root (the flat index of its smallest cell's peak),
+      INT_MAX on padding;
+    * ``'deb_seg'``: the same of ``pidx`` plus the level-0 branch flux of
+      the pixel's cell truncated to int32."""
+    if stop == 'deb_edges':
+        g = cell_graph(pidx, pok, comppos, cellpos, filt_c, thresh_c,
+                       nbr_pos, nbr_ok, nlevels)
+        lpix = g['lpix']
+        w_edge = torch.where(nbr_ok, torch.minimum(lpix[None], lpix[nbr_pos]),
+                             0)
+        is_peak = pok & (cellpos == torch.arange(pok.shape[0],
+                                                 device=pok.device))
+        cross = nbr_ok & (cellpos[None] != cellpos[nbr_pos]) & (w_edge > 0)
+        return torch.stack([wrap32(m.sum()) for m in
+                            (pok, is_peak, cross, w_edge > 0)])
+    g, bl, s = _tree(pidx, pok, comppos, cellpos, filt_c, pos_flux_c,
+                     thresh_c, nbr_pos, nbr_ok, nlevels)
+    cellid = g['cellid']
+    if stop == 'deb_lab':
+        val = pidx[g['cpos'][bl[0]]][cellid]
+    elif stop == 'deb_seg':
+        val = pidx + s['sf'][0][cellid].to(torch.int32)
+    else:
+        raise ValueError(f'deblend_probe: no probe {stop!r}')
+    return wrap32(torch.where(pok, val, INT_MAX).sum())
 
 
 def split_margins(pidx, pok, comppos, cellpos, filt_c, pos_flux_c, thresh_c,

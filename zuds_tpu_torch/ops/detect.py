@@ -1,7 +1,8 @@
 """Source detection (twin of ``zuds_tpu/ops/detect.py``).
 
 The matched filter and threshold run in hand kernel H4
-(``kernels/detect_filter.cu``), the compactions in H6
+(``kernels/detect_filter.cu``; H4g there for a filter other than the
+default pyramid of at most 49 taps), the compactions in H6
 (``kernels/compact.cu``), the deblend tree's level labels in H5
 (``kernels/deblend.cu``), the label seeds in H24 and the base components
 in H25 (``kernels/ccl.cu``), the per-object statistics in H26 and CLEAN in
@@ -32,8 +33,9 @@ from ..constants import (CLEAN_PARAM, DEBLEND_MINCONT, DEBLEND_NTHRESH,
                          DETECT_NPIX, DETECT_NSIGMA, MAX_DETECTIONS)
 from ..kernels import launch
 from .compact import compact_indices, scatter_into
-from .convolve import DEFAULT_FILTER, conv2_same
-from .deblend import cell_graph, deblend_exact, split_margins
+from .convolve import DEFAULT_FILTER, conv2_same, filter_taps
+from .deblend import (TREE_PROBES, cell_graph, deblend_exact, deblend_probe,
+                      split_margins, wrap32)
 from .ordered import fma, segmented_scan, sum_last
 
 __all__ = ['DETECTION_FIELDS', 'compact_indices', 'seed_labels',
@@ -42,7 +44,8 @@ __all__ = ['DETECTION_FIELDS', 'compact_indices', 'seed_labels',
            'label_compact_rounds', 'label_components', 'matched_filter',
            'matched_filter_plain', 'ascent_cells', 'object_stats',
            'object_stats_plain', 'clean_pass', 'detect_sources',
-           'detect_taps', 'deblend_load']
+           'detect_taps', 'deblend_load', 'DETECT_PROBES',
+           'MAX_FILTER_TAPS']
 
 DETECTION_FIELDS = [
     'x', 'y', 'x2', 'y2', 'xy', 'a', 'b', 'theta', 'elongation', 'fwhm',
@@ -54,24 +57,52 @@ DETECTION_FIELDS = [
 _OFFS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
          (1, 1))
 _BIG_NEG = -3e38
+# the largest filter conv2_same adds tap by tap (convolve.py:18), and H4g
+MAX_FILTER_TAPS = 49
+# detect_sources' probes (dbg_stop_after), in the order the stage reaches
+# them (detect.py:617-927)
+DETECT_PROBES = ('filt', 'compact', 'ccl', 'cell', 'deb_pre') + TREE_PROBES \
+    + ('deblend', 'stats')
 
 
-def matched_filter_plain(diff, rms, weight_ok, nsigma):
-    """Plain version of H4 (detect.py:607-616): the good-pixel mask, the
-    zeroed detection image, its 3x3 pyramid correlation and the threshold
-    test. Returns (img, filt, det)."""
+def _taps_or_default(kernel):
+    """The filter's f32 taps, or None for the default pyramid (None or
+    equal to DEFAULT_FILTER)."""
+    if kernel is None:
+        return None
+    k = filter_taps(kernel)
+    if k.shape == DEFAULT_FILTER.shape and np.array_equal(
+            k, DEFAULT_FILTER.astype(np.float32)):
+        return None
+    return k
+
+
+def matched_filter_plain(diff, rms, weight_ok, nsigma, kernel=None):
+    """Plain version of H4 and H4g (detect.py:607-616): the good-pixel
+    mask, the zeroed detection image, its correlation with ``kernel``
+    (None: the 3x3 pyramid) and the threshold test. Returns (img, filt,
+    det)."""
     good = weight_ok & (rms > 0) & torch.isfinite(diff)
     img = torch.where(good, diff, torch.zeros((), device=diff.device))
-    filt = conv2_same(img, DEFAULT_FILTER)
+    filt = conv2_same(img, DEFAULT_FILTER if kernel is None else kernel,
+                      max_taps=MAX_FILTER_TAPS)
     return img, filt, good & (filt > nsigma * rms)
 
 
-def matched_filter(diff, rms, weight_ok, nsigma):
-    """(img, filt, det) of the detection stage: hand kernel H4 on a CUDA
-    tensor, :func:`matched_filter_plain` on a CPU tensor."""
+def matched_filter(diff, rms, weight_ok, nsigma, kernel=None):
+    """(img, filt, det) of the detection stage with the filter ``kernel``
+    (an array or a tensor; None or DEFAULT_FILTER: the 3x3 pyramid). On a
+    CUDA tensor the pyramid runs hand kernel H4, any other filter of at
+    most MAX_FILTER_TAPS taps H4g; a larger filter takes
+    :func:`.convolve.conv2_same`'s convolution, as the reference; a CPU
+    tensor runs :func:`matched_filter_plain`."""
+    k = _taps_or_default(kernel)
     if diff.is_cuda:
-        return launch.detect_filter(diff, rms, weight_ok, nsigma)
-    return matched_filter_plain(diff, rms, weight_ok, nsigma)
+        if k is None:
+            return launch.detect_filter(diff, rms, weight_ok, nsigma)
+        if k.size <= MAX_FILTER_TAPS:
+            return launch.detect_filter_taps(diff, rms, weight_ok, nsigma, k)
+    return matched_filter_plain(diff, rms, weight_ok, nsigma, k)
 
 
 def _adjacency(pidx, pok, inv, shape):
@@ -243,12 +274,16 @@ def ascent_cells(filt, img, pidx, pok, okb, nbr_pos):
     return filt_c, pos_c, cellpos
 
 
-def _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap):
+def _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap,
+             kernel=None, stop=None):
     """Filter, compaction, base components and DETECT_MINAREA
-    (detect.py:607-711), as a dict of the compact-list state."""
+    (detect.py:607-711), as a dict of the compact-list state; at the
+    probes ``stop`` = 'filt', 'compact' or 'ccl', {'dbg': the probe}."""
     H, W = bkgsub.shape
     dev = bkgsub.device
-    img, filt, det = matched_filter(bkgsub, rms, weight_ok, nsigma)
+    img, filt, det = matched_filter(bkgsub, rms, weight_ok, nsigma, kernel)
+    if stop == 'filt':
+        return {'dbg': wrap32(det.sum())}
 
     # ---- compaction (detect.py:631-644) ----------------------------------
     cap = det_cap if det_cap else min(H * W, max(1 << 14, 32 * max_det))
@@ -258,6 +293,8 @@ def _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap):
     inv = scatter_into(H * W, pidx, pok, posidx, -1)
     # the reference's padded slots write -1 at H*W-1, the last one wins
     inv[-1] = torch.where(ndet_pix < cap, -1, inv[-1])
+    if stop == 'compact':
+        return {'dbg': wrap32(pidx.sum() + inv.sum())}
 
     # ---- base connected components ---------------------------------------
     with torch.profiler.record_function('ccl'):
@@ -274,11 +311,13 @@ def _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap):
         # (detect.py:709-711)
         npix_comp = torch.zeros(cap, device=dev).index_add_(
             0, comppos, pok.to(torch.float32))
+    lab_c = torch.where(pok, pidx[lab_p], H * W - 1)
+    if stop == 'ccl':
+        return {'dbg': wrap32(lab_c.sum())}
     return {'img': img, 'filt': filt, 'det': det, 'cap': cap, 'pidx': pidx,
             'ndet_pix': ndet_pix, 'pok': pok, 'inv': inv,
             'nbr_pos': nbr_pos, 'nbr_ok': nbr_ok, 'okb': okb, 'lab0': lab0,
-            'lab_c': torch.where(pok, pidx[lab_p], H * W - 1),
-            'comppos': comppos,
+            'lab_c': lab_c, 'comppos': comppos,
             'big': pok & (npix_comp[comppos] >= minarea)}
 
 
@@ -313,16 +352,26 @@ def _tree_input(st, thresh_map, filt_c, pos_c, cellpos, deb_cap):
             'nmulti': nmulti, 'args': args}
 
 
-def _deblend(st, thresh_map, mode, minarea, deb_cap):
-    """Per compact pixel, the flat index of its object's root after
-    deblending (detect.py:713-821), which pixels the tree's capacity left
-    out (``deb_ovf``, for FLAGS bit 64) and ``deblend_overflow``."""
+def _deblend(st, thresh_map, mode, minarea, deb_cap, stop=None):
+    """Per compact pixel ``key_c``, the flat index of its object's root
+    after deblending (detect.py:713-821), ``deb_ovf``, which pixels the
+    tree's capacity left out (for FLAGS bit 64), and ``overflow``
+    (``deblend_overflow``), as a dict; at the probes ``stop`` = 'cell',
+    'deb_pre' or one of TREE_PROBES (the last three in the exact mode
+    only), {'dbg': the probe}."""
     cap, pidx, pok = st['cap'], st['pidx'], st['pok']
     lab_c, comppos = st['lab_c'], st['comppos']
     dev = pidx.device
     nflat = thresh_map.numel()
     filt_c, pos_c, cellpos = ascent_cells(st['filt'], st['img'], pidx, pok,
                                           st['okb'], st['nbr_pos'])
+    if stop == 'cell':
+        p_c = torch.where(pok, pidx[cellpos], nflat - 1)
+        return {'dbg': wrap32(p_c.sum() + lab_c.sum())}
+    if not mode:
+        return {'key_c': lab_c,
+                'deb_ovf': torch.zeros(cap, dtype=torch.bool, device=dev),
+                'overflow': torch.zeros((), dtype=torch.int64, device=dev)}
     if mode == 'watershed':
         flux = torch.where(pok, pos_c, 0.0)
         zero = torch.zeros(cap, device=dev)
@@ -335,11 +384,17 @@ def _deblend(st, thresh_map, mode, minarea, deb_cap):
         significant = ((f_cell[cellpos] >= DEBLEND_MINCONT * f_comp[comppos])
                        & (n_cell[cellpos] >= minarea) & ~dominant)
         p_c = torch.where(pok, pidx[cellpos], nflat - 1)
-        return (torch.where(significant, p_c, lab_c),
-                torch.zeros(cap, dtype=torch.bool, device=dev),
-                torch.zeros((), dtype=torch.int64, device=dev))
+        return {'key_c': torch.where(significant, p_c, lab_c),
+                'deb_ovf': torch.zeros(cap, dtype=torch.bool, device=dev),
+                'overflow': torch.zeros((), dtype=torch.int64, device=dev)}
     t = _tree_input(st, thresh_map, filt_c, pos_c, cellpos, deb_cap)
-    objdeep2, edge_ovf = deblend_exact(*t['args'], DEBLEND_NTHRESH,
+    args = t['args']
+    if stop == 'deb_pre':
+        return {'dbg': wrap32(args[0].sum() + args[2].sum() + args[3].sum()
+                              + args[7].sum())}
+    if stop in TREE_PROBES:
+        return {'dbg': deblend_probe(stop, *args, DEBLEND_NTHRESH)}
+    objdeep2, edge_ovf = deblend_exact(*args, DEBLEND_NTHRESH,
                                        DEBLEND_MINCONT)
     key_full = scatter_into(cap, t['idx2'], t['pok2'], objdeep2, 0)
     # pixels of multi-cell components past cap2 keep their base component
@@ -347,8 +402,8 @@ def _deblend(st, thresh_map, mode, minarea, deb_cap):
     multi, cap2, nmulti = t['multi'], t['cap2'], t['nmulti']
     in2 = multi & (torch.cumsum(multi, 0) - 1 < cap2)
     key_c = torch.where(pok, torch.where(in2, key_full, lab_c), nflat - 1)
-    return (key_c, multi & ~in2,
-            nmulti - torch.clamp(nmulti, max=cap2) + edge_ovf)
+    return {'key_c': key_c, 'deb_ovf': multi & ~in2,
+            'overflow': nmulti - torch.clamp(nmulti, max=cap2) + edge_ovf}
 
 
 def object_stats_plain(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf,
@@ -460,9 +515,11 @@ def object_stats(cid, pidx, vals, mask_c, wok_c, thr, deb_ovf, ndet_pix,
 
 
 def _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
-            return_labels, deblend, clean, det_cap, deb_cap):
+            return_labels, deblend, clean, det_cap, deb_cap, kernel=None,
+            stop=None):
     """:func:`detect_sources`' output, and the inputs H24-H27 took on the
-    way (:func:`detect_taps`)."""
+    way (:func:`detect_taps`); at a probe ``stop`` that the call reaches,
+    ({'dbg': the probe}, None)."""
     H, W = bkgsub.shape
     dev = bkgsub.device
     if weight_ok is None:
@@ -471,17 +528,26 @@ def _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
         mask = torch.zeros((H, W), dtype=torch.int32, device=dev)
     thresh_map = nsigma * rms
     nseg = max_det + 2
-    st = _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap)
+    st = _extract(bkgsub, rms, weight_ok, nsigma, minarea, max_det, det_cap,
+                  kernel, stop)
+    if 'dbg' in st:
+        return st, None
     cap, pidx, pok, big = st['cap'], st['pidx'], st['pok'], st['big']
 
     # ---- deblending (detect.py:713-821) ----------------------------------
-    key_c = st['lab_c']
-    deb_ovf = torch.zeros(cap, dtype=torch.bool, device=dev)
-    deblend_overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    if deblend:
+    if deblend or stop == 'cell':
         with torch.profiler.record_function('deblend'):
-            key_c, deb_ovf, deblend_overflow = _deblend(
-                st, thresh_map, deblend, minarea, deb_cap)
+            deb = _deblend(st, thresh_map, deblend, minarea, deb_cap, stop)
+        if 'dbg' in deb:
+            return deb, None
+        key_c, deb_ovf, deblend_overflow = (deb['key_c'], deb['deb_ovf'],
+                                            deb['overflow'])
+    else:
+        key_c = st['lab_c']
+        deb_ovf = torch.zeros(cap, dtype=torch.bool, device=dev)
+        deblend_overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    if stop == 'deblend':
+        return {'dbg': wrap32(key_c.sum())}, None
 
     with torch.profiler.record_function('stats'):
         # ---- raster-order object ids (detect.py:826-839) -----------------
@@ -502,6 +568,12 @@ def _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
                       (H, W), nseg, minarea, max_det)
         r = object_stats(*stats_args)
         pix_overflow = st['ndet_pix'] - pok.sum()
+    if stop == 'stats':
+        # f32 sums and the int32 sum of the mask bits, promoted as JAX
+        # promotes them, added left to right (detect.py:927-929)
+        return {'dbg': r['flux'].sum() + r['x'].sum() + r['peak'].sum()
+                + wrap32(r['imaflags'].sum()).to(torch.float32)
+                + r['xmin'].sum()}, None
 
     clean_args = None
     if clean:
@@ -535,19 +607,33 @@ def _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
 
 def detect_sources(bkgsub, rms, mask=None, weight_ok=None,
                    nsigma=DETECT_NSIGMA, minarea=DETECT_NPIX,
-                   max_det=MAX_DETECTIONS, return_labels=True, deblend=True,
-                   clean=True, det_cap=None, deb_cap=None):
+                   max_det=MAX_DETECTIONS, kernel=None, return_labels=True,
+                   deblend=True, clean=True, det_cap=None, deb_cap=None,
+                   dbg_stop_after=None):
     """Detect sources on a background-subtracted frame (detect.py:573).
 
-    ``mask`` is an int32 bitmask, ``weight_ok`` bool. Returns the dict of
-    the reference: fixed (max_det,) rows of DETECTION_FIELDS, ``valid``,
+    ``mask`` is an int32 bitmask, ``weight_ok`` bool, ``kernel`` the
+    detection filter (an array or a tensor; None: SExtractor's 3x3
+    pyramid, see :func:`matched_filter`). Returns the dict of the
+    reference: fixed (max_det,) rows of DETECTION_FIELDS, ``valid``,
     ``n``, the three overflow counters and, with ``return_labels``, the
     (H, W) int32 segmentation map ``labels`` (0 background, 1..n objects).
-    The reference's ``kernel`` (the filter is H4's 3x3 pyramid) and
-    ``dbg_stop_after`` arguments are not ported.
+
+    ``dbg_stop_after`` (one of DETECT_PROBES) ends the call at the
+    reference's probe and returns ``{'dbg': value}``, each at the
+    reference's definition and with its wrapping int32 sums: 'filt' the
+    detected pixels, 'compact' the compact list's and the inverse map's
+    sums, 'ccl' the base labels', 'cell' the cells' and base labels',
+    'deb_pre' the tree's inputs', the tree's 'deb_edges', 'deb_lab' and
+    'deb_seg' (:func:`.deblend.deblend_probe`), 'deblend' the object keys'
+    and 'stats' a float sum of the object rows (detect.py:617-927). The
+    last three tree probes and 'deb_pre' fire only at ``deblend=True``; a
+    probe the call does not reach returns the full dict, as the
+    reference.
     """
     return _detect(bkgsub, rms, mask, weight_ok, nsigma, minarea, max_det,
-                   return_labels, deblend, clean, det_cap, deb_cap)[0]
+                   return_labels, deblend, clean, det_cap, deb_cap, kernel,
+                   dbg_stop_after)[0]
 
 
 def detect_taps(bkgsub, rms, mask=None, weight_ok=None,

@@ -5,7 +5,10 @@ Plain PyTorch versions of the main path's warp functions, and
 kernel H1 (``kernels/warp.cu``) on a CUDA tensor and the plain composition
 on a CPU tensor: one float plane and a mask for the subtraction's
 reference, two float planes (pixels and weight) and a mask for a coadd's
-epoch.
+epoch. :func:`warp_reference_sep` is the pipeline's ``sep_warp=True``
+reference warp, the separable two-pass form with its first-order
+cross-term correction: hand kernel H28 (``kernels/warp.cu``) on a CUDA
+tensor, :func:`warp_reference_sep_plain` on a CPU tensor.
 
 The per-pair align's gather warps :func:`warp_image`, :func:`warp_mask`
 and :func:`warp_image_mask` (any mapping, a source of any shape) run hand
@@ -26,7 +29,9 @@ __all__ = ['SUPPORT', 'lanczos3', 'upsample_mapping', 'warp_shift_image',
            'warp_reference_plain', 'warp_epoch', 'warp_epoch_plain',
            'warp_image', 'warp_mask', 'warp_image_mask', 'warp_image_plain',
            'warp_mask_plain', 'warp_image_mask_plain', 'warp_gather',
-           'box_mask_or', 'plan_warp', 'warp_planned']
+           'box_mask_or', 'plan_warp', 'warp_planned',
+           'warp_shift_image_sep', 'warp_shift_sep_image_mask',
+           'warp_reference_sep', 'warp_reference_sep_plain']
 
 SUPPORT = 3
 
@@ -34,6 +39,9 @@ SUPPORT = 3
 _SIG_A = np.float32(0.9226250948801125)
 _SIG_B = np.float32(1.099650902956955)
 _SIG_C = np.float32(1.7405705334521984)
+# L(t) ~ 1 - (10/54) pi^2 t^2 near t = 0 (resample.py:186)
+_TAYLOR_C = np.float32(10.0 / 54.0 * np.pi ** 2)
+_PI = float(np.float32(np.pi))
 
 
 def lanczos3(t):
@@ -146,6 +154,94 @@ def box_mask_or(mask, reach=7):
     return out
 
 
+def _lanczos3_d(t):
+    """d/dt of the Lanczos-3 kernel (resample.py:319): with L = 3 sin(pi t)
+    sin(pi t / 3) / (pi^2 t^2), L' = (3 / pi^2) [(pi c1 s3 + (pi / 3) s1 c3)
+    / t^2 - 2 s1 s3 / t^3], guarded at t = 0, the slope -2 C t below
+    |t| < 1e-3 and 0 past the support."""
+    pt = _PI * t
+    s1, c1 = torch.sin(pt), torch.cos(pt)
+    s3, c3 = torch.sin(pt / 3.0), torch.cos(pt / 3.0)
+    num = float(np.float32(3.0) / np.float32(np.pi ** 2))
+    safe_t2 = torch.clamp(t * t, min=1e-12)
+    safe_t3 = safe_t2 * torch.where(t.abs() < 1e-6, 1.0, t)
+    d = num * ((_PI * c1 * s3 + float(np.float32(np.pi / 3.0)) * s1 * c3)
+               / safe_t2 - 2.0 * s1 * s3 / safe_t3)
+    d = torch.where(t.abs() < 1e-3, (-2.0 * float(_TAYLOR_C)) * t, d)
+    return torch.where(t.abs() < SUPPORT, d, 0.0)
+
+
+def _sep_warp(img, mask, u, v, window, order):
+    """The separable two-pass warp (resample.py:343-481): a horizontal
+    pass at each source row's own phase (the pixels ``hp``, their weight
+    sum ``ws``, and with ``order`` >= 1 the same with L', ``hd`` and
+    ``wsd``), then a vertical pass at the destination whose row values are
+    corrected to first order for the phase's change down the column,
+    ``hp - dy dudy hd`` (``dudy`` the forward difference of u, its last row
+    repeated). The mask takes the separable OR of :func:`warp_shift_mask`.
+    Taps beyond ``window + 3`` px are dropped; reads wrap around. Returns
+    (warped, warped mask or None, coverage)."""
+    du, dv, inb = _offsets(u, v)
+    taps = range(-(window + SUPPORT), window + SUPPORT + 1)
+    hp = torch.zeros_like(img)
+    ws = torch.zeros_like(img)
+    hd = torch.zeros_like(img)
+    wsd = torch.zeros_like(img)
+    if mask is not None:
+        zero = torch.zeros((), dtype=mask.dtype, device=mask.device)
+        inner = torch.zeros_like(mask)
+    for dx in taps:
+        rolled = torch.roll(img, -dx, dims=1)
+        wx = lanczos3(du - dx)
+        hp = hp + rolled * wx
+        ws = ws + wx
+        if order >= 1:
+            wxd = _lanczos3_d(du - dx)
+            hd = hd + rolled * wxd
+            wsd = wsd + wxd
+        if mask is not None:
+            inner = inner | torch.where(_sig_lanczos(du - dx),
+                                        torch.roll(mask, -dx, dims=1), zero)
+    dudy = torch.cat([u[1:] - u[:-1], u[-1:] - u[-2:-1]], 0)
+    acc = torch.zeros_like(img)
+    wacc = torch.zeros_like(img)
+    macc = None if mask is None else torch.zeros_like(mask)
+    for dy in taps:
+        wy = lanczos3(dv - dy)
+        hrow = torch.roll(hp, -dy, dims=0)
+        wrow = torch.roll(ws, -dy, dims=0)
+        if order >= 1:
+            corr = float(dy) * dudy
+            hrow = hrow - corr * torch.roll(hd, -dy, dims=0)
+            wrow = wrow - corr * torch.roll(wsd, -dy, dims=0)
+        acc = acc + wy * hrow
+        wacc = wacc + wy * wrow
+        if mask is not None:
+            macc = macc | torch.where(_sig_lanczos(dv - dy),
+                                      torch.roll(inner, -dy, dims=0), zero)
+    out = acc / torch.where(wacc == 0, torch.ones_like(wacc), wacc)
+    cov = inb.to(out.dtype)
+    if mask is not None:
+        macc = torch.where(inb, macc, zero)
+    return out * cov, macc, cov
+
+
+def warp_shift_image_sep(img, u, v, window=4, order=1):
+    """Separable two-pass Lanczos-3 warp with an ``order``-th order (0 or
+    1) cross-term correction (resample.py:343): (warped, coverage), the
+    coverage rule of :func:`warp_shift_image`."""
+    out, _, cov = _sep_warp(img, None, u, v, window, order)
+    return out, cov
+
+
+def warp_shift_sep_image_mask(img, mask, u, v, window=4, order=1):
+    """The separable warp of ``img`` and the mask warp of ``mask`` in one
+    pass (resample.py:414): (warped, warped mask, coverage). The pixels
+    equal :func:`warp_shift_image_sep`'s and the mask equals
+    :func:`warp_shift_mask`'s, 0 outside the coverage."""
+    return _sep_warp(img, mask, u, v, window, order)
+
+
 def coverage_gate(u, v, covb, refw, refm, cov):
     """one_frame's original-frame coverage gate (pipeline.py:176-180)."""
     covo = ((u >= covb[0]) & (u <= covb[1])
@@ -170,6 +266,24 @@ def warp_reference(ref, ref_mask, u, v, covb, window):
     if ref.is_cuda:
         return launch.warp(ref, ref_mask, u, v, covb, window)
     return warp_reference_plain(ref, ref_mask, u, v, covb, window)
+
+
+def warp_reference_sep_plain(ref, ref_mask, u, v, covb, window, order=1):
+    """Plain version of H28: the separable warp + its mask warp + the
+    coverage gate (pipeline.py:162-185 at ``sep_warp=True``)."""
+    refw, refm, cov = warp_shift_sep_image_mask(ref, ref_mask, u, v,
+                                                window=window, order=order)
+    return coverage_gate(u, v, covb, refw, refm, cov)
+
+
+def warp_reference_sep(ref, ref_mask, u, v, covb, window, order=1):
+    """The warped reference, its mask and coverage as one_frame leaves
+    them at ``sep_warp=True`` (pipeline.py:162-185), ``order`` 0 or 1. A
+    CUDA tensor runs hand kernel H28; a CPU tensor runs the plain
+    version."""
+    if ref.is_cuda:
+        return launch.warp_sep(ref, ref_mask, u, v, covb, window, order)
+    return warp_reference_sep_plain(ref, ref_mask, u, v, covb, window, order)
 
 
 def warp_epoch_plain(img, wgt, mask, u, v, covb, window):

@@ -4,9 +4,10 @@ host feed (``prepare_frame_inputs``, pipeline.py:581-764).
 
 :class:`SubtractDetectPipeline` runs ``one_frame`` of the reference
 (:153-398) frame by frame over the batch, as ``jax.lax.map`` does. On a
-CUDA device the warp (H1), the background cells (H2), the model
-convolution (H3), the matched filter (H4), the deblend tree's level labels
-(H5), the compactions (H6) and the whole-frame medians (H8) run as
+CUDA device the warp (H1, or H28 at ``sep_warp=True``), the background
+cells (H2), the model convolution (H3), the matched filter (H4), the
+deblend tree's level labels (H5), the compactions (H6) and the
+whole-frame medians (H8) run as
 hand-written kernels, and so do the measure stage's apertures (H22), its
 windowed and Kron refinement (H23) and its negative-pixel veto (H14);
 everything between them is plain PyTorch. With
@@ -41,7 +42,7 @@ from ..ops.measure import refine_detections
 from ..ops.photometry import aperture_photometry_batched, aperture_sums
 from ..ops.ordered import sum_last2
 from ..ops.resample import (SUPPORT, upsample_mapping, warp_epoch,
-                            warp_reference)
+                            warp_reference, warp_reference_sep)
 from ..ops.subtract import (apply_kernel_fast, center_kernels, fit_kernel,
                             propagate_ref_var, region_edges,
                             subtract_epilogue)
@@ -57,10 +58,13 @@ __all__ = ['PipelineConfig', 'SubtractDetectPipeline', 'prepare_frame_inputs',
 class PipelineConfig:
     """Static pipeline shape parameters: the fields and defaults of the
     reference's ``PipelineConfig`` (pipeline.py:38-99), whose module
-    imports JAX. :class:`SubtractDetectPipeline` raises
-    ``NotImplementedError`` for the values this port does not run yet;
-    ``interleave`` is a TPU scheduling knob that does not change outputs
-    and is ignored."""
+    imports JAX. ``interleave`` is a TPU scheduling knob that does not
+    change outputs and is ignored. ``dbg_stop_after`` ('warp', 'bkg',
+    'fit', 'fitdiag', 'ksum', 'apply', 'noise', 'detect', 'phot',
+    'refine' or 'aps') ends each frame after that stage with the
+    reference's partial dict; ``det_dbg_stop_after`` ends it inside
+    ``detect_sources`` (see :func:`~zuds_tpu_torch.ops.detect.
+    detect_sources`). Any other stop value runs to the full outputs."""
 
     height: int = 3080
     width: int = 3072
@@ -82,22 +86,6 @@ class PipelineConfig:
     interleave: int = 1
     dbg_stop_after: str = None
     det_dbg_stop_after: str = None
-
-
-def _check_supported(cfg):
-    unsupported = [
-        (cfg.sep_warp, 'sep_warp=True',
-         "queue 2 'Not ported' (separable warp variants)"),
-        (cfg.dbg_stop_after is not None,
-         f'dbg_stop_after={cfg.dbg_stop_after!r}', 'stage-bisection knobs'),
-        (cfg.det_dbg_stop_after is not None,
-         f'det_dbg_stop_after={cfg.det_dbg_stop_after!r}',
-         'stage-bisection knobs'),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f'{what} is not ported yet (ROADMAP {item})')
 
 
 # named ranges for torch.profiler (python -m zuds_tpu_torch.profile); they
@@ -127,11 +115,16 @@ class SubtractDetectPipeline(nn.Module):
     local_batch`). A batch that does not divide by the 'data' size raises
     ``ValueError``. Ranks that differ only over 'space' compute the same
     frames.
+
+    With ``sep_warp`` the reference is warped by the separable form (H28
+    on the card). A stop (``dbg_stop_after``, ``det_dbg_stop_after``)
+    truncates each frame where the reference does and returns its partial
+    dict, stacked over the batch; the stages before it run as in a full
+    run.
     """
 
     def __init__(self, cfg: PipelineConfig, mesh=None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         self.mesh = mesh
 
@@ -146,18 +139,22 @@ class SubtractDetectPipeline(nn.Module):
 
     def one_frame(self, sci, sci_mask, ref, ref_mask, gu, gv, sx, sy, sv,
                   bgx, bgy, bsums, b0, covb):
-        """One quadrant pair (pipeline.py:153-398)."""
+        """One quadrant pair (pipeline.py:153-398), or its partial dict
+        at the configured stop."""
         cfg = self.cfg
         H, W = cfg.height, cfg.width
         dev = sci.device
+        stop = cfg.dbg_stop_after
         with _stage('warp'):
             u, v = upsample_mapping(gu, gv, (H, W), cfg.map_step)
-            refw, refm, cov = warp_reference(ref, ref_mask, u, v, covb,
-                                             cfg.max_shift)
+            warp = warp_reference_sep if cfg.sep_warp else warp_reference
+            refw, refm, cov = warp(ref, ref_mask, u, v, covb, cfg.max_shift)
             submask = (sci_mask | refm
                        | torch.where(cov == 0, 1 << MASK_BIT_NODATA_ALIGN, 0)
                        .to(torch.int32))
             bad = (submask & BAD_SUM) > 0
+        if stop == 'warp':
+            return {'diff': refw + cov}
 
         with _stage('background'):
             bres = background_mesh(sci, ~bad, box=cfg.box)
@@ -175,15 +172,30 @@ class SubtractDetectPipeline(nn.Module):
                 ref_rms = 1.4826 * frame_median(sub, okf, center=med)
             ivar = 1.0 / torch.clamp(rms ** 2 + ref_rms ** 2, min=1e-6)
             ivar = torch.where(bad, 0.0, ivar)
+        if stop == 'bkg':
+            return {'diff': scimbkg + ivar}
 
         with _stage('fit'):
             fit = fit_kernel(refw, scimbkg, ivar, sx, sy, sv, bgx, bgy,
                              bsums, b0, stamp=cfg.stamp, order=cfg.order,
                              nreg=cfg.nreg)
+        if stop == 'fit':
+            return {'diff': scimbkg + fit['coeffs'].sum()}
+        if stop == 'fitdiag':
+            return {'diff': scimbkg, 'stamp_ok': fit['stamp_ok'],
+                    'stamp_chi2': fit['stamp_chi2'], 'coeffs': fit['coeffs']}
 
         with _stage('apply'):
+            if stop == 'ksum':
+                # the fitted kernel applied to a constant frame
+                # (pipeline.py:221-227)
+                return {'diff': apply_kernel_fast(
+                    torch.ones_like(refw), fit['coeffs'], bgx, bgy, bsums,
+                    b0, order=cfg.order, nreg=cfg.nreg)}
             model = apply_kernel_fast(refw, fit['coeffs'], bgx, bgy, bsums,
                                       b0, order=cfg.order, nreg=cfg.nreg)
+        if stop == 'apply':
+            return {'diff': scimbkg - model}
 
         if cfg.ref_rms_mesh:
             with _stage('noise'):
@@ -220,25 +232,44 @@ class SubtractDetectPipeline(nn.Module):
                 submask = submask | torch.where(diff == SUB_NODATA_SENTINEL,
                                                 1 << MASK_BIT_NODATA_SUB,
                                                 0).to(torch.int32)
+        if stop == 'noise':
+            return {'diff': diff + rms_out}
 
         with _stage('detect'):
             det = detect_sources(diff, rms_out, submask, ~bad,
                                  nsigma=cfg.nsigma, max_det=cfg.max_det,
                                  return_labels=False, deblend=cfg.deblend,
                                  det_cap=(cfg.det_cap or None),
-                                 deb_cap=(cfg.deb_cap or None))
+                                 deb_cap=(cfg.deb_cap or None),
+                                 dbg_stop_after=cfg.det_dbg_stop_after)
+        if cfg.det_dbg_stop_after is not None:
+            # a probe that never fires leaves no 'dbg': KeyError, as the
+            # reference (pipeline.py:279-282)
+            dbg = det['dbg']
+            if dbg.ndim > 0:
+                return {'dbg': dbg}
+            return {'diff': diff + dbg.to(torch.float32)}
+        if stop == 'detect':
+            return {'diff': diff + det['n'].to(torch.float32)}
 
         with _stage('measure'):
             phot = aperture_photometry_batched(diff, rms_out, submask,
                                                det['x'], det['y'])
+            if stop == 'phot':
+                return {'diff': diff + phot['flux'].sum()}
             ref_meas = refine_detections(diff, rms_out, det['x'], det['y'],
                                          det['a'], det['b'], det['theta'],
                                          det['fwhm'])
+            if stop == 'refine':
+                return {'diff': diff + ref_meas['flux_auto'].sum()}
             # the r=6 rms and bad-pixel sums in one two-plane pass
             # (pipeline.py:306-328)
             rms_ap6, bpm_ap6 = aperture_sums(
                 (rms_out, bad.to(torch.float32)), det['x'], det['y'], r=6.0)
             rms_med = frame_median(rms_out[::4, ::4], ~bad[::4, ::4])
+            if stop == 'aps':
+                return {'diff': diff + rms_ap6.sum() + bpm_ap6.sum()
+                        + rms_med}
             negpix = self._negpix(diff, det['x'], det['y'])
 
         out = {
